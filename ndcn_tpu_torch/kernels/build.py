@@ -1,0 +1,95 @@
+"""Build and load the port's CUDA kernels.
+
+The sources in ``ndcn_tpu_torch/csrc/*.cu`` compile with ``nvcc`` into one
+shared library with a plain C interface, which ``ctypes`` loads. The library
+lands in ``build/kernels/`` at the repository root, named by a hash of the
+sources and the compiler flags, so a changed source builds anew and an
+unchanged one is reused. Nothing here runs at import: the first kernel launch
+builds and loads the library.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+
+# sm_90a (Hopper with its architecture-specific instructions); -Xptxas -v
+# records each kernel's registers and shared memory in the build log
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# C entry points: (name, argtypes). Every pointer and the stream are c_void_p.
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+ENTRY_POINTS = {
+    # row_ptr, cols, vals, x, y, n_rows, d, stream
+    "ndcn_coo_spmv_f32": (_P, _P, _P, _P, _P, _I, _I, _P),
+    # a, h, w, b, out, n, k, w row stride, w column stride, stream
+    "ndcn_fused_rhs_f32": (_P, _P, _P, _P, _P, _I, _I, _L, _L, _P),
+}
+
+
+def sources() -> list:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def library_path() -> Path:
+    digest = hashlib.sha256()
+    for src in sources():
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"libndcn_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    candidate = Path(cuda_home) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin and on "
+                           "PATH): the CUDA kernels cannot be built")
+    return found
+
+
+def build() -> Path:
+    """Compile the library unless it exists already; return its path. The
+    compiler's output (with ptxas's register and shared-memory report) is kept
+    beside it as ``<library>.log``."""
+    path = library_path()
+    if path.exists():
+        return path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    log = path.with_name(path.name + ".log")
+    log.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, path)
+    return path
+
+
+@functools.cache
+def load() -> ctypes.CDLL:
+    """Build if needed, load once per process, and declare every entry."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in ENTRY_POINTS.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def is_built() -> bool:
+    return library_path().exists()

@@ -1,0 +1,60 @@
+"""The port's one platform seam (the counterpart of ``ndcn_tpu/kernels/platform.py``
+and ``ndcn_tpu/utils/platform.py``).
+
+- ``device_report``: is there a CUDA card, which, at which compute
+  capability, and is the kernel library built.
+- ``on_cuda``: kernel or plain PyTorch twin, chosen by the tensors' device
+  and nothing else. CPU tensors take the twin; CUDA tensors take the kernel
+  (which raises if it cannot run); anything else raises.
+- ``pin_fp32``: float32 matrix products in full fp32, TF32 off for matmuls
+  and cuDNN alike. The counterpart of ``--precision highest``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ndcn_tpu_torch.kernels import build
+
+# the kernels compile for sm_90a only
+REQUIRED_CAPABILITY = (9, 0)
+
+
+def pin_fp32() -> None:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+
+
+def device_report() -> dict:
+    cuda = torch.cuda.is_available()
+    capability = torch.cuda.get_device_capability(0) if cuda else None
+    return {
+        "cuda": cuda,
+        "name": torch.cuda.get_device_name(0) if cuda else None,
+        "capability": capability,
+        "sm90": capability == REQUIRED_CAPABILITY,
+        "count": torch.cuda.device_count() if cuda else 0,
+        "kernels_built": build.is_built(),
+    }
+
+
+def on_cuda(*tensors: torch.Tensor) -> bool:
+    """True when every tensor lies on one CUDA device, False when every one
+    lies on the CPU; a mix, or another device type, raises."""
+    devices = {t.device for t in tensors}
+    if all(d.type == "cpu" for d in devices):
+        return False
+    if len(devices) == 1 and next(iter(devices)).type == "cuda":
+        return True
+    raise ValueError(f"tensors must lie together on the CPU or on one CUDA "
+                     f"device; got {sorted(map(str, devices))}")
+
+
+def check_no_grad(name: str, *tensors: torch.Tensor) -> None:
+    """The kernels have no backward yet: refuse inputs that would need one."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name} on CUDA has no backward yet: it comes with the training "
+            f"slice (ROADMAP item 2: the differentiable scan solver and the "
+            f"K1-transpose / K2 backward). Run under torch.no_grad().")

@@ -1,0 +1,34 @@
+"""Linear layers with the JAX package's semantics (``ndcn_tpu/models/nn.py``).
+
+Every weight and bias is U(-1/sqrt(fan_in), 1/sqrt(fan_in)), the
+``torch.nn.Linear`` default bound, drawn from an explicit ``torch.Generator``
+(never from the global generator).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+
+def linear_init(in_features: int, out_features: int, *,
+                generator: torch.Generator) -> nn.Linear:
+    """A float32 CPU ``nn.Linear`` drawn from ``generator`` (move it
+    afterwards: the same seed then gives the same weights on every device)."""
+    layer = nn.utils.skip_init(nn.Linear, in_features, out_features)
+    bound = 1.0 / math.sqrt(in_features)
+    with torch.no_grad():
+        layer.weight.uniform_(-bound, bound, generator=generator)
+        layer.bias.uniform_(-bound, bound, generator=generator)
+    return layer
+
+
+def linear_apply(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """x @ W + b with W (in, out), as the JAX package's ``linear_apply``
+    (``nn.Linear`` stores W transposed)."""
+    out = x @ layer.weight.t()
+    if layer.bias is not None:
+        out = out + layer.bias
+    return out
