@@ -18,16 +18,38 @@ Phases, one line each:
      weights: 3 requests, the first within 1e-4 rel-L1 of the oracle.
   6. serve the 200k-node COO graph: 3 requests, the first again on the CPU
      (plain versions), GPU and CPU answers within 1e-4 rel-L1.
-  p. where one request's time goes, per serving setting: kernels against
-     plain versions end to end, and a torch.profiler breakdown (traces to
-     build/traces/).
+  7. the backward kernels and the BSR kernels against their plain versions,
+     max|Δ| / max|y| <= 1e-5, with the median CUDA-event times of both: K1ᵀ
+     (K1 over the transpose CSR) on the non-symmetric hub graph at d = 20;
+     K2's backward (dh, dw, db) at 400 × 20 against autograd of the plain
+     version; K3 and K3ᵀ on the grid400 Laplacian (d = 20) and on a 2000-node
+     5 % matrix (d = 20, 256); K4 forward and backward on grid400 (d = 20)
+     and on the 2000-node matrix (d = 256, 512).
+  8. train grid400, dense, fused="auto" (K2 forward and backward): the first
+     step from the ``ndcn_grads_grid400`` weights within 1e-4 of the
+     fixture's loss and 1e-3 rel-L1 of its gradients; steady per-step ms and
+     NFE; then the heat experiment (``--fused_kernel``, 20 iterations), whose
+     train loss must fall.
+  9. train grid400, BSR, fused=False (K3) and fused=True (K4): the same
+     fixture check, per-step ms, and the heat experiment with ``--sparse
+     --sparse_format bsr`` for a few iterations.
+ 10. train the 200k-node COO graph (K1 and K1ᵀ): target from the port's heat
+     ground truth at rtol 1e-6 / atol 1e-8, 5 steps, the first step's
+     gradients within 1e-3 rel-L1 of the same step with the plain versions
+     patched in; per-step ms and peak allocated memory.
+  p. where the time goes: one request per serving setting and one train step
+     per training setting, kernels against plain versions end to end
+     (plain, kernel, kernel, plain), and a torch.profiler breakdown (traces
+     to build/traces/).
 Then the kernels' JSON record, and last the device JSON line. Launch counts
-are zeroed just before phase 5 and read just after phase 6's GPU requests.
+are zeroed just before each main-path phase (5-6, 8, 9, 10) and read just
+after its GPU work; the record's launches are their sums.
 
 Exits non-zero, printing no result, when there is no CUDA device or the
 package is missing; any failed check raises.
 """
 
+import contextlib
 import copy
 import json
 import os
@@ -48,47 +70,36 @@ def rel_l1(a, b) -> float:
     return float((a - b).abs().mean() / (b.abs().mean() + 1e-12))
 
 
-def profile_request(server, x0, label: str, root: str) -> dict:
-    """Where one request's time goes.
+def profile_call(fn, label: str, root: str) -> dict:
+    """Where one call of ``fn`` (a served request or a train step) spends its
+    time.
 
-    First the end-to-end latency with the CUDA kernels against the same
-    server with the kernels' plain versions patched in, alternating plain,
-    kernel, kernel, plain. Then one request under torch.profiler: wall time,
-    summed device-kernel time from the trace, their ratio (the device's busy
-    share while profiled), and the kernels by device time; the trace goes to
+    First the end-to-end time with the CUDA kernels against the same call
+    with the kernels' plain versions patched in, alternating plain, kernel,
+    kernel, plain. Then one call under torch.profiler: wall time, summed
+    device-kernel time from the trace, their ratio (the device's busy share
+    while profiled), and the kernels by device time; the trace goes to
     build/traces/."""
     from torch.profiler import ProfilerActivity, profile
 
-    from ndcn_tpu_torch.graph import sparse
-    from ndcn_tpu_torch.kernels import coo_spmv, fused_rhs
-    from ndcn_tpu_torch.models import ndcn
-
     def timed():
         t0 = time.perf_counter()
-        server(x0)
+        fn()
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3
-
-    def plain_k1(op, x):
-        return coo_spmv.coo_spmv_plain(op.rows, op.cols, op.vals, x, op.n)
 
     timed()
     e2e = {"kernel": [], "plain": []}
     for which in ("plain", "kernel", "kernel", "plain"):
-        if which == "plain":
-            sparse.coo_spmv, ndcn.fused_rhs = plain_k1, fused_rhs.fused_rhs_plain
-        try:
+        with plain_versions(which == "plain"):
             e2e[which].append(timed())
-        finally:
-            sparse.coo_spmv, ndcn.fused_rhs = (coo_spmv.coo_spmv,
-                                               fused_rhs.fused_rhs)
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         wall_ms = timed()
     out_dir = os.path.join(root, "build", "traces")
     os.makedirs(out_dir, exist_ok=True)
-    trace = os.path.join(out_dir, f"serve_{label}.trace.json")
+    trace = os.path.join(out_dir, f"{label}.trace.json")
     prof.export_chrome_trace(trace)
     with open(trace) as f:
         events = [e for e in json.load(f)["traceEvents"]
@@ -110,6 +121,30 @@ def profile_request(server, x0, label: str, root: str) -> dict:
             "top": [dict(name=k, ms=ms, count=c) for k, (ms, c) in rows[:8]]}
 
 
+@contextlib.contextmanager
+def plain_versions(on: bool = True):
+    """Route the model's operator products through the kernels' plain
+    versions (autograd of plain PyTorch, forward and backward) while on."""
+    from ndcn_tpu_torch.graph import sparse
+    from ndcn_tpu_torch.kernels import bsr_spmm, coo_spmv, fused_rhs
+    from ndcn_tpu_torch.models import ndcn
+
+    saved = (sparse.coo_spmv, sparse.bsr_spmm, ndcn.fused_rhs,
+             ndcn.bsr_fused_rhs)
+    if on:
+        sparse.coo_spmv = lambda op, x: coo_spmv.coo_spmv_plain(
+            op.rows, op.cols, op.vals, x, op.n)
+        sparse.bsr_spmm = lambda a, at, x: bsr_spmm.bsr_spmm_plain(a, x)
+        ndcn.fused_rhs = fused_rhs.fused_rhs_plain
+        ndcn.bsr_fused_rhs = (lambda a, at, x, w, b:
+                              bsr_spmm.bsr_fused_rhs_plain(a, x, w, b))
+    try:
+        yield
+    finally:
+        (sparse.coo_spmv, sparse.bsr_spmm, ndcn.fused_rhs,
+         ndcn.bsr_fused_rhs) = saved
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script drives the port on a "
@@ -121,15 +156,21 @@ def main() -> None:
 
     from ndcn_tpu_torch import kernels
     from ndcn_tpu_torch.convert import params_from_jax
+    from ndcn_tpu_torch.experiments.dynamics import (build_parser,
+                                                     heat_ground_truth, run)
     from ndcn_tpu_torch.graph.generators import (build_network,
                                                  build_sparse_graph)
     from ndcn_tpu_torch.graph.operators import (normalized_laplacian,
                                                 normalized_laplacian_sparse)
-    from ndcn_tpu_torch.graph.sparse import from_dense, from_scipy_coo
-    from ndcn_tpu_torch.kernels import build, coo_spmv, fused_rhs
+    from ndcn_tpu_torch.graph.sparse import (as_operator, from_dense,
+                                             from_scipy_coo)
+    from ndcn_tpu_torch.kernels import build, bsr_spmm, coo_spmv, fused_rhs
     from ndcn_tpu_torch.kernels.platform import device_report, pin_fp32
-    from ndcn_tpu_torch.models import init_ndcn
+    from ndcn_tpu_torch.models import init_ndcn, ndcn, ndcn_forward
     from ndcn_tpu_torch.serve import make_server
+    from ndcn_tpu_torch.train.budget import probe_step_budget
+    from ndcn_tpu_torch.train.losses import l1_loss
+    from ndcn_tpu_torch.train.optim import make_sgd_step, torch_adam
     from ndcn_tpu_torch.train.sampling import sample_times
 
     root = os.path.dirname(os.path.abspath(__file__))
@@ -316,25 +357,363 @@ def main() -> None:
          "requests": answers, "rel_l1_gpu_vs_cpu": gpu_cpu,
          "cpu_nfe": server_cpu.last_stats.nfe, "cpu_seconds": cpu_s}))
 
+    main_launches = dict(launches)   # the main paths' launches, summed
+
+    def add_launches(what: str, needed) -> dict:
+        """Read the counts after a main-path phase, fail on a kernel of the
+        path that never launched, and add them to the record."""
+        counts = kernels.launch_counts()
+        for name in needed:
+            check(counts[name] > 0, f"{what} never launched {name}")
+        for name, c in counts.items():
+            main_launches[name] += c
+        return counts
+
+    # ---- 7. backward and BSR kernels against their plain versions
+    def max_rel(y, ref):
+        err = float((y - ref).abs().max())
+        return err, err / max(float(ref.abs().max()), 1e-30)
+
+    def grads_of(fn, ins, g):
+        """(outputs of fn, a timed closure of the backward alone)."""
+        ins = [t.detach().clone().requires_grad_() for t in ins]
+        out = fn(*ins)
+        return (out, torch.autograd.grad(out, ins, g, retain_graph=True),
+                lambda: torch.autograd.grad(out, ins, g, retain_graph=True))
+
+    def compare(what, got, ref, ms, plain_ms, **extra):
+        errs = [max_rel(a, b) for a, b in zip(got, ref)]
+        err, rel = max(e for e, _ in errs), max(r for _, r in errs)
+        check(rel <= 1e-5, f"{what} disagrees with its plain version: {rel}")
+        return dict(extra, max_abs_err=err, rel_err=rel, ms=ms,
+                    plain_ms=plain_ms)
+
+    g_hub = torch.as_tensor(np.random.RandomState(8).randn(op_hub.n, 20)
+                            .astype(np.float32), device=dev)
+    hub_t = op_hub.transpose()
+    k1t = compare(
+        "K1T", [coo_spmv.coo_spmv(hub_t, g_hub)],
+        [coo_spmv.coo_spmv_plain(hub_t.rows, hub_t.cols, hub_t.vals, g_hub,
+                                 hub_t.n)],
+        cuda_ms(lambda: coo_spmv.coo_spmv(hub_t, g_hub)),
+        cuda_ms(lambda: coo_spmv.coo_spmv_plain(hub_t.rows, hub_t.cols,
+                                                hub_t.vals, g_hub, hub_t.n)),
+        n=op_hub.n, d=20)
+    # and through autograd: the backward of K1 is K1ᵀ
+    x_hub = torch.as_tensor(np.random.RandomState(16).randn(op_hub.n, 20)
+                            .astype(np.float32), device=dev)
+    _, dx, _ = grads_of(lambda x: coo_spmv.coo_spmv(op_hub, x), [x_hub], g_hub)
+    _, dx_ref, _ = grads_of(lambda x: coo_spmv.coo_spmv_plain(
+        op_hub.rows, op_hub.cols, op_hub.vals, x, op_hub.n), [x_hub], g_hub)
+    k1t["autograd_rel_err"] = max_rel(dx[0], dx_ref[0])[1]
+    check(k1t["autograd_rel_err"] <= 1e-5, "K1's autograd backward is off")
+
+    r = np.random.RandomState(9)
+    k2_ins = [torch.as_tensor(v, device=dev) for v in (
+        r.rand(400, 400).astype(np.float32), r.rand(400, 20).astype(np.float32),
+        r.randn(20, 20).astype(np.float32), r.randn(20).astype(np.float32))]
+    a_k2 = k2_ins[0]
+    g_k2 = torch.as_tensor(r.randn(400, 20).astype(np.float32), device=dev)
+    out_k2 = fused_rhs.fused_rhs(*k2_ins)
+    got = fused_rhs.fused_rhs_backward(a_k2, k2_ins[1], k2_ins[2], out_k2,
+                                       g_k2)[1:]
+    _, ref, plain_bwd = grads_of(
+        lambda h, w, b: fused_rhs.fused_rhs_plain(a_k2, h, w, b),
+        k2_ins[1:], g_k2)
+    k2b = compare("K2 backward", got, ref,
+                  cuda_ms(lambda: fused_rhs.fused_rhs_backward(
+                      a_k2, k2_ins[1], k2_ins[2], out_k2, g_k2)),
+                  cuda_ms(plain_bwd), n=400, k=20)
+
+    grid_lap = normalized_laplacian(build_network("grid", 400))
+    rand2k = (r.rand(2000, 2000) * (r.rand(2000, 2000) < 0.05)) \
+        .astype(np.float32)
+
+    def k3_case(mat, d, seed):
+        op = as_operator(sp.csr_matrix(mat), sparse=True, format="bsr",
+                         device=dev)
+        x = torch.as_tensor(np.random.RandomState(seed).randn(mat.shape[0], d)
+                            .astype(np.float32), device=dev)
+        out = {}
+        for label, o in (("fwd", op), ("transpose", op.transpose())):
+            out[label] = compare(
+                f"K3 {label} n={op.n} d={d}",
+                [bsr_spmm.bsr_spmm(o.fwd, o.bwd, x)],
+                [bsr_spmm.bsr_spmm_plain(o.fwd, x)],
+                cuda_ms(lambda: bsr_spmm.bsr_spmm(o.fwd, o.bwd, x)),
+                cuda_ms(lambda: bsr_spmm.bsr_spmm_plain(o.fwd, x)))
+        return dict(n=op.n, nnz_blocks=int(op.fwd.blocks.shape[0]), d=d,
+                    **out)
+
+    k3 = {"grid400_d20": k3_case(grid_lap, 20, 10),
+          "rand2000_d20": k3_case(rand2k, 20, 11),
+          "rand2000_d256": k3_case(rand2k, 256, 12)}
+
+    def k4_case(mat, d, seed):
+        op = as_operator(sp.csr_matrix(mat), sparse=True, format="bsr",
+                         device=dev)
+        rs = np.random.RandomState(seed)
+        ins = [torch.as_tensor(v, device=dev) for v in (
+            rs.rand(op.n, d).astype(np.float32),
+            (rs.randn(d, d) / np.sqrt(d)).astype(np.float32),
+            (0.1 * rs.randn(d)).astype(np.float32))]
+        g = torch.as_tensor(rs.randn(op.n, d).astype(np.float32), device=dev)
+
+        def fused(x, weight, b):   # w as nn.Linear hands it over: a view
+            return bsr_spmm.bsr_fused_rhs(op.fwd, op.bwd, x, weight.t(), b)
+
+        def plain(x, weight, b):
+            return bsr_spmm.bsr_fused_rhs_plain(op.fwd, x, weight.t(), b)
+
+        fwd = compare(f"K4 n={op.n} d={d}", [fused(*ins)], [plain(*ins)],
+                      cuda_ms(lambda: fused(*ins)),
+                      cuda_ms(lambda: plain(*ins)))
+        _, got, kernel_bwd = grads_of(fused, ins, g)
+        _, ref, plain_bwd = grads_of(plain, ins, g)
+        bwd = compare(f"K4 backward n={op.n} d={d}", got, ref,
+                      cuda_ms(kernel_bwd), cuda_ms(plain_bwd))
+        return dict(n=op.n, d=d, fwd=fwd, bwd=bwd)
+
+    k4 = {"grid400_d20": k4_case(grid_lap, 20, 13),
+          "rand2000_d256": k4_case(rand2k, 256, 14),
+          "rand2000_d512": k4_case(rand2k, 512, 15)}
+    print("[7] backward and BSR kernels vs plain: " + json.dumps(
+        {"k1t_hub_d20": k1t, "k2_bwd_400x20": k2b, "k3": k3, "k4": k4}))
+
+    # ---- 8-10. training
+    gx = dict(np.load(os.path.join(root, "tests", "fixtures",
+                                   "ndcn_grads_grid400.npz")))
+    g_tree = {name: {"w": gx[f"{name}_w"].T, "b": gx[f"{name}_b"]}
+              for name in ("enc1", "enc2", "wt", "dec")}
+    train_kw = dict(rtol=0.01, atol=0.001, method="dopri5")
+
+    def rhs_vjps():
+        """Count the learned RHS's evaluations and their backward calls."""
+        counts = {"fwd": 0, "bwd": 0}
+        base = ndcn.ode_func
+
+        def counted(*args, **kwargs):
+            out = base(*args, **kwargs)
+            counts["fwd"] += 1
+            if out.requires_grad:
+                out.register_hook(
+                    lambda g: counts.__setitem__("bwd", counts["bwd"] + 1))
+            return out
+
+        return counts, base, counted
+
+    def train(model, op, vt, x0, target, steps, fused, max_steps):
+        """``steps`` optimizer steps through ``make_sgd_step`` (torch-parity
+        Adam); returns the first step's loss, gradients and RHS counts, and
+        the per-step ms."""
+        opt = torch_adam(model.parameters(), 0.01, 1e-3)
+        first, stats_box = {}, []
+
+        def loss_fn():
+            out, stats = ndcn_forward(model, op, vt, x0, fused=fused,
+                                      max_steps=max_steps, **train_kw)
+            stats_box.append(stats)
+            loss = l1_loss(out, target)
+            return loss, loss / torch.mean(target)
+
+        def keep_first_grads(_opt, _args, _kwargs):
+            if not first:
+                first["grads"] = {n: p.grad.detach().clone()
+                                  for n, p in model.named_parameters()}
+
+        hook = opt.register_step_pre_hook(keep_first_grads)
+        step = make_sgd_step(opt, loss_fn)
+        counts, base, counted = rhs_vjps()
+        ms = []
+        try:
+            for i in range(steps):
+                ndcn.ode_func = counted if i == 0 else base
+                t0 = time.perf_counter()
+                loss, _ = step()
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                if i == 0:
+                    first["loss"] = float(loss)
+        finally:
+            ndcn.ode_func = base
+            hook.remove()
+        check(all(s.success for s in stats_box), "a train solve failed")
+        check(np.isfinite(float(loss)), "the train loss is not finite")
+        return dict(first_loss=first["loss"], first_grads=first["grads"],
+                    step_ms=ms, nfe_per_step=[s.nfe for s in stats_box],
+                    rhs_evals=counts["fwd"], rhs_vjps=counts["bwd"],
+                    last_loss=float(loss))
+
+    def fixture_check(res, what):
+        ref = float(gx["loss_backprop"])
+        loss_rel = abs(res["first_loss"] - ref) / abs(ref)
+        errs = {}
+        for name in ("enc1", "enc2", "wt", "dec"):
+            for leaf, key in (("weight", "w"), ("bias", "b")):
+                got = res["first_grads"][f"{name}.{leaf}"].cpu().numpy()
+                want = gx[f"g_{name}_{key}_backprop"]
+                errs[f"{name}_{key}"] = float(np.abs(got - want).sum()
+                                              / np.abs(want).sum())
+        check(loss_rel <= 1e-4, f"{what}: loss off the fixture: {loss_rel}")
+        check(max(errs.values()) <= 1e-3, f"{what}: gradients off the "
+              f"fixture: {errs}")
+        return dict(loss_rel_err=loss_rel, max_grad_rel_l1=max(errs.values()))
+
+    def summary(res):
+        return {k: v for k, v in res.items() if k != "first_grads"}
+
+    target_g = torch.as_tensor(gx["target"].T[..., None], device=dev)
+    x0_g = torch.as_tensor(gx["x0"], device=dev)
+
+    def heat_experiment(*extra):
+        return run("heat", build_parser("heat").parse_args(
+            ["--network", "grid", "--n", "400", "--method", "dopri5",
+             "--platform", "gpu", *extra]))
+
+    # 8. grid400 dense, fused="auto": K2 forward and backward
+    kernels.reset_launch_counts()
+    op_g = from_dense(grid_lap, device=dev)
+    res = train(params_from_jax(g_tree, device=dev), op_g, gx["t"], x0_g,
+                target_g, 6, "auto", 64)
+    fix = fixture_check(res, "grid400 dense")
+    drv = heat_experiment("--fused_kernel", "--niters", "20", "--test_freq",
+                          "10")
+    check(drv["train_losses"][-1] < drv["train_losses"][0],
+          f"grid400 heat experiment: train loss did not fall "
+          f"{drv['train_losses']}")
+    counts = add_launches("grid400 dense training", ["fused_rhs"])
+    print("[8] train grid400 dense fused=auto: " + json.dumps(
+        dict(summary(res), fixture=fix, launches=counts,
+             experiment={k: drv[k] for k in ("train_losses", "final",
+                                             "max_steps", "total_time")})))
+
+    # 9. grid400 BSR: fused=False (K3) and fused=True (K4)
+    kernels.reset_launch_counts()
+    op_gb = as_operator(sp.csr_matrix(grid_lap), sparse=True, format="bsr",
+                        device=dev)
+    bsr_res = {}
+    for fused in (False, True):
+        res = train(params_from_jax(g_tree, device=dev), op_gb, gx["t"],
+                    x0_g, target_g, 6, fused, 64)
+        bsr_res[f"fused_{fused}"] = dict(
+            summary(res), fixture=fixture_check(res, f"grid400 bsr {fused}"))
+    drv = heat_experiment("--sparse", "--sparse_format", "bsr", "--niters",
+                          "10", "--test_freq", "5")
+    check(drv["train_losses"][-1] < drv["train_losses"][0],
+          f"grid400 BSR heat experiment: train loss did not fall "
+          f"{drv['train_losses']}")
+    counts = add_launches("grid400 BSR training",
+                          ["bsr_spmm", "bsr_fused_rhs"])
+    print("[9] train grid400 BSR: " + json.dumps(
+        dict(bsr_res, launches=counts,
+             experiment={k: drv[k] for k in ("train_losses", "final",
+                                             "max_steps", "total_time")})))
+
+    # 10. 200k COO: K1 forward, K1ᵀ backward
+    id_train = splits.id_train
+    x0_big = torch.as_tensor(np.random.RandomState(0).uniform(
+        0.0, 25.0, (op_big.n, 1)).astype(np.float32), device=dev)
+    t0 = time.perf_counter()
+    truth, gt_stats = heat_ground_truth(op_big, x0_big, splits.t, rtol=1e-6,
+                                        atol=1e-8)
+    torch.cuda.synchronize()
+    gt_s = time.perf_counter() - t0
+    check(gt_stats.success, f"200k ground truth failed: {gt_stats}")
+    target_big = truth[id_train]
+    del truth
+    t_train = splits.t[id_train]
+    model_t = init_ndcn(torch.Generator().manual_seed(0), 1, 20, 1,
+                        device=dev)
+    model_p = copy.deepcopy(model_t)
+    budget = probe_step_budget(
+        lambda: ndcn_forward(model_t, op_big, t_train, x0_big, nondiff=True,
+                             max_steps=1 << 14, **train_kw)[1],
+        floor=8, headroom=1.5, slack=2, quantum=4)
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    res = train(model_t, op_big, t_train, x0_big, target_big, 5, False,
+                budget)
+    peak_train_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    counts = add_launches("200k COO training", ["coo_spmv"])
+    # the first step again, with the plain versions patched in
+    with plain_versions():
+        out, _ = ndcn_forward(model_p, op_big, t_train, x0_big,
+                              max_steps=budget, **train_kw)
+        l1_loss(out, target_big).backward()
+    errs = {n: rel_l1(res["first_grads"][n], p.grad)
+            for n, p in model_p.named_parameters()}
+    check(max(errs.values()) <= 1e-3, f"200k kernel vs plain grads: {errs}")
+    print("[10] train 200k COO: " + json.dumps(
+        dict(summary(res), ground_truth=dict(nfe=gt_stats.nfe, seconds=gt_s),
+             max_steps=budget, peak_allocated_gb=peak_train_gb,
+             launches=counts, grad_rel_l1_kernel_vs_plain=max(errs.values()))))
+
+    # ---- p. where the time goes
     for label, srv, x0 in (("grid400", server, fx["x0"]),
                            ("200k", server_big, requests[0])):
-        print(f"[p] {label}: " + json.dumps(
-            profile_request(srv, x0, label, root)))
+        print(f"[p] serve {label}: " + json.dumps(
+            profile_call(lambda: srv(x0), f"serve_{label}", root)))
+
+    def one_step(model, op, vt, x0, target, fused, max_steps):
+        opt = torch_adam(model.parameters(), 0.01, 1e-3)
+
+        def loss_fn():
+            out, _ = ndcn_forward(model, op, vt, x0, fused=fused,
+                                  max_steps=max_steps, **train_kw)
+            loss = l1_loss(out, target)
+            return loss, loss
+
+        return make_sgd_step(opt, loss_fn)
+
+    for label, args in (
+            ("grid400_dense", (op_g, gx["t"], x0_g, target_g, "auto", 64)),
+            ("grid400_bsr_k3", (op_gb, gx["t"], x0_g, target_g, False, 64)),
+            ("grid400_bsr_k4", (op_gb, gx["t"], x0_g, target_g, True, 64)),
+            ("200k_coo", (op_big, t_train, x0_big, target_big, False,
+                          budget))):
+        model = (params_from_jax(g_tree, device=dev) if "grid" in label
+                 else copy.deepcopy(model_p))
+        print(f"[p] train {label}: " + json.dumps(
+            profile_call(one_step(model, *args), f"train_{label}", root)))
 
     # ---- records
     print(json.dumps({"kernels": [
         {"name": "coo_spmv", "route": "cuda",
          "source": "ndcn_tpu_torch/csrc/coo_spmv.cu",
          "replaces": "ndcn_tpu/kernels/coo_spmv.py:159",
-         "launches": launches["coo_spmv"],
+         "launches": main_launches["coo_spmv"],
          "max_abs_err": k1_main["max_abs_err"], "ms": k1_main["ms"],
-         "plain_ms": k1_main["plain_ms"]},
+         "plain_ms": k1_main["plain_ms"],
+         "bwd_max_abs_err": k1t["max_abs_err"], "bwd_ms": k1t["ms"],
+         "bwd_plain_ms": k1t["plain_ms"]},
         {"name": "fused_rhs", "route": "cuda",
          "source": "ndcn_tpu_torch/csrc/fused_rhs.cu",
          "replaces": "ndcn_tpu/kernels/fused_rhs.py:30",
-         "launches": launches["fused_rhs"],
+         "launches": main_launches["fused_rhs"],
          "max_abs_err": k2_main["max_abs_err"], "ms": k2_main["ms"],
-         "plain_ms": k2_main["plain_ms"]},
+         "plain_ms": k2_main["plain_ms"],
+         "bwd_max_abs_err": k2b["max_abs_err"], "bwd_ms": k2b["ms"],
+         "bwd_plain_ms": k2b["plain_ms"]},
+        {"name": "bsr_spmm", "route": "cuda",
+         "source": "ndcn_tpu_torch/csrc/bsr_spmm.cu",
+         "replaces": "ndcn_tpu/kernels/bsr_spmm.py:91",
+         "launches": main_launches["bsr_spmm"],
+         "max_abs_err": k3["grid400_d20"]["fwd"]["max_abs_err"],
+         "ms": k3["grid400_d20"]["fwd"]["ms"],
+         "plain_ms": k3["grid400_d20"]["fwd"]["plain_ms"],
+         "bwd_max_abs_err": k3["grid400_d20"]["transpose"]["max_abs_err"],
+         "bwd_ms": k3["grid400_d20"]["transpose"]["ms"],
+         "bwd_plain_ms": k3["grid400_d20"]["transpose"]["plain_ms"]},
+        {"name": "bsr_fused_rhs", "route": "cuda",
+         "source": "ndcn_tpu_torch/csrc/bsr_spmm.cu",
+         "replaces": "ndcn_tpu/kernels/bsr_spmm.py:176",
+         "launches": main_launches["bsr_fused_rhs"],
+         "max_abs_err": k4["grid400_d20"]["fwd"]["max_abs_err"],
+         "ms": k4["grid400_d20"]["fwd"]["ms"],
+         "plain_ms": k4["grid400_d20"]["fwd"]["plain_ms"],
+         "bwd_max_abs_err": k4["grid400_d20"]["bwd"]["max_abs_err"],
+         "bwd_ms": k4["grid400_d20"]["bwd"]["ms"],
+         "bwd_plain_ms": k4["grid400_d20"]["bwd"]["plain_ms"]},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

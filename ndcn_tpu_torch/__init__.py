@@ -2,16 +2,18 @@
 
 It mirrors the JAX package's module paths, so each piece has a counterpart:
 
-- ``graph``     host-side generators and operators; the dense and CSR-sorted
-                COO operator containers (``graph.sparse``).
-- ``kernels``   hand-written CUDA kernels (``csrc/*.cu``), each beside its
-                plain PyTorch version, and the platform seam that picks
-                between them by the tensors' device.
-- ``ode``       the dopri5 inference solve (``odeint_with_stats``).
-- ``dynamics``  the heat-diffusion right-hand side.
-- ``models``    NDCN as an ``nn.Module`` with the JAX package's forward.
-- ``serve``     the serving entry point ``make_server``.
-- ``convert``   weights across from the JAX package.
+- ``graph``       host-side generators and operators; the dense, CSR-sorted
+                  COO and block-sparse operator containers (``graph.sparse``).
+- ``kernels``     hand-written CUDA kernels (``csrc/*.cu``), each beside its
+                  plain PyTorch version in one ``autograd.Function``, and the
+                  platform seam that picks between them by the tensors' device.
+- ``ode``         dopri5, differentiable and inference (``odeint_with_stats``).
+- ``dynamics``    the heat-diffusion right-hand side.
+- ``models``      NDCN as an ``nn.Module`` with the JAX package's forward.
+- ``train``       time sampling, losses, Adam, step budgets, elastic rollback.
+- ``experiments`` the heat experiment (``python -m ndcn_tpu_torch.experiments.heat``).
+- ``serve``       the serving entry point ``make_server``.
+- ``convert``     weights across from the JAX package.
 
 The port imports torch, numpy and scipy, never jax.
 """

@@ -1,6 +1,6 @@
 """Graph propagation operators (host side, numpy / scipy).
 
-The builders the serving slice needs, copied from the jax-free
+The builders the dynamics experiments need, copied from the jax-free
 ``ndcn_tpu/graph/operators.py``; the tests hold them bit-equal to it.
 """
 
@@ -26,6 +26,20 @@ def _sym_norm_dense(m: np.ndarray, row_scale_src: np.ndarray,
     return (r[:, None] * m) * c[None, :]
 
 
+def zipf_smoothing(adj: np.ndarray) -> np.ndarray:
+    """(D+I)^-1/2 (A+I) (D+I)^-1/2, the Kipf GCN operator."""
+    adj = np.asarray(adj, np.float64)
+    a_prime = adj + np.eye(adj.shape[0])
+    return _sym_norm_dense(a_prime, a_prime.sum(1),
+                           a_prime.sum(0)).astype(np.float32)
+
+
+def normalized_adj(adj: np.ndarray) -> np.ndarray:
+    """D^-1/2 A D^-1/2."""
+    adj = np.asarray(adj, np.float64)
+    return _sym_norm_dense(adj, adj.sum(1), adj.sum(0)).astype(np.float32)
+
+
 def normalized_laplacian(adj: np.ndarray) -> np.ndarray:
     """I - D^-1/2 A D^-1/2, the default dynamics operator."""
     adj = np.asarray(adj, np.float64)
@@ -47,3 +61,17 @@ def normalized_laplacian_sparse(adj: sp.spmatrix) -> sp.csr_matrix:
     norm = (sp.diags(_inv_pow(out_deg, -0.5)) @ adj
             @ sp.diags(_inv_pow(in_deg, -0.5))).tocsr()
     return (sp.eye(adj.shape[0]) - norm).tocsr()
+
+
+def build_dynamics_operator(adj: np.ndarray, kind: str) -> np.ndarray:
+    """The --operator switch of the dynamics experiments:
+    lap | kipf | norm_adj | norm_lap (default)."""
+    if kind == "lap":
+        return laplacian_dense(adj)
+    if kind == "kipf":
+        return zipf_smoothing(adj)
+    if kind == "norm_adj":
+        return normalized_adj(adj)
+    if kind == "norm_lap":
+        return normalized_laplacian(adj)
+    raise ValueError(f"unknown operator kind {kind!r}")

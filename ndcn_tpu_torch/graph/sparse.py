@@ -1,16 +1,18 @@
-"""Graph operator containers on the device: dense and CSR-sorted COO.
+"""Graph operator containers on the device: dense, CSR-sorted COO and BSR.
 
-The counterpart of ``ndcn_tpu/graph/sparse.py`` with one ``matvec`` entry:
+The counterpart of ``ndcn_tpu/graph/sparse.py`` with one ``matvec`` entry,
+differentiable in X:
 
 - ``DenseGraph``: an (n, n) matrix; A·X is a plain ``torch.matmul``.
 - ``CooGraph``: the row-sorted triplets of A, held in CSR form (``row_ptr``,
   ``cols``, ``vals``) for the K1 kernel, plus the expanded ``rows`` for the
-  plain version, plus the transpose's arrays (sorted by A's column) that the
-  training slice's backward needs.
+  plain version, plus the transpose's arrays (sorted by A's column) that
+  K1's backward runs over.
+- ``BsrGraph``: block-CSR packings of A and Aᵀ for K3 (and K4, the fused
+  RHS); the backward runs over Aᵀ.
 
 The TPU's tile packing (``pack_tiles``, ``TILE_PACK_THRESHOLD``) is not
-ported: K1 reads CSR directly. The ELL and BSR formats wait for their
-ROADMAP items.
+ported: K1 reads CSR directly. The ELL format waits for ROADMAP item 3.
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from ndcn_tpu_torch.kernels.bsr_spmm import (BLOCK, BsrMatrix, bsr_spmm,
+                                             from_scipy_bsr)
 from ndcn_tpu_torch.kernels.coo_spmv import coo_spmv
 
 
@@ -51,8 +55,31 @@ class CooGraph(NamedTuple):
     def device(self) -> torch.device:
         return self.vals.device
 
+    def transpose(self) -> "CooGraph":
+        """Aᵀ from the arrays the backward holds (no copy)."""
+        return CooGraph(self.row_ptr_t, self.rows_t, self.cols_t, self.vals_t,
+                        self.row_ptr, self.rows, self.cols, self.vals, self.n)
 
-GraphOperator = Union[DenseGraph, CooGraph]
+
+class BsrGraph(NamedTuple):
+    """Block-sparse operator for K3 / K4: packings of A and of Aᵀ (the
+    backward's), so A·X is differentiable in X."""
+    fwd: BsrMatrix
+    bwd: BsrMatrix
+
+    @property
+    def n(self) -> int:
+        return self.fwd.n_rows
+
+    @property
+    def device(self) -> torch.device:
+        return self.fwd.blocks.device
+
+    def transpose(self) -> "BsrGraph":
+        return BsrGraph(self.bwd, self.fwd)
+
+
+GraphOperator = Union[DenseGraph, CooGraph, BsrGraph]
 
 
 def from_dense(mat: np.ndarray, dtype=torch.float32,
@@ -94,21 +121,33 @@ def from_scipy_coo(mat: sp.spmatrix, dtype=torch.float32,
     return CooGraph(*fwd, *bwd, n=n)
 
 
+def from_scipy_bsr_graph(mat: sp.spmatrix, block: int = BLOCK,
+                         device: Optional[torch.device] = None) -> BsrGraph:
+    csr = sp.csr_matrix(mat)
+    return BsrGraph(fwd=from_scipy_bsr(csr, block, device),
+                    bwd=from_scipy_bsr(csr.T.tocsr(), block, device))
+
+
 def as_operator(mat, sparse: bool = False, dtype=torch.float32,
                 format: str = "coo",
                 device: Optional[torch.device] = None) -> GraphOperator:
-    """Build a device operator from numpy / scipy input (the --sparse switch)."""
+    """Build a device operator from numpy / scipy input (the --sparse switch).
+
+    ``format`` picks the sparse layout: 'coo' (K1) or 'bsr' (K3 / K4, 128 ×
+    128 blocks); 'ell' is not ported yet."""
     if not sparse:
         dense = (np.asarray(mat.todense()) if sp.issparse(mat)
                  else np.asarray(mat))
         return from_dense(dense, dtype, device)
     if format == "coo":
         return from_scipy_coo(sp.csr_matrix(mat), dtype=dtype, device=device)
-    if format in ("ell", "bsr"):
-        raise NotImplementedError(
-            f"format={format!r} is not ported yet (ELL: ROADMAP item 3; "
-            f"BSR: the kernels K3/K4 in ROADMAP's kernel table); use "
-            f"format='coo'")
+    if format == "bsr":
+        if dtype != torch.float32:
+            raise ValueError(f"format='bsr' supports float32 only, got {dtype}")
+        return from_scipy_bsr_graph(mat, device=device)
+    if format == "ell":
+        raise NotImplementedError("format='ell' is not ported yet: ROADMAP "
+                                  "item 3; use format='coo' or 'bsr'")
     raise ValueError(f"unknown sparse format {format!r}; "
                      f"choose 'coo', 'ell' or 'bsr'")
 
@@ -119,5 +158,27 @@ def matvec(op: GraphOperator, x: torch.Tensor) -> torch.Tensor:
         return torch.matmul(op.mat, x)
     if isinstance(op, CooGraph):
         return coo_spmv(op, x)
+    if isinstance(op, BsrGraph):
+        return bsr_spmm(op.fwd, op.bwd, x)
+    raise TypeError(f"unknown graph operator {type(op).__name__}")
+
+
+def to_dense_matrix(op: GraphOperator) -> np.ndarray:
+    """The operator as an (n, n) float32 numpy matrix (tests, small graphs)."""
+    if isinstance(op, DenseGraph):
+        return op.mat.detach().cpu().numpy()
+    if isinstance(op, CooGraph):
+        dense = np.zeros((op.n, op.n), np.float32)
+        np.add.at(dense, (op.rows.cpu().numpy(), op.cols.cpu().numpy()),
+                  op.vals.detach().cpu().numpy())
+        return dense
+    if isinstance(op, BsrGraph):
+        m, B = op.fwd, op.fwd.block
+        full = np.zeros((m.n_row_blocks * B, -(-m.n_cols // B) * B),
+                        np.float32)
+        for rb, cb, blk in zip(m.block_rows.tolist(), m.block_cols.tolist(),
+                               m.blocks.detach().cpu().numpy()):
+            full[rb * B:(rb + 1) * B, cb * B:(cb + 1) * B] += blk
+        return full[:m.n_rows, :m.n_cols]
     raise TypeError(f"unknown graph operator {type(op).__name__}")
 

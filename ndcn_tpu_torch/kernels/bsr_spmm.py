@@ -1,0 +1,232 @@
+"""K3 and K4: block-sparse (BSR) A times a dense X, and the fused RHS
+relu((A · X) · W + b) over the same A; fp32, differentiable in X (and W, b).
+
+The CUDA kernels are ``ndcn_tpu_torch/csrc/bsr_spmm.cu``; they replace the TPU
+kernels ``ndcn_tpu/kernels/bsr_spmm.py::_spmm_kernel`` (K3) and
+``::_spmm_fused_kernel`` (K4). The packing keeps the logical matrix of the
+JAX package's ``from_scipy_bsr`` (B × B float32 blocks, B = 128 by default,
+a rectangular tail where n is not a multiple of B) but stores it as plain
+block-CSR: a row-block pointer, the block columns and the blocks, with no
+ELL padding and no reserved zero block.
+
+Backward, as the JAX package's custom VJPs: K3's is K3 over the packing of
+Aᵀ; K4's recomputes A·X with K3, forms dX = K3(Aᵀ, G·Wᵀ) and dW, db with
+``torch.matmul``. The operator is a constant whose cotangent is ZERO (the JAX
+package's BSR policy, unlike COO's NaN).
+
+The plain PyTorch versions beside the kernels (a per-block batched product
+and a scatter over row blocks) are the CPU path, inside the same
+``autograd.Function``s, and the references the kernels are held against on
+the card.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import scipy.sparse as sp
+import torch
+
+from ndcn_tpu_torch.kernels import build
+from ndcn_tpu_torch.kernels.platform import on_cuda
+
+BLOCK = 128
+
+# launches of each CUDA kernel in this process, forward and backward (CPU
+# calls do not count)
+SPMM_LAUNCHES = 0
+FUSED_LAUNCHES = 0
+
+# widest X the fused kernel takes: its (32, d) A·X panel lives in shared
+# memory (32 · 1025 · 4 bytes at the limit)
+K_MAX = 1024
+
+
+class BsrMatrix(NamedTuple):
+    """Block-CSR of B × B blocks: the nonzero blocks of row block i are
+    ``blocks[row_ptr[i]:row_ptr[i+1]]``, at block columns ``block_cols``."""
+    row_ptr: torch.Tensor     # (n_row_blocks + 1,) int32
+    block_rows: torch.Tensor  # (nnzb,) int64, each block's row block
+    block_cols: torch.Tensor  # (nnzb,) int32
+    blocks: torch.Tensor      # (nnzb, B, B) float32
+    n_rows: int
+    n_cols: int
+
+    @property
+    def block(self) -> int:
+        return self.blocks.shape[-1]
+
+    @property
+    def n_row_blocks(self) -> int:
+        return self.row_ptr.shape[0] - 1
+
+
+def from_scipy_bsr(mat: sp.spmatrix, block: int = BLOCK,
+                   device: Optional[torch.device] = None) -> BsrMatrix:
+    """Pack ``mat`` into block-CSR (float32), as ``ndcn_tpu``'s
+    ``from_scipy_bsr``: the CSR is padded to whole blocks (extra rows empty,
+    extra columns unused) and cut into sorted B × B blocks."""
+    m = sp.csr_matrix(mat)
+    n_rows, n_cols = m.shape
+    nrb = -(-n_rows // block)
+    ncb = -(-n_cols // block)
+    indptr = np.concatenate([m.indptr,
+                             np.full(nrb * block - n_rows, m.indptr[-1],
+                                     dtype=m.indptr.dtype)])
+    padded = sp.csr_matrix((m.data, m.indices, indptr),
+                           shape=(nrb * block, ncb * block))
+    bsr = padded.tobsr(blocksize=(block, block))
+    bsr.sort_indices()
+    counts = np.diff(bsr.indptr)
+    return BsrMatrix(
+        row_ptr=torch.as_tensor(bsr.indptr.astype(np.int32), device=device),
+        block_rows=torch.as_tensor(np.repeat(np.arange(nrb), counts),
+                                   device=device),
+        block_cols=torch.as_tensor(bsr.indices.astype(np.int32),
+                                   device=device),
+        blocks=torch.as_tensor(bsr.data.astype(np.float32).reshape(
+            -1, block, block), device=device),
+        n_rows=n_rows, n_cols=n_cols)
+
+
+def bsr_spmm_plain(a: BsrMatrix, x: torch.Tensor) -> torch.Tensor:
+    """The plain version of K3: each stored block times its X row block in
+    one batched product, summed into the row blocks."""
+    B, d = a.block, x.shape[1]
+    ncb = -(-a.n_cols // B)
+    xb = torch.nn.functional.pad(x, (0, 0, 0, ncb * B - a.n_cols))
+    prod = torch.bmm(a.blocks, xb.view(ncb, B, d)[a.block_cols.long()])
+    y = torch.zeros((a.n_row_blocks, B, d), dtype=x.dtype, device=x.device)
+    return y.index_add_(0, a.block_rows, prod).view(-1, d)[:a.n_rows]
+
+
+def bsr_fused_rhs_plain(a: BsrMatrix, x: torch.Tensor, w: torch.Tensor,
+                        b: torch.Tensor) -> torch.Tensor:
+    """The plain version of K4."""
+    return torch.relu(bsr_spmm_plain(a, x) @ w + b)
+
+
+def _check_bsr(a: BsrMatrix, x: torch.Tensor, name: str) -> None:
+    if (a.row_ptr.dtype != torch.int32 or a.block_cols.dtype != torch.int32
+            or a.blocks.dtype != torch.float32 or a.blocks.ndim != 3
+            or not a.blocks.is_contiguous()):
+        raise ValueError(f"{name} takes int32 row_ptr and block_cols and "
+                         f"contiguous float32 (nnzb, B, B) blocks")
+    if x.dtype != torch.float32:
+        raise TypeError(f"{name} takes float32 x, got {x.dtype}")
+    if x.ndim != 2 or x.shape[0] != a.n_cols or x.shape[1] < 1:
+        raise ValueError(f"{name} takes x of shape ({a.n_cols}, d >= 1), got "
+                         f"{tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} takes a contiguous (row-major) x")
+
+
+def _launch_spmm(a: BsrMatrix, x: torch.Tensor) -> torch.Tensor:
+    if not on_cuda(x, a.row_ptr, a.block_rows, a.block_cols, a.blocks):
+        return bsr_spmm_plain(a, x)
+    x = x.contiguous()
+    lib = build.load()
+    d = x.shape[1]
+    y = torch.empty((a.n_rows, d), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = lib.ndcn_bsr_spmm_f32(
+            a.row_ptr.data_ptr(), a.block_cols.data_ptr(),
+            a.blocks.data_ptr(), x.data_ptr(), y.data_ptr(), a.n_row_blocks,
+            a.block, a.n_rows, a.n_cols, d,
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"bsr_spmm kernel launch failed: CUDA error {rc}")
+    global SPMM_LAUNCHES
+    SPMM_LAUNCHES += 1
+    return y
+
+
+def _launch_fused(a: BsrMatrix, x, w, b) -> torch.Tensor:
+    if not on_cuda(x, w, b, a.row_ptr, a.block_rows, a.block_cols, a.blocks):
+        return bsr_fused_rhs_plain(a, x, w, b)
+    lib = build.load()
+    d = x.shape[1]
+    out = torch.empty((a.n_rows, d), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = lib.ndcn_bsr_fused_rhs_f32(
+            a.row_ptr.data_ptr(), a.block_cols.data_ptr(),
+            a.blocks.data_ptr(), x.data_ptr(), w.data_ptr(), b.data_ptr(),
+            out.data_ptr(), a.n_row_blocks, a.block, a.n_rows, a.n_cols, d,
+            w.stride(0), w.stride(1), torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"bsr_fused_rhs kernel launch failed: CUDA error "
+                           f"{rc}")
+    global FUSED_LAUNCHES
+    FUSED_LAUNCHES += 1
+    return out
+
+
+def _zero_cotangents(ctx, *blocks):
+    return tuple(torch.zeros_like(t) if ctx.needs_input_grad[i] else None
+                 for i, t in enumerate(blocks, start=2))
+
+
+class _BsrSpmm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, at, blocks, blocks_t, x):
+        ctx.a, ctx.at = a, at
+        return _launch_spmm(a, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        dx = _launch_spmm(ctx.at, g) if ctx.needs_input_grad[4] else None
+        return (None, None, *_zero_cotangents(ctx, ctx.a.blocks,
+                                              ctx.at.blocks), dx)
+
+
+class _BsrFusedRhs(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, at, blocks, blocks_t, x, w, b):
+        ctx.a, ctx.at = a, at
+        out = _launch_fused(a, x, w, b)
+        ctx.save_for_backward(x, w, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, out = ctx.saved_tensors
+        g = g * (out > 0).to(g.dtype)          # relu mask (out == 0: blocked)
+        ah = _launch_spmm(ctx.a, x)            # recomputed, not stored
+        dx = _launch_spmm(ctx.at, g @ w.t())
+        return (None, None, *_zero_cotangents(ctx, ctx.a.blocks,
+                                              ctx.at.blocks),
+                dx, ah.t() @ g, g.sum(0))
+
+
+def bsr_spmm(a: BsrMatrix, at: BsrMatrix, x: torch.Tensor) -> torch.Tensor:
+    """A · X, differentiable in X; ``at`` packs Aᵀ for the backward.
+
+    CPU tensors take the plain version; CUDA tensors launch K3 on the current
+    stream, forward and backward (and raise if it cannot)."""
+    _check_bsr(a, x, "bsr_spmm")
+    return _BsrSpmm.apply(a, at, a.blocks, at.blocks, x)
+
+
+def bsr_fused_rhs(a: BsrMatrix, at: BsrMatrix, x: torch.Tensor,
+                  w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """relu((A · X) · W + b) for a square A, x (n, d), w (d, d) (possibly a
+    strided view), b (d,); differentiable in x, w and b.
+
+    CPU tensors take the plain version; CUDA tensors launch K4 on the current
+    stream and K3 in the backward (and raise if it cannot)."""
+    _check_bsr(a, x, "bsr_fused_rhs")
+    d = x.shape[1]
+    if a.n_rows != a.n_cols:
+        raise ValueError(f"bsr_fused_rhs takes a square A, got "
+                         f"({a.n_rows}, {a.n_cols})")
+    for name, t in (("w", w), ("b", b)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"bsr_fused_rhs takes float32 tensors; {name} is "
+                            f"{t.dtype}")
+    if (w.shape != (d, d) or b.shape != (d,) or not b.is_contiguous()
+            or d > K_MAX):
+        raise ValueError(f"bsr_fused_rhs takes w (d, d), contiguous b (d,) "
+                         f"with d <= {K_MAX}; got x {tuple(x.shape)}, w "
+                         f"{tuple(w.shape)}, b {tuple(b.shape)}")
+    return _BsrFusedRhs.apply(a, at, a.blocks, at.blocks, x, w, b)

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-The sources in ``ndcn_tpu_torch/csrc/*.cu`` compile with ``nvcc`` into one
-shared library with a plain C interface, which ``ctypes`` loads. The library
+The sources in ``ndcn_tpu_torch/csrc/*.cu`` compile with ``nvcc``, one
+process per source, all started together, and link into one shared library
+with a plain C interface, which ``ctypes`` loads. The library
 lands in ``build/kernels/`` at the repository root, named by a hash of the
 sources and the compiler flags, so a changed source builds anew and an
 unchanged one is reused. Nothing here runs at import: the first kernel launch
@@ -24,7 +25,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 # sm_90a (Hopper with its architecture-specific instructions); -Xptxas -v
 # records each kernel's registers and shared memory in the build log
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # C entry points: (name, argtypes). Every pointer and the stream are c_void_p.
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -33,6 +34,13 @@ ENTRY_POINTS = {
     "ndcn_coo_spmv_f32": (_P, _P, _P, _P, _P, _I, _I, _P),
     # a, h, w, b, out, n, k, w row stride, w column stride, stream
     "ndcn_fused_rhs_f32": (_P, _P, _P, _P, _P, _I, _I, _L, _L, _P),
+    # row_ptr, block_cols, blocks, x, y, n_row_blocks, block, n_rows,
+    # n_cols, d, stream
+    "ndcn_bsr_spmm_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # row_ptr, block_cols, blocks, x, w, b, out, n_row_blocks, block, n_rows,
+    # n_cols, d, w row stride, w column stride, stream
+    "ndcn_bsr_fused_rhs_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                               _I, _L, _L, _P),
 }
 
 
@@ -63,19 +71,36 @@ def nvcc() -> str:
 
 def build() -> Path:
     """Compile the library unless it exists already; return its path. The
-    compiler's output (with ptxas's register and shared-memory report) is kept
+    compilers' output (with ptxas's register and shared-memory report) is kept
     beside it as ``<library>.log``."""
     path = library_path()
     if path.exists():
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = path.with_name(path.name + ".log")
-    log.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    jobs = []
+    for src in sources():
+        obj = tmp.with_name(f"{tmp.name}.{src.stem}.o")
+        cmd = [nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        out, err = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + out + err)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-1]} ({proc.returncode}):\n{err}")
+    if not failed:
+        cmd = [nvcc(), "-shared", "-o", str(tmp), *(str(o) for _, o, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"link ({proc.returncode}):\n{proc.stderr}")
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    path.with_name(path.name + ".log").write_text("".join(log))
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, path)
     return path
 

@@ -1,10 +1,18 @@
-"""K2: the fused graph-ODE right-hand side relu((A · H) · W + b), dense fp32.
+"""K2: the fused graph-ODE right-hand side relu((A · H) · W + b), dense fp32,
+differentiable in H, W and b.
 
 The CUDA kernel is ``ndcn_tpu_torch/csrc/fused_rhs.cu``; it replaces the TPU
 kernel ``ndcn_tpu/kernels/fused_rhs.py::_kernel``. ``w`` is (k_in, k_out), the
 JAX package's layout; it may be strided, so ``nn.Linear.weight.t()`` passes as
-the view it is. The plain PyTorch version beside it is the CPU path and the
-reference the kernel is held against on the card.
+the view it is and its gradient reaches the weight through the view. The
+backward is the JAX package's ``_fused_bwd``, which runs in XLA outside any
+Pallas kernel: it recomputes A·H and forms dh, dw and db with
+``torch.matmul``. The operator is a constant: a gradient asked of ``a`` is
+NaN, never a silent zero.
+
+The plain PyTorch version beside the kernel is the CPU path, inside the same
+``autograd.Function``, and the reference the kernel is held against on the
+card.
 """
 
 from __future__ import annotations
@@ -12,7 +20,7 @@ from __future__ import annotations
 import torch
 
 from ndcn_tpu_torch.kernels import build
-from ndcn_tpu_torch.kernels.platform import check_no_grad, on_cuda
+from ndcn_tpu_torch.kernels.platform import on_cuda
 
 # launches of the CUDA kernel in this process (CPU calls do not count)
 LAUNCHES = 0
@@ -47,16 +55,9 @@ def _check(a, h, w, b) -> None:
                          f"{tuple(w.shape)}, b {tuple(b.shape)}")
 
 
-def fused_rhs(a: torch.Tensor, h: torch.Tensor, w: torch.Tensor,
-              b: torch.Tensor) -> torch.Tensor:
-    """relu((a @ h) @ w + b) with a (n, n), h (n, k), w (k, k), b (k,).
-
-    CPU tensors take the plain version; CUDA tensors launch the kernel on the
-    current stream (and raise if it cannot)."""
-    _check(a, h, w, b)
+def _forward(a, h, w, b) -> torch.Tensor:
     if not on_cuda(a, h, w, b):
         return fused_rhs_plain(a, h, w, b)
-    check_no_grad("fused_rhs", a, h, w, b)
     lib = build.load()
     n, k = h.shape
     out = torch.empty((n, k), dtype=torch.float32, device=h.device)
@@ -70,3 +71,38 @@ def fused_rhs(a: torch.Tensor, h: torch.Tensor, w: torch.Tensor,
     global LAUNCHES
     LAUNCHES += 1
     return out
+
+
+def fused_rhs_backward(a, h, w, out, g, need_a: bool = False):
+    """(da, dh, dw, db) of relu((a @ h) @ w + b) at its output ``out``, for
+    the cotangent ``g``; da is NaN when asked for, else None."""
+    g = g * (out > 0).to(g.dtype)              # relu mask (out == 0: blocked)
+    dh = a.t() @ (g @ w.t())
+    dw = (a @ h).t() @ g                       # A·H recomputed, not stored
+    db = g.sum(0)
+    da = torch.full_like(a, float("nan")) if need_a else None
+    return da, dh, dw, db
+
+
+class _FusedRhs(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, h, w, b):
+        out = _forward(a, h, w, b)
+        ctx.save_for_backward(a, h, w, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        a, h, w, out = ctx.saved_tensors
+        return fused_rhs_backward(a, h, w, out, g,
+                                  need_a=ctx.needs_input_grad[0])
+
+
+def fused_rhs(a: torch.Tensor, h: torch.Tensor, w: torch.Tensor,
+              b: torch.Tensor) -> torch.Tensor:
+    """relu((a @ h) @ w + b) with a (n, n), h (n, k), w (k, k), b (k,).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel on the
+    current stream (and raise if it cannot)."""
+    _check(a, h, w, b)
+    return _FusedRhs.apply(a, h, w, b)

@@ -49,12 +49,3 @@ def on_cuda(*tensors: torch.Tensor) -> bool:
         return True
     raise ValueError(f"tensors must lie together on the CPU or on one CUDA "
                      f"device; got {sorted(map(str, devices))}")
-
-
-def check_no_grad(name: str, *tensors: torch.Tensor) -> None:
-    """The kernels have no backward yet: refuse inputs that would need one."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{name} on CUDA has no backward yet: it comes with the training "
-            f"slice (ROADMAP item 2: the differentiable scan solver and the "
-            f"K1-transpose / K2 backward). Run under torch.no_grad().")

@@ -1,8 +1,10 @@
 """NDCN: encoder → graph-ODE block → decoder, as ``ndcn_tpu/models/ndcn.py``.
 
-This slice ports the inference forward (``nondiff=True``, ``layout="nd"``)
-with its ``fused`` dispatch. Options that belong to later slices raise
-``NotImplementedError`` naming their ROADMAP item; none is ignored.
+The port has the differentiable forward (the training path, backprop through
+the solver) and the inference forward (``nondiff=True``), in ``layout="nd"``,
+with dropout and the ``fused`` dispatch over dense (K2) and BSR (K4)
+operators. Options that belong to later slices raise ``NotImplementedError``
+naming their ROADMAP item; none is ignored.
 """
 
 from __future__ import annotations
@@ -12,9 +14,11 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ndcn_tpu_torch.graph.sparse import DenseGraph, GraphOperator, matvec
+from ndcn_tpu_torch.graph.sparse import (BsrGraph, DenseGraph, GraphOperator,
+                                         matvec)
+from ndcn_tpu_torch.kernels.bsr_spmm import bsr_fused_rhs
 from ndcn_tpu_torch.kernels.fused_rhs import fused_rhs
-from ndcn_tpu_torch.models.nn import linear_apply, linear_init
+from ndcn_tpu_torch.models.nn import dropout_mask, linear_apply, linear_init
 from ndcn_tpu_torch.ode import odeint_with_stats
 
 
@@ -61,34 +65,44 @@ def init_ndcn(generator: torch.Generator, input_size: int, hidden_size: int,
 
 def ode_func(model: NDCN, op: GraphOperator, t, h: torch.Tensor,
              no_graph: bool = False, no_control: bool = False,
+             drop_mask: Optional[torch.Tensor] = None,
              fused=False) -> torch.Tensor:
-    """The learned RHS h' = relu(W·(A h) + b) (dropout waits for ROADMAP
-    item 2, the SpMV residual dtype for item 4).
+    """The learned RHS h' = relu(dropout(W·(A h) + b)), ``drop_mask`` a fixed
+    inverted-dropout mask (the SpMV residual dtype waits for ROADMAP item 4).
 
-    ``fused`` routes relu((A h) W + b) through the K2 kernel:
+    ``fused`` routes relu((A h) W + b) through K2 (dense operator) or K4
+    (BSR operator):
     - False: never fuse.
-    - True: force K2; the configuration must be fusable (a dense operator,
-      graph and control on), else ValueError.
+    - True: force the fused kernel; the configuration must be fusable (a
+      dense or BSR operator, graph and control on, no dropout), else
+      ValueError.
     - "auto": fuse when fusable and ``fused_profitable``; otherwise the
       standard path, silently."""
     if fused:
         if fused is not True and fused != "auto":
             raise ValueError(f"fused must be False, True or 'auto'; got {fused!r}")
-        dense_ok = (not no_graph and not no_control
-                    and isinstance(op, DenseGraph))
-        if fused is True and not dense_ok:
+        fusable = not no_graph and not no_control and drop_mask is None
+        dense_ok = fusable and isinstance(op, DenseGraph)
+        bsr_ok = fusable and isinstance(op, BsrGraph)
+        if fused is True and not (dense_ok or bsr_ok):
             raise ValueError(
-                "fused=True requires a dense operator with graph and control "
-                f"on (got {type(op).__name__}, no_graph={no_graph}, "
-                f"no_control={no_control}); use fused='auto' (or drop the "
-                "flag) for the standard path")
-        if dense_ok and (fused is True
-                         or fused_profitable("dense", h.shape[-1])):
+                "fused=True requires a dense or BSR operator with control on "
+                f"and dropout 0 (got {type(op).__name__}, no_graph={no_graph},"
+                f" no_control={no_control}, dropout="
+                f"{'on' if drop_mask is not None else 'off'}); use "
+                "fused='auto' (or drop the flag) for the standard path")
+        width = h.shape[-1]
+        if dense_ok and (fused is True or fused_profitable("dense", width)):
             return fused_rhs(op.mat, h, model.wt.weight.t(), model.wt.bias)
+        if bsr_ok and (fused is True or fused_profitable("bsr", width)):
+            return bsr_fused_rhs(op.fwd, op.bwd, h, model.wt.weight.t(),
+                                 model.wt.bias)
     if not no_graph:
         h = matvec(op, h)
     if not no_control:
         h = linear_apply(model.wt, h)
+    if drop_mask is not None:
+        h = h * drop_mask
     return torch.relu(h)
 
 
@@ -120,8 +134,14 @@ def ndcn_forward(model: NDCN, op: GraphOperator, vt, x: torch.Tensor, *,
     output: (T, n, num_classes) trajectory, or (n, num_classes) if terminal.
     ``layout`` 'auto' and 'nd' solve with the (n, d) state; the JAX
     package's feature-major layout is a TPU memory lever that waits for the
-    scale path. The forward runs under ``torch.no_grad()``: it is the
-    inference solve."""
+    scale path. ``nondiff=True`` runs the inference solve under
+    ``torch.no_grad()``; otherwise autograd records the differentiable solve.
+    ``dropout`` > 0 with a ``rng`` (a ``torch.Generator``) draws one mask per
+    forward; without ``rng`` the forward is deterministic, as in JAX.
+
+    The JAX package folds the decoder's weight into the solver's emissions
+    (``emission_readout``); decoding the interpolated states afterwards, as
+    here, computes the same linear function."""
     if layout not in ("auto", "nd", "feature_major"):
         raise ValueError(f"unknown layout {layout!r}")
     if layout == "feature_major":
@@ -130,28 +150,24 @@ def ndcn_forward(model: NDCN, op: GraphOperator, vt, x: torch.Tensor, *,
     if emission_dtype is not None or residual_dtype is not None:
         raise NotImplementedError("emission_dtype / residual_dtype are not "
                                   "ported yet: ROADMAP item 4")
-    if not nondiff:
-        raise NotImplementedError("the differentiable forward (nondiff=False) "
-                                  "is not ported yet: ROADMAP item 2. Pass "
-                                  "nondiff=True for the inference solve")
-    if dropout > 0.0:
-        raise NotImplementedError("dropout > 0 is not ported yet: ROADMAP "
-                                  "item 2")
-    del rng  # only dropout draws from it
-
-    with torch.no_grad():
+    with torch.set_grad_enabled(torch.is_grad_enabled() and not nondiff):
         h = x
         if not no_embed:
             h = torch.tanh(linear_apply(model.enc1, h))
             if model.enc2 is not None:
                 h = linear_apply(model.enc2, h)
 
+        drop_mask = None
+        if dropout > 0.0 and rng is not None:
+            drop_mask = dropout_mask(rng, h.shape, dropout, h.dtype, h.device)
+
         def func(t, hh):
             return ode_func(model, op, t, hh, no_graph=no_graph,
-                            no_control=no_control, fused=fused)
+                            no_control=no_control, drop_mask=drop_mask,
+                            fused=fused)
 
         hvx, stats = ode_block(func, h, vt, rtol, atol, method,
                                terminal=terminal, adjoint=adjoint,
-                               max_steps=max_steps, nondiff=True)
+                               max_steps=max_steps, nondiff=nondiff)
         out = linear_apply(model.dec, hvx)
     return out, stats

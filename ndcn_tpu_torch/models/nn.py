@@ -32,3 +32,17 @@ def linear_apply(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     if layer.bias is not None:
         out = out + layer.bias
     return out
+
+
+def dropout_mask(generator: torch.Generator, shape, rate: float,
+                 dtype=torch.float32, device=None) -> torch.Tensor:
+    """A fixed inverted-dropout mask, drawn once per forward from
+    ``generator`` (on the generator's device, then moved to ``device``).
+
+    As the JAX package's ``dropout_mask``: the reference resamples dropout at
+    every RHS evaluation inside the solver, which makes the ODE stochastic per
+    evaluation and the adaptive controller ill-posed; one mask per forward
+    keeps the ODE well defined."""
+    keep = 1.0 - rate
+    u = torch.rand(tuple(shape), generator=generator, device=generator.device)
+    return ((u < keep).to(dtype) / keep).to(device)

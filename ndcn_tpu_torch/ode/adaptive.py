@@ -1,15 +1,34 @@
-"""Adaptive Runge-Kutta integration (dopri5), the inference solve.
+"""Adaptive Runge-Kutta integration (dopri5): one host loop for the inference
+and the differentiable solve.
 
-The port of ``ndcn_tpu/ode/adaptive.py::solve_while``. There a
-``lax.while_loop`` runs ``lax.cond(ready, consume_obs, take_step)``; here the
-loop is on the host and the step stays branch-free on the device
-(``torch.where`` on accept, as ``_attempt_step_core``). The host needs three
-numbers after each step attempt (the new t1, accept, and the dt-underflow
-flag) and reads them in one device→host copy: one sync per step attempt and
-none per observation. ``SolveStats.host_syncs`` counts them.
+The port of ``ndcn_tpu/ode/adaptive.py``. There ``solve_while`` runs a
+``lax.while_loop`` of ``lax.cond(ready, consume_obs, take_step)`` and
+``solve_scan`` a bounded ``lax.scan`` of step attempts followed by a
+searchsorted over the emitted dense outputs. Here both are one loop on the
+host around a branch-free step (``torch.where`` on accept, as the JAX
+package's ``_attempt_step_core``). The host needs four numbers after each step attempt
+(the new t1, accept, the dt-underflow flag and the attempt's finite flag) and
+reads them in one device→host copy: one sync per attempt and none per
+observation. ``SolveStats.host_syncs`` counts them.
 
-The solution buffer is a plain (T, *shape) tensor: the JAX package flattened
-it against the TPU's lane padding, which a GPU does not have.
+Under autograd the loop records the differentiable solve with the JAX scan
+path's gradient semantics:
+
+- t0, t1 and dt stay float32 tensors on the tape, so the gradient flows
+  through the step-size controller (rejected attempts included) and through
+  the initial-step heuristic; the host reads values only to steer the loop.
+- Each observation is read from the last accepted step's dense output when
+  the loop passes it, as ``solve_while`` does. The scan path's searchsorted
+  and one-hot matmul select the same interval and compute the same function.
+- An attempt with non-finite internals is replaced on the tape by its forced
+  rejection (``grad_guard``).
+- ``max_steps`` counts attempts; running out gives ``success=False`` and NaN
+  for the observations not reached.
+
+Per-step recomputation is not needed: autograd keeps each attempt's
+intermediates, and the backward replays nothing. The JAX package's emission
+buffers and ``emission_readout`` are not ported: decoding the interpolated
+states afterwards computes the same linear function.
 """
 
 from __future__ import annotations
@@ -20,6 +39,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from ndcn_tpu_torch.ode import interp as interp_lib
+from ndcn_tpu_torch.ode.grad_guard import all_finite, forced_reject
 from ndcn_tpu_torch.ode.runge_kutta import (StageCoeffs, runge_kutta_step,
                                             stage_coeffs)
 from ndcn_tpu_torch.ode.step_control import (Controller, accept_and_max_ratio,
@@ -67,48 +87,32 @@ class RKState(NamedTuple):
     interp: Optional[object] = None  # last accepted step's dense output
 
 
-def _all_finite(*tensors: torch.Tensor) -> torch.Tensor:
-    ok = torch.isfinite(tensors[0]).all()
-    for t in tensors[1:]:
-        ok = ok & torch.isfinite(t).all()
-    return ok
-
-
-def _attempt_step_core(method: AdaptiveMethod, func, rk: RKState,
-                       ctrl: Controller, coeffs: StageCoeffs):
-    """One accept-or-reject step, branch-free. Returns (updated state without
-    interp, this attempt's interp state, its interval ends, accept, finite).
+def _attempt_step(method: AdaptiveMethod, func, rk: RKState, ctrl: Controller,
+                  coeffs: StageCoeffs):
+    """One accept-or-reject step, branch-free; the state keeps the last
+    ACCEPTED step's dense output. Returns (state, accept, finite).
 
     An attempt with any non-finite stage, trial state or error estimate is
     rejected with dt·dfactor (maximal shrink), whatever its error ratio says.
     """
     y1, f1, y1_error, k = runge_kutta_step(func, rk.y, rk.f, rk.t1, rk.dt,
                                            coeffs)
-    finite = _all_finite(y1, y1_error, k)
+    finite = all_finite(y1, y1_error, k)
     ratio = error_ratios(y1_error, rk.y, y1, ctrl.rtol, ctrl.atol)
     accept, max_ratio = accept_and_max_ratio(ratio)
     accept = accept & finite
     dt_next = torch.where(finite, optimal_step_size(rk.dt, max_ratio, ctrl),
                           rk.dt * ctrl.dfactor)
     new_interp = method.interp_make(rk.y, y1, k, rk.dt, coeffs)
-    att_t0, att_t1 = rk.t1, rk.t1 + rk.dt
-
-    base = RKState(y=torch.where(accept, y1, rk.y),
-                   f=torch.where(accept, f1, rk.f),
-                   t0=torch.where(accept, att_t0, rk.t0),
-                   t1=torch.where(accept, att_t1, rk.t1),
-                   dt=dt_next)
-    return base, new_interp, (att_t0, att_t1), accept, finite
-
-
-def _attempt_step(method: AdaptiveMethod, func, rk: RKState, ctrl: Controller,
-                  coeffs: StageCoeffs):
-    """While-loop variant: keeps the last ACCEPTED interp state."""
-    base, new_interp, _, accept, _ = _attempt_step_core(method, func, rk, ctrl,
-                                                        coeffs)
-    interp = type(new_interp)(*(torch.where(accept, a, b)
-                                for a, b in zip(new_interp, rk.interp)))
-    return base._replace(interp=interp), accept
+    state = RKState(y=torch.where(accept, y1, rk.y),
+                    f=torch.where(accept, f1, rk.f),
+                    t0=torch.where(accept, rk.t1, rk.t0),
+                    t1=torch.where(accept, rk.t1 + rk.dt, rk.t1),
+                    dt=dt_next,
+                    interp=type(new_interp)(*(
+                        torch.where(accept, a, b)
+                        for a, b in zip(new_interp, rk.interp))))
+    return state, accept, finite
 
 
 def _init_rk_state(method: AdaptiveMethod, func, y0: torch.Tensor,
@@ -127,14 +131,14 @@ def _init_rk_state(method: AdaptiveMethod, func, y0: torch.Tensor,
     return rk, nfe0
 
 
-def solve_while(method: AdaptiveMethod, func, y0: torch.Tensor,
-                t: torch.Tensor, ctrl: Controller, max_steps: int = 1 << 16,
-                first_step: Optional[float] = None):
-    """Minimal-FLOP solve, not differentiable. Returns (solution, SolveStats).
+def solve(method: AdaptiveMethod, func, y0: torch.Tensor, t: torch.Tensor,
+          ctrl: Controller, max_steps: int, first_step: Optional[float] = None):
+    """Solve over the grid ``t``; returns (solution, SolveStats).
 
     ``t`` is a strictly increasing 1-D float32 tensor ON THE CPU (the loop
     compares against it on the host); it is copied to y0's device once.
-    solution: (len(t), *y0.shape) with solution[0] == y0.
+    solution: (len(t), *y0.shape) with solution[0] == y0. Differentiable
+    when autograd records it (see the module docstring).
     """
     T = t.shape[0]
     t_host = t.tolist()              # python floats, exactly the f32 values
@@ -143,24 +147,24 @@ def solve_while(method: AdaptiveMethod, func, y0: torch.Tensor,
     n_evals = len(method.tableau.alpha)  # f0 comes from the last step (FSAL)
     rk, nfe = _init_rk_state(method, func, y0, t_dev[0], ctrl, first_step)
 
-    sol = torch.zeros((T,) + tuple(y0.shape), dtype=y0.dtype, device=y0.device)
-    sol[0] = y0
-    obs_i, nacc, nrej, syncs, ok = 1, 0, 0, 0, True
+    sol = [y0]
+    nacc, nrej, syncs, ok = 0, 0, 0, True
     t1_host = t_host[0]
-    while obs_i < T and nacc + nrej < max_steps and ok:
-        if t_host[obs_i] <= t1_host:
+    while len(sol) < T and nacc + nrej < max_steps and ok:
+        if t_host[len(sol)] <= t1_host:
             # consume an observation: dense output of the last accepted step
-            sol[obs_i] = method.interp_eval(rk.interp, rk.t0, rk.t1,
-                                            t_dev[obs_i])
-            obs_i += 1
+            sol.append(method.interp_eval(rk.interp, rk.t0, rk.t1,
+                                          t_dev[len(sol)]))
             continue
         # dt-underflow guard (the reference asserts): flag and stop
         underflow = ~((rk.t1 + rk.dt) > rk.t1)
-        rk, accept = _attempt_step(method, func, rk, ctrl, coeffs)
+        new, accept, finite = _attempt_step(method, func, rk, ctrl, coeffs)
         nfe += n_evals
-        t1_host, acc, under = torch.stack(
-            [rk.t1, accept.to(rk.t1.dtype), underflow.to(rk.t1.dtype)]).tolist()
+        t1_host, acc, under, fin = torch.stack(
+            [new.t1, accept.to(new.t1.dtype), underflow.to(new.t1.dtype),
+             finite.to(new.t1.dtype)]).tolist()
         syncs += 1
+        rk = new if fin else forced_reject(rk, ctrl.dfactor)
         if acc:
             nacc += 1
         else:
@@ -168,5 +172,6 @@ def solve_while(method: AdaptiveMethod, func, y0: torch.Tensor,
         ok = not under
 
     stats = SolveStats(nfe=nfe, n_accepted=nacc, n_rejected=nrej,
-                       success=ok and obs_i >= T, host_syncs=syncs)
-    return sol, stats
+                       success=ok and len(sol) >= T, host_syncs=syncs)
+    sol += [torch.full_like(y0, float("nan"))] * (T - len(sol))
+    return torch.stack(sol), stats

@@ -7,10 +7,12 @@
 solution[0] == y0, and decreasing grids integrate s = -t forward. Time runs in
 float32, as the JAX package's default.
 
-This slice ports the inference path: ``method="dopri5"`` with
-``options={"differentiable": False}``. Every other method and the
-differentiable path raise ``NotImplementedError`` naming the ROADMAP item
-that brings them; the validation errors are the JAX package's.
+The port has ``method="dopri5"``: ``differentiable=True`` (the default) is
+the solve autograd records, with a budget of 256 step attempts;
+``differentiable=False`` the inference solve under ``torch.no_grad()``, with a
+budget of 2**16. Both run ``adaptive.solve``. Every other method raises
+``NotImplementedError`` naming the ROADMAP item that brings it; the
+validation errors are the JAX package's.
 """
 
 from __future__ import annotations
@@ -28,22 +30,25 @@ _ADAPTIVE = {"dopri5": adaptive.DOPRI5_METHOD}
 SOLVERS = ("dopri5", "tsit5", "euler", "midpoint", "rk4",
            "explicit_adams", "fixed_adams", "adams")
 
-# where each method that is not ported yet comes from
-_NOT_PORTED = {
-    "tsit5": "ROADMAP item 2 (it shares the training slice's solver)",
-    "euler": "ROADMAP item 5", "midpoint": "ROADMAP item 5",
-    "rk4": "ROADMAP item 5", "explicit_adams": "ROADMAP item 5",
-    "fixed_adams": "ROADMAP item 5", "adams": "ROADMAP item 5",
-}
 
+_DEFAULT_MAX_STEPS_SCAN = 256
 _DEFAULT_MAX_STEPS_WHILE = 1 << 16
 
 # dopri5's option keys, as the JAX package recognizes them (a typo'd option
 # silently ignored is a debugging trap, so unknown keys warn). The emission
-# options act on the differentiable path only, as in the JAX package.
+# options are the JAX package's scan-buffer levers; they raise.
 _DOPRI5_OPTIONS = {"differentiable", "max_steps", "safety", "ifactor",
                    "dfactor", "first_step", "time_dtype", "emission_dtype",
                    "emission_readout"}
+
+
+def require_ported(method: str) -> None:
+    """Raise as ``odeint`` would for a method the port does not have."""
+    if method not in SOLVERS:
+        raise ValueError(f"unknown method {method!r}; choose from {SOLVERS}")
+    if method not in _ADAPTIVE:
+        raise NotImplementedError(f"method={method!r} is not ported yet: "
+                                  f"ROADMAP item 5 (the remaining solvers)")
 
 
 def _check_options(method: str, options: Dict[str, Any]) -> None:
@@ -83,11 +88,7 @@ def odeint_with_stats(func: Callable, y0: torch.Tensor, t,
         raise ValueError("cannot supply `options` without specifying `method`")
     if method is None:
         method = "dopri5"
-    if method not in SOLVERS:
-        raise ValueError(f"unknown method {method!r}; choose from {SOLVERS}")
-    if method not in _ADAPTIVE:
-        raise NotImplementedError(f"method={method!r} is not ported yet: "
-                                  f"{_NOT_PORTED[method]}")
+    require_ported(method)
     _check_options(method, options)
 
     func, t = _maybe_reverse(func, t)
@@ -95,20 +96,23 @@ def odeint_with_stats(func: Callable, y0: torch.Tensor, t,
     if options.get("time_dtype") is not None:
         raise NotImplementedError("time_dtype is not ported yet: ROADMAP "
                                   "item 5")
-    if bool(options.get("differentiable", True)):
-        raise NotImplementedError(
-            "the differentiable (scan) solve is not ported yet: ROADMAP "
-            "item 2. Pass options={'differentiable': False} for the "
-            "inference solve")
+    for key in ("emission_dtype", "emission_readout"):
+        if options.get(key) is not None:
+            raise NotImplementedError(f"{key} is not ported: ROADMAP item 4 "
+                                      f"(the scale path's memory levers)")
     ctrl = Controller(rtol=float(rtol), atol=float(atol),
                       safety=float(options.get("safety", 0.9)),
                       ifactor=float(options.get("ifactor", 10.0)),
                       dfactor=float(options.get("dfactor", 0.2)),
                       order=5)
-    max_steps = int(options.get("max_steps", _DEFAULT_MAX_STEPS_WHILE))
-    return adaptive.solve_while(_ADAPTIVE[method], func, y0, t, ctrl,
-                                max_steps=max_steps,
-                                first_step=options.get("first_step"))
+    differentiable = bool(options.get("differentiable", True))
+    max_steps = int(options.get("max_steps", _DEFAULT_MAX_STEPS_SCAN
+                                if differentiable
+                                else _DEFAULT_MAX_STEPS_WHILE))
+    with torch.set_grad_enabled(differentiable and torch.is_grad_enabled()):
+        return adaptive.solve(_ADAPTIVE[method], func, y0, t, ctrl,
+                              max_steps=max_steps,
+                              first_step=options.get("first_step"))
 
 
 def odeint(func: Callable, y0: torch.Tensor, t, rtol: float = 1e-7,

@@ -1,8 +1,10 @@
 """Explicit Runge-Kutta stages with an embedded error estimate.
 
-As ``ndcn_tpu/ode/runge_kutta.py``: the stage derivatives live in one
-(S, *shape) tensor, and every stage combination is a tensordot with the
-tableau's coefficients (as float32 tensors, made once per solve).
+As ``ndcn_tpu/ode/runge_kutta.py``: the stage derivatives are kept as a list
+and stacked out of place before each combination, a tensordot with the
+tableau's coefficients (as float32 tensors, made once per solve). Nothing is
+written in place, so autograd can record the step: the differentiable solve
+backpropagates through every stage.
 """
 
 from __future__ import annotations
@@ -43,15 +45,14 @@ def runge_kutta_step(func: Callable, y0: torch.Tensor, f0: torch.Tensor,
     """One explicit RK step. ``f0`` is the RHS at (t0, y0), reused from the
     previous step (FSAL). Returns (y1, f1, y1_error, k), k of shape
     (S, *y0.shape)."""
-    k = torch.empty((len(coeffs.alpha) + 1,) + tuple(y0.shape),
-                    dtype=y0.dtype, device=y0.device)
-    k[0] = f0
-    for i, (alpha_i, beta_i) in enumerate(zip(coeffs.alpha, coeffs.beta)):
+    ks = [f0]
+    for alpha_i, beta_i in zip(coeffs.alpha, coeffs.beta):
         ti = t0 + alpha_i * dt
-        yi = y0 + scaled_dot_product(dt, beta_i, k)
-        k[i + 1] = func(ti, yi)
+        yi = y0 + scaled_dot_product(dt, beta_i, torch.stack(ks))
+        ks.append(func(ti, yi))
+    k = torch.stack(ks)
 
     # FSAL: the last stage was evaluated at the solution point, so yi is y1
     y1 = yi
     y1_error = scaled_dot_product(dt, coeffs.c_error, k)
-    return y1, k[-1], y1_error, k
+    return y1, ks[-1], y1_error, k

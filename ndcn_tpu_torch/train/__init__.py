@@ -1,1 +1,2 @@
-"""Training-side helpers; this slice ports the observation-time sampling."""
+"""Training-side helpers: observation-time sampling, losses, the optimizer,
+step budgets and their elastic recovery."""

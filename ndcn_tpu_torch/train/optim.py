@@ -1,0 +1,38 @@
+"""The optimizer of every reference experiment, as ``ndcn_tpu/train/optim.py``.
+
+The reference trains with ``torch.optim.Adam(params, lr, weight_decay)``:
+coupled L2 (the decay joins the gradient before the moments) and eps added
+after the square root of the bias-corrected second moment. The JAX package
+rebuilds that update as an optax chain; the port uses it as it is.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Iterable, Tuple
+
+import torch
+
+
+def torch_adam(params: Iterable[torch.Tensor], lr: float,
+               weight_decay: float = 0.0, b1: float = 0.9, b2: float = 0.999,
+               eps: float = 1e-8) -> torch.optim.Adam:
+    return torch.optim.Adam(params, lr=lr, betas=(b1, b2), eps=eps,
+                            weight_decay=weight_decay)
+
+
+def make_sgd_step(opt: torch.optim.Optimizer,
+                  loss_fn: Callable[..., Tuple[torch.Tensor, torch.Tensor]]):
+    """One optimizer step: ``step(*args) -> (loss, aux)``, both detached.
+
+    ``loss_fn(*args) -> (loss, aux)``; the step backpropagates the loss and
+    applies the update, the counterpart of the JAX package's
+    ``(params, opt_state, rng) -> (params, opt_state, loss, aux)``."""
+
+    def step(*args):
+        opt.zero_grad(set_to_none=True)
+        loss, aux = loss_fn(*args)
+        loss.backward()
+        opt.step()
+        return loss.detach(), aux.detach()
+
+    return step

@@ -5,9 +5,11 @@ imports no jax, so it also runs where only the port is installed:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
-Bounds: max|Δ| <= 1e-5·max|y| for K1 and rtol 1e-5 / atol 1e-5·max|y| for K2
-(fp32 sums in another order), 1e-4 rel-L1 for a served trajectory on the GPU
-against the same server on the CPU.
+Bounds: max|Δ| <= 1e-5·max|y| for K1, K1ᵀ, K3 and K4, and rtol 1e-5 /
+atol 1e-5·max|y| for K2 and its backward (fp32 sums in another order); 1e-4
+rel-L1 for a served trajectory on the GPU against the same server on the CPU,
+and 1e-3 rel-L1 for a train step's gradients on the GPU against the CPU.
+Backward checks use non-symmetric matrices.
 """
 
 import numpy as np
@@ -18,8 +20,8 @@ import torch
 from ndcn_tpu_torch import kernels
 from ndcn_tpu_torch.graph import generators, operators
 from ndcn_tpu_torch.graph.sparse import as_operator, from_scipy_coo
-from ndcn_tpu_torch.kernels import coo_spmv, fused_rhs
-from ndcn_tpu_torch.models import init_ndcn
+from ndcn_tpu_torch.kernels import bsr_spmm, coo_spmv, fused_rhs
+from ndcn_tpu_torch.models import init_ndcn, ndcn_forward
 from ndcn_tpu_torch.serve import make_server
 
 pytestmark = pytest.mark.cuda
@@ -75,17 +77,108 @@ def test_k2_cuda_matches_plain(cuda_device, n, k):
     assert torch.allclose(y, ref, rtol=1e-5, atol=1e-5 * scale)
 
 
-def test_cuda_kernels_refuse_inputs_that_need_a_backward(cuda_device):
-    a, x = _power_law_coo(100, 500, seed=3, d=4)
+def _max_rel(y, ref):
+    return float((y - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
+
+
+def test_cuda_kernels_backward_matches_plain(cuda_device):
+    """K1ᵀ (K1 over the transpose CSR) and K2's backward on the card, against
+    autograd of the plain versions on the same non-symmetric inputs."""
+    a, x = _power_law_coo(3000, 40000, seed=3, d=20)
     op = from_scipy_coo(a, device=cuda_device)
     x = torch.as_tensor(x, device=cuda_device).requires_grad_()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 2"):
-        coo_spmv.coo_spmv(op, x)
-    a, h, w, b = _fused_inputs(20, 4, seed=0, device=cuda_device)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 2"):
-        fused_rhs.fused_rhs(a, h, w.requires_grad_(), b)
-    with torch.no_grad():
-        fused_rhs.fused_rhs(a, h, w, b)
+    g = torch.randn(3000, 20, device=cuda_device)
+    before = coo_spmv.LAUNCHES
+    (dx,) = torch.autograd.grad((coo_spmv.coo_spmv(op, x) * g).sum(), x)
+    assert coo_spmv.LAUNCHES == before + 2        # forward and backward
+    (ref,) = torch.autograd.grad((coo_spmv.coo_spmv_plain(
+        op.rows, op.cols, op.vals, x, op.n) * g).sum(), x)
+    assert _max_rel(dx, ref) <= 1e-5
+    a, h, w, b = _fused_inputs(400, 20, seed=0, device=cuda_device)
+    g = torch.randn(400, 20, device=cuda_device)
+    ins = [t.clone().requires_grad_() for t in (h, w, b)]
+    got = torch.autograd.grad((fused_rhs.fused_rhs(a, *ins) * g).sum(), ins)
+    ins = [t.clone().requires_grad_() for t in (h, w, b)]
+    ref = torch.autograd.grad((fused_rhs.fused_rhs_plain(a, *ins) * g).sum(),
+                              ins)
+    for x_, y_ in zip(got, ref):
+        scale = float(y_.abs().max())
+        assert torch.allclose(x_, y_, rtol=1e-5, atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("n,d,block", [(400, 20, 128), (2000, 256, 128),
+                                       (257, 5, 128), (300, 33, 48)])
+def test_k3_cuda_matches_plain_forward_and_backward(cuda_device, n, d, block):
+    rng = np.random.RandomState(n + d)
+    a = sp.random(n, n, density=0.05, random_state=rng, format="csr")
+    op = as_operator(a, sparse=True, format="bsr", device=cuda_device)
+    if block != 128:
+        from ndcn_tpu_torch.graph.sparse import from_scipy_bsr_graph
+        op = from_scipy_bsr_graph(a, block=block, device=cuda_device)
+    x = torch.as_tensor(rng.randn(n, d).astype(np.float32),
+                        device=cuda_device).requires_grad_()
+    g = torch.as_tensor(rng.randn(n, d).astype(np.float32), device=cuda_device)
+    before = bsr_spmm.SPMM_LAUNCHES
+    y = bsr_spmm.bsr_spmm(op.fwd, op.bwd, x)
+    (dx,) = torch.autograd.grad((y * g).sum(), x)
+    torch.cuda.synchronize()
+    assert bsr_spmm.SPMM_LAUNCHES == before + 2
+    assert _max_rel(y, bsr_spmm.bsr_spmm_plain(op.fwd, x)) <= 1e-5
+    assert _max_rel(dx, bsr_spmm.bsr_spmm_plain(op.bwd, g)) <= 1e-5
+    assert torch.equal(y, bsr_spmm.bsr_spmm(op.fwd, op.bwd, x))  # repeatable
+
+
+@pytest.mark.parametrize("n,d", [(400, 20), (2000, 256), (300, 513)])
+def test_k4_cuda_matches_plain_forward_and_backward(cuda_device, n, d):
+    rng = np.random.RandomState(d)
+    a = sp.random(n, n, density=0.05, random_state=rng, format="csr")
+    op = as_operator(a, sparse=True, format="bsr", device=cuda_device)
+    x = torch.as_tensor(rng.rand(n, d).astype(np.float32), device=cuda_device)
+    weight = torch.as_tensor((rng.randn(d, d) / np.sqrt(d)).astype(np.float32),
+                             device=cuda_device)
+    b = torch.as_tensor(0.1 * rng.randn(d).astype(np.float32),
+                        device=cuda_device)
+    g = torch.as_tensor(rng.randn(n, d).astype(np.float32), device=cuda_device)
+    ins = [t.clone().requires_grad_() for t in (x, weight, b)]
+    before = bsr_spmm.FUSED_LAUNCHES
+    out = bsr_spmm.bsr_fused_rhs(op.fwd, op.bwd, ins[0], ins[1].t(), ins[2])
+    got = torch.autograd.grad((out * g).sum(), ins)
+    torch.cuda.synchronize()
+    assert bsr_spmm.FUSED_LAUNCHES == before + 1
+    ref_ins = [t.clone().requires_grad_() for t in (x, weight, b)]
+    ref = bsr_spmm.bsr_fused_rhs_plain(op.fwd, ref_ins[0], ref_ins[1].t(),
+                                       ref_ins[2])
+    ref_g = torch.autograd.grad((ref * g).sum(), ref_ins)
+    assert _max_rel(out, ref) <= 1e-5
+    for x_, y_ in zip(got, ref_g):
+        assert _max_rel(x_, y_) <= 1e-5
+
+
+@pytest.mark.parametrize("fmt,fused", [("dense", "auto"), ("coo", False),
+                                       ("bsr", False), ("bsr", True)])
+def test_train_step_gradients_on_cuda_match_cpu(cuda_device, fmt, fused):
+    lap = operators.normalized_laplacian(generators.build_network("grid", 400))
+    mat = lap if fmt == "dense" else sp.csr_matrix(lap)
+    vt = np.linspace(0.0, 2.0, 10).astype(np.float32)
+    x0 = np.random.RandomState(0).uniform(0.0, 25.0, (400, 1)) \
+        .astype(np.float32)
+    target = torch.as_tensor(np.random.RandomState(1).rand(10, 400, 1)
+                             .astype(np.float32))
+    grads = {}
+    for dev in ("cpu", cuda_device):
+        model = init_ndcn(torch.Generator().manual_seed(0), 1, 20, 1,
+                          device=dev)
+        op = as_operator(mat, sparse=fmt != "dense", format=fmt, device=dev)
+        out, stats = ndcn_forward(model, op, vt, torch.as_tensor(x0,
+                                                                 device=dev),
+                                  rtol=0.01, atol=0.001, method="dopri5",
+                                  fused=fused)
+        (out - target.to(dev)).abs().mean().backward()
+        assert stats.success
+        grads[str(dev)] = torch.cat([p.grad.flatten().cpu()
+                                     for p in model.parameters()])
+    cpu, gpu = grads["cpu"], grads[str(cuda_device)]
+    assert float((gpu - cpu).abs().sum() / cpu.abs().sum()) <= 1e-3
 
 
 @pytest.mark.parametrize("fmt", ["dense", "coo"])

@@ -134,9 +134,12 @@ def test_as_operator_dense_and_coo():
 
 def test_as_operator_rejects_unported_and_unknown_formats():
     lap = sp.csr_matrix(jops.normalized_laplacian(jgen.build_network("grid", 16)))
-    for fmt in ("ell", "bsr"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            sparse.as_operator(lap, sparse=True, format=fmt)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        sparse.as_operator(lap, sparse=True, format="ell")
+    # BSR is ported: the same matrix, packed in 128 × 128 blocks
+    bsr = sparse.as_operator(lap, sparse=True, format="bsr")
+    assert isinstance(bsr, sparse.BsrGraph)
+    assert np.array_equal(sparse.to_dense_matrix(bsr), lap.toarray())
     with pytest.raises(ValueError, match="unknown sparse format"):
         sparse.as_operator(lap, sparse=True, format="csc")
     with pytest.raises(ValueError, match="float32"):

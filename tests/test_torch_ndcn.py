@@ -189,8 +189,10 @@ def test_make_server_terminal_and_budget():
 
 
 @pytest.mark.parametrize("kwargs,err,match", [
-    (dict(nondiff=False), NotImplementedError, "item 2"),
-    (dict(nondiff=True, dropout=0.1), NotImplementedError, "item 2"),
+    (dict(nondiff=False, emission_dtype=torch.bfloat16), NotImplementedError,
+     "item 4"),
+    (dict(nondiff=False, dropout=0.1, adjoint=True), NotImplementedError,
+     "item 5"),
     (dict(nondiff=True, adjoint=True), NotImplementedError, "item 5"),
     (dict(nondiff=True, layout="feature_major"), NotImplementedError, "item 4"),
     (dict(nondiff=True, emission_dtype=torch.bfloat16), NotImplementedError,
@@ -213,15 +215,38 @@ def test_fused_true_requires_a_fusable_configuration():
     lap = operators.normalized_laplacian(generators.build_network("grid", 16))
     coo = as_operator(sp.csr_matrix(lap), sparse=True)
     x = torch.ones(16, 1)
-    with pytest.raises(ValueError, match="fused=True requires a dense"):
+    with pytest.raises(ValueError, match="fused=True requires a dense or BSR"):
         ndcn_forward(model, coo, [0.0, 0.5], x, nondiff=True, fused=True)
-    with pytest.raises(ValueError, match="fused=True requires a dense"):
+    with pytest.raises(ValueError, match="fused=True requires a dense or BSR"):
         ndcn_forward(model, from_dense(lap), [0.0, 0.5], x, nondiff=True,
                      fused=True, no_graph=True)
     # "auto" takes the standard path where it cannot fuse
     out, stats = ndcn_forward(model, coo, [0.0, 0.5], x, nondiff=True,
                               fused="auto")
     assert stats.success and out.shape == (2, 16, 1)
+
+
+@pytest.mark.parametrize("fmt", ["dense", "coo", "bsr"])
+def test_ndcn_forward_differentiable_matches_inference_and_jax(fmt):
+    """nondiff=False (the training path) gives the inference forward's
+    answer and NFE, and the JAX package's differentiable forward."""
+    lap = operators.normalized_laplacian(generators.build_network("grid", 100))
+    j_params = j_init_ndcn(jax.random.PRNGKey(3), 1, 20, 1)
+    model = params_from_jax(jax.tree_util.tree_map(np.asarray, j_params))
+    mat = lap if fmt == "dense" else sp.csr_matrix(lap)
+    op = as_operator(mat, sparse=fmt != "dense", format=fmt)
+    vt = np.linspace(0.0, 1.0, 6).astype(np.float32)
+    x = torch.as_tensor(np.random.RandomState(4).rand(100, 1)
+                        .astype(np.float32))
+    out, stats = ndcn_forward(model, op, vt, x, **KW)
+    inf, inf_stats = ndcn_forward(model, op, vt, x, nondiff=True, **KW)
+    assert out.requires_grad and not inf.requires_grad
+    assert torch.equal(out.detach(), inf) and stats.nfe == inf_stats.nfe
+    ref, j_stats = j_ndcn_forward(j_params, j_as_operator(
+        mat, sparse=fmt != "dense", format=fmt), jnp.asarray(vt),
+        jnp.asarray(x.numpy()), max_steps=256, **KW)
+    assert rel_l1(out.detach().numpy(), ref) < 1e-4
+    assert stats.nfe == int(j_stats.nfe)
 
 
 def _imports(path):

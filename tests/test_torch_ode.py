@@ -135,9 +135,9 @@ def test_validation_errors():
 
 
 @pytest.mark.parametrize("method,options,item", [
-    ("dopri5", None, "item 2"),                       # differentiable default
-    ("dopri5", {"differentiable": True}, "item 2"),
-    ("tsit5", INFER, "item 2"),
+    ("tsit5", None, "item 5"),                        # differentiable default
+    ("dopri5", {"emission_dtype": torch.bfloat16}, "item 4"),
+    ("tsit5", INFER, "item 5"),
     ("euler", INFER, "item 5"),
     ("adams", INFER, "item 5"),
     ("dopri5", dict(INFER, time_dtype="float64"), "item 5"),
