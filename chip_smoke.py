@@ -37,13 +37,30 @@ Phases, one line each:
      ground truth at rtol 1e-6 / atol 1e-8, 5 steps, the first step's
      gradients within 1e-3 rel-L1 of the same step with the plain versions
      patched in; per-step ms and peak allocated memory.
+ 11. the scale path's SpMV kernels against their plain versions: K1's bf16
+     instance, K1-fm and K5 (fp32 and bf16), forward and over the transpose,
+     on the 200k / 2.2M and 1M / 11M normalized Laplacians at d = 20;
+     max|Δ| / max|y| <= 1e-5 against the plain version of the same
+     rounding; median CUDA-event times of both.
+ 12. the scale experiment (``experiments.large_graph``) in process at 1M nodes,
+     ``--iters 10 --roofline --hbm_probe``: 'auto' resolves to the
+     feature-major solve, the train loss falls, K1-fm launches; its
+     ``--estimate`` beside the measured peak; the first train step's
+     gradients within 1e-3 rel-L1 of the same step with the plain versions;
+     the run again with ``--emission_precision bf16 --residual_precision
+     bf16``; then at 200k with ``--kernel_precision bf16`` (the (n, d)
+     layout, K1's bf16 instance) and with ``--layout feature_major`` under
+     ``GATHER_WIDE`` (K5), 3 iterations each.
+ 13. the three microbenchmarks at their defaults (``ndcn_tpu_torch.tools``):
+     P1a (the sliced-tile reduce) and P1b / P2 (the row gather) against
+     their plain versions and the oracle, and the narrow / wide table.
   p. where the time goes: one request per serving setting and one train step
-     per training setting, kernels against plain versions end to end
-     (plain, kernel, kernel, plain), and a torch.profiler breakdown (traces
-     to build/traces/).
+     per training setting (the 1M feature-major step included), kernels
+     against plain versions end to end (plain, kernel, kernel, plain), and a
+     torch.profiler breakdown (traces to build/traces/).
 Then the kernels' JSON record, and last the device JSON line. Launch counts
-are zeroed just before each main-path phase (5-6, 8, 9, 10) and read just
-after its GPU work; the record's launches are their sums.
+are zeroed just before each main-path phase (5-6, 8, 9, 10, each run of 12,
+13) and read just after its GPU work; the record's launches are their sums.
 
 Exits non-zero, printing no result, when there is no CUDA device or the
 package is missing; any failed check raises.
@@ -130,19 +147,24 @@ def plain_versions(on: bool = True):
     from ndcn_tpu_torch.models import ndcn
 
     saved = (sparse.coo_spmv, sparse.bsr_spmm, ndcn.fused_rhs,
-             ndcn.bsr_fused_rhs)
+             ndcn.bsr_fused_rhs, ndcn.spmv_T)
     if on:
         sparse.coo_spmv = lambda op, x: coo_spmv.coo_spmv_plain(
-            op.rows, op.cols, op.vals, x, op.n)
+            op.rows, op.cols, op.vals, x, op.n,
+            coo_spmv.GATHER_BF16 and x.shape[1] > 1)
         sparse.bsr_spmm = lambda a, at, x: bsr_spmm.bsr_spmm_plain(a, x)
         ndcn.fused_rhs = fused_rhs.fused_rhs_plain
         ndcn.bsr_fused_rhs = (lambda a, at, x, w, b:
                               bsr_spmm.bsr_fused_rhs_plain(a, x, w, b))
+        ndcn.spmv_T = lambda op, xT: (
+            coo_spmv.coo_spmv_T_wide_plain if coo_spmv.GATHER_WIDE
+            else coo_spmv.coo_spmv_T_plain)(op.rows, op.cols, op.vals, xT,
+                                            op.n, coo_spmv.GATHER_BF16)
     try:
         yield
     finally:
         (sparse.coo_spmv, sparse.bsr_spmm, ndcn.fused_rhs,
-         ndcn.bsr_fused_rhs) = saved
+         ndcn.bsr_fused_rhs, ndcn.spmv_T) = saved
 
 
 def main() -> None:
@@ -156,6 +178,7 @@ def main() -> None:
 
     from ndcn_tpu_torch import kernels
     from ndcn_tpu_torch.convert import params_from_jax
+    from ndcn_tpu_torch.experiments import large_graph
     from ndcn_tpu_torch.experiments.dynamics import (build_parser,
                                                      heat_ground_truth, run)
     from ndcn_tpu_torch.graph.generators import (build_network,
@@ -648,6 +671,175 @@ def main() -> None:
              max_steps=budget, peak_allocated_gb=peak_train_gb,
              launches=counts, grad_rel_l1_kernel_vs_plain=max(errs.values()))))
 
+    # ---- 11. the scale path's SpMV kernels against their plain versions
+    t0 = time.perf_counter()
+    op_1m = from_scipy_coo(normalized_laplacian_sparse(
+        build_sparse_graph(1_000_000, 10, seed=0)), device=dev)
+    host_build_1m_s = time.perf_counter() - t0
+
+    @contextlib.contextmanager
+    def gather_mode(wide: bool, bf16: bool):
+        saved = coo_spmv.GATHER_WIDE, coo_spmv.GATHER_BF16
+        coo_spmv.GATHER_WIDE, coo_spmv.GATHER_BF16 = wide, bf16
+        try:
+            yield
+        finally:
+            coo_spmv.GATHER_WIDE, coo_spmv.GATHER_BF16 = saved
+
+    def scale_case(op, form, bf16, d=20):
+        """One scale-path SpMV form, forward and over the transpose CSR,
+        against its plain version; returns the record."""
+        d_sub = coo_spmv.sublane_pad(d)
+        rs = np.random.RandomState(21)
+        out = dict(n=op.n, nnz=int(op.cols.shape[0]), d=d)
+        for label, o in (("fwd", op), ("transpose", op.transpose())):
+            if form == "k1":
+                x = torch.as_tensor(rs.randn(op.n, d).astype(np.float32),
+                                    device=dev)
+
+                def kern():
+                    return coo_spmv.coo_spmv(o, x)
+
+                def plain():
+                    return coo_spmv.coo_spmv_plain(o.rows, o.cols, o.vals, x,
+                                                   o.n, bf16)
+            else:
+                xT = torch.zeros((d_sub, op.n), device=dev)
+                xT[:d] = torch.as_tensor(rs.randn(d, op.n).astype(np.float32),
+                                         device=dev)
+                plain_fn = (coo_spmv.coo_spmv_T_wide_plain if form == "k5"
+                            else coo_spmv.coo_spmv_T_plain)
+
+                def kern():
+                    return coo_spmv.spmv_T(o, xT)
+
+                def plain():
+                    return plain_fn(o.rows, o.cols, o.vals, xT, o.n, bf16)
+            with gather_mode(form == "k5", bf16), torch.no_grad():
+                y, ref = kern(), plain()
+                torch.cuda.synchronize()
+                if form != "k1":
+                    check(not y[d:].any(), f"{form} wrote the pad rows")
+                out[label] = compare(f"{form} bf16={bf16} {label} n={op.n}",
+                                     [y], [ref], cuda_ms(kern, iters=15),
+                                     cuda_ms(plain, iters=15))
+        return out
+
+    k11 = {}
+    for size, op in (("200k", op_big), ("1m", op_1m)):
+        k11[f"k1_bf16_{size}"] = scale_case(op, "k1", True)
+        for form in ("k1fm", "k5"):
+            for bf16 in (False, True):
+                k11[f"{form}_{'bf16' if bf16 else 'f32'}_{size}"] = \
+                    scale_case(op, form, bf16)
+    print(f"[11] scale SpMV kernels vs plain (1M host build "
+          f"{host_build_1m_s:.3f} s): " + json.dumps(k11))
+    del op_1m
+    torch.cuda.empty_cache()
+
+    # ---- 12. the scale experiment at 1M nodes (and 200k, bf16 and wide)
+    def scale_args(*argv):
+        return large_graph.build_parser().parse_args(list(argv))
+
+    def scale_run(what, needed, *argv):
+        kernels.reset_launch_counts()
+        rec = large_graph.run(scale_args(*argv))
+        counts = add_launches(what, needed)
+        torch.cuda.empty_cache()
+        return rec, counts
+
+    def scale_summary(rec, counts):
+        keep = ("train_steps_per_sec", "rel_loss_initial", "rel_loss_final",
+                "max_steps", "elastic_rollbacks", "hbm_peak_gb",
+                "hbm_peak_source", "roofline", "layout", "solve_layout",
+                "train_losses", "ground_truth_s", "node_evals_per_sec")
+        return dict({k: rec[k] for k in keep}, launches=counts)
+
+    est = large_graph.run(scale_args("--n", "1000000", "--estimate"))
+    est_bf = large_graph.run(scale_args(
+        "--n", "1000000", "--estimate", "--emission_precision", "bf16",
+        "--residual_precision", "bf16"))
+    rec_1m, c_1m = scale_run("1M scale experiment", ["coo_spmv", "coo_spmv_T"],
+                             "--n", "1000000", "--iters", "10", "--roofline",
+                             "--hbm_probe")
+    check(rec_1m["layout"] == "auto"
+          and rec_1m["solve_layout"] == "feature_major",
+          f"1M: layout auto resolved to {rec_1m['solve_layout']}")
+    check(rec_1m["train_losses"][-1] < rec_1m["train_losses"][0],
+          f"1M: the train loss did not fall {rec_1m['train_losses']}")
+    rec_bf, c_bf = scale_run("1M scale experiment, bf16 levers", ["coo_spmv_T"],
+                             "--n", "1000000", "--iters", "10", "--hbm_probe",
+                             "--emission_precision", "bf16",
+                             "--residual_precision", "bf16")
+    check(rec_bf["train_losses"][-1] < rec_bf["train_losses"][0],
+          f"1M bf16 levers: the train loss did not fall "
+          f"{rec_bf['train_losses']}")
+
+    # the first train step again, kernels against plain versions
+    args_1m = scale_args("--n", "1000000")
+    prob = large_graph.build_problem(args_1m, dev)
+    truth_1m, _, _ = large_graph.ground_truth(args_1m, prob)
+    target_1m = truth_1m[torch.as_tensor(prob.splits.id_train, device=dev)]
+    del truth_1m
+    model_1m = large_graph.new_model(args_1m, dev)
+    budget_1m, _ = large_graph.probe_budget(args_1m, prob, model_1m)
+    grads = {}
+    for which in ("kernel", "plain"):
+        m_ = copy.deepcopy(model_1m)
+        with plain_versions(which == "plain"):
+            loss, _ = large_graph.train_objective(args_1m, prob, m_,
+                                                  target_1m, budget_1m)()
+            loss.backward()
+        grads[which] = {n: p.grad for n, p in m_.named_parameters()}
+    errs_1m = {n: rel_l1(grads["kernel"][n], grads["plain"][n])
+               for n in grads["kernel"]}
+    check(max(errs_1m.values()) <= 1e-3, f"1M kernel vs plain grads: "
+          f"{errs_1m}")
+    del grads
+    torch.cuda.empty_cache()
+
+    rec_k1bf, c_k1bf = scale_run("200k scale experiment, kernel bf16",
+                                 ["coo_spmv_bf16"], "--n", "200000",
+                                 "--iters", "3", "--kernel_precision", "bf16")
+    check(rec_k1bf["solve_layout"] == "nd", "200k auto should stay nd")
+    with gather_mode(True, False):
+        rec_wide, c_wide = scale_run("200k scale experiment, wide gather",
+                                     ["coo_spmv_T_wide"], "--n", "200000",
+                                     "--iters", "3", "--layout",
+                                     "feature_major")
+    print("[12] scale experiment: " + json.dumps({
+        "1m": scale_summary(rec_1m, c_1m),
+        "1m_estimate": est, "1m_bf16_levers": scale_summary(rec_bf, c_bf),
+        "1m_bf16_levers_estimate": est_bf,
+        "1m_first_step_grad_rel_l1_kernel_vs_plain": max(errs_1m.values()),
+        "200k_kernel_bf16": scale_summary(rec_k1bf, c_k1bf),
+        "200k_fm_wide": scale_summary(rec_wide, c_wide)}))
+
+    # ---- 13. the microbenchmarks at their defaults
+    from ndcn_tpu_torch.tools import (bench_wide_gather, microbench_sparse,
+                                      probe_inkernel_gather)
+    kernels.reset_launch_counts()
+    mb = microbench_sparse.main([])
+    probe = probe_inkernel_gather.main([])
+    wide_tab = bench_wide_gather.main([])
+    c_tools = add_launches("the microbenchmarks",
+                           ["sliced_tile_reduce", "row_gather", "coo_spmv_T",
+                            "coo_spmv_T_wide"])
+    torch.cuda.empty_cache()
+    check(mb["sliced_spmv_kernel_err"] <= 1e-5
+          and mb["sliced_reduce_kernel_vs_plain"] <= 1e-5
+          and mb["take_segsum_err"] <= 1e-5 and mb["inkernel_take"],
+          f"microbench_sparse checks: {mb}")
+    check(all(isinstance(probe[f], float) for f in
+              ("kernel", "index", "index_select", "take_along_dim")),
+          f"probe_inkernel_gather: {probe}")
+    for row in wide_tab["modes"]:
+        check(row["rel_err"] <= (2e-2 if row["precision"] == "bf16"
+                                 else 1e-5), f"bench_wide_gather: {row}")
+    print("[13] microbenchmarks: " + json.dumps(
+        {"microbench_sparse": mb, "probe_inkernel_gather": probe,
+         "bench_wide_gather": wide_tab, "launches": c_tools}))
+
     # ---- p. where the time goes
     for label, srv, x0 in (("grid400", server, fx["x0"]),
                            ("200k", server_big, requests[0])):
@@ -670,13 +862,26 @@ def main() -> None:
             ("grid400_bsr_k3", (op_gb, gx["t"], x0_g, target_g, False, 64)),
             ("grid400_bsr_k4", (op_gb, gx["t"], x0_g, target_g, True, 64)),
             ("200k_coo", (op_big, t_train, x0_big, target_big, False,
-                          budget))):
+                          budget)),
+            ("1m_feature_major", (prob.op, prob.t_train, prob.x0, target_1m,
+                                  False, budget_1m))):
         model = (params_from_jax(g_tree, device=dev) if "grid" in label
-                 else copy.deepcopy(model_p))
+                 else copy.deepcopy(model_1m if "1m" in label else model_p))
         print(f"[p] train {label}: " + json.dumps(
             profile_call(one_step(model, *args), f"train_{label}", root)))
 
     # ---- records
+    def scale_entry(name, src, replaces, case):
+        fwd, bwd = case["fwd"], case["transpose"]
+        return {"name": name, "route": "cuda",
+                "source": f"ndcn_tpu_torch/csrc/{src}",
+                "replaces": f"ndcn_tpu/kernels/{replaces}",
+                "launches": main_launches[name],
+                "max_abs_err": fwd["max_abs_err"], "ms": fwd["ms"],
+                "plain_ms": fwd["plain_ms"],
+                "bwd_max_abs_err": bwd["max_abs_err"], "bwd_ms": bwd["ms"],
+                "bwd_plain_ms": bwd["plain_ms"]}
+
     print(json.dumps({"kernels": [
         {"name": "coo_spmv", "route": "cuda",
          "source": "ndcn_tpu_torch/csrc/coo_spmv.cu",
@@ -714,6 +919,27 @@ def main() -> None:
          "bwd_max_abs_err": k4["grid400_d20"]["bwd"]["max_abs_err"],
          "bwd_ms": k4["grid400_d20"]["bwd"]["ms"],
          "bwd_plain_ms": k4["grid400_d20"]["bwd"]["plain_ms"]},
+        *(scale_entry(name, src, rep, k11[case]) for name, src, rep, case in (
+            ("coo_spmv_bf16", "coo_spmv.cu", "coo_spmv.py:172",
+             "k1_bf16_200k"),
+            ("coo_spmv_T", "coo_spmv_T.cu", "coo_spmv.py:159",
+             "k1fm_f32_1m"),
+            ("coo_spmv_T_wide", "coo_spmv_T.cu", "coo_spmv.py:207",
+             "k5_f32_1m"))),
+        {"name": "sliced_tile_reduce", "route": "cuda",
+         "source": "ndcn_tpu_torch/csrc/sparse_bench.cu",
+         "replaces": "tools/microbench_sparse.py:235",
+         "launches": main_launches["sliced_tile_reduce"],
+         "max_abs_err": mb["sliced_reduce_max_abs_err"],
+         "ms": mb["sliced_reduce_kernel_ms"],
+         "plain_ms": mb["sliced_reduce_plain_ms"]},
+        {"name": "row_gather", "route": "cuda",
+         "source": "ndcn_tpu_torch/csrc/sparse_bench.cu",
+         "replaces": "tools/microbench_sparse.py:288",
+         "also_replaces": "tools/probe_inkernel_gather.py:60",
+         "launches": main_launches["row_gather"],
+         "max_abs_err": mb["row_gather_max_abs_err"],
+         "ms": probe["kernel_us"] / 1e3, "plain_ms": probe["index_us"] / 1e3},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,8 +10,11 @@ It mirrors the JAX package's module paths, so each piece has a counterpart:
 - ``ode``         dopri5, differentiable and inference (``odeint_with_stats``).
 - ``dynamics``    the heat-diffusion right-hand side.
 - ``models``      NDCN as an ``nn.Module`` with the JAX package's forward.
-- ``train``       time sampling, losses, Adam, step budgets, elastic rollback.
-- ``experiments`` the heat experiment (``python -m ndcn_tpu_torch.experiments.heat``).
+- ``train``       time sampling, losses, Adam, step budgets, elastic rollback,
+                  the SpMV roofline.
+- ``experiments`` the heat experiment (``python -m ndcn_tpu_torch.experiments.heat``)
+                  and the scale experiment (``experiments.large_graph``).
+- ``tools``       the sparse microbenchmarks on the card.
 - ``serve``       the serving entry point ``make_server``.
 - ``convert``     weights across from the JAX package.
 

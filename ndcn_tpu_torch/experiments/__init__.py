@@ -1,1 +1,2 @@
-"""Experiment entry points: the heat front of the dynamics experiments."""
+"""Experiment entry points: the heat front of the dynamics experiments
+(``heat``) and the scale experiment (``large_graph``)."""

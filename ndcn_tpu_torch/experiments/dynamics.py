@@ -51,12 +51,17 @@ def build_parser(name: str) -> argparse.ArgumentParser:
                         "fused); ell is not ported yet")
     p.add_argument("--kernel_precision", type=str, default="split2",
                    choices=["split2", "bf16"],
-                   help="split2: full-accuracy SpMV (K1 is fp32); bf16 is "
-                        "not ported")
+                   help="split2: full-accuracy SpMV (K1 is fp32); bf16: the "
+                        "state and A rounded to bf16 in K1's gather, fp32 "
+                        "sums")
     p.add_argument("--emission_precision", type=str, default="f32",
-                   choices=["f32", "bf16"])
+                   choices=["f32", "bf16"],
+                   help="dtype the observations' dense output is rounded "
+                        "through (differentiable dopri5 only)")
     p.add_argument("--residual_precision", type=str, default="f32",
-                   choices=["f32", "bf16"])
+                   choices=["f32", "bf16"],
+                   help="dtype the SpMV output is rounded to and kept in on "
+                        "the tape")
     p.add_argument("--network", type=str, default="grid",
                    choices=["grid", "random", "power_law", "small_world",
                             "community"])
@@ -101,6 +106,14 @@ def _refuse_unported(dynamics_kind: str, args: argparse.Namespace) -> None:
     """Raise before any work for what the port does not have yet."""
     from ndcn_tpu_torch.ode.api import require_ported
 
+    if args.emission_precision != "f32" and (
+            args.method not in ("dopri5", "tsit5") or args.adjoint):
+        # the emission options reach the differentiable adaptive solve only;
+        # accepting the flag elsewhere would be a silent no-op
+        raise SystemExit("--emission_precision bf16 applies only to the "
+                         "differentiable adaptive solve (--method dopri5/"
+                         "tsit5, without --adjoint); it would be a silent "
+                         "no-op for this configuration")
     refused = [
         (dynamics_kind != "heat",
          f"the {dynamics_kind} dynamics: ROADMAP item 3"),
@@ -117,12 +130,6 @@ def _refuse_unported(dynamics_kind: str, args: argparse.Namespace) -> None:
          "item 4"),
         (args.profile_dir, "--profile_dir: ROADMAP item 7"),
         (args.dump or args.viz, "--dump / --viz (report/): ROADMAP item 7"),
-        (args.kernel_precision != "split2",
-         "--kernel_precision bf16: ROADMAP item 4"),
-        (args.emission_precision != "f32",
-         "--emission_precision bf16: ROADMAP item 4"),
-        (args.residual_precision != "f32",
-         "--residual_precision bf16: ROADMAP item 4"),
         (args.precision == "high", "--precision high (TF32): ROADMAP item 4"),
     ]
     for cond, what in refused:
@@ -154,8 +161,17 @@ def heat_ground_truth(physics_op, x0: torch.Tensor, t, rtol: float = 1e-7,
 
 
 def run(dynamics_kind: str, args: argparse.Namespace) -> Dict[str, Any]:
+    from ndcn_tpu_torch.kernels import coo_spmv
+
     _refuse_unported(dynamics_kind, args)
     device = select_device(args.platform)
+    # --kernel_precision bf16 sets the JAX package's GATHER_BF16 for the run
+    with coo_spmv.gather_precision(args.kernel_precision == "bf16"):
+        return _run(dynamics_kind, args, device)
+
+
+def _run(dynamics_kind: str, args: argparse.Namespace,
+         device: torch.device) -> Dict[str, Any]:
 
     from ndcn_tpu_torch.graph import generators, operators
     from ndcn_tpu_torch.graph.sparse import as_operator
@@ -220,6 +236,11 @@ def run(dynamics_kind: str, args: argparse.Namespace) -> Dict[str, Any]:
     fused = "auto" if args.fused_kernel else False
     solve_kw = dict(rtol=args.rtol, atol=args.atol, method=args.method,
                     fused=fused, **flags)
+    levers = dict(
+        emission_dtype=(torch.bfloat16 if args.emission_precision == "bf16"
+                        else None),
+        residual_dtype=(torch.bfloat16 if args.residual_precision == "bf16"
+                        else None))
 
     max_steps, budget_is_auto = args.max_steps, False
     if max_steps <= 0:
@@ -242,7 +263,8 @@ def run(dynamics_kind: str, args: argparse.Namespace) -> Dict[str, Any]:
     def forward(vt, rng=None):
         out, stats = ndcn_forward(model, op, vt, true_y0,
                                   dropout=args.dropout, rng=rng,
-                                  max_steps=elastic.max_steps, **solve_kw)
+                                  max_steps=elastic.max_steps, **solve_kw,
+                                  **levers)
         return out[..., 0].T, stats                      # (n, T)
 
     def train_loss(rng):

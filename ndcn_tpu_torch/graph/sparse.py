@@ -152,6 +152,18 @@ def as_operator(mat, sparse: bool = False, dtype=torch.float32,
                      f"choose 'coo', 'ell' or 'bsr'")
 
 
+def use_tiled_kernel(op: GraphOperator) -> bool:
+    """Does ``op`` serve the SpMV kernels here (the seam of
+    ``ndcn_tpu.graph.sparse.use_tiled_kernel``)? True for a ``CooGraph`` on
+    a CUDA device; the CPU tests monkeypatch it to True, as the JAX tests
+    do, so that 'auto' picks the layout the JAX package picks on its
+    accelerator. The JAX predicate also needs a tile packing, which exists
+    above ``TILE_PACK_THRESHOLD`` (50,000 edges) or with ``tiled=True``;
+    every ``CooGraph`` here serves K1, so any one qualifies. At the 'auto'
+    threshold (>= 500k nodes, ~5M edges) the two choices coincide."""
+    return isinstance(op, CooGraph) and op.device.type == "cuda"
+
+
 def matvec(op: GraphOperator, x: torch.Tensor) -> torch.Tensor:
     """A @ X for X of shape (n, d). The hot op of every model RHS."""
     if isinstance(op, DenseGraph):

@@ -2,23 +2,36 @@
 and a backward.
 
 - K1 ``coo_spmv``: CSR SpMV, replaces ``ndcn_tpu/kernels/coo_spmv.py``; its
-  backward is K1 over the transpose.
+  backward is K1 over the transpose; a bf16 instance; and the feature-major
+  forms of ``spmv_T``, K1-fm and K5 (the wide gather).
 - K2 ``fused_rhs``: relu((A·H)·W + b), replaces ``ndcn_tpu/kernels/fused_rhs.py``.
 - K3 and K4 ``bsr_spmm``: BSR SpMM and its fused RHS, replace
   ``ndcn_tpu/kernels/bsr_spmm.py``.
+- P1a and P1b / P2 ``sparse_bench``: the sparse microbenchmarks' sliced-tile
+  reduce and row gather, replace the Pallas kernels of
+  ``tools/microbench_sparse.py`` and ``tools/probe_inkernel_gather.py``.
 """
 
-from ndcn_tpu_torch.kernels import bsr_spmm, coo_spmv, fused_rhs
+from ndcn_tpu_torch.kernels import bsr_spmm, coo_spmv, fused_rhs, sparse_bench
+
+# kernel name -> (module, counter attribute)
+_COUNTERS = {
+    "coo_spmv": (coo_spmv, "LAUNCHES"),
+    "coo_spmv_bf16": (coo_spmv, "BF16_LAUNCHES"),
+    "coo_spmv_T": (coo_spmv, "T_LAUNCHES"),
+    "coo_spmv_T_wide": (coo_spmv, "WIDE_LAUNCHES"),
+    "fused_rhs": (fused_rhs, "LAUNCHES"),
+    "bsr_spmm": (bsr_spmm, "SPMM_LAUNCHES"),
+    "bsr_fused_rhs": (bsr_spmm, "FUSED_LAUNCHES"),
+    "sliced_tile_reduce": (sparse_bench, "SLICED_LAUNCHES"),
+    "row_gather": (sparse_bench, "GATHER_LAUNCHES"),
+}
 
 
 def launch_counts() -> dict:
-    return {"coo_spmv": coo_spmv.LAUNCHES, "fused_rhs": fused_rhs.LAUNCHES,
-            "bsr_spmm": bsr_spmm.SPMM_LAUNCHES,
-            "bsr_fused_rhs": bsr_spmm.FUSED_LAUNCHES}
+    return {name: getattr(mod, attr) for name, (mod, attr) in _COUNTERS.items()}
 
 
 def reset_launch_counts() -> None:
-    coo_spmv.LAUNCHES = 0
-    fused_rhs.LAUNCHES = 0
-    bsr_spmm.SPMM_LAUNCHES = 0
-    bsr_spmm.FUSED_LAUNCHES = 0
+    for mod, attr in _COUNTERS.values():
+        setattr(mod, attr, 0)

@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-The sources in ``ndcn_tpu_torch/csrc/*.cu`` compile with ``nvcc``, one
+The sources in ``ndcn_tpu_torch/csrc/*.cu`` (with the headers beside them)
+compile with ``nvcc``, one
 process per source, all started together, and link into one shared library
 with a plain C interface, which ``ctypes`` loads. The library
 lands in ``build/kernels/`` at the repository root, named by a hash of the
@@ -32,6 +33,18 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 ENTRY_POINTS = {
     # row_ptr, cols, vals, x, y, n_rows, d, stream
     "ndcn_coo_spmv_f32": (_P, _P, _P, _P, _P, _I, _I, _P),
+    "ndcn_coo_spmv_bf16": (_P, _P, _P, _P, _P, _I, _I, _P),
+    # row_ptr, cols, vals, xT (or the row-major table), yT, n, d_sub, stream
+    "ndcn_coo_spmv_T_f32": (_P, _P, _P, _P, _P, _I, _I, _P),
+    "ndcn_coo_spmv_T_bf16": (_P, _P, _P, _P, _P, _I, _I, _P),
+    "ndcn_coo_spmv_T_wide_f32": (_P, _P, _P, _P, _P, _I, _I, _P),
+    "ndcn_coo_spmv_T_wide_bf16": (_P, _P, _P, _P, _P, _I, _I, _P),
+    # tile_ptr, local_rows, vals, contrib, out, n_tiles, d_sub, E, R,
+    # n_slots, stream
+    "ndcn_sliced_tile_reduce_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _L,
+                                    _P),
+    # x, idx, out, rows, k, stream
+    "ndcn_row_gather_f32": (_P, _P, _P, _I, _I, _P),
     # a, h, w, b, out, n, k, w row stride, w column stride, stream
     "ndcn_fused_rhs_f32": (_P, _P, _P, _P, _P, _I, _I, _L, _L, _P),
     # row_ptr, block_cols, blocks, x, y, n_row_blocks, block, n_rows,
@@ -50,7 +63,7 @@ def sources() -> list:
 
 def library_path() -> Path:
     digest = hashlib.sha256()
-    for src in sources():
+    for src in sorted([*sources(), *CSRC.glob("*.cuh")]):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())

@@ -1,10 +1,12 @@
 """NDCN: encoder → graph-ODE block → decoder, as ``ndcn_tpu/models/ndcn.py``.
 
 The port has the differentiable forward (the training path, backprop through
-the solver) and the inference forward (``nondiff=True``), in ``layout="nd"``,
-with dropout and the ``fused`` dispatch over dense (K2) and BSR (K4)
-operators. Options that belong to later slices raise ``NotImplementedError``
-naming their ROADMAP item; none is ignored.
+the solver) and the inference forward (``nondiff=True``), in the (n, d)
+layout and the feature-major (d_sub, n) layout of the scale path, with
+dropout, the ``fused`` dispatch over dense (K2) and BSR (K4) operators, and
+the scale path's memory levers ``emission_dtype`` and ``residual_dtype``.
+Options that belong to later slices raise ``NotImplementedError`` naming
+their ROADMAP item; none is ignored.
 """
 
 from __future__ import annotations
@@ -12,11 +14,14 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from ndcn_tpu_torch.graph.sparse import (BsrGraph, DenseGraph, GraphOperator,
-                                         matvec)
+from ndcn_tpu_torch.graph import sparse as graph_sparse
+from ndcn_tpu_torch.graph.sparse import (BsrGraph, CooGraph, DenseGraph,
+                                         GraphOperator, matvec)
 from ndcn_tpu_torch.kernels.bsr_spmm import bsr_fused_rhs
+from ndcn_tpu_torch.kernels.coo_spmv import spmv_T, sublane_pad
 from ndcn_tpu_torch.kernels.fused_rhs import fused_rhs
 from ndcn_tpu_torch.models.nn import dropout_mask, linear_apply, linear_init
 from ndcn_tpu_torch.ode import odeint_with_stats
@@ -66,9 +71,11 @@ def init_ndcn(generator: torch.Generator, input_size: int, hidden_size: int,
 def ode_func(model: NDCN, op: GraphOperator, t, h: torch.Tensor,
              no_graph: bool = False, no_control: bool = False,
              drop_mask: Optional[torch.Tensor] = None,
-             fused=False) -> torch.Tensor:
+             fused=False, residual_dtype=None) -> torch.Tensor:
     """The learned RHS h' = relu(dropout(W·(A h) + b)), ``drop_mask`` a fixed
-    inverted-dropout mask (the SpMV residual dtype waits for ROADMAP item 4).
+    inverted-dropout mask. ``residual_dtype`` rounds the SpMV output through
+    that dtype before the control layer consumes it (the JAX package's saved
+    residual; the forward and backward see the same rounded values).
 
     ``fused`` routes relu((A h) W + b) through K2 (dense operator) or K4
     (BSR operator):
@@ -99,8 +106,14 @@ def ode_func(model: NDCN, op: GraphOperator, t, h: torch.Tensor,
                                  model.wt.bias)
     if not no_graph:
         h = matvec(op, h)
-    if not no_control:
-        h = linear_apply(model.wt, h)
+    if residual_dtype is not None and not no_graph and not no_control:
+        h = rounded_control(model.wt.weight, model.wt.bias, h,
+                            residual_dtype, False)
+    else:
+        if residual_dtype is not None and not no_graph:
+            h = h.to(residual_dtype).to(torch.float32)
+        if not no_control:
+            h = linear_apply(model.wt, h)
     if drop_mask is not None:
         h = h * drop_mask
     return torch.relu(h)
@@ -108,16 +121,117 @@ def ode_func(model: NDCN, op: GraphOperator, t, h: torch.Tensor,
 
 def ode_block(func, h0: torch.Tensor, vt, rtol: float, atol: float,
               method: str, terminal: bool = False, adjoint: bool = False,
-              max_steps: int = 256, nondiff: bool = False):
-    """odeint wrapper mirroring ODEBlock semantics; returns (out, stats)."""
+              max_steps: int = 256, nondiff: bool = False,
+              emission_dtype=None, emission_readout=None):
+    """odeint wrapper mirroring ODEBlock semantics; returns (out, stats).
+
+    The emission options reach the solver on the differentiable adaptive
+    path only, as the JAX package's ``ode_block`` passes them."""
     if adjoint:
         raise NotImplementedError("the adjoint solve is not ported yet: "
                                   "ROADMAP item 5")
+    options = {"max_steps": max_steps, "differentiable": not nondiff}
+    if method in ("dopri5", "tsit5") and not nondiff:
+        options.update(emission_dtype=emission_dtype,
+                       emission_readout=emission_readout)
     sol, stats = odeint_with_stats(func, h0, vt, rtol=rtol, atol=atol,
-                                   method=method,
-                                   options={"max_steps": max_steps,
-                                            "differentiable": not nondiff})
+                                   method=method, options=options)
     return (sol[-1] if terminal else sol), stats
+
+
+# Above this node count 'auto' picks the feature-major layout, as the JAX
+# package does (there for TPU memory: the (n, d) layout's saved residuals pad
+# to 128 lanes). On the card neither layout pads; the threshold is kept so
+# that the two packages solve the same problem the same way.
+_FEATURE_MAJOR_AUTO_NODES = 500_000
+
+
+def _feature_major_ok(op, h, no_graph, no_control, dropout, fused) -> bool:
+    """The JAX package's eligibility predicate for the feature-major solve:
+    a COO operator that serves the SpMV kernels (``use_tiled_kernel``), the
+    full RHS (graph and control on, dropout 0, unfused), and a hidden width
+    above 1 that is not a multiple of 128."""
+    return (isinstance(op, CooGraph)
+            and not (no_graph or no_control or dropout > 0.0 or fused)
+            and h.ndim == 2 and h.shape[1] > 1 and h.shape[1] % 128 != 0
+            and graph_sparse.use_tiled_kernel(op))
+
+
+def resolve_layout(layout: str, op, h: torch.Tensor, no_graph: bool = False,
+                   no_control: bool = False, dropout: float = 0.0,
+                   fused=False) -> str:
+    """'nd' or 'feature_major' for the encoded state ``h`` (n, d), as
+    ``ndcn_forward`` resolves ``layout``; an explicit 'feature_major' that is
+    not eligible raises."""
+    if layout not in ("auto", "nd", "feature_major"):
+        raise ValueError(f"unknown layout {layout!r}")
+    ok = _feature_major_ok(op, h, no_graph, no_control, dropout, fused)
+    if layout == "feature_major" and not ok:
+        raise ValueError("layout='feature_major' requires a COO operator on "
+                         "the card with the full RHS (graph + control on, "
+                         "dropout 0, unfused) and a hidden width above 1 "
+                         "that is not a multiple of 128")
+    if layout == "auto":
+        return ("feature_major"
+                if h.shape[0] >= _FEATURE_MAJOR_AUTO_NODES and ok else "nd")
+    return layout
+
+
+class _RoundedControl(torch.autograd.Function):
+    """The control layer W·r + b (without relu) where r is the SpMV output
+    rounded to ``dtype``: the forward consumes the rounded values and the
+    tape keeps the ``dtype`` copy, not a float32 one (the JAX package saves
+    the rounded residual). The rounding's gradient passes through unchanged.
+    ``weight`` is ``nn.Linear``'s (out, in); ``feature_major`` says whether
+    ah is (d, n) (out = weight·r + b) or (n, d) (out = r·weightᵀ + b)."""
+
+    @staticmethod
+    def forward(ctx, weight, bias, ah, dtype, feature_major):
+        r = ah.to(dtype)
+        ctx.save_for_backward(weight, r)
+        ctx.feature_major = feature_major
+        rf = r.to(ah.dtype)
+        if feature_major:
+            return torch.addmm(bias[:, None], weight, rf)
+        return torch.addmm(bias, rf, weight.t())
+
+    @staticmethod
+    def backward(ctx, g):
+        weight, r = ctx.saved_tensors
+        rf = r.to(g.dtype)
+        if ctx.feature_major:
+            dw, db, dah = g @ rf.t(), g.sum(dim=1), weight.t() @ g
+        else:
+            dw, db, dah = g.t() @ rf, g.sum(dim=0), g @ weight
+        need = ctx.needs_input_grad
+        return (dw if need[0] else None, db if need[1] else None,
+                dah if need[2] else None, None, None)
+
+
+def rounded_control(weight, bias, ah, dtype,
+                    feature_major: bool) -> torch.Tensor:
+    return _RoundedControl.apply(weight, bias, ah, dtype, feature_major)
+
+
+def ode_func_T(model: NDCN, op: CooGraph, t, hT: torch.Tensor,
+               residual_dtype=None) -> torch.Tensor:
+    """The learned RHS in feature-major form: hT (d_sub, n), rows >= d zero.
+
+    relu((A h) W + b) transposes to relu(Wᵀ (A h)ᵀ + b[:, None]); the SpMV
+    is ``spmv_T`` (K1-fm, or K5 under ``GATHER_WIDE``) and every
+    intermediate keeps the node dimension minor. Wᵀ_pad and b_pad carry zero
+    pad rows, so relu keeps the pad rows zero. The (d_sub × d_sub) product
+    is a plain ``torch.matmul``, as the JAX package leaves it to XLA."""
+    d_sub = hT.shape[0]
+    d = model.wt.weight.shape[0]
+    # nn.Linear stores W transposed: its weight is already Wᵀ
+    w_p = F.pad(model.wt.weight, (0, d_sub - d, 0, d_sub - d))
+    b_p = F.pad(model.wt.bias, (0, d_sub - d))
+    ahT = spmv_T(op, hT)
+    if residual_dtype is not None:
+        return torch.relu(rounded_control(w_p, b_p, ahT, residual_dtype,
+                                          True))
+    return torch.relu(torch.addmm(b_p[:, None], w_p, ahT))
 
 
 def ndcn_forward(model: NDCN, op: GraphOperator, vt, x: torch.Tensor, *,
@@ -132,42 +246,78 @@ def ndcn_forward(model: NDCN, op: GraphOperator, vt, x: torch.Tensor, *,
     """Full NDCN forward. Returns (output, stats).
 
     output: (T, n, num_classes) trajectory, or (n, num_classes) if terminal.
-    ``layout`` 'auto' and 'nd' solve with the (n, d) state; the JAX
-    package's feature-major layout is a TPU memory lever that waits for the
-    scale path. ``nondiff=True`` runs the inference solve under
-    ``torch.no_grad()``; otherwise autograd records the differentiable solve.
-    ``dropout`` > 0 with a ``rng`` (a ``torch.Generator``) draws one mask per
-    forward; without ``rng`` the forward is deterministic, as in JAX.
 
-    The JAX package folds the decoder's weight into the solver's emissions
-    (``emission_readout``); decoding the interpolated states afterwards, as
-    here, computes the same linear function."""
-    if layout not in ("auto", "nd", "feature_major"):
-        raise ValueError(f"unknown layout {layout!r}")
-    if layout == "feature_major":
-        raise NotImplementedError("layout='feature_major' is not ported yet: "
-                                  "ROADMAP item 4")
-    if emission_dtype is not None or residual_dtype is not None:
-        raise NotImplementedError("emission_dtype / residual_dtype are not "
-                                  "ported yet: ROADMAP item 4")
+    ``layout``: 'nd' solves with the (n, d) state; 'feature_major' with the
+    (d_sub, n) state (``resolve_layout`` says when it applies; 'auto' picks
+    it from ``_FEATURE_MAJOR_AUTO_NODES`` nodes up). The feature-major error
+    norm counts the zero pad rows, as the JAX package's does, which scales
+    rtol by about (d_sub/d)^(1/2).
+
+    ``emission_dtype`` (differentiable adaptive path only) rounds the dense
+    output that the observations are read from; ``residual_dtype`` rounds
+    the SpMV output that the control layer consumes (both layouts). See
+    ``ode.adaptive`` and ``ode_func``.
+
+    ``nondiff=True`` runs the inference solve under ``torch.no_grad()``;
+    otherwise autograd records the differentiable solve. ``dropout`` > 0
+    with a ``rng`` (a ``torch.Generator``) draws one mask per forward;
+    without ``rng`` the forward is deterministic, as in JAX.
+
+    On the differentiable adaptive path the decoder's weight rides through
+    the solver as its ``emission_readout`` in the feature-major layout
+    (always) and in the (n, d) layout when ``emission_dtype`` is set (so the
+    rounded tensor is the one the JAX package rounds); otherwise the
+    interpolated states are decoded afterwards, the same linear function."""
     with torch.set_grad_enabled(torch.is_grad_enabled() and not nondiff):
         h = x
         if not no_embed:
             h = torch.tanh(linear_apply(model.enc1, h))
             if model.enc2 is not None:
                 h = linear_apply(model.enc2, h)
+        feature_major = resolve_layout(layout, op, h, no_graph, no_control,
+                                       dropout, fused) == "feature_major"
 
         drop_mask = None
         if dropout > 0.0 and rng is not None:
             drop_mask = dropout_mask(rng, h.shape, dropout, h.dtype, h.device)
 
+        use_readout = (not terminal and not nondiff and not adjoint
+                       and method in ("dopri5", "tsit5"))
+        w_dec, b_dec = model.dec.weight, model.dec.bias   # (c, d), (c,)
+        solve_kw = dict(adjoint=adjoint, max_steps=max_steps, nondiff=nondiff,
+                        emission_dtype=emission_dtype)
+        if feature_major:
+            d = h.shape[1]
+            hT = F.pad(h, (0, sublane_pad(d) - d)).t().contiguous()
+
+            def func_T(t, hh):
+                return ode_func_T(model, op, t, hh,
+                                  residual_dtype=residual_dtype)
+
+            # decode in feature-major form: the readout keeps (T, c, n)
+            # where the full trajectory would be (T, d_sub, n)
+            readout = (lambda s: w_dec @ s[:d]) if use_readout else None
+            sol_T, stats = ode_block(func_T, hT, vt, rtol, atol, method,
+                                     terminal=terminal,
+                                     emission_readout=readout, **solve_kw)
+            if terminal:
+                return linear_apply(model.dec, sol_T[:d].t()), stats
+            out_T = (sol_T if use_readout
+                     else torch.einsum("cd,tdn->tcn", w_dec, sol_T[:, :d]))
+            out_T = out_T + b_dec[:, None]
+            return out_T.permute(0, 2, 1), stats        # (T, n, c)
+
         def func(t, hh):
             return ode_func(model, op, t, hh, no_graph=no_graph,
                             no_control=no_control, drop_mask=drop_mask,
-                            fused=fused)
+                            fused=fused, residual_dtype=residual_dtype)
 
+        if use_readout and emission_dtype is not None:
+            sol, stats = ode_block(func, h, vt, rtol, atol, method,
+                                   emission_readout=lambda s: s @ w_dec.t(),
+                                   **solve_kw)
+            return sol + b_dec, stats
         hvx, stats = ode_block(func, h, vt, rtol, atol, method,
-                               terminal=terminal, adjoint=adjoint,
-                               max_steps=max_steps, nondiff=nondiff)
+                               terminal=terminal, **solve_kw)
         out = linear_apply(model.dec, hvx)
     return out, stats

@@ -26,9 +26,16 @@ path's gradient semantics:
   for the observations not reached.
 
 Per-step recomputation is not needed: autograd keeps each attempt's
-intermediates, and the backward replays nothing. The JAX package's emission
-buffers and ``emission_readout`` are not ported: decoding the interpolated
-states afterwards computes the same linear function.
+intermediates, and the backward replays nothing. The JAX scan path's two
+emission levers act where the observations are read:
+
+- ``emission_readout``, a linear map from the state to a (much smaller)
+  observable, is applied to the five dense-output sources before they are
+  interpolated. Linearity makes that exact, and the kept trajectory is
+  readout-sized: (T, n, 1) instead of (T, n, 20) for the decoder's weight.
+- ``emission_dtype`` rounds those (read-out) sources and the interpolation
+  weights to it, the same tensors the JAX package stores in its emission
+  buffers; the sum is float32. Solver steps are unaffected.
 """
 
 from __future__ import annotations
@@ -132,13 +139,16 @@ def _init_rk_state(method: AdaptiveMethod, func, y0: torch.Tensor,
 
 
 def solve(method: AdaptiveMethod, func, y0: torch.Tensor, t: torch.Tensor,
-          ctrl: Controller, max_steps: int, first_step: Optional[float] = None):
+          ctrl: Controller, max_steps: int, first_step: Optional[float] = None,
+          emission_dtype: Optional[torch.dtype] = None,
+          emission_readout: Optional[Callable] = None):
     """Solve over the grid ``t``; returns (solution, SolveStats).
 
     ``t`` is a strictly increasing 1-D float32 tensor ON THE CPU (the loop
     compares against it on the host); it is copied to y0's device once.
-    solution: (len(t), *y0.shape) with solution[0] == y0. Differentiable
-    when autograd records it (see the module docstring).
+    solution: (len(t), *y0.shape) with solution[0] == y0, or the readout's
+    trajectory (len(t), *readout(y0).shape) with ``emission_readout``.
+    Differentiable when autograd records it (see the module docstring).
     """
     T = t.shape[0]
     t_host = t.tolist()              # python floats, exactly the f32 values
@@ -147,14 +157,19 @@ def solve(method: AdaptiveMethod, func, y0: torch.Tensor, t: torch.Tensor,
     n_evals = len(method.tableau.alpha)  # f0 comes from the last step (FSAL)
     rk, nfe = _init_rk_state(method, func, y0, t_dev[0], ctrl, first_step)
 
-    sol = [y0]
+    def observe(rk: RKState, t_obs: torch.Tensor) -> torch.Tensor:
+        interp = rk.interp
+        if emission_readout is not None:
+            interp = type(interp)(*(emission_readout(c) for c in interp))
+        return method.interp_eval(interp, rk.t0, rk.t1, t_obs, emission_dtype)
+
+    sol = [y0 if emission_readout is None else emission_readout(y0)]
     nacc, nrej, syncs, ok = 0, 0, 0, True
     t1_host = t_host[0]
     while len(sol) < T and nacc + nrej < max_steps and ok:
         if t_host[len(sol)] <= t1_host:
             # consume an observation: dense output of the last accepted step
-            sol.append(method.interp_eval(rk.interp, rk.t0, rk.t1,
-                                          t_dev[len(sol)]))
+            sol.append(observe(rk, t_dev[len(sol)]))
             continue
         # dt-underflow guard (the reference asserts): flag and stop
         underflow = ~((rk.t1 + rk.dt) > rk.t1)
@@ -173,5 +188,5 @@ def solve(method: AdaptiveMethod, func, y0: torch.Tensor, t: torch.Tensor,
 
     stats = SolveStats(nfe=nfe, n_accepted=nacc, n_rejected=nrej,
                        success=ok and len(sol) >= T, host_syncs=syncs)
-    sol += [torch.full_like(y0, float("nan"))] * (T - len(sol))
+    sol += [torch.full_like(sol[0], float("nan"))] * (T - len(sol))
     return torch.stack(sol), stats

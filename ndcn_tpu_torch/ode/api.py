@@ -10,7 +10,9 @@ float32, as the JAX package's default.
 The port has ``method="dopri5"``: ``differentiable=True`` (the default) is
 the solve autograd records, with a budget of 256 step attempts;
 ``differentiable=False`` the inference solve under ``torch.no_grad()``, with a
-budget of 2**16. Both run ``adaptive.solve``. Every other method raises
+budget of 2**16. Both run ``adaptive.solve``. ``emission_dtype`` and
+``emission_readout`` (the JAX scan path's levers, see ``adaptive``) are
+taken by the differentiable solve only. Every other method raises
 ``NotImplementedError`` naming the ROADMAP item that brings it; the
 validation errors are the JAX package's.
 """
@@ -35,8 +37,7 @@ _DEFAULT_MAX_STEPS_SCAN = 256
 _DEFAULT_MAX_STEPS_WHILE = 1 << 16
 
 # dopri5's option keys, as the JAX package recognizes them (a typo'd option
-# silently ignored is a debugging trap, so unknown keys warn). The emission
-# options are the JAX package's scan-buffer levers; they raise.
+# silently ignored is a debugging trap, so unknown keys warn).
 _DOPRI5_OPTIONS = {"differentiable", "max_steps", "safety", "ifactor",
                    "dfactor", "first_step", "time_dtype", "emission_dtype",
                    "emission_readout"}
@@ -96,23 +97,25 @@ def odeint_with_stats(func: Callable, y0: torch.Tensor, t,
     if options.get("time_dtype") is not None:
         raise NotImplementedError("time_dtype is not ported yet: ROADMAP "
                                   "item 5")
-    for key in ("emission_dtype", "emission_readout"):
-        if options.get(key) is not None:
-            raise NotImplementedError(f"{key} is not ported: ROADMAP item 4 "
-                                      f"(the scale path's memory levers)")
+    differentiable = bool(options.get("differentiable", True))
+    emission = {k: options.get(k) for k in ("emission_dtype",
+                                             "emission_readout")}
+    if not differentiable and any(v is not None for v in emission.values()):
+        raise ValueError("emission_dtype / emission_readout apply to the "
+                         "differentiable solve only (differentiable=True)")
     ctrl = Controller(rtol=float(rtol), atol=float(atol),
                       safety=float(options.get("safety", 0.9)),
                       ifactor=float(options.get("ifactor", 10.0)),
                       dfactor=float(options.get("dfactor", 0.2)),
                       order=5)
-    differentiable = bool(options.get("differentiable", True))
     max_steps = int(options.get("max_steps", _DEFAULT_MAX_STEPS_SCAN
                                 if differentiable
                                 else _DEFAULT_MAX_STEPS_WHILE))
     with torch.set_grad_enabled(differentiable and torch.is_grad_enabled()):
         return adaptive.solve(_ADAPTIVE[method], func, y0, t, ctrl,
                               max_steps=max_steps,
-                              first_step=options.get("first_step"))
+                              first_step=options.get("first_step"),
+                              **emission)
 
 
 def odeint(func: Callable, y0: torch.Tensor, t, rtol: float = 1e-7,

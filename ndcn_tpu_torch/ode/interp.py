@@ -3,7 +3,7 @@
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -46,10 +46,24 @@ def dopri5_interp_weights(x: torch.Tensor, dt: torch.Tensor):
 
 
 def _interp_eval(state: Dopri5Interp, t0: torch.Tensor, t1: torch.Tensor,
-                 t: torch.Tensor) -> torch.Tensor:
-    """Evaluate the quartic fit at time t in [t0, t1]."""
+                 t: torch.Tensor, dtype: Optional[torch.dtype] = None
+                 ) -> torch.Tensor:
+    """Evaluate the quartic fit at time t in [t0, t1].
+
+    With ``dtype`` (the JAX package's ``emission_dtype``) the five sources
+    and their weights are rounded to it, as the JAX scan path stores its
+    emitted coefficients and casts the evaluation weights to the buffer's
+    type; the products and their sum are taken in float32, and the result
+    is float32."""
     dt = t1 - t0
     x = (t - t0) / torch.where(dt == 0, torch.ones_like(dt), dt)
     w = dopri5_interp_weights(x, dt)
-    return (w[0] * state.y0 + w[1] * state.y1 + w[2] * state.y_mid
-            + w[3] * state.f0 + w[4] * state.f1)
+    if dtype is None:
+        return (w[0] * state.y0 + w[1] * state.y1 + w[2] * state.y_mid
+                + w[3] * state.f0 + w[4] * state.f1)
+    out = None
+    for wi, src in zip(w, state):
+        term = (wi.to(dtype).to(torch.float32)
+                * src.to(dtype).to(torch.float32))
+        out = term if out is None else out + term
+    return out

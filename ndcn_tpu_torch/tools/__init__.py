@@ -1,0 +1,59 @@
+"""The sparse microbenchmarks on the card, as the JAX package's ``tools/``:
+
+- ``microbench_sparse``: the SpMV building blocks, the sliced-tile reduce
+  (P1a) and the row gather (P1b);
+- ``probe_inkernel_gather``: the row gather (P2) against PyTorch's gathers;
+- ``bench_wide_gather``: K1-fm (narrow) against K5 (wide), split2 and bf16.
+
+Each runs as ``python -m ndcn_tpu_torch.tools.<name> [args]``, prints one
+line per measurement on stderr and one JSON line on stdout, and raises
+without a CUDA device. ``chain_time`` is their timing discipline.
+"""
+
+from __future__ import annotations
+
+import sys
+from typing import Callable, Tuple
+
+import torch
+
+K = 30  # chained calls per timed run
+
+
+def log(*a) -> None:
+    print(*a, file=sys.stderr, flush=True)
+
+
+def require_cuda() -> torch.device:
+    if not torch.cuda.is_available():
+        raise RuntimeError("the microbenchmarks measure the card and no CUDA "
+                           "device is visible")
+    return torch.device("cuda", 0)
+
+
+def chain_time(step: Callable[[torch.Tensor], torch.Tensor],
+               init: torch.Tensor, k: int = K,
+               reps: int = 3) -> Tuple[float, torch.Tensor]:
+    """Seconds per call of ``step``, over ``k`` data-dependent calls (each
+    call's input is the previous call's output) between two CUDA events;
+    the best of ``reps`` runs, after one warm run. Returns (seconds, the
+    last output)."""
+    with torch.no_grad():
+        def run():
+            y = init
+            for _ in range(k):
+                y = step(y)
+            return y
+
+        out = run()
+        torch.cuda.synchronize()
+        best = float("inf")
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = run()
+            end.record()
+            end.synchronize()
+            best = min(best, start.elapsed_time(end) / 1e3)
+    return best / k, out

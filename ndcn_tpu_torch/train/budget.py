@@ -5,12 +5,23 @@ The experiments probe the inference solve once at initialization and size the
 step-attempt budget of the training solve from it, with headroom. Exhaustion
 during training surfaces as a NaN loss (the solver flags success=False),
 never as a silently short trajectory. The JAX package's byte estimators are
-TPU layout models and are not ported.
+TPU layout models and are not ported; the scale experiment's ``--estimate``
+carries the port's own census (``experiments/large_graph.py``).
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
+
+import torch
+
+
+def accelerator_memory_limit(device: torch.device) -> Optional[int]:
+    """The card's device memory in bytes (its total memory), or None for the
+    CPU, which has no device arena to size against."""
+    if device.type != "cuda":
+        return None
+    return int(torch.cuda.get_device_properties(device).total_memory)
 
 
 def probe_step_budget(solve_nondiff: Callable[[], "object"],

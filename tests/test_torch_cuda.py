@@ -5,7 +5,8 @@ imports no jax, so it also runs where only the port is installed:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
-Bounds: max|Δ| <= 1e-5·max|y| for K1, K1ᵀ, K3 and K4, and rtol 1e-5 /
+Bounds: max|Δ| <= 1e-5·max|y| for K1 (fp32 and bf16), K1ᵀ, K1-fm, K5, K3,
+K4, the sliced-tile reduce and the row gather (exact), and rtol 1e-5 /
 atol 1e-5·max|y| for K2 and its backward (fp32 sums in another order); 1e-4
 rel-L1 for a served trajectory on the GPU against the same server on the CPU,
 and 1e-3 rel-L1 for a train step's gradients on the GPU against the CPU.
@@ -20,7 +21,7 @@ import torch
 from ndcn_tpu_torch import kernels
 from ndcn_tpu_torch.graph import generators, operators
 from ndcn_tpu_torch.graph.sparse import as_operator, from_scipy_coo
-from ndcn_tpu_torch.kernels import bsr_spmm, coo_spmv, fused_rhs
+from ndcn_tpu_torch.kernels import bsr_spmm, coo_spmv, fused_rhs, sparse_bench
 from ndcn_tpu_torch.models import init_ndcn, ndcn_forward
 from ndcn_tpu_torch.serve import make_server
 
@@ -79,6 +80,96 @@ def test_k2_cuda_matches_plain(cuda_device, n, k):
 
 def _max_rel(y, ref):
     return float((y - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
+
+
+@pytest.mark.parametrize("d", [7, 20, 40])
+def test_k1_bf16_cuda_matches_plain(cuda_device, d, monkeypatch):
+    a, x = _power_law_coo(2000, 30000, seed=d + 1, d=d)
+    op = from_scipy_coo(a, device=cuda_device)
+    x = torch.as_tensor(x, device=cuda_device)
+    monkeypatch.setattr(coo_spmv, "GATHER_BF16", True)
+    before = coo_spmv.BF16_LAUNCHES
+    y = coo_spmv.coo_spmv(op, x)
+    ref = coo_spmv.coo_spmv_plain(op.rows, op.cols, op.vals, x, op.n, True)
+    torch.cuda.synchronize()
+    assert coo_spmv.BF16_LAUNCHES == before + 1
+    assert _max_rel(y, ref) <= 1e-5
+    fp32 = coo_spmv.coo_spmv_plain(op.rows, op.cols, op.vals, x, op.n)
+    assert 1e-5 < _max_rel(y, fp32) <= 2e-2
+
+
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("d", [4, 20, 40])
+def test_spmv_T_cuda_matches_plain_forward_and_transpose(cuda_device, wide,
+                                                         bf16, d,
+                                                         monkeypatch):
+    """K1-fm and K5 (fp32 and bf16) through autograd: the forward and the
+    transpose product of the backward, against the plain versions."""
+    a, x = _power_law_coo(3000, 40000, seed=d, d=d)
+    op = from_scipy_coo(a, device=cuda_device)
+    d_sub = coo_spmv.sublane_pad(d)
+    xT = torch.zeros(d_sub, 3000, device=cuda_device)
+    xT[:d] = torch.as_tensor(x.T, device=cuda_device)
+    gT = torch.randn(d_sub, 3000, device=cuda_device)
+    monkeypatch.setattr(coo_spmv, "GATHER_WIDE", wide)
+    monkeypatch.setattr(coo_spmv, "GATHER_BF16", bf16)
+    plain = (coo_spmv.coo_spmv_T_wide_plain if wide
+             else coo_spmv.coo_spmv_T_plain)
+    counter = "WIDE_LAUNCHES" if wide else "T_LAUNCHES"
+    before = getattr(coo_spmv, counter)
+    xg = xT.clone().requires_grad_()
+    y = coo_spmv.spmv_T(op, xg)
+    (dx,) = torch.autograd.grad((y * gT).sum(), xg)
+    torch.cuda.synchronize()
+    assert getattr(coo_spmv, counter) == before + 2
+    assert _max_rel(y, plain(op.rows, op.cols, op.vals, xT, op.n, bf16)) <= 1e-5
+    assert _max_rel(dx, plain(op.rows_t, op.cols_t, op.vals_t, gT, op.n,
+                              bf16)) <= 1e-5
+    assert not y[d:].any()                          # zero pad rows stay zero
+    assert torch.equal(y, coo_spmv.spmv_T(op, xT))  # no atomics: repeatable
+
+
+@pytest.mark.parametrize("n,d,R,E", [(20000, 20, 128, 2048), (3000, 7, 64, 512),
+                                     (1000, 40, 256, 300)])
+def test_sliced_tile_reduce_cuda_matches_plain_and_oracle(cuda_device, n, d,
+                                                          R, E):
+    rng = np.random.RandomState(n)
+    nnz = n * 11
+    rows = np.sort(rng.randint(0, n, nnz))
+    rows[:3000] = 5                                   # a hub row: many slices
+    rows = np.sort(rows)
+    cols = rng.randint(0, n, nnz)
+    vals = rng.rand(nnz).astype(np.float32)
+    x = rng.rand(n, d).astype(np.float32)
+    tiles = sparse_bench.pack_sliced_tiles(rows, cols, vals, n, R, E,
+                                           device=cuda_device)
+    xT = torch.as_tensor(x.T.copy(), device=cuda_device)
+    contrib = xT[:, tiles.cols.long()].contiguous()
+    before = sparse_bench.SLICED_LAUNCHES
+    out = sparse_bench.sliced_tile_reduce(tiles, contrib)
+    ref = sparse_bench.sliced_tile_reduce_plain(tiles, contrib)
+    torch.cuda.synchronize()
+    assert sparse_bench.SLICED_LAUNCHES == before + 1
+    assert _max_rel(out, ref) <= 1e-5
+    oracle = np.zeros((n, d), np.float64)
+    np.add.at(oracle, rows, vals[:, None].astype(np.float64) * x[cols])
+    assert _max_rel(out[:, :n].T.cpu(), torch.as_tensor(oracle)) <= 1e-5
+    assert not out[:, n:].any()
+
+
+@pytest.mark.parametrize("m,k,rows", [(1024, 128, 512), (4096, 128, 2048),
+                                      (77, 12, 1000)])
+def test_row_gather_cuda_is_exact(cuda_device, m, k, rows):
+    rng = np.random.RandomState(m)
+    x = torch.as_tensor(rng.rand(m, k).astype(np.float32), device=cuda_device)
+    idx = torch.as_tensor(rng.randint(0, m, rows).astype(np.int32),
+                          device=cuda_device)
+    before = sparse_bench.GATHER_LAUNCHES
+    out = sparse_bench.row_gather(x, idx)
+    torch.cuda.synchronize()
+    assert sparse_bench.GATHER_LAUNCHES == before + 1
+    assert torch.equal(out, x[idx.long()])
 
 
 def test_cuda_kernels_backward_matches_plain(cuda_device):

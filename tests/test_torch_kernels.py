@@ -147,15 +147,21 @@ def test_build_names_the_library_by_source_hash(monkeypatch, tmp_path):
     path = build.library_path()
     assert path == build.library_path()
     assert path.parent == build.BUILD_DIR and path.suffix == ".so"
-    assert [p.name for p in build.sources()] == ["bsr_spmm.cu", "coo_spmv.cu",
-                                                "fused_rhs.cu"]
+    assert [p.name for p in build.sources()] == [
+        "bsr_spmm.cu", "coo_spmv.cu", "coo_spmv_T.cu", "fused_rhs.cu",
+        "sparse_bench.cu"]
     for src in build.sources():
         text = src.read_text()
         assert "extern \"C\"" in text and "cudaGetLastError" in text
     # every C entry the wrappers call is declared with its argument types
     assert set(build.ENTRY_POINTS) == {
-        "ndcn_coo_spmv_f32", "ndcn_fused_rhs_f32", "ndcn_bsr_spmm_f32",
+        "ndcn_coo_spmv_f32", "ndcn_coo_spmv_bf16", "ndcn_coo_spmv_T_f32",
+        "ndcn_coo_spmv_T_bf16", "ndcn_coo_spmv_T_wide_f32",
+        "ndcn_coo_spmv_T_wide_bf16", "ndcn_sliced_tile_reduce_f32",
+        "ndcn_row_gather_f32", "ndcn_fused_rhs_f32", "ndcn_bsr_spmm_f32",
         "ndcn_bsr_fused_rhs_f32"}
+    entries = "".join(src.read_text() for src in build.sources())
+    assert all(f"int {name}(" in entries for name in build.ENTRY_POINTS)
     # without nvcc the build says so, instead of falling back
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setenv("PATH", str(tmp_path))

@@ -189,16 +189,11 @@ def test_make_server_terminal_and_budget():
 
 
 @pytest.mark.parametrize("kwargs,err,match", [
-    (dict(nondiff=False, emission_dtype=torch.bfloat16), NotImplementedError,
-     "item 4"),
     (dict(nondiff=False, dropout=0.1, adjoint=True), NotImplementedError,
      "item 5"),
     (dict(nondiff=True, adjoint=True), NotImplementedError, "item 5"),
-    (dict(nondiff=True, layout="feature_major"), NotImplementedError, "item 4"),
-    (dict(nondiff=True, emission_dtype=torch.bfloat16), NotImplementedError,
-     "item 4"),
-    (dict(nondiff=True, residual_dtype=torch.bfloat16), NotImplementedError,
-     "item 4"),
+    # a dense operator on the CPU does not serve the feature-major solve
+    (dict(nondiff=True, layout="feature_major"), ValueError, "feature_major"),
     (dict(nondiff=True, layout="nm"), ValueError, "unknown layout"),
     (dict(nondiff=True, fused="yes"), ValueError, "fused must be"),
 ])
@@ -208,6 +203,35 @@ def test_ndcn_forward_refuses_unported_options(kwargs, err, match):
     with pytest.raises(err, match=match):
         ndcn_forward(model, from_dense(lap), [0.0, 0.5], torch.ones(16, 1),
                      **kwargs)
+
+
+@pytest.mark.parametrize("kwargs,changes", [
+    (dict(nondiff=False, emission_dtype=torch.bfloat16), True),
+    (dict(nondiff=True, layout="feature_major"), True),
+    # the inference solve takes no emission options (the JAX package's
+    # ode_block strips them there): the answer is the f32 one, bit for bit
+    (dict(nondiff=True, emission_dtype=torch.bfloat16), False),
+    (dict(nondiff=True, residual_dtype=torch.bfloat16), True),
+])
+def test_ndcn_forward_scale_options_run(kwargs, changes, monkeypatch):
+    """The options the serving and training slices refused ("item 4") run, on a COO
+    operator that serves the SpMV kernels, close to the plain (n, d) f32
+    solve."""
+    from ndcn_tpu_torch.graph import sparse as graph_sparse
+
+    monkeypatch.setattr(graph_sparse, "use_tiled_kernel", lambda op: True)
+    model = init_ndcn(torch.Generator().manual_seed(0), 1, 12, 1)
+    lap = operators.normalized_laplacian(generators.build_network("grid", 64))
+    op = as_operator(sp.csr_matrix(lap), sparse=True)
+    vt = np.linspace(0.0, 1.0, 6)
+    x = torch.as_tensor(np.random.RandomState(3).rand(64, 1).astype(np.float32))
+    ref, ref_stats = ndcn_forward(model, op, vt, x,
+                                  nondiff=kwargs["nondiff"], **KW)
+    out, stats = ndcn_forward(model, op, vt, x, **kwargs, **KW)
+    assert stats.success and out.shape == ref.shape == (6, 64, 1)
+    err = rel_l1(out.detach().numpy(), ref.detach().numpy())
+    assert err <= 1e-2
+    assert (err > 0) == changes
 
 
 def test_fused_true_requires_a_fusable_configuration():

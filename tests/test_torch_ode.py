@@ -134,9 +134,37 @@ def test_validation_errors():
                           options=dict(INFER, step_sise=0.1))
 
 
+@pytest.mark.parametrize("options,shape", [
+    ({"emission_dtype": torch.bfloat16}, (3, 4, 2)),   # differentiable default
+    ({"emission_readout": lambda y: y.sum(0)}, (3, 2)),
+    ({"emission_dtype": torch.bfloat16,
+      "emission_readout": lambda y: y[:1]}, (3, 1, 2)),
+])
+def test_emission_options_run_on_the_differentiable_solve(options, shape):
+    """The JAX scan path's emission levers: the same steps as without them,
+    observations rounded through bf16 and / or read out."""
+    a = torch.tensor([[-0.5, 0.3, 0.0, 0.1], [0.2, -0.4, 0.1, 0.0],
+                      [0.0, 0.1, -0.3, 0.2], [0.1, 0.0, 0.2, -0.6]])
+    y0 = torch.arange(8.0).reshape(4, 2) / 8.0
+
+    def rhs(t, y):
+        return a @ y
+
+    t = [0.0, 0.5, 1.0]
+    ref, st = odeint_with_stats(rhs, y0, t, rtol=1e-5, atol=1e-7,
+                                method="dopri5")
+    out, st2 = odeint_with_stats(rhs, y0, t, rtol=1e-5, atol=1e-7,
+                                 method="dopri5", options=options)
+    assert out.shape == shape and out.dtype == torch.float32
+    assert st2.nfe == st.nfe and st2.success
+    readout = options.get("emission_readout", lambda y: y)
+    want = torch.stack([readout(r) for r in ref])
+    assert float((out - want).abs().max()) <= (
+        1e-2 if "emission_dtype" in options else 1e-6)
+
+
 @pytest.mark.parametrize("method,options,item", [
     ("tsit5", None, "item 5"),                        # differentiable default
-    ("dopri5", {"emission_dtype": torch.bfloat16}, "item 4"),
     ("tsit5", INFER, "item 5"),
     ("euler", INFER, "item 5"),
     ("adams", INFER, "item 5"),

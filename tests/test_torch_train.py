@@ -376,3 +376,36 @@ def test_heat_experiment_auto_budget_and_refusals():
     with pytest.raises(NotImplementedError, match="item 3"):
         run("heat", build_parser("t").parse_args(
             base + ["--method", "dopri5", "--sparse"]))   # ELL, the default
+    with pytest.raises(NotImplementedError, match="item 4"):
+        run("heat", build_parser("t").parse_args(
+            base + ["--method", "dopri5", "--precision", "high"]))
+
+
+@pytest.mark.parametrize("flag", ["--kernel_precision", "--emission_precision",
+                                  "--residual_precision"])
+def test_heat_experiment_runs_each_precision_lever(flag):
+    """The three bf16 levers run in the heat experiment (COO operator, so that the
+    kernel lever reaches K1), close to the f32 run, and the kernel switch is
+    restored afterwards."""
+    from ndcn_tpu_torch.kernels import coo_spmv
+
+    argv = ["--n", "36", "--time_tick", "8", "--niters", "4", "--test_freq",
+            "4", "--method", "dopri5", "--max_steps", "32", "--platform",
+            "cpu", "--sparse", "--sparse_format", "coo"]
+    ref = run("heat", build_parser("t").parse_args(argv))
+    out = run("heat", build_parser("t").parse_args(argv + [flag, "bf16"]))
+    assert coo_spmv.GATHER_BF16 is False
+    got, want = out["final"]["train_loss"], ref["final"]["train_loss"]
+    assert np.isfinite(got) and got != want
+    assert abs(got - want) <= 2e-2 * abs(want)
+
+
+def test_emission_precision_off_the_adaptive_path_is_refused():
+    with pytest.raises(SystemExit, match="silent"):
+        run("heat", build_parser("t").parse_args(
+            ["--n", "25", "--platform", "cpu", "--method", "dopri5",
+             "--adjoint", "--emission_precision", "bf16"]))
+    with pytest.raises(SystemExit, match="silent"):
+        run("heat", build_parser("t").parse_args(
+            ["--n", "25", "--platform", "cpu", "--method", "euler",
+             "--emission_precision", "bf16"]))
