@@ -9,8 +9,10 @@ Phases, one line each:
   1. device: torch / CUDA versions, the card's name and power limit; TF32 off.
   2. build: the CUDA kernels from ``ndcn_tpu_torch/csrc`` with nvcc.
   3. K1 (CSR SpMV) against its plain PyTorch version: the 200k-node / ~2M-edge
-     normalized Laplacian at d = 20 and d = 1, and a power-law graph with a
-     hub row; max|Δ| / max|y| <= 1e-5; median CUDA-event times of both.
+     normalized Laplacian at d = 20 and d = 1, and a power-law graph with
+     hub rows (the chunk kernels); max|Δ| / max|y| <= 1e-5; two calls
+     bit-equal; median CUDA-event times of both, the bound, and the library
+     call (``torch.sparse.mm`` over a CSR tensor).
   4. K2 (fused relu((A·H)·W + b)) against its plain version at (400, 20) and
      (275, 13), rtol 1e-5 / atol 1e-5·max|y|, plus kernel-vs-plain times at
      larger (n, k) for the fused-vs-unfused crossover.
@@ -39,9 +41,11 @@ Phases, one line each:
      patched in; per-step ms and peak allocated memory.
  11. the scale path's SpMV kernels against their plain versions: K1's bf16
      instance, K1-fm and K5 (fp32 and bf16), forward and over the transpose,
-     on the 200k / 2.2M and 1M / 11M normalized Laplacians at d = 20;
+     on the 200k / 2.2M and 1M / 11M normalized Laplacians at d = 20, K1
+     fp32 at 1M, K1-fm on the hub graph, and K1-fm's pack kernel;
      max|Δ| / max|y| <= 1e-5 against the plain version of the same
-     rounding; median CUDA-event times of both.
+     rounding; two calls bit-equal; median CUDA-event times of both, the
+     bound and the library call.
  12. the scale experiment (``experiments.large_graph``) in process at 1M nodes,
      ``--iters 10 --roofline --hbm_probe``: 'auto' resolves to the
      feature-major solve, the train loss falls, K1-fm launches; its
@@ -50,17 +54,31 @@ Phases, one line each:
      the run again with ``--emission_precision bf16 --residual_precision
      bf16``; then at 200k with ``--kernel_precision bf16`` (the (n, d)
      layout, K1's bf16 instance) and with ``--layout feature_major`` under
-     ``GATHER_WIDE`` (K5), 3 iterations each.
+     ``GATHER_WIDE`` (K5), 3 iterations each; and the three solves of the
+     1M step side by side (feature-major, feature-major under
+     ``GATHER_WIDE``, the (n, d) layout), 10 iterations each.
  13. the three microbenchmarks at their defaults (``ndcn_tpu_torch.tools``):
      P1a (the sliced-tile reduce) and P1b / P2 (the row gather) against
      their plain versions and the oracle, and the narrow / wide table.
   p. where the time goes: one request per serving setting and one train step
      per training setting (the 1M feature-major step included), kernels
-     against plain versions end to end (plain, kernel, kernel, plain), and a
-     torch.profiler breakdown (traces to build/traces/).
+     against plain versions end to end (plain, kernel, kernel, plain), a
+     torch.profiler breakdown (traces to build/traces/), and each kernel's
+     launches in that one steady step.
 Then the kernels' JSON record, and last the device JSON line. Launch counts
 are zeroed just before each main-path phase (5-6, 8, 9, 10, each run of 12,
 13) and read just after its GPU work; the record's launches are their sums.
+
+``ms`` is the median CUDA-event time of one call on an idle card, as in
+every earlier record; the SpMV cases also give ``device_ms``, the time per
+call of ten calls queued behind a spin kernel, which leaves the host's part
+out. Every timed kernel also gets ``bound_ms``, the least time the card could
+take: the larger of the bytes the function must move (each input read once,
+each output written once) over 3.35 TB/s and its operations over the peak
+for their type (67 TFLOP/s, fp32 outside the tensor cores), computed from
+this run's shapes; and ``library_ms``, the time of one PyTorch call that
+computes the same function on the same inputs, where there is one. The port
+calls none of those library functions.
 
 Exits non-zero, printing no result, when there is no CUDA device or the
 package is missing; any failed check raises.
@@ -85,6 +103,26 @@ def check(cond: bool, msg: str) -> None:
 
 def rel_l1(a, b) -> float:
     return float((a - b).abs().mean() / (b.abs().mean() + 1e-12))
+
+
+# the card's published peaks: HBM bytes/s, and fp32 FLOP/s outside the
+# tensor cores (every kernel here multiplies in fp32)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_FLOPS = 67e12
+
+
+def bound(n_bytes: float, flops: float) -> dict:
+    """The least time the card could take for ``n_bytes`` moved and ``flops``
+    operations, and which of the two sets it."""
+    by_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    by_ops = flops / PEAK_FP32_FLOPS * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bytes": int(n_bytes), "flops": int(flops)}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def profile_call(fn, label: str, root: str) -> dict:
@@ -135,7 +173,7 @@ def profile_call(fn, label: str, root: str) -> dict:
             "device_kernel_ms": device_ms, "busy_share": device_ms / wall_ms,
             "kernel_launches": sum(c for _, c in by_kernel.values()),
             "memcpys": copies,
-            "top": [dict(name=k, ms=ms, count=c) for k, (ms, c) in rows[:8]]}
+            "top": [dict(name=k, ms=ms, count=c) for k, (ms, c) in rows[:12]]}
 
 
 @contextlib.contextmanager
@@ -215,6 +253,28 @@ def main() -> None:
             times.append(start.elapsed_time(end))
         return statistics.median(times)
 
+    def queued_ms(fn, batch: int = 10, iters: int = 7) -> float:
+        """Median device time of one call when the card never waits for the
+        host: ``batch`` calls are enqueued behind a spin kernel (~2 ms), and
+        the events bracket their back-to-back run. ``cuda_ms`` brackets one
+        call on an idle card, so for a kernel shorter than its wrapper's
+        host work (tens of µs) it reads the host's time; this reads the
+        card's."""
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(iters):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(4_000_000)
+            start.record()
+            for _ in range(batch):
+                fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end) / batch)
+        return statistics.median(times)
+
     def serve_all(server, requests, what):
         """Answer each request, timing it to the end of its device work;
         returns the per-request records and the first answer."""
@@ -266,20 +326,55 @@ def main() -> None:
     op_big = from_scipy_coo(lap, device=dev)
     host_build_s = time.perf_counter() - t0
 
+    def max_rel(y, ref):
+        err = float((y - ref).abs().max())
+        return err, err / max(float(ref.abs().max()), 1e-30)
+
+    csr_tensors = {}
+
+    def library_csr(o, bf16=False):
+        """A as a ``torch.sparse_csr_tensor`` (values rounded to bf16 with
+        ``bf16``) for the library yardstick, built once per operator."""
+        key = (o.vals.data_ptr(), bf16)
+        if key not in csr_tensors:
+            vals = coo_spmv.round_bf16(o.vals) if bf16 else o.vals
+            csr_tensors[key] = torch.sparse_csr_tensor(
+                o.row_ptr, o.cols, vals, size=(o.n, o.n))
+        return csr_tensors[key]
+
+    def spmv_record(what, o, d, kern, plain, library, state):
+        """One SpMV form on one operator: the kernel against its plain
+        version (<= 1e-5), two calls bit-equal, the library call on the same
+        inputs (<= 1e-5 too: it computes the same function), the three
+        median times and the bound from the bytes of A, the state and the
+        result. Returns (record, kernel output)."""
+        y, ref, lib = kern(), plain(), library()
+        torch.cuda.synchronize()
+        err, rel = max_rel(y, ref)
+        check(rel <= 1e-5, f"{what} disagrees with its plain version: {rel}")
+        check(torch.equal(y, kern()), f"{what}: two calls differ")
+        check(max_rel(lib, ref)[1] <= 1e-5,
+              f"{what}: the library call computes something else")
+        nnz = int(o.cols.shape[0])
+        rec = dict(max_abs_err=err, rel_err=rel, repeat_equal=True,
+                   ms=cuda_ms(kern, iters=15), device_ms=queued_ms(kern),
+                   library_device_ms=queued_ms(library),
+                   plain_ms=cuda_ms(plain, iters=15),
+                   library_ms=cuda_ms(library, iters=15),
+                   **bound(nbytes(o.row_ptr, o.cols, o.vals, state, y),
+                           2 * nnz * d))
+        return rec, y
+
     def k1_case(op, d, seed):
         x = torch.as_tensor(np.random.RandomState(seed).randn(op.n, d)
                             .astype(np.float32), device=dev)
-        y = coo_spmv.coo_spmv(op, x)
-        ref = coo_spmv.coo_spmv_plain(op.rows, op.cols, op.vals, x, op.n)
-        torch.cuda.synchronize()
-        err = float((y - ref).abs().max())
-        rel = err / float(ref.abs().max())
-        check(rel <= 1e-5, f"K1 disagrees at n={op.n}, d={d}: {rel}")
-        ms = cuda_ms(lambda: coo_spmv.coo_spmv(op, x))
-        plain_ms = cuda_ms(lambda: coo_spmv.coo_spmv_plain(
-            op.rows, op.cols, op.vals, x, op.n))
-        return dict(n=op.n, nnz=int(op.cols.shape[0]), d=d, max_abs_err=err,
-                    rel_err=rel, ms=ms, plain_ms=plain_ms)
+        a = library_csr(op)
+        rec, _ = spmv_record(
+            f"K1 n={op.n} d={d}", op, d, lambda: coo_spmv.coo_spmv(op, x),
+            lambda: coo_spmv.coo_spmv_plain(op.rows, op.cols, op.vals, x,
+                                            op.n),
+            lambda: torch.sparse.mm(a, x), x)
+        return dict(n=op.n, nnz=int(op.cols.shape[0]), d=d, **rec)
 
     k1_main = k1_case(op_big, 20, 1)
     k1_d1 = k1_case(op_big, 1, 2)
@@ -295,7 +390,10 @@ def main() -> None:
     op_hub = from_scipy_coo(hub, device=dev)
     k1_hub = k1_case(op_hub, 20, 4)
     k1_hub["max_row_degree"] = int(np.diff(hub.indptr).max())
-    check(k1_hub["max_row_degree"] >= 4_000, "hub graph has no hub row")
+    k1_hub["split_rows"] = int(op_hub.split.long_rows.shape[0])
+    k1_hub["chunks"] = int(op_hub.split.chunk_bounds.shape[0])
+    check(k1_hub["max_row_degree"] >= 4_000 and k1_hub["chunks"] > 0,
+          "hub graph has no hub row")
     print(f"[3] K1 coo_spmv vs plain (host graph build {host_build_s:.3f} s): "
           + json.dumps({"200k_d20": k1_main, "200k_d1": k1_d1,
                         "hub_d20": k1_hub}))
@@ -318,6 +416,9 @@ def main() -> None:
             out["max_abs_err"] = float((y - ref).abs().max())
         out["ms"] = cuda_ms(lambda: fused_rhs.fused_rhs(a, h, w, b))
         out["plain_ms"] = cuda_ms(lambda: fused_rhs.fused_rhs_plain(a, h, w, b))
+        out["library_ms"] = cuda_ms(
+            lambda: torch.relu(torch.addmm(b, a @ h, w)))
+        out.update(bound(nbytes(a, h, w, b, h), 2 * n * n * k + 2 * n * k * k))
         return out
 
     k2_main = k2_case(400, 20, 5)
@@ -393,10 +494,6 @@ def main() -> None:
         return counts
 
     # ---- 7. backward and BSR kernels against their plain versions
-    def max_rel(y, ref):
-        err = float((y - ref).abs().max())
-        return err, err / max(float(ref.abs().max()), 1e-30)
-
     def grads_of(fn, ins, g):
         """(outputs of fn, a timed closure of the backward alone)."""
         ins = [t.detach().clone().requires_grad_() for t in ins]
@@ -414,14 +511,13 @@ def main() -> None:
     g_hub = torch.as_tensor(np.random.RandomState(8).randn(op_hub.n, 20)
                             .astype(np.float32), device=dev)
     hub_t = op_hub.transpose()
-    k1t = compare(
-        "K1T", [coo_spmv.coo_spmv(hub_t, g_hub)],
-        [coo_spmv.coo_spmv_plain(hub_t.rows, hub_t.cols, hub_t.vals, g_hub,
-                                 hub_t.n)],
-        cuda_ms(lambda: coo_spmv.coo_spmv(hub_t, g_hub)),
-        cuda_ms(lambda: coo_spmv.coo_spmv_plain(hub_t.rows, hub_t.cols,
-                                                hub_t.vals, g_hub, hub_t.n)),
-        n=op_hub.n, d=20)
+    a_hub_t = library_csr(hub_t)
+    k1t, _ = spmv_record(
+        "K1T", hub_t, 20, lambda: coo_spmv.coo_spmv(hub_t, g_hub),
+        lambda: coo_spmv.coo_spmv_plain(hub_t.rows, hub_t.cols, hub_t.vals,
+                                        g_hub, hub_t.n),
+        lambda: torch.sparse.mm(a_hub_t, g_hub), g_hub)
+    k1t.update(n=op_hub.n, d=20)
     # and through autograd: the backward of K1 is K1ᵀ
     x_hub = torch.as_tensor(np.random.RandomState(16).randn(op_hub.n, 20)
                             .astype(np.float32), device=dev)
@@ -446,11 +542,45 @@ def main() -> None:
     k2b = compare("K2 backward", got, ref,
                   cuda_ms(lambda: fused_rhs.fused_rhs_backward(
                       a_k2, k2_ins[1], k2_ins[2], out_k2, g_k2)),
-                  cuda_ms(plain_bwd), n=400, k=20)
+                  cuda_ms(plain_bwd), n=400, k=20, library_ms=None,
+                  **bound(nbytes(a_k2, *k2_ins[1:3], out_k2, g_k2, *got),
+                          4 * 400 * 400 * 20 + 4 * 400 * 20 * 20))
 
     grid_lap = normalized_laplacian(build_network("grid", 400))
     rand2k = (r.rand(2000, 2000) * (r.rand(2000, 2000) < 0.05)) \
         .astype(np.float32)
+
+    def bsr_library(m):
+        """(x -> A·x by one PyTorch call, its name) for the BSR matrix m: a
+        ``torch.sparse_bsr_tensor`` product where this PyTorch runs one on
+        the card, else the dense ``torch.matmul``. Neither is used by the
+        port."""
+        B = m.block
+        rows_p, cols_p = m.n_row_blocks * B, -(-m.n_cols // B) * B
+        try:
+            a = torch.sparse_bsr_tensor(m.row_ptr, m.block_cols, m.blocks,
+                                        size=(rows_p, cols_p))
+            a @ torch.zeros((cols_p, 8), device=dev)
+            torch.cuda.synchronize()
+        except (RuntimeError, NotImplementedError):
+            dense = torch.zeros((rows_p, cols_p), device=dev)
+            for rb, cb, blk in zip(m.block_rows.tolist(),
+                                   m.block_cols.tolist(), m.blocks):
+                dense[rb * B:(rb + 1) * B, cb * B:(cb + 1) * B] = blk
+            dense = dense[:m.n_rows, :m.n_cols].contiguous()
+            return (lambda x: dense @ x), "torch.matmul (dense A)"
+        pad = cols_p - m.n_cols
+        return (lambda x: (a @ torch.nn.functional.pad(x, (0, 0, 0, pad)))
+                [:m.n_rows]), "torch.sparse_bsr_tensor @"
+
+    def bsr_bound(m, d, *more, products=1, dense_products=0):
+        """Bound of ``products`` BSR products at width d and
+        ``dense_products`` (n, d) × (d, d) ones, over m's arrays, ``more``
+        tensors and nothing else."""
+        B, nnzb = m.block, int(m.blocks.shape[0])
+        return bound(nbytes(m.row_ptr, m.block_cols, m.blocks, *more),
+                     products * 2 * nnzb * B * B * d
+                     + dense_products * 2 * m.n_rows * d * d)
 
     def k3_case(mat, d, seed):
         op = as_operator(sp.csr_matrix(mat), sparse=True, format="bsr",
@@ -459,12 +589,17 @@ def main() -> None:
                             .astype(np.float32), device=dev)
         out = {}
         for label, o in (("fwd", op), ("transpose", op.transpose())):
+            lib, lib_name = bsr_library(o.fwd)
+            ref = bsr_spmm.bsr_spmm_plain(o.fwd, x)
+            check(max_rel(lib(x), ref)[1] <= 1e-5,
+                  f"K3 {label}: the library call computes something else")
             out[label] = compare(
                 f"K3 {label} n={op.n} d={d}",
-                [bsr_spmm.bsr_spmm(o.fwd, o.bwd, x)],
-                [bsr_spmm.bsr_spmm_plain(o.fwd, x)],
+                [bsr_spmm.bsr_spmm(o.fwd, o.bwd, x)], [ref],
                 cuda_ms(lambda: bsr_spmm.bsr_spmm(o.fwd, o.bwd, x)),
-                cuda_ms(lambda: bsr_spmm.bsr_spmm_plain(o.fwd, x)))
+                cuda_ms(lambda: bsr_spmm.bsr_spmm_plain(o.fwd, x)),
+                library_ms=cuda_ms(lambda: lib(x)), library=lib_name,
+                **bsr_bound(o.fwd, d, x, ref))
         return dict(n=op.n, nnz_blocks=int(op.fwd.blocks.shape[0]), d=d,
                     **out)
 
@@ -488,13 +623,30 @@ def main() -> None:
         def plain(x, weight, b):
             return bsr_spmm.bsr_fused_rhs_plain(op.fwd, x, weight.t(), b)
 
-        fwd = compare(f"K4 n={op.n} d={d}", [fused(*ins)], [plain(*ins)],
+        lib, lib_name = bsr_library(op.fwd)
+
+        def library(x, weight, b):
+            return torch.relu(torch.addmm(b, lib(x), weight.t()))
+
+        ref_out = plain(*ins)
+        check(max_rel(library(*ins), ref_out)[1] <= 1e-5,
+              "K4: the library call computes something else")
+        fwd = compare(f"K4 n={op.n} d={d}", [fused(*ins)], [ref_out],
                       cuda_ms(lambda: fused(*ins)),
-                      cuda_ms(lambda: plain(*ins)))
+                      cuda_ms(lambda: plain(*ins)),
+                      library_ms=cuda_ms(lambda: library(*ins)),
+                      library=f"relu(addmm(b, {lib_name}, w))",
+                      **bsr_bound(op.fwd, d, *ins, ref_out,
+                                  dense_products=1))
         _, got, kernel_bwd = grads_of(fused, ins, g)
         _, ref, plain_bwd = grads_of(plain, ins, g)
+        # reads Aᵀ, x, w, the saved output and g; writes dx, dw, db;
+        # recomputes A·x: two BSR products and two dense ones
         bwd = compare(f"K4 backward n={op.n} d={d}", got, ref,
-                      cuda_ms(kernel_bwd), cuda_ms(plain_bwd))
+                      cuda_ms(kernel_bwd), cuda_ms(plain_bwd),
+                      library_ms=None,
+                      **bsr_bound(op.bwd, d, *ins[:2], ref_out, g, *got,
+                                  products=2, dense_products=2))
         return dict(n=op.n, d=d, fwd=fwd, bwd=bwd)
 
     k4 = {"grid400_d20": k4_case(grid_lap, 20, 13),
@@ -688,11 +840,13 @@ def main() -> None:
 
     def scale_case(op, form, bf16, d=20):
         """One scale-path SpMV form, forward and over the transpose CSR,
-        against its plain version; returns the record."""
+        against its plain version and the library call; returns the
+        record."""
         d_sub = coo_spmv.sublane_pad(d)
         rs = np.random.RandomState(21)
         out = dict(n=op.n, nnz=int(op.cols.shape[0]), d=d)
         for label, o in (("fwd", op), ("transpose", op.transpose())):
+            a = library_csr(o, bf16)
             if form == "k1":
                 x = torch.as_tensor(rs.randn(op.n, d).astype(np.float32),
                                     device=dev)
@@ -703,29 +857,64 @@ def main() -> None:
                 def plain():
                     return coo_spmv.coo_spmv_plain(o.rows, o.cols, o.vals, x,
                                                    o.n, bf16)
+
+                def library():
+                    return torch.sparse.mm(
+                        a, coo_spmv.round_bf16(x) if bf16 else x)
             else:
-                xT = torch.zeros((d_sub, op.n), device=dev)
-                xT[:d] = torch.as_tensor(rs.randn(d, op.n).astype(np.float32),
-                                         device=dev)
+                x = torch.zeros((d_sub, op.n), device=dev)
+                x[:d] = torch.as_tensor(rs.randn(d, op.n).astype(np.float32),
+                                        device=dev)
                 plain_fn = (coo_spmv.coo_spmv_T_wide_plain if form == "k5"
                             else coo_spmv.coo_spmv_T_plain)
 
                 def kern():
-                    return coo_spmv.spmv_T(o, xT)
+                    return coo_spmv.spmv_T(o, x)
 
                 def plain():
-                    return plain_fn(o.rows, o.cols, o.vals, xT, o.n, bf16)
+                    return plain_fn(o.rows, o.cols, o.vals, x, o.n, bf16)
+
+                def library():   # the same function: both transposes timed
+                    xr = coo_spmv.round_bf16(x) if bf16 else x
+                    return torch.sparse.mm(a, xr.t()).t().contiguous()
             with gather_mode(form == "k5", bf16), torch.no_grad():
-                y, ref = kern(), plain()
-                torch.cuda.synchronize()
+                out[label], y = spmv_record(
+                    f"{form} bf16={bf16} {label} n={op.n}", o,
+                    d if form == "k1" else d_sub, kern, plain, library, x)
                 if form != "k1":
                     check(not y[d:].any(), f"{form} wrote the pad rows")
-                out[label] = compare(f"{form} bf16={bf16} {label} n={op.n}",
-                                     [y], [ref], cuda_ms(kern, iters=15),
-                                     cuda_ms(plain, iters=15))
         return out
 
+    def pack_case(n, bf16, d_sub=24):
+        """K1-fm's pack kernel against its plain version (exact) and the
+        library's transpose copy."""
+        xT = torch.as_tensor(np.random.RandomState(22).randn(d_sub, n)
+                             .astype(np.float32), device=dev)
+        table = coo_spmv.pack_rows(xT, bf16)
+        ref = coo_spmv.pack_rows_plain(xT, bf16)
+        torch.cuda.synchronize()
+        check(torch.equal(table, ref), f"the pack kernel is off at n={n}")
+
+        def library():
+            t = xT.t()
+            return (t.to(torch.bfloat16) if bf16 else t).contiguous()
+
+        return dict(n=n, d_sub=d_sub, max_abs_err=0.0, repeat_equal=True,
+                    ms=cuda_ms(lambda: coo_spmv.pack_rows(xT, bf16)),
+                    device_ms=queued_ms(lambda: coo_spmv.pack_rows(xT, bf16)),
+                    library_device_ms=queued_ms(library),
+                    plain_ms=cuda_ms(lambda: coo_spmv.pack_rows_plain(xT,
+                                                                      bf16)),
+                    library_ms=cuda_ms(library),
+                    **bound(nbytes(xT, table), 0))
+
     k11 = {}
+    k11["k1_f32_1m"] = scale_case(op_1m, "k1", False)
+    for bf16 in (False, True):
+        kind = "bf16" if bf16 else "f32"
+        k11[f"k1fm_{kind}_hub"] = scale_case(op_hub, "k1fm", bf16)
+        k11[f"pack_{kind}_1m"] = pack_case(op_1m.n, bf16)
+    k11["pack_f32_200k"] = pack_case(op_big.n, False)
     for size, op in (("200k", op_big), ("1m", op_1m)):
         k11[f"k1_bf16_{size}"] = scale_case(op, "k1", True)
         for form in ("k1fm", "k5"):
@@ -735,6 +924,7 @@ def main() -> None:
     print(f"[11] scale SpMV kernels vs plain (1M host build "
           f"{host_build_1m_s:.3f} s): " + json.dumps(k11))
     del op_1m
+    csr_tensors.clear()
     torch.cuda.empty_cache()
 
     # ---- 12. the scale experiment at 1M nodes (and 200k, bf16 and wide)
@@ -759,7 +949,8 @@ def main() -> None:
     est_bf = large_graph.run(scale_args(
         "--n", "1000000", "--estimate", "--emission_precision", "bf16",
         "--residual_precision", "bf16"))
-    rec_1m, c_1m = scale_run("1M scale experiment", ["coo_spmv", "coo_spmv_T"],
+    rec_1m, c_1m = scale_run("1M scale experiment",
+                             ["coo_spmv", "coo_spmv_T", "coo_spmv_T_pack"],
                              "--n", "1000000", "--iters", "10", "--roofline",
                              "--hbm_probe")
     check(rec_1m["layout"] == "auto"
@@ -767,7 +958,8 @@ def main() -> None:
           f"1M: layout auto resolved to {rec_1m['solve_layout']}")
     check(rec_1m["train_losses"][-1] < rec_1m["train_losses"][0],
           f"1M: the train loss did not fall {rec_1m['train_losses']}")
-    rec_bf, c_bf = scale_run("1M scale experiment, bf16 levers", ["coo_spmv_T"],
+    rec_bf, c_bf = scale_run("1M scale experiment, bf16 levers",
+                             ["coo_spmv_T", "coo_spmv_T_pack"],
                              "--n", "1000000", "--iters", "10", "--hbm_probe",
                              "--emission_precision", "bf16",
                              "--residual_precision", "bf16")
@@ -783,13 +975,20 @@ def main() -> None:
     del truth_1m
     model_1m = large_graph.new_model(args_1m, dev)
     budget_1m, _ = large_graph.probe_budget(args_1m, prob, model_1m)
-    grads = {}
+    grads, first_step_peak_gb = {}, {}
     for which in ("kernel", "plain"):
         m_ = copy.deepcopy(model_1m)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        resident_gb = torch.cuda.memory_allocated(dev) / 1e9
         with plain_versions(which == "plain"):
             loss, _ = large_graph.train_objective(args_1m, prob, m_,
                                                   target_1m, budget_1m)()
             loss.backward()
+        torch.cuda.synchronize()
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        first_step_peak_gb[which] = dict(peak=peak_gb, resident=resident_gb,
+                                         step=peak_gb - resident_gb)
         grads[which] = {n: p.grad for n, p in m_.named_parameters()}
     errs_1m = {n: rel_l1(grads["kernel"][n], grads["plain"][n])
                for n in grads["kernel"]}
@@ -807,11 +1006,25 @@ def main() -> None:
                                      ["coo_spmv_T_wide"], "--n", "200000",
                                      "--iters", "3", "--layout",
                                      "feature_major")
+    # the three solves of the 1M step side by side: 'auto' (feature-major,
+    # K1-fm) above, feature-major under GATHER_WIDE (K5), the (n, d) layout
+    with gather_mode(True, False):
+        rec_1m_wide, c_1m_wide = scale_run(
+            "1M scale experiment, wide gather", ["coo_spmv_T_wide"], "--n",
+            "1000000", "--iters", "10", "--hbm_probe")
+    rec_1m_nd, c_1m_nd = scale_run(
+        "1M scale experiment, (n, d) layout", ["coo_spmv"], "--n", "1000000",
+        "--iters", "10", "--hbm_probe", "--layout", "nd")
+    check(rec_1m_wide["solve_layout"] == "feature_major"
+          and rec_1m_nd["solve_layout"] == "nd", "1M layouts resolved wrong")
     print("[12] scale experiment: " + json.dumps({
         "1m": scale_summary(rec_1m, c_1m),
+        "1m_fm_wide": scale_summary(rec_1m_wide, c_1m_wide),
+        "1m_nd": scale_summary(rec_1m_nd, c_1m_nd),
         "1m_estimate": est, "1m_bf16_levers": scale_summary(rec_bf, c_bf),
         "1m_bf16_levers_estimate": est_bf,
         "1m_first_step_grad_rel_l1_kernel_vs_plain": max(errs_1m.values()),
+        "1m_first_step_peak_allocated_gb": first_step_peak_gb,
         "200k_kernel_bf16": scale_summary(rec_k1bf, c_k1bf),
         "200k_fm_wide": scale_summary(rec_wide, c_wide)}))
 
@@ -846,100 +1059,116 @@ def main() -> None:
         print(f"[p] serve {label}: " + json.dumps(
             profile_call(lambda: srv(x0), f"serve_{label}", root)))
 
-    def one_step(model, op, vt, x0, target, fused, max_steps):
+    def one_step(model, op, vt, x0, target, fused, max_steps, layout="auto",
+                 wide=False, bf16=False):
         opt = torch_adam(model.parameters(), 0.01, 1e-3)
 
         def loss_fn():
             out, _ = ndcn_forward(model, op, vt, x0, fused=fused,
-                                  max_steps=max_steps, **train_kw)
+                                  max_steps=max_steps, layout=layout,
+                                  **train_kw)
             loss = l1_loss(out, target)
             return loss, loss
 
-        return make_sgd_step(opt, loss_fn)
+        step = make_sgd_step(opt, loss_fn)
 
-    for label, args in (
-            ("grid400_dense", (op_g, gx["t"], x0_g, target_g, "auto", 64)),
-            ("grid400_bsr_k3", (op_gb, gx["t"], x0_g, target_g, False, 64)),
-            ("grid400_bsr_k4", (op_gb, gx["t"], x0_g, target_g, True, 64)),
-            ("200k_coo", (op_big, t_train, x0_big, target_big, False,
-                          budget)),
+        def in_mode():
+            with gather_mode(wide, bf16):
+                return step()
+
+        return in_mode
+
+    big = (op_big, t_train, x0_big, target_big, False, budget)
+    step_launches = {}   # the kernels' launches in one steady train step
+    for label, args, mode in (
+            ("grid400_dense", (op_g, gx["t"], x0_g, target_g, "auto", 64), {}),
+            ("grid400_bsr_k3", (op_gb, gx["t"], x0_g, target_g, False, 64),
+             {}),
+            ("grid400_bsr_k4", (op_gb, gx["t"], x0_g, target_g, True, 64),
+             {}),
+            ("200k_coo", big, {}),
+            ("200k_coo_bf16", big, dict(bf16=True)),
+            ("200k_fm_wide", big, dict(layout="feature_major", wide=True)),
             ("1m_feature_major", (prob.op, prob.t_train, prob.x0, target_1m,
-                                  False, budget_1m))):
+                                  False, budget_1m), {})):
         model = (params_from_jax(g_tree, device=dev) if "grid" in label
                  else copy.deepcopy(model_1m if "1m" in label else model_p))
+        step = one_step(model, *args, **mode)
+        step()
+        kernels.reset_launch_counts()
+        step()
+        torch.cuda.synchronize()
+        step_launches[label] = kernels.launch_counts()
         print(f"[p] train {label}: " + json.dumps(
-            profile_call(one_step(model, *args), f"train_{label}", root)))
+            dict(profile_call(step, f"train_{label}", root),
+                 launches_per_step=step_launches[label])))
+
+    def per_step(name):
+        """The most launches of ``name`` in one steady train step of any
+        setting above, and that setting (0 and None for a tool's kernel)."""
+        label = max(step_launches, key=lambda k: step_launches[k][name])
+        count = step_launches[label][name]
+        return {"launches_per_step": count,
+                "step_of": label if count else None}
 
     # ---- records
-    def scale_entry(name, src, replaces, case):
-        fwd, bwd = case["fwd"], case["transpose"]
-        return {"name": name, "route": "cuda",
-                "source": f"ndcn_tpu_torch/csrc/{src}",
-                "replaces": f"ndcn_tpu/kernels/{replaces}",
-                "launches": main_launches[name],
-                "max_abs_err": fwd["max_abs_err"], "ms": fwd["ms"],
-                "plain_ms": fwd["plain_ms"],
-                "bwd_max_abs_err": bwd["max_abs_err"], "bwd_ms": bwd["ms"],
-                "bwd_plain_ms": bwd["plain_ms"]}
+    def entry(name, src, replaces, fwd, bwd=None, **extra):
+        """One kernel's line: its launches on the main paths and in one
+        steady train step, and the forward case's error, times and bound
+        (and the backward case's, as ``bwd_*``)."""
+        keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "device_ms", "library_device_ms")
+        rec = {"name": name, "route": "cuda",
+               "source": f"ndcn_tpu_torch/csrc/{src}", "replaces": replaces,
+               "launches": main_launches[name], **per_step(name),
+               **{k: fwd.get(k) for k in keys}}
+        if bwd is not None:
+            rec.update({f"bwd_{k}": bwd.get(k) for k in keys})
+        return dict(rec, **extra)
 
+    # the sliced-tile reduce reads the gathered slots, their local rows and
+    # values, and writes the padded (d_sub, n) result; the row gather reads
+    # and writes rows × k floats and reads the indices
+    d_sub_mb = coo_spmv.sublane_pad(mb["d"])
+    slots = mb["slices"] * mb["E"]
+    p1a = dict(max_abs_err=mb["sliced_reduce_max_abs_err"],
+               ms=mb["sliced_reduce_kernel_ms"],
+               plain_ms=mb["sliced_reduce_plain_ms"],
+               library_ms=mb["sliced_reduce_plain_ms"],
+               **bound(slots * (d_sub_mb * 4 + 8)
+                       + d_sub_mb * -(-mb["n"] // mb["R"]) * mb["R"] * 4,
+                       2 * slots * d_sub_mb))
+    p1b = dict(max_abs_err=mb["row_gather_max_abs_err"],
+               ms=probe["kernel_us"] / 1e3, plain_ms=probe["index_us"] / 1e3,
+               library_ms=probe["index_select_us"] / 1e3,
+               **bound(probe["rows"] * (2 * probe["k"] * 4 + 4), 0))
+    K1 = "ndcn_tpu/kernels/coo_spmv.py:159"
     print(json.dumps({"kernels": [
-        {"name": "coo_spmv", "route": "cuda",
-         "source": "ndcn_tpu_torch/csrc/coo_spmv.cu",
-         "replaces": "ndcn_tpu/kernels/coo_spmv.py:159",
-         "launches": main_launches["coo_spmv"],
-         "max_abs_err": k1_main["max_abs_err"], "ms": k1_main["ms"],
-         "plain_ms": k1_main["plain_ms"],
-         "bwd_max_abs_err": k1t["max_abs_err"], "bwd_ms": k1t["ms"],
-         "bwd_plain_ms": k1t["plain_ms"]},
-        {"name": "fused_rhs", "route": "cuda",
-         "source": "ndcn_tpu_torch/csrc/fused_rhs.cu",
-         "replaces": "ndcn_tpu/kernels/fused_rhs.py:30",
-         "launches": main_launches["fused_rhs"],
-         "max_abs_err": k2_main["max_abs_err"], "ms": k2_main["ms"],
-         "plain_ms": k2_main["plain_ms"],
-         "bwd_max_abs_err": k2b["max_abs_err"], "bwd_ms": k2b["ms"],
-         "bwd_plain_ms": k2b["plain_ms"]},
-        {"name": "bsr_spmm", "route": "cuda",
-         "source": "ndcn_tpu_torch/csrc/bsr_spmm.cu",
-         "replaces": "ndcn_tpu/kernels/bsr_spmm.py:91",
-         "launches": main_launches["bsr_spmm"],
-         "max_abs_err": k3["grid400_d20"]["fwd"]["max_abs_err"],
-         "ms": k3["grid400_d20"]["fwd"]["ms"],
-         "plain_ms": k3["grid400_d20"]["fwd"]["plain_ms"],
-         "bwd_max_abs_err": k3["grid400_d20"]["transpose"]["max_abs_err"],
-         "bwd_ms": k3["grid400_d20"]["transpose"]["ms"],
-         "bwd_plain_ms": k3["grid400_d20"]["transpose"]["plain_ms"]},
-        {"name": "bsr_fused_rhs", "route": "cuda",
-         "source": "ndcn_tpu_torch/csrc/bsr_spmm.cu",
-         "replaces": "ndcn_tpu/kernels/bsr_spmm.py:176",
-         "launches": main_launches["bsr_fused_rhs"],
-         "max_abs_err": k4["grid400_d20"]["fwd"]["max_abs_err"],
-         "ms": k4["grid400_d20"]["fwd"]["ms"],
-         "plain_ms": k4["grid400_d20"]["fwd"]["plain_ms"],
-         "bwd_max_abs_err": k4["grid400_d20"]["bwd"]["max_abs_err"],
-         "bwd_ms": k4["grid400_d20"]["bwd"]["ms"],
-         "bwd_plain_ms": k4["grid400_d20"]["bwd"]["plain_ms"]},
-        *(scale_entry(name, src, rep, k11[case]) for name, src, rep, case in (
-            ("coo_spmv_bf16", "coo_spmv.cu", "coo_spmv.py:172",
-             "k1_bf16_200k"),
-            ("coo_spmv_T", "coo_spmv_T.cu", "coo_spmv.py:159",
-             "k1fm_f32_1m"),
-            ("coo_spmv_T_wide", "coo_spmv_T.cu", "coo_spmv.py:207",
-             "k5_f32_1m"))),
-        {"name": "sliced_tile_reduce", "route": "cuda",
-         "source": "ndcn_tpu_torch/csrc/sparse_bench.cu",
-         "replaces": "tools/microbench_sparse.py:235",
-         "launches": main_launches["sliced_tile_reduce"],
-         "max_abs_err": mb["sliced_reduce_max_abs_err"],
-         "ms": mb["sliced_reduce_kernel_ms"],
-         "plain_ms": mb["sliced_reduce_plain_ms"]},
-        {"name": "row_gather", "route": "cuda",
-         "source": "ndcn_tpu_torch/csrc/sparse_bench.cu",
-         "replaces": "tools/microbench_sparse.py:288",
-         "also_replaces": "tools/probe_inkernel_gather.py:60",
-         "launches": main_launches["row_gather"],
-         "max_abs_err": mb["row_gather_max_abs_err"],
-         "ms": probe["kernel_us"] / 1e3, "plain_ms": probe["index_us"] / 1e3},
+        entry("coo_spmv", "coo_spmv.cu", K1, k1_main, k1t),
+        entry("fused_rhs", "fused_rhs.cu", "ndcn_tpu/kernels/fused_rhs.py:30",
+              k2_main, k2b),
+        entry("bsr_spmm", "bsr_spmm.cu", "ndcn_tpu/kernels/bsr_spmm.py:91",
+              k3["grid400_d20"]["fwd"], k3["grid400_d20"]["transpose"]),
+        entry("bsr_fused_rhs", "bsr_spmm.cu",
+              "ndcn_tpu/kernels/bsr_spmm.py:176", k4["grid400_d20"]["fwd"],
+              k4["grid400_d20"]["bwd"]),
+        entry("coo_spmv_bf16", "coo_spmv.cu",
+              "ndcn_tpu/kernels/coo_spmv.py:172",
+              k11["k1_bf16_200k"]["fwd"], k11["k1_bf16_200k"]["transpose"]),
+        # the Pallas kernel at :159, reached through _spmv_T (:322)
+        entry("coo_spmv_T", "coo_spmv_T.cu", K1, k11["k1fm_f32_1m"]["fwd"],
+              k11["k1fm_f32_1m"]["transpose"],
+              reached_through="ndcn_tpu/kernels/coo_spmv.py:322"),
+        entry("coo_spmv_T_pack", "coo_spmv_T.cu", K1, k11["pack_f32_1m"],
+              reached_through="ndcn_tpu/kernels/coo_spmv.py:322"),
+        entry("coo_spmv_T_wide", "coo_spmv_T.cu",
+              "ndcn_tpu/kernels/coo_spmv.py:207", k11["k5_f32_1m"]["fwd"],
+              k11["k5_f32_1m"]["transpose"]),
+        entry("sliced_tile_reduce", "sparse_bench.cu",
+              "tools/microbench_sparse.py:235", p1a),
+        entry("row_gather", "sparse_bench.cu",
+              "tools/microbench_sparse.py:288", p1b,
+              also_replaces="tools/probe_inkernel_gather.py:60"),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,7 +7,8 @@ differentiable in X:
 - ``CooGraph``: the row-sorted triplets of A, held in CSR form (``row_ptr``,
   ``cols``, ``vals``) for the K1 kernel, plus the expanded ``rows`` for the
   plain version, plus the transpose's arrays (sorted by A's column) that
-  K1's backward runs over.
+  K1's backward runs over, plus for each of the two the index that cuts
+  its long rows into chunks (``kernels.coo_spmv.split_rows``).
 - ``BsrGraph``: block-CSR packings of A and Aᵀ for K3 (and K4, the fused
   RHS); the backward runs over Aᵀ.
 
@@ -25,7 +26,7 @@ import torch
 
 from ndcn_tpu_torch.kernels.bsr_spmm import (BLOCK, BsrMatrix, bsr_spmm,
                                              from_scipy_bsr)
-from ndcn_tpu_torch.kernels.coo_spmv import coo_spmv
+from ndcn_tpu_torch.kernels.coo_spmv import RowSplit, coo_spmv, split_rows
 
 
 class DenseGraph(NamedTuple):
@@ -40,7 +41,9 @@ class CooGraph(NamedTuple):
     """Row-sorted COO triplets of a square A, with their CSR row pointer.
 
     A·X[i] = sum over e in [row_ptr[i], row_ptr[i+1]) of vals[e]·X[cols[e]].
-    ``*_t`` hold Aᵀ the same way (sorted by A's column), for the backward."""
+    ``*_t`` hold Aᵀ the same way (sorted by A's column), for the backward.
+    ``split`` / ``split_t`` cut the rows longer than ``SPLIT_EDGES`` into
+    chunks, so that the kernels spread a hub row over many warps."""
     row_ptr: torch.Tensor   # (n + 1,) int32
     rows: torch.Tensor      # (nnz,) int64, sorted
     cols: torch.Tensor      # (nnz,) int32
@@ -50,6 +53,8 @@ class CooGraph(NamedTuple):
     cols_t: torch.Tensor
     vals_t: torch.Tensor
     n: int
+    split: RowSplit
+    split_t: RowSplit
 
     @property
     def device(self) -> torch.device:
@@ -58,7 +63,8 @@ class CooGraph(NamedTuple):
     def transpose(self) -> "CooGraph":
         """Aᵀ from the arrays the backward holds (no copy)."""
         return CooGraph(self.row_ptr_t, self.rows_t, self.cols_t, self.vals_t,
-                        self.row_ptr, self.rows, self.cols, self.vals, self.n)
+                        self.row_ptr, self.rows, self.cols, self.vals, self.n,
+                        self.split_t, self.split)
 
 
 class BsrGraph(NamedTuple):
@@ -95,10 +101,11 @@ def _csr_arrays(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray, n: int,
     if row_ptr[-1] >= 2 ** 31:
         raise ValueError(f"K1 indexes edges with int32; {row_ptr[-1]} edges "
                          f"is too many")
-    return (torch.as_tensor(row_ptr.astype(np.int32), device=device),
-            torch.as_tensor(rows.astype(np.int64), device=device),
-            torch.as_tensor(cols.astype(np.int32), device=device),
-            torch.as_tensor(vals, dtype=dtype, device=device))
+    arrays = (torch.as_tensor(row_ptr.astype(np.int32), device=device),
+              torch.as_tensor(rows.astype(np.int64), device=device),
+              torch.as_tensor(cols.astype(np.int32), device=device),
+              torch.as_tensor(vals, dtype=dtype, device=device))
+    return arrays, split_rows(row_ptr, device=device)
 
 
 def from_scipy_coo(mat: sp.spmatrix, dtype=torch.float32,
@@ -114,11 +121,11 @@ def from_scipy_coo(mat: sp.spmatrix, dtype=torch.float32,
         raise ValueError(f"graph operators are square, got {coo.shape}")
     order = np.argsort(coo.row, kind="stable")
     order_t = np.argsort(coo.col, kind="stable")
-    fwd = _csr_arrays(coo.row[order], coo.col[order], coo.data[order], n,
-                      dtype, device)
-    bwd = _csr_arrays(coo.col[order_t], coo.row[order_t], coo.data[order_t], n,
-                      dtype, device)
-    return CooGraph(*fwd, *bwd, n=n)
+    fwd, split = _csr_arrays(coo.row[order], coo.col[order], coo.data[order],
+                             n, dtype, device)
+    bwd, split_t = _csr_arrays(coo.col[order_t], coo.row[order_t],
+                               coo.data[order_t], n, dtype, device)
+    return CooGraph(*fwd, *bwd, n=n, split=split, split_t=split_t)
 
 
 def from_scipy_bsr_graph(mat: sp.spmatrix, block: int = BLOCK,

@@ -3,7 +3,8 @@ and a backward.
 
 - K1 ``coo_spmv``: CSR SpMV, replaces ``ndcn_tpu/kernels/coo_spmv.py``; its
   backward is K1 over the transpose; a bf16 instance; and the feature-major
-  forms of ``spmv_T``, K1-fm and K5 (the wide gather).
+  forms of ``spmv_T``, K1-fm (a pack kernel, then the gather) and K5 (the
+  wide gather).
 - K2 ``fused_rhs``: relu((A·H)·W + b), replaces ``ndcn_tpu/kernels/fused_rhs.py``.
 - K3 and K4 ``bsr_spmm``: BSR SpMM and its fused RHS, replace
   ``ndcn_tpu/kernels/bsr_spmm.py``.
@@ -19,6 +20,7 @@ _COUNTERS = {
     "coo_spmv": (coo_spmv, "LAUNCHES"),
     "coo_spmv_bf16": (coo_spmv, "BF16_LAUNCHES"),
     "coo_spmv_T": (coo_spmv, "T_LAUNCHES"),
+    "coo_spmv_T_pack": (coo_spmv, "PACK_LAUNCHES"),
     "coo_spmv_T_wide": (coo_spmv, "WIDE_LAUNCHES"),
     "fused_rhs": (fused_rhs, "LAUNCHES"),
     "bsr_spmm": (bsr_spmm, "SPMM_LAUNCHES"),

@@ -30,13 +30,19 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # C entry points: (name, argtypes). Every pointer and the stream are c_void_p.
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_GATHER = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P)
 ENTRY_POINTS = {
-    # row_ptr, cols, vals, x, y, n_rows, d, stream
-    "ndcn_coo_spmv_f32": (_P, _P, _P, _P, _P, _I, _I, _P),
-    "ndcn_coo_spmv_bf16": (_P, _P, _P, _P, _P, _I, _I, _P),
-    # row_ptr, cols, vals, xT (or the row-major table), yT, n, d_sub, stream
-    "ndcn_coo_spmv_T_f32": (_P, _P, _P, _P, _P, _I, _I, _P),
-    "ndcn_coo_spmv_T_bf16": (_P, _P, _P, _P, _P, _I, _I, _P),
+    # row_ptr, cols, vals, the row-major table (x, or K1-fm's packed
+    # scratch), y (or yT), n_rows, d, bytes per lane load, split limit,
+    # long_rows, chunk_ptr, chunk_bounds, n_long, n_chunks, partial, stream
+    "ndcn_coo_spmv_f32": _GATHER,
+    "ndcn_coo_spmv_bf16": _GATHER,
+    "ndcn_coo_spmv_T_f32": _GATHER,
+    "ndcn_coo_spmv_T_bf16": _GATHER,
+    # xT, table, n, d_sub, stream
+    "ndcn_pack_rows_f32": (_P, _P, _I, _I, _P),
+    "ndcn_pack_rows_bf16": (_P, _P, _I, _I, _P),
+    # row_ptr, cols, vals, the row-major table, yT, n, d_sub, stream
     "ndcn_coo_spmv_T_wide_f32": (_P, _P, _P, _P, _P, _I, _I, _P),
     "ndcn_coo_spmv_T_wide_bf16": (_P, _P, _P, _P, _P, _I, _I, _P),
     # tile_ptr, local_rows, vals, contrib, out, n_tiles, d_sub, E, R,

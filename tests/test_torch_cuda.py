@@ -6,7 +6,8 @@ imports no jax, so it also runs where only the port is installed:
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
 Bounds: max|Δ| <= 1e-5·max|y| for K1 (fp32 and bf16), K1ᵀ, K1-fm, K5, K3,
-K4, the sliced-tile reduce and the row gather (exact), and rtol 1e-5 /
+K4, the sliced-tile reduce and the row gather (exact; K1-fm's pack kernel
+too), and rtol 1e-5 /
 atol 1e-5·max|y| for K2 and its backward (fp32 sums in another order); 1e-4
 rel-L1 for a served trajectory on the GPU against the same server on the CPU,
 and 1e-3 rel-L1 for a train step's gradients on the GPU against the CPU.
@@ -79,6 +80,7 @@ def test_k2_cuda_matches_plain(cuda_device, n, k):
 
 
 def _max_rel(y, ref):
+    y, ref = y.detach(), ref.detach()
     return float((y - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
 
 
@@ -96,6 +98,118 @@ def test_k1_bf16_cuda_matches_plain(cuda_device, d, monkeypatch):
     assert _max_rel(y, ref) <= 1e-5
     fp32 = coo_spmv.coo_spmv_plain(op.rows, op.cols, op.vals, x, op.n)
     assert 1e-5 < _max_rel(y, fp32) <= 2e-2
+
+
+def _hub_coo(n, m, hub, seed):
+    """A power-law graph with a ``hub``-edge row (row 7) and every fifth row
+    empty; non-symmetric, so the transpose is another matrix."""
+    rng = np.random.RandomState(seed)
+    rows = np.concatenate([rng.zipf(1.5, m) % n, np.full(hub, 7)])
+    cols = np.concatenate([rng.randint(0, n, m),
+                           rng.choice(n, hub, replace=False)])
+    keep = rows % 5 != 4
+    a = sp.coo_matrix((rng.randn(int(keep.sum())).astype(np.float32),
+                       (rows[keep], cols[keep])), shape=(n, n)).tocsr()
+    a.sum_duplicates()
+    return a
+
+
+def _resplit(op, limit):
+    """``op`` with its long rows cut at ``limit`` edges instead."""
+    return op._replace(
+        split=coo_spmv.split_rows(op.row_ptr.cpu().numpy(), limit,
+                                  device=op.device),
+        split_t=coo_spmv.split_rows(op.row_ptr_t.cpu().numpy(), limit,
+                                    device=op.device))
+
+
+@pytest.mark.parametrize("limit", [256, 16])
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("d", [1, 4, 7, 20, 40])
+def test_k1_cuda_split_rows_forward_transpose_and_autograd(cuda_device, d,
+                                                           bf16, limit,
+                                                           monkeypatch):
+    """The redesigned K1 on a hub graph with empty rows: wide loads at every
+    width (several rows a warp at d = 1 and 4), long rows through the chunk
+    kernels, forward, over the transpose CSR and through autograd, bit-equal
+    on a second call."""
+    n = 3001                                  # no multiple of 8 or 32
+    a = _hub_coo(n, 40000, 2000, seed=d)
+    op = _resplit(from_scipy_coo(a, device=cuda_device), limit)
+    assert op.split.long_rows.numel() > 0 and int(np.diff(a.indptr).min()) == 0
+    rng = np.random.RandomState(d + 50)
+    x = torch.as_tensor(rng.randn(n, d).astype(np.float32),
+                        device=cuda_device)
+    g = torch.as_tensor(rng.randn(n, d).astype(np.float32),
+                        device=cuda_device)
+    monkeypatch.setattr(coo_spmv, "GATHER_BF16", bf16)
+    rounds = bf16 and d > 1
+    counter = "BF16_LAUNCHES" if rounds else "LAUNCHES"
+    before = getattr(coo_spmv, counter)
+    xg = x.clone().requires_grad_()
+    y = coo_spmv.coo_spmv(op, xg)
+    (dx,) = torch.autograd.grad((y * g).sum(), xg)
+    yt = coo_spmv.coo_spmv(op.transpose(), g)
+    torch.cuda.synchronize()
+    assert getattr(coo_spmv, counter) == before + 3
+    ref = coo_spmv.coo_spmv_plain(op.rows, op.cols, op.vals, x, n, rounds)
+    ref_t = coo_spmv.coo_spmv_plain(op.rows_t, op.cols_t, op.vals_t, g, n,
+                                    rounds)
+    assert _max_rel(y, ref) <= 1e-5
+    assert _max_rel(dx, ref_t) <= 1e-5 and _max_rel(yt, ref_t) <= 1e-5
+    assert torch.equal(dx, yt)
+    assert not y[np.flatnonzero(np.diff(a.indptr) == 0)].any()
+    assert torch.equal(y, coo_spmv.coo_spmv(op, x))   # repeatable
+
+
+@pytest.mark.parametrize("limit", [256, 16])
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("d_sub", [8, 24, 40])
+def test_k1fm_cuda_split_rows_forward_transpose_and_autograd(cuda_device,
+                                                             d_sub, bf16,
+                                                             limit,
+                                                             monkeypatch):
+    """The redesigned K1-fm (pack, gather, chunk kernels) on the hub graph."""
+    n, d = 3001, d_sub - 3
+    a = _hub_coo(n, 40000, 2000, seed=d_sub)
+    op = _resplit(from_scipy_coo(a, device=cuda_device), limit)
+    rng = np.random.RandomState(d_sub + 60)
+    xT = torch.zeros(d_sub, n, device=cuda_device)
+    xT[:d] = torch.as_tensor(rng.randn(d, n).astype(np.float32),
+                             device=cuda_device)
+    gT = torch.as_tensor(rng.randn(d_sub, n).astype(np.float32),
+                         device=cuda_device)
+    monkeypatch.setattr(coo_spmv, "GATHER_WIDE", False)
+    monkeypatch.setattr(coo_spmv, "GATHER_BF16", bf16)
+    before = coo_spmv.T_LAUNCHES, coo_spmv.PACK_LAUNCHES
+    xg = xT.clone().requires_grad_()
+    y = coo_spmv.spmv_T(op, xg)
+    (dx,) = torch.autograd.grad((y * gT).sum(), xg)
+    yt = coo_spmv.spmv_T(op.transpose(), gT)
+    torch.cuda.synchronize()
+    assert (coo_spmv.T_LAUNCHES, coo_spmv.PACK_LAUNCHES) == (before[0] + 3,
+                                                             before[1] + 3)
+    plain = coo_spmv.coo_spmv_T_plain
+    assert _max_rel(y, plain(op.rows, op.cols, op.vals, xT, n, bf16)) <= 1e-5
+    ref_t = plain(op.rows_t, op.cols_t, op.vals_t, gT, n, bf16)
+    assert _max_rel(dx, ref_t) <= 1e-5 and torch.equal(dx, yt)
+    assert not y[d:].any()                          # zero pad rows stay zero
+    assert not y[:, np.flatnonzero(np.diff(a.indptr) == 0)].any()
+    assert torch.equal(y, coo_spmv.spmv_T(op, xT))  # repeatable
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("d_sub,n", [(8, 100), (24, 3001), (40, 64),
+                                     (136, 4097)])
+def test_pack_rows_cuda_is_exact(cuda_device, d_sub, n, bf16):
+    xT = torch.as_tensor(np.random.RandomState(n).randn(d_sub, n)
+                         .astype(np.float32), device=cuda_device)
+    before = coo_spmv.PACK_LAUNCHES
+    table = coo_spmv.pack_rows(xT, bf16)
+    torch.cuda.synchronize()
+    assert coo_spmv.PACK_LAUNCHES == before + 1
+    assert table.shape == (n, d_sub) and table.is_contiguous()
+    assert torch.equal(table, coo_spmv.pack_rows_plain(xT, bf16))
 
 
 @pytest.mark.parametrize("wide", [False, True])

@@ -156,7 +156,8 @@ def test_build_names_the_library_by_source_hash(monkeypatch, tmp_path):
     # every C entry the wrappers call is declared with its argument types
     assert set(build.ENTRY_POINTS) == {
         "ndcn_coo_spmv_f32", "ndcn_coo_spmv_bf16", "ndcn_coo_spmv_T_f32",
-        "ndcn_coo_spmv_T_bf16", "ndcn_coo_spmv_T_wide_f32",
+        "ndcn_coo_spmv_T_bf16", "ndcn_pack_rows_f32", "ndcn_pack_rows_bf16",
+        "ndcn_coo_spmv_T_wide_f32",
         "ndcn_coo_spmv_T_wide_bf16", "ndcn_sliced_tile_reduce_f32",
         "ndcn_row_gather_f32", "ndcn_fused_rhs_f32", "ndcn_bsr_spmm_f32",
         "ndcn_bsr_fused_rhs_f32"}
