@@ -1,139 +1,127 @@
-// K2: out (n, k) = relu((A · H) · W + b), dense fp32.
+// K2: out (n, k) = relu((A · H) · W + b), dense fp32 in and out.
 //
 // Replaces the TPU kernel ndcn_tpu/kernels/fused_rhs.py::_kernel, the whole
 // learned NDCN right-hand side in one pass, with A·H kept on chip between the
-// two products. Here each block takes a panel of 32 rows of A:
+// two products (there jnp.dot at Precision.HIGHEST on the matrix unit).
 //
-// - Phase 1 loops over A's columns in chunks of 32, staging the A tile and
-//   the matching H chunk in shared memory; each thread keeps 1 row x 4
-//   columns of the panel's A·H in registers. The finished panel goes to
-//   shared memory (32 x k floats, row stride odd to spread banks), never to
-//   device memory. Widths above 32 repeat phase 1 per 32-column slab.
-// - Phase 2 multiplies the panel by W, staged through the same shared tile
-//   in 32 x 32 chunks, adds b, applies relu and stores.
+// What bounds it on this card: from a few thousand nodes the n² · 4 bytes of
+// A over the memory rate against 3 · 2n²k tensor-core operations (the split
+// TF32 product of mma_split.cuh), which cross near k = 100; at the NDCN
+// widths (n = 400, k = 20) the launch latency. A CUDA-core fp32 loop reaches
+// a tenth of either. So one CTA owns a panel of 16 or 32 rows of A for ALL of
+// k and reads its rows from device memory once, in chunks through a cp.async
+// ring while the tensor cores work on the chunk before; H's chunks and W
+// come from L2. The panel's A·H stays in shared memory and runs through the
+// same tile product against W, then + b, relu, store: mma_split.cuh's
+// fused_panel, which K4 shares. The panel height, the warps' split of
+// columns and depth, and the chunk depth are the host's plan
+// (kernels/fused_rhs.py::panel_plan): 16-row panels where n gives fewer than
+// a hundred 32-row ones (the other way to fill the card at small n, A·H's
+// depth cut across the CTAs of a cluster and folded through distributed
+// shared memory, is not taken), the depth of a chunk split over the warps
+// where k is narrow, and chunks as deep as shared memory allows.
 //
-// Arithmetic is fp32 FMA, not TF32, to match the TPU kernel's
-// Precision.HIGHEST. The ragged edges of n and k are masked in the loads and
-// stores; nothing is padded in device memory.
+// What holds it back where it still loses to cuBLAS (n · k beyond ~100,000):
+// a chunk costs ~400 issue slots a warp (the copies' addresses, the
+// fragment loads, three cvt / sub a value, the fold of the fragment) for 24
+// to 48 mma, issued by 8 or 16 warps an SM in dependent chains; the tensor
+// pipe idles about half of the compute phase and all of the copy phase.
+// Copies by TMA and a producer warp, and wgmma for the products, are the
+// next steps.
 //
-// Bound: at the NDCN widths (n = 400, k = 20) the work is ~6.4 MFLOP and the
-// launch latency dominates. For large n it reads A once per 32-column slab of
-// H (n²·4 bytes each) and does 2·n²·k FLOP in CUDA-core fp32.
+// The ragged edges of n and k are zero-filled in the staging copies and
+// masked in the store; nothing is padded in device memory. Sums have a fixed
+// order, no atomics: two calls agree bit for bit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_split.cuh"
+
 namespace {
 
-constexpr int kBM = 32;       // rows of A per block
-constexpr int kBK = 32;       // depth of one staged chunk
-constexpr int kKT = 32;       // output columns per slab
-constexpr int kThreads = 256; // ty = tid / 8 picks the row, tx = tid % 8 four columns
+using namespace ndcn;
 
-__global__ void __launch_bounds__(kThreads)
+// Chunk c of a row panel: columns [c·bk, c·bk + bk) of A's rows and the same
+// rows of H.
+struct DenseSource {
+  const float* a;   // the panel's first row
+  const float* h;
+  int n, k, bk, rows;
+  __device__ __forceinline__ int depth(int c) const {
+    return min(bk, n - c * bk);
+  }
+  __device__ __forceinline__ Chunk chunk(int c) const {
+    const int k0 = c * bk;
+    return Chunk{a + k0, n, rows, depth(c), h + (int64_t)k0 * k, depth(c)};
+  }
+};
+
+template <int MT, int NT>
+__global__ void __launch_bounds__(kMmaThreads)
 fused_rhs_kernel(const float* __restrict__ a, const float* __restrict__ h,
                  const float* __restrict__ w, const float* __restrict__ b,
-                 float* __restrict__ out, int n, int k, int ks,
-                 int64_t w_rs, int64_t w_cs) {
-  extern __shared__ float ah_s[];       // [kBM][ks]: the panel's A·H
-  __shared__ float a_s[kBM][kBK + 1];   // +1: rows land in distinct banks
-  __shared__ float t_s[kBK][kKT];       // H chunk (phase 1) or W chunk (phase 2)
+                 float* __restrict__ out, int n, Layout L, int64_t w_rs,
+                 int64_t w_cs, bool a_vec, bool h_vec, bool w_vec) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int BM = 16 * MT;
+  const int64_t row0 = (int64_t)blockIdx.x * BM;
+  const int rows = (int)min((int64_t)BM, n - row0);
+  const DenseSource src{a + row0 * n, h, n, L.width, L.bk, rows};
+  fused_panel<MT, NT>(smem, L, src, (n + L.bk - 1) / L.bk, a_vec, h_vec, w,
+                      w_rs, w_cs, w_vec, b, out + row0 * L.width, rows);
+}
 
-  const int tid = threadIdx.x;
-  const int ty = tid >> 3;
-  const int tx = tid & 7;
-  const int row0 = blockIdx.x * kBM;
-  const int64_t row = (int64_t)row0 + ty;
-
-  // Phase 1: ah_s = A[row0:row0 + kBM, :] · H
-  for (int c0 = 0; c0 < k; c0 += kKT) {
-    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    for (int k0 = 0; k0 < n; k0 += kBK) {
-      for (int i = tid; i < kBM * kBK; i += kThreads) {
-        const int r = i / kBK, c = i % kBK;
-        const int64_t gr = (int64_t)row0 + r;
-        const int gc = k0 + c;
-        a_s[r][c] = (gr < n && gc < n) ? a[gr * n + gc] : 0.0f;
-      }
-      for (int i = tid; i < kBK * kKT; i += kThreads) {
-        const int r = i / kKT, c = i % kKT;
-        const int64_t gr = (int64_t)k0 + r;
-        const int gc = c0 + c;
-        t_s[r][c] = (gr < n && gc < k) ? h[gr * k + gc] : 0.0f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < kBK; ++kk) {
-        const float av = a_s[ty][kk];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          acc[j] = fmaf(av, t_s[kk][tx * 4 + j], acc[j]);
-        }
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = c0 + tx * 4 + j;
-      if (c < k) ah_s[ty * ks + c] = acc[j];
-    }
+template <int MT, int NT>
+int launch(const float* a, const float* h, const float* w, const float* b,
+           float* out, int n, const Layout& L, size_t smem, int64_t w_rs,
+           int64_t w_cs, cudaStream_t stream) {
+  auto kernel = fused_rhs_kernel<MT, NT>;
+  if (smem > 48 * 1024) {  // beyond the default only after opt-in
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
   }
-  __syncthreads();
-
-  // Phase 2: out = relu(ah_s · W + b)
-  for (int c0 = 0; c0 < k; c0 += kKT) {
-    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    for (int m0 = 0; m0 < k; m0 += kBK) {
-      for (int i = tid; i < kBK * kKT; i += kThreads) {
-        const int r = i / kKT, c = i % kKT;
-        const int gr = m0 + r, gc = c0 + c;
-        t_s[r][c] = (gr < k && gc < k) ? w[gr * w_rs + gc * w_cs] : 0.0f;
-      }
-      __syncthreads();
-      const int m_end = min(kBK, k - m0);
-      for (int mm = 0; mm < m_end; ++mm) {
-        const float av = ah_s[ty * ks + m0 + mm];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          acc[j] = fmaf(av, t_s[mm][tx * 4 + j], acc[j]);
-        }
-      }
-      __syncthreads();
-    }
-    if (row < n) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = c0 + tx * 4 + j;
-        if (c < k) out[row * k + c] = fmaxf(acc[j] + b[c], 0.0f);
-      }
-    }
-  }
+  const int k = L.width;
+  const int blocks = (n + 16 * MT - 1) / (16 * MT);
+  kernel<<<blocks, kMmaThreads, smem, stream>>>(
+      a, h, w, b, out, n, L, w_rs, w_cs, n % 4 == 0 && aligned16(a),
+      k % 4 == 0 && aligned16(h),
+      w_vec(w, w_rs, w_cs));
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Launches on `stream`, allocates nothing and does not synchronise. Returns
-// cudaGetLastError() (0 when the launch was accepted).
+// cudaGetLastError() (0 when the launch was accepted), or
+// cudaErrorInvalidValue for a plan the kernel does not take.
 // w may be strided (nn.Linear's weight transposed is a view): element
-// (i, j) of W is w[i * w_rs + j * w_cs].
+// (i, j) of W is w[i * w_rs + j * w_cs]. rows, nt, wn, bk and smem_bytes
+// are the host's plan (panel height, n8 tiles a warp, warps across the
+// columns, chunk depth, dynamic shared memory).
 extern "C" int ndcn_fused_rhs_f32(const void* a, const void* h, const void* w,
                                   const void* b, void* out, int n, int k,
-                                  long long w_rs, long long w_cs,
-                                  void* stream) {
-  if (n > 0 && k > 0) {
-    const int ks = (k % 2 == 0) ? k + 1 : k;  // odd stride: rows in distinct banks
-    const size_t smem = sizeof(float) * (size_t)kBM * ks;
-    if (smem > 32 * 1024) {
-      // beyond the default 48 KB (with the static tiles) only after opt-in
-      cudaError_t err = cudaFuncSetAttribute(
-          fused_rhs_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          (int)smem);
-      if (err != cudaSuccess) return (int)err;
-    }
-    const int blocks = (n + kBM - 1) / kBM;
-    fused_rhs_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-        (const float*)a, (const float*)h, (const float*)w, (const float*)b,
-        (float*)out, n, k, ks, (int64_t)w_rs, (int64_t)w_cs);
+                                  long long w_rs, long long w_cs, int rows,
+                                  int nt, int wn, int bk,
+                                  long long smem_bytes, void* stream) {
+  if (n <= 0 || k <= 0) return (int)cudaGetLastError();
+  Layout L;
+  size_t smem = 0;
+  if (!make_layout(&L, &smem, rows, nt, wn, bk, k) ||
+      (long long)smem != smem_bytes) {
+    return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+#define NDCN_K2_CASE(MT, NT)                                                 \
+  if (rows == 16 * MT && nt == NT)                                           \
+    return launch<MT, NT>((const float*)a, (const float*)h, (const float*)w, \
+                          (const float*)b, (float*)out, n, L, smem,          \
+                          (int64_t)w_rs, (int64_t)w_cs, (cudaStream_t)stream)
+  NDCN_K2_CASE(1, 4);
+  NDCN_K2_CASE(2, 4);
+  NDCN_K2_CASE(1, 8);
+  NDCN_K2_CASE(2, 8);
+  NDCN_K2_CASE(1, 16);
+#undef NDCN_K2_CASE
+  return (int)cudaErrorInvalidValue;
 }

@@ -14,14 +14,20 @@ Aᵀ; K4's recomputes A·X with K3, forms dX = K3(Aᵀ, G·Wᵀ) and dW, db with
 ``torch.matmul``. The operator is a constant whose cotangent is ZERO (the JAX
 package's BSR policy, unlike COO's NaN).
 
+K4's forward multiplies on the tensor cores with split-TF32 products, cut
+by the plan it shares with K2 (``kernels.fused_rhs.panel_plan``,
+``csrc/mma_split.cuh``); K3 multiplies in fp32 FMA.
+
 The plain PyTorch versions beside the kernels (a per-block batched product
 and a scatter over row blocks) are the CPU path, inside the same
 ``autograd.Function``s, and the references the kernels are held against on
-the card.
+the card. ``bsr_fused_rhs_split_plain`` emulates K4's split arithmetic in
+plain PyTorch; tests and the chip smoke script use it, the port does not.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -29,6 +35,8 @@ import scipy.sparse as sp
 import torch
 
 from ndcn_tpu_torch.kernels import build
+from ndcn_tpu_torch.kernels.fused_rhs import (PanelPlan, panel_plan,
+                                              split_matmul)
 from ndcn_tpu_torch.kernels.platform import on_cuda
 
 BLOCK = 128
@@ -38,8 +46,9 @@ BLOCK = 128
 SPMM_LAUNCHES = 0
 FUSED_LAUNCHES = 0
 
-# widest X the fused kernel takes: its (32, d) A·X panel lives in shared
-# memory (32 · 1025 · 4 bytes at the limit)
+# widest X the fused kernel takes: 8 warps of 16 n8 tiles each, where
+# ``panel_plan`` places a 16-row tile and a ring of two 16-deep chunks in
+# 232,192 of the 232,448 bytes a block may use
 K_MAX = 1024
 
 
@@ -90,13 +99,14 @@ def from_scipy_bsr(mat: sp.spmatrix, block: int = BLOCK,
         n_rows=n_rows, n_cols=n_cols)
 
 
-def bsr_spmm_plain(a: BsrMatrix, x: torch.Tensor) -> torch.Tensor:
+def bsr_spmm_plain(a: BsrMatrix, x: torch.Tensor,
+                   bmm=torch.bmm) -> torch.Tensor:
     """The plain version of K3: each stored block times its X row block in
-    one batched product, summed into the row blocks."""
+    one batched product (``bmm``), summed into the row blocks."""
     B, d = a.block, x.shape[1]
     ncb = -(-a.n_cols // B)
     xb = torch.nn.functional.pad(x, (0, 0, 0, ncb * B - a.n_cols))
-    prod = torch.bmm(a.blocks, xb.view(ncb, B, d)[a.block_cols.long()])
+    prod = bmm(a.blocks, xb.view(ncb, B, d)[a.block_cols.long()])
     y = torch.zeros((a.n_row_blocks, B, d), dtype=x.dtype, device=x.device)
     return y.index_add_(0, a.block_rows, prod).view(-1, d)[:a.n_rows]
 
@@ -105,6 +115,21 @@ def bsr_fused_rhs_plain(a: BsrMatrix, x: torch.Tensor, w: torch.Tensor,
                         b: torch.Tensor) -> torch.Tensor:
     """The plain version of K4."""
     return torch.relu(bsr_spmm_plain(a, x) @ w + b)
+
+
+def bsr_fused_rhs_split_plain(a: BsrMatrix, x: torch.Tensor, w: torch.Tensor,
+                              b: torch.Tensor, passes: int = 3) -> torch.Tensor:
+    """The plain version of K4 with the kernel's split-TF32 products."""
+    ax = bsr_spmm_plain(a, x, bmm=lambda p, q: split_matmul(p, q, passes,
+                                                            torch.bmm))
+    return torch.relu(split_matmul(ax, w, passes) + b)
+
+
+@functools.lru_cache(maxsize=None)
+def bsr_fused_plan(n_row_blocks: int, block: int, d: int) -> PanelPlan:
+    """K4's plan: CTAs are the row tiles of every row block."""
+    return panel_plan(d, block, lambda rows: n_row_blocks * -(-block // rows),
+                      max_rows=block)
 
 
 def _check_bsr(a: BsrMatrix, x: torch.Tensor, name: str) -> None:
@@ -147,13 +172,16 @@ def _launch_fused(a: BsrMatrix, x, w, b) -> torch.Tensor:
         return bsr_fused_rhs_plain(a, x, w, b)
     lib = build.load()
     d = x.shape[1]
+    plan = bsr_fused_plan(a.n_row_blocks, a.block, d)
     out = torch.empty((a.n_rows, d), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         rc = lib.ndcn_bsr_fused_rhs_f32(
             a.row_ptr.data_ptr(), a.block_cols.data_ptr(),
             a.blocks.data_ptr(), x.data_ptr(), w.data_ptr(), b.data_ptr(),
             out.data_ptr(), a.n_row_blocks, a.block, a.n_rows, a.n_cols, d,
-            w.stride(0), w.stride(1), torch.cuda.current_stream().cuda_stream)
+            w.stride(0), w.stride(1), plan.rows, plan.nt, plan.wn, plan.bk,
+            plan.smem_bytes,
+            torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"bsr_fused_rhs kernel launch failed: CUDA error "
                            f"{rc}")
@@ -229,4 +257,5 @@ def bsr_fused_rhs(a: BsrMatrix, at: BsrMatrix, x: torch.Tensor,
         raise ValueError(f"bsr_fused_rhs takes w (d, d), contiguous b (d,) "
                          f"with d <= {K_MAX}; got x {tuple(x.shape)}, w "
                          f"{tuple(w.shape)}, b {tuple(b.shape)}")
+    bsr_fused_plan(a.n_row_blocks, a.block, d)  # raises if nothing fits
     return _BsrFusedRhs.apply(a, at, a.blocks, at.blocks, x, w, b)

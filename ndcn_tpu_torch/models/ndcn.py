@@ -27,13 +27,27 @@ from ndcn_tpu_torch.models.nn import dropout_mask, linear_apply, linear_init
 from ndcn_tpu_torch.ode import odeint_with_stats
 
 
-def fused_profitable(kind: str, width: int) -> bool:
-    """The JAX package's fused-vs-unfused table, measured on a TPU (v5e);
-    kept so that dispatch matches it. The H100's crossover is an open
-    question in PERF.md."""
+def fused_profitable(kind: str, width: int, n: int) -> bool:
+    """Whether 'auto' takes the fused kernel (K2 for a dense operator, K4 for
+    a BSR one) at ``n`` nodes and hidden width ``width``, from a sweep on the
+    NVIDIA H100 80GB HBM3, 700.00 W (``chip_smoke.py`` [4] and [7b]: dense
+    n in {400, 1000, 4000, 10000} x width in {20, 64, 128}; BSR on the
+    400-node grid and a 2000-node 5 % matrix at width in {20, 128, 256, 512};
+    the fused call against ``matvec`` + ``linear_apply`` + relu).
+
+    Dense: K2 is one launch where the other route is three, and wins on the
+    card while the operator is small (0.011 ms against 0.022 at 400 x 20,
+    0.018 against 0.026 at 1000 x 20); from n · width of about 50,000 (400 x
+    128, 1000 x 64, 4000 x 20) the two tie, and beyond that ``torch.matmul``
+    is faster and takes over. BSR: K4 wins wherever its row tiles fill the
+    card (the 2000-node matrix, 128 CTAs, at every width: 0.27 ms against
+    0.46 at 512) and up to width 128 on the grid's 4 row blocks (0.022
+    against 0.034); with 32 CTAs and a wider state K3's grid over the
+    columns ties (0.044 against 0.039 at 256) and then wins (0.108 against
+    0.052 at 512)."""
     if kind == "dense":
-        return True
-    return width >= 512
+        return n * width <= 30_000
+    return width <= 128 or n >= 1600
 
 
 class NDCN(nn.Module):
@@ -98,10 +112,10 @@ def ode_func(model: NDCN, op: GraphOperator, t, h: torch.Tensor,
                 f" no_control={no_control}, dropout="
                 f"{'on' if drop_mask is not None else 'off'}); use "
                 "fused='auto' (or drop the flag) for the standard path")
-        width = h.shape[-1]
-        if dense_ok and (fused is True or fused_profitable("dense", width)):
+        n, width = h.shape[-2:]
+        if dense_ok and (fused is True or fused_profitable("dense", width, n)):
             return fused_rhs(op.mat, h, model.wt.weight.t(), model.wt.bias)
-        if bsr_ok and (fused is True or fused_profitable("bsr", width)):
+        if bsr_ok and (fused is True or fused_profitable("bsr", width, n)):
             return bsr_fused_rhs(op.fwd, op.bwd, h, model.wt.weight.t(),
                                  model.wt.bias)
     if not no_graph:

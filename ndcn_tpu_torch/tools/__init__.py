@@ -1,9 +1,14 @@
-"""The sparse microbenchmarks on the card, as the JAX package's ``tools/``:
+"""The sparse microbenchmarks on the card, as the JAX package's ``tools/``,
+and two probes of the port's own tensor-core kernels:
 
 - ``microbench_sparse``: the SpMV building blocks, the sliced-tile reduce
   (P1a) and the row gather (P1b);
 - ``probe_inkernel_gather``: the row gather (P2) against PyTorch's gathers;
-- ``bench_wide_gather``: K1-fm (narrow) against K5 (wide), split2 and bf16.
+- ``bench_wide_gather``: K1-fm (narrow) against K5 (wide), split2 and bf16;
+- ``tune_fused_plan``: K2 and K4 under every launch plan they are built for
+  (what ``kernels.fused_rhs.panel_plan``'s rules rest on);
+- ``probe_mma_accumulate``: the tensor core's truncating fp32 accumulate
+  against the fused kernels' chunk-wise fold.
 
 Each runs as ``python -m ndcn_tpu_torch.tools.<name> [args]``, prints one
 line per measurement on stderr and one JSON line on stdout, and raises

@@ -8,11 +8,16 @@ imports no jax, so it also runs where only the port is installed:
 Bounds: max|Δ| <= 1e-5·max|y| for K1 (fp32 and bf16), K1ᵀ, K1-fm, K5, K3,
 K4, the sliced-tile reduce and the row gather (exact; K1-fm's pack kernel
 too), and rtol 1e-5 /
-atol 1e-5·max|y| for K2 and its backward (fp32 sums in another order); 1e-4
+atol 1e-5·max|y| for K2 and its backward (fp32 sums in another order; K2 and
+K4 multiply in split TF32, which keeps fp32's digits); 2e-6·max|y| for K2
+and K4 against the plain PyTorch emulation of their split arithmetic (the
+same roundings, summed in another order); 1e-4
 rel-L1 for a served trajectory on the GPU against the same server on the CPU,
 and 1e-3 rel-L1 for a train step's gradients on the GPU against the CPU.
 Backward checks use non-symmetric matrices.
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -20,6 +25,7 @@ import scipy.sparse as sp
 import torch
 
 from ndcn_tpu_torch import kernels
+from ndcn_tpu_torch.convert import params_from_jax
 from ndcn_tpu_torch.graph import generators, operators
 from ndcn_tpu_torch.graph.sparse import as_operator, from_scipy_coo
 from ndcn_tpu_torch.kernels import bsr_spmm, coo_spmv, fused_rhs, sparse_bench
@@ -67,7 +73,9 @@ def test_k1_cuda_matches_plain(cuda_device, d):
     assert torch.equal(y, coo_spmv.coo_spmv(op, x))  # no atomics: repeatable
 
 
-@pytest.mark.parametrize("n,k", [(400, 20), (275, 13), (70, 33), (64, 300)])
+@pytest.mark.parametrize("n,k", [(400, 20), (275, 13), (70, 33), (64, 300),
+                                 (1000, 20), (4000, 64), (2049, 128),
+                                 (64, 1024)])
 def test_k2_cuda_matches_plain(cuda_device, n, k):
     a, h, w, b = _fused_inputs(n, k, seed=k, device=cuda_device)
     before = fused_rhs.LAUNCHES
@@ -77,6 +85,54 @@ def test_k2_cuda_matches_plain(cuda_device, n, k):
     assert fused_rhs.LAUNCHES == before + 1
     scale = float(ref.abs().max())
     assert torch.allclose(y, ref, rtol=1e-5, atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("n,k", [(400, 20), (275, 13), (1000, 20), (2049, 128),
+                                 (4000, 64), (64, 1024)])
+def test_k2_cuda_repeats_and_matches_split_emulation(cuda_device, n, k):
+    """Two calls bit-equal (fixed order, no atomics); within 2e-6 of the plain
+    PyTorch emulation of the split product; a contiguous W, the transposed
+    view nn.Linear hands over and a view with no unit stride give the same
+    bits for the same values."""
+    a, h, w, b = _fused_inputs(n, k, seed=k + 1, device=cuda_device)
+    y = fused_rhs.fused_rhs(a, h, w, b)
+    assert torch.equal(y, fused_rhs.fused_rhs(a, h, w, b))
+    assert torch.equal(y, fused_rhs.fused_rhs(a, h, w.t().contiguous().t(), b))
+    spread = torch.zeros(2 * k, 3 * k, device=cuda_device)
+    spread[::2, ::3] = w                  # a view with no unit stride
+    assert torch.equal(y, fused_rhs.fused_rhs(a, h, spread[::2, ::3], b))
+    emu = fused_rhs.fused_rhs_split_plain(a, h, w, b)
+    assert float((y - emu).abs().max()) <= 2e-6 * float(emu.abs().max())
+    one_pass = fused_rhs.fused_rhs_split_plain(a, h, w, b, passes=1)
+    assert float((y - one_pass).abs().max()) > 1e-5 * float(emu.abs().max())
+
+
+def test_k2_cuda_keeps_nan_and_takes_every_plan(cuda_device, monkeypatch):
+    """relu keeps a NaN (the solver's finite check reads it); every panel
+    height and chunk depth the kernel is built for gives the plan's
+    answer; a plan whose shared-memory size is not the layout's is
+    refused."""
+    a, h, w, b = _fused_inputs(300, 40, seed=3, device=cuda_device)
+    bad = h.clone()
+    bad[5, 7] = float("nan")
+    assert torch.isnan(fused_rhs.fused_rhs(a, bad, w, b)).any()
+    ref = fused_rhs.fused_rhs(a, h, w, b)
+    base = fused_rhs.fused_rhs_plan(300, 40)
+    for rows in (16, 32):
+        for bk in (32, 64, 128):
+            plan = base._replace(rows=rows, bk=bk,
+                                 smem_bytes=fused_rhs.plan_smem_bytes(
+                                     rows, base.nt, base.wk, bk, 40))
+            monkeypatch.setattr(fused_rhs, "fused_rhs_plan",
+                                lambda n, k, plan=plan: plan)
+            got = fused_rhs.fused_rhs(a, h, w, b)
+            # another chunk depth folds the sum in other places
+            assert _max_rel(got, ref) <= 2e-6
+    monkeypatch.setattr(fused_rhs, "fused_rhs_plan",
+                        lambda n, k: base._replace(smem_bytes=base.smem_bytes
+                                                   + 4))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fused_rhs.fused_rhs(a, h, w, b)
 
 
 def _max_rel(y, ref):
@@ -333,7 +389,41 @@ def test_k3_cuda_matches_plain_forward_and_backward(cuda_device, n, d, block):
     assert torch.equal(y, bsr_spmm.bsr_spmm(op.fwd, op.bwd, x))  # repeatable
 
 
-@pytest.mark.parametrize("n,d", [(400, 20), (2000, 256), (300, 513)])
+@pytest.mark.parametrize("n,d,block", [(400, 20, 128), (2000, 512, 128),
+                                       (300, 1024, 128), (300, 33, 48),
+                                       (257, 5, 9)])
+def test_k4_cuda_repeats_and_matches_split_emulation(cuda_device, n, d, block):
+    """K4 bit-equal on a repeat, within 2e-6 of the emulation of its split
+    product, and not a one-pass TF32 product; block sizes other than 128 and
+    an empty row block included."""
+    from ndcn_tpu_torch.graph.sparse import from_scipy_bsr_graph
+    rng = np.random.RandomState(n + d)
+    a = sp.random(n, n, density=0.05, random_state=rng, format="lil")
+    a[:block] = 0                                  # an empty row block
+    op = from_scipy_bsr_graph(a.tocsr(), block=block, device=cuda_device)
+    x = torch.as_tensor(rng.rand(n, d).astype(np.float32), device=cuda_device)
+    weight = torch.as_tensor((rng.randn(d, d) / np.sqrt(d)).astype(np.float32),
+                             device=cuda_device)
+    b = torch.as_tensor(0.1 * rng.randn(d).astype(np.float32),
+                        device=cuda_device)
+    y = bsr_spmm.bsr_fused_rhs(op.fwd, op.bwd, x, weight.t(), b)
+    assert torch.equal(y, bsr_spmm.bsr_fused_rhs(op.fwd, op.bwd, x,
+                                                 weight.t(), b))
+    assert torch.equal(y, bsr_spmm.bsr_fused_rhs(
+        op.fwd, op.bwd, x, weight.t().contiguous(), b))
+    emu = bsr_spmm.bsr_fused_rhs_split_plain(op.fwd, x, weight.t(), b)
+    scale = float(emu.abs().max())
+    assert float((y - emu).abs().max()) <= 2e-6 * scale
+    assert _max_rel(y, bsr_spmm.bsr_fused_rhs_plain(op.fwd, x, weight.t(),
+                                                    b)) <= 1e-5
+    one_pass = bsr_spmm.bsr_fused_rhs_split_plain(op.fwd, x, weight.t(), b,
+                                                  passes=1)
+    if d >= 20:
+        assert float((y - one_pass).abs().max()) > 1e-5 * scale
+
+
+@pytest.mark.parametrize("n,d", [(400, 20), (2000, 256), (300, 513),
+                                 (2000, 512), (300, 1024)])
 def test_k4_cuda_matches_plain_forward_and_backward(cuda_device, n, d):
     rng = np.random.RandomState(d)
     a = sp.random(n, n, density=0.05, random_state=rng, format="csr")
@@ -344,6 +434,13 @@ def test_k4_cuda_matches_plain_forward_and_backward(cuda_device, n, d):
     b = torch.as_tensor(0.1 * rng.randn(d).astype(np.float32),
                         device=cuda_device)
     g = torch.as_tensor(rng.randn(n, d).astype(np.float32), device=cuda_device)
+    # no cotangent where the forward's bound (1e-5·max) leaves relu's mask
+    # open: there a kernel and its plain version may differ, and the
+    # derivative jumps. That is at most one element in 10,000.
+    z = bsr_spmm.bsr_spmm_plain(op.fwd, x) @ weight.t() + b
+    open_mask = z.abs() <= 1e-5 * z.abs().max()
+    assert int(open_mask.sum()) <= max(2, 1e-4 * open_mask.numel())
+    g = g.masked_fill(open_mask, 0.0)
     ins = [t.clone().requires_grad_() for t in (x, weight, b)]
     before = bsr_spmm.FUSED_LAUNCHES
     out = bsr_spmm.bsr_fused_rhs(op.fwd, op.bwd, ins[0], ins[1].t(), ins[2])
@@ -359,31 +456,96 @@ def test_k4_cuda_matches_plain_forward_and_backward(cuda_device, n, d):
         assert _max_rel(x_, y_) <= 1e-5
 
 
+def _scale_one_rhs_call(monkeypatch, call, scale):
+    """Let RHS evaluation number ``call`` (from 0) of the next
+    ``ndcn_forward`` return ``scale`` times its value."""
+    from ndcn_tpu_torch.models import ndcn as ndcn_module
+    plain, seen = ndcn_module.ode_func, [0]
+
+    def scaled(*args, **kwargs):
+        y = plain(*args, **kwargs)
+        seen[0] += 1
+        return y * scale if seen[0] - 1 == call else y
+
+    monkeypatch.setattr(ndcn_module, "ode_func", scaled)
+
+
+def _rel_l1(got, want):
+    return float((got - want).abs().sum() / want.abs().sum())
+
+
+@pytest.mark.parametrize("weights", ["fresh", "fixture"])
 @pytest.mark.parametrize("fmt,fused", [("dense", "auto"), ("coo", False),
                                        ("bsr", False), ("bsr", True)])
-def test_train_step_gradients_on_cuda_match_cpu(cuda_device, fmt, fused):
+def test_train_step_gradients_on_cuda_match_cpu(cuda_device, monkeypatch, fmt,
+                                                fused, weights):
+    """One train step on grid400 on the card against the CPU, from freshly
+    initialised weights (where ``experiments.heat`` starts) and from the
+    ``ndcn_grads_grid400`` fixture's.
+
+    At the fresh weights the loss is not differentiable where it is
+    evaluated: in RHS evaluation 5 (stage 5 of the first step) one relu
+    input, node 171 unit 5, is -2e-8 beside max|z| = 0.6, and the gradient
+    through the first step's error ratio (2.8e-9, so the growth factor's
+    derivative is large) differs by 4.0e-3 rel-L1 between the two sides
+    (``tests/test_torch_train.py::test_fresh_weight_gradients_jump_at_a_relu_kink``
+    shows the same jump in the JAX package). Which side an implementation
+    lands on is decided by the last bit of its RHS, so the card's gradients
+    are held to 1e-3 of the CPU's on ONE side of the kink: the CPU's own, or
+    the CPU's with RHS evaluation 2 scaled by one ulp up or down, which
+    moves that input across zero and nothing else. The two sides are held
+    to the measured jump, so no other difference can hide there. At the
+    fixture's weights there is one CPU gradient, and the fixture's own is
+    held too."""
     lap = operators.normalized_laplacian(generators.build_network("grid", 400))
     mat = lap if fmt == "dense" else sp.csr_matrix(lap)
-    vt = np.linspace(0.0, 2.0, 10).astype(np.float32)
-    x0 = np.random.RandomState(0).uniform(0.0, 25.0, (400, 1)) \
-        .astype(np.float32)
-    target = torch.as_tensor(np.random.RandomState(1).rand(10, 400, 1)
-                             .astype(np.float32))
-    grads = {}
-    for dev in ("cpu", cuda_device):
-        model = init_ndcn(torch.Generator().manual_seed(0), 1, 20, 1,
-                          device=dev)
+    if weights == "fresh":
+        vt = np.linspace(0.0, 2.0, 10).astype(np.float32)
+        x0 = np.random.RandomState(0).uniform(0.0, 25.0, (400, 1)) \
+            .astype(np.float32)
+        target = torch.as_tensor(np.random.RandomState(1).rand(10, 400, 1)
+                                 .astype(np.float32))
+        sides = (None, 1.0 - 1e-7, 1.0 + 1e-7)
+    else:
+        gx = dict(np.load(os.path.join(
+            os.path.dirname(os.path.abspath(__file__)), "fixtures",
+            "ndcn_grads_grid400.npz")))
+        tree = {name: {"w": gx[f"{name}_w"].T, "b": gx[f"{name}_b"]}
+                for name in ("enc1", "enc2", "wt", "dec")}
+        vt, x0 = gx["t"], gx["x0"]
+        target = torch.as_tensor(gx["target"].T[..., None])
+        sides = (None,)
+
+    def train_step(dev, scale=None):
+        model = (init_ndcn(torch.Generator().manual_seed(0), 1, 20, 1,
+                           device=dev) if weights == "fresh"
+                 else params_from_jax(tree, device=dev))
         op = as_operator(mat, sparse=fmt != "dense", format=fmt, device=dev)
-        out, stats = ndcn_forward(model, op, vt, torch.as_tensor(x0,
-                                                                 device=dev),
-                                  rtol=0.01, atol=0.001, method="dopri5",
-                                  fused=fused)
+        with monkeypatch.context() as patch:
+            if scale is not None:
+                _scale_one_rhs_call(patch, 2, scale)
+            out, stats = ndcn_forward(model, op, vt,
+                                      torch.as_tensor(x0, device=dev),
+                                      rtol=0.01, atol=0.001, method="dopri5",
+                                      fused=fused)
         (out - target.to(dev)).abs().mean().backward()
-        assert stats.success
-        grads[str(dev)] = torch.cat([p.grad.flatten().cpu()
-                                     for p in model.parameters()])
-    cpu, gpu = grads["cpu"], grads[str(cuda_device)]
-    assert float((gpu - cpu).abs().sum() / cpu.abs().sum()) <= 1e-3
+        assert stats.success and stats.nfe == 20
+        return {n: p.grad.cpu() for n, p in model.named_parameters()}
+
+    def flat(grads):
+        return torch.cat([v.flatten() for v in grads.values()])
+
+    gpu = train_step(cuda_device)
+    cpu = [flat(train_step("cpu", scale)) for scale in sides]
+    for other in cpu[1:]:       # the same side, or the measured jump away
+        gap = _rel_l1(other, cpu[0])
+        assert gap <= 1e-5 or 3.9e-3 <= gap <= 4.1e-3
+    assert min(_rel_l1(flat(gpu), side) for side in cpu) <= 1e-3
+    if weights == "fixture":
+        for name in ("enc1", "enc2", "wt", "dec"):
+            for leaf, key in (("weight", "w"), ("bias", "b")):
+                want = torch.as_tensor(gx[f"g_{name}_{key}_backprop"])
+                assert _rel_l1(gpu[f"{name}.{leaf}"], want) <= 1e-3
 
 
 @pytest.mark.parametrize("fmt", ["dense", "coo"])

@@ -1,0 +1,282 @@
+"""The arithmetic and the launch plan of the tensor-core kernels K2 and K4,
+on the CPU.
+
+The CUDA kernels multiply with every fp32 operand split into two TF32 parts
+(``hi = tf32(x)``, ``lo = tf32(x - hi)``) and sum ``lo·hi + hi·lo + hi·hi`` in
+fp32. ``fused_rhs_split_plain`` and ``bsr_fused_rhs_split_plain`` emulate that
+in plain PyTorch (TF32 = the mantissa rounded to 10 bits). Held here:
+
+- the emulation within 1e-5·max|y| of a float64 reference (the port's bar for
+  a kernel against its plain version), on inputs from numpy seeds, while a
+  one-pass TF32 product of the same inputs is not: a kernel that dropped the
+  low parts would be caught by the same bound;
+- the grid400 inference solve with the emulation as its right-hand side: the
+  same NFE as the plain version's (20) and 1e-4 rel-L1 to the oracle fixture;
+- the emulation and the plain versions within 1e-5·max|y| of the JAX
+  package's Pallas kernels in interpret mode, as its own tests run them;
+- the host's plan: shared memory within what a block may use, every row and
+  column and depth step owned once, the same on two calls, and the layout
+  arithmetic that the C entry checks.
+"""
+
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import scipy.sparse as sp
+import torch
+
+from ndcn_tpu.kernels.bsr_spmm import bsr_fused_rhs_raw
+from ndcn_tpu.kernels.bsr_spmm import from_scipy_bsr as j_from_scipy_bsr
+from ndcn_tpu.kernels.fused_rhs import fused_graph_rhs
+from ndcn_tpu_torch.convert import params_from_jax
+from ndcn_tpu_torch.graph import generators, operators
+from ndcn_tpu_torch.graph.sparse import from_dense
+from ndcn_tpu_torch.kernels import bsr_spmm, fused_rhs
+from ndcn_tpu_torch.models import ndcn, ndcn_forward
+
+FIX = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
+KINDS = ["uniform", "normal", "wide_range", "laplacian"]
+
+
+def _grid_lap():
+    return operators.normalized_laplacian(generators.build_network("grid", 400))
+
+
+def _draw(rng, kind, shape):
+    if kind == "normal":
+        return rng.randn(*shape).astype(np.float32)
+    if kind == "wide_range":    # magnitudes from 1e-3 to 1e3, both signs
+        return (10.0 ** rng.uniform(-3, 3, shape)
+                * rng.choice([-1.0, 1.0], shape)).astype(np.float32)
+    return rng.rand(*shape).astype(np.float32)
+
+
+def _dense_inputs(n, k, kind, seed):
+    rng = np.random.RandomState(seed)
+    a = (_grid_lap().astype(np.float32) if kind == "laplacian"
+         else _draw(rng, kind, (n, n)))
+    n = a.shape[0]
+    return (a, _draw(rng, kind, (n, k)),
+            (rng.randn(k, k) / np.sqrt(k)).astype(np.float32),
+            (0.1 * rng.randn(k)).astype(np.float32))
+
+
+def _bsr_inputs(n, d, kind, seed):
+    rng = np.random.RandomState(seed)
+    if kind == "laplacian":
+        mat = sp.csr_matrix(_grid_lap().astype(np.float32))
+    else:
+        mask = sp.random(n, n, density=0.05, random_state=rng, format="csr")
+        mat = mask.copy()
+        mat.data = _draw(rng, kind, mat.data.shape)
+    n = mat.shape[0]
+    return (mat, _draw(rng, kind, (n, d)),
+            (rng.randn(d, d) / np.sqrt(d)).astype(np.float32),
+            (0.1 * rng.randn(d)).astype(np.float32))
+
+
+def _rhs64(a, h, w, b):
+    a, h, w, b = (np.asarray(v, np.float64) for v in (a, h, w, b))
+    return np.maximum((a @ h) @ w + b, 0.0)
+
+
+def _max_rel(got, ref):
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    return np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-30)
+
+
+def test_tf32_round_keeps_ten_mantissa_bits_and_rounds_ties_away():
+    x = torch.tensor([1.0, 1.0 + 2.0 ** -11, 1.0 + 2.0 ** -10, -1.0 - 2.0 ** -11,
+                      1.0 + 2.0 ** -12, 3.0e-39, 0.0])
+    got = fused_rhs.tf32_round(x)
+    want = torch.tensor([1.0, 1.0 + 2.0 ** -10, 1.0 + 2.0 ** -10,
+                         -1.0 - 2.0 ** -10, 1.0, 3.0e-39, 0.0])
+    assert torch.equal(got[:5], want[:5]) and got[6] == 0.0
+    r = torch.as_tensor(np.random.RandomState(0).randn(4096).astype(np.float32))
+    hi = fused_rhs.tf32_round(r)
+    assert not (hi.view(torch.int32) & 0x1FFF).any()
+    assert float(((r - hi).abs() / r.abs()).max()) <= 2.0 ** -11
+    lo = fused_rhs.tf32_round(r - hi)
+    assert float(((r - hi - lo).abs() / r.abs()).max()) <= 2.0 ** -21
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("n,k", [(400, 20), (275, 13), (2000, 128)])
+def test_k2_split_emulation_holds_the_fp32_bar_and_one_pass_does_not(n, k,
+                                                                     kind):
+    if kind == "laplacian" and n != 400:
+        n = 400                     # the Laplacian is the 400-node grid's
+    a, h, w, b = _dense_inputs(n, k, kind, seed=n + k)
+    ref = _rhs64(a, h, w, b)
+    ins = tuple(map(torch.as_tensor, (a, h, w, b)))
+    assert _max_rel(fused_rhs.fused_rhs_split_plain(*ins), ref) <= 1e-5
+    assert _max_rel(fused_rhs.fused_rhs_plain(*ins), ref) <= 1e-5
+    assert _max_rel(fused_rhs.fused_rhs_split_plain(*ins, passes=1),
+                    ref) > 1e-5
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("n,d", [(400, 20), (600, 256)])
+def test_k4_split_emulation_holds_the_fp32_bar_and_one_pass_does_not(n, d,
+                                                                     kind):
+    mat, x, w, b = _bsr_inputs(n, d, kind, seed=n + d)
+    ref = _rhs64(mat.toarray(), x, w, b)
+    a = bsr_spmm.from_scipy_bsr(mat)
+    ins = tuple(map(torch.as_tensor, (x, w, b)))
+    assert _max_rel(bsr_spmm.bsr_fused_rhs_split_plain(a, *ins), ref) <= 1e-5
+    assert _max_rel(bsr_spmm.bsr_fused_rhs_plain(a, *ins), ref) <= 1e-5
+    assert _max_rel(bsr_spmm.bsr_fused_rhs_split_plain(a, *ins, passes=1),
+                    ref) > 1e-5
+
+
+@pytest.mark.parametrize("passes", [3, 1])
+def test_grid400_inference_solve_with_the_split_emulation(passes, monkeypatch):
+    """The adaptive controller sees the split product as it sees fp32: the
+    same NFE and step counts, 1e-4 rel-L1 to the oracle. (A one-pass product
+    is off the plain solve by three orders of magnitude more.)"""
+    f = dict(np.load(os.path.join(FIX, "ndcn_forward_grid400.npz")))
+    tree = {name: {"w": f[f"{name}_w"].T, "b": f[f"{name}_b"]}
+            for name in ("enc1", "enc2", "wt", "dec")}
+    model, op = params_from_jax(tree), from_dense(_grid_lap())
+    kw = dict(nondiff=True, fused=True, rtol=0.01, atol=0.001, method="dopri5")
+    x0 = torch.as_tensor(f["x0"])
+    plain, p_stats = ndcn_forward(model, op, f["t"], x0, **kw)
+    calls = []
+
+    def emulated(a, h, w, b):
+        calls.append(1)
+        return fused_rhs.fused_rhs_split_plain(a, h, w, b, passes=passes)
+
+    monkeypatch.setattr(ndcn, "fused_rhs", emulated)
+    out, stats = ndcn_forward(model, op, f["t"], x0, **kw)
+    assert stats.success and len(calls) == stats.nfe
+    err_plain = float((out - plain).abs().mean() / plain.abs().mean())
+    if passes == 3:
+        assert stats.nfe == p_stats.nfe == 20
+        assert (stats.n_accepted, stats.n_rejected) == (p_stats.n_accepted,
+                                                        p_stats.n_rejected)
+        err = np.abs(out.numpy() - f["out"]).mean() / np.abs(f["out"]).mean()
+        assert err <= 1e-4
+        assert err_plain <= 1e-6
+    else:
+        assert err_plain > 1e-5
+
+
+@pytest.mark.parametrize("n,k,seed", [(400, 20, 0), (275, 13, 1)])
+def test_k2_emulation_and_plain_match_jax_fused_kernel_interpret(n, k, seed):
+    rng = np.random.RandomState(seed)
+    a, h = rng.rand(n, n).astype(np.float32), rng.rand(n, k).astype(np.float32)
+    w, b = rng.randn(k, k).astype(np.float32), rng.randn(k).astype(np.float32)
+    ref = np.asarray(fused_graph_rhs(*map(jnp.asarray, (a, h, w, b))))
+    ins = tuple(map(torch.as_tensor, (a, h, w, b)))
+    assert _max_rel(fused_rhs.fused_rhs_split_plain(*ins), ref) <= 1e-5
+    assert _max_rel(fused_rhs.fused_rhs_plain(*ins), ref) <= 1e-5
+    assert _max_rel(fused_rhs.fused_rhs(*ins), ref) <= 1e-5
+
+
+@pytest.mark.parametrize("n,d,seed", [(400, 20, 2), (260, 40, 4)])
+def test_k4_emulation_and_plain_match_jax_fused_kernel_interpret(n, d, seed):
+    mat, x, w, b = _bsr_inputs(n, d, "laplacian" if n == 400 else "uniform",
+                               seed)
+    ref = np.asarray(bsr_fused_rhs_raw(j_from_scipy_bsr(mat),
+                                       *map(jnp.asarray, (x, w, b))))
+    a = bsr_spmm.from_scipy_bsr(mat)
+    ins = tuple(map(torch.as_tensor, (x, w, b)))
+    assert _max_rel(bsr_spmm.bsr_fused_rhs_split_plain(a, *ins), ref) <= 1e-5
+    assert _max_rel(bsr_spmm.bsr_fused_rhs_plain(a, *ins), ref) <= 1e-5
+
+
+@pytest.mark.parametrize("n", [1, 70, 400, 1000, 10000])
+@pytest.mark.parametrize("k", [1, 13, 20, 64, 128, 300, 512, 1024])
+def test_k2_plan_fits_and_covers_every_row_column_and_depth_step(n, k):
+    fused_rhs.fused_rhs_plan.cache_clear()
+    plan = fused_rhs.fused_rhs_plan(n, k)
+    fused_rhs.fused_rhs_plan.cache_clear()
+    assert plan == fused_rhs.fused_rhs_plan(n, k)         # deterministic
+    assert plan.smem_bytes <= fused_rhs.SMEM_LIMIT == 227 * 1024
+    assert plan.smem_bytes == fused_rhs.plan_smem_bytes(
+        plan.rows, plan.nt, plan.wk, plan.bk, k)
+    assert plan.wn * plan.wk == fused_rhs.WARPS and fused_rhs.STAGES == 2
+    assert plan.rows in (16, 32) and plan.rows * plan.nt <= 256
+    assert plan.bk % (8 * plan.wk) == 0 and 8 <= plan.bk <= 128
+    # no deeper a chunk than the depth needs (or than the depth warps need)
+    assert plan.bk // 2 < n or plan.bk == 8 * plan.wk
+    rows = [r for lo, hi in plan.row_ranges(n) for r in range(lo, hi)]
+    assert rows == list(range(n))
+    cols = [c for lo, hi in plan.column_ranges(k) for c in range(lo, hi)]
+    assert cols == list(range(k))
+    steps = sorted(s for warp in plan.depth_steps() for s in warp)
+    assert steps == list(range(plan.bk // 8))
+    # a narrow panel where tall ones would leave SMs without a CTA
+    if plan.rows > 16:
+        assert -(-n // plan.rows) >= fused_rhs.TALL_PANEL_MIN_CTAS
+    # the A tile's row stride is an odd multiple of 4 floats, which keeps a
+    # fragment load's 32 addresses on 32 banks
+    assert (plan.bk + 4) % 8 == 4
+
+
+@pytest.mark.parametrize("blocks,block,d", [(4, 128, 20), (16, 128, 256),
+                                            (16, 128, 512), (3, 128, 1024),
+                                            (7, 48, 33), (29, 9, 5),
+                                            (200, 128, 64)])
+def test_k4_plan_fits_and_tiles_every_row_block(blocks, block, d):
+    plan = bsr_spmm.bsr_fused_plan(blocks, block, d)
+    assert plan == bsr_spmm.bsr_fused_plan(blocks, block, d)
+    assert plan.smem_bytes <= fused_rhs.SMEM_LIMIT
+    assert plan.rows <= max(16, -(-block // 16) * 16)
+    rows = [r for lo, hi in plan.row_ranges(block) for r in range(lo, hi)]
+    assert rows == list(range(block))
+    cols = [c for lo, hi in plan.column_ranges(d) for c in range(lo, hi)]
+    assert cols == list(range(d))
+    assert plan.bk // 2 < block or plan.bk == 8 * plan.wk
+    if plan.rows > 16:
+        assert (blocks * -(-block // plan.rows)
+                >= fused_rhs.TALL_PANEL_MIN_CTAS)
+
+
+def test_plans_and_checks_name_the_limit():
+    with pytest.raises(ValueError, match="1 <= width <= 1024"):
+        fused_rhs.panel_plan(1025, 64, lambda rows: 1)
+    with pytest.raises(ValueError, match="1 <= width <= 1024"):
+        fused_rhs.panel_plan(0, 64, lambda rows: 1)
+    k = fused_rhs.K_MAX + 1
+    with pytest.raises(ValueError, match="k <= 1024"):
+        fused_rhs.fused_rhs(torch.zeros(4, 4), torch.zeros(4, k),
+                            torch.zeros(k, k), torch.zeros(k))
+    a = bsr_spmm.from_scipy_bsr(sp.identity(4, format="csr"))
+    with pytest.raises(ValueError, match="d <= 1024"):
+        bsr_spmm.bsr_fused_rhs(a, a, torch.zeros(4, k), torch.zeros(k, k),
+                               torch.zeros(k))
+
+
+def test_fused_kernel_tools_need_the_card_and_match_the_sources():
+    from ndcn_tpu_torch.kernels import build
+    from ndcn_tpu_torch.tools import probe_mma_accumulate, tune_fused_plan
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible")
+    for tool in (tune_fused_plan, probe_mma_accumulate):
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            tool.main([])
+    header = (build.CSRC / "mma_split.cuh").read_text()
+    assert f"kStages = {fused_rhs.STAGES};" in header
+    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in header
+    assert header.count("cvt.rna.tf32.f32") == 2          # hi, and lo
+    for src in ("fused_rhs.cu", "bsr_spmm.cu"):
+        assert '#include "mma_split.cuh"' in (build.CSRC / src).read_text()
+
+
+@pytest.mark.parametrize("n,k", [(400, 20), (10000, 128), (64, 1024)])
+def test_tuning_variants_fit_a_block_and_include_the_plan(n, k):
+    from ndcn_tpu_torch.tools import tune_fused_plan
+
+    base = fused_rhs.fused_rhs_plan(n, k)
+    plans = list(tune_fused_plan.variants(base, k))
+    assert base in plans and len(set(plans)) == len(plans)
+    for plan in plans:
+        assert plan.smem_bytes <= fused_rhs.SMEM_LIMIT
+        assert plan.smem_bytes == fused_rhs.plan_smem_bytes(
+            plan.rows, plan.nt, plan.wk, plan.bk, k)
+        assert (plan.nt, plan.wn, plan.wk) == (base.nt, base.wn, base.wk)

@@ -144,6 +144,129 @@ def test_gradients_match_jax_on_a_non_symmetric_bsr_operator(fused):
     assert worst < 1e-4 and nfe == j_nfe
 
 
+def _fresh_grid400_grads(package, monkeypatch, scale=None,
+                         detach_first_ratio=False, relu_inputs=None):
+    """Gradients (one flat vector, layer by layer, w as (in, out) then b) of
+    the l1 loss of one grid400 train step from freshly initialised weights,
+    by the port or by the JAX package on the same weights. ``scale``
+    multiplies RHS evaluation 2 (stage 2 of the first step, at t = dt/5, the
+    only evaluation with 0.03 < t < 0.05). ``relu_inputs`` collects the
+    port's relu inputs, one tensor an evaluation."""
+    from ndcn_tpu.models import ndcn as j_ndcn_module
+    from ndcn_tpu_torch.models import ndcn as ndcn_module
+    from ndcn_tpu_torch.ode import adaptive
+
+    lap = operators.normalized_laplacian(generators.build_network("grid", 400))
+    t = np.linspace(0.0, 2.0, 10).astype(np.float32)
+    x0 = np.random.RandomState(0).uniform(0.0, 25.0, (400, 1)) \
+        .astype(np.float32)
+    target = np.random.RandomState(1).rand(10, 400, 1).astype(np.float32)
+    model = init_ndcn(torch.Generator().manual_seed(0), 1, 20, 1)
+    with monkeypatch.context() as patch:
+        if package == "jax":
+            j_plain = j_ndcn_module.ode_func
+
+            def j_rhs(params, op, t_, h, **kw):
+                y = j_plain(params, op, t_, h, **kw)
+                return jnp.where((t_ > 0.03) & (t_ < 0.05),
+                                 y * jnp.float32(scale), y)
+
+            if scale is not None:
+                patch.setattr(j_ndcn_module, "ode_func", j_rhs)
+            tree = {n: {"w": jnp.asarray(getattr(model, n).weight.detach()
+                                         .numpy().T),
+                        "b": jnp.asarray(getattr(model, n).bias.detach()
+                                         .numpy())} for n in LAYERS}
+
+            def j_loss(params):
+                out, stats = j_ndcn_forward(
+                    params, j_as_operator(lap, sparse=False), jnp.asarray(t),
+                    jnp.asarray(x0), **KW)
+                return jnp.mean(jnp.abs(out - target)), stats
+
+            (_, stats), g = jax.value_and_grad(j_loss, has_aux=True)(tree)
+            assert int(stats.nfe) == 20
+            return np.concatenate([np.asarray(g[n][leaf]).ravel()
+                                   for n in LAYERS for leaf in ("w", "b")])
+        plain, seen = ndcn_module.ode_func, [0]
+
+        def rhs(mdl, op, t_, h, **kw):
+            y = plain(mdl, op, t_, h, **kw)
+            if relu_inputs is not None:
+                relu_inputs.append((matvec(op, h) @ mdl.wt.weight.t()
+                                    + mdl.wt.bias).detach())
+            seen[0] += 1
+            return y * scale if scale is not None and seen[0] == 3 else y
+
+        patch.setattr(ndcn_module, "ode_func", rhs)
+        if detach_first_ratio:
+            step_size, attempts = adaptive.optimal_step_size, [0]
+
+            def detached(last_step, ratio, ctrl):
+                attempts[0] += 1
+                return step_size(last_step, ratio.detach() if attempts[0] == 1
+                                 else ratio, ctrl)
+
+            patch.setattr(adaptive, "optimal_step_size", detached)
+        out, stats = ndcn_forward(model, as_operator(lap, sparse=False), t,
+                                  torch.as_tensor(x0), **KW)
+        (out - torch.as_tensor(target)).abs().mean().backward()
+    assert stats.success and stats.nfe == 20
+    return np.concatenate([g.numpy().ravel() for n in LAYERS
+                           for g in (getattr(model, n).weight.grad.t(),
+                                     getattr(model, n).bias.grad)])
+
+
+ULP_DOWN, ULP_UP = 1.0 - 1e-7, 1.0 + 1e-7   # one float32 step off 1
+
+
+def test_fresh_weight_gradients_jump_at_a_relu_kink(monkeypatch):
+    """From freshly initialised weights on grid400 the loss is evaluated
+    beside a kink: one relu input of RHS evaluation 5 (stage 5 of the first
+    step) is within 1e-7·max|z| of zero, and no other of the solve's 20
+    evaluations is. Scaling evaluation 2 by one ulp moves that input across
+    zero; the forward and the steps stay, and the gradients jump by 4.0e-3
+    rel-L1, while the ulp the other way moves them by < 1e-5. The jump comes
+    through the first step's error ratio (2.8e-9, where the growth factor's
+    derivative 0.1·factor/ratio is large): with that ratio detached it is
+    gone. So two right implementations of the RHS can differ by 4.0e-3 in
+    these gradients, and a comparison here holds one to a side of the kink
+    (``tests/test_torch_cuda.py::test_train_step_gradients_on_cuda_match_cpu``)."""
+    zs = []
+    base = _fresh_grid400_grads("port", monkeypatch, relu_inputs=zs)
+    near = [int((z.abs() <= 1e-7 * z.abs().max()).sum()) for z in zs]
+    assert near == [0] * 5 + [1] + [0] * 14
+    flipped = []
+    down = _fresh_grid400_grads("port", monkeypatch, ULP_DOWN,
+                                relu_inputs=flipped)
+    flips = [int(((a > 0) != (b > 0)).sum()) for a, b in zip(zs, flipped)]
+    assert flips == [0] * 5 + [1] + [0] * 14
+    up = _fresh_grid400_grads("port", monkeypatch, ULP_UP)
+    assert 3.9e-3 <= rel_l1(down, base) <= 4.1e-3
+    assert rel_l1(up, base) <= 1e-5
+    smooth = [_fresh_grid400_grads("port", monkeypatch, scale,
+                                   detach_first_ratio=True)
+              for scale in (None, ULP_DOWN)]
+    assert rel_l1(smooth[1], smooth[0]) <= 1e-4
+
+
+def test_fresh_weight_gradient_jump_is_the_jax_packages_too(monkeypatch):
+    """The JAX package on the same weights has the same two one-sided
+    gradients: its own lands on one side, an ulp on RHS evaluation 2 takes
+    it to the other, 4.0e-3 away, and each side agrees with the port's to
+    1e-4."""
+    j_sides = [_fresh_grid400_grads("jax", monkeypatch, scale)
+               for scale in (ULP_DOWN, None, ULP_UP)]
+    gaps = sorted(rel_l1(j_sides[i], j_sides[1]) for i in (0, 2))
+    assert gaps[0] <= 1e-5 and 3.9e-3 <= gaps[1] <= 4.1e-3
+    sides = [_fresh_grid400_grads("port", monkeypatch, scale)
+             for scale in (ULP_DOWN, None, ULP_UP)]
+    for mine in sides:
+        assert min(rel_l1(mine, theirs) for theirs in j_sides) <= 1e-4
+    for theirs in j_sides:
+        assert min(rel_l1(mine, theirs) for mine in sides) <= 1e-4
+
+
 def test_grad_guard_survives_a_rejected_overflowing_step():
     """The twin of ``tests/test_solvers.py``'s overflow test: a first step of
     80 overflows dy/dt = s·eʸ, is rejected, and must not NaN the gradient."""
