@@ -138,6 +138,38 @@ struct WarpLanes {
   }
 };
 
+// Folds the lane sums of a row's groups in a fixed order: afterwards the
+// lanes of group 0 hold the row's sums. Every lane of the warp must call it.
+template <int E>
+__device__ __forceinline__ void warp_fold(const WarpLanes& w,
+                                          float (&acc)[E]) {
+  if (w.butterfly) {
+    // lanes that share a slot differ in the bits from span up to the row's
+    // share of the warp: xor shuffles leave the sum in every group
+    for (int off = w.sub >> 1; off >= w.span; off >>= 1) {
+#pragma unroll
+      for (int k = 0; k < E; ++k) {
+        acc[k] += __shfl_xor_sync(0xffffffffu, acc[k], off);
+      }
+    }
+    return;
+  }
+  // group g takes group g + s, for s = fold_from, .. 2, 1: a fixed tree
+  // (a rolled loop: the shuffle distance stays in a register)
+#pragma unroll 1
+  for (int s = w.fold_from; s >= 1; s >>= 1) {
+    const int distance = s * w.span;
+    const bool take = w.group < s && w.group + s < w.groups;
+#pragma unroll
+    for (int k = 0; k < E; ++k) {
+      const float other = __shfl_down_sync(0xffffffffu, acc[k], distance);
+      if (take) {
+        acc[k] += other;
+      }
+    }
+  }
+}
+
 // The sums of edges [start, end) for the E features at row lane j (j < 0:
 // this lane idles), folded over the row's groups: afterwards the lanes of
 // group 0 hold the result. Every lane of the warp must call this, whatever
@@ -181,31 +213,7 @@ __device__ __forceinline__ void warp_gather(
       }
     }
   }
-  if (w.butterfly) {
-    // lanes that share a slot differ in the bits from span up to the row's
-    // share of the warp: xor shuffles leave the sum in every group
-    for (int off = w.sub >> 1; off >= w.span; off >>= 1) {
-#pragma unroll
-      for (int k = 0; k < E; ++k) {
-        acc[k] += __shfl_xor_sync(0xffffffffu, acc[k], off);
-      }
-    }
-    return;
-  }
-  // group g takes group g + s, for s = fold_from, .. 2, 1: a fixed tree
-  // (a rolled loop: the shuffle distance stays in a register)
-#pragma unroll 1
-  for (int s = w.fold_from; s >= 1; s >>= 1) {
-    const int distance = s * w.span;
-    const bool take = w.group < s && w.group + s < w.groups;
-#pragma unroll
-    for (int k = 0; k < E; ++k) {
-      const float other = __shfl_down_sync(0xffffffffu, acc[k], distance);
-      if (take) {
-        acc[k] += other;
-      }
-    }
-  }
+  warp_fold<E>(w, acc);
 }
 
 // One row's share of a warp per chunk of a long row: partial (n_chunks, d)

@@ -1,2 +1,2 @@
-"""Experiment entry points: the heat front of the dynamics experiments
-(``heat``) and the scale experiment (``large_graph``)."""
+"""Experiment entry points: the dynamics experiments (``heat``,
+``mutualistic``, ``gene``) and the scale experiment (``large_graph``)."""

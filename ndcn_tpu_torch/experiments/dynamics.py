@@ -1,11 +1,15 @@
-"""The dynamics experiments' heat front, as ``ndcn_tpu/experiments/dynamics.py``.
+"""The dynamics experiments (heat, mutualistic, gene), as
+``ndcn_tpu/experiments/dynamics.py``.
 
 Same flag surface, defaults, split semantics, losses and printed progress
 lines as the JAX package's experiment (and the reference's). The flow: graph →
-``sample_times`` → operator → ground truth (the inference solve at rtol 1e-7,
-atol 1e-9, on the CPU as the JAX package does) → NDCN from a
-``torch.Generator`` → step budget probed on the training device → train loop
-with elastic rollback and an evaluation every ``test_freq`` iterations.
+``sample_times`` → operator → ground truth (the inference solve of the
+physics at rtol 1e-7, atol 1e-9, on the CPU as the JAX package does) → NDCN
+from a ``torch.Generator`` → step budget (probed on the training device for
+the adaptive solve, 256 otherwise) → train loop with elastic rollback and an
+evaluation every ``test_freq`` iterations. The physics propagates through
+L = D - A for heat and through the raw adjacency for mutualistic and gene;
+mutualistic cannot use BSR blocks, so there its physics operator is COO.
 
 ``--platform gpu`` (the default) trains on the first CUDA device and raises
 without one; ``--platform cpu`` runs the kernels' plain versions. Matrix
@@ -47,8 +51,10 @@ def build_parser(name: str) -> argparse.ArgumentParser:
     p.add_argument("--sparse", action="store_true")
     p.add_argument("--sparse_format", type=str, default="ell",
                    choices=["coo", "ell", "bsr"],
-                   help="sparse layout: coo (K1) or bsr (K3, and K4 where "
-                        "fused); ell is not ported yet")
+                   help="sparse layout: coo (K1; K1-w for the mutualistic "
+                        "physics), ell (gather and einsum) or bsr (K3, and "
+                        "K4 where fused); the mutualistic physics takes "
+                        "coo for bsr")
     p.add_argument("--kernel_precision", type=str, default="split2",
                    choices=["split2", "bf16"],
                    help="split2: full-accuracy SpMV (K1 is fp32); bf16: the "
@@ -115,8 +121,6 @@ def _refuse_unported(dynamics_kind: str, args: argparse.Namespace) -> None:
                          "tsit5, without --adjoint); it would be a silent "
                          "no-op for this configuration")
     refused = [
-        (dynamics_kind != "heat",
-         f"the {dynamics_kind} dynamics: ROADMAP item 3"),
         (args.baseline in TEMPORAL_BASELINES,
          f"--baseline {args.baseline} (temporal GNN baselines): ROADMAP "
          f"item 7"),
@@ -148,16 +152,23 @@ def select_device(platform: str) -> torch.device:
     return torch.device("cuda", 0)
 
 
-def heat_ground_truth(physics_op, x0: torch.Tensor, t, rtol: float = 1e-7,
-                      atol: float = 1e-9):
-    """The heat trajectory dX/dt = -L X from x0 over the grid ``t``: the
-    inference solve (dopri5). Returns (solution (T, n, 1), SolveStats)."""
-    from ndcn_tpu_torch.dynamics import heat_diffusion
+def ground_truth(dynamics_kind: str, physics_op, x0: torch.Tensor, t,
+                 rtol: float = 1e-7, atol: float = 1e-9):
+    """The physics trajectory of ``make_rhs(dynamics_kind, physics_op)``
+    from x0 over the grid ``t``: the inference solve (dopri5). Returns
+    (solution (T, n, 1), SolveStats)."""
+    from ndcn_tpu_torch.dynamics import make_rhs
     from ndcn_tpu_torch.ode import odeint_with_stats
 
-    return odeint_with_stats(lambda tt, x: heat_diffusion(physics_op, tt, x),
-                             x0, t, rtol=rtol, atol=atol, method="dopri5",
+    return odeint_with_stats(make_rhs(dynamics_kind, physics_op), x0, t,
+                             rtol=rtol, atol=atol, method="dopri5",
                              options={"differentiable": False})
+
+
+def heat_ground_truth(physics_op, x0: torch.Tensor, t, rtol: float = 1e-7,
+                      atol: float = 1e-9):
+    """``ground_truth`` of heat diffusion dX/dt = -L X."""
+    return ground_truth("heat", physics_op, x0, t, rtol, atol)
 
 
 def run(dynamics_kind: str, args: argparse.Namespace) -> Dict[str, Any]:
@@ -203,16 +214,25 @@ def _run(dynamics_kind: str, args: argparse.Namespace,
     om_np = operators.build_dynamics_operator(adj, args.operator)
     op = as_operator(om_np, sparse=args.sparse, format=args.sparse_format,
                      device=device)
-    # heat diffusion integrates over L = D - A (the RHS owns the minus sign)
-    physics_cpu = as_operator(operators.laplacian_dense(adj),
-                              sparse=args.sparse, format=args.sparse_format)
+    # heat diffusion integrates over L = D - A (the RHS owns the minus sign);
+    # mutualistic and gene couple through the raw adjacency. Mutualistic
+    # gathers neighbour states per edge, which BSR blocks do not expose.
+    physics_matrix = (operators.laplacian_dense(adj)
+                      if dynamics_kind == "heat" else adj)
+    physics_fmt = args.sparse_format
+    if dynamics_kind == "mutualistic" and physics_fmt == "bsr":
+        print("mutualistic physics cannot use BSR; using COO for the "
+              "ground-truth operator")
+        physics_fmt = "coo"
+    physics_cpu = as_operator(physics_matrix, sparse=args.sparse,
+                              format=physics_fmt)
 
     # --------------------------------------------------------- ground truth
     # the block initial condition on the side×side grid, first n entries
     x0_np = generators.grid_block_initial_value(side)[:n].astype(np.float32)
     t0 = time.perf_counter()
-    solution, gt_stats = heat_ground_truth(physics_cpu, torch.as_tensor(x0_np),
-                                           splits.t)
+    solution, gt_stats = ground_truth(dynamics_kind, physics_cpu,
+                                      torch.as_tensor(x0_np), splits.t)
     gt_s = time.perf_counter() - t0
     print(f"{tuple(solution.shape)} ground truth: {gt_stats.nfe} RHS evals "
           f"in {gt_s:.3f}s ({gt_stats.nfe * n / max(gt_s, 1e-9):,.0f} "
@@ -243,7 +263,9 @@ def _run(dynamics_kind: str, args: argparse.Namespace,
                         else None))
 
     max_steps, budget_is_auto = args.max_steps, False
-    if max_steps <= 0:
+    if max_steps <= 0 and args.method not in ("dopri5", "tsit5"):
+        max_steps = 256        # the fixed-grid methods take no budget
+    elif max_steps <= 0:
         # the probe runs on the training operator and device, BSR included
         def probe():
             return ndcn_forward(model, op, splits.t, true_y0, nondiff=True,

@@ -1,16 +1,19 @@
-"""The scale experiment: learn heat diffusion on a random sparse graph of
-200k-1M nodes, as ``examples/large_graph.py``.
+"""The scale experiment: learn network dynamics on a random sparse graph of
+50k-1M nodes, as ``examples/large_graph.py``.
 
 Usage:
     python -m ndcn_tpu_torch.experiments.large_graph --n 1000000 \\
         [--layout {auto,nd,feature_major}] [--kernel_precision {split2,bf16}] \\
         [--emission_precision {f32,bf16}] [--residual_precision {f32,bf16}] \\
         [--roofline] [--hbm_probe] [--estimate] [--gt_cache PATH [--gt_only]] \\
+        [--dynamics {heat,mutualistic,gene}] [--fmt {coo,ell}] \\
         [--out PATH] [--platform {gpu,cpu}]
 
 The flow is the JAX example's: ``build_sparse_graph(n, deg, seed)`` → the
-normalized Laplacian as a COO operator (the model's and the heat physics')
-→ ``sample_times(T, time_tick, "irregular", seed)`` → x0 ~ U(0, 25) →
+normalized Laplacian as a COO (or ``--fmt ell``: ELL) operator, the model's
+and the heat physics'; mutualistic and gene couple through the raw
+adjacency in the same format (mutualistic needs COO, K1-w) →
+``sample_times(T, time_tick, "irregular", seed)`` → x0 ~ U(0, 25) →
 ground truth (the inference solve at rtol 1e-6, atol 1e-8) → NDCN from a
 ``torch.Generator`` → the step budget from a probe of the inference solve
 (floor 8, headroom 1.5, slack 2, quantum 4) → ``iters`` train steps after a
@@ -19,7 +22,8 @@ JSON line with the JAX record's keys (plus ``solve_layout``, what
 ``--layout`` resolved to).
 
 ``--layout auto`` picks the feature-major (d_sub, n) solve from 500k nodes
-on a CUDA operator (``models.ndcn.resolve_layout``). ``--kernel_precision
+on a CUDA COO operator (``models.ndcn.resolve_layout``; an ELL operator
+stays in the (n, d) layout). ``--kernel_precision
 bf16`` sets ``coo_spmv.GATHER_BF16`` for the run; the emission and residual
 levers reach ``ndcn_forward``.
 
@@ -33,14 +37,17 @@ levers reach ``ndcn_forward``.
   the kernels' ``autograd.Function``s save no per-edge tensor, so the count
   scales. It includes the observations' read-out dense output.
 - ``trajectory``: the (T, n, 1) training output.
-- ``operator``: the COO operator and its transpose CSR, as held.
+- ``operator``: the model's operator as held (COO: A's CSR and its
+  transpose's).
 - ``data``: the target and x0.
 The JAX census's other terms (lane padding, scan slots, tile packing)
-describe XLA on a TPU and have no counterpart here.
+describe XLA on a TPU and have no counterpart here. The record names the
+attempts per step it assumed (``attempts_assumed``, the step budget); the
+run's record names the most attempts a train step took (``attempts_taken``).
 
 What the port does not have raises ``NotImplementedError`` naming its
-ROADMAP item before any work: ``--dynamics mutualistic|gene`` and ``--fmt
-ell`` (item 3), ``--mesh`` (item 8), ``--precision high`` (item 4).
+ROADMAP item before any work: ``--mesh`` (item 8), ``--precision high``
+(item 4).
 """
 
 from __future__ import annotations
@@ -122,10 +129,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _refuse_unported(args: argparse.Namespace) -> None:
+    if args.dynamics == "mutualistic" and args.fmt != "coo":
+        # ELL pads every row to the largest degree
+        raise SystemExit("mutualistic at this scale requires --fmt coo")
     refused = [
-        (args.dynamics != "heat",
-         f"--dynamics {args.dynamics}: ROADMAP item 3"),
-        (args.fmt != "coo", "--fmt ell: ROADMAP item 3"),
         (args.mesh, "--mesh: ROADMAP item 8"),
         (args.precision == "high", "--precision high (TF32): ROADMAP item 4"),
     ]
@@ -138,10 +145,11 @@ def _refuse_unported(args: argparse.Namespace) -> None:
 
 
 class Problem(NamedTuple):
-    """The run's graph, operator, time grid and initial state."""
+    """The run's graph, operators, time grid and initial state."""
     n: int
     nnz: int
-    op: Any                 # CooGraph of the normalized Laplacian
+    op: Any                 # the model's: the normalized Laplacian
+    physics_op: Any         # the ground truth's (op itself for heat)
     splits: Any             # TimeSplits
     t_train: np.ndarray
     x0: torch.Tensor        # (n, 1) on the run's device
@@ -152,7 +160,7 @@ def build_problem(args: argparse.Namespace, device: torch.device) -> Problem:
     (same numpy RNG calls, so the same problem for the same seed)."""
     from ndcn_tpu_torch.graph.generators import build_sparse_graph
     from ndcn_tpu_torch.graph.operators import normalized_laplacian_sparse
-    from ndcn_tpu_torch.graph.sparse import from_scipy_coo
+    from ndcn_tpu_torch.graph.sparse import as_operator
     from ndcn_tpu_torch.train.sampling import sample_times
 
     t0 = time.time()
@@ -160,15 +168,21 @@ def build_problem(args: argparse.Namespace, device: torch.device) -> Problem:
     n = adj.shape[0]
     # the model and the heat physics both propagate through the normalized
     # Laplacian (the JAX example's choice: spectrum in [0, 2], so the
-    # explicit solve is not stability-limited)
-    op = from_scipy_coo(normalized_laplacian_sparse(adj), device=device)
+    # explicit solve is not stability-limited); mutualistic and gene couple
+    # through the raw adjacency
+    lap = normalized_laplacian_sparse(adj)
+    op = as_operator(lap, sparse=True, format=args.fmt, device=device)
+    physics_op = (op if args.dynamics == "heat" else
+                  as_operator(adj, sparse=True, format=args.fmt,
+                              device=device))
     log(f"graph: {n:,} nodes, {adj.nnz:,} directed edges "
-        f"({time.time() - t0:.1f}s host build, {int(op.cols.shape[0]):,} "
-        f"Laplacian entries)")
+        f"({time.time() - t0:.1f}s host build, {lap.nnz:,} Laplacian "
+        f"entries, {args.fmt})")
     splits = sample_times(args.T, args.time_tick, "irregular", seed=args.seed)
     x0 = np.random.RandomState(args.seed).uniform(
         0.0, 25.0, size=(n, 1)).astype(np.float32)
-    return Problem(n=n, nnz=int(adj.nnz), op=op, splits=splits,
+    return Problem(n=n, nnz=int(adj.nnz), op=op, physics_op=physics_op,
+                   splits=splits,
                    t_train=splits.t[splits.id_train],
                    x0=torch.as_tensor(x0, device=device))
 
@@ -212,10 +226,10 @@ def probe_budget(args, problem: Problem, model):
 
 
 def ground_truth(args, problem: Problem):
-    """The heat trajectory (T, n, 1) from x0 over the full grid, from
+    """The physics trajectory (T, n, 1) from x0 over the full grid, from
     ``--gt_cache`` when it holds this run's parameters; returns (truth on
     the run's device, seconds, whether it was cached)."""
-    from ndcn_tpu_torch.experiments.dynamics import heat_ground_truth
+    from ndcn_tpu_torch.experiments.dynamics import ground_truth as solve
 
     key = dict(n=problem.n, deg=args.deg, dynamics=args.dynamics,
                seed=args.seed, T=args.T, time_tick=args.time_tick)
@@ -230,10 +244,11 @@ def ground_truth(args, problem: Problem):
                 0.0, True)
     # On the run's device: the JAX example moves this solve to the CPU only
     # because the TPU pads an (n, 1) state 128-fold in its lanes; the card
-    # has no such padding, and the width-1 solve runs K1.
+    # has no such padding, and the width-1 solve runs K1 (K1-w for the
+    # mutualistic interaction).
     t0 = time.time()
-    truth, stats = heat_ground_truth(problem.op, problem.x0, problem.splits.t,
-                                     rtol=1e-6, atol=1e-8)
+    truth, stats = solve(args.dynamics, problem.physics_op, problem.x0,
+                         problem.splits.t, rtol=1e-6, atol=1e-8)
     if problem.x0.device.type == "cuda":
         torch.cuda.synchronize(problem.x0.device)
     gt_s = time.time() - t0
@@ -303,8 +318,9 @@ def estimate(args, problem: Problem, model, device) -> Dict[str, Any]:
     terms = {
         "tape": int(per_node * n * ms),
         "trajectory": len(problem.t_train) * n * 4,
-        # the CooGraph's eight arrays: A's CSR and its transpose's
-        "operator": sum(t.numel() * t.element_size() for t in op[:8]),
+        # the operator's arrays (a CooGraph's: A's CSR and its transpose's)
+        "operator": sum(t.numel() * t.element_size() for t in op
+                        if isinstance(t, torch.Tensor)),
         "data": (len(problem.t_train) + 1) * n * 4,
     }
     for name, b in terms.items():
@@ -315,7 +331,7 @@ def estimate(args, problem: Problem, model, device) -> Dict[str, Any]:
         "estimate_gb": round(total / 1e9, 2),
         "hbm_limit_gb": None if limit is None else round(limit / 1e9, 2),
         "fits": None if limit is None else total < 0.85 * limit,
-        "max_steps": int(ms),
+        "max_steps": int(ms), "attempts_assumed": int(ms),
         "layout": layout, "n_nodes": n, "nnz": problem.nnz,
         "hidden": args.hidden,
         "emission_precision": args.emission_precision,
@@ -325,9 +341,11 @@ def estimate(args, problem: Problem, model, device) -> Dict[str, Any]:
     }
 
 
-def train_objective(args, problem: Problem, model, target, max_steps):
+def train_objective(args, problem: Problem, model, target, max_steps,
+                    attempts: Optional[list] = None):
     """loss_fn for ``make_sgd_step``: (L1 loss, NaN when the solve ran out
-    of budget; relative L1)."""
+    of budget; relative L1). Each solve's step attempts are appended to
+    ``attempts`` when given."""
     from ndcn_tpu_torch.models import ndcn_forward
     from ndcn_tpu_torch.train.losses import l1_loss, relative_l1
 
@@ -336,6 +354,8 @@ def train_objective(args, problem: Problem, model, target, max_steps):
     def loss_fn():
         out, stats = ndcn_forward(model, problem.op, problem.t_train,
                                   problem.x0, **kw)
+        if attempts is not None:
+            attempts.append(stats.n_accepted + stats.n_rejected)
         loss = l1_loss(out, target)
         if not stats.success:
             loss = torch.full_like(loss, float("nan"))
@@ -386,10 +406,12 @@ def _run(args: argparse.Namespace, device: torch.device) -> Dict[str, Any]:
 
     elastic = ElasticBudget(max_steps, enabled=True)
     opt = torch_adam(model.parameters(), 0.01, 1e-3)
+    attempts = []
 
     def build_step():
         return make_sgd_step(opt, train_objective(args, problem, model,
-                                                  target, elastic.max_steps))
+                                                  target, elastic.max_steps,
+                                                  attempts))
 
     def sync():
         if device.type == "cuda":
@@ -464,6 +486,8 @@ def _run(args: argparse.Namespace, device: torch.device) -> Dict[str, Any]:
     roofline = None
     if args.roofline and device.type != "cuda":
         log("roofline: measures the SpMV on the card; skipped on the CPU")
+    elif args.roofline and args.fmt != "coo":
+        log("roofline: measures the COO kernels; skipped for --fmt ell")
     elif args.roofline:
         from ndcn_tpu_torch.train.roofline import gather_floor_s, measure_spmv
 
@@ -489,6 +513,7 @@ def _run(args: argparse.Namespace, device: torch.device) -> Dict[str, Any]:
                    if device.type == "cuda" else "cpu"),
         "fmt": args.fmt, "dynamics": args.dynamics,
         "max_steps": int(elastic.max_steps),
+        "attempts_taken": max(attempts),
         "elastic_rollbacks": int(elastic.total_rollbacks),
         "mesh_devices": 1, "mesh_parity": None,
         "hbm_peak_gb": hbm_peak_gb, "hbm_peak_source": hbm_peak_source,

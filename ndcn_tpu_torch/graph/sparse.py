@@ -1,9 +1,13 @@
-"""Graph operator containers on the device: dense, CSR-sorted COO and BSR.
+"""Graph operator containers on the device: dense, ELL, CSR-sorted COO and
+BSR.
 
 The counterpart of ``ndcn_tpu/graph/sparse.py`` with one ``matvec`` entry,
 differentiable in X:
 
 - ``DenseGraph``: an (n, n) matrix; A·X is a plain ``torch.matmul``.
+- ``EllGraph``: row-padded neighbour lists (n, k), k the largest degree
+  rounded up to a multiple of 8; A·X is a gather and an ``einsum``, as in
+  the JAX package, which has no kernel for this format either.
 - ``CooGraph``: the row-sorted triplets of A, held in CSR form (``row_ptr``,
   ``cols``, ``vals``) for the K1 kernel, plus the expanded ``rows`` for the
   plain version, plus the transpose's arrays (sorted by A's column) that
@@ -13,7 +17,7 @@ differentiable in X:
   RHS); the backward runs over Aᵀ.
 
 The TPU's tile packing (``pack_tiles``, ``TILE_PACK_THRESHOLD``) is not
-ported: K1 reads CSR directly. The ELL format waits for ROADMAP item 3.
+ported: K1 reads CSR directly.
 """
 
 from __future__ import annotations
@@ -35,6 +39,21 @@ class DenseGraph(NamedTuple):
     @property
     def device(self) -> torch.device:
         return self.mat.device
+
+
+class EllGraph(NamedTuple):
+    """ELLPACK: row i's neighbours in ``cols[i]``, their values in
+    ``vals[i]``; pad slots hold column 0 and value 0."""
+    cols: torch.Tensor  # (n, k) int64
+    vals: torch.Tensor  # (n, k)
+
+    @property
+    def n(self) -> int:
+        return self.cols.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.vals.device
 
 
 class CooGraph(NamedTuple):
@@ -85,13 +104,35 @@ class BsrGraph(NamedTuple):
         return BsrGraph(self.bwd, self.fwd)
 
 
-GraphOperator = Union[DenseGraph, CooGraph, BsrGraph]
+GraphOperator = Union[DenseGraph, EllGraph, CooGraph, BsrGraph]
 
 
 def from_dense(mat: np.ndarray, dtype=torch.float32,
                device: Optional[torch.device] = None) -> DenseGraph:
     return DenseGraph(mat=torch.as_tensor(np.asarray(mat), dtype=dtype,
                                           device=device).contiguous())
+
+
+def from_scipy(mat: sp.spmatrix, pad_to_multiple: int = 8,
+               dtype=torch.float32,
+               device: Optional[torch.device] = None) -> EllGraph:
+    """Pack a sparse matrix into ELL, as ``ndcn_tpu``'s ``from_scipy``: the
+    row width is the largest number of entries in a row (at least 1),
+    rounded up to ``pad_to_multiple``."""
+    csr = sp.csr_matrix(mat)
+    n = csr.shape[0]
+    row_nnz = np.diff(csr.indptr)
+    k = max(1, int(row_nnz.max()))
+    k = -(-k // pad_to_multiple) * pad_to_multiple
+    # each entry's slot within its row, in CSR order
+    rows = np.repeat(np.arange(n), row_nnz)
+    slots = np.arange(csr.nnz) - csr.indptr[rows]
+    cols = np.zeros((n, k), np.int64)
+    vals = np.zeros((n, k), np.float64)
+    cols[rows, slots] = csr.indices
+    vals[rows, slots] = csr.data
+    return EllGraph(cols=torch.as_tensor(cols, device=device),
+                    vals=torch.as_tensor(vals, dtype=dtype, device=device))
 
 
 def _csr_arrays(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray, n: int,
@@ -140,8 +181,8 @@ def as_operator(mat, sparse: bool = False, dtype=torch.float32,
                 device: Optional[torch.device] = None) -> GraphOperator:
     """Build a device operator from numpy / scipy input (the --sparse switch).
 
-    ``format`` picks the sparse layout: 'coo' (K1) or 'bsr' (K3 / K4, 128 ×
-    128 blocks); 'ell' is not ported yet."""
+    ``format`` picks the sparse layout: 'coo' (K1), 'ell' (gather and
+    einsum) or 'bsr' (K3 / K4, 128 × 128 blocks)."""
     if not sparse:
         dense = (np.asarray(mat.todense()) if sp.issparse(mat)
                  else np.asarray(mat))
@@ -153,8 +194,7 @@ def as_operator(mat, sparse: bool = False, dtype=torch.float32,
             raise ValueError(f"format='bsr' supports float32 only, got {dtype}")
         return from_scipy_bsr_graph(mat, device=device)
     if format == "ell":
-        raise NotImplementedError("format='ell' is not ported yet: ROADMAP "
-                                  "item 3; use format='coo' or 'bsr'")
+        return from_scipy(mat, dtype=dtype, device=device)
     raise ValueError(f"unknown sparse format {format!r}; "
                      f"choose 'coo', 'ell' or 'bsr'")
 
@@ -179,6 +219,8 @@ def matvec(op: GraphOperator, x: torch.Tensor) -> torch.Tensor:
         return coo_spmv(op, x)
     if isinstance(op, BsrGraph):
         return bsr_spmm(op.fwd, op.bwd, x)
+    if isinstance(op, EllGraph):
+        return torch.einsum("nk,nkd->nd", op.vals.to(x.dtype), x[op.cols])
     raise TypeError(f"unknown graph operator {type(op).__name__}")
 
 
@@ -199,5 +241,11 @@ def to_dense_matrix(op: GraphOperator) -> np.ndarray:
                                m.blocks.detach().cpu().numpy()):
             full[rb * B:(rb + 1) * B, cb * B:(cb + 1) * B] += blk
         return full[:m.n_rows, :m.n_cols]
+    if isinstance(op, EllGraph):
+        dense = np.zeros((op.n, op.n), np.float32)
+        np.add.at(dense, (np.repeat(np.arange(op.n), op.cols.shape[1]),
+                          op.cols.cpu().numpy().ravel()),
+                  op.vals.detach().cpu().numpy().ravel())
+        return dense
     raise TypeError(f"unknown graph operator {type(op).__name__}")
 

@@ -29,7 +29,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # C entry points: (name, argtypes). Every pointer and the stream are c_void_p.
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_float)
 _GATHER = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P)
 ENTRY_POINTS = {
     # row_ptr, cols, vals, the row-major table (x, or K1-fm's packed
@@ -39,6 +40,12 @@ ENTRY_POINTS = {
     "ndcn_coo_spmv_bf16": _GATHER,
     "ndcn_coo_spmv_T_f32": _GATHER,
     "ndcn_coo_spmv_T_bf16": _GATHER,
+    # side (0 forward, 1 row side, 2 column side), row_ptr, rows, cols,
+    # vals, x, g, y, n_rows, d, bytes per lane load, the coefficients d, e,
+    # h, accumulate, split limit, long_rows, chunk_ptr, chunk_bounds, n_long,
+    # n_chunks, partial, stream
+    "ndcn_coo_mutual_f32": (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
+                            _F, _F, _I, _I, _P, _P, _P, _I, _I, _P, _P),
     # xT, table, n, d_sub, stream
     "ndcn_pack_rows_f32": (_P, _P, _I, _I, _P),
     "ndcn_pack_rows_bf16": (_P, _P, _I, _I, _P),

@@ -203,25 +203,25 @@ def pack_rows_plain(xT: torch.Tensor, bf16: bool = False) -> torch.Tensor:
                        device=xT.device).copy_(xT.t())
 
 
-def _check(op, x: torch.Tensor) -> None:
+def _check(op, x: torch.Tensor, what: str = "coo_spmv") -> None:
     if x.dtype != torch.float32:
-        raise TypeError(f"coo_spmv takes float32 x, got {x.dtype}")
+        raise TypeError(f"{what} takes float32 x, got {x.dtype}")
     if x.ndim != 2 or x.shape[0] != op.n or x.shape[1] < 1:
-        raise ValueError(f"coo_spmv takes x of shape ({op.n}, d >= 1), "
+        raise ValueError(f"{what} takes x of shape ({op.n}, d >= 1), "
                          f"got {tuple(x.shape)}")
     nnz = op.cols.shape[0]
     if (op.row_ptr.dtype != torch.int32 or op.cols.dtype != torch.int32
             or op.vals.dtype != torch.float32
             or op.row_ptr.shape != (op.n + 1,) or op.vals.shape != (nnz,)):
-        raise ValueError("coo_spmv takes int32 row_ptr (n+1,), int32 cols "
-                         "(nnz,) and float32 vals (nnz,)")
+        raise ValueError(f"{what} takes int32 row_ptr (n+1,), int32 cols "
+                         f"(nnz,) and float32 vals (nnz,)")
     long_rows, chunk_ptr, chunk_bounds, _ = op.split
     if (any(t.dtype != torch.int32 for t in op.split[:3])
             or chunk_ptr.shape != (long_rows.shape[0] + 1,)
             or chunk_bounds.ndim != 2 or chunk_bounds.shape[1] != 2):
-        raise ValueError("coo_spmv takes the int32 chunk index that "
-                         "split_rows builds: long_rows (n_long,), chunk_ptr "
-                         "(n_long + 1,), chunk_bounds (n_chunks, 2)")
+        raise ValueError(f"{what} takes the int32 chunk index that "
+                         f"split_rows builds: long_rows (n_long,), chunk_ptr "
+                         f"(n_long + 1,), chunk_bounds (n_chunks, 2)")
 
 
 def _call(entry: str, device: torch.device, *args) -> None:

@@ -12,7 +12,10 @@ the solve autograd records, with a budget of 256 step attempts;
 ``differentiable=False`` the inference solve under ``torch.no_grad()``, with a
 budget of 2**16. Both run ``adaptive.solve``. ``emission_dtype`` and
 ``emission_readout`` (the JAX scan path's levers, see ``adaptive``) are
-taken by the differentiable solve only. Every other method raises
+taken by the differentiable solve only. The fixed-grid methods ``euler``,
+``midpoint`` and ``rk4`` (``fixed_grid``) take ``step_size`` and accept and
+ignore the common options, as in the JAX package; ``differentiable=False``
+runs them under ``torch.no_grad()`` too. Every other method raises
 ``NotImplementedError`` naming the ROADMAP item that brings it; the
 validation errors are the JAX package's.
 """
@@ -24,7 +27,7 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
-from ndcn_tpu_torch.ode import adaptive
+from ndcn_tpu_torch.ode import adaptive, fixed_grid
 from ndcn_tpu_torch.ode.step_control import Controller
 
 _ADAPTIVE = {"dopri5": adaptive.DOPRI5_METHOD}
@@ -36,27 +39,35 @@ SOLVERS = ("dopri5", "tsit5", "euler", "midpoint", "rk4",
 _DEFAULT_MAX_STEPS_SCAN = 256
 _DEFAULT_MAX_STEPS_WHILE = 1 << 16
 
-# dopri5's option keys, as the JAX package recognizes them (a typo'd option
-# silently ignored is a debugging trap, so unknown keys warn).
-_DOPRI5_OPTIONS = {"differentiable", "max_steps", "safety", "ifactor",
-                   "dfactor", "first_step", "time_dtype", "emission_dtype",
-                   "emission_readout"}
+# the ported methods' option keys, as the JAX package recognizes them (a
+# typo'd option silently ignored is a debugging trap, so unknown keys warn);
+# the fixed-grid methods accept and ignore the common options, so that one
+# options dict serves every method
+_COMMON_OPTIONS = {"differentiable", "max_steps"}
+_METHOD_OPTIONS = {
+    "dopri5": _COMMON_OPTIONS | {"safety", "ifactor", "dfactor", "first_step",
+                                 "time_dtype", "emission_dtype",
+                                 "emission_readout"},
+    "euler": _COMMON_OPTIONS | {"step_size"},
+    "midpoint": _COMMON_OPTIONS | {"step_size"},
+    "rk4": _COMMON_OPTIONS | {"step_size"},
+}
 
 
 def require_ported(method: str) -> None:
     """Raise as ``odeint`` would for a method the port does not have."""
     if method not in SOLVERS:
         raise ValueError(f"unknown method {method!r}; choose from {SOLVERS}")
-    if method not in _ADAPTIVE:
+    if method not in _METHOD_OPTIONS:
         raise NotImplementedError(f"method={method!r} is not ported yet: "
                                   f"ROADMAP item 5 (the remaining solvers)")
 
 
 def _check_options(method: str, options: Dict[str, Any]) -> None:
-    unknown = set(options) - _DOPRI5_OPTIONS
+    unknown = set(options) - _METHOD_OPTIONS[method]
     if unknown:
         warnings.warn(f"{method}: unexpected options {sorted(unknown)} "
-                      f"(recognized: {sorted(_DOPRI5_OPTIONS)})")
+                      f"(recognized: {sorted(_METHOD_OPTIONS[method])})")
 
 
 def _canonical_time(t) -> torch.Tensor:
@@ -94,6 +105,12 @@ def odeint_with_stats(func: Callable, y0: torch.Tensor, t,
 
     func, t = _maybe_reverse(func, t)
 
+    if method in fixed_grid.STEP_FUNCS:
+        differentiable = bool(options.get("differentiable", True))
+        with torch.set_grad_enabled(differentiable and torch.is_grad_enabled()):
+            return fixed_grid.solve_fixed_grid(
+                fixed_grid.STEP_FUNCS[method], func, y0, t,
+                step_size=options.get("step_size"))
     if options.get("time_dtype") is not None:
         raise NotImplementedError("time_dtype is not ported yet: ROADMAP "
                                   "item 5")

@@ -1,4 +1,5 @@
-"""Explicit Runge-Kutta stages with an embedded error estimate.
+"""Explicit Runge-Kutta stages with an embedded error estimate, and the
+fixed-grid rk4 step.
 
 As ``ndcn_tpu/ode/runge_kutta.py``: the stage derivatives are kept as a list
 and stacked out of place before each combination, a tensordot with the
@@ -56,3 +57,15 @@ def runge_kutta_step(func: Callable, y0: torch.Tensor, f0: torch.Tensor,
     y1 = yi
     y1_error = scaled_dot_product(dt, coeffs.c_error, k)
     return y1, ks[-1], y1_error, k
+
+
+def rk4_alt_step_func(func: Callable, t: torch.Tensor, dt: torch.Tensor,
+                      y: torch.Tensor) -> torch.Tensor:
+    """The increment of one RK4 step by the 3/8 rule, the reference's 'rk4'
+    (``ndcn_tpu/ode/runge_kutta.py::rk4_alt_step_func``)."""
+    k1 = func(t, y)
+    third = dt / 3.0
+    k2 = func(t + third, y + third * k1)
+    k3 = func(t + third * 2.0, y + dt * (k1 / -3.0 + k2))
+    k4 = func(t + dt, y + dt * (k1 - k2 + k3))
+    return (k1 + 3.0 * k2 + 3.0 * k3 + k4) * (dt / 8.0)

@@ -5,7 +5,8 @@ imports no jax, so it also runs where only the port is installed:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
-Bounds: max|Δ| <= 1e-5·max|y| for K1 (fp32 and bf16), K1ᵀ, K1-fm, K5, K3,
+Bounds: max|Δ| <= 1e-5·max|y| for K1 (fp32 and bf16), K1ᵀ, K1-w (forward
+and backward), K1-fm, K5, K3,
 K4, the sliced-tile reduce and the row gather (exact; K1-fm's pack kernel
 too), and rtol 1e-5 /
 atol 1e-5·max|y| for K2 and its backward (fp32 sums in another order; K2 and
@@ -28,7 +29,8 @@ from ndcn_tpu_torch import kernels
 from ndcn_tpu_torch.convert import params_from_jax
 from ndcn_tpu_torch.graph import generators, operators
 from ndcn_tpu_torch.graph.sparse import as_operator, from_scipy_coo
-from ndcn_tpu_torch.kernels import bsr_spmm, coo_spmv, fused_rhs, sparse_bench
+from ndcn_tpu_torch.kernels import (bsr_spmm, coo_mutual, coo_spmv, fused_rhs,
+                                    sparse_bench)
 from ndcn_tpu_torch.models import init_ndcn, ndcn_forward
 from ndcn_tpu_torch.serve import make_server
 
@@ -216,6 +218,89 @@ def test_k1_cuda_split_rows_forward_transpose_and_autograd(cuda_device, d,
     assert torch.equal(dx, yt)
     assert not y[np.flatnonzero(np.diff(a.indptr) == 0)].any()
     assert torch.equal(y, coo_spmv.coo_spmv(op, x))   # repeatable
+
+
+@pytest.mark.parametrize("limit", [256, 16])
+@pytest.mark.parametrize("convention", ["reference", "paper"])
+@pytest.mark.parametrize("d", [1, 5, 20])
+def test_k1w_cuda_forward_and_backward_match_plain(cuda_device, d, convention,
+                                                   limit):
+    """K1-w on a non-symmetric graph with a hub row, a hub column and empty
+    rows, both e/h orders (the convention's swap), long rows of A and of Aᵀ
+    through the chunk kernels, d = 5 on 4-byte loads: forward
+    and both sides of the backward against the plain version, bit-equal on
+    a second call; one launch forward, two backward."""
+    n = 3001
+    # a hub row (7) and a hub column (7, the transpose's hub row)
+    a = abs(_hub_coo(n, 40000, 2000, seed=d)
+            + _hub_coo(n, 2000, 600, seed=d + 1).T).tocsr()
+    op = _resplit(from_scipy_coo(a, device=cuda_device), limit)
+    assert op.split.long_rows.numel() > 0 and op.split_t.long_rows.numel() > 0
+    rng = np.random.RandomState(d + 60)
+    x = torch.as_tensor((rng.rand(n, d) * 3 + 0.2).astype(np.float32),
+                        device=cuda_device)
+    g = torch.as_tensor(rng.randn(n, d).astype(np.float32),
+                        device=cuda_device)
+    e, h = (0.1, 0.9) if convention == "reference" else (0.9, 0.1)
+
+    def both(fn):
+        xg = x.clone().requires_grad_()
+        y = fn(op, xg, 5.0, e, h)
+        (dx,) = torch.autograd.grad(y, xg, g)
+        return y.detach(), dx
+
+    before = coo_mutual.LAUNCHES
+    y, dx = both(coo_mutual.coo_mutual_inter)
+    torch.cuda.synchronize()
+    assert coo_mutual.LAUNCHES == before + 3
+    ref, dref = both(coo_mutual.coo_mutual_inter_plain)
+    assert _max_rel(y, ref) <= 1e-5 and _max_rel(dx, dref) <= 1e-5
+    assert not y[np.flatnonzero(np.diff(a.indptr) == 0)].any()
+    y2, dx2 = both(coo_mutual.coo_mutual_inter)
+    assert torch.equal(y, y2) and torch.equal(dx, dx2)     # repeatable
+
+
+def test_k1w_cuda_divides_a_zero_denominator_by_one(cuda_device):
+    """With d = 0 and zero states the pair term's denominator is 0: the
+    kernel divides by 1 there, as the plain version (``_safe_div``)."""
+    a, _ = _power_law_coo(500, 4000, seed=3, d=1)
+    a.data = np.abs(a.data)
+    op = from_scipy_coo(a, device=cuda_device)
+    rng = np.random.RandomState(4)
+    x = torch.as_tensor((rng.rand(500, 4) * (rng.rand(500, 4) < 0.5))
+                        .astype(np.float32), device=cuda_device)
+    y = coo_mutual.coo_mutual_inter(op, x, 0.0, 0.9, 0.1)
+    ref = coo_mutual.coo_mutual_inter_plain(op, x, 0.0, 0.9, 0.1)
+    assert bool(torch.isfinite(y).all()) and _max_rel(y, ref) <= 1e-5
+
+
+def test_mutualistic_drivers_on_cuda(cuda_device, tmp_path):
+    """The scale driver's mutualistic ground truth on the card (K1-w at
+    d = 1) within 1e-4 rel-L1 of the CPU's, and both mutualistic drivers
+    training on the card."""
+    from ndcn_tpu_torch.experiments import large_graph
+    from ndcn_tpu_torch.experiments.dynamics import build_parser, run
+
+    truths = {}
+    for platform in ("cpu", "gpu"):
+        cache = str(tmp_path / f"gt_{platform}.npz")
+        large_graph.main(["--n", "3000", "--dynamics", "mutualistic",
+                          "--platform", platform, "--gt_only", "--gt_cache",
+                          cache])
+        truths[platform] = np.load(cache)["truth"]
+    assert _rel_l1(torch.as_tensor(truths["gpu"]),
+                   torch.as_tensor(truths["cpu"])) <= 1e-4
+    kernels.reset_launch_counts()
+    rec = large_graph.main(["--n", "3000", "--dynamics", "mutualistic",
+                            "--iters", "2"])
+    counts = kernels.launch_counts()
+    assert counts["coo_mutual"] > 0 and counts["coo_spmv"] > 0
+    assert np.isfinite(rec["rel_loss_final"])
+    out = run("mutualistic", build_parser("t").parse_args(
+        ["--n", "36", "--time_tick", "8", "--niters", "2", "--test_freq",
+         "2", "--method", "dopri5", "--max_steps", "32", "--sparse",
+         "--sparse_format", "coo"]))
+    assert out["device"] == "cuda:0" and np.isfinite(out["final"]["abs_error"])
 
 
 @pytest.mark.parametrize("limit", [256, 16])

@@ -134,8 +134,13 @@ def test_as_operator_dense_and_coo():
 
 def test_as_operator_rejects_unported_and_unknown_formats():
     lap = sp.csr_matrix(jops.normalized_laplacian(jgen.build_network("grid", 16)))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        sparse.as_operator(lap, sparse=True, format="ell")
+    # ELL is ported: the JAX package's packing, slot for slot
+    ell = sparse.as_operator(lap, sparse=True, format="ell")
+    j_ell = j_as_operator(lap, sparse=True, format="ell")
+    assert isinstance(ell, sparse.EllGraph) and ell.cols.shape[1] % 8 == 0
+    assert np.array_equal(ell.cols.numpy(), np.asarray(j_ell.cols))
+    assert np.array_equal(ell.vals.numpy(), np.asarray(j_ell.vals))
+    assert np.array_equal(sparse.to_dense_matrix(ell), lap.toarray())
     # BSR is ported: the same matrix, packed in 128 × 128 blocks
     bsr = sparse.as_operator(lap, sparse=True, format="bsr")
     assert isinstance(bsr, sparse.BsrGraph)

@@ -166,7 +166,7 @@ def test_emission_options_run_on_the_differentiable_solve(options, shape):
 @pytest.mark.parametrize("method,options,item", [
     ("tsit5", None, "item 5"),                        # differentiable default
     ("tsit5", INFER, "item 5"),
-    ("euler", INFER, "item 5"),
+    ("fixed_adams", INFER, "item 5"),                 # euler is ported
     ("adams", INFER, "item 5"),
     ("dopri5", dict(INFER, time_dtype="float64"), "item 5"),
 ])

@@ -485,7 +485,7 @@ def test_heat_experiment_auto_budget_and_refusals():
          "--method", "dopri5", "--platform", "cpu", "--fused_kernel"]))
     assert out["max_steps"] >= 8 and np.isfinite(out["final"]["abs_error"])
     base = ["--n", "25", "--platform", "cpu"]
-    for extra, item in ((["--method", "euler"], "item 5"),
+    for extra, item in ((["--method", "tsit5"], "item 5"),
                         (["--method", "dopri5", "--replicas", "2"], "item 8"),
                         (["--method", "dopri5", "--scan_chunk", "4"],
                          "item 4"),
@@ -494,11 +494,14 @@ def test_heat_experiment_auto_budget_and_refusals():
         with pytest.raises(NotImplementedError, match=item):
             run("heat", build_parser("t").parse_args(base + extra))
     with pytest.raises(NotImplementedError, match="item 3"):
-        run("gene", build_parser("t").parse_args(base + ["--method",
-                                                         "dopri5"]))
-    with pytest.raises(NotImplementedError, match="item 3"):
-        run("heat", build_parser("t").parse_args(
-            base + ["--method", "dopri5", "--sparse"]))   # ELL, the default
+        run("gene", build_parser("t").parse_args(
+            base + ["--method", "dopri5", "--network", "random"]))
+    # gene on ELL (the default sparse format) and euler (the default method)
+    # run: the fixed-grid solve takes the fixed budget
+    out = run("gene", build_parser("t").parse_args(
+        base + ["--time_tick", "6", "--niters", "2", "--test_freq", "2",
+                "--sparse"]))
+    assert out["max_steps"] == 256 and np.isfinite(out["final"]["abs_error"])
     with pytest.raises(NotImplementedError, match="item 4"):
         run("heat", build_parser("t").parse_args(
             base + ["--method", "dopri5", "--precision", "high"]))
