@@ -33,14 +33,16 @@ Phases, one line each:
      max|Δ| / max|y| <= 1e-5, with the median CUDA-event times of both: K1ᵀ
      (K1 over the transpose CSR) on the non-symmetric hub graph at d = 20;
      K2's backward (dh, dw, db) at 400 × 20 against autograd of the plain
-     version; K3 and K3ᵀ on the grid400 Laplacian (d = 20) and on a 2000-node
-     5 % matrix (d = 20, 256); K4 forward and backward on grid400 (d = 20)
+     version; K3 and K3ᵀ (split TF32 on the tensor cores, as K4) on the
+     grid400 Laplacian (d = 20) and on a 2000-node 5 % matrix (d = 20,
+     256), bit-equal on a repeat and within 2e-6 of the emulation of its
+     split product; K4 forward and backward on grid400 (d = 20)
      and on the 2000-node matrix (d = 256, 512), bit-equal on a repeat and
      within 2e-6 of the emulation of its split product (the backward's
      cotangent is zero within 1e-5·max|z| of relu's kink, the forward's
      own bound, where its last bits decide the mask: at most one element
      in 10,000, which the phase checks); and the BSR half of
-     the ``fused_profitable`` sweep (both matrices, d in {20, 128, 256,
+     the ``fused_profitable`` sweep (both matrices, d in {20, 64, 128, 256,
      512}: K4 against K3 + linear + relu).
   8. train grid400, dense, fused="auto" (K2 forward and backward): the first
      step from the ``ndcn_grads_grid400`` weights within 1e-4 of the
@@ -77,7 +79,8 @@ Phases, one line each:
      ``GATHER_WIDE``, the (n, d) layout), 10 iterations each.
  13. the three microbenchmarks at their defaults (``ndcn_tpu_torch.tools``):
      P1a (the sliced-tile reduce) and P1b / P2 (the row gather) against
-     their plain versions and the oracle, and the narrow / wide table.
+     their plain versions and the oracle, and the narrow / wide table; P1a
+     once more at the tool's size, bit-equal on a repeat.
  14. K1-w (the mutualistic interaction, ``kernels.coo_mutual``) forward
      and backward against its plain version (gather, weight,
      ``index_add_``; no single PyTorch call computes the pair term, so the
@@ -110,10 +113,11 @@ out. Every timed kernel also gets ``bound_ms``, the least time the card could
 take: the larger of the bytes the function must move (each input read once,
 each output written once) over 3.35 TB/s and its operations over the peak
 for their type, computed from this run's shapes: 67 TFLOP/s for fp32 outside
-the tensor cores, and for the split-TF32 products of K2 and K4 three times
-the operations over the tensor cores' 495 TFLOP/s; and ``library_ms``, the
-time of one PyTorch call that computes the same function on the same inputs,
-where there is one. The port calls none of those library functions.
+the tensor cores, and for the split-TF32 products of K2, K3 and K4 three
+times the operations over the tensor cores' 495 TFLOP/s; and
+``library_ms``, the time of one PyTorch call that computes the same function
+on the same inputs, where there is one. The port calls none of those library
+functions.
 
 Exits non-zero, printing no result, when there is no CUDA device or the
 package is missing; any failed check raises.
@@ -141,7 +145,7 @@ def rel_l1(a, b) -> float:
 
 
 # the card's published peaks: HBM bytes/s, fp32 FLOP/s outside the tensor
-# cores, and dense TF32 FLOP/s on them. A split-TF32 product (K2, K4) runs
+# cores, and dense TF32 FLOP/s on them. A split-TF32 product (K2-K4) runs
 # three tensor-core passes for every fp32 product it stands for.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"fp32": 67e12, "split_tf32": 495e12 / 3}
@@ -482,9 +486,14 @@ def main() -> None:
         rec["tie"] = 1.0 / ROUTE_TIE <= fused_over_unfused <= ROUTE_TIE
         rec["picked_over_other"] = (fused_over_unfused if rec["auto_fuses"]
                                     else 1.0 / fused_over_unfused)
-        check(rec["picked_over_other"] <= ROUTE_TIE,
-              f"fused_profitable picks the slower route: {rec}")
         return rec
+
+    def check_routes(records):
+        """'auto' picks no route more than ROUTE_TIE slower than the other
+        (checked once the whole sweep is printed)."""
+        slower = [r for r in records if r["picked_over_other"] > ROUTE_TIE]
+        check(not slower, f"fused_profitable picks the slower route: "
+              f"{slower}")
 
     def k2_case(n, k, seed, sweep=False):
         r = np.random.RandomState(seed)
@@ -532,6 +541,7 @@ def main() -> None:
     print("[4] K2 fused_rhs vs plain: "
           + json.dumps({"400x20": k2_main, "275x13": k2_ragged,
                         "sweep": sweep}))
+    check_routes([c["routes"] for c in sweep.values()])
 
     # ---- 5. serve the 400-node grid, dense operator, fused="auto"
     kernels.reset_launch_counts()
@@ -689,6 +699,9 @@ def main() -> None:
                      + dense_products * 2 * m.n_rows * d * d, kind)
 
     def k3_case(mat, d, seed):
+        """K3 and K3 over Aᵀ against the plain version (<= 1e-5) and the
+        emulation of its split-TF32 product (<= 2e-6), bit-equal on a
+        repeat; its times, the library call's and the bound."""
         op = as_operator(sp.csr_matrix(mat), sparse=True, format="bsr",
                          device=dev)
         x = torch.as_tensor(np.random.RandomState(seed).randn(mat.shape[0], d)
@@ -699,15 +712,27 @@ def main() -> None:
             ref = bsr_spmm.bsr_spmm_plain(o.fwd, x)
             check(max_rel(lib(x), ref)[1] <= 1e-5,
                   f"K3 {label}: the library call computes something else")
+
+            def kern():
+                return bsr_spmm.bsr_spmm(o.fwd, o.bwd, x)
+
+            y = kern()
+            check(torch.equal(y, kern()), f"K3 {label} d={d}: two calls "
+                  f"differ")
+            vs_emu = max_rel(y, bsr_spmm.bsr_spmm_split_plain(o.fwd, x))[1]
+            check(vs_emu <= 2e-6, f"K3 {label} d={d} is not the split "
+                  f"product: {vs_emu}")
+            plan = bsr_spmm.bsr_spmm_plan(o.fwd.n_row_blocks, o.fwd.block, d)
             out[label] = compare(
-                f"K3 {label} n={op.n} d={d}",
-                [bsr_spmm.bsr_spmm(o.fwd, o.bwd, x)], [ref],
-                cuda_ms(lambda: bsr_spmm.bsr_spmm(o.fwd, o.bwd, x)),
+                f"K3 {label} n={op.n} d={d}", [y], [ref], cuda_ms(kern),
                 cuda_ms(lambda: bsr_spmm.bsr_spmm_plain(o.fwd, x)),
-                device_ms=queued_ms(
-                    lambda: bsr_spmm.bsr_spmm(o.fwd, o.bwd, x)),
-                library_ms=cuda_ms(lambda: lib(x)), library=lib_name,
-                **bsr_bound(o.fwd, d, x, ref))
+                device_ms=queued_ms(kern),
+                library_ms=cuda_ms(lambda: lib(x)),
+                library_device_ms=queued_ms(lambda: lib(x)), library=lib_name,
+                repeat_equal=True, rel_err_vs_split_emulation=vs_emu,
+                plan=dict(slab=plan.slab, slabs=plan.slabs,
+                          **plan.panel._asdict()),
+                **bsr_bound(o.fwd, d, x, ref, kind="split_tf32"))
         return dict(n=op.n, nnz_blocks=int(op.fwd.blocks.shape[0]), d=d,
                     **out)
 
@@ -784,7 +809,7 @@ def main() -> None:
         routes("bsr", as_operator(sp.csr_matrix(mat), sparse=True,
                                   format="bsr", device=dev), d, mat.shape[0],
                17)
-        for mat in (grid_lap, rand2k) for d in (20, 128, 256, 512)]
+        for mat in (grid_lap, rand2k) for d in (20, 64, 128, 256, 512)]
     print("[7] backward and BSR kernels vs plain: " + json.dumps(
         {"k1t_hub_d20": k1t, "k2_bwd_400x20": k2b, "k3": k3, "k4": k4}))
     dense_routes = [c["routes"] for c in sweep.values()]
@@ -792,6 +817,7 @@ def main() -> None:
         {"dense": dense_routes, "bsr": bsr_routes,
          "ties": [f"{r['kind']} {r['n']}x{r['width']}"
                   for r in dense_routes + bsr_routes if r["tie"]]}))
+    check_routes(bsr_routes)
 
     # ---- 8-10. training
     gx = dict(np.load(os.path.join(root, "tests", "fixtures",
@@ -1402,7 +1428,19 @@ def main() -> None:
     idx_pr = torch.as_tensor(rs.randint(0, probe["m"], probe["rows"])
                              .astype(np.int32), device=dev)
     idx64_pr = idx_pr.long()
+    p1a_out = sparse_bench.sliced_tile_reduce(tiles, gathered)
+    check(torch.equal(p1a_out, sparse_bench.sliced_tile_reduce(tiles,
+                                                                gathered)),
+          "P1a: two calls differ")
+    check(max_rel(p1a_out, sparse_bench.sliced_tile_reduce_plain(
+        tiles, gathered))[1] <= 1e-5, "P1a disagrees with its plain version")
+    del p1a_out
     p1a = dict(max_abs_err=mb["sliced_reduce_max_abs_err"],
+               rel_err=mb["sliced_reduce_kernel_vs_plain"], repeat_equal=True,
+               # the tool's [6]: the minor gather yT[:, slot_cols], then the
+               # reduce, kernel and plain
+               spmv_e2e_ms=mb["sliced_spmv_kernel_ms"],
+               spmv_e2e_plain_ms=mb["sliced_spmv_plain_ms"],
                device_ms=queued_ms(
                    lambda: sparse_bench.sliced_tile_reduce(tiles, gathered)),
                library_device_ms=queued_ms(
@@ -1451,7 +1489,9 @@ def main() -> None:
               pallas_site="ndcn_tpu/kernels/coo_spmv.py:314",
               launches_per_ground_truth=c_mut["coo_mutual"]),
         entry("sliced_tile_reduce", "sparse_bench.cu",
-              "tools/microbench_sparse.py:235", p1a),
+              "tools/microbench_sparse.py:235", p1a,
+              spmv_e2e_ms=p1a["spmv_e2e_ms"],
+              spmv_e2e_plain_ms=p1a["spmv_e2e_plain_ms"]),
         entry("row_gather", "sparse_bench.cu",
               "tools/microbench_sparse.py:288", p1b,
               also_replaces="tools/probe_inkernel_gather.py:60"),

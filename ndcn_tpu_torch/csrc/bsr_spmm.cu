@@ -8,38 +8,48 @@
 // row block stayed in VMEM across the slots. Here A is plain block-CSR
 // (row_ptr over row blocks, block_cols, blocks of B x B floats, row-major),
 // so there is no padding slot, and a CTA walks the nonzero blocks of its row
-// block in a loop of its own:
+// block in a loop of its own. Both run mma_split.cuh's tile product on the
+// tensor cores, which K2 shares: the depth chunks are the (nonzero block,
+// chunk of its columns) pairs of the row block in storage order, each staged
+// once per row tile through the cp.async ring with the matching rows of X,
+// and multiplied in split TF32 (three tensor-core passes, fp32 sums folded
+// chunk by chunk) for the TPU kernels' Precision.HIGHEST.
 //
-// - K3: one CTA of 256 threads per (32-row tile of a row block, 32-column
-//   slab of d). For each nonzero block it stages a 32 x 32 tile of the block
-//   and the matching 32 x 32 chunk of X in shared memory; each thread keeps
-//   1 row x 4 columns in registers (fp32 FMA) and stores them once.
-// - K4: one CTA per tile of 16 or 32 rows of a row block, for ALL of d,
-//   on the tensor cores: mma_split.cuh's fused_panel, which K2 shares. The
-//   depth chunks of phase 1 are the (nonzero block, chunk of its columns)
-//   pairs of the row block in storage order, so each stored block is staged
-//   once per tile (through the cp.async ring, with the matching rows of X),
-//   not once per 32-column slab; the tile's A·X stays in shared memory and
-//   phase 2 is K2's: the panel times W (W may be strided), plus b, relu.
+// - K3: one CTA per (row tile of 16 or 32 rows of a row block, column slab
+//   of X), gridDim.y over the slabs: panel_product leaves the tile's A·X for
+//   the slab in shared memory, and a warp a row stores it, coalesced. A
+//   slab is up to 256 columns (8 warps of 4 n8 tiles, the one warp layout
+//   built here), so any d is taken. The host's plan
+//   (kernels/bsr_spmm.py::bsr_spmm_plan, from a sweep on the card) cuts
+//   them at 128 and narrower, and takes 32-row tiles, until the CTAs
+//   number one an SM: a CTA's time is a chain of chunk copies, so CTAs in
+//   flight are what shortens a call. Each slab stages the row block's
+//   nonzero blocks again: A is read once per slab, from L2 after the
+//   first.
+// - K4: one CTA per tile of 16 or 32 rows of a row block, for ALL of d:
+//   fused_panel, whose phase 1 is K3's panel product; the tile's A·X stays
+//   in shared memory and phase 2 is K2's: the panel times W (W may be
+//   strided), plus b, relu.
 //
-// K3's arithmetic is fp32 FMA; K4's is the split-TF32 product (three tensor
-// core passes, fp32 sums), both for the TPU kernels' Precision.HIGHEST. Every
-// sum has a fixed order and no atomics are used, so results repeat bit for
-// bit, which the adaptive controller's NFE needs. Ragged edges (B not a
-// multiple of the tile, n not a multiple of B, d not a multiple of 8) are
-// masked or zero-filled in the loads and masked in the stores; nothing is
-// padded in device memory.
+// Every sum has a fixed order and no atomics are used, so results repeat bit
+// for bit, which the adaptive controller's NFE needs. Ragged edges (B not a
+// multiple of the tile or chunk, n not a multiple of B, d not a multiple of 4
+// or of the slab) are zero-filled in the staging copies and masked in the
+// stores; nothing is padded in device memory. A row block with no stored
+// block gives zero rows.
 //
-// Bound: at the NDCN widths (d = 20) launch latency. K3 at large d: the
-// CUDA-core FMA rate, with each block tile read from L2 once per 32-column
-// slab. K4 at large d: 3 · 2 · (nnzb·B² + n·d) · d tensor-core operations;
-// its blocks and X come from L2 (a 2000-node matrix is 16 MB), and what the
-// design does about the few row blocks of such a matrix is the narrow tile:
-// 16 rows give 8 CTAs a row block (128 at 2000 nodes) where 32 gave 64. The
-// other way, d split over a cluster's CTAs with the panel read through
-// distributed shared memory, is not taken. What holds K4 back at d = 512:
-// every CTA stages all of W, and nn.Linear's transposed view of it goes 4
-// bytes a copy (1024 copies a thread).
+// Bound: K3 and K4 move nnzb·B² + (n_cols + n_rows)·d floats and do
+// 3 · 2 · nnzb·B²·d tensor-core operations (K4 another 3 · 2 · n·d² for
+// W); at the NDCN widths (d = 20) neither: the launch and a chain of
+// dependent chunk copies a CTA (the ring keeps one chunk in flight), as
+// many as the row block has nonzero blocks times B / bk. The blocks and X
+// come from L2 (a 2000-node matrix is 16 MB). What the design does about the
+// few row blocks of such a matrix is the narrow tile (16 rows give 8 CTAs a
+// row block) and, for K3, the column slabs; the other way, A·X's depth split
+// over a cluster's CTAs and folded through distributed shared memory, is
+// not taken. What holds K4 back at d = 512: every CTA stages all of W, and
+// nn.Linear's transposed view of it goes 4 bytes a copy (1024 copies a
+// thread).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -48,10 +58,9 @@
 
 namespace {
 
-constexpr int kBM = 32;        // rows of one tile, inside one row block
-constexpr int kBK = 32;        // depth of one staged chunk
-constexpr int kBN = 32;        // columns of one slab
-constexpr int kThreads = 256;  // ty = tid / 8 picks the row, tx = tid % 8 four columns
+// n8 tiles a warp keeps for K3: with 8 warps across the columns a slab of up
+// to 256 (the plan never asks for another)
+constexpr int kSpmmNt = 4;
 
 struct Bsr {
   const int32_t* row_ptr;     // (n_row_blocks + 1,)
@@ -61,71 +70,9 @@ struct Bsr {
   int n_rows, n_cols;
 };
 
-// acc[j] = (A · X)[row, c0 + 4 tx + j] for row = rb·B + r0 + ty, summed over
-// the row block's nonzero blocks in storage order.
-__device__ __forceinline__ void slab(const Bsr& a, const float* __restrict__ x,
-                                     int d, int rb, int r0, int c0,
-                                     float (*a_s)[kBK + 1],
-                                     float (*x_s)[kBN], float acc[4]) {
-  const int tid = threadIdx.x;
-  const int ty = tid >> 3;
-  const int tx = tid & 7;
-  const int B = a.block;
-  const int s_end = a.row_ptr[rb + 1];
-  for (int s = a.row_ptr[rb]; s < s_end; ++s) {
-    const float* blk = a.blocks + (int64_t)s * B * B;
-    const int64_t xrow0 = (int64_t)a.block_cols[s] * B;
-    for (int k0 = 0; k0 < B; k0 += kBK) {
-      for (int i = tid; i < kBM * kBK; i += kThreads) {
-        const int r = i / kBK, c = i % kBK;
-        const int br = r0 + r, bc = k0 + c;
-        a_s[r][c] = (br < B && bc < B) ? blk[(int64_t)br * B + bc] : 0.0f;
-      }
-      for (int i = tid; i < kBK * kBN; i += kThreads) {
-        const int r = i / kBN, c = i % kBN;
-        const int64_t gr = xrow0 + k0 + r;
-        const int gc = c0 + c;
-        x_s[r][c] = (k0 + r < B && gr < a.n_cols && gc < d) ? x[gr * d + gc]
-                                                            : 0.0f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < kBK; ++kk) {
-        const float av = a_s[ty][kk];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          acc[j] = fmaf(av, x_s[kk][tx * 4 + j], acc[j]);
-        }
-      }
-      __syncthreads();
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-bsr_spmm_kernel(Bsr a, const float* __restrict__ x, float* __restrict__ y,
-                int d, int tiles_per_block) {
-  __shared__ float a_s[kBM][kBK + 1];  // +1: rows land in distinct banks
-  __shared__ float x_s[kBK][kBN];
-  const int rb = blockIdx.x / tiles_per_block;
-  const int r0 = (blockIdx.x % tiles_per_block) * kBM;
-  const int c0 = blockIdx.y * kBN;
-  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  slab(a, x, d, rb, r0, c0, a_s, x_s, acc);
-  const int ty = threadIdx.x >> 3;
-  const int tx = threadIdx.x & 7;
-  const int64_t row = (int64_t)rb * a.block + r0 + ty;
-  if (r0 + ty < a.block && row < a.n_rows) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = c0 + tx * 4 + j;
-      if (c < d) y[row * d + c] = acc[j];
-    }
-  }
-}
-
 // Chunk c of a row tile: nonzero block c / chunks_per_block of the row block,
-// columns [kc, kc + bk) of the tile's rows in it, and the matching rows of X.
+// columns [kc, kc + bk) of the tile's rows in it, and the matching rows of X
+// (x: the slab's first column of row 0; d: X's row stride).
 struct BsrSource {
   Bsr a;
   const float* x;
@@ -143,10 +90,37 @@ struct BsrSource {
     const int x_rows = (int)max((int64_t)0, min((int64_t)depth(c),
                                                 a.n_cols - xrow));
     return ndcn::Chunk{a.blocks + ((int64_t)s * B + r0) * B + kc, B,
-                       B - r0, depth(c), x_rows > 0 ? x + xrow * d : x,
+                       B - r0, depth(c), x_rows > 0 ? x + xrow * d : x, d,
                        x_rows};
   }
 };
+
+template <int MT>
+__global__ void __launch_bounds__(ndcn::kMmaThreads)
+bsr_spmm_kernel(Bsr a, const float* __restrict__ x, float* __restrict__ y,
+                ndcn::Layout L, int d, int tiles_per_block, bool a_vec,
+                bool x_vec) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int BM = 16 * MT;
+  const int rb = blockIdx.x / tiles_per_block;
+  const int r0 = (blockIdx.x % tiles_per_block) * BM;
+  const int c0 = blockIdx.y * L.width;          // the slab's first column
+  const int x_cols = min(L.width, d - c0);
+  const int s0 = a.row_ptr[rb];
+  const int chunks_per_block = (a.block + L.bk - 1) / L.bk;
+  const BsrSource src{a, x + c0, d, L.bk, chunks_per_block, s0, r0};
+  ndcn::panel_product<MT, kSpmmNt>(
+      smem, L, src, (a.row_ptr[rb + 1] - s0) * chunks_per_block, a_vec,
+      x_vec, x_cols);
+  const int64_t row0 = (int64_t)rb * a.block + r0;
+  const int rows = (int)max((int64_t)0, min((int64_t)min(BM, a.block - r0),
+                                            a.n_rows - row0));
+  for (int r = threadIdx.x >> 5; r < rows; r += ndcn::kMmaWarps) {
+    const float* p = smem + r * L.ldp;
+    float* dst = y + (row0 + r) * d + c0;
+    for (int c = threadIdx.x & 31; c < x_cols; c += 32) dst[c] = p[c];
+  }
+}
 
 template <int MT, int NT>
 __global__ void __launch_bounds__(ndcn::kMmaThreads)
@@ -171,17 +145,37 @@ bsr_fused_rhs_kernel(Bsr a, const float* __restrict__ x,
                             out + row0 * L.width, rows);
 }
 
+// beyond the default 48 KB of dynamic shared memory only after opt-in
+template <class Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <int MT>
+int launch_spmm(const Bsr& a, const float* x, float* y, int n_row_blocks,
+                int d, const ndcn::Layout& L, size_t smem,
+                cudaStream_t stream) {
+  auto kernel = bsr_spmm_kernel<MT>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = (a.block + 16 * MT - 1) / (16 * MT);
+  const dim3 grid(n_row_blocks * tiles, (d + L.width - 1) / L.width);
+  kernel<<<grid, ndcn::kMmaThreads, smem, stream>>>(
+      a, x, y, L, d, tiles, a.block % 4 == 0 && ndcn::aligned16(a.blocks),
+      d % 4 == 0 && ndcn::aligned16(x));
+  return (int)cudaGetLastError();
+}
+
 template <int MT, int NT>
 int launch_fused(const Bsr& a, const float* x, const float* w, const float* b,
                  float* out, int n_row_blocks, const ndcn::Layout& L,
                  size_t smem, int64_t w_rs, int64_t w_cs,
                  cudaStream_t stream) {
   auto kernel = bsr_fused_rhs_kernel<MT, NT>;
-  if (smem > 48 * 1024) {  // beyond the default only after opt-in
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
   const int tiles = (a.block + 16 * MT - 1) / (16 * MT);
   kernel<<<n_row_blocks * tiles, ndcn::kMmaThreads, smem, stream>>>(
       a, x, w, b, out, L, w_rs, w_cs, tiles,
@@ -194,27 +188,42 @@ int launch_fused(const Bsr& a, const float* x, const float* w, const float* b,
 }  // namespace
 
 // Both entries launch on `stream`, allocate nothing and do not synchronise,
-// and return cudaGetLastError() (0 when the launch was accepted).
+// and return cudaGetLastError() (0 when the launch was accepted). rows, nt,
+// wn, bk and smem_bytes are the host's plan (tile height, n8 tiles a warp,
+// warps across the columns, chunk depth, dynamic shared memory); a plan the
+// kernel does not take returns cudaErrorInvalidValue.
+
+// slab: the columns of X one CTA takes (the plan's slab; gridDim.y is
+// ceil(d / slab)): all of d, or whole n8 tiles, so that every slab starts on
+// a 16-byte boundary of X's rows. K3 is built for kSpmmNt n8 tiles a warp
+// and takes no nt.
 extern "C" int ndcn_bsr_spmm_f32(const void* row_ptr, const void* block_cols,
                                  const void* blocks, const void* x, void* y,
                                  int n_row_blocks, int block, int n_rows,
-                                 int n_cols, int d, void* stream) {
-  if (n_row_blocks > 0 && block > 0 && d > 0) {
-    const Bsr a{(const int32_t*)row_ptr, (const int32_t*)block_cols,
-                (const float*)blocks, block, n_rows, n_cols};
-    const int tiles = (block + kBM - 1) / kBM;
-    const dim3 grid(n_row_blocks * tiles, (d + kBN - 1) / kBN);
-    bsr_spmm_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        a, (const float*)x, (float*)y, d, tiles);
+                                 int n_cols, int d, int slab, int rows, int wn,
+                                 int bk, long long smem_bytes, void* stream) {
+  if (n_row_blocks <= 0 || block <= 0 || d <= 0) {
+    return (int)cudaGetLastError();
   }
-  return (int)cudaGetLastError();
+  const Bsr a{(const int32_t*)row_ptr, (const int32_t*)block_cols,
+              (const float*)blocks, block, n_rows, n_cols};
+  ndcn::Layout L;
+  size_t smem = 0;
+  if (slab < 1 || slab > d || (slab != d && slab % 8 != 0) ||
+      !ndcn::make_layout(&L, &smem, rows, kSpmmNt, wn, bk, slab) ||
+      (long long)smem != smem_bytes) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (rows == 16) {
+    return launch_spmm<1>(a, (const float*)x, (float*)y, n_row_blocks, d, L,
+                          smem, (cudaStream_t)stream);
+  }
+  return launch_spmm<2>(a, (const float*)x, (float*)y, n_row_blocks, d, L,
+                        smem, (cudaStream_t)stream);
 }
 
 // w may be strided (nn.Linear's weight transposed is a view): element (i, j)
-// of W is w[i * w_rs + j * w_cs]. rows, nt, wn, bk and smem_bytes are the
-// host's plan (tile height, n8 tiles a warp, warps across the columns, chunk
-// depth, dynamic shared memory); a plan the kernel does not take returns
-// cudaErrorInvalidValue.
+// of W is w[i * w_rs + j * w_cs].
 extern "C" int ndcn_bsr_fused_rhs_f32(const void* row_ptr,
                                       const void* block_cols,
                                       const void* blocks, const void* x,

@@ -53,7 +53,7 @@ struct DenseSource {
   }
   __device__ __forceinline__ Chunk chunk(int c) const {
     const int k0 = c * bk;
-    return Chunk{a + k0, n, rows, depth(c), h + (int64_t)k0 * k, depth(c)};
+    return Chunk{a + k0, n, rows, depth(c), h + (int64_t)k0 * k, k, depth(c)};
   }
 };
 

@@ -1,7 +1,9 @@
-// The fused right-hand side relu((A · X) · W + b) for one panel of rows, on
-// the tensor cores with fp32 answers. K2 (dense A, fused_rhs.cu) and K4
-// (block-sparse A, bsr_spmm.cu) share everything here and differ only in how
-// a depth chunk of A and X is found (their `Source`).
+// The product A · X for one panel of rows (panel_product) and the fused
+// right-hand side relu((A · X) · W + b) built on it (fused_panel), on the
+// tensor cores with fp32 answers. K2 (dense A, fused_rhs.cu) and K4
+// (block-sparse A, bsr_spmm.cu) run fused_panel, K3 (bsr_spmm.cu) runs
+// panel_product over a column slab of X; they differ only in how a depth
+// chunk of A and X is found (their `Source`).
 //
 // The tile product is a split-TF32 product. Each fp32 operand is split in
 // registers into hi = tf32(x) (cvt.rna, 10 mantissa bits) and
@@ -20,12 +22,13 @@
 // NDCN_MMA_CHAINED the running sum is the mma accumulator itself: the variant
 // that tools/probe_mma_accumulate.py measures, built by nothing else.)
 //
-// One CTA of 8 warps owns a panel of 16·MT rows for ALL columns, so A is read
-// from device memory once. The running sums stay in registers. The warps
-// split the columns (wn of them, NT n8-tiles each; a warp wholly beyond the
-// width only helps with the copies) and, where the panel is narrow, the
-// depth of a chunk (wk = 8 / wn of them, folded in warp order through
-// shared memory at the end of a phase). A tiles and X chunks arrive
+// One CTA of 8 warps owns a panel of 16·MT rows for ALL columns (K3: for its
+// slab of them), so A is read from device memory once (K3: once a slab).
+// The running sums stay in registers. The warps split the columns (wn of
+// them, NT n8-tiles each; a warp wholly beyond the width only helps with
+// the copies) and, where the panel is narrow, the depth of a chunk (wk =
+// 8 / wn of them, folded in warp order through shared memory at the end of
+// a phase). A tiles and X chunks arrive
 // through a ring of two shared-memory stages filled by cp.async (16-byte copies
 // where the source allows; a whole chunk copies only its valid pieces into a
 // stage whose pads were zeroed once, a ragged one zero-fills) while the
@@ -113,7 +116,8 @@ struct Chunk {
   int64_t a_ld;     // A's row stride
   int a_rows;       // valid rows of the tile (of 16·MT); the rest is zero
   int depth;        // valid depth columns (of bk); the rest is zero
-  const float* x;   // the X chunk: its first row, column 0
+  const float* x;   // the X chunk: its first row, the slab's first column
+  int64_t x_ld;     // X's row stride
   int x_rows;       // valid rows (of bk); the rest is zero
 };
 
@@ -420,30 +424,62 @@ __device__ __forceinline__ void store_acc(const float (&acc)[MT][NT][4],
   }
 }
 
-// The whole fused right-hand side for one panel of 16·MT rows:
-// out[r, :] = relu((Σ_chunks A_chunk · X_chunk) · W + b) for r < out_rows.
-// `smem` is the block's dynamic shared memory (16-byte aligned), laid out as
-// the panel (16·MT x ldp), then the ring, which the depth-split warps'
-// partial tiles reuse once a phase's copies have landed. src.chunk(c) names
-// chunk c of `nchunks` and src.depth(c) is its valid depth; a_vec, x_vec and
-// w_vec say whether the rows of A, X and W take 16-byte copies.
+// Where this warp's tile of a phase's sum goes: the panel itself for the
+// first depth split, a scratch tile over the ring for the others (at the
+// warp's first column).
+template <int MT, int NT>
+__device__ __forceinline__ float* warp_tile(float* smem, const Layout& L,
+                                            int warp) {
+  constexpr int BM = 16 * MT;
+  const int wkk = warp / L.wn;
+  float* ring = smem + BM * L.ldp;
+  return (wkk == 0 ? smem : ring + (wkk - 1) * BM * L.ldp) +
+         (warp % L.wn) * NT * 8;
+}
+
+// The depth-split warps' tiles into the panel, in warp order.
+template <int MT>
+__device__ __forceinline__ void fold_panel(float* smem, const Layout& L) {
+  constexpr int BM = 16 * MT;
+  const int tid = threadIdx.x;
+  float* panel = smem;
+  const float* ring = smem + BM * L.ldp;
+  __syncthreads();
+  if (L.wk > 1) {
+    const int sh = lanes_shift(L.cols);
+    for (int r = tid >> sh; r < BM; r += kMmaThreads >> sh) {
+      for (int c = tid & ((1 << sh) - 1); c < L.cols; c += 1 << sh) {
+        const int at = r * L.ldp + c;
+        float v = panel[at];
+        for (int s = 0; s < L.wk - 1; ++s) v += ring[s * BM * L.ldp + at];
+        panel[at] = v;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// Phase 1 of a panel of 16·MT rows: panel = Σ_chunks A_chunk · X_chunk, left
+// in shared memory (the panel's first x_cols columns; the rest of its L.cols
+// are zero). `smem` is the block's dynamic shared memory (16-byte aligned),
+// laid out as the panel (16·MT x ldp), then the ring, which the depth-split
+// warps' partial tiles reuse once the copies have landed. src.chunk(c) names
+// chunk c of `nchunks` and src.depth(c) is its valid depth; a_vec and x_vec
+// say whether the rows of A and X take 16-byte copies (with x_vec, x_cols is
+// a multiple of 4). K3 stores the panel as it is; fused_panel goes on to the
+// second product.
 template <int MT, int NT, class Source>
-__device__ __forceinline__ void fused_panel(
-    float* smem, const Layout& L, const Source& src, int nchunks, bool a_vec,
-    bool x_vec, const float* __restrict__ w, int64_t w_rs, int64_t w_cs,
-    bool w_vec, const float* __restrict__ b, float* __restrict__ out,
-    int out_rows) {
+__device__ __forceinline__ void panel_product(float* smem, const Layout& L,
+                                              const Source& src, int nchunks,
+                                              bool a_vec, bool x_vec,
+                                              int x_cols) {
   constexpr int BM = 16 * MT;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wn = warp % L.wn;       // which columns
   const int wkk = warp / L.wn;      // which k8 steps of a chunk
-  const int col0 = wn * NT * 8;
+  const int col0 = (warp % L.wn) * NT * 8;
   const bool active = col0 < L.cols;  // a warp beyond the width only copies
-  float* panel = smem;
   float* ring = smem + BM * L.ldp;
-  // where this warp's tile goes at the end of a phase: the panel itself for
-  // the first depth split, a scratch tile over the ring for the others
-  float* mine = (wkk == 0 ? panel : ring + (wkk - 1) * BM * L.ldp) + col0;
+  float* mine = warp_tile<MT, NT>(smem, L, warp);
 
   // the panel's pad columns are read as depth by phase 2, and the ring's pad
   // rows and columns are never copied by a whole chunk: zero, not garbage
@@ -453,26 +489,7 @@ __device__ __forceinline__ void fused_panel(
   }
   __syncthreads();
 
-  // the depth-split warps' tiles into the panel, in warp order
-  auto fold = [&]() {
-    __syncthreads();
-    if (L.wk > 1) {
-      const int sh = lanes_shift(L.cols);
-      for (int r = tid >> sh; r < BM; r += kMmaThreads >> sh) {
-        for (int c = tid & ((1 << sh) - 1); c < L.cols; c += 1 << sh) {
-          const int at = r * L.ldp + c;
-          float v = panel[at];
-          for (int s = 0; s < L.wk - 1; ++s) v += ring[s * BM * L.ldp + at];
-          panel[at] = v;
-        }
-      }
-      __syncthreads();
-    }
-  };
-
   float acc[MT][NT][4];
-
-  // Phase 1: panel = Σ_chunks A_chunk · X_chunk
   zero_acc<MT, NT>(acc);
   ring_loop(
       nchunks,
@@ -482,15 +499,15 @@ __device__ __forceinline__ void fused_panel(
         if (ch.depth == L.bk && ch.x_rows == L.bk) {
           stage_tile_whole(st, L.lda, ch.a, ch.a_ld, ch.a_rows, L.bk, BM,
                            a_vec);
-          stage_tile_whole(st + BM * L.lda, L.ldb, ch.x, L.width, L.bk,
-                           L.width, L.bk, x_vec);
+          stage_tile_whole(st + BM * L.lda, L.ldb, ch.x, ch.x_ld, L.bk,
+                           x_cols, L.bk, x_vec);
         } else {   // a ragged chunk: zero fill over what the stage held,
                    // as deep as the k8 steps that will be read
           const int deep = (ch.depth + 7) & ~7;
           stage_tile(st, L.lda, ch.a, ch.a_ld, ch.a_rows, ch.depth, BM, deep,
                      a_vec);
-          stage_tile(st + BM * L.lda, L.ldb, ch.x, L.width, ch.x_rows,
-                     L.width, deep, L.cols, x_vec);
+          stage_tile(st + BM * L.lda, L.ldb, ch.x, ch.x_ld, ch.x_rows,
+                     x_cols, deep, L.cols, x_vec);
         }
       },
       [&](int c, int stage) {
@@ -502,9 +519,33 @@ __device__ __forceinline__ void fused_panel(
         }
       });
   if (active) store_acc<MT, NT>(acc, mine, L.ldp, lane);
-  fold();
+  fold_panel<MT>(smem, L);
+}
+
+// The whole fused right-hand side for one panel of 16·MT rows:
+// out[r, :] = relu((Σ_chunks A_chunk · X_chunk) · W + b) for r < out_rows.
+// Phase 1 is panel_product over all of X's L.width columns; phase 2 runs the
+// panel through the same loop against W, whose chunks take the ring's place;
+// w_vec says whether W's rows take 16-byte copies.
+template <int MT, int NT, class Source>
+__device__ __forceinline__ void fused_panel(
+    float* smem, const Layout& L, const Source& src, int nchunks, bool a_vec,
+    bool x_vec, const float* __restrict__ w, int64_t w_rs, int64_t w_cs,
+    bool w_vec, const float* __restrict__ b, float* __restrict__ out,
+    int out_rows) {
+  constexpr int BM = 16 * MT;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wkk = warp / L.wn;
+  const int col0 = (warp % L.wn) * NT * 8;
+  const bool active = col0 < L.cols;
+  float* panel = smem;
+  float* ring = smem + BM * L.ldp;
+  float* mine = warp_tile<MT, NT>(smem, L, warp);
+
+  panel_product<MT, NT>(smem, L, src, nchunks, a_vec, x_vec, L.width);
 
   // Phase 2: panel · W, W's chunks through the ring
+  float acc[MT][NT][4];
   zero_acc<MT, NT>(acc);
   const bool w_t = w_cs != 1 && w_rs == 1;   // staged as it lies: transposed
   ring_loop(
@@ -526,7 +567,7 @@ __device__ __forceinline__ void fused_panel(
         }
       });
   if (active) store_acc<MT, NT>(acc, mine, L.ldp, lane);
-  fold();
+  fold_panel<MT>(smem, L);
 
   // + b, relu (a NaN stays a NaN), store
   for (int i = tid; i < out_rows * L.width; i += kMmaThreads) {

@@ -10,8 +10,8 @@ and a backward.
   ``ndcn_tpu/dynamics/rhs.py`` runs on K1's Pallas kernel.
 - K2 ``fused_rhs``: relu((A·H)·W + b), replaces ``ndcn_tpu/kernels/fused_rhs.py``.
 - K3 and K4 ``bsr_spmm``: BSR SpMM and its fused RHS, replace
-  ``ndcn_tpu/kernels/bsr_spmm.py``. K2 and K4 multiply on the tensor cores
-  (split TF32, ``csrc/mma_split.cuh``).
+  ``ndcn_tpu/kernels/bsr_spmm.py``. K2, K3 and K4 multiply on the tensor
+  cores (split TF32, ``csrc/mma_split.cuh``).
 - P1a and P1b / P2 ``sparse_bench``: the sparse microbenchmarks' sliced-tile
   reduce and row gather, replace the Pallas kernels of
   ``tools/microbench_sparse.py`` and ``tools/probe_inkernel_gather.py``.

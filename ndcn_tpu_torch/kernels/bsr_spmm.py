@@ -14,15 +14,17 @@ Aᵀ; K4's recomputes A·X with K3, forms dX = K3(Aᵀ, G·Wᵀ) and dW, db with
 ``torch.matmul``. The operator is a constant whose cotangent is ZERO (the JAX
 package's BSR policy, unlike COO's NaN).
 
-K4's forward multiplies on the tensor cores with split-TF32 products, cut
-by the plan it shares with K2 (``kernels.fused_rhs.panel_plan``,
-``csrc/mma_split.cuh``); K3 multiplies in fp32 FMA.
+Both multiply on the tensor cores with split-TF32 products
+(``csrc/mma_split.cuh``), cut by the plan K4 shares with K2
+(``kernels.fused_rhs.panel_plan``); K3's plan (``bsr_spmm_plan``) also cuts
+the columns into slabs.
 
 The plain PyTorch versions beside the kernels (a per-block batched product
 and a scatter over row blocks) are the CPU path, inside the same
 ``autograd.Function``s, and the references the kernels are held against on
-the card. ``bsr_fused_rhs_split_plain`` emulates K4's split arithmetic in
-plain PyTorch; tests and the chip smoke script use it, the port does not.
+the card. ``bsr_spmm_split_plain`` and ``bsr_fused_rhs_split_plain`` emulate
+the kernels' split arithmetic in plain PyTorch; tests and the chip smoke
+script use them, the port does not.
 """
 
 from __future__ import annotations
@@ -35,8 +37,9 @@ import scipy.sparse as sp
 import torch
 
 from ndcn_tpu_torch.kernels import build
-from ndcn_tpu_torch.kernels.fused_rhs import (PanelPlan, panel_plan,
-                                              split_matmul)
+from ndcn_tpu_torch.kernels.fused_rhs import (SMEM_LIMIT, SMS,
+                                              TWO_CTAS_SMEM, PanelPlan,
+                                              panel_plan, split_matmul)
 from ndcn_tpu_torch.kernels.platform import on_cuda
 
 BLOCK = 128
@@ -50,6 +53,15 @@ FUSED_LAUNCHES = 0
 # ``panel_plan`` places a 16-row tile and a ring of two 16-deep chunks in
 # 232,192 of the 232,448 bytes a block may use
 K_MAX = 1024
+
+# K3's column slabs (``bsr_spmm_plan``): the kernel is built for 4 n8 tiles
+# a warp, so for slabs of up to 256 columns (8 warps across them); the plan
+# cuts at 128, and no narrower than 32 unless X is
+SLAB_MAX = 128
+SLAB_MIN = 32
+# the CTAs a K3 launch aims at: one for each SM of the card's 132, in
+# whole row blocks' worth
+SPMM_MIN_CTAS = 128
 
 
 class BsrMatrix(NamedTuple):
@@ -117,12 +129,18 @@ def bsr_fused_rhs_plain(a: BsrMatrix, x: torch.Tensor, w: torch.Tensor,
     return torch.relu(bsr_spmm_plain(a, x) @ w + b)
 
 
+def bsr_spmm_split_plain(a: BsrMatrix, x: torch.Tensor,
+                         passes: int = 3) -> torch.Tensor:
+    """The plain version of K3 with the kernel's split-TF32 products."""
+    return bsr_spmm_plain(a, x, bmm=lambda p, q: split_matmul(p, q, passes,
+                                                              torch.bmm))
+
+
 def bsr_fused_rhs_split_plain(a: BsrMatrix, x: torch.Tensor, w: torch.Tensor,
                               b: torch.Tensor, passes: int = 3) -> torch.Tensor:
     """The plain version of K4 with the kernel's split-TF32 products."""
-    ax = bsr_spmm_plain(a, x, bmm=lambda p, q: split_matmul(p, q, passes,
-                                                            torch.bmm))
-    return torch.relu(split_matmul(ax, w, passes) + b)
+    return torch.relu(split_matmul(bsr_spmm_split_plain(a, x, passes), w,
+                                   passes) + b)
 
 
 @functools.lru_cache(maxsize=None)
@@ -130,6 +148,72 @@ def bsr_fused_plan(n_row_blocks: int, block: int, d: int) -> PanelPlan:
     """K4's plan: CTAs are the row tiles of every row block."""
     return panel_plan(d, block, lambda rows: n_row_blocks * -(-block // rows),
                       max_rows=block)
+
+
+class SpmmPlan(NamedTuple):
+    """How one launch of K3 is cut: X's columns into slabs of ``slab``
+    (the last one ragged; ``gridDim.y`` is ``slabs``), and each slab's panel
+    product as ``panel`` says."""
+    slab: int
+    slabs: int
+    panel: PanelPlan
+
+
+def spmm_plan_for(n_row_blocks: int, block: int, d: int, slab: int,
+                  rows: Optional[int] = None,
+                  smem_limit: int = SMEM_LIMIT) -> SpmmPlan:
+    """K3's plan at a given slab width: ``panel_plan``'s panel for it (at
+    panel height ``rows`` and under ``smem_limit`` where given), with the
+    slabs counted among the CTAs."""
+    slabs = -(-d // slab)
+    return SpmmPlan(slab, slabs, panel_plan(
+        slab, block, lambda r: n_row_blocks * -(-block // r) * slabs,
+        max_rows=block, rows=rows, smem_limit=smem_limit))
+
+
+@functools.lru_cache(maxsize=None)
+def bsr_spmm_plan(n_row_blocks: int, block: int, d: int) -> SpmmPlan:
+    """K3's plan for an A of ``n_row_blocks`` row blocks of ``block`` rows
+    and an X of ``d`` columns.
+
+    The rules follow the card's numbers (``tools/tune_fused_plan.py k3``:
+    every slab, panel height and chunk depth on the 400-node grid's 4 row
+    blocks and a 2000-node 5 % matrix's 16, d in {20, 128, 256, 512, 1100};
+    NVIDIA H100 80GB HBM3, 700.00 W); the plan below was the fastest, or
+    within 7 %, at each of the ten shapes:
+    - Slabs: as wide as ``SLAB_MAX`` (every slab but the last of whole n8
+      tiles, so it starts on a 16-byte boundary), halved while the CTAs are
+      fewer than ``SPMM_MIN_CTAS`` and a slab stays ``SLAB_MIN`` wide. A
+      CTA's time is a chain of dependent chunk copies, so more CTAs in
+      flight win where there are SMs without one: on the grid at d = 256,
+      8 slabs of 32 take 0.0108 ms where 2 of 128 take 0.0198 and one of
+      256 0.0306. Slabs of 256 won nowhere (2000 nodes, d = 256: 0.133
+      against 0.074 for two of 128).
+    - Rows: 32 where that reaches ``SPMM_MIN_CTAS`` CTAs at some slab, else
+      16 (at the narrowest slab, where even that falls short): at d = 512
+      on the grid 8 slabs of 64 in 32-row tiles take 0.0138 against 0.018
+      for 4 of 128 in 16-row ones.
+    - Chunk: the deepest that fits, where the CTAs fit on the card at once;
+      beyond ``SMS`` CTAs the deepest that lets two share an SM (2000 nodes,
+      d = 512, 256 CTAs: 0.129 at 64 deep against 0.143 at 128)."""
+    options = []   # (slab, slabs), widest first
+    slabs = -(-d // SLAB_MAX)
+    while True:
+        slab = d if slabs == 1 else -(-d // (8 * slabs)) * 8
+        if options and slab < SLAB_MIN:
+            break
+        options.append((slab, -(-d // slab)))
+        slabs *= 2
+
+    def ctas(rows, slabs):
+        return n_row_blocks * -(-block // rows) * slabs
+
+    heights = (32, 16) if block > 16 else (16,)
+    rows, slab, slabs = next(
+        ((r, s, n) for r in heights for s, n in options
+         if ctas(r, n) >= SPMM_MIN_CTAS), (16, *options[-1]))
+    limit = TWO_CTAS_SMEM if ctas(rows, slabs) > SMS else SMEM_LIMIT
+    return spmm_plan_for(n_row_blocks, block, d, slab, rows, limit)
 
 
 def _check_bsr(a: BsrMatrix, x: torch.Tensor, name: str) -> None:
@@ -153,13 +237,15 @@ def _launch_spmm(a: BsrMatrix, x: torch.Tensor) -> torch.Tensor:
     x = x.contiguous()
     lib = build.load()
     d = x.shape[1]
+    plan = bsr_spmm_plan(a.n_row_blocks, a.block, d)
+    p = plan.panel
     y = torch.empty((a.n_rows, d), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         rc = lib.ndcn_bsr_spmm_f32(
             a.row_ptr.data_ptr(), a.block_cols.data_ptr(),
             a.blocks.data_ptr(), x.data_ptr(), y.data_ptr(), a.n_row_blocks,
-            a.block, a.n_rows, a.n_cols, d,
-            torch.cuda.current_stream().cuda_stream)
+            a.block, a.n_rows, a.n_cols, d, plan.slab, p.rows, p.wn, p.bk,
+            p.smem_bytes, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"bsr_spmm kernel launch failed: CUDA error {rc}")
     global SPMM_LAUNCHES

@@ -63,8 +63,9 @@ ENTRY_POINTS = {
     "ndcn_fused_rhs_f32": (_P, _P, _P, _P, _P, _I, _I, _L, _L, _I, _I, _I,
                            _I, _L, _P),
     # row_ptr, block_cols, blocks, x, y, n_row_blocks, block, n_rows,
-    # n_cols, d, stream
-    "ndcn_bsr_spmm_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # n_cols, d, the plan (slab, rows, wn, bk, smem bytes), stream
+    "ndcn_bsr_spmm_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                          _I, _L, _P),
     # row_ptr, block_cols, blocks, x, w, b, out, n_row_blocks, block, n_rows,
     # n_cols, d, w row stride, w column stride, the plan (rows, nt, wn, bk,
     # smem bytes), stream

@@ -25,7 +25,7 @@ plain PyTorch; tests and the chip smoke script use it, the port does not.
 from __future__ import annotations
 
 import functools
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -42,6 +42,10 @@ LAUNCHES = 0
 K_MAX = 1024
 
 SMEM_LIMIT = 232448     # bytes of shared memory one block may use (227 KB)
+# the most dynamic shared memory a CTA may take for two to share an SM (228
+# KB an SM, 1 KB of it kept per CTA)
+TWO_CTAS_SMEM = 115712
+SMS = 132               # the card's streaming multiprocessors
 STAGES = 2              # the cp.async ring's depth (kStages in mma_split.cuh)
 WARPS = 8               # warps of one CTA of the fused kernels
 # fewest CTAs (of the card's 132 SMs' worth) for which 32-row panels are taken
@@ -89,11 +93,13 @@ def plan_smem_bytes(rows: int, nt: int, wk: int, bk: int, width: int) -> int:
 
 
 def panel_plan(width: int, depth: int, panels: Callable[[int], int],
-               max_rows: int = 32) -> PanelPlan:
+               max_rows: int = 32, rows: Optional[int] = None,
+               smem_limit: int = SMEM_LIMIT) -> PanelPlan:
     """The plan for a fused RHS of ``width`` columns whose A·X sums run over
     contiguous stretches of ``depth`` (n for a dense A, the block size for a
     BSR one); ``panels(rows)`` is the number of CTAs a panel height gives
-    (at most ``max_rows`` rows are of use).
+    (at most ``max_rows`` rows are of use). K3's plan passes its own panel
+    height (``rows``) and shared-memory cap (``smem_limit``).
 
     The rules follow the card's numbers (``tools/tune_fused_plan.py``, NVIDIA
     H100 80GB HBM3, 700.00 W):
@@ -118,11 +124,12 @@ def panel_plan(width: int, depth: int, panels: Callable[[int], int],
                                           (8, 8), (16, 8))
                   if nt * wn >= tiles)
     wk = WARPS // wn
-    tall = nt <= 8 and max_rows > 16 and panels(32) >= TALL_PANEL_MIN_CTAS
-    rows = 32 if tall else 16
+    if rows is None:
+        tall = nt <= 8 and max_rows > 16 and panels(32) >= TALL_PANEL_MIN_CTAS
+        rows = 32 if tall else 16
     for bk in (128, 64, 32, 16, 8):
         smem = plan_smem_bytes(rows, nt, wk, bk, width)
-        fits = bk >= 8 * wk and smem <= SMEM_LIMIT
+        fits = bk >= 8 * wk and smem <= smem_limit
         if fits and (bk // 2 < depth or bk == 8 * wk):
             return PanelPlan(rows, nt, wn, wk, bk, smem)
     raise ValueError(f"no panel of width {width} fits the {SMEM_LIMIT} "

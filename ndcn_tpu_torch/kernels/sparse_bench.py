@@ -91,7 +91,9 @@ def sliced_tile_reduce_plain(tiles: SlicedTiles,
 def sliced_tile_reduce(tiles: SlicedTiles,
                        contrib: torch.Tensor) -> torch.Tensor:
     """Reduce pre-gathered feature-major contribs (d_sub, S·E) into the
-    (d_sub, n_pad) output."""
+    (d_sub, n_pad) output. On the card a warp owns one feature of one tile
+    and sums each run of equal local row with a segmented warp reduction,
+    in a fixed order: two calls agree bit for bit."""
     slots = tiles.local_rows.shape[0]
     if (contrib.dtype != torch.float32 or contrib.ndim != 2
             or contrib.shape[1] != slots):
@@ -99,10 +101,6 @@ def sliced_tile_reduce(tiles: SlicedTiles,
                          f"(d_sub, {slots}), got {contrib.dtype} "
                          f"{tuple(contrib.shape)}")
     d_sub = contrib.shape[0]
-    smem = d_sub * tiles.R * 4 + tiles.E * 8
-    if smem > 227 * 1024:
-        raise ValueError(f"d_sub {d_sub} with R {tiles.R} and E {tiles.E} "
-                         f"needs {smem} bytes of shared memory")
     if not on_cuda(contrib, tiles.tile_ptr, tiles.local_rows, tiles.vals):
         return sliced_tile_reduce_plain(tiles, contrib)
     global SLICED_LAUNCHES

@@ -32,22 +32,25 @@ def fused_profitable(kind: str, width: int, n: int) -> bool:
     a BSR one) at ``n`` nodes and hidden width ``width``, from a sweep on the
     NVIDIA H100 80GB HBM3, 700.00 W (``chip_smoke.py`` [4] and [7b]: dense
     n in {400, 1000, 4000, 10000} x width in {20, 64, 128}; BSR on the
-    400-node grid and a 2000-node 5 % matrix at width in {20, 128, 256, 512};
-    the fused call against ``matvec`` + ``linear_apply`` + relu).
+    400-node grid and a 2000-node 5 % matrix at width in {20, 64, 128, 256,
+    512}; the fused call against ``matvec`` + ``linear_apply`` + relu).
 
     Dense: K2 is one launch where the other route is three, and wins on the
     card while the operator is small (0.011 ms against 0.022 at 400 x 20,
     0.018 against 0.026 at 1000 x 20); from n · width of about 50,000 (400 x
     128, 1000 x 64, 4000 x 20) the two tie, and beyond that ``torch.matmul``
-    is faster and takes over. BSR: K4 wins wherever its row tiles fill the
-    card (the 2000-node matrix, 128 CTAs, at every width: 0.27 ms against
-    0.46 at 512) and up to width 128 on the grid's 4 row blocks (0.022
-    against 0.034); with 32 CTAs and a wider state K3's grid over the
-    columns ties (0.044 against 0.039 at 256) and then wins (0.108 against
-    0.052 at 512)."""
+    is faster and takes over. BSR: K3, the other route's product, runs on
+    the same tile product as K4's first phase, so K4 saves the
+    launches of the linear layer and relu and pays for its second product,
+    which stages all of W in every CTA: it wins at small widths (0.011 ms
+    against 0.022 on the grid at 20, 0.032 against 0.045 on the 2000-node
+    matrix; 0.015 against 0.023 on the grid at 64), ties at 64 on the
+    2000-node matrix (0.046 against 0.045) and loses from 128 on (0.023
+    against 0.021 on the grid, 0.073 against 0.061 on the 2000-node matrix;
+    0.27 against 0.18 there at 512)."""
     if kind == "dense":
         return n * width <= 30_000
-    return width <= 128 or n >= 1600
+    return width <= 64
 
 
 class NDCN(nn.Module):

@@ -5,10 +5,13 @@ and two probes of the port's own tensor-core kernels:
   (P1a) and the row gather (P1b);
 - ``probe_inkernel_gather``: the row gather (P2) against PyTorch's gathers;
 - ``bench_wide_gather``: K1-fm (narrow) against K5 (wide), split2 and bf16;
-- ``tune_fused_plan``: K2 and K4 under every launch plan they are built for
-  (what ``kernels.fused_rhs.panel_plan``'s rules rest on);
+- ``tune_fused_plan``: K2 and K4 (and with ``k3``, K3) under every launch
+  plan they are built for (what ``kernels.fused_rhs.panel_plan``'s and
+  ``kernels.bsr_spmm.bsr_spmm_plan``'s rules rest on);
 - ``probe_mma_accumulate``: the tensor core's truncating fp32 accumulate
-  against the fused kernels' chunk-wise fold.
+  against the fused kernels' chunk-wise fold;
+- ``compare_builds``: K2 and K4 from two checkouts on the same inputs, bit
+  for bit.
 
 Each runs as ``python -m ndcn_tpu_torch.tools.<name> [args]``, prints one
 line per measurement on stderr and one JSON line on stdout, and raises

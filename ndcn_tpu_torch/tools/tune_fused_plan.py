@@ -1,24 +1,28 @@
-"""How the fused RHS kernels' time depends on the host's plan.
+"""How the tensor-core kernels' time depends on the host's plan.
 
 K2 (``fused_rhs``) and K4 (``bsr_fused_rhs``) take their panel height and
-chunk depth from ``kernels.fused_rhs.panel_plan``. This tool times
-each kernel under the plan's own choice and under every other choice the
-kernels are built for, at the shapes the records quote, so that the plan's
-rules rest on the card's numbers:
+chunk depth from ``kernels.fused_rhs.panel_plan``; K3 (``bsr_spmm``) takes
+its column slabs and each slab's panel from ``kernels.bsr_spmm.
+bsr_spmm_plan``. This tool times each kernel under the plan's own choice and
+under every other choice the kernels are built for, at the shapes the records
+quote, so that the plans' rules rest on the card's numbers:
 
-    python -m ndcn_tpu_torch.tools.tune_fused_plan
+    python -m ndcn_tpu_torch.tools.tune_fused_plan        # K2 and K4
+    python -m ndcn_tpu_torch.tools.tune_fused_plan k3     # K3
 
 Times are ms per call of ten calls queued behind a spin kernel (the card's
 part, without the wrapper's host work), the median of five runs. One JSON line
 on stdout; one line per shape on stderr. Every variant's result is held
-bit-equal or within 2e-6·max|y| of the plan's own (another panel height is
-the same sum; another chunk depth folds it in other places).
+bit-equal or within 2e-6·max|y| of the plan's own (another panel height or
+slab is the same sum; another chunk depth or depth split folds it in other
+places).
 """
 
 from __future__ import annotations
 
 import json
 import statistics
+import sys
 
 import numpy as np
 import scipy.sparse as sp
@@ -66,21 +70,38 @@ def variants(base, width: int, max_rows: int = 64):
                 yield plan
 
 
-def sweep(call, module, attr, base, width, max_rows=64) -> dict:
-    """Time ``call`` with ``module.attr`` returning each variant plan."""
+def k3_variants(n_row_blocks: int, block: int, d: int):
+    """K3's plans for this shape: every slab width of whole n8 tiles the
+    kernel takes (d itself, and 32 to 256, 8 warps of 4 n8 tiles, where
+    narrower than d), each with ``panel_plan``'s warp layout at every panel
+    height and chunk depth."""
+    for slab in sorted({min(d, w) for w in (d, 32, 64, 128, 256)
+                        if w <= 256}):
+        base = bsr_spmm.spmm_plan_for(n_row_blocks, block, d, slab)
+        for panel in variants(base.panel, slab, block):
+            yield base._replace(panel=panel)
+
+
+def describe(plan) -> dict:
+    if isinstance(plan, bsr_spmm.SpmmPlan):
+        return dict(slab=plan.slab, slabs=plan.slabs, wn=plan.panel.wn,
+                    **describe(plan.panel))
+    return dict(rows=plan.rows, bk=plan.bk, smem_bytes=plan.smem_bytes)
+
+
+def sweep(call, module, attr, base, plans) -> dict:
+    """Time ``call`` with ``module.attr`` returning each of ``plans``."""
     original = getattr(module, attr)
     ref = call()
     rows = []
     try:
-        for plan in variants(base, width, max_rows):
+        for plan in plans:
             setattr(module, attr, lambda *a, plan=plan: plan)
             got = call()
             err = float((got - ref).abs().max() / ref.abs().max())
             if err > 2e-6:
                 raise RuntimeError(f"plan {plan} changes the answer: {err}")
-            rows.append(dict(rows=plan.rows, bk=plan.bk,
-                             smem_bytes=plan.smem_bytes,
-                             device_ms=device_ms(call),
+            rows.append(dict(describe(plan), device_ms=device_ms(call),
                              is_plan=plan == base))
     finally:
         setattr(module, attr, original)
@@ -89,9 +110,42 @@ def sweep(call, module, attr, base, width, max_rows=64) -> dict:
             "all": rows}
 
 
+def tune_k3(dev, rng) -> dict:
+    """K3 on the 400-node grid's Laplacian (4 row blocks) and a 2000-node
+    5 % matrix (16), at the widths of [7] and [7b] and one beyond K_MAX."""
+    from ndcn_tpu_torch.graph import generators, operators
+
+    mats = {"grid400": sp.csr_matrix(operators.normalized_laplacian(
+        generators.build_network("grid", 400)).astype(np.float32)),
+        "2000": sp.csr_matrix((rng.rand(2000, 2000)
+                               * (rng.rand(2000, 2000) < 0.05))
+                              .astype(np.float32))}
+    out = {}
+    for label, mat in mats.items():
+        op = from_scipy_bsr_graph(mat, device=dev)
+        for d in (20, 128, 256, 512, 1100):
+            x = torch.as_tensor(rng.randn(mat.shape[1], d).astype(np.float32),
+                                device=dev)
+            m = op.fwd
+            base = bsr_spmm.bsr_spmm_plan(m.n_row_blocks, m.block, d)
+            plans = list(k3_variants(m.n_row_blocks, m.block, d))
+            res = sweep(lambda: bsr_spmm.bsr_spmm(m, op.bwd, x), bsr_spmm,
+                        "bsr_spmm_plan", base,
+                        plans + [base] * (base not in plans))
+            out[f"{label}_d{d}"] = res
+            log(f"K3 {label} d={d}: plan {res['plan']} best {res['best']}")
+    return out
+
+
 def main(argv=None) -> dict:
+    argv = sys.argv[1:] if argv is None else argv
     dev = require_cuda()
     rng = np.random.RandomState(0)
+    if argv[:1] == ["k3"]:
+        results = {"device": torch.cuda.get_device_name(dev),
+                   "k3": tune_k3(dev, rng)}
+        print(json.dumps(results))
+        return results
     results = {"device": torch.cuda.get_device_name(dev), "k2": {}, "k4": {}}
     for n, k in ((400, 20), (1000, 20), (1000, 64), (1000, 128), (4000, 64),
                  (4000, 128), (10000, 20), (10000, 128)):
@@ -100,8 +154,9 @@ def main(argv=None) -> dict:
         # W as nn.Linear hands it over: the transposed view of its weight
         w = torch.as_tensor(rng.randn(k, k).astype(np.float32), device=dev).t()
         b = torch.as_tensor(rng.randn(k).astype(np.float32), device=dev)
+        base = fused_rhs.fused_rhs_plan(n, k)
         res = sweep(lambda: fused_rhs.fused_rhs(a, h, w, b), fused_rhs,
-                    "fused_rhs_plan", fused_rhs.fused_rhs_plan(n, k), k)
+                    "fused_rhs_plan", base, list(variants(base, k)))
         results["k2"][f"{n}x{k}"] = res
         log(f"K2 {n}x{k}: plan {res['plan']} best {res['best']}")
         del a
@@ -115,7 +170,8 @@ def main(argv=None) -> dict:
         b = torch.as_tensor(0.1 * rng.randn(d).astype(np.float32), device=dev)
         base = bsr_spmm.bsr_fused_plan(op.fwd.n_row_blocks, op.fwd.block, d)
         res = sweep(lambda: bsr_spmm.bsr_fused_rhs(op.fwd, op.bwd, x, w, b),
-                    bsr_spmm, "bsr_fused_plan", base, d, op.fwd.block)
+                    bsr_spmm, "bsr_fused_plan", base,
+                    list(variants(base, d, op.fwd.block)))
         results["k4"][f"2000_d{d}"] = res
         log(f"K4 2000/5% d={d}: plan {res['plan']} best {res['best']}")
     print(json.dumps(results))

@@ -129,6 +129,39 @@ def test_k4_plain_and_vjp_match_jax_interpret(d):
     _close(bt.grad.numpy(), j_grads[2])
 
 
+@pytest.mark.parametrize("n,m,d,block,empty", [
+    (300, 500, 20, 128, False), (500, 300, 20, 128, False),
+    (200, 200, 20, 9, False), (400, 400, 5, 128, True),
+    (300, 300, 1100, 128, False)])
+def test_k3_plain_and_split_emulation_on_the_cuda_tests_shapes(n, m, d, block,
+                                                               empty):
+    """The references K3 is held against on the card, at the shapes that
+    test adds: a rectangular A and its transpose, block 9, a row block with
+    no stored block, d beyond K_MAX; within 1e-5 of float64 forward and over
+    the Aᵀ packing, through autograd on the CPU."""
+    rng = np.random.RandomState(n + m + d)
+    a = sp.random(n, m, density=0.05, random_state=rng, format="lil")
+    if empty:
+        a[block:2 * block] = 0
+    a = a.tocsr()
+    op = sparse.from_scipy_bsr_graph(a, block=block)
+    assert op.fwd.n_rows == n and op.fwd.n_cols == m
+    if empty:
+        assert int(op.fwd.row_ptr[2] - op.fwd.row_ptr[1]) == 0
+    x = rng.randn(m, d).astype(np.float32)
+    g = rng.randn(n, d).astype(np.float32)
+    xt = torch.as_tensor(x).requires_grad_()
+    y = bsr_spmm.bsr_spmm(op.fwd, op.bwd, xt)
+    (dx,) = torch.autograd.grad((y * torch.as_tensor(g)).sum(), xt)
+    a64 = a.astype(np.float64)
+    _close(y.detach().numpy(), a64 @ x.astype(np.float64), 1e-5)
+    _close(dx.numpy(), a64.T @ g.astype(np.float64), 1e-5)
+    _close(bsr_spmm.bsr_spmm_split_plain(op.fwd, torch.as_tensor(x)).numpy(),
+           a64 @ x.astype(np.float64), 1e-5)
+    _close(bsr_spmm.bsr_spmm_split_plain(op.bwd, torch.as_tensor(g)).numpy(),
+           a64.T @ g.astype(np.float64), 1e-5)
+
+
 def test_bsr_operator_cotangent_is_zero():
     """JAX's BSR policy: the constant operator's cotangent is zero (COO's is
     NaN, ``test_torch_train.py``)."""

@@ -9,10 +9,10 @@ Bounds: max|Δ| <= 1e-5·max|y| for K1 (fp32 and bf16), K1ᵀ, K1-w (forward
 and backward), K1-fm, K5, K3,
 K4, the sliced-tile reduce and the row gather (exact; K1-fm's pack kernel
 too), and rtol 1e-5 /
-atol 1e-5·max|y| for K2 and its backward (fp32 sums in another order; K2 and
-K4 multiply in split TF32, which keeps fp32's digits); 2e-6·max|y| for K2
-and K4 against the plain PyTorch emulation of their split arithmetic (the
-same roundings, summed in another order); 1e-4
+atol 1e-5·max|y| for K2 and its backward (fp32 sums in another order; K2,
+K3 and K4 multiply in split TF32, which keeps fp32's digits); 2e-6·max|y|
+for K2, K3 and K4 against the plain PyTorch emulation of their split
+arithmetic (the same roundings, summed in another order); 1e-4
 rel-L1 for a served trajectory on the GPU against the same server on the CPU,
 and 1e-3 rel-L1 for a train step's gradients on the GPU against the CPU.
 Backward checks use non-symmetric matrices.
@@ -385,32 +385,61 @@ def test_spmv_T_cuda_matches_plain_forward_and_transpose(cuda_device, wide,
     assert torch.equal(y, coo_spmv.spmv_T(op, xT))  # no atomics: repeatable
 
 
-@pytest.mark.parametrize("n,d,R,E", [(20000, 20, 128, 2048), (3000, 7, 64, 512),
-                                     (1000, 40, 256, 300)])
+@pytest.mark.parametrize("n,d,R,E,case,pad", [
+    pytest.param(20000, 20, 128, 2048, "hub", False, id="20000-20-128-2048"),
+    pytest.param(3000, 7, 64, 512, "hub", False, id="3000-7-64-512"),
+    pytest.param(1000, 40, 256, 300, "hub", False, id="1000-40-256-300"),
+    pytest.param(20000, 20, 128, 2048, "hub", True, id="20000-20-padded"),
+    pytest.param(5000, 1, 128, 2048, "hub", True, id="d1"),
+    pytest.param(3000, 20, 256, 128, "hub", False, id="R256-E128"),
+    pytest.param(3000, 20, 64, 301, "hub", False, id="E301-scalar-loads"),
+    pytest.param(4000, 20, 128, 512, "empty_tiles", False, id="empty-tiles"),
+    pytest.param(3000, 20, 128, 512, "three_slices", False,
+                 id="row-over-3-slices")])
 def test_sliced_tile_reduce_cuda_matches_plain_and_oracle(cuda_device, n, d,
-                                                          R, E):
-    rng = np.random.RandomState(n)
-    nnz = n * 11
-    rows = np.sort(rng.randint(0, n, nnz))
-    rows[:3000] = 5                                   # a hub row: many slices
-    rows = np.sort(rows)
-    cols = rng.randint(0, n, nnz)
-    vals = rng.rand(nnz).astype(np.float32)
+                                                          R, E, case, pad):
+    """P1a on the card: within 1e-5 of the plain version and of a float64
+    oracle, bit-equal on a repeat; contribs of d rows (d = 20 or 7 leave the
+    last group of 8 features part idle) or padded to whole sublanes (d = 1
+    gives 8 rows), a hub row over many slices (or exactly three), tiles with
+    no edge, and an E that takes 4-byte loads."""
+    rng = np.random.RandomState(n + d)
+    rows, cols, vals = _sliced_graph(rng, n, R, E, case)
     x = rng.rand(n, d).astype(np.float32)
     tiles = sparse_bench.pack_sliced_tiles(rows, cols, vals, n, R, E,
                                            device=cuda_device)
-    xT = torch.as_tensor(x.T.copy(), device=cuda_device)
-    contrib = xT[:, tiles.cols.long()].contiguous()
+    d_sub = coo_spmv.sublane_pad(d) if pad else d
+    contrib = torch.zeros((d_sub, tiles.cols.shape[0]), device=cuda_device)
+    contrib[:d] = torch.as_tensor(x.T.copy(), device=cuda_device)[
+        :, tiles.cols.long()]
     before = sparse_bench.SLICED_LAUNCHES
     out = sparse_bench.sliced_tile_reduce(tiles, contrib)
     ref = sparse_bench.sliced_tile_reduce_plain(tiles, contrib)
     torch.cuda.synchronize()
     assert sparse_bench.SLICED_LAUNCHES == before + 1
     assert _max_rel(out, ref) <= 1e-5
+    assert torch.equal(out, sparse_bench.sliced_tile_reduce(tiles, contrib))
     oracle = np.zeros((n, d), np.float64)
     np.add.at(oracle, rows, vals[:, None].astype(np.float64) * x[cols])
-    assert _max_rel(out[:, :n].T.cpu(), torch.as_tensor(oracle)) <= 1e-5
-    assert not out[:, n:].any()
+    assert _max_rel(out[:d, :n].T.cpu(), torch.as_tensor(oracle)) <= 1e-5
+    assert not out[:, n:].any() and not out[d:].any()
+
+
+def _sliced_graph(rng, n, R, E, case):
+    """Row-sorted edges (rows, cols, vals) for P1a: 11 a node with row 5 a
+    3000-edge hub; or with every other tile empty; or with row 3 spanning
+    exactly three slices of its tile."""
+    rows = rng.randint(0, n, n * 11)
+    if case == "hub":
+        rows[:3000] = 5
+    elif case == "empty_tiles":
+        rows = rows[(rows // R) % 2 == 0]
+    else:
+        rows = rows[rows // R != 0]
+        rows = np.concatenate([rows, np.full(2 * E + 10, 3)])
+    rows = np.sort(rows).astype(np.int32)
+    return (rows, rng.randint(0, n, rows.size).astype(np.int32),
+            rng.rand(rows.size).astype(np.float32))
 
 
 @pytest.mark.parametrize("m,k,rows", [(1024, 128, 512), (4096, 128, 2048),
@@ -452,16 +481,30 @@ def test_cuda_kernels_backward_matches_plain(cuda_device):
         assert torch.allclose(x_, y_, rtol=1e-5, atol=1e-5 * scale)
 
 
-@pytest.mark.parametrize("n,d,block", [(400, 20, 128), (2000, 256, 128),
-                                       (257, 5, 128), (300, 33, 48)])
-def test_k3_cuda_matches_plain_forward_and_backward(cuda_device, n, d, block):
-    rng = np.random.RandomState(n + d)
-    a = sp.random(n, n, density=0.05, random_state=rng, format="csr")
-    op = as_operator(a, sparse=True, format="bsr", device=cuda_device)
-    if block != 128:
-        from ndcn_tpu_torch.graph.sparse import from_scipy_bsr_graph
-        op = from_scipy_bsr_graph(a, block=block, device=cuda_device)
-    x = torch.as_tensor(rng.randn(n, d).astype(np.float32),
+@pytest.mark.parametrize("n,d,block,m,empty", [
+    pytest.param(400, 20, 128, 400, False, id="400-20-128"),
+    pytest.param(2000, 256, 128, 2000, False, id="2000-256-128"),
+    pytest.param(257, 5, 128, 257, False, id="257-5-128"),
+    pytest.param(300, 33, 48, 300, False, id="300-33-48"),
+    pytest.param(400, 1, 128, 400, False, id="d1"),
+    pytest.param(600, 1100, 128, 600, False, id="d1100-over-k_max"),
+    pytest.param(200, 20, 9, 200, False, id="block9"),
+    pytest.param(300, 20, 128, 500, False, id="rectangular-300x500"),
+    pytest.param(500, 20, 128, 300, False, id="rectangular-500x300"),
+    pytest.param(400, 20, 128, 400, True, id="empty-row-block")])
+def test_k3_cuda_matches_plain_forward_and_backward(cuda_device, n, d, block,
+                                                    m, empty):
+    """K3 and K3 over Aᵀ (its backward) within 1e-5 of the plain version and
+    2e-6 of the emulation of its split-TF32 product, bit-equal on a repeat;
+    widths beyond one slab and K_MAX, other block sizes, rectangular A (and
+    its transpose), a row block with no stored block."""
+    rng = np.random.RandomState(n + d + m)
+    a = sp.random(n, m, density=0.05, random_state=rng, format="lil")
+    if empty:
+        a[block:2 * block] = 0
+    from ndcn_tpu_torch.graph.sparse import from_scipy_bsr_graph
+    op = from_scipy_bsr_graph(a.tocsr(), block=block, device=cuda_device)
+    x = torch.as_tensor(rng.randn(m, d).astype(np.float32),
                         device=cuda_device).requires_grad_()
     g = torch.as_tensor(rng.randn(n, d).astype(np.float32), device=cuda_device)
     before = bsr_spmm.SPMM_LAUNCHES
@@ -469,9 +512,14 @@ def test_k3_cuda_matches_plain_forward_and_backward(cuda_device, n, d, block):
     (dx,) = torch.autograd.grad((y * g).sum(), x)
     torch.cuda.synchronize()
     assert bsr_spmm.SPMM_LAUNCHES == before + 2
-    assert _max_rel(y, bsr_spmm.bsr_spmm_plain(op.fwd, x)) <= 1e-5
-    assert _max_rel(dx, bsr_spmm.bsr_spmm_plain(op.bwd, g)) <= 1e-5
+    for got, mat, v in ((y.detach(), op.fwd, x.detach()), (dx, op.bwd, g)):
+        assert _max_rel(got, bsr_spmm.bsr_spmm_plain(mat, v)) <= 1e-5
+        emu = bsr_spmm.bsr_spmm_split_plain(mat, v)
+        assert float((got - emu).abs().max()) <= 2e-6 * float(emu.abs().max())
     assert torch.equal(y, bsr_spmm.bsr_spmm(op.fwd, op.bwd, x))  # repeatable
+    assert torch.equal(dx, bsr_spmm.bsr_spmm(op.bwd, op.fwd, g))
+    if empty:
+        assert not y[block:2 * block].any()
 
 
 @pytest.mark.parametrize("n,d,block", [(400, 20, 128), (2000, 512, 128),
@@ -539,6 +587,35 @@ def test_k4_cuda_matches_plain_forward_and_backward(cuda_device, n, d):
     assert _max_rel(out, ref) <= 1e-5
     for x_, y_ in zip(got, ref_g):
         assert _max_rel(x_, y_) <= 1e-5
+
+
+def test_k3_cuda_refuses_a_slab_off_the_n8_tiles(cuda_device):
+    """The C entry takes a slab of all of d or of whole n8 tiles (each slab
+    starts on a 16-byte boundary for the vector copies) and refuses another
+    with cudaErrorInvalidValue, before launching."""
+    from ndcn_tpu_torch.kernels import build
+    rng = np.random.RandomState(0)
+    a = bsr_spmm.from_scipy_bsr(sp.random(400, 400, density=0.05,
+                                          random_state=rng, format="csr"),
+                                device=cuda_device)
+    x = torch.as_tensor(rng.randn(400, 20).astype(np.float32),
+                        device=cuda_device)
+    ref = bsr_spmm.bsr_spmm_plain(a, x)
+    lib = build.load()
+    for slab, rc_want in ((20, 0), (16, 0), (8, 0), (12, 1), (4, 1)):
+        p = bsr_spmm.spmm_plan_for(a.n_row_blocks, a.block, 20, slab).panel
+        y = torch.zeros_like(ref)
+        rc = lib.ndcn_bsr_spmm_f32(
+            a.row_ptr.data_ptr(), a.block_cols.data_ptr(),
+            a.blocks.data_ptr(), x.data_ptr(), y.data_ptr(), a.n_row_blocks,
+            a.block, a.n_rows, a.n_cols, 20, slab, p.rows, p.wn, p.bk,
+            p.smem_bytes, torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        assert rc == rc_want, slab
+        if rc == 0:
+            assert _max_rel(y, ref) <= 1e-5
+        else:
+            assert not y.any()
 
 
 def _scale_one_rhs_call(monkeypatch, call, scale):

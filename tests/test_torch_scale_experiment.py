@@ -189,21 +189,39 @@ def test_scale_experiment_and_tools_need_the_card_on_gpu():
 # ------------------------------------------------------- the microbenchmarks
 
 
-@pytest.mark.parametrize("n,R,E", [(5000, 128, 2048), (3000, 64, 512),
-                                   (700, 256, 300)])
-def test_sliced_tile_packing_and_plain_reduce_match_the_oracle(n, R, E):
+@pytest.mark.parametrize("n,R,E,d,case", [
+    pytest.param(5000, 128, 2048, 20, "hub", id="5000-128-2048"),
+    pytest.param(3000, 64, 512, 20, "hub", id="3000-64-512"),
+    pytest.param(700, 256, 300, 20, "hub", id="700-256-300"),
+    pytest.param(3000, 128, 2048, 1, "hub", id="d1"),
+    pytest.param(3000, 256, 128, 20, "hub", id="R256-E128"),
+    pytest.param(2000, 64, 301, 20, "hub", id="E301"),
+    pytest.param(4000, 128, 512, 20, "empty_tiles", id="empty-tiles"),
+    pytest.param(3000, 128, 512, 20, "three_slices", id="row-over-3-slices")])
+def test_sliced_tile_packing_and_plain_reduce_match_the_oracle(n, R, E, d,
+                                                               case):
     """P1a's inline packing (tools/microbench_sparse.py:164-195) and its
     plain reduce, against the numpy oracle and against the example's loop
-    packing, slot for slot."""
+    packing, slot for slot: a 2500-edge hub row, every other tile empty, or
+    tile 0 holding one row of exactly three slices; d = 1 (8 sublanes), R
+    256, E 128 and an E that is not a multiple of 4."""
     from ndcn_tpu_torch.kernels import sparse_bench
 
     rng = np.random.RandomState(n)
     nnz = n * 11
-    rows = np.sort(np.concatenate([rng.randint(0, n, nnz - 2500),
-                                   np.full(2500, 3)])).astype(np.int32)
+    if case == "hub":
+        rows = np.concatenate([rng.randint(0, n, nnz - 2500),
+                               np.full(2500, 3)])
+    elif case == "empty_tiles":
+        rows = rng.randint(0, n, nnz)
+        rows = rows[(rows // R) % 2 == 0]
+    else:
+        rows = rng.randint(R, n, nnz - 2 * E - 10)
+        rows = np.concatenate([rows, np.full(2 * E + 10, 3)])
+    rows = np.sort(rows).astype(np.int32)
+    nnz = rows.size
     cols = rng.randint(0, n, nnz).astype(np.int32)
     vals = rng.rand(nnz).astype(np.float32)
-    d = 20
     x = rng.rand(n, d).astype(np.float32)
     tiles = sparse_bench.pack_sliced_tiles(rows, cols, vals, n, R, E)
     # the tool's loop packing, as written there
@@ -230,6 +248,11 @@ def test_sliced_tile_packing_and_plain_reduce_match_the_oracle(n, R, E):
     tile_of = np.array([s[0] for s in slices])
     ptr = tiles.tile_ptr.numpy()
     assert np.array_equal(np.repeat(np.arange(T), np.diff(ptr)), tile_of)
+    if case == "empty_tiles":
+        assert all(lo == hi for tl, lo, hi in slices if tl % 2)
+    if case == "three_slices":
+        assert ptr[1] == 3 and (lr[:3].ravel() == 3).sum() == 2 * E + 10
+        assert np.array_equal(cc[:3].ravel()[:2 * E + 10], cols[:2 * E + 10])
 
     d_sub = ck.sublane_pad(d)
     xT = np.zeros((d_sub, n), np.float32)

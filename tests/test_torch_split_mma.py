@@ -1,10 +1,11 @@
-"""The arithmetic and the launch plan of the tensor-core kernels K2 and K4,
-on the CPU.
+"""The arithmetic and the launch plans of the tensor-core kernels K2, K3 and
+K4, on the CPU.
 
 The CUDA kernels multiply with every fp32 operand split into two TF32 parts
 (``hi = tf32(x)``, ``lo = tf32(x - hi)``) and sum ``lo·hi + hi·lo + hi·hi`` in
-fp32. ``fused_rhs_split_plain`` and ``bsr_fused_rhs_split_plain`` emulate that
-in plain PyTorch (TF32 = the mantissa rounded to 10 bits). Held here:
+fp32. ``fused_rhs_split_plain``, ``bsr_spmm_split_plain`` and
+``bsr_fused_rhs_split_plain`` emulate that in plain PyTorch (TF32 = the
+mantissa rounded to 10 bits). Held here:
 
 - the emulation within 1e-5·max|y| of a float64 reference (the port's bar for
   a kernel against its plain version), on inputs from numpy seeds, while a
@@ -12,11 +13,14 @@ in plain PyTorch (TF32 = the mantissa rounded to 10 bits). Held here:
   low parts would be caught by the same bound;
 - the grid400 inference solve with the emulation as its right-hand side: the
   same NFE as the plain version's (20) and 1e-4 rel-L1 to the oracle fixture;
+  the grid400 BSR train step with K3's emulation forward and backward: NFE
+  20 and 1e-3 rel-L1 to the ``ndcn_grads_grid400`` gradients;
 - the emulation and the plain versions within 1e-5·max|y| of the JAX
   package's Pallas kernels in interpret mode, as its own tests run them;
-- the host's plan: shared memory within what a block may use, every row and
+- the host's plans: shared memory within what a block may use, every row and
   column and depth step owned once, the same on two calls, and the layout
-  arithmetic that the C entry checks.
+  arithmetic that the C entry checks (K3's: slabs of one warp layout that
+  cover X's columns).
 """
 
 import os
@@ -27,12 +31,12 @@ import pytest
 import scipy.sparse as sp
 import torch
 
-from ndcn_tpu.kernels.bsr_spmm import bsr_fused_rhs_raw
+from ndcn_tpu.kernels.bsr_spmm import bsr_fused_rhs_raw, bsr_spmm_raw
 from ndcn_tpu.kernels.bsr_spmm import from_scipy_bsr as j_from_scipy_bsr
 from ndcn_tpu.kernels.fused_rhs import fused_graph_rhs
 from ndcn_tpu_torch.convert import params_from_jax
 from ndcn_tpu_torch.graph import generators, operators
-from ndcn_tpu_torch.graph.sparse import from_dense
+from ndcn_tpu_torch.graph.sparse import as_operator, from_dense
 from ndcn_tpu_torch.kernels import bsr_spmm, fused_rhs
 from ndcn_tpu_torch.models import ndcn, ndcn_forward
 
@@ -131,6 +135,33 @@ def test_k4_split_emulation_holds_the_fp32_bar_and_one_pass_does_not(n, d,
                     ref) > 1e-5
 
 
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("n,d", [(400, 20), (600, 256), (300, 1)])
+def test_k3_split_emulation_holds_the_fp32_bar_and_one_pass_does_not(n, d,
+                                                                     kind):
+    mat, x, _, _ = _bsr_inputs(n, d, kind, seed=n + d)
+    ref = np.asarray(mat.toarray(), np.float64) @ x.astype(np.float64)
+    a = bsr_spmm.from_scipy_bsr(mat)
+    xt = torch.as_tensor(x)
+    assert _max_rel(bsr_spmm.bsr_spmm_split_plain(a, xt), ref) <= 1e-5
+    assert _max_rel(bsr_spmm.bsr_spmm_plain(a, xt), ref) <= 1e-5
+    assert _max_rel(bsr_spmm.bsr_spmm_split_plain(a, xt, passes=1),
+                    ref) > 1e-5
+
+
+@pytest.mark.parametrize("n,d,seed", [(400, 20, 2), (300, 1, 3),
+                                      (260, 70, 4)])
+def test_k3_emulation_and_plain_match_jax_bsr_spmm_interpret(n, d, seed):
+    mat, x, _, _ = _bsr_inputs(n, d, "laplacian" if n == 400 else "normal",
+                               seed)
+    ref = np.asarray(bsr_spmm_raw(j_from_scipy_bsr(mat), jnp.asarray(x)))
+    a = bsr_spmm.from_scipy_bsr(mat)
+    xt = torch.as_tensor(x)
+    assert _max_rel(bsr_spmm.bsr_spmm_split_plain(a, xt), ref) <= 1e-5
+    assert _max_rel(bsr_spmm.bsr_spmm_plain(a, xt), ref) <= 1e-5
+    assert _max_rel(bsr_spmm.bsr_spmm(a, a, xt), ref) <= 1e-5
+
+
 @pytest.mark.parametrize("passes", [3, 1])
 def test_grid400_inference_solve_with_the_split_emulation(passes, monkeypatch):
     """The adaptive controller sees the split product as it sees fp32: the
@@ -162,6 +193,40 @@ def test_grid400_inference_solve_with_the_split_emulation(passes, monkeypatch):
         assert err_plain <= 1e-6
     else:
         assert err_plain > 1e-5
+
+
+def test_grid400_bsr_train_step_with_the_k3_split_emulation(monkeypatch):
+    """The BSR train step with fused=False, K3's split product forward and
+    over Aᵀ in the backward: the same NFE (20) and the fixture's loss and
+    gradients, as the plain fp32 version holds them."""
+    f = dict(np.load(os.path.join(FIX, "ndcn_grads_grid400.npz")))
+    tree = {name: {"w": f[f"{name}_w"].T, "b": f[f"{name}_b"]}
+            for name in ("enc1", "enc2", "wt", "dec")}
+    model = params_from_jax(tree)
+    op = as_operator(sp.csr_matrix(_grid_lap()), sparse=True, format="bsr")
+    calls = []
+
+    def emulated(a, x):
+        calls.append(x.requires_grad)
+        return bsr_spmm.bsr_spmm_split_plain(a, x)
+
+    monkeypatch.setattr(bsr_spmm, "_launch_spmm", emulated)
+    out, stats = ndcn_forward(model, op, f["t"], torch.as_tensor(f["x0"]),
+                              max_steps=64, fused=False, rtol=0.01,
+                              atol=0.001, method="dopri5")
+    loss = (out[..., 0].T - torch.as_tensor(f["target"])).abs().mean()
+    n_forward = len(calls)
+    loss.backward()
+    assert stats.success and stats.nfe == 20 and n_forward == 20
+    assert len(calls) > n_forward               # the backward's K3 over Aᵀ
+    ref = float(f["loss_backprop"])
+    assert abs(loss.item() - ref) / abs(ref) <= 1e-4
+    for name in ("enc1", "enc2", "wt", "dec"):
+        layer = getattr(model, name)
+        for got, key in ((layer.weight.grad, "w"), (layer.bias.grad, "b")):
+            want = f[f"g_{name}_{key}_backprop"]
+            assert (np.abs(got.numpy() - want).sum()
+                    / np.abs(want).sum()) <= 1e-3
 
 
 @pytest.mark.parametrize("n,k,seed", [(400, 20, 0), (275, 13, 1)])
@@ -236,6 +301,37 @@ def test_k4_plan_fits_and_tiles_every_row_block(blocks, block, d):
                 >= fused_rhs.TALL_PANEL_MIN_CTAS)
 
 
+@pytest.mark.parametrize("block", [9, 48, 128])
+@pytest.mark.parametrize("d", [1, 5, 20, 33, 256, 1024, 1100])
+@pytest.mark.parametrize("blocks", [4, 16, 200])
+def test_k3_plan_fits_and_mirrors_make_layout(blocks, block, d):
+    bsr_spmm.bsr_spmm_plan.cache_clear()
+    plan = bsr_spmm.bsr_spmm_plan(blocks, block, d)
+    bsr_spmm.bsr_spmm_plan.cache_clear()
+    assert plan == bsr_spmm.bsr_spmm_plan(blocks, block, d)  # deterministic
+    p = plan.panel
+    # what make_layout takes for the one warp layout K3 is built for
+    assert p.nt == 4 and p.wn * p.wk == fused_rhs.WARPS and p.rows in (16, 32)
+    assert p.wn * p.nt * 8 >= plan.slab and p.bk % (8 * p.wk) == 0
+    assert 8 <= p.bk <= 128 and (p.bk // 2 < block or p.bk == 8 * p.wk)
+    assert p.smem_bytes == fused_rhs.plan_smem_bytes(p.rows, p.nt, p.wk, p.bk,
+                                                     plan.slab)
+    assert p.smem_bytes <= fused_rhs.SMEM_LIMIT == 232448
+    # the slabs cover X's columns once; all but the last start and end on
+    # whole n8 tiles (16-byte copies)
+    assert 1 <= plan.slab <= min(d, bsr_spmm.SLAB_MAX)
+    assert plan.slabs == -(-d // plan.slab)
+    assert plan.slabs == 1 or plan.slab % 8 == 0
+    cols = [c for j in range(plan.slabs)
+            for c in range(j * plan.slab, min(d, (j + 1) * plan.slab))]
+    assert cols == list(range(d))
+    rows = [r for lo, hi in p.row_ranges(block) for r in range(lo, hi)]
+    assert rows == list(range(block))
+    # past one CTA an SM, two share one
+    if blocks * -(-block // p.rows) * plan.slabs > fused_rhs.SMS:
+        assert p.smem_bytes <= fused_rhs.TWO_CTAS_SMEM
+
+
 def test_plans_and_checks_name_the_limit():
     with pytest.raises(ValueError, match="1 <= width <= 1024"):
         fused_rhs.panel_plan(1025, 64, lambda rows: 1)
@@ -257,15 +353,22 @@ def test_fused_kernel_tools_need_the_card_and_match_the_sources():
 
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is visible")
-    for tool in (tune_fused_plan, probe_mma_accumulate):
+    from ndcn_tpu_torch.tools import compare_builds
+
+    for tool, argv in ((tune_fused_plan, []), (tune_fused_plan, ["k3"]),
+                       (probe_mma_accumulate, []), (compare_builds, ["."])):
         with pytest.raises(RuntimeError, match="CUDA device"):
-            tool.main([])
+            tool.main(argv)
     header = (build.CSRC / "mma_split.cuh").read_text()
     assert f"kStages = {fused_rhs.STAGES};" in header
     assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in header
     assert header.count("cvt.rna.tf32.f32") == 2          # hi, and lo
     for src in ("fused_rhs.cu", "bsr_spmm.cu"):
         assert '#include "mma_split.cuh"' in (build.CSRC / src).read_text()
+    # K3 is the panel product alone, K2 and K4 the fused panel built on it
+    bsr = (build.CSRC / "bsr_spmm.cu").read_text()
+    assert "panel_product<MT, kSpmmNt>" in bsr and "fmaf" not in bsr
+    assert "panel_product<MT, NT>(smem, L, src, nchunks" in header
 
 
 @pytest.mark.parametrize("n,k", [(400, 20), (10000, 128), (64, 1024)])
