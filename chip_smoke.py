@@ -59,7 +59,7 @@ Phases, one line each:
  11. the scale path's SpMV kernels against their plain versions: K1's bf16
      instance, K1-fm and K5 (fp32 and bf16), forward and over the transpose,
      on the 200k / 2.2M and 1M / 11M normalized Laplacians at d = 20, K1
-     fp32 at 1M, K1-fm on the hub graph, and K1-fm's pack kernel;
+     fp32 at 1M, K1-fm and K5 on the hub graph, and K1-fm's pack kernel;
      max|Δ| / max|y| <= 1e-5 against the plain version of the same
      rounding; two calls bit-equal; median CUDA-event times of both, the
      bound and the library call.
@@ -80,15 +80,21 @@ Phases, one line each:
  13. the three microbenchmarks at their defaults (``ndcn_tpu_torch.tools``):
      P1a (the sliced-tile reduce) and P1b / P2 (the row gather) against
      their plain versions and the oracle, and the narrow / wide table; P1a
-     once more at the tool's size, bit-equal on a repeat.
+     once more at the tool's size, bit-equal on a repeat; P1b's device time
+     beside that of an empty launch (``torch.cuda._sleep(0)``, queued
+     alike).
  14. K1-w (the mutualistic interaction, ``kernels.coo_mutual``) forward
      and backward against its plain version (gather, weight,
      ``index_add_``; no single PyTorch call computes the pair term, so the
-     plain version is also the library yardstick) on the 50k and 200k
-     adjacencies at d = 1 and the hub graph and its transpose at d = 20:
-     max|Δ| / max|y| <= 1e-5, two calls bit-equal, times and the bytes'
-     bound; the mutualistic ground truth of a 5,000-node graph on the card
-     within 1e-4 rel-L1 of the CPU's, its NFE within 2 %; then the scale
+     plain version is also the library yardstick) on the 50k, 200k and 1M
+     adjacencies at d = 1, 200k at d = 2 and at the edge form's widest
+     width, the hub graph at d = 1 (the edge form with carries) and 20, and
+     its transpose at d = 20, each with the form that ran, read from the
+     edge form's own launch count (it must be the edge form up to the
+     crossover width, the warp form above): max|Δ| / max|y| <= 1e-5, two
+     calls bit-equal, times and the bytes' bound; the mutualistic ground
+     truth of a 5,000-node graph on the card within 1e-4 rel-L1 of the
+     CPU's, its NFE within 2 %; then the scale
      experiment at 50k nodes with ``--dynamics mutualistic --iters 60``
      (the ground truth on the card through K1-w, training through K1) and
      ``--dynamics gene --iters 10``, and the mutualistic experiment on its
@@ -989,8 +995,8 @@ def main() -> None:
 
     # ---- 11. the scale path's SpMV kernels against their plain versions
     t0 = time.perf_counter()
-    op_1m = from_scipy_coo(normalized_laplacian_sparse(
-        build_sparse_graph(1_000_000, 10, seed=0)), device=dev)
+    adj_1m = build_sparse_graph(1_000_000, 10, seed=0)   # [14] takes it too
+    op_1m = from_scipy_coo(normalized_laplacian_sparse(adj_1m), device=dev)
     host_build_1m_s = time.perf_counter() - t0
 
     @contextlib.contextmanager
@@ -1077,6 +1083,7 @@ def main() -> None:
     for bf16 in (False, True):
         kind = "bf16" if bf16 else "f32"
         k11[f"k1fm_{kind}_hub"] = scale_case(op_hub, "k1fm", bf16)
+        k11[f"k5_{kind}_hub"] = scale_case(op_hub, "k5", bf16)
         k11[f"pack_{kind}_1m"] = pack_case(op_1m.n, bf16)
     k11["pack_f32_200k"] = pack_case(op_big.n, False)
     for size, op in (("200k", op_big), ("1m", op_1m)):
@@ -1247,15 +1254,19 @@ def main() -> None:
                  lambda: coo_mutual.mutual_backward_plain(op, x, g, *coef),
                  nbytes(op.row_ptr, op.cols, op.vals, op.row_ptr_t,
                         op.cols_t, op.vals_t, x, g, x), 24 * nnz * d)):
+            edge_before = coo_mutual.EDGE_LAUNCHES
             y, ref = kern(), plain()
             torch.cuda.synchronize()
+            # the form that ran, from the edge form's own launch count
+            form = ("edges" if coo_mutual.EDGE_LAUNCHES
+                    == edge_before + (1 if label == "fwd" else 2) else "rows")
             err, rel = max_rel(y, ref)
             check(rel <= 1e-5, f"K1-w {label} n={op.n} d={d} disagrees with "
                   f"its plain version: {rel}")
             check(torch.equal(y, kern()), f"K1-w {label}: two calls differ")
             plain_ms = cuda_ms(plain, iters=15)
             out[label] = dict(
-                max_abs_err=err, rel_err=rel, repeat_equal=True,
+                form=form, max_abs_err=err, rel_err=rel, repeat_equal=True,
                 ms=cuda_ms(kern, iters=15), device_ms=queued_ms(kern),
                 plain_ms=plain_ms, library_ms=plain_ms,
                 library_device_ms=queued_ms(plain),
@@ -1266,9 +1277,21 @@ def main() -> None:
     hub_abs = abs(hub)
     k1w = {"50k_d1": k1w_case(build_sparse_graph(50_000, 10, seed=0), 1, 31),
            "200k_d1": k1w_case(adj, 1, 32),
+           "200k_d2": k1w_case(adj, 2, 35),
+           "hub_d1": k1w_case(hub_abs, 1, 38),
            "hub_d20": k1w_case(hub_abs, 20, 33),
-           "hub_transposed_d20": k1w_case(hub_abs.T.tocsr(), 20, 34)}
+           "hub_transposed_d20": k1w_case(hub_abs.T.tocsr(), 20, 34),
+           "1m_d1": k1w_case(adj_1m, 1, 36)}
+    crossover = coo_mutual.EDGE_MAX_WIDTH
+    if f"200k_d{crossover}" not in k1w:
+        k1w[f"200k_d{crossover}"] = k1w_case(adj, crossover, 37)
+    del adj_1m
     check(k1w["hub_d20"]["split_rows"] > 0, "the hub graph has no split row")
+    wrong_form = {f"{k} {label}": c[label]["form"] for k, c in k1w.items()
+                  for label in ("fwd", "bwd")
+                  if (c[label]["form"] == "edges") != (c["d"] <= crossover)}
+    check(not wrong_form, f"K1-w ran the wrong form (the edge form to "
+          f"d = {crossover}, the warp form above): {wrong_form}")
 
     # the physics on the card against the CPU: a 5,000-node graph
     a5k = build_sparse_graph(5_000, 10, seed=0)
@@ -1300,7 +1323,8 @@ def main() -> None:
               f"{what}: the train loss did not fall {losses}")
 
     rec_mut, c_mut = scale_run("50k mutualistic scale experiment",
-                               ["coo_mutual", "coo_spmv"], "--n", "50000",
+                               ["coo_mutual", "coo_mutual_edges",
+                                "coo_spmv"], "--n", "50000",
                                "--dynamics", "mutualistic", "--iters", "60")
     falls(rec_mut["train_losses"], "50k mutualistic")
     rec_gene, c_gene = scale_run("50k gene scale experiment", ["coo_spmv"],
@@ -1455,6 +1479,9 @@ def main() -> None:
     p1b = dict(max_abs_err=mb["row_gather_max_abs_err"],
                device_ms=queued_ms(
                    lambda: sparse_bench.row_gather(x_pr, idx_pr)),
+               # the launch floor: the spin kernel for 0 cycles, queued alike
+               empty_kernel_device_ms=queued_ms(
+                   lambda: torch.cuda._sleep(0)),
                library_device_ms=queued_ms(
                    lambda: torch.index_select(x_pr, 0, idx64_pr)),
                ms=probe["kernel_us"] / 1e3, plain_ms=probe["index_us"] / 1e3,
@@ -1483,10 +1510,15 @@ def main() -> None:
               "ndcn_tpu/kernels/coo_spmv.py:207", k11["k5_f32_1m"]["fwd"],
               k11["k5_f32_1m"]["transpose"]),
         # the Pallas kernel at coo_spmv.py:314, driven with per-edge weights
-        # by the mutualistic interaction
-        entry("coo_mutual", "coo_mutual.cu", "ndcn_tpu/dynamics/rhs.py:109",
+        # by the mutualistic interaction: at d = 1 its edge form (the warp
+        # form, coo_mutual.cu, takes d > 8); launches of either form, and
+        # of the edge form alone
+        entry("coo_mutual", "coo_mutual_edges.cu",
+              "ndcn_tpu/dynamics/rhs.py:109",
               k1w["50k_d1"]["fwd"], k1w["50k_d1"]["bwd"],
               pallas_site="ndcn_tpu/kernels/coo_spmv.py:314",
+              edge_form_launches=main_launches["coo_mutual_edges"],
+              warp_form_source="ndcn_tpu_torch/csrc/coo_mutual.cu",
               launches_per_ground_truth=c_mut["coo_mutual"]),
         entry("sliced_tile_reduce", "sparse_bench.cu",
               "tools/microbench_sparse.py:235", p1a,
@@ -1494,7 +1526,8 @@ def main() -> None:
               spmv_e2e_plain_ms=p1a["spmv_e2e_plain_ms"]),
         entry("row_gather", "sparse_bench.cu",
               "tools/microbench_sparse.py:288", p1b,
-              also_replaces="tools/probe_inkernel_gather.py:60"),
+              also_replaces="tools/probe_inkernel_gather.py:60",
+              empty_kernel_device_ms=p1b["empty_kernel_device_ms"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,24 +1,5 @@
-// K1-w: the mutualistic interaction over a CSR matrix A, forward and
-// backward, fp32.
-//
-//   forward   y[r]  = sum over edges (r, c, v) of v · p(x[r], x[c])
-//             p(a, b) = a b / D,  D = dd + e a + h b
-//   backward  dx[j] = sum over A's row j of
-//                       v · g[j] · x[c] (dd + h x[c]) / D²      (row side)
-//                   + sum over Aᵀ's row j, i.e. A's edges (i, j), of
-//                       v · g[i] · x[i] (dd + e x[i]) / D'²     (column side)
-//                     with D' = dd + e x[i] + h x[j]
-//
-// per feature m, with a zero denominator divided as 1 (the padding slots
-// of the TPU's tiles made that guard necessary; the JAX package keeps it).
-//
-// Replaces the TPU kernel ndcn_tpu/kernels/coo_spmv.py::_make_kernel
-// (seg_kernel, pl.pallas_call at :314) as ndcn_tpu/dynamics/rhs.py:109
-// (_tiled_weighted_reduce) drives it for the mutualistic COO interaction:
-// there the pair term is evaluated per tile slot into a feature-major
-// (d, S·E) array in device memory and the Pallas kernel reduces it with a
-// one-hot matmul. Here the term is evaluated in registers as the edges are
-// walked, and nothing of size nnz · d touches device memory.
+// K1-w's warp form (coo_mutual.cuh has the sums, the TPU kernel it
+// replaces, and which form runs where).
 //
 // Bound: bytes. A call must read A's row pointer, columns and values (8
 // bytes an edge), x (and g in the backward) once and write y once; at the
@@ -38,36 +19,26 @@
 //   kernel sums each chunk of the operator's RowSplit (the row endpoint is
 //   the chunk's row, read from the expanded rows array) into a scratch,
 //   and a fold adds a row's chunks to y in chunk order.
-// - The backward is two calls over the same kernels: the row side over A's
-//   CSR writes dx, the column side over the transpose CSR (whose columns
-//   are A's rows, so the cotangent is gathered there) adds to it.
-// No atomics: the order of every sum follows from (operator, d), so two
-// calls agree bit for bit. fp32 only: the JAX package runs this physics on
-// the CPU backend, where its tiled bf16 splits never engage.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "coo_mutual.cuh"
 #include "spmv_gather.cuh"
 
 namespace {
 
 using ndcn::kGatherThreads;
 
-// the three sums the kernels compute
-enum Side { kForward = 0, kRowSide = 1, kColumnSide = 2 };
+using ndcn::mutual::Coef;
+using ndcn::mutual::kColumnSide;
+using ndcn::mutual::kForward;
+using ndcn::mutual::kRowSide;
+using ndcn::mutual::safe_div;
 
 // 4 blocks of 256 threads an SM: up to 64 registers a thread, for the row
 // endpoint, the gathered endpoint and its cotangent, and the sums
 constexpr int kMutualBlocksPerSm = 4;
-
-struct Coef {
-  float d, e, h;
-};
-
-__device__ __forceinline__ float safe_div(float num, float den) {
-  return num / (den == 0.0f ? 1.0f : den);
-}
 
 // The lane's E features of row `row` of a row-major (n, d) table.
 template <int E>

@@ -25,23 +25,14 @@
 // cannot reach it: a random 96-byte row costs three sectors whoever reads
 // it, nnz · 96 bytes = 1.06 GB at 1M, 0.32 ms, plus the pack. No atomics:
 // results repeat bit for bit.
-// This is the access pattern of K5 below, because that is what the card
-// wants; K5 keeps the JAX package's wide mode (`GATHER_WIDE`) as it was
-// ported, and is the yardstick K1-fm is held against.
 //
 // K5 replaces ndcn_tpu/kernels/coo_spmv.py::_make_kernel_wide (via
-// _spmv_T_wide): the gather reads a row-major (n, d_sub) table instead,
-// which the wrapper materialises once per call (a transpose copy; the TPU
-// padded it to 128 lanes, which buys nothing here). Then:
-// - One warp per row: groups of v lanes (v = d_sub rounded up to a power of
-//   two, at most 32) take every (32/v)-th edge and each lane one feature,
-//   so one edge reads d_sub contiguous values. Groups fold by warp shuffles
-//   in a fixed order.
-// - A block owns 32 consecutive rows: the warps stage the (32 × d_sub)
-//   result tile in shared memory, and the block stores it transposed, so the
-//   feature-major output is written coalesced along n.
-// Bound: about nnz · (d_sub · s + 8) bytes of gathers (s = 4 or 2) plus the
-// table's write and read.
+// _spmv_T_wide), the JAX package's wide mode (`GATHER_WIDE`): there the
+// gather reads a row-major (n, 128) table that the wrapper materialises
+// behind an optimization barrier. Here the wrapper materialises the (n,
+// d_sub) table with one PyTorch copy (bf16 rounded as it copies) and K5 is
+// K1-fm's gather over it: the same entries, chunk index and fold. Its
+// bound is K1-fm's; what it pays over K1-fm is the copy against the pack.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -53,8 +44,7 @@ namespace {
 
 using ndcn::kGatherThreads;
 
-constexpr int kRowsPerBlock = 32;  // output rows a block of K1-fm or K5 owns
-constexpr int kWideThreads = 256;  // K5 block: 8 warps over 32 rows
+constexpr int kRowsPerBlock = 32;  // output rows a block owns
 constexpr int kPackNodes = 64;     // pack tile: 64 nodes × 32 features
 constexpr int kPackFeatures = 32;
 
@@ -138,58 +128,6 @@ csr_rows_T_kernel(const int32_t* __restrict__ row_ptr,
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kWideThreads)
-csr_wide_kernel(const int32_t* __restrict__ row_ptr,
-                const int32_t* __restrict__ cols,
-                const float* __restrict__ vals,
-                const T* __restrict__ table, float* __restrict__ yT,
-                int n, int d_sub, int v_log2) {
-  extern __shared__ float tile[];    // (kRowsPerBlock, d_sub + 1)
-  const int pitch = d_sub + 1;       // odd pitch: no bank conflicts below
-  const int64_t row0 = (int64_t)blockIdx.x * kRowsPerBlock;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int v = 1 << v_log2;
-  const int groups = 32 >> v_log2;
-  const int g = lane >> v_log2;
-  const int f_lane = lane & (v - 1);
-  const int warps = kWideThreads / 32;
-
-  for (int r = warp; r < kRowsPerBlock; r += warps) {
-    const int64_t row = row0 + r;
-    if (row >= n) break;             // uniform across the warp
-    const int start = row_ptr[row];
-    const int end = row_ptr[row + 1];
-    for (int f0 = 0; f0 < d_sub; f0 += v) {
-      const int f = f0 + f_lane;
-      float acc = 0.0f;
-      if (f < d_sub) {
-        for (int e = start + g; e < end; e += groups) {
-          acc = fmaf(ndcn::edge_val<T>(vals + e),
-                     ndcn::to_float(
-                         table[(int64_t)__ldg(cols + e) * d_sub + f]),
-                     acc);
-        }
-      }
-      for (int off = 16; off >= v; off >>= 1) {
-        acc += __shfl_xor_sync(0xffffffffu, acc, off);
-      }
-      if (g == 0 && f < d_sub) {
-        tile[r * pitch + f] = acc;
-      }
-    }
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < kRowsPerBlock * d_sub; i += kWideThreads) {
-    const int f = i / kRowsPerBlock;
-    const int r = i - f * kRowsPerBlock;
-    if (row0 + r < n) {
-      yT[(int64_t)f * n + row0 + r] = tile[r * pitch + f];
-    }
-  }
-}
-
-template <typename T>
 int launch_pack(const void* xT, void* table, int n, int d_sub, void* stream) {
   if (n > 0 && d_sub > 0) {
     const dim3 grid((n + kPackNodes - 1) / kPackNodes,
@@ -233,23 +171,6 @@ int launch_feature_major(const void* row_ptr, const void* cols,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_wide(const void* row_ptr, const void* cols, const void* vals,
-                const void* table, void* yT, int n, int d_sub, void* stream) {
-  if (n > 0 && d_sub > 0) {
-    int v_log2 = 0;
-    while ((1 << v_log2) < d_sub && v_log2 < 5) {
-      ++v_log2;
-    }
-    const int blocks = (n + kRowsPerBlock - 1) / kRowsPerBlock;
-    const size_t smem = (size_t)kRowsPerBlock * (d_sub + 1) * sizeof(float);
-    csr_wide_kernel<T><<<blocks, kWideThreads, smem, (cudaStream_t)stream>>>(
-        (const int32_t*)row_ptr, (const int32_t*)cols, (const float*)vals,
-        (const T*)table, (float*)yT, n, d_sub, v_log2);
-  }
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 // All launch on `stream`, allocate nothing, do not synchronise, and return
@@ -267,8 +188,9 @@ extern "C" int ndcn_pack_rows_bf16(const void* xT, void* table, int n,
   return launch_pack<__nv_bfloat16>(xT, table, n, d_sub, stream);
 }
 
-// K1-fm's gather: table (n, d_sub) fp32, row-major (the packed scratch) ->
-// yT (d_sub, n) fp32. `width` and the chunk index as in ndcn_coo_spmv_f32.
+// The gather of K1-fm and K5: table (n, d_sub) fp32, row-major (K1-fm's
+// packed scratch, or K5's copy) -> yT (d_sub, n) fp32. `width` and the
+// chunk index as in ndcn_coo_spmv_f32.
 extern "C" int ndcn_coo_spmv_T_f32(
     const void* row_ptr, const void* cols, const void* vals,
     const void* table, void* yT, int n, int d_sub, int width,
@@ -294,21 +216,4 @@ extern "C" int ndcn_coo_spmv_T_bf16(
       ndcn::row_split(split_limit, long_rows, chunk_ptr, chunk_bounds, n_long,
                       n_chunks, partial),
       stream);
-}
-
-// table (n, d_sub) fp32, row-major -> yT (d_sub, n) fp32.
-extern "C" int ndcn_coo_spmv_T_wide_f32(const void* row_ptr, const void* cols,
-                                        const void* vals, const void* table,
-                                        void* yT, int n, int d_sub,
-                                        void* stream) {
-  return launch_wide<float>(row_ptr, cols, vals, table, yT, n, d_sub, stream);
-}
-
-// table (n, d_sub) bf16, row-major -> yT (d_sub, n) fp32.
-extern "C" int ndcn_coo_spmv_T_wide_bf16(const void* row_ptr,
-                                         const void* cols, const void* vals,
-                                         const void* table, void* yT, int n,
-                                         int d_sub, void* stream) {
-  return launch_wide<__nv_bfloat16>(row_ptr, cols, vals, table, yT, n, d_sub,
-                                    stream);
 }

@@ -3,10 +3,11 @@ and a backward.
 
 - K1 ``coo_spmv``: CSR SpMV, replaces ``ndcn_tpu/kernels/coo_spmv.py``; its
   backward is K1 over the transpose; a bf16 instance; and the feature-major
-  forms of ``spmv_T``, K1-fm (a pack kernel, then the gather) and K5 (the
-  wide gather).
+  forms of ``spmv_T``, K1-fm (a pack kernel, then the gather) and K5 (a
+  copied table, then the same gather).
 - K1-w ``coo_mutual``: the mutualistic interaction over the COO operator,
-  forward and both sides of its backward; replaces the weighted reduce that
+  forward and both sides of its backward (an edge-parallel segmented reduce
+  to width 8, K1's warp layout above); replaces the weighted reduce that
   ``ndcn_tpu/dynamics/rhs.py`` runs on K1's Pallas kernel.
 - K2 ``fused_rhs``: relu((A·H)·W + b), replaces ``ndcn_tpu/kernels/fused_rhs.py``.
 - K3 and K4 ``bsr_spmm``: BSR SpMM and its fused RHS, replace
@@ -27,7 +28,8 @@ _COUNTERS = {
     "coo_spmv_T": (coo_spmv, "T_LAUNCHES"),
     "coo_spmv_T_pack": (coo_spmv, "PACK_LAUNCHES"),
     "coo_spmv_T_wide": (coo_spmv, "WIDE_LAUNCHES"),
-    "coo_mutual": (coo_mutual, "LAUNCHES"),
+    "coo_mutual": (coo_mutual, "LAUNCHES"),             # either form
+    "coo_mutual_edges": (coo_mutual, "EDGE_LAUNCHES"),  # the edge form
     "fused_rhs": (fused_rhs, "LAUNCHES"),
     "bsr_spmm": (bsr_spmm, "SPMM_LAUNCHES"),
     "bsr_fused_rhs": (bsr_spmm, "FUSED_LAUNCHES"),

@@ -46,12 +46,14 @@ ENTRY_POINTS = {
     # n_chunks, partial, stream
     "ndcn_coo_mutual_f32": (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
                             _F, _F, _I, _I, _P, _P, _P, _I, _I, _P, _P),
+    # side, rows (int32), cols, vals, x, g, y, n_rows, nnz, d, the
+    # coefficients d, e, h, accumulate, rows, cols and vals 16-byte aligned,
+    # look ahead (no carries), carry_rows, carry_sums, stream
+    "ndcn_coo_mutual_edges_f32": (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
+                                  _F, _F, _I, _I, _I, _P, _P, _P),
     # xT, table, n, d_sub, stream
     "ndcn_pack_rows_f32": (_P, _P, _I, _I, _P),
     "ndcn_pack_rows_bf16": (_P, _P, _I, _I, _P),
-    # row_ptr, cols, vals, the row-major table, yT, n, d_sub, stream
-    "ndcn_coo_spmv_T_wide_f32": (_P, _P, _P, _P, _P, _I, _I, _P),
-    "ndcn_coo_spmv_T_wide_bf16": (_P, _P, _P, _P, _P, _I, _I, _P),
     # tile_ptr, local_rows, vals, contrib, out, n_tiles, d_sub, E, R,
     # n_slots, stream
     "ndcn_sliced_tile_reduce_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _L,

@@ -10,11 +10,35 @@ evaluated per tile slot and reduced by the Pallas segment-sum
 (``_tiled_weighted_reduce``, :109, reaching ``pl.pallas_call`` at
 ``ndcn_tpu/kernels/coo_spmv.py:314``): the forward over ``op.tiles``, the
 backward over ``op.tiles`` (the x_i side) and ``op.tiles_t`` (the x_j side,
-whose cotangent is gathered at the edge's row). The CUDA kernel
-(``csrc/coo_mutual.cu``) evaluates the same three sums as it walks the
-``CooGraph``'s CSR and transpose CSR with K1's warp layout
-(``csrc/spmv_gather.cuh``): long rows through ``split`` / ``split_t``, fp32
-sums in a fixed order, no atomics, so two calls agree bit for bit.
+whose cotangent is gathered at the edge's row). The CUDA kernels evaluate
+the same three sums over the ``CooGraph``'s CSR and transpose CSR in one of
+two forms, which ``mutual_plan`` picks by width:
+
+- the edge form (``csrc/coo_mutual_edges.cu``; d up to
+  ``EDGE_MAX_WIDTH``, and every driver runs d = 1): a CTA of 256 threads
+  owns a run of consecutive edges, each thread 4 of them, with their rows
+  from an int32 copy of the operator's sorted rows (``rows32``); runs of
+  equal row are summed by a segmented warp reduction in a fixed order.
+  The CTA where a row starts sums it to its end; where the CSR has long
+  rows (``split``), the runs at a CTA's edges go through a small carry
+  scratch (two slots a CTA) that a second kernel adds in CTA order
+  instead, so a hub row is many CTAs' work and needs no chunk index.
+- the warp form (``csrc/coo_mutual.cu``; wider rows): K1's warp layout
+  (``csrc/spmv_gather.cuh``), long rows through ``split`` / ``split_t``.
+
+Both sum in fp32 in a fixed order without atomics, so two calls agree bit
+for bit. The rule is by width alone, from ``tools/tune_mutual_plan.py`` on
+an H100 (PERF.md, PR 8). The edge form wins on hub rows (d = 1: 0.43× the
+warp form's forward time, 0.53× its backward), on the 1M adjacency (0.91×
+/ 0.93×) and at d = 3 to 8 on the 200k one (0.52-0.99×). It loses where
+the warp form's rows are short and even: at d = 1 and 2 on the drivers'
+200k adjacency by 3 % in the forward and up to 6 % in the backward (its 4
+bytes an edge of rows), level at 50k; on the hub graph at d = 6 by 3 %;
+and by ~1 µs in the forward over the hub graph's transpose, whose
+backward it halves. Those losses are accepted for one path a width on
+every graph, in place of a threshold on the edge count fitted to a few
+graphs: the drivers' mutualistic ground truth makes its K1-w calls from a
+host-bound solver loop, where 4 µs a backward does not show.
 
 fp32 only: ``coo_spmv.GATHER_BF16`` does not reach it. In the JAX package
 the mutualistic physics always runs on the CPU backend, where the tiled
@@ -29,18 +53,86 @@ The forward saves x; the operator's values get NaN cotangents, as in K1.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from ndcn_tpu_torch.kernels.coo_spmv import (_call, _check, _gather_width,
                                              _nan_grads)
 from ndcn_tpu_torch.kernels.platform import on_cuda
 
-# calls of the C entry in this process (the forward is one, the backward
-# two: its row side and its column side); CPU calls do not count
+# calls of the C entries in this process (the forward is one, the backward
+# two: its row side and its column side), of either form; CPU calls do not
+# count
 LAUNCHES = 0
+# those of them that ran the edge form
+EDGE_LAUNCHES = 0
 
-# the C entry's three sums
+# the C entries' three sums
 FORWARD, ROW_SIDE, COLUMN_SIDE = 0, 1, 2
+
+# the edge form: threads a CTA, edges a thread (8 lost to 4 at every width
+# and graph measured: tools/tune_mutual_plan.py)
+EDGE_THREADS = 256
+EDGES_PER_THREAD = 4
+# the widest state the edge form is built for and takes (to d = 8 a
+# thread's terms still fit its registers, and it wins at d = 3 to 8 on
+# the 200k adjacency and the hub graph but at d = 6); wider ones take the
+# warp form
+EDGE_MAX_WIDTH = 8
+
+# the int32 copies of operators' sorted rows that the edge form reads, by
+# the int64 rows tensor they copy (an operator's, or its transpose's)
+_ROWS32 = WeakIdKeyDictionary()
+
+
+class MutualPlan(NamedTuple):
+    """How one side of K1-w is launched over a CSR of ``nnz`` edges.
+
+    ``form`` is "edges" or "rows" (the warp form). For the edge form CTA b
+    owns edges ``[b · cta_edges, (b + 1) · cta_edges)``, thread t of it the
+    ``edges_per_thread`` from ``b · cta_edges + t · edges_per_thread``.
+    Where the CSR has long rows, the CTA's first and last run go to carry
+    slots 2b and 2b + 1 and a second kernel adds them (``carry_slots`` =
+    2 · ctas); else the CTA where a row starts sums it to its end, reading
+    on past its range, and there are no carries (``carry_slots`` = 0)."""
+    form: str
+    edges_per_thread: int
+    cta_edges: int
+    ctas: int
+    carry_slots: int
+
+
+def row_load(d: int) -> int:
+    """Floats of one load of a state row in the edge form: the largest of 4,
+    2, 1 that divides d."""
+    return 4 if d % 4 == 0 else 2 if d % 2 == 0 else 1
+
+
+def mutual_plan(d: int, nnz: int, aligned: bool = True,
+                long_rows: bool = False) -> MutualPlan:
+    """The launch of one side at width d: the edge form up to
+    ``EDGE_MAX_WIDTH`` where the state's rows are ``aligned`` to
+    ``row_load(d)`` floats, the warp form otherwise; carry slots where the
+    CSR has ``long_rows``."""
+    if d > EDGE_MAX_WIDTH or not aligned:
+        return MutualPlan("rows", 0, 0, 0, 0)
+    cta_edges = EDGE_THREADS * EDGES_PER_THREAD
+    ctas = -(-nnz // cta_edges)
+    return MutualPlan("edges", EDGES_PER_THREAD, cta_edges, ctas,
+                      2 * ctas if long_rows else 0)
+
+
+def rows32(rows: torch.Tensor) -> torch.Tensor:
+    """An operator's sorted int64 ``rows`` (or its transpose's) as int32, as
+    the edge form reads them: made at the first call that needs them and
+    kept while ``rows`` lives, 4 bytes an edge of device memory (44 MB a
+    direction at 1M nodes / 11M entries)."""
+    out = _ROWS32.get(rows)
+    if out is None:
+        out = _ROWS32[rows] = rows.to(torch.int32)
+    return out
 
 
 def _safe_div(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
@@ -75,18 +167,36 @@ def mutual_backward_plain(op, x: torch.Tensor, g: torch.Tensor, d: float,
 def _launch(side: int, op, x: torch.Tensor, g: torch.Tensor,
             y: torch.Tensor, coef, accumulate: bool) -> None:
     """One side of the kernel over ``op``'s forward CSR (for the column
-    side, the caller passes the transpose)."""
-    global LAUNCHES
+    side, the caller passes the transpose), in ``mutual_plan``'s form."""
+    global LAUNCHES, EDGE_LAUNCHES
     dim = x.shape[1]
+    nnz = op.cols.shape[0]
     split = op.split
+    widths = min(_gather_width(x), _gather_width(g))
+    plan = mutual_plan(dim, nnz, aligned=widths >= 4 * row_load(dim),
+                       long_rows=bool(split.long_rows.shape[0]))
+    if plan.form == "edges":
+        rows = rows32(op.rows)
+        carry_rows = torch.empty(plan.carry_slots, dtype=torch.int32,
+                                 device=x.device)
+        carry_sums = torch.empty((plan.carry_slots, dim),
+                                 dtype=torch.float32, device=x.device)
+        aligned = all(t.data_ptr() % 16 == 0 for t in (rows, op.cols, op.vals))
+        _call("ndcn_coo_mutual_edges_f32", x.device, side, rows.data_ptr(),
+              op.cols.data_ptr(), op.vals.data_ptr(), x.data_ptr(),
+              g.data_ptr(), y.data_ptr(), op.n, nnz, dim, *coef,
+              int(accumulate), int(aligned), int(plan.carry_slots == 0),
+              carry_rows.data_ptr(), carry_sums.data_ptr())
+        LAUNCHES += 1
+        EDGE_LAUNCHES += 1
+        return
     n_chunks = split.chunk_bounds.shape[0]
     partial = (torch.empty((n_chunks, dim), dtype=torch.float32,
                            device=x.device) if n_chunks else None)
     _call("ndcn_coo_mutual_f32", x.device, side, op.row_ptr.data_ptr(),
           op.rows.data_ptr(), op.cols.data_ptr(), op.vals.data_ptr(),
-          x.data_ptr(), g.data_ptr(), y.data_ptr(), op.n, dim,
-          min(_gather_width(x), _gather_width(g)), *coef, int(accumulate),
-          split.limit, split.long_rows.data_ptr(),
+          x.data_ptr(), g.data_ptr(), y.data_ptr(), op.n, dim, widths,
+          *coef, int(accumulate), split.limit, split.long_rows.data_ptr(),
           split.chunk_ptr.data_ptr(), split.chunk_bounds.data_ptr(),
           split.long_rows.shape[0], n_chunks,
           partial.data_ptr() if n_chunks else None)

@@ -10,13 +10,14 @@ form, differentiable in X.
   The forward is K1-fm (``csrc/coo_spmv_T.cu``): a pack kernel copies xT
   into a row-major (n, d_sub) scratch (``pack_rows``), and the gather kernel
   reads whole rows of it and stores its result feature-major. Under
-  ``GATHER_WIDE`` it is K5, which gathers from a row-major table made by a
-  transpose copy (``_make_kernel_wide``).
+  ``GATHER_WIDE`` it is K5 (``_make_kernel_wide``): the same gather over a
+  row-major table that one PyTorch copy makes, as the JAX package's wide
+  mode materialises its table.
 
-K1 and K1-fm share one warp-level gather (``csrc/spmv_gather.cuh``): rows of
-the gathered table are read with the widest load that divides a row's bytes
-(16, 8, 4 or 2), and the lanes left over carry further edges (of further
-rows too, where a row takes one or two lanes). Rows longer
+K1, K1-fm and K5 share one warp-level gather (``csrc/spmv_gather.cuh``):
+rows of the gathered table are read with the widest load that divides a
+row's bytes (16, 8, 4 or 2), and the lanes left over carry further edges (of
+further rows too, where a row takes one or two lanes). Rows longer
 than ``SPLIT_EDGES`` are cut into chunks by an index built with the operator
 (``split_rows``): a warp sums each chunk into a scratch row, and a second
 pass folds a row's chunks in chunk order. No atomics anywhere: the order of
@@ -313,18 +314,15 @@ def _apply_T(op, xT: torch.Tensor) -> torch.Tensor:
     xT = xT.contiguous()
     d_sub = xT.shape[0]
     y = torch.empty((d_sub, op.n), dtype=torch.float32, device=xT.device)
-    kind = "bf16" if bf16 else "f32"
+    # K5's row-major (n, d_sub) table is materialised once per call in one
+    # copy, as the JAX package materialises its (n, 128) table; K1-fm's is
+    # the pack kernel's scratch, for this call only
+    table = pack_rows_plain(xT, bf16) if wide else pack_rows(xT, bf16)
+    _launch_gather(f"ndcn_coo_spmv_T_{'bf16' if bf16 else 'f32'}", op, table,
+                   y, d_sub)
     if wide:
-        # the row-major (n, d_sub) table, materialised once per call
-        table = (xT.to(torch.bfloat16) if bf16 else xT).t().contiguous()
-        _call(f"ndcn_coo_spmv_T_wide_{kind}", xT.device,
-              op.row_ptr.data_ptr(), op.cols.data_ptr(), op.vals.data_ptr(),
-              table.data_ptr(), y.data_ptr(), op.n, d_sub)
         WIDE_LAUNCHES += 1
     else:
-        # the scratch table lives for this call only
-        _launch_gather(f"ndcn_coo_spmv_T_{kind}", op, pack_rows(xT, bf16), y,
-                       d_sub)
         T_LAUNCHES += 1
     return y
 

@@ -1,5 +1,5 @@
 """The sparse microbenchmarks on the card, as the JAX package's ``tools/``,
-and two probes of the port's own tensor-core kernels:
+and probes and sweeps of the port's own kernels:
 
 - ``microbench_sparse``: the SpMV building blocks, the sliced-tile reduce
   (P1a) and the row gather (P1b);
@@ -11,11 +11,15 @@ and two probes of the port's own tensor-core kernels:
 - ``probe_mma_accumulate``: the tensor core's truncating fp32 accumulate
   against the fused kernels' chunk-wise fold;
 - ``compare_builds``: K2 and K4 from two checkouts on the same inputs, bit
-  for bit.
+  for bit;
+- ``tune_mutual_plan``: K1-w in both forms by width (what
+  ``kernels.coo_mutual.mutual_plan``'s crossover rests on);
+- ``time_checkouts``: K1-w, K5 and the 1M step's three solves in several
+  checkouts, one process each (parent against change in one call).
 
 Each runs as ``python -m ndcn_tpu_torch.tools.<name> [args]``, prints one
-line per measurement on stderr and one JSON line on stdout, and raises
-without a CUDA device. ``chain_time`` is their timing discipline.
+line per measurement on stderr and JSON on stdout, and raises without a
+CUDA device. ``chain_time`` is their timing discipline.
 """
 
 from __future__ import annotations

@@ -220,16 +220,29 @@ def test_k1_cuda_split_rows_forward_transpose_and_autograd(cuda_device, d,
     assert torch.equal(y, coo_spmv.coo_spmv(op, x))   # repeatable
 
 
+def _k1w_form(monkeypatch, form, d):
+    """Set K1-w to its warp form ("rows": the crossover at 0) or leave the
+    plan's own ("edges": the edge form up to the crossover); return the
+    form that then runs at width d."""
+    if form == "rows":
+        monkeypatch.setattr(coo_mutual, "EDGE_MAX_WIDTH", 0)
+    return "edges" if d <= coo_mutual.EDGE_MAX_WIDTH else "rows"
+
+
+@pytest.mark.parametrize("form", ["rows", "edges"])
 @pytest.mark.parametrize("limit", [256, 16])
 @pytest.mark.parametrize("convention", ["reference", "paper"])
 @pytest.mark.parametrize("d", [1, 5, 20])
 def test_k1w_cuda_forward_and_backward_match_plain(cuda_device, d, convention,
-                                                   limit):
+                                                   limit, form, monkeypatch):
     """K1-w on a non-symmetric graph with a hub row, a hub column and empty
-    rows, both e/h orders (the convention's swap), long rows of A and of Aᵀ
-    through the chunk kernels, d = 5 on 4-byte loads: forward
-    and both sides of the backward against the plain version, bit-equal on
-    a second call; one launch forward, two backward."""
+    rows, both e/h orders (the convention's swap), in each form: the warp
+    form with long rows of A and of Aᵀ through the chunk kernels and d = 5
+    on 4-byte loads, and the plan's own (the edge form at d = 1 and 5, with
+    carries for the long rows; the warp form at d = 20). Forward and both
+    sides of the backward against the plain version, bit-equal on a second
+    call; one launch forward, two backward, of the form that should run."""
+    runs = _k1w_form(monkeypatch, form, d)
     n = 3001
     # a hub row (7) and a hub column (7, the transpose's hub row)
     a = abs(_hub_coo(n, 40000, 2000, seed=d)
@@ -249,10 +262,11 @@ def test_k1w_cuda_forward_and_backward_match_plain(cuda_device, d, convention,
         (dx,) = torch.autograd.grad(y, xg, g)
         return y.detach(), dx
 
-    before = coo_mutual.LAUNCHES
+    before = (coo_mutual.LAUNCHES, coo_mutual.EDGE_LAUNCHES)
     y, dx = both(coo_mutual.coo_mutual_inter)
     torch.cuda.synchronize()
-    assert coo_mutual.LAUNCHES == before + 3
+    assert coo_mutual.LAUNCHES == before[0] + 3
+    assert coo_mutual.EDGE_LAUNCHES == before[1] + 3 * (runs == "edges")
     ref, dref = both(coo_mutual.coo_mutual_inter_plain)
     assert _max_rel(y, ref) <= 1e-5 and _max_rel(dx, dref) <= 1e-5
     assert not y[np.flatnonzero(np.diff(a.indptr) == 0)].any()
@@ -260,18 +274,165 @@ def test_k1w_cuda_forward_and_backward_match_plain(cuda_device, d, convention,
     assert torch.equal(y, y2) and torch.equal(dx, dx2)     # repeatable
 
 
-def test_k1w_cuda_divides_a_zero_denominator_by_one(cuda_device):
+@pytest.mark.parametrize("form", ["rows", "edges"])
+def test_k1w_cuda_divides_a_zero_denominator_by_one(cuda_device, form,
+                                                    monkeypatch):
     """With d = 0 and zero states the pair term's denominator is 0: the
-    kernel divides by 1 there, as the plain version (``_safe_div``)."""
+    kernel divides by 1 there, as the plain version (``_safe_div``), in
+    either form (the warp form; the plan's, the edge form at this d = 4)."""
+    runs = _k1w_form(monkeypatch, form, 4)
     a, _ = _power_law_coo(500, 4000, seed=3, d=1)
     a.data = np.abs(a.data)
     op = from_scipy_coo(a, device=cuda_device)
     rng = np.random.RandomState(4)
     x = torch.as_tensor((rng.rand(500, 4) * (rng.rand(500, 4) < 0.5))
                         .astype(np.float32), device=cuda_device)
+    before = coo_mutual.EDGE_LAUNCHES
     y = coo_mutual.coo_mutual_inter(op, x, 0.0, 0.9, 0.1)
+    assert coo_mutual.EDGE_LAUNCHES == before + (runs == "edges")
     ref = coo_mutual.coo_mutual_inter_plain(op, x, 0.0, 0.9, 0.1)
     assert bool(torch.isfinite(y).all()) and _max_rel(y, ref) <= 1e-5
+
+
+def _edge_form_graph(kind, d, seed):
+    """A graph cut to K1-w's edge-form plan at width d (as
+    ``tests/test_torch_mutual_plan.py::edge_form_graph``): ``empty_rows``,
+    ``hub`` (a row of 3 CTAs' edges and 17 more) or ``straddle`` (rows
+    across the first CTA boundary and across a warp boundary)."""
+    plan = coo_mutual.mutual_plan(d, 0)
+    cta, warp = plan.cta_edges, 32 * plan.edges_per_thread
+    rng = np.random.RandomState(seed)
+    n = 3 * cta + 900
+    deg = rng.randint(0, 9, n)
+    if kind == "empty_rows":
+        deg[::4] = 0
+        deg[:11] = 0
+        deg[-13:] = 0
+    elif kind == "hub":
+        deg[n // 3 - 2:n // 3 + 3] = 0
+        deg[n // 3] = 3 * cta + 17
+    elif kind == "straddle":
+        for edge in (warp * 3, cta):
+            ptr = np.concatenate([[0], np.cumsum(deg)])
+            r = int(np.searchsorted(ptr, edge - 1, side="right")) - 1
+            deg[r] += 5 * (ptr[r + 1] == edge)
+    ptr = np.concatenate([[0], np.cumsum(deg)])
+    cols = np.concatenate([rng.choice(n, k, replace=False) for k in deg])
+    vals = (rng.rand(ptr[-1]) + 0.1).astype(np.float32)
+    return sp.csr_matrix((vals, cols, ptr), shape=(n, n))
+
+
+def _k1w_both(op, x, g, coef, fn=None):
+    """K1-w's forward and, through autograd, its backward."""
+    fn = fn or coo_mutual.coo_mutual_inter
+    xg = x.clone().requires_grad_()
+    y = fn(op, xg, *coef)
+    (dx,) = torch.autograd.grad(y, xg, g)
+    return y.detach(), dx
+
+
+@pytest.mark.parametrize("kind,transposed", [
+    ("empty_rows", False), ("hub", False), ("hub", True),
+    ("straddle", False)])
+@pytest.mark.parametrize("convention", ["reference", "paper"])
+@pytest.mark.parametrize("d", [1, 2])
+def test_k1w_cuda_edge_form_matches_plain(cuda_device, d, convention, kind,
+                                          transposed):
+    """K1-w's edge form (the plan's at d = 1 and 2) on empty rows, a hub row
+    longer than a CTA's range (and, transposed, a hub column: the backward's
+    column side walks it as a row), rows across warp and CTA boundaries:
+    forward and both sides of the backward against the plain version,
+    bit-equal on a second call; one launch forward, two backward."""
+    a = _edge_form_graph(kind, d, seed=d)
+    a = a.T.tocsr() if transposed else a
+    op = from_scipy_coo(a, device=cuda_device)
+    rng = np.random.RandomState(d + 70)
+    x = torch.as_tensor((rng.rand(a.shape[0], d) * 3 + 0.2)
+                        .astype(np.float32), device=cuda_device)
+    g = torch.as_tensor(rng.randn(a.shape[0], d).astype(np.float32),
+                        device=cuda_device)
+    coef = (5.0, 0.1, 0.9) if convention == "reference" else (5.0, 0.9, 0.1)
+    before = (coo_mutual.LAUNCHES, coo_mutual.EDGE_LAUNCHES)
+    y, dx = _k1w_both(op, x, g, coef)
+    torch.cuda.synchronize()
+    assert coo_mutual.LAUNCHES == before[0] + 3
+    assert coo_mutual.EDGE_LAUNCHES == before[1] + 3     # the edge form ran
+    ref, dref = _k1w_both(op, x, g, coef, coo_mutual.coo_mutual_inter_plain)
+    assert _max_rel(y, ref) <= 1e-5 and _max_rel(dx, dref) <= 1e-5
+    assert not y[np.flatnonzero(np.diff(a.indptr) == 0)].any()
+    y2, dx2 = _k1w_both(op, x, g, coef)
+    assert torch.equal(y, y2) and torch.equal(dx, dx2)     # repeatable
+
+
+@pytest.mark.parametrize("d", range(1, coo_mutual.EDGE_MAX_WIDTH + 1))
+def test_k1w_cuda_every_edge_width_matches_plain(cuda_device, d):
+    """Every width the edge form is built for, on the hub graph with empty
+    rows (carries: a row of 3 CTAs' edges) and on its transpose (no long
+    row: each CTA reads on to the end of its last row): forward and
+    backward against the plain version, bit-equal on a second call."""
+    a = _edge_form_graph("hub", 1, seed=d)
+    keep = np.ones(a.shape[0], np.float32)
+    keep[::7] = 0                               # more empty rows
+    a = (sp.diags(keep) @ a).tocsr()
+    a.eliminate_zeros()
+    for m in (a, a.T.tocsr()):
+        op = from_scipy_coo(m, device=cuda_device)
+        rng = np.random.RandomState(d * 10)
+        x = torch.as_tensor((rng.rand(m.shape[0], d) * 3 + 0.2)
+                            .astype(np.float32), device=cuda_device)
+        g = torch.as_tensor(rng.randn(m.shape[0], d).astype(np.float32),
+                            device=cuda_device)
+        coef = (5.0, 0.1, 0.9)
+        before = coo_mutual.EDGE_LAUNCHES
+        y = coo_mutual.mutual_forward(op, x, *coef)
+        dx = coo_mutual.mutual_backward(op, x, g, *coef)
+        assert coo_mutual.EDGE_LAUNCHES == before + 3   # the edge form ran
+        assert _max_rel(y, coo_mutual.mutual_forward_plain(op, x,
+                                                           *coef)) <= 1e-5
+        assert _max_rel(dx, coo_mutual.mutual_backward_plain(op, x, g,
+                                                             *coef)) <= 1e-5
+        assert torch.equal(y, coo_mutual.mutual_forward(op, x, *coef))
+        assert torch.equal(dx, coo_mutual.mutual_backward(op, x, g, *coef))
+
+
+@pytest.mark.parametrize("d", [1, 2])
+def test_k1w_cuda_edge_form_edge_cases(cuda_device, d):
+    """The edge form with a zero denominator (divided as 1), with columns
+    and values off their 16-byte alignment (scalar loads), and on a graph
+    without edges (zeros, and the column side adds nothing)."""
+    a, _ = _power_law_coo(5000, 30000, seed=d, d=1)
+    a.data = np.abs(a.data)
+    op = from_scipy_coo(a, device=cuda_device)
+    rng = np.random.RandomState(d + 4)
+    x = torch.as_tensor((rng.rand(5000, d) * (rng.rand(5000, d) < 0.5))
+                        .astype(np.float32), device=cuda_device)
+    g = torch.as_tensor(rng.randn(5000, d).astype(np.float32),
+                        device=cuda_device)
+    coef = (0.0, 0.9, 0.1)
+    before = coo_mutual.EDGE_LAUNCHES
+    y, dx = _k1w_both(op, x, g, coef)
+    assert coo_mutual.EDGE_LAUNCHES == before + 3        # the edge form ran
+    ref, dref = _k1w_both(op, x, g, coef, coo_mutual.coo_mutual_inter_plain)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(dx).all())
+    assert _max_rel(y, ref) <= 1e-5 and _max_rel(dx, dref) <= 1e-5
+
+    def shifted(t):     # the same values one element past a 16-byte line
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        buf[1:] = t
+        return buf[1:]
+
+    off = op._replace(cols=shifted(op.cols), vals=shifted(op.vals),
+                      cols_t=shifted(op.cols_t), vals_t=shifted(op.vals_t))
+    assert off.cols.data_ptr() % 16 != 0
+    y_off, dx_off = _k1w_both(off, x, g, (5.0, 0.1, 0.9))
+    y_al, dx_al = _k1w_both(op, x, g, (5.0, 0.1, 0.9))
+    assert torch.equal(y_off, y_al) and torch.equal(dx_off, dx_al)
+
+    empty = from_scipy_coo(sp.csr_matrix((300, 300), dtype=np.float32),
+                           device=cuda_device)
+    xe = torch.rand(300, d, device=cuda_device) + 0.5
+    ye, dxe = _k1w_both(empty, xe, torch.ones_like(xe), coef)
+    assert not ye.any() and not dxe.any()
 
 
 def test_mutualistic_drivers_on_cuda(cuda_device, tmp_path):
@@ -295,6 +456,8 @@ def test_mutualistic_drivers_on_cuda(cuda_device, tmp_path):
                             "--iters", "2"])
     counts = kernels.launch_counts()
     assert counts["coo_mutual"] > 0 and counts["coo_spmv"] > 0
+    # every K1-w call of the driver (d = 1) ran the edge form
+    assert counts["coo_mutual_edges"] == counts["coo_mutual"]
     assert np.isfinite(rec["rel_loss_final"])
     out = run("mutualistic", build_parser("t").parse_args(
         ["--n", "36", "--time_tick", "8", "--niters", "2", "--test_freq",
@@ -337,6 +500,58 @@ def test_k1fm_cuda_split_rows_forward_transpose_and_autograd(cuda_device,
     assert not y[d:].any()                          # zero pad rows stay zero
     assert not y[:, np.flatnonzero(np.diff(a.indptr) == 0)].any()
     assert torch.equal(y, coo_spmv.spmv_T(op, xT))  # repeatable
+
+
+@pytest.mark.parametrize("limit", [256, 16])
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("d_sub", [8, 24, 128])
+def test_k5_cuda_hub_graph_forward_and_transposed(cuda_device, d_sub, bf16,
+                                                  limit, monkeypatch):
+    """K5 (``GATHER_WIDE``: a PyTorch copy of the table, then the shared
+    gather with its chunk kernels) on the hub graph, forward, over the
+    transpose CSR and through autograd, against its plain version;
+    bit-equal on a second call."""
+    n, d = 3001, d_sub - 3
+    a = _hub_coo(n, 40000, 2000, seed=d_sub + 1)
+    op = _resplit(from_scipy_coo(a, device=cuda_device), limit)
+    assert op.split.long_rows.numel() > 0
+    rng = np.random.RandomState(d_sub + 61)
+    xT = torch.zeros(d_sub, n, device=cuda_device)
+    xT[:d] = torch.as_tensor(rng.randn(d, n).astype(np.float32),
+                             device=cuda_device)
+    gT = torch.as_tensor(rng.randn(d_sub, n).astype(np.float32),
+                         device=cuda_device)
+    monkeypatch.setattr(coo_spmv, "GATHER_WIDE", True)
+    monkeypatch.setattr(coo_spmv, "GATHER_BF16", bf16)
+    before = coo_spmv.WIDE_LAUNCHES, coo_spmv.T_LAUNCHES
+    xg = xT.clone().requires_grad_()
+    y = coo_spmv.spmv_T(op, xg)
+    (dx,) = torch.autograd.grad((y * gT).sum(), xg)
+    yt = coo_spmv.spmv_T(op.transpose(), gT)
+    torch.cuda.synchronize()
+    assert (coo_spmv.WIDE_LAUNCHES, coo_spmv.T_LAUNCHES) == (before[0] + 3,
+                                                             before[1])
+    plain = coo_spmv.coo_spmv_T_wide_plain
+    assert _max_rel(y, plain(op.rows, op.cols, op.vals, xT, n, bf16)) <= 1e-5
+    ref_t = plain(op.rows_t, op.cols_t, op.vals_t, gT, n, bf16)
+    assert _max_rel(dx, ref_t) <= 1e-5 and _max_rel(yt, ref_t) <= 1e-5
+    assert torch.equal(dx, yt)
+    assert not y[d:].any()
+    assert not y[:, np.flatnonzero(np.diff(a.indptr) == 0)].any()
+    assert torch.equal(y, coo_spmv.spmv_T(op, xT))  # repeatable
+
+
+def test_k5_cuda_refuses_d_sub_over_128(cuda_device, monkeypatch):
+    a, _ = _power_law_coo(500, 4000, seed=5, d=1)
+    op = from_scipy_coo(a, device=cuda_device)
+    monkeypatch.setattr(coo_spmv, "GATHER_WIDE", True)
+    before = coo_spmv.WIDE_LAUNCHES
+    with pytest.raises(ValueError, match="d_sub <= 128"):
+        coo_spmv.spmv_T(op, torch.zeros(136, 500, device=cuda_device))
+    assert coo_spmv.WIDE_LAUNCHES == before
+    assert coo_spmv.spmv_T(op, torch.zeros(128, 500,
+                                           device=cuda_device)).shape == (
+        128, 500)
 
 
 @pytest.mark.parametrize("bf16", [False, True])

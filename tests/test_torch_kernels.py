@@ -148,18 +148,17 @@ def test_build_names_the_library_by_source_hash(monkeypatch, tmp_path):
     assert path == build.library_path()
     assert path.parent == build.BUILD_DIR and path.suffix == ".so"
     assert [p.name for p in build.sources()] == [
-        "bsr_spmm.cu", "coo_mutual.cu", "coo_spmv.cu", "coo_spmv_T.cu",
-        "fused_rhs.cu", "sparse_bench.cu"]
+        "bsr_spmm.cu", "coo_mutual.cu", "coo_mutual_edges.cu", "coo_spmv.cu",
+        "coo_spmv_T.cu", "fused_rhs.cu", "sparse_bench.cu"]
     for src in build.sources():
         text = src.read_text()
         assert "extern \"C\"" in text and "cudaGetLastError" in text
     # every C entry the wrappers call is declared with its argument types
     assert set(build.ENTRY_POINTS) == {
         "ndcn_coo_spmv_f32", "ndcn_coo_spmv_bf16", "ndcn_coo_mutual_f32",
-        "ndcn_coo_spmv_T_f32",
+        "ndcn_coo_mutual_edges_f32", "ndcn_coo_spmv_T_f32",
         "ndcn_coo_spmv_T_bf16", "ndcn_pack_rows_f32", "ndcn_pack_rows_bf16",
-        "ndcn_coo_spmv_T_wide_f32",
-        "ndcn_coo_spmv_T_wide_bf16", "ndcn_sliced_tile_reduce_f32",
+        "ndcn_sliced_tile_reduce_f32",
         "ndcn_row_gather_f32", "ndcn_fused_rhs_f32", "ndcn_bsr_spmm_f32",
         "ndcn_bsr_fused_rhs_f32"}
     entries = "".join(src.read_text() for src in build.sources())

@@ -242,3 +242,35 @@ def test_spmv_T_on_the_hub_graph_matches_jax_spmv_T(bf16, monkeypatch):
     folded = ck.coo_spmv_split_plain(op.row_ptr, op.cols, op.vals, op.split,
                                      table, bf16).t()
     assert max_rel(folded, y.detach()) <= 1e-6
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_spmv_T_wide_on_the_hub_graph_matches_jax_spmv_T_wide(bf16,
+                                                              monkeypatch):
+    """K5's path (``GATHER_WIDE``) on the hub graph against the JAX
+    package's wide ``spmv_T`` (``_spmv_T_wide``, the Pallas kernel in
+    interpret mode), forward and gradient; on the card K5 is the shared
+    gather with the chunk index over a copied table, here its plain
+    version."""
+    a = _hub_graph()
+    rng = np.random.RandomState(5)
+    xT = _feature_major(rng.randn(2000, 20).astype(np.float32))
+    ct = _feature_major(rng.randn(2000, 20).astype(np.float32))
+    for mod in (ck, j_ck):
+        monkeypatch.setattr(mod, "GATHER_WIDE", True)
+        monkeypatch.setattr(mod, "GATHER_BF16", bf16)
+    op = gs.from_scipy_coo(a)
+    assert op.split.long_rows.numel() > 0
+    x = torch.as_tensor(xT).requires_grad_()
+    y = ck.spmv_T(op, x)
+    (dx,) = torch.autograd.grad((y * torch.as_tensor(ct)).sum(), x)
+    jop = j_gs.from_scipy_coo(a, tiled=True)
+    jy = j_ck.spmv_T(jop.tiles, jop.tiles_t, jnp.asarray(xT))
+    jdx = jax.grad(lambda xx: jnp.sum(
+        j_ck.spmv_T(jop.tiles, jop.tiles_t, xx) * jnp.asarray(ct)))(
+        jnp.asarray(xT))
+    tol = 1e-4 if bf16 else 1e-5
+    assert y.shape == (24, 2000) and dx.shape == (24, 2000)
+    assert max_rel(y.detach().numpy(), jy) <= tol
+    assert max_rel(dx.numpy(), jdx) <= tol
+    assert not y[20:].any() and not dx[20:].any()   # pad rows stay zero
