@@ -102,6 +102,22 @@ Phases, one line each:
      dopri5 --sparse`` (ELL) and the mutualistic one with ``--method dopri5
      --sparse --sparse_format coo``, 20 iterations each: every train loss
      falls.
+  15. the continuous adjoint, the other solvers and checkpoint / resume
+     (input 1, hidden 20, output 1; rtol 0.01, atol 0.001): (a) a grid400
+     adjoint train step at the ``ndcn_grads_grid400`` weights on three
+     routes, dense ``fused="auto"`` (K2 forward, K2's backward products in
+     the VJPs), COO (K1, K1 over the transpose CSR) and BSR ``fused=True``
+     (K4, K3 over Aᵀ): loss within 1e-4 and gradients within 1e-3 rel-L1
+     of the fixture's adjoint half, every gradient finite; forward and
+     backward NFE, step ms and peak memory beside the backprop step's;
+     (b) serving grid400 dense with tsit5, adams, fixed_adams and
+     explicit_adams: the card's answer within 1e-4 rel-L1 of the CPU's,
+     or within twice the CPU's own float32-vs-float64 distance where that
+     is larger (explicit_adams, order 11 near its stability limit), NFE
+     within 2 %; (c) the heat driver for 20 iterations with
+     ``--adjoint`` and with ``--method adams`` (the train loss falls), and
+     20 iterations against 10 checkpointed (``--ckpt_dir`` under build/,
+     ``--ckpt_freq 10``) and a resumed 10: the losses bit-equal.
   p. where the time goes: one request per serving setting and one train step
      per training setting (the 1M feature-major step included), kernels
      against plain versions end to end (plain, kernel, kernel, plain), a
@@ -109,8 +125,8 @@ Phases, one line each:
      launches in that one steady step.
 Then the kernels' JSON record, and last the device JSON line. Launch counts
 are zeroed just before each main-path phase (5-6, 8, 9, 10, each run of 12,
-13 and 14) and read just after its GPU work; the record's launches are their
-sums.
+13, 14 and each part of 15) and read just after its GPU work; the record's
+launches are their sums.
 
 ``ms`` is the median CUDA-event time of one call on an idle card, as in
 every earlier record; every kernel also gives ``device_ms``, the time per
@@ -133,6 +149,7 @@ import contextlib
 import copy
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -555,7 +572,7 @@ def main() -> None:
                                    "ndcn_forward_grid400.npz")))
     tree = {name: {"w": fx[f"{name}_w"].T, "b": fx[f"{name}_b"]}
             for name in ("enc1", "enc2", "wt", "dec")}
-    model = params_from_jax(tree, device=dev)
+    model = model_grid = params_from_jax(tree, device=dev)
     op_grid = from_dense(normalized_laplacian(build_network("grid", 400)),
                          device=dev)
     serve_kw = dict(rtol=0.01, atol=0.001, method="dopri5", fused="auto")
@@ -564,6 +581,7 @@ def main() -> None:
     requests = [fx["x0"]] + [rs.uniform(0.0, 25.0, (400, 1)).astype(np.float32)
                              for _ in range(2)]
     answers, first = serve_all(server, requests, "grid400")
+    requests_grid = requests                  # [15] serves them again
     grid_err = rel_l1(first.cpu(), torch.as_tensor(fx["out"]))
     check(grid_err <= 1e-4, f"grid400 answer off the oracle: {grid_err}")
     check(fused_rhs.LAUNCHES > 0, "grid400 serving never launched K2")
@@ -1361,6 +1379,141 @@ def main() -> None:
               "drivers": drivers}))
     del hub_abs
     torch.cuda.empty_cache()
+
+    # ---- 15. the continuous adjoint, the other solvers, checkpoint / resume
+    t15 = time.perf_counter()
+    gx_t = torch.as_tensor(gx["target"].T[..., None], device=dev)
+
+    def adjoint_step(op, fused, adjoint):
+        """One grid400 train step at the fixture's weights: its loss,
+        gradients, forward and backward NFE, ms and peak memory."""
+        model = params_from_jax(g_tree, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        out, stats = ndcn_forward(model, op, gx["t"], x0_g, fused=fused,
+                                  adjoint=adjoint, max_steps=64, **train_kw)
+        loss = (out - gx_t).abs().mean()
+        loss.backward()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        check(stats.success, f"grid400 adjoint={adjoint} solve failed")
+        back = stats.backward if adjoint else []
+        check(all(s.success for s in back), "an adjoint interval failed")
+        return dict(loss=float(loss.detach()), ms=ms, nfe_forward=stats.nfe,
+                    nfe_backward=sum(s.nfe for s in back) if adjoint
+                    else None,
+                    # the step's own peak, above what was allocated when
+                    # it started (the earlier phases' operators and models)
+                    step_peak_mb=(torch.cuda.max_memory_allocated(dev)
+                                  - base) / 1e6,
+                    grads={n: p.grad.cpu() for n, p in
+                           model.named_parameters()})
+
+    adj = {}
+    for route, op, fused, needed in (
+            ("dense_auto", op_g, "auto", ["fused_rhs"]),
+            ("coo", as_operator(sp.csr_matrix(grid_lap), sparse=True,
+                                format="coo", device=dev), False,
+             ["coo_spmv"]),
+            ("bsr_fused", op_gb, True, ["bsr_fused_rhs", "bsr_spmm"])):
+        adjoint_step(op, fused, True)              # warm
+        kernels.reset_launch_counts()
+        res = adjoint_step(op, fused, True)
+        counts = add_launches(f"grid400 {route} adjoint step", needed)
+        bp = adjoint_step(op, fused, False)
+        ref = float(gx["loss_adjoint"])
+        loss_rel = abs(res["loss"] - ref) / abs(ref)
+        errs = {}
+        for name in ("enc1", "enc2", "wt", "dec"):
+            for leaf, key in (("weight", "w"), ("bias", "b")):
+                got = res["grads"][f"{name}.{leaf}"]
+                check(bool(torch.isfinite(got).all()),
+                      f"{route} adjoint: a non-finite gradient in {name}")
+                want = torch.as_tensor(gx[f"g_{name}_{key}_adjoint"])
+                errs[f"{name}_{key}"] = float((got - want).abs().sum()
+                                              / want.abs().sum())
+        check(loss_rel <= 1e-4, f"{route} adjoint loss off the fixture: "
+              f"{loss_rel}")
+        check(max(errs.values()) <= 1e-3, f"{route} adjoint gradients off "
+              f"the fixture: {errs}")
+        adj[route] = dict(
+            {k: v for k, v in res.items() if k != "grads"},
+            loss_rel_err=loss_rel, max_grad_rel_l1=max(errs.values()),
+            launches={k: v for k, v in counts.items() if v},
+            backprop={k: v for k, v in bp.items() if k != "grads"})
+
+    # (b) serve grid400 dense with the other methods, card against CPU
+    methods = {}
+    model_cpu = params_from_jax(tree)
+    op_grid_cpu = from_dense(normalized_laplacian(build_network("grid", 400)))
+    for method in ("tsit5", "adams", "fixed_adams", "explicit_adams"):
+        kw = dict(serve_kw, method=method)
+        kernels.reset_launch_counts()
+        srv = make_server(model_grid, op_grid, fx["t"], **kw)
+        answers, first = serve_all(srv, requests_grid, f"grid400 {method}")
+        counts = add_launches(f"grid400 {method} serving", ["fused_rhs"])
+        srv_cpu = make_server(model_cpu, op_grid_cpu, fx["t"], **kw)
+        out_cpu, ok_cpu = srv_cpu(requests_grid[0])
+        err = rel_l1(first.cpu(), out_cpu)
+        nfe_gpu, nfe_cpu = answers[0]["nfe"], srv_cpu.last_stats.nfe
+        # the same solve in float64 on the CPU: how far float32 rounding
+        # alone moves this method's answer (explicit_adams at order 11 is
+        # near its stability limit on this problem and amplifies it); the
+        # card is held to 1e-4 of the CPU or to twice that distance
+        with torch.no_grad():
+            out64, _ = ndcn_forward(
+                copy.deepcopy(model_cpu).double(),
+                DenseGraph(op_grid_cpu.mat.double()), fx["t"],
+                torch.as_tensor(requests_grid[0], dtype=torch.float64),
+                nondiff=True, **dict(kw, fused=False))
+        f32_gap = rel_l1(out_cpu.double(), out64)
+        bar = max(1e-4, 2 * f32_gap)
+        check(ok_cpu and err <= bar, f"grid400 {method}: card vs CPU "
+              f"{err} (bar {bar})")
+        check(abs(nfe_gpu - nfe_cpu) <= 0.02 * nfe_cpu,
+              f"grid400 {method}: NFE {nfe_gpu} on the card, {nfe_cpu} on "
+              f"the CPU")
+        methods[method] = dict(rel_l1_gpu_vs_cpu=err, bar=bar,
+                               rel_l1_cpu_f32_vs_f64=f32_gap,
+                               nfe_gpu=nfe_gpu,
+                               nfe_cpu=nfe_cpu, requests=answers,
+                               fused_rhs_launches=counts["fused_rhs"])
+
+    # (c) the heat driver under --adjoint and --method adams, and a run cut
+    # at a checkpoint and resumed against the uninterrupted one
+    drv15 = {}
+    for label, extra in (("adjoint_dopri5", ["--adjoint"]),
+                         ("adams", ["--method", "adams"])):
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = heat_experiment(*extra, "--niters", "20", "--test_freq", "5")
+        counts = add_launches(f"the heat driver {label}", [])
+        falls(out["train_losses"], f"the heat driver {label}")
+        drv15[label] = dict(train_losses=out["train_losses"],
+                            final=out["final"], seconds=time.perf_counter()
+                            - t0, max_steps=out["max_steps"])
+    ckpt_dir = os.path.join(root, "build", "smoke_ckpt")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    kernels.reset_launch_counts()
+    ckpt_args = ("--test_freq", "5", "--ckpt_dir", ckpt_dir, "--ckpt_freq",
+                 "10")
+    full = heat_experiment("--niters", "20", "--test_freq", "5")
+    half = heat_experiment("--niters", "10", *ckpt_args)
+    rest = heat_experiment("--niters", "20", *ckpt_args)
+    add_launches("the checkpointed heat driver", [])
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    resumed = half["train_losses"] + rest["train_losses"]
+    check(resumed == full["train_losses"] and rest["final"] == full["final"],
+          f"a resumed run parts from the uninterrupted one: {resumed} vs "
+          f"{full['train_losses']}")
+    drv15["resume"] = dict(uninterrupted=full["train_losses"],
+                           resumed=resumed, bit_equal=True)
+    print("[15] adjoint, solvers, checkpoint (card: " + smi + "): "
+          + json.dumps({"adjoint_grid400": adj, "serve_grid400": methods,
+                        "drivers": drv15,
+                        "seconds": time.perf_counter() - t15}))
 
     # ---- p. where the time goes
     for label, srv, x0 in (("grid400", server, fx["x0"]),

@@ -8,12 +8,12 @@ It mirrors the JAX package's module paths, so each piece has a counterpart:
 - ``kernels``     hand-written CUDA kernels (``csrc/*.cu``), each beside its
                   plain PyTorch version in one ``autograd.Function``, and the
                   platform seam that picks between them by the tensors' device.
-- ``ode``         dopri5, differentiable and inference, and the fixed-grid
-                  euler, midpoint and rk4 (``odeint_with_stats``).
+- ``ode``         dopri5, tsit5, VCABM, the fixed-grid and fixed-order methods
+                  (``odeint_with_stats``), float64 time, the continuous adjoint.
 - ``dynamics``    the heat, mutualistic and gene right-hand sides.
 - ``models``      NDCN as an ``nn.Module`` with the JAX package's forward.
 - ``train``       time sampling, losses, Adam, step budgets, elastic rollback,
-                  the SpMV roofline.
+                  checkpoint / resume, the SpMV roofline.
 - ``experiments`` the dynamics experiments (``python -m
                   ndcn_tpu_torch.experiments.heat``, ``.mutualistic``,
                   ``.gene``) and the scale experiment
@@ -22,7 +22,8 @@ It mirrors the JAX package's module paths, so each piece has a counterpart:
 - ``serve``       the serving entry point ``make_server``.
 - ``convert``     weights across from the JAX package.
 
-The port imports torch, numpy and scipy, never jax.
+The port imports torch, numpy and scipy (and networkx for the four
+networkx graph kinds only), never jax.
 """
 
 __version__ = "0.1.0"

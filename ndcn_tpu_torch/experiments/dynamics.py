@@ -7,9 +7,13 @@ lines as the JAX package's experiment (and the reference's). The flow: graph →
 physics at rtol 1e-7, atol 1e-9, on the CPU as the JAX package does) → NDCN
 from a ``torch.Generator`` → step budget (probed on the training device for
 the adaptive solve, 256 otherwise) → train loop with elastic rollback and an
-evaluation every ``test_freq`` iterations. The physics propagates through
-L = D - A for heat and through the raw adjacency for mutualistic and gene;
-mutualistic cannot use BSR blocks, so there its physics operator is COO.
+evaluation every ``test_freq`` iterations, and with ``--ckpt_dir`` a
+checkpoint every ``ckpt_freq`` iterations and a resume from the newest one.
+Every ``--method`` of the JAX driver runs, with ``--adjoint`` (the continuous
+adjoint's gradients), and every ``--network`` with ``--layout`` and
+``--seed`` for the graph. The physics propagates through L = D - A for heat
+and through the raw adjacency for mutualistic and gene; mutualistic cannot
+use BSR blocks, so there its physics operator is COO.
 
 ``--platform gpu`` (the default) trains on the first CUDA device and raises
 without one; ``--platform cpu`` runs the kernels' plain versions. Matrix
@@ -110,8 +114,6 @@ def build_parser(name: str) -> argparse.ArgumentParser:
 
 def _refuse_unported(dynamics_kind: str, args: argparse.Namespace) -> None:
     """Raise before any work for what the port does not have yet."""
-    from ndcn_tpu_torch.ode.api import require_ported
-
     if args.emission_precision != "f32" and (
             args.method not in ("dopri5", "tsit5") or args.adjoint):
         # the emission options reach the differentiable adaptive solve only;
@@ -124,11 +126,9 @@ def _refuse_unported(dynamics_kind: str, args: argparse.Namespace) -> None:
         (args.baseline in TEMPORAL_BASELINES,
          f"--baseline {args.baseline} (temporal GNN baselines): ROADMAP "
          f"item 7"),
-        (args.adjoint, "--adjoint: ROADMAP item 5"),
         (args.replicas > 1, "--replicas: ROADMAP item 8"),
         (args.mesh, "--mesh: ROADMAP item 8"),
         (args.export, "--export: ROADMAP item 8"),
-        (args.ckpt_dir, "--ckpt_dir: ROADMAP item 3"),
         (args.scan_chunk > 0,
          "--scan_chunk (steps per dispatch; CUDA graphs here): ROADMAP "
          "item 4"),
@@ -139,7 +139,6 @@ def _refuse_unported(dynamics_kind: str, args: argparse.Namespace) -> None:
     for cond, what in refused:
         if cond:
             raise NotImplementedError(f"not ported yet: {what}")
-    require_ported(args.method)
 
 
 def select_device(platform: str) -> torch.device:
@@ -189,6 +188,8 @@ def _run(dynamics_kind: str, args: argparse.Namespace,
     from ndcn_tpu_torch.kernels.platform import pin_fp32
     from ndcn_tpu_torch.models import init_ndcn, ndcn_forward
     from ndcn_tpu_torch.train.budget import probe_step_budget
+    from ndcn_tpu_torch.train.checkpoint import (restore_with_extra,
+                                                 save_checkpoint)
     from ndcn_tpu_torch.train.elastic import ElasticBudget
     from ndcn_tpu_torch.train.losses import l1_loss
     from ndcn_tpu_torch.train.optim import make_sgd_step, torch_adam
@@ -199,7 +200,10 @@ def _run(dynamics_kind: str, args: argparse.Namespace,
 
     # ---------------------------------------------------------------- graph
     print(f"Choose graph: {args.network}")
-    adj = generators.build_network(args.network, args.n)
+    adj = generators.build_network(args.network, args.n, seed=args.seed,
+                                   layout=args.layout)
+    # small_world has 400 nodes whatever --n is: the x0 block pattern and
+    # everything after it follow the graph's own node count
     n = adj.shape[0]
     side = int(np.ceil(np.sqrt(n)))
 
@@ -256,6 +260,7 @@ def _run(dynamics_kind: str, args: argparse.Namespace,
     fused = "auto" if args.fused_kernel else False
     solve_kw = dict(rtol=args.rtol, atol=args.atol, method=args.method,
                     fused=fused, **flags)
+    train_kw = dict(solve_kw, adjoint=args.adjoint)
     levers = dict(
         emission_dtype=(torch.bfloat16 if args.emission_precision == "bf16"
                         else None),
@@ -285,7 +290,7 @@ def _run(dynamics_kind: str, args: argparse.Namespace,
     def forward(vt, rng=None):
         out, stats = ndcn_forward(model, op, vt, true_y0,
                                   dropout=args.dropout, rng=rng,
-                                  max_steps=elastic.max_steps, **solve_kw,
+                                  max_steps=elastic.max_steps, **train_kw,
                                   **levers)
         return out[..., 0].T, stats                      # (n, T)
 
@@ -341,23 +346,45 @@ def _run(dynamics_kind: str, args: argparse.Namespace,
     opt = torch_adam(model.parameters(), args.lr, args.weight_decay)
     train_step = make_sgd_step(opt, train_loss)
     rng = torch.Generator().manual_seed(args.seed + 1)
+    # resume from the newest checkpoint: weights, Adam's state, and the
+    # dropout generator and step budget the interrupted run had there
+    start_iter, extra = restore_with_extra(args.ckpt_dir, model, opt)
+    if "rng" in extra:
+        rng.set_state(extra["rng"])
+    if "max_steps" in extra:
+        elastic.max_steps = int(extra["max_steps"])
 
     def train_state():
         return model.state_dict(), opt.state_dict()
 
+    def checkpoint(itr, loss) -> None:
+        # never persist a NaN-poisoned state: an exhausted budget is only
+        # detected at test_freq boundaries, and ckpt_freq can fall between
+        if not np.isfinite(float(loss)):
+            print(f"[ckpt] skipping iter {itr}: loss is non-finite (budget "
+                  f"exhaustion pending recovery)", flush=True)
+            return
+        save_checkpoint(args.ckpt_dir, itr, model, opt,
+                        extra={"rng": rng.get_state(),
+                               "max_steps": elastic.max_steps})
+
     # Elastic step-budget recovery (auto budgets only): exhaustion surfaces
     # as a NaN train loss; roll back to the last finite-loss snapshot, double
     # the budget and replay with the same generator state.
-    elastic.snapshot(0, rng.get_state(), train_state())
+    elastic.snapshot(start_iter, rng.get_state(), train_state())
     loss = rel = torch.tensor(0.0)
-    itr = 0
+    itr = start_iter
     train_losses = []
     while itr < args.niters:
         itr += 1
         loss, rel = train_step(rng)
+        ckpt_due = bool(args.ckpt_dir) and itr % args.ckpt_freq == 0
         if itr % args.test_freq == 0 or itr >= args.niters:
             # the loss read syncs the device: only at report cadence
-            if elastic.exhausted(float(loss)) or not report(itr, loss, rel):
+            exhausted = elastic.exhausted(float(loss))
+            if not exhausted and ckpt_due:
+                checkpoint(itr, loss)
+            if exhausted or not report(itr, loss, rel):
                 prev = itr
                 itr, rng_state, (model_sd, opt_sd) = elastic.rollback()
                 model.load_state_dict(model_sd)
@@ -369,6 +396,8 @@ def _run(dynamics_kind: str, args: argparse.Namespace,
                 continue
             train_losses.append(float(loss))
             elastic.snapshot(itr, rng.get_state(), train_state())
+        elif ckpt_due:
+            checkpoint(itr, loss)
 
     # ---------------------------------------------------------------- final
     ev = evaluate()

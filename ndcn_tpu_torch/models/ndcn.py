@@ -25,6 +25,7 @@ from ndcn_tpu_torch.kernels.coo_spmv import spmv_T, sublane_pad
 from ndcn_tpu_torch.kernels.fused_rhs import fused_rhs
 from ndcn_tpu_torch.models.nn import dropout_mask, linear_apply, linear_init
 from ndcn_tpu_torch.ode import odeint_with_stats
+from ndcn_tpu_torch.ode.adjoint import odeint_adjoint_with_stats
 
 
 def fused_profitable(kind: str, width: int, n: int) -> bool:
@@ -138,15 +139,23 @@ def ode_func(model: NDCN, op: GraphOperator, t, h: torch.Tensor,
 
 def ode_block(func, h0: torch.Tensor, vt, rtol: float, atol: float,
               method: str, terminal: bool = False, adjoint: bool = False,
-              max_steps: int = 256, nondiff: bool = False,
+              params=None, max_steps: int = 256, nondiff: bool = False,
               emission_dtype=None, emission_readout=None):
     """odeint wrapper mirroring ODEBlock semantics; returns (out, stats).
 
-    The emission options reach the solver on the differentiable adaptive
-    path only, as the JAX package's ``ode_block`` passes them."""
+    With ``adjoint=True`` the gradients come from the continuous adjoint
+    (``ode.adjoint``), taken for h0 and ``params``, the tuple of tensors the
+    RHS closes over; the stats are the forward solve's. The emission options
+    reach the solver on the differentiable adaptive path only, as the JAX
+    package's ``ode_block`` passes them (not under the adjoint)."""
     if adjoint:
-        raise NotImplementedError("the adjoint solve is not ported yet: "
-                                  "ROADMAP item 5")
+        if params is None:
+            raise ValueError("adjoint=True requires the params the RHS "
+                             "closes over")
+        sol, stats = odeint_adjoint_with_stats(
+            func, h0, vt, tuple(params), rtol=rtol, atol=atol, method=method,
+            options={"max_steps": max_steps})
+        return (sol[-1] if terminal else sol), stats
     options = {"max_steps": max_steps, "differentiable": not nondiff}
     if method in ("dopri5", "tsit5") and not nondiff:
         options.update(emission_dtype=emission_dtype,
@@ -301,7 +310,12 @@ def ndcn_forward(model: NDCN, op: GraphOperator, vt, x: torch.Tensor, *,
         use_readout = (not terminal and not nondiff and not adjoint
                        and method in ("dopri5", "tsit5"))
         w_dec, b_dec = model.dec.weight, model.dec.bias   # (c, d), (c,)
-        solve_kw = dict(adjoint=adjoint, max_steps=max_steps, nondiff=nondiff,
+        # the adjoint's VJPs are taken for the control layer, the only
+        # parameters the RHS closes over (the JAX package's ode_params)
+        ode_params = (() if model.wt is None or no_control
+                      else (model.wt.weight, model.wt.bias))
+        solve_kw = dict(adjoint=adjoint, params=ode_params,
+                        max_steps=max_steps, nondiff=nondiff,
                         emission_dtype=emission_dtype)
         if feature_major:
             d = h.shape[1]

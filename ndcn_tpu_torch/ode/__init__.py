@@ -1,5 +1,7 @@
-"""ODE solvers on tensors: ``ndcn_tpu.ode``'s dopri5, differentiable and
-inference solves."""
+"""ODE solvers on tensors, as ``ndcn_tpu.ode``: dopri5, tsit5, VCABM, the
+fixed-grid and fixed-order methods (differentiable and inference solves)
+and the continuous adjoint."""
 
 from ndcn_tpu_torch.ode.adaptive import SolveStats  # noqa: F401
+from ndcn_tpu_torch.ode.adjoint import odeint_adjoint  # noqa: F401
 from ndcn_tpu_torch.ode.api import SOLVERS, odeint, odeint_with_stats  # noqa: F401

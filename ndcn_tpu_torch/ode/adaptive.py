@@ -1,5 +1,5 @@
-"""Adaptive Runge-Kutta integration (dopri5): one host loop for the inference
-and the differentiable solve.
+"""Adaptive Runge-Kutta integration (dopri5, tsit5): one host loop for the
+inference and the differentiable solve.
 
 The port of ``ndcn_tpu/ode/adaptive.py``. There ``solve_while`` runs a
 ``lax.while_loop`` of ``lax.cond(ready, consume_obs, take_step)`` and
@@ -14,7 +14,7 @@ observation. ``SolveStats.host_syncs`` counts them.
 Under autograd the loop records the differentiable solve with the JAX scan
 path's gradient semantics:
 
-- t0, t1 and dt stay float32 tensors on the tape, so the gradient flows
+- t0, t1 and dt stay time-dtype tensors on the tape, so the gradient flows
   through the step-size controller (rejected attempts included) and through
   the initial-step heuristic; the host reads values only to steer the loop.
 - Each observation is read from the last accepted step's dense output when
@@ -36,6 +36,11 @@ emission levers act where the observations are read:
 - ``emission_dtype`` rounds those (read-out) sources and the interpolation
   weights to it, the same tensors the JAX package stores in its emission
   buffers; the sum is float32. Solver steps are unaffected.
+
+The state is a tensor or a flat tuple of tensors (``tree_math``); the
+controller takes one error ratio per leaf. Time (t0, t1, dt and the
+controller's scalars) runs in the grid's dtype: float32, or float64 when the
+caller asks for it, with the state's dtype unchanged.
 """
 
 from __future__ import annotations
@@ -52,7 +57,9 @@ from ndcn_tpu_torch.ode.runge_kutta import (StageCoeffs, runge_kutta_step,
 from ndcn_tpu_torch.ode.step_control import (Controller, accept_and_max_ratio,
                                              error_ratios, optimal_step_size,
                                              select_initial_step)
-from ndcn_tpu_torch.ode.tableaux import DOPRI5, Tableau
+from ndcn_tpu_torch.ode.tableaux import (DOPRI5, TSIT5,
+                                         TSIT5_REFERENCE_WEIGHTS, Tableau)
+from ndcn_tpu_torch.ode.tree_math import leaves, tmap
 
 # The reference passes order 4 to the initial-step heuristic for its
 # 5th-order methods; kept for identical first steps.
@@ -76,6 +83,20 @@ DOPRI5_METHOD = AdaptiveMethod(
     interp_eval=interp_lib._interp_eval,
 )
 
+TSIT5_METHOD = AdaptiveMethod(
+    name="tsit5",
+    tableau=TSIT5,
+    interp_init=interp_lib.tsit5_interp_init,
+    interp_make=interp_lib.tsit5_interp_state,
+    interp_eval=interp_lib.tsit5_interp_eval,
+)
+
+# options={"reference_weights": True}: the same solver with the reference's
+# (non-converging) tsit5 error weights, for bit-compatibility experiments
+# (``tableaux.TSIT5_REFERENCE_WEIGHTS``)
+TSIT5_REFERENCE_METHOD = dataclasses.replace(TSIT5_METHOD,
+                                             tableau=TSIT5_REFERENCE_WEIGHTS)
+
 
 class SolveStats(NamedTuple):
     nfe: int           # number of RHS evaluations
@@ -86,9 +107,9 @@ class SolveStats(NamedTuple):
 
 
 class RKState(NamedTuple):
-    y: torch.Tensor    # state at t1
-    f: torch.Tensor    # RHS at (t1, y)
-    t0: torch.Tensor   # last accepted interval, float32 0-dim tensors
+    y: object          # state at t1 (a tensor or a tuple of them)
+    f: object          # RHS at (t1, y)
+    t0: torch.Tensor   # last accepted interval, 0-dim time-dtype tensors
     t1: torch.Tensor
     dt: torch.Tensor   # proposed next step
     interp: Optional[object] = None  # last accepted step's dense output
@@ -104,20 +125,25 @@ def _attempt_step(method: AdaptiveMethod, func, rk: RKState, ctrl: Controller,
     """
     y1, f1, y1_error, k = runge_kutta_step(func, rk.y, rk.f, rk.t1, rk.dt,
                                            coeffs)
-    finite = all_finite(y1, y1_error, k)
-    ratio = error_ratios(y1_error, rk.y, y1, ctrl.rtol, ctrl.atol)
-    accept, max_ratio = accept_and_max_ratio(ratio)
+    finite = all_finite(*leaves(y1), *leaves(y1_error), *leaves(k))
+    ratios = error_ratios(y1_error, rk.y, y1, ctrl.rtol, ctrl.atol,
+                          rk.t1.dtype)
+    accept, max_ratio = accept_and_max_ratio(ratios)
     accept = accept & finite
     dt_next = torch.where(finite, optimal_step_size(rk.dt, max_ratio, ctrl),
                           rk.dt * ctrl.dfactor)
     new_interp = method.interp_make(rk.y, y1, k, rk.dt, coeffs)
-    state = RKState(y=torch.where(accept, y1, rk.y),
-                    f=torch.where(accept, f1, rk.f),
-                    t0=torch.where(accept, rk.t1, rk.t0),
-                    t1=torch.where(accept, rk.t1 + rk.dt, rk.t1),
+
+    def pick(a, b):
+        return torch.where(accept, a, b)
+
+    state = RKState(y=tmap(pick, y1, rk.y),
+                    f=tmap(pick, f1, rk.f),
+                    t0=pick(rk.t1, rk.t0),
+                    t1=pick(rk.t1 + rk.dt, rk.t1),
                     dt=dt_next,
                     interp=type(new_interp)(*(
-                        torch.where(accept, a, b)
+                        tmap(pick, a, b)
                         for a, b in zip(new_interp, rk.interp))))
     return state, accept, finite
 
@@ -138,22 +164,24 @@ def _init_rk_state(method: AdaptiveMethod, func, y0: torch.Tensor,
     return rk, nfe0
 
 
-def solve(method: AdaptiveMethod, func, y0: torch.Tensor, t: torch.Tensor,
+def solve(method: AdaptiveMethod, func, y0, t: torch.Tensor,
           ctrl: Controller, max_steps: int, first_step: Optional[float] = None,
           emission_dtype: Optional[torch.dtype] = None,
           emission_readout: Optional[Callable] = None):
     """Solve over the grid ``t``; returns (solution, SolveStats).
 
-    ``t`` is a strictly increasing 1-D float32 tensor ON THE CPU (the loop
-    compares against it on the host); it is copied to y0's device once.
-    solution: (len(t), *y0.shape) with solution[0] == y0, or the readout's
-    trajectory (len(t), *readout(y0).shape) with ``emission_readout``.
+    ``t`` is a strictly increasing 1-D float32 (or float64) tensor ON THE
+    CPU (the loop compares against it on the host); it is copied to y0's
+    device once. solution: (len(t), *y0.shape) with solution[0] == y0 (leaf
+    by leaf for a tuple state), or the readout's trajectory
+    (len(t), *readout(y0).shape) with ``emission_readout``.
     Differentiable when autograd records it (see the module docstring).
     """
     T = t.shape[0]
-    t_host = t.tolist()              # python floats, exactly the f32 values
-    t_dev = t.to(y0.device)
-    coeffs = stage_coeffs(method.tableau, y0.dtype, y0.device)
+    t_host = t.tolist()              # python floats, exactly the grid's values
+    lead = leaves(y0)[0]
+    t_dev = t.to(lead.device)
+    coeffs = stage_coeffs(method.tableau, lead.dtype, lead.device)
     n_evals = len(method.tableau.alpha)  # f0 comes from the last step (FSAL)
     rk, nfe = _init_rk_state(method, func, y0, t_dev[0], ctrl, first_step)
 
@@ -188,5 +216,13 @@ def solve(method: AdaptiveMethod, func, y0: torch.Tensor, t: torch.Tensor,
 
     stats = SolveStats(nfe=nfe, n_accepted=nacc, n_rejected=nrej,
                        success=ok and len(sol) >= T, host_syncs=syncs)
-    sol += [torch.full_like(sol[0], float("nan"))] * (T - len(sol))
-    return torch.stack(sol), stats
+    return stack_solution(sol, T), stats
+
+
+def stack_solution(sol: list, T: int):
+    """The observations stacked along a new leading time axis, leaf by
+    leaf; the ones not reached (a blown budget) are NaN."""
+    if len(sol) < T:
+        nan = tmap(lambda leaf: torch.full_like(leaf, float("nan")), sol[0])
+        sol = sol + [nan] * (T - len(sol))
+    return tmap(lambda *ls: torch.stack(ls), *sol)

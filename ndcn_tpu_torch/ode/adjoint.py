@@ -1,0 +1,146 @@
+"""Continuous-adjoint gradients (memory that does not grow with the
+trajectory), as ``ndcn_tpu/ode/adjoint.py``.
+
+    sol = odeint_adjoint(func, y0, t, params, rtol, atol, method, options)
+
+``func(t, y)`` closes over ``params``, a tuple of tensors (e.g. the model's
+ODE-function parameters); the gradients reach y0 and ``params``.
+
+- Forward: the non-differentiable solve (``differentiable=False``), NaN when
+  the step budget runs out. Nothing of it is kept but the observations.
+- Backward: the observation intervals in reverse. For each interval the
+  augmented system (y, adj_y, adj_t, *adj_params) is integrated at s = -t
+  with the same method, tolerances and budget, and each observation's
+  cotangent is added at its time. Each interval's solve is an inference
+  solve: no tape outlives one evaluation of the augmented RHS.
+
+The augmented RHS takes the VJP of ``func`` with ``torch.autograd.grad``
+under ``torch.enable_grad()``, with a fresh leaf for y and ``params`` as the
+inputs (``allow_unused=True``: a parameter the RHS does not touch gets
+zeros). Its time derivative is taken as zero, since NDCN's RHS is
+autonomous; adj_t still rides in the state, as in the JAX package, and
+enters the step control only through the initial-step norms. The kernels'
+``autograd.Function`` backwards run inside that VJP (K1 over the transpose
+CSR, K2's backward products, K3 over Aᵀ): the operator's values are no
+input, so the NaN they give an operator cotangent is never computed.
+
+The cotangent -adj_y of the JAX package is passed as adj_y and the VJPs'
+sign folded in: negation is exact and the VJP is linear, so the values are
+the same and two negations a step are saved.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence
+
+import torch
+
+from ndcn_tpu_torch.ode.adaptive import SolveStats
+from ndcn_tpu_torch.ode.api import _canonical_time, odeint_with_stats
+from ndcn_tpu_torch.ode.tree_math import tree_dot
+
+
+class AdjointStats(NamedTuple):
+    """The forward solve's SolveStats fields, and ``backward``: the
+    SolveStats of each interval solve of the backward pass, last interval
+    first, filled when the backward runs (empty before)."""
+    nfe: int
+    n_accepted: int
+    n_rejected: int
+    success: bool
+    host_syncs: int
+    backward: List[SolveStats]
+
+
+def _nondiff(options: Optional[Dict[str, Any]]) -> Dict[str, Any]:
+    return dict(options or {}, differentiable=False)
+
+
+def _nan_on_failure(sol, stats: SolveStats):
+    if stats.success:
+        return sol
+    if isinstance(sol, torch.Tensor):
+        return torch.full_like(sol, float("nan"))
+    return tuple(torch.full_like(s, float("nan")) for s in sol)
+
+
+class _OdeintAdjoint(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, func, t, rtol, atol, method, options, record, y0,
+                *params):
+        sol, stats = odeint_with_stats(func, y0, t, rtol=rtol, atol=atol,
+                                       method=method,
+                                       options=_nondiff(options))
+        record.append(stats)
+        sol = _nan_on_failure(sol, stats)
+        ctx.func, ctx.t, ctx.solve = func, t, (rtol, atol, method, options)
+        ctx.backward = []
+        record.append(ctx.backward)
+        ctx.params = params   # inputs: the VJPs are taken with respect to them
+        ctx.save_for_backward(sol)
+        return sol
+
+    @staticmethod
+    def backward(ctx, grad_sol):
+        sol, = ctx.saved_tensors
+        func, t, params = ctx.func, ctx.t, ctx.params
+        rtol, atol, method, options = ctx.solve
+        n_p = len(params)
+
+        def augmented(s, aug):
+            y, adj_y = aug[0], aug[1]
+            with torch.enable_grad():
+                y_ = y.detach().requires_grad_()
+                f = func(-s, y_)
+                vjps = torch.autograd.grad(f, (y_, *params), adj_y,
+                                           allow_unused=True)
+            vjps = [torch.zeros_like(x) if v is None else v
+                    for v, x in zip(vjps, (y_, *params))]
+            # reverse time: d/ds = -d/dt
+            return (-f.detach(), vjps[0], torch.zeros_like(aug[2]),
+                    *vjps[1:])
+
+        ctx.backward.clear()
+        T = t.shape[0]
+        t_dev = t.to(sol.device)
+        adj_y = grad_sol[-1]
+        adj_t = torch.zeros((), dtype=t.dtype, device=sol.device)
+        adj_p = tuple(torch.zeros_like(p) for p in params)
+        for i in range(T - 1, 0, -1):
+            f_i = func(t_dev[i], sol[i])
+            adj_t = adj_t - tree_dot(f_i, grad_sol[i]).to(adj_t.dtype)
+            aug0 = (sol[i], adj_y, adj_t, *adj_p)
+            aug_sol, stats = odeint_with_stats(
+                augmented, aug0, torch.stack([-t[i], -t[i - 1]]), rtol=rtol,
+                atol=atol, method=method, options=_nondiff(options))
+            ctx.backward.append(stats)
+            aug_sol = _nan_on_failure(aug_sol, stats)
+            adj_y = aug_sol[1][1] + grad_sol[i - 1]
+            adj_t = aug_sol[2][1]
+            adj_p = tuple(a[1] for a in aug_sol[3:3 + n_p])
+        return (None, None, None, None, None, None, None, adj_y, *adj_p)
+
+
+def odeint_adjoint_with_stats(func: Callable, y0: torch.Tensor, t,
+                              params: Sequence[torch.Tensor],
+                              rtol: float = 1e-6, atol: float = 1e-12,
+                              method: Optional[str] = None,
+                              options: Optional[Dict[str, Any]] = None):
+    """``odeint_adjoint`` and its AdjointStats."""
+    t = _canonical_time(t, (options or {}).get("time_dtype"))
+    record: List[Any] = []
+    sol = _OdeintAdjoint.apply(func, t, rtol, atol, method, options, record,
+                               y0, *params)
+    forward, backward = record
+    return sol, AdjointStats(*forward, backward=backward)
+
+
+def odeint_adjoint(func: Callable, y0: torch.Tensor, t,
+                   params: Sequence[torch.Tensor], rtol: float = 1e-6,
+                   atol: float = 1e-12, method: Optional[str] = None,
+                   options: Optional[Dict[str, Any]] = None) -> torch.Tensor:
+    """Solve dy/dt = func(t, y) with continuous-adjoint gradients for y0 and
+    ``params``; the trajectory is NaN if the step budget ran out."""
+    return odeint_adjoint_with_stats(func, y0, t, params, rtol, atol, method,
+                                     options)[0]

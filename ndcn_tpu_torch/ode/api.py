@@ -2,22 +2,29 @@
 
     odeint(func, y0, t, rtol=1e-7, atol=1e-9, method=None, options=None)
 
-``func(t, y) -> dy/dt`` on tensors; ``t`` is a 1-D strictly monotone grid
-(tensor, array or list), the solution carries a leading time axis with
-solution[0] == y0, and decreasing grids integrate s = -t forward. Time runs in
-float32, as the JAX package's default.
+``func(t, y) -> dy/dt`` on a tensor, or on a flat tuple of tensors; ``t`` is
+a 1-D strictly monotone grid (tensor, array or list), the solution carries a
+leading time axis with solution[0] == y0, and decreasing grids integrate
+s = -t forward. Time runs in float32, as the JAX package's default;
+``time_dtype="float64"`` (the adaptive methods) runs the grid and the
+controller's scalars in float64 with the state's dtype unchanged.
 
-The port has ``method="dopri5"``: ``differentiable=True`` (the default) is
-the solve autograd records, with a budget of 256 step attempts;
-``differentiable=False`` the inference solve under ``torch.no_grad()``, with a
-budget of 2**16. Both run ``adaptive.solve``. ``emission_dtype`` and
-``emission_readout`` (the JAX scan path's levers, see ``adaptive``) are
-taken by the differentiable solve only. The fixed-grid methods ``euler``,
-``midpoint`` and ``rk4`` (``fixed_grid``) take ``step_size`` and accept and
-ignore the common options, as in the JAX package; ``differentiable=False``
-runs them under ``torch.no_grad()`` too. Every other method raises
-``NotImplementedError`` naming the ROADMAP item that brings it; the
-validation errors are the JAX package's.
+Every method of the JAX package:
+
+- ``dopri5`` and ``tsit5`` (``adaptive``; tsit5 takes ``reference_weights``)
+  and ``adams`` (``vcabm``, adaptive step and order): ``differentiable=True``
+  (the default) is the solve autograd records, with a budget of 256 step
+  attempts; ``differentiable=False`` the inference solve under
+  ``torch.no_grad()``, with a budget of 2**16. ``emission_dtype`` and
+  ``emission_readout`` (the JAX scan path's levers, see ``adaptive``) are
+  taken by dopri5's and tsit5's differentiable solve only.
+- the fixed-grid methods ``euler``, ``midpoint`` and ``rk4``
+  (``fixed_grid``, with ``step_size``) and ``explicit_adams`` and
+  ``fixed_adams`` (``fixed_adams``, with ``max_order`` and ``max_iters``)
+  accept and ignore the common options, as in the JAX package;
+  ``differentiable=False`` runs them under ``torch.no_grad()`` too.
+
+The validation errors are the JAX package's.
 """
 
 from __future__ import annotations
@@ -27,10 +34,12 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
-from ndcn_tpu_torch.ode import adaptive, fixed_grid
+from ndcn_tpu_torch.ode import adaptive, fixed_adams, fixed_grid, vcabm
 from ndcn_tpu_torch.ode.step_control import Controller
+from ndcn_tpu_torch.ode.tree_math import tmap
 
-_ADAPTIVE = {"dopri5": adaptive.DOPRI5_METHOD}
+_ADAPTIVE = {"dopri5": adaptive.DOPRI5_METHOD,
+             "tsit5": adaptive.TSIT5_METHOD}
 
 SOLVERS = ("dopri5", "tsit5", "euler", "midpoint", "rk4",
            "explicit_adams", "fixed_adams", "adams")
@@ -39,28 +48,30 @@ SOLVERS = ("dopri5", "tsit5", "euler", "midpoint", "rk4",
 _DEFAULT_MAX_STEPS_SCAN = 256
 _DEFAULT_MAX_STEPS_WHILE = 1 << 16
 
-# the ported methods' option keys, as the JAX package recognizes them (a
-# typo'd option silently ignored is a debugging trap, so unknown keys warn);
-# the fixed-grid methods accept and ignore the common options, so that one
-# options dict serves every method
+# each method's option keys, as the JAX package recognizes them (a typo'd
+# option silently ignored is a debugging trap, so unknown keys warn); the
+# fixed-grid and fixed-order methods accept and ignore the common options,
+# so that one options dict serves every method
 _COMMON_OPTIONS = {"differentiable", "max_steps"}
 _METHOD_OPTIONS = {
     "dopri5": _COMMON_OPTIONS | {"safety", "ifactor", "dfactor", "first_step",
                                  "time_dtype", "emission_dtype",
                                  "emission_readout"},
+    "tsit5": _COMMON_OPTIONS | {"safety", "ifactor", "dfactor", "first_step",
+                                "time_dtype", "reference_weights",
+                                "emission_dtype", "emission_readout"},
     "euler": _COMMON_OPTIONS | {"step_size"},
     "midpoint": _COMMON_OPTIONS | {"step_size"},
     "rk4": _COMMON_OPTIONS | {"step_size"},
+    "explicit_adams": _COMMON_OPTIONS | {"max_order", "max_iters"},
+    "fixed_adams": _COMMON_OPTIONS | {"max_order", "max_iters"},
+    "adams": _COMMON_OPTIONS | {"max_order", "time_dtype", "safety",
+                                "ifactor", "dfactor"},
 }
 
-
-def require_ported(method: str) -> None:
-    """Raise as ``odeint`` would for a method the port does not have."""
-    if method not in SOLVERS:
-        raise ValueError(f"unknown method {method!r}; choose from {SOLVERS}")
-    if method not in _METHOD_OPTIONS:
-        raise NotImplementedError(f"method={method!r} is not ported yet: "
-                                  f"ROADMAP item 5 (the remaining solvers)")
+_TIME_DTYPES = {None: torch.float32, "float32": torch.float32,
+                torch.float32: torch.float32, "float64": torch.float64,
+                torch.float64: torch.float64}
 
 
 def _check_options(method: str, options: Dict[str, Any]) -> None:
@@ -70,28 +81,35 @@ def _check_options(method: str, options: Dict[str, Any]) -> None:
                       f"(recognized: {sorted(_METHOD_OPTIONS[method])})")
 
 
-def _canonical_time(t) -> torch.Tensor:
-    """The grid as a float32 tensor on the CPU (the solver loop reads it on
-    the host)."""
-    return torch.as_tensor(t).detach().to("cpu", torch.float32)
+def _canonical_time(t, time_dtype=None) -> torch.Tensor:
+    """The grid as a tensor of the time dtype on the CPU (the solver loop
+    reads it on the host): float32, or float64 with ``time_dtype``, where
+    the grid keeps the precision it came in (as the JAX package's under
+    x64)."""
+    if time_dtype not in _TIME_DTYPES:
+        raise ValueError(f"time_dtype must be float32 or float64; got "
+                         f"{time_dtype!r}")
+    tdtype = _TIME_DTYPES[time_dtype]
+    if isinstance(t, torch.Tensor):
+        return t.detach().to("cpu", tdtype)
+    return torch.as_tensor(t, dtype=tdtype)
 
 
-def _maybe_reverse(func, t):
+def _maybe_reverse(func, t, time_dtype=None):
     """Validate the grid on the host; a decreasing grid integrates s = -t."""
-    t = _canonical_time(t)
+    t = _canonical_time(t, time_dtype)
     if t.ndim != 1 or t.shape[0] < 2:
         raise ValueError("t must be a 1-D grid with at least 2 points")
     if bool(torch.all(t[1:] < t[:-1])):
         base = func
-        return (lambda s, y: -base(-s, y)), -t
+        return (lambda s, y: tmap(torch.neg, base(-s, y))), -t
     if not bool(torch.all(t[1:] > t[:-1])):
         raise ValueError("t must be strictly increasing or decreasing")
     return func, t
 
 
-def odeint_with_stats(func: Callable, y0: torch.Tensor, t,
-                      rtol: float = 1e-7, atol: float = 1e-9,
-                      method: Optional[str] = None,
+def odeint_with_stats(func: Callable, y0, t, rtol: float = 1e-7,
+                      atol: float = 1e-9, method: Optional[str] = None,
                       options: Optional[Dict[str, Any]] = None):
     """Solve dy/dt = func(t, y); returns (solution, SolveStats)."""
     if options is None:
@@ -100,48 +118,73 @@ def odeint_with_stats(func: Callable, y0: torch.Tensor, t,
         raise ValueError("cannot supply `options` without specifying `method`")
     if method is None:
         method = "dopri5"
-    require_ported(method)
+    if method not in SOLVERS:
+        raise ValueError(f"unknown method {method!r}; choose from {SOLVERS}")
     _check_options(method, options)
 
-    func, t = _maybe_reverse(func, t)
+    # the fixed-grid methods take no time_dtype (it is not among their
+    # options: it warns above and is ignored, as in the JAX package)
+    time_dtype = (options.get("time_dtype")
+                  if method in ("dopri5", "tsit5", "adams") else None)
+    func, t = _maybe_reverse(func, t, time_dtype)
+    differentiable = bool(options.get("differentiable", True))
+
+    def recording():
+        # autograd records the solve only when it is differentiable
+        return torch.set_grad_enabled(differentiable
+                                      and torch.is_grad_enabled())
 
     if method in fixed_grid.STEP_FUNCS:
-        differentiable = bool(options.get("differentiable", True))
-        with torch.set_grad_enabled(differentiable and torch.is_grad_enabled()):
+        with recording():
             return fixed_grid.solve_fixed_grid(
                 fixed_grid.STEP_FUNCS[method], func, y0, t,
                 step_size=options.get("step_size"))
-    if options.get("time_dtype") is not None:
-        raise NotImplementedError("time_dtype is not ported yet: ROADMAP "
-                                  "item 5")
-    differentiable = bool(options.get("differentiable", True))
+    if method in ("explicit_adams", "fixed_adams"):
+        with recording():
+            return fixed_adams.solve_fixed_adams(
+                func, y0, t, implicit=method == "fixed_adams",
+                max_order=int(options.get("max_order", 12)),
+                max_iters=int(options.get("max_iters", 4)))
+
+    max_steps = int(options.get("max_steps", _DEFAULT_MAX_STEPS_SCAN
+                                if differentiable
+                                else _DEFAULT_MAX_STEPS_WHILE))
+    ctrl_kw = dict(safety=float(options.get("safety", 0.9)),
+                   ifactor=float(options.get("ifactor", 10.0)),
+                   dfactor=float(options.get("dfactor", 0.2)))
+    if method == "adams":
+        with recording():
+            return vcabm.solve_vcabm(
+                func, y0, t, rtol=float(rtol), atol=float(atol),
+                max_order=int(options.get("max_order", 12)),
+                max_steps=max_steps, **ctrl_kw)
+
     emission = {k: options.get(k) for k in ("emission_dtype",
                                              "emission_readout")}
     if not differentiable and any(v is not None for v in emission.values()):
         raise ValueError("emission_dtype / emission_readout apply to the "
                          "differentiable solve only (differentiable=True)")
-    ctrl = Controller(rtol=float(rtol), atol=float(atol),
-                      safety=float(options.get("safety", 0.9)),
-                      ifactor=float(options.get("ifactor", 10.0)),
-                      dfactor=float(options.get("dfactor", 0.2)),
-                      order=5)
-    max_steps = int(options.get("max_steps", _DEFAULT_MAX_STEPS_SCAN
-                                if differentiable
-                                else _DEFAULT_MAX_STEPS_WHILE))
-    with torch.set_grad_enabled(differentiable and torch.is_grad_enabled()):
-        return adaptive.solve(_ADAPTIVE[method], func, y0, t, ctrl,
-                              max_steps=max_steps,
+    ctrl = Controller(rtol=float(rtol), atol=float(atol), order=5, **ctrl_kw)
+    m = _ADAPTIVE[method]
+    if method == "tsit5" and options.get("reference_weights"):
+        # bit-compatibility mode: the reference's (non-converging) tsit5
+        # error weights (``tableaux.TSIT5_REFERENCE_WEIGHTS``)
+        m = adaptive.TSIT5_REFERENCE_METHOD
+    with recording():
+        return adaptive.solve(m, func, y0, t, ctrl, max_steps=max_steps,
                               first_step=options.get("first_step"),
                               **emission)
 
 
-def odeint(func: Callable, y0: torch.Tensor, t, rtol: float = 1e-7,
-           atol: float = 1e-9, method: Optional[str] = None,
-           options: Optional[Dict[str, Any]] = None) -> torch.Tensor:
+def odeint(func: Callable, y0, t, rtol: float = 1e-7, atol: float = 1e-9,
+           method: Optional[str] = None,
+           options: Optional[Dict[str, Any]] = None):
     """Solve dy/dt = func(t, y) over t; the solution has a leading time axis.
 
     A blown step budget is loud: the trajectory comes back as NaN. Use
     ``odeint_with_stats`` to branch on ``stats.success`` instead."""
     sol, stats = odeint_with_stats(func, y0, t, rtol=rtol, atol=atol,
                                    method=method, options=options)
-    return sol if stats.success else torch.full_like(sol, float("nan"))
+    if stats.success:
+        return sol
+    return tmap(lambda b: torch.full_like(b, float("nan")), sol)

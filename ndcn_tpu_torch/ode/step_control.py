@@ -1,25 +1,26 @@
 """Adaptive step-size control, as ``ndcn_tpu/ode/step_control.py``.
 
 - error tolerance per element: atol + rtol * max(|y0|, |y1|)
-- error metric: mean over elements of (err/tol)^2
-- accept iff the metric <= 1
-- next dt = dt / clamp(sqrt(ratio)^(1/order) / safety, 1/ifactor, 1/dfactor),
-  with dfactor forced to 1 when the step was accepted
-- Hairer's heuristic for the initial step
+- error metric, per leaf of the state: mean over elements of (err/tol)^2
+- accept iff every leaf's metric <= 1
+- next dt = dt / clamp(sqrt(max_ratio)^(1/order) / safety, 1/ifactor,
+  1/dfactor), with dfactor forced to 1 when the step was accepted
+- Hairer's heuristic for the initial step, with per-leaf norms
 
-Every quantity stays a float32 tensor on the state's device (the JAX
-package's time dtype): the host never branches here, and doing this
-arithmetic in Python floats (float64) would move borderline accept / reject
-decisions and with them the step count.
+Every quantity stays a tensor of the time dtype on the state's device
+(float32 unless the caller asks for float64 time, as the JAX package's
+``time_dtype``): the host never branches here, and doing this arithmetic in
+Python floats (float64) would move borderline accept / reject decisions and
+with them the step count.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import List, NamedTuple
 
 import torch
 
-from ndcn_tpu_torch.ode.tree_math import rms_norm
+from ndcn_tpu_torch.ode.tree_math import cast, leaves, rms_norm, tmax
 
 # Guard against division by zero; a normal float32 (see the JAX package).
 _TINY = 1e-30
@@ -34,17 +35,25 @@ class Controller(NamedTuple):
     order: int = 5
 
 
-def error_ratios(y1_error: torch.Tensor, y0: torch.Tensor, y1: torch.Tensor,
-                 rtol: float, atol: float) -> torch.Tensor:
-    """Mean squared error ratio of one state tensor (0-dim)."""
-    tol = atol + rtol * torch.maximum(torch.abs(y0), torch.abs(y1))
-    r = y1_error / tol
-    return torch.mean(r * r)
+def error_ratios(y1_error, y0, y1, rtol: float, atol: float,
+                 tdtype: torch.dtype = torch.float32) -> List[torch.Tensor]:
+    """The mean squared error ratio of each leaf, as 0-dim tensors of the
+    time dtype (the ratios of a float32 state are widened before the mean
+    under float64 time, as in the JAX package)."""
+    out = []
+    for err, a, b in zip(leaves(y1_error), leaves(y0), leaves(y1)):
+        tol = atol + rtol * torch.maximum(torch.abs(a), torch.abs(b))
+        r = cast(err / tol, tdtype)
+        out.append(torch.mean(r * r))
+    return out
 
 
-def accept_and_max_ratio(ratio: torch.Tensor):
-    """(accept, max_ratio) for the port's single-tensor state."""
-    return ratio <= 1.0, ratio
+def accept_and_max_ratio(ratios: List[torch.Tensor]):
+    """(accept, max_ratio): accept iff every leaf's ratio is <= 1."""
+    if len(ratios) == 1:
+        return ratios[0] <= 1.0, ratios[0]
+    stacked = torch.stack(ratios)
+    return torch.all(stacked <= 1.0), torch.max(stacked)
 
 
 def optimal_step_size(last_step: torch.Tensor, max_ratio: torch.Tensor,
@@ -62,22 +71,35 @@ def optimal_step_size(last_step: torch.Tensor, max_ratio: torch.Tensor,
     return last_step / factor
 
 
-def select_initial_step(func, t0: torch.Tensor, y0: torch.Tensor, order: int,
-                        rtol: float, atol: float,
-                        f0: torch.Tensor) -> torch.Tensor:
-    """Hairer's empirical initial step; the reference's host branches become
-    ``torch.where`` with the same thresholds. Calls ``func`` once."""
-    scale = atol + torch.abs(y0) * rtol
-    d0 = rms_norm(y0 / scale)
-    d1 = rms_norm(f0 / scale)
-    ratio = torch.where(d1 < 1e-5, torch.zeros_like(d0),
-                        d0 / torch.clamp(d1, min=_TINY))
-    h0 = torch.where((d0 < 1e-5) | (d1 < 1e-5), torch.full_like(d0, 1e-6),
-                     0.01 * ratio)
+def select_initial_step(func, t0: torch.Tensor, y0, order: int,
+                        rtol: float, atol: float, f0) -> torch.Tensor:
+    """Hairer's empirical initial step, in ``t0``'s dtype; the reference's
+    host branches become ``torch.where`` with the same thresholds. Calls
+    ``func`` once.
 
-    y1 = y0 + h0 * f0
+    The norms are taken per leaf and the largest kept, as in the JAX
+    package; a leaf whose derivative norm is under 1e-5 (the adjoint-time
+    scalar of the augmented system) gives no step-size ratio, where its raw
+    ratio would be inf or NaN."""
+    tdtype = t0.dtype
+    ys, fs = leaves(y0), leaves(f0)
+    scales = [atol + torch.abs(y) * rtol for y in ys]
+    d0s = [rms_norm(y / s) for y, s in zip(ys, scales)]
+    d1s = [rms_norm(f / s) for f, s in zip(fs, scales)]
+    ratios = [torch.where(b < 1e-5, torch.zeros_like(a),
+                          a / torch.clamp(b, min=_TINY))
+              for a, b in zip(d0s, d1s)]
+    d0, d1 = cast(tmax(d0s), tdtype), cast(tmax(d1s), tdtype)
+    h0 = torch.where((d0 < 1e-5) | (d1 < 1e-5), torch.full_like(d0, 1e-6),
+                     0.01 * cast(tmax(ratios), tdtype))
+
+    if isinstance(y0, torch.Tensor):
+        y1 = y0 + cast(h0, y0.dtype) * f0
+    else:
+        y1 = tuple(y + cast(h0, y.dtype) * f for y, f in zip(ys, fs))
     f1 = func(t0 + h0, y1)
-    d2 = rms_norm((f1 - f0) / scale) / h0
+    d2 = cast(tmax([rms_norm((a - b) / s) / cast(h0, a.dtype)
+                    for a, b, s in zip(leaves(f1), fs, scales)]), tdtype)
 
     h1_small = torch.clamp(h0 * 1e-3, min=1e-6)
     h1_big = (0.01 / torch.clamp(torch.maximum(d1, d2), min=_TINY)) \

@@ -13,8 +13,10 @@ atol 1e-5·max|y| for K2 and its backward (fp32 sums in another order; K2,
 K3 and K4 multiply in split TF32, which keeps fp32's digits); 2e-6·max|y|
 for K2, K3 and K4 against the plain PyTorch emulation of their split
 arithmetic (the same roundings, summed in another order); 1e-4
-rel-L1 for a served trajectory on the GPU against the same server on the CPU,
-and 1e-3 rel-L1 for a train step's gradients on the GPU against the CPU.
+rel-L1 for a served trajectory on the GPU against the same server on the CPU
+(for the other solvers, or twice the CPU's own float32-vs-float64 distance
+where that is larger), and 1e-3 rel-L1 for a train step's gradients on the
+GPU against the CPU, the continuous adjoint's against its fixture too.
 Backward checks use non-symmetric matrices.
 """
 
@@ -28,7 +30,8 @@ import torch
 from ndcn_tpu_torch import kernels
 from ndcn_tpu_torch.convert import params_from_jax
 from ndcn_tpu_torch.graph import generators, operators
-from ndcn_tpu_torch.graph.sparse import as_operator, from_scipy_coo
+from ndcn_tpu_torch.graph.sparse import (DenseGraph, as_operator,
+                                         from_scipy_coo)
 from ndcn_tpu_torch.kernels import (bsr_spmm, coo_mutual, coo_spmv, fused_rhs,
                                     sparse_bench)
 from ndcn_tpu_torch.models import init_ndcn, ndcn_forward
@@ -947,3 +950,85 @@ def test_serving_on_cuda_matches_cpu(cuda_device, fmt):
     assert ok and ok_cpu and launched > 0
     rel = float((out.cpu() - out_cpu).abs().mean() / out_cpu.abs().mean())
     assert rel <= 1e-4
+
+
+def _grid400_fixture(name):
+    f = dict(np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                  "fixtures", f"{name}.npz")))
+    tree = {n: {"w": f[f"{n}_w"].T, "b": f[f"{n}_b"]}
+            for n in ("enc1", "enc2", "wt", "dec")}
+    return f, tree, operators.normalized_laplacian(
+        generators.build_network("grid", 400))
+
+
+@pytest.mark.parametrize("fmt,fused,needed", [
+    ("dense", "auto", ("fused_rhs",)), ("coo", False, ("coo_spmv",)),
+    ("bsr", True, ("bsr_spmm", "bsr_fused_rhs"))])
+def test_adjoint_gradients_on_cuda_meet_the_fixture(cuda_device, fmt, fused,
+                                                    needed):
+    """The continuous adjoint on grid400 at the ``ndcn_grads_grid400``
+    weights, on the card: the forward through K2 / K1 / K4, the VJPs of the
+    backward solve through K2's backward products / K1 over the transpose
+    CSR / K3 over Aᵀ. Loss within 1e-4 and gradients within 1e-3 of the
+    fixture's adjoint half, and within 1e-3 of the same step on the CPU."""
+    f, tree, lap = _grid400_fixture("ndcn_grads_grid400")
+    mat = lap if fmt == "dense" else sp.csr_matrix(lap)
+    target = torch.as_tensor(f["target"].T[..., None])
+
+    def step(dev):
+        model = params_from_jax(tree, device=dev)
+        op = as_operator(mat, sparse=fmt != "dense", format=fmt, device=dev)
+        out, stats = ndcn_forward(model, op, f["t"],
+                                  torch.as_tensor(f["x0"], device=dev),
+                                  rtol=0.01, atol=0.001, method="dopri5",
+                                  fused=fused, adjoint=True, max_steps=64)
+        loss = (out - target.to(dev)).abs().mean()
+        loss.backward()
+        assert stats.success and stats.nfe == 20
+        return float(loss.detach()), {n: p.grad.cpu() for n, p in
+                             model.named_parameters()}
+
+    kernels.reset_launch_counts()
+    loss, grads = step(cuda_device)
+    counts = kernels.launch_counts()
+    assert all(counts[name] > 0 for name in needed), counts
+    _, cpu = step("cpu")
+    ref = float(f["loss_adjoint"])
+    assert abs(loss - ref) <= 1e-4 * abs(ref)
+    for name in ("enc1", "enc2", "wt", "dec"):
+        for leaf, key in (("weight", "w"), ("bias", "b")):
+            got = grads[f"{name}.{leaf}"]
+            assert torch.isfinite(got).all()
+            want = torch.as_tensor(f[f"g_{name}_{key}_adjoint"])
+            assert _rel_l1(got, want) <= 1e-3
+            assert _rel_l1(got, cpu[f"{name}.{leaf}"]) <= 1e-3
+
+
+@pytest.mark.parametrize("method", ["tsit5", "adams", "fixed_adams",
+                                    "explicit_adams"])
+def test_new_methods_serve_on_cuda_match_cpu(cuda_device, method):
+    """grid400 dense, fused='auto' (K2), at the oracle fixture's weights:
+    the card's trajectory within 1e-4 rel-L1 of the CPU's, or within twice
+    the CPU's own float32-vs-float64 distance where that is larger
+    (explicit_adams at order 11 is near its stability limit here: the
+    trajectory grows from 0.2 to ~4e3 and the CPU alone parts from its
+    float64 solve by 1.0e-4), NFE within 2 % (the adaptive methods' accept
+    decisions sit on float32 sums the card orders differently)."""
+    f, tree, lap = _grid400_fixture("ndcn_forward_grid400")
+    kw = dict(rtol=0.01, atol=0.001, method=method, fused="auto")
+    cpu = make_server(params_from_jax(tree), as_operator(lap), f["t"], **kw)
+    out_cpu, ok_cpu = cpu(f["x0"])
+    kernels.reset_launch_counts()
+    gpu = make_server(params_from_jax(tree, device=cuda_device),
+                      as_operator(lap, device=cuda_device), f["t"], **kw)
+    out, ok = gpu(f["x0"])
+    assert ok and ok_cpu and kernels.launch_counts()["fused_rhs"] > 0
+    assert abs(gpu.last_stats.nfe - cpu.last_stats.nfe) <= \
+        0.02 * cpu.last_stats.nfe
+    model64 = params_from_jax(tree).double()
+    out64, _ = ndcn_forward(model64, DenseGraph(torch.as_tensor(
+        lap, dtype=torch.float64)), f["t"], torch.as_tensor(
+            f["x0"], dtype=torch.float64), nondiff=True,
+        **dict(kw, fused=False))
+    bar = max(1e-4, 2 * _rel_l1(out_cpu.double(), out64))
+    assert _rel_l1(out.cpu(), out_cpu) <= bar

@@ -4,6 +4,7 @@ Same seeds in, same arrays out: generators, operators, observation-time
 sampling, and the CSR-sorted COO container's triplets.
 """
 
+import functools
 import importlib.util
 import os
 
@@ -23,6 +24,17 @@ from ndcn_tpu_torch.train.sampling import sample_times
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """The physics solves below are many small tensor operations: one
+    thread runs them faster than a pool that shares the cores with other
+    test processes."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _large_graph_example():
     spec = importlib.util.spec_from_file_location(
         "large_graph_example", os.path.join(ROOT, "examples", "large_graph.py"))
@@ -40,9 +52,12 @@ def test_build_network_bit_equal(n):
 
 def test_build_network_grid400_and_unknown_kind():
     assert generators.build_network("grid", 400).shape == (400, 400)
+    # the networkx kinds (ROADMAP item 3b) build; small_world has 400 nodes
     for kind in set(generators.NETWORKS) - {"grid"}:
-        with pytest.raises(NotImplementedError, match="ROADMAP item 3"):
-            generators.build_network(kind, 90)
+        adj = generators.build_network(kind, 90)
+        assert adj.dtype == np.float32 and np.array_equal(adj, adj.T)
+        assert adj.shape == ((400, 400) if kind == "small_world"
+                             else (90, 90))
     with pytest.raises(ValueError, match="unknown network kind"):
         generators.build_network("lattice", 10)
 
@@ -149,3 +164,76 @@ def test_as_operator_rejects_unported_and_unknown_formats():
         sparse.as_operator(lap, sparse=True, format="csc")
     with pytest.raises(ValueError, match="float32"):
         sparse.from_scipy_coo(lap, dtype=torch.float64)
+
+
+# ------------------------------------------------- the networkx graph zoo
+
+NX_KINDS = ("random", "power_law", "small_world", "community")
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+@pytest.mark.parametrize("layout", ["community", "degree"])
+@pytest.mark.parametrize("kind", NX_KINDS)
+def test_networkx_kinds_bit_equal(kind, layout, seed):
+    """Every networkx kind under both node reorderings and two seeds: the
+    JAX package's adjacency bit for bit (small_world has 400 nodes
+    whatever n is)."""
+    ours = generators.build_network(kind, 90, seed=seed, layout=layout)
+    ref = jgen.build_network(kind, 90, seed=seed, layout=layout)
+    assert ours.dtype == ref.dtype == np.float32
+    assert np.array_equal(ours, ref)
+
+
+def test_node_mapping_and_reordering_match_the_jax_package():
+    import networkx as nx
+
+    g = nx.barabasi_albert_graph(50, 3, seed=1)
+    for kind in ("degree", "community", None):
+        assert generators.generate_node_mapping(g, kind) == \
+            jgen.generate_node_mapping(g, kind)
+        assert np.array_equal(
+            nx.to_numpy_array(generators.reorder_nodes(g, kind)),
+            nx.to_numpy_array(jgen.reorder_nodes(g, kind)))
+
+
+def test_networkx_kinds_name_networkx_when_it_is_missing(monkeypatch):
+    """A networkx kind without networkx raises an ImportError that names
+    it, and falls back to no other graph; the grid needs no networkx."""
+    import sys
+
+    monkeypatch.setitem(sys.modules, "networkx", None)
+    for kind in NX_KINDS:
+        with pytest.raises(ImportError, match="networkx"):
+            generators.build_network(kind, 30)
+    assert generators.build_network("grid", 30).shape == (36, 36)
+
+
+@functools.lru_cache(maxsize=None)
+def _ns_graph(net):
+    return generators.build_network(net, 400, seed=0)
+
+
+@pytest.mark.parametrize("net", NX_KINDS)
+@pytest.mark.parametrize("dyn", ["heat", "mutualistic", "gene"])
+def test_ns_fixtures_through_the_ports_generator(dyn, net):
+    """The twelve ``ns_*`` oracle fixtures on the networkx graphs: the
+    port's generator reproduces the stored adjacency bit for bit, and the
+    physics on it meets the oracle's trajectory within 1e-4 rel-L1 (the
+    JAX package's ``tests/test_parity.py`` north-star bar)."""
+    from ndcn_tpu_torch.dynamics import make_rhs
+    from ndcn_tpu_torch.ode import odeint_with_stats
+
+    f = dict(np.load(os.path.join(ROOT, "tests", "fixtures",
+                                  f"ns_{dyn}_{net}.npz")))
+    adj = _ns_graph(net)
+    assert np.array_equal(adj, f["adj"]), "generator drifted from fixture"
+    mat = operators.laplacian_dense(adj) if dyn == "heat" else adj
+    with torch.no_grad():
+        sol, stats = odeint_with_stats(
+            make_rhs(dyn, sparse.as_operator(mat)), torch.as_tensor(f["x0"]),
+            f["t"], rtol=1e-7, atol=1e-9, method="dopri5",
+            options={"differentiable": False})
+    assert stats.success
+    err = float(np.abs(sol.numpy() - f["sol"]).mean()
+                / np.abs(f["sol"]).mean())
+    assert err < 1e-4

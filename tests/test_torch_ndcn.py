@@ -189,9 +189,11 @@ def test_make_server_terminal_and_budget():
 
 
 @pytest.mark.parametrize("kwargs,err,match", [
-    (dict(nondiff=False, dropout=0.1, adjoint=True), NotImplementedError,
-     "item 5"),
-    (dict(nondiff=True, adjoint=True), NotImplementedError, "item 5"),
+    # the fused kernels need a fusable RHS, with the adjoint too
+    (dict(nondiff=False, no_control=True, fused=True, adjoint=True),
+     ValueError, "fused=True requires"),
+    (dict(nondiff=True, no_graph=True, fused=True), ValueError,
+     "fused=True requires"),
     # a dense operator on the CPU does not serve the feature-major solve
     (dict(nondiff=True, layout="feature_major"), ValueError, "feature_major"),
     (dict(nondiff=True, layout="nm"), ValueError, "unknown layout"),

@@ -485,7 +485,8 @@ def test_heat_experiment_auto_budget_and_refusals():
          "--method", "dopri5", "--platform", "cpu", "--fused_kernel"]))
     assert out["max_steps"] >= 8 and np.isfinite(out["final"]["abs_error"])
     base = ["--n", "25", "--platform", "cpu"]
-    for extra, item in ((["--method", "tsit5"], "item 5"),
+    for extra, item in ((["--method", "dopri5", "--export", "m.pt"],
+                         "item 8"),
                         (["--method", "dopri5", "--replicas", "2"], "item 8"),
                         (["--method", "dopri5", "--scan_chunk", "4"],
                          "item 4"),
@@ -493,9 +494,9 @@ def test_heat_experiment_auto_budget_and_refusals():
                          "item 7")):
         with pytest.raises(NotImplementedError, match=item):
             run("heat", build_parser("t").parse_args(base + extra))
-    with pytest.raises(NotImplementedError, match="item 3"):
+    with pytest.raises(NotImplementedError, match="item 7"):
         run("gene", build_parser("t").parse_args(
-            base + ["--method", "dopri5", "--network", "random"]))
+            base + ["--method", "dopri5", "--dump"]))
     # gene on ELL (the default sparse format) and euler (the default method)
     # run: the fixed-grid solve takes the fixed budget
     out = run("gene", build_parser("t").parse_args(
