@@ -118,15 +118,39 @@ Phases, one line each:
      ``--adjoint`` and with ``--method adams`` (the train loss falls), and
      20 iterations against 10 checkpointed (``--ckpt_dir`` under build/,
      ``--ckpt_freq 10``) and a resumed 10: the losses bit-equal.
+  16. the classification tasks on cora and citeseer (``data/``): (a) K1 and
+     K1ᵀ on both operators at d = 7 / 6 (the classes), 16 (the hidden
+     width) and 1433 / 3703 (the raw features), and K3 and K3ᵀ on cora's
+     BSR operator at d = 7, 16, 1433, against their plain versions with
+     [3] / [7]'s bars, bit-equal repeats, times, bounds and library calls;
+     (b) one cora differential_gcn train step (weights from CPU generator
+     seed 0, dropout 0, rtol = atol = 0.1) on dense, COO and BSR, on the
+     card against the CPU: loss within 1e-4, gradients within 1e-3
+     rel-L1, NFE equal, K1 / K3 launched; (c) the driver on its defaults
+     (seed 0; its accuracy is printed, with no bar: the showcase is
+     another recipe), then the recipe of
+     ``results/showcase_cora_100.json`` (README.md:64: hidden 256, dropout
+     0, T 1.2, tick 16, 100 epochs, weight decay 0.024, no control, alpha
+     0) through ``experiments.dgnn`` in process at seeds 0-2, dense: the
+     mean test accuracy within that record's 0.8317 ± 3 · 0.0098 / √3;
+     seed 0 with ``--sparse`` (K1) and ``--sparse --sparse_format bsr``
+     (K3), whose train loss must fall; citeseer seed 0 within 0.7065 ± 3 ·
+     0.0061 (``results/showcase_citeseer_12.json``); (d) every zoo model
+     through the driver on cora with ``--sparse`` for 200 epochs
+     (DeepGCN3 dense, 50), the train loss falling, GCN's test accuracy
+     within 2 points of the same run with ``--platform cpu`` (the same
+     dropout masks); (e) the phase's own wall time.
   p. where the time goes: one request per serving setting and one train step
-     per training setting (the 1M feature-major step included), kernels
-     against plain versions end to end (plain, kernel, kernel, plain), a
-     torch.profiler breakdown (traces to build/traces/), and each kernel's
-     launches in that one steady step.
+     per training setting (the 1M feature-major step included), one cora
+     differential_gcn epoch (the driver's defaults, train and eval) on
+     dense, COO and BSR, kernels against plain versions end to end (plain,
+     kernel, kernel, plain), a torch.profiler breakdown (traces to
+     build/traces/), and each kernel's launches in that one steady step or
+     epoch.
 Then the kernels' JSON record, and last the device JSON line. Launch counts
 are zeroed just before each main-path phase (5-6, 8, 9, 10, each run of 12,
-13, 14 and each part of 15) and read just after its GPU work; the record's
-launches are their sums.
+13, 14, each part of 15 and each run of 16) and read just after its GPU
+work; the record's launches are their sums.
 
 ``ms`` is the median CUDA-event time of one call on an idle card, as in
 every earlier record; every kernel also gives ``device_ms``, the time per
@@ -1515,6 +1539,179 @@ def main() -> None:
                         "drivers": drv15,
                         "seconds": time.perf_counter() - t15}))
 
+    # ---- 16. the classification tasks: K1 and K3 at the citation widths,
+    # the card's train step against the CPU's, the showcase, the GCN zoo
+    t16 = time.perf_counter()
+    from ndcn_tpu_torch.data import load_planetoid
+    from ndcn_tpu_torch.experiments import dgnn
+    from ndcn_tpu_torch.models.gcn_zoo import ZOO
+    from ndcn_tpu_torch.train.losses import cross_entropy
+
+    cora = load_planetoid("cora", alpha=0.5, data_dir=os.path.join(root,
+                                                                   "data"))
+    citeseer = load_planetoid("citeseer", alpha=0.5,
+                              data_dir=os.path.join(root, "data"))
+
+    # (a) K1 and K1ᵀ on both graphs, K3 and K3ᵀ on cora's BSR operator
+    def k1_both(mat, d, seed):
+        """K1 and K1ᵀ (over the transpose CSR) at width d: [3] / [7]'s
+        bars, bit-equal repeats, times, the bound, ``torch.sparse.mm``."""
+        op = from_scipy_coo(mat, device=dev)
+        out = dict(n=op.n, nnz=int(op.cols.shape[0]), d=d,
+                   max_row_degree=int(np.diff(mat.indptr).max()),
+                   split_rows=int(op.split.long_rows.shape[0]))
+        x = torch.as_tensor(np.random.RandomState(seed).randn(op.n, d)
+                            .astype(np.float32), device=dev)
+        for label, o in (("fwd", op), ("transpose", op.transpose())):
+            a = library_csr(o)
+            out[label], _ = spmv_record(
+                f"K1 {label} n={o.n} d={d}", o, d,
+                lambda: coo_spmv.coo_spmv(o, x),
+                lambda: coo_spmv.coo_spmv_plain(o.rows, o.cols, o.vals, x,
+                                                o.n),
+                lambda: torch.sparse.mm(a, x), x)
+        return out
+
+    k1_cite = {f"cora_d{d}": k1_both(cora.operator, d, 40 + d)
+               for d in (7, 16, 1433)}
+    k1_cite.update({f"citeseer_d{d}": k1_both(citeseer.operator, d, 50 + d)
+                    for d in (6, 16, 3703)})
+    k3_cite = {f"cora_d{d}": k3_case(cora.operator, d, 60 + d)
+               for d in (7, 16, 1433)}
+    torch.cuda.empty_cache()
+
+    # (b) one cora differential_gcn step on the card and on the CPU
+    def cora_step(device, fmt):
+        model = init_ndcn(torch.Generator().manual_seed(0), 1433, 16, 7,
+                          encoder_layers=1, device=device)
+        op = as_operator(cora.operator, sparse=fmt != "dense", format=fmt,
+                         device=device)
+        x = torch.as_tensor(cora.features, device=device)
+        idx = torch.as_tensor(cora.idx_train, device=device).long()
+        labels = torch.as_tensor(cora.labels, device=device).long()
+        vt = np.linspace(0, 2.0, 5).astype(np.float32)
+        t0 = time.perf_counter()
+        out, stats = ndcn_forward(model, op, vt, x, rtol=0.1, atol=0.1,
+                                  method="dopri5", terminal=True,
+                                  max_steps=64)
+        loss = cross_entropy(out[idx], labels[idx])
+        loss.backward()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        check(stats.success, f"cora {fmt} step failed on {device}")
+        return dict(loss=float(loss.detach()), nfe=stats.nfe,
+                    ms=(time.perf_counter() - t0) * 1e3,
+                    grads={n: p.grad.cpu() for n, p in
+                           model.named_parameters()})
+
+    steps16 = {}
+    for fmt, needed in (("dense", []), ("coo", ["coo_spmv"]),
+                        ("bsr", ["bsr_spmm"])):
+        cora_step(dev, fmt)                                  # warm
+        kernels.reset_launch_counts()
+        gpu = cora_step(dev, fmt)
+        counts = add_launches(f"the cora {fmt} step", needed)
+        cpu = cora_step(torch.device("cpu"), fmt)
+        grad_err = max(rel_l1(gpu["grads"][k], v)
+                       for k, v in cpu["grads"].items())
+        loss_err = abs(gpu["loss"] - cpu["loss"]) / abs(cpu["loss"])
+        check(loss_err <= 1e-4 and grad_err <= 1e-3
+              and gpu["nfe"] == cpu["nfe"],
+              f"cora {fmt} step, card vs CPU: loss {loss_err}, gradients "
+              f"{grad_err}, NFE {gpu['nfe']} vs {cpu['nfe']}")
+        steps16[fmt] = dict(loss_rel_err=loss_err, max_grad_rel_l1=grad_err,
+                            nfe=gpu["nfe"], ms=gpu["ms"], cpu_ms=cpu["ms"],
+                            launches={k: v for k, v in counts.items() if v})
+
+    # (c) the showcase: the recipe of results/showcase_cora_100.json
+    # (README.md:64) through the driver, in process
+    recipe = ["--model", "differential_gcn", "--iter", "1", "--dropout", "0",
+              "--hidden", "256", "--T", "1.2", "--time_tick", "16",
+              "--epochs", "100", "--weight_decay", "0.024", "--no_control",
+              "--method", "dopri5", "--alpha", "0", "--fastmode",
+              "--data_dir", os.path.join(root, "data")]
+
+    def driver(what, needed, *argv):
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = dgnn.run(dgnn.build_parser().parse_args(list(argv)))
+        torch.cuda.synchronize()
+        counts = add_launches(what, needed)
+        check(np.isfinite(out["rows"][-1][1]), f"{what}: test loss "
+              f"{out['rows'][-1][1]}")
+        return dict(test_acc=out["rows"][-1][2], test_loss=out["rows"][-1][1],
+                    seconds=time.perf_counter() - t0,
+                    first_loss=out["train_losses"][0],
+                    last_loss=out["train_losses"][-1],
+                    max_steps=out.get("max_steps"),
+                    launches={k: v for k, v in counts.items() if v}), out
+
+    # the driver on its own defaults (hidden 16, dropout 0.5, T 2, 200
+    # epochs): not the showcase's recipe, so no accuracy bar
+    rec, out = driver("the cora driver on its defaults", [], "--dataset",
+                      "cora", "--model", "differential_gcn", "--seed", "0",
+                      "--data_dir", os.path.join(root, "data"))
+    show = {"cora_defaults_seed0": rec}
+    falls(out["train_losses"], "the cora driver on its defaults")
+    for seed in (0, 1, 2):
+        show[f"cora_dense_seed{seed}"], _ = driver(
+            f"the cora showcase, seed {seed}", [], "--dataset", "cora",
+            *recipe, "--seed", str(seed))
+    accs = [show[f"cora_dense_seed{s}"]["test_acc"] for s in (0, 1, 2)]
+    mean_acc = float(np.mean(accs))
+    # results/showcase_cora_100.json: mean 0.8317, std 0.0098 over 100
+    # models (a TPU run: the bar is its mean ± 3 standard errors of 3)
+    band = (0.8317 - 3 * 0.0098 / np.sqrt(3), 0.8317 + 3 * 0.0098 / np.sqrt(3))
+    check(band[0] <= mean_acc <= band[1], f"cora showcase mean accuracy "
+          f"{mean_acc} ({accs}) outside {band}")
+    for label, extra, needed in (("cora_coo_seed0", ["--sparse"],
+                                  ["coo_spmv"]),
+                                 ("cora_bsr_seed0", ["--sparse",
+                                                     "--sparse_format",
+                                                     "bsr"], ["bsr_spmm"])):
+        show[label], out = driver(f"the cora showcase {label}", needed,
+                                  "--dataset", "cora", *recipe, "--seed",
+                                  "0", *extra)
+        falls(out["train_losses"], f"the cora showcase {label}")
+    show["citeseer_dense_seed0"], _ = driver(
+        "the citeseer showcase", [], "--dataset", "citeseer", *recipe,
+        "--seed", "0")
+    cite_band = (0.7065 - 3 * 0.0061, 0.7065 + 3 * 0.0061)
+    check(cite_band[0] <= show["citeseer_dense_seed0"]["test_acc"]
+          <= cite_band[1], f"citeseer showcase accuracy "
+          f"{show['citeseer_dense_seed0']['test_acc']} outside {cite_band}")
+
+    # (d) the GCN zoo through the driver on cora with --sparse (K1 at 7,
+    # 16 and 1433 inside training); DeepGCN3 dense, 50 epochs
+    zoo = {}
+    base = ["--dataset", "cora", "--seed", "0", "--data_dir",
+            os.path.join(root, "data")]
+    for name in ZOO:
+        extra = (["--epochs", "50", "-nhl", "2"] if name == "DeepGCN3" else
+                 ["--sparse", "--epochs", "200"]
+                 + ([] if name in ("GCN", "DeepGCN2") else ["-nhl", "2"])
+                 + (["--Euler"] if name == "resGCN" else []))
+        zoo[name], out = driver(
+            f"the {name} driver", [] if name == "DeepGCN3" else ["coo_spmv"],
+            "--model", name, *base, *extra)
+        falls(out["train_losses"], f"the {name} driver")
+    t0 = time.perf_counter()
+    gcn_cpu = dgnn.run(dgnn.build_parser().parse_args(
+        ["--model", "GCN", *base, "--sparse", "--epochs", "200",
+         "--platform", "cpu"]))
+    zoo["GCN"]["cpu_test_acc"] = gcn_cpu["rows"][-1][2]
+    zoo["GCN"]["cpu_seconds"] = time.perf_counter() - t0
+    check(abs(zoo["GCN"]["test_acc"] - zoo["GCN"]["cpu_test_acc"]) <= 0.02,
+          f"GCN on the card {zoo['GCN']['test_acc']} against the CPU "
+          f"{zoo['GCN']['cpu_test_acc']}")
+    print("[16] classification (card: " + smi + "): " + json.dumps({
+        "k1_citation": k1_cite, "k3_cora": k3_cite,
+        "cora_step_card_vs_cpu": steps16, "showcase": show,
+        "cora_mean_acc_seeds_0_2": mean_acc, "cora_band": band,
+        "citeseer_band": cite_band, "zoo": zoo,
+        "seconds": time.perf_counter() - t16}))
+    torch.cuda.empty_cache()
+
     # ---- p. where the time goes
     for label, srv, x0 in (("grid400", server, fx["x0"]),
                            ("200k", server_big, requests[0])):
@@ -1565,6 +1762,54 @@ def main() -> None:
             dict(profile_call(step, f"train_{label}", root),
                  launches_per_step=step_launches[label])))
 
+    # one steady cora differential_gcn epoch (the driver's defaults:
+    # hidden 16, dropout 0.5, T 2, tick 5, rtol = atol = 0.1; train step,
+    # eval re-forward, the five statistics read once) on each format
+    epoch_launches = {}
+    x_c = torch.as_tensor(cora.features, device=dev)
+    lab_c = torch.as_tensor(cora.labels, device=dev).long()
+    idx_tr = torch.as_tensor(cora.idx_train, device=dev).long()
+    idx_va = torch.as_tensor(cora.idx_val, device=dev).long()
+    vt_c = np.linspace(0, 2.0, 5).astype(np.float32)
+    for fmt in ("dense", "coo", "bsr"):
+        op_c = as_operator(cora.operator, sparse=fmt != "dense", format=fmt,
+                           device=dev)
+        model = init_ndcn(torch.Generator().manual_seed(0), 1433, 16, 7,
+                          encoder_layers=1, device=dev)
+        kw = dict(rtol=0.1, atol=0.1, method="dopri5", terminal=True)
+        ms_c = probe_step_budget(
+            lambda: ndcn_forward(model, op_c, vt_c, x_c, nondiff=True,
+                                 max_steps=1 << 14, **kw)[1],
+            floor=8, headroom=2.5, slack=4, quantum=4)
+        opt = torch_adam(model.parameters(), 0.01, 5e-4)
+        gen = torch.Generator().manual_seed(1)
+
+        def epoch():
+            opt.zero_grad(set_to_none=True)
+            out, _ = ndcn_forward(model, op_c, vt_c, x_c, dropout=0.5,
+                                  rng=gen, max_steps=ms_c, **kw)
+            loss = cross_entropy(out[idx_tr], lab_c[idx_tr])
+            loss.backward()
+            opt.step()
+            with torch.no_grad():
+                ev, _ = ndcn_forward(model, op_c, vt_c, x_c, max_steps=ms_c,
+                                     **kw)
+                return torch.stack([
+                    loss.detach(), cross_entropy(ev[idx_tr], lab_c[idx_tr]),
+                    (ev[idx_tr].argmax(-1) == lab_c[idx_tr]).float().mean(),
+                    cross_entropy(ev[idx_va], lab_c[idx_va]),
+                    (ev[idx_va].argmax(-1) == lab_c[idx_va]).float().mean(),
+                ]).cpu()
+
+        epoch()
+        kernels.reset_launch_counts()
+        epoch()
+        torch.cuda.synchronize()
+        epoch_launches[fmt] = kernels.launch_counts()
+        print(f"[p] cora differential_gcn epoch {fmt}: " + json.dumps(
+            dict(profile_call(epoch, f"epoch_cora_{fmt}", root),
+                 max_steps=ms_c, launches_per_epoch=epoch_launches[fmt])))
+
     def per_step(name):
         """The most launches of ``name`` in one steady train step of any
         setting above, and that setting (0 and None for a tool's kernel)."""
@@ -1572,6 +1817,19 @@ def main() -> None:
         count = step_launches[label][name]
         return {"launches_per_step": count,
                 "step_of": label if count else None}
+
+    def per_epoch(name):
+        """Launches of ``name`` in one steady cora epoch, by format."""
+        return {fmt: c[name] for fmt, c in epoch_launches.items()}
+
+    def citation_cases(cases):
+        """[16] a's cases of one kernel: each shape's forward and transpose
+        times, bound and library time."""
+        keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms", "library_device_ms")
+        return {label: dict(n=c["n"], d=c["d"], **{
+            part: {k: c[part].get(k) for k in keys}
+            for part in ("fwd", "transpose")}) for label, c in cases.items()}
 
     # ---- records
     def entry(name, src, replaces, fwd, bwd=None, **extra):
@@ -1642,11 +1900,15 @@ def main() -> None:
                **bound(probe["rows"] * (2 * probe["k"] * 4 + 4), 0))
     K1 = "ndcn_tpu/kernels/coo_spmv.py:159"
     print(json.dumps({"kernels": [
-        entry("coo_spmv", "coo_spmv.cu", K1, k1_main, k1t),
+        entry("coo_spmv", "coo_spmv.cu", K1, k1_main, k1t,
+              citation=citation_cases(k1_cite),
+              launches_per_cora_epoch=per_epoch("coo_spmv")),
         entry("fused_rhs", "fused_rhs.cu", "ndcn_tpu/kernels/fused_rhs.py:30",
               k2_main, k2b),
         entry("bsr_spmm", "bsr_spmm.cu", "ndcn_tpu/kernels/bsr_spmm.py:91",
-              k3["grid400_d20"]["fwd"], k3["grid400_d20"]["transpose"]),
+              k3["grid400_d20"]["fwd"], k3["grid400_d20"]["transpose"],
+              citation=citation_cases(k3_cite),
+              launches_per_cora_epoch=per_epoch("bsr_spmm")),
         entry("bsr_fused_rhs", "bsr_spmm.cu",
               "ndcn_tpu/kernels/bsr_spmm.py:176", k4["grid400_d20"]["fwd"],
               k4["grid400_d20"]["bwd"]),

@@ -5,8 +5,9 @@ pull in jax): the 8-neighbor grid, the networkx graph zoo (Erdős–Rényi,
 Barabási–Albert, Newman–Watts–Strogatz, random-partition communities) with
 the community / degree node reordering, plus ``build_sparse_graph`` from
 ``examples/large_graph.py``. Same seeds, same graphs: the tests hold them
-bit-equal to the JAX package's. networkx is imported only by the kinds that
-need it; the grid and the sparse builders run without it.
+bit-equal to the JAX package's; and ``girvan_newman_labels``. networkx is
+imported only by the kinds and the labelling that need it; the grid and the
+sparse builders run without it.
 """
 
 from __future__ import annotations
@@ -102,6 +103,29 @@ def build_network(kind: str, n: int, seed: int = 0,
         g = nx.random_partition_graph([n1, n2, n3, n4], 0.25, 0.01, seed=seed)
     g = reorder_nodes(g, layout)
     return np.asarray(nx.to_numpy_array(g), dtype=np.float32)
+
+
+def girvan_newman_labels(adj: np.ndarray, n_splits: int = 10) -> np.ndarray:
+    """Community labels by Girvan-Newman edge-betweenness splitting (the
+    reference's relabelling of citation graphs, a side experiment).
+
+    Takes ``n_splits`` steps of the divisive hierarchy and labels each node
+    by its community's index (1-based, as the reference). Needs networkx."""
+    nx = _networkx()
+    g = nx.from_numpy_array(np.asarray(adj))
+    gen = nx.algorithms.community.girvan_newman(g)
+    communities = None
+    for _ in range(n_splits):
+        try:
+            communities = next(gen)
+        except StopIteration:
+            break
+    labels = np.zeros(g.number_of_nodes(), dtype=np.int32)
+    if communities is not None:
+        for i, block in enumerate(communities, start=1):
+            for node in block:
+                labels[node] = i
+    return labels
 
 
 def grid_block_initial_value(side: int) -> np.ndarray:

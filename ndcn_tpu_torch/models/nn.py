@@ -34,6 +34,22 @@ def linear_apply(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def dropout(generator: torch.Generator, x: torch.Tensor, rate: float,
+            deterministic: bool) -> torch.Tensor:
+    """Inverted dropout, as the JAX package's ``dropout``: rate 0 or
+    ``deterministic`` is the identity (no draw). The mask is drawn from
+    ``generator`` on its own device (the CPU for the drivers' generators)
+    and moved to x's, so a card run and a CPU run at one seed drop the same
+    elements."""
+    if deterministic or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    u = torch.rand(tuple(x.shape), generator=generator,
+                   device=generator.device)
+    return torch.where((u < keep).to(x.device), x / keep,
+                       torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 def dropout_mask(generator: torch.Generator, shape, rate: float,
                  dtype=torch.float32, device=None) -> torch.Tensor:
     """A fixed inverted-dropout mask, drawn once per forward from

@@ -32,7 +32,15 @@ def probe_step_budget(solve_nondiff: Callable[[], "object"],
 
     The defaults are conservative; a caller that recovers from exhaustion
     (``train.elastic.ElasticBudget``) passes snug values, as the dynamics
-    heat experiment's ``floor=8, headroom=2.5, slack=4, quantum=4``."""
+    experiments and the classification driver do (``floor=8,
+    headroom=2.5, slack=4, quantum=4``, the JAX dgnn driver's).
+
+    The budget is a count of step attempts, a property of the matrix and
+    the tolerances, not of the operator's layout or the device. The JAX
+    driver probes on the CPU, and with COO where the run asks for BSR (its
+    interpret-mode Pallas BSR is slow there); the port's drivers probe on
+    the run's own device with the run's own operator, BSR included, since
+    both paths count the same attempts."""
     stats = solve_nondiff()
     attempts = int(stats.n_accepted) + int(stats.n_rejected)
     budget = max(floor, int(headroom * attempts) + slack)

@@ -5,8 +5,9 @@ latest-k retention and a one-call resume. The payload is the JAX package's:
 a pickle of {"step", "params", "opt_state", "extra"}, every array a numpy
 array:
 
-- ``params`` is the JAX package's layer dict (``convert.params_to_jax``), so
-  a checkpoint written by either package loads its weights into the other;
+- ``params`` is the JAX package's parameter tree (``convert.model_to_jax``:
+  NDCN's layer dict, or a zoo model's nested tree), so a checkpoint
+  written by either package loads its weights into the other;
 - ``opt_state`` is ``torch.optim.Adam``'s ``state_dict`` with its tensors
   as numpy arrays (a JAX-written checkpoint's optax state is not read: the
   optimizer then starts afresh);
@@ -28,7 +29,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ndcn_tpu_torch.convert import params_from_jax, params_to_jax
+from ndcn_tpu_torch.convert import model_from_jax, model_to_jax
 from ndcn_tpu_torch.utils.io import atomic_write
 
 _CKPT_RE = re.compile(r"ckpt_(\d+)\.pkl$")
@@ -63,7 +64,7 @@ def save_checkpoint(ckpt_dir: str, step: int, model,
     os.makedirs(ckpt_dir, exist_ok=True)
     payload = {
         "step": int(step),
-        "params": params_to_jax(model),
+        "params": model_to_jax(model),
         "opt_state": (_to_numpy(optimizer.state_dict())
                       if optimizer is not None else None),
         "extra": _to_numpy(extra or {}),
@@ -129,7 +130,7 @@ def restore_with_extra(ckpt_dir: Optional[str], model,
     if path is None:
         return 0, {}
     payload = load_checkpoint(path)
-    params_from_jax(payload["params"], model)
+    model_from_jax(payload["params"], model)
     opt_state = payload.get("opt_state")
     if optimizer is not None and isinstance(opt_state, dict) \
             and set(opt_state) == {"state", "param_groups"}:

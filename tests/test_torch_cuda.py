@@ -1032,3 +1032,118 @@ def test_new_methods_serve_on_cuda_match_cpu(cuda_device, method):
         **dict(kw, fused=False))
     bar = max(1e-4, 2 * _rel_l1(out_cpu.double(), out64))
     assert _rel_l1(out.cpu(), out_cpu) <= bar
+
+
+# ---------------------------------------------------- the citation graphs
+
+
+@pytest.fixture(scope="module")
+def cora_operator():
+    from ndcn_tpu_torch.data import load_planetoid
+    return load_planetoid("cora", alpha=0.5, data_dir=os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data"))
+
+
+@pytest.mark.parametrize("d", [6, 7, 16, 1433])
+def test_k1_cuda_at_the_citation_widths(cuda_device, cora_operator, d):
+    """K1 and K1ᵀ (over the transpose CSR, and through autograd) on cora's
+    operator at the classes' widths (7; citeseer's 6), the hidden width and
+    the raw features' 1433 (4-byte loads, rows of 45 lane segments): within
+    1e-5 of the plain version, two calls bit-equal."""
+    op = from_scipy_coo(cora_operator.operator, device=cuda_device)
+    rng = np.random.RandomState(d)
+    x = torch.as_tensor(rng.randn(op.n, d).astype(np.float32),
+                        device=cuda_device).requires_grad_()
+    g = torch.as_tensor(rng.randn(op.n, d).astype(np.float32),
+                        device=cuda_device)
+    before = coo_spmv.LAUNCHES
+    y = coo_spmv.coo_spmv(op, x)
+    (dx,) = torch.autograd.grad((y * g).sum(), x)
+    torch.cuda.synchronize()
+    assert coo_spmv.LAUNCHES == before + 2
+    t = op.transpose()
+    for got, o, v in ((y.detach(), op, x.detach()), (dx, t, g)):
+        assert _max_rel(got, coo_spmv.coo_spmv_plain(o.rows, o.cols, o.vals,
+                                                     v, o.n)) <= 1e-5
+        assert torch.equal(got, coo_spmv.coo_spmv(o, v))
+
+
+@pytest.mark.parametrize("d", [7, 16, 1433])
+def test_k3_cuda_at_the_citation_widths(cuda_device, cora_operator, d):
+    """K3 and K3ᵀ on cora's BSR operator (22 × 22 row blocks) at 7 (a slab
+    of 7 columns), 16 and 1433 (slabs of 120, the last 113): within 1e-5 of
+    the plain version and 2e-6 of the emulation of the split product,
+    bit-equal on a repeat."""
+    op = as_operator(cora_operator.operator, sparse=True, format="bsr",
+                     device=cuda_device)
+    rng = np.random.RandomState(d)
+    x = torch.as_tensor(rng.randn(op.n, d).astype(np.float32),
+                        device=cuda_device).requires_grad_()
+    g = torch.as_tensor(rng.randn(op.n, d).astype(np.float32),
+                        device=cuda_device)
+    before = bsr_spmm.SPMM_LAUNCHES
+    y = bsr_spmm.bsr_spmm(op.fwd, op.bwd, x)
+    (dx,) = torch.autograd.grad((y * g).sum(), x)
+    torch.cuda.synchronize()
+    assert bsr_spmm.SPMM_LAUNCHES == before + 2
+    for got, mat, at, v in ((y.detach(), op.fwd, op.bwd, x.detach()),
+                            (dx, op.bwd, op.fwd, g)):
+        assert _max_rel(got, bsr_spmm.bsr_spmm_plain(mat, v)) <= 1e-5
+        emu = bsr_spmm.bsr_spmm_split_plain(mat, v)
+        assert float((got - emu).abs().max()) <= 2e-6 * float(emu.abs().max())
+        assert torch.equal(got, bsr_spmm.bsr_spmm(mat, at, v))
+
+
+@pytest.mark.parametrize("model_name,fmt,needed", [
+    ("GCN", "coo", "coo_spmv"), ("GCN", "bsr", "bsr_spmm"),
+    ("differential_gcn", "dense", None),
+    ("differential_gcn", "coo", "coo_spmv"),
+    ("differential_gcn", "bsr", "bsr_spmm")])
+def test_classification_train_step_on_cuda_matches_cpu(cuda_device,
+                                                       cora_operator,
+                                                       model_name, fmt,
+                                                       needed):
+    """One cora train step (weights from CPU generator seed 0, dropout 0,
+    rtol = atol = 0.1) on the card against the CPU: the loss within 1e-4,
+    every gradient within 1e-3 rel-L1, the NFE equal."""
+    from ndcn_tpu_torch.models.gcn_zoo import GCN
+    from ndcn_tpu_torch.train.losses import cross_entropy
+
+    data = cora_operator
+    vt = np.linspace(0, 2.0, 5).astype(np.float32)
+
+    def step(dev):
+        g = torch.Generator().manual_seed(0)
+        if model_name == "GCN":
+            model = GCN(1433, 16, 7, generator=g).to(dev)
+        else:
+            model = init_ndcn(g, 1433, 16, 7, encoder_layers=1, device=dev)
+        op = as_operator(data.operator, sparse=fmt != "dense", format=fmt,
+                         device=dev)
+        x = torch.as_tensor(data.features, device=dev)
+        idx = torch.as_tensor(data.idx_train, device=dev).long()
+        nfe = None
+        if model_name == "GCN":
+            logits = model(op, x)
+        else:
+            logits, stats = ndcn_forward(model, op, vt, x, rtol=0.1,
+                                         atol=0.1, terminal=True,
+                                         max_steps=64)
+            assert stats.success
+            nfe = stats.nfe
+        loss = cross_entropy(logits[idx], torch.as_tensor(
+            data.labels, device=dev)[idx])
+        loss.backward()
+        return (float(loss), nfe,
+                {n: p.grad.cpu() for n, p in model.named_parameters()})
+
+    kernels.reset_launch_counts()
+    loss_gpu, nfe_gpu, grads_gpu = step(cuda_device)
+    torch.cuda.synchronize()
+    if needed is not None:
+        assert kernels.launch_counts()[needed] > 0
+    loss_cpu, nfe_cpu, grads_cpu = step("cpu")
+    assert abs(loss_gpu - loss_cpu) <= 1e-4 * abs(loss_cpu)
+    assert nfe_gpu == nfe_cpu
+    for name, want in grads_cpu.items():
+        assert _rel_l1(grads_gpu[name], want) <= 1e-3, name
