@@ -140,17 +140,43 @@ Phases, one line each:
      (DeepGCN3 dense, 50), the train loss falling, GCN's test accuracy
      within 2 points of the same run with ``--platform cpu`` (the same
      dropout masks); (e) the phase's own wall time.
+ 17. the temporal-GNN baselines, ``report``, the Lotka-Volterra demo and
+     the T × alpha sweep: (a) K1 and K1ᵀ on the grid400 Kipf operator (COO)
+     and K3 and K3ᵀ on its BSR form at d = 5, the baselines' graph width,
+     with [3] / [7]'s bars, bit-equal repeats, times, bounds and library
+     calls; (b) one train step of lstm_gnn, gru_gnn and rnn_gnn (weights
+     from CPU generator seed 0) on the heat driver's data (grid400, T 5,
+     tick 100, irregular, seed 0) on dense, COO and BSR, card against CPU:
+     loss within 1e-4, gradients within 1e-3 rel-L1, 79 K1 (K3) launches
+     forward and 79 over the transpose on COO (BSR), none on dense, with
+     the per-step ms; (c) the heat driver for 200 iterations with lstm_gnn
+     on COO, gru_gnn on BSR and rnn_gnn dense (the train loss falls, the
+     final test error printed), and the lstm_gnn run again with ``--dump
+     --profile_dir`` (and ``--viz`` where matplotlib imports; where it does
+     not, the phase says so and makes no such run) under
+     build/smoke_temporal: its losses within 1e-6 of the plain run's, the
+     dump read back by ``report.results.load_results`` and
+     ``experiments.summarize``, the trace written; (d) ``experiments.lv``
+     for 200 iterations with rk4 and with dopri5 ``--adjoint`` (the mean of
+     the last 20 train losses under that of the first 20: the batches are
+     random), its first 20 train losses within 1e-4 of the same run on the
+     CPU; (e) ``experiments.sweep_t_alpha`` on cora with
+     the showcase recipe at seed 0, dense, T in {0.5, 1.2} × alpha in
+     {0.0, 1.0}, then again with ``--resume``, which must rerun no cell;
+     each cell beside ``results/t_alpha_grid_cora.csv``'s (a TPU record:
+     no bar); (f) the phase's own wall time.
   p. where the time goes: one request per serving setting and one train step
      per training setting (the 1M feature-major step included), one cora
      differential_gcn epoch (the driver's defaults, train and eval) on
-     dense, COO and BSR, kernels against plain versions end to end (plain,
+     dense, COO and BSR, one lstm_gnn train step on the grid400 Kipf
+     operator (COO), kernels against plain versions end to end (plain,
      kernel, kernel, plain), a torch.profiler breakdown (traces to
      build/traces/), and each kernel's launches in that one steady step or
      epoch.
 Then the kernels' JSON record, and last the device JSON line. Launch counts
 are zeroed just before each main-path phase (5-6, 8, 9, 10, each run of 12,
-13, 14, each part of 15 and each run of 16) and read just after its GPU
-work; the record's launches are their sums.
+13, 14, each part of 15 and each run of 16 and 17) and read just after its
+GPU work; the record's launches are their sums.
 
 ``ms`` is the median CUDA-event time of one call on an idle card, as in
 every earlier record; every kernel also gives ``device_ms``, the time per
@@ -312,7 +338,8 @@ def main() -> None:
                                                      ground_truth,
                                                      heat_ground_truth, run)
     from ndcn_tpu_torch.graph.generators import (build_network,
-                                                 build_sparse_graph)
+                                                 build_sparse_graph,
+                                                 grid_block_initial_value)
     from ndcn_tpu_torch.graph.operators import (normalized_laplacian,
                                                 normalized_laplacian_sparse)
     from ndcn_tpu_torch.graph.sparse import (as_operator, from_dense,
@@ -1712,6 +1739,223 @@ def main() -> None:
         "seconds": time.perf_counter() - t16}))
     torch.cuda.empty_cache()
 
+    # ---- 17. the temporal-GNN baselines, report/, the Lotka-Volterra demo
+    # and the T x alpha sweep
+    t17 = time.perf_counter()
+    from ndcn_tpu_torch.experiments import lv, summarize, sweep_t_alpha
+    from ndcn_tpu_torch.graph.operators import laplacian_dense, zipf_smoothing
+    from ndcn_tpu_torch.models import init_temporal_gcn, temporal_gcn_forward
+    from ndcn_tpu_torch.report import results as results_lib
+
+    # (a) K1 / K1ᵀ and K3 / K3ᵀ at d = 5 on the grid400 Kipf operator
+    adj400 = build_network("grid", 400)
+    kipf400 = zipf_smoothing(adj400)
+    k1_temporal = {"grid400_kipf_d5": k1_both(sp.csr_matrix(kipf400), 5, 70)}
+    k3_temporal = {"grid400_kipf_d5": k3_case(kipf400, 5, 71)}
+
+    # (b) one train step of each baseline on the heat driver's data (grid400,
+    # T 5, tick 100, irregular, seed 0), card against CPU
+    hs = sample_times(5.0, 100, "irregular", seed=0)
+    sol400, _ = heat_ground_truth(
+        as_operator(laplacian_dense(adj400)),
+        torch.as_tensor(grid_block_initial_value(20)
+                        .astype(np.float32)), hs.t)
+    y_train = sol400[..., 0].T[:, hs.id_train].contiguous()
+    n_steps = y_train.shape[1] - 1          # teacher steps: 79
+
+    def temporal_step(rnn_type, fmt, device, split_counts=False):
+        model = init_temporal_gcn(torch.Generator().manual_seed(0), 1, 5, 400,
+                                  10, rnn_type, device=device)
+        op = as_operator(kipf400, sparse=fmt != "dense", format=fmt,
+                         device=device)
+        y = y_train.to(device)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pred = temporal_gcn_forward(model, op, y[:, :-1], rnn_type)
+        loss = l1_loss(pred, y[:, 1:])
+        fwd = kernels.launch_counts() if split_counts else None
+        loss.backward()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        return dict(loss=float(loss.detach()), fwd_counts=fwd,
+                    ms=(time.perf_counter() - t0) * 1e3,
+                    grads={n: p.grad.cpu() for n, p in
+                           model.named_parameters()})
+
+    steps17 = {}
+    for rnn_type in ("lstm", "gru", "rnn"):
+        for fmt, needed in (("dense", None), ("coo", "coo_spmv"),
+                            ("bsr", "bsr_spmm")):
+            temporal_step(rnn_type, fmt, dev)                  # warm
+            ms = [temporal_step(rnn_type, fmt, dev)["ms"] for _ in range(3)]
+            kernels.reset_launch_counts()
+            gpu = temporal_step(rnn_type, fmt, dev, split_counts=True)
+            counts = add_launches(f"the {rnn_type}_gnn {fmt} step",
+                                  [needed] if needed else [])
+            cpu = temporal_step(rnn_type, fmt, torch.device("cpu"))
+            loss_err = abs(gpu["loss"] - cpu["loss"]) / abs(cpu["loss"])
+            grad_err = max(rel_l1(gpu["grads"][k], v)
+                           for k, v in cpu["grads"].items())
+            check(loss_err <= 1e-4 and grad_err <= 1e-3,
+                  f"{rnn_type}_gnn {fmt} step, card vs CPU: loss "
+                  f"{loss_err}, gradients {grad_err}")
+            sparse_l = {k: counts[k] for k in ("coo_spmv", "bsr_spmm")}
+            fwd_l = {k: gpu["fwd_counts"][k] for k in sparse_l}
+            want = {k: (2 * n_steps if k == needed else 0) for k in sparse_l}
+            check(sparse_l == want and (needed is None
+                                        or fwd_l[needed] == n_steps),
+                  f"{rnn_type}_gnn {fmt} step: launches {sparse_l} "
+                  f"(forward {fwd_l}), expected {want} with {n_steps} "
+                  f"forward")
+            steps17[f"{rnn_type}_{fmt}"] = dict(
+                loss_rel_err=loss_err, max_grad_rel_l1=grad_err,
+                step_ms=ms + [gpu["ms"]], cpu_ms=cpu["ms"],
+                sparse_launches=sparse_l, forward_launches=fwd_l,
+                transposed_launches={k: sparse_l[k] - fwd_l[k]
+                                     for k in sparse_l},
+                launches={k: v for k, v in counts.items() if v})
+
+    # (c) the heat driver, 200 iterations of each baseline; the lstm_gnn
+    # run again with --dump and --profile_dir (and --viz where matplotlib
+    # imports): its losses within 1e-6 of the plain run's
+    drv17 = {}
+    runs17 = {}
+    for label, extra, needed in (
+            ("lstm_gnn_coo", ["--sparse", "--sparse_format", "coo"],
+             ["coo_spmv"]),
+            ("gru_gnn_bsr", ["--sparse", "--sparse_format", "bsr"],
+             ["bsr_spmm"]),
+            ("rnn_gnn_dense", [], [])):
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        runs17[label] = out = heat_experiment(
+            "--baseline", label.rsplit("_", 1)[0], *extra, "--niters", "200",
+            "--test_freq", "20")
+        counts = add_launches(f"the heat driver {label}", needed)
+        falls(out["train_losses"], f"the heat driver {label}")
+        drv17[label] = dict(train_losses=out["train_losses"],
+                            final=out["final"], n_params=out["n_params"],
+                            seconds=time.perf_counter() - t0,
+                            launches={k: v for k, v in counts.items() if v})
+    try:
+        import matplotlib  # noqa: F401
+        viz_flag = ["--viz"]
+    except ImportError:
+        viz_flag = []
+        print("[17] matplotlib does not import: the --viz "
+              "run is not made")
+    out_dir = os.path.join(root, "build", "smoke_temporal")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    kernels.reset_launch_counts()
+    cwd = os.getcwd()
+    os.makedirs(out_dir)
+    os.chdir(out_dir)          # --viz writes figure/ under the cwd
+    try:
+        t0 = time.perf_counter()
+        dumped = heat_experiment(
+            "--baseline", "lstm_gnn", "--sparse", "--sparse_format", "coo",
+            "--niters", "200", "--test_freq", "20", "--dump",
+            "--results_dir", os.path.join(out_dir, "results"),
+            "--profile_dir", os.path.join(out_dir, "trace"), *viz_flag)
+        dump_s = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    add_launches("the heat driver lstm_gnn with --dump", ["coo_spmv"])
+    plain_losses = runs17["lstm_gnn_coo"]["train_losses"]
+    loss_gap = max(abs(a - b) for a, b in zip(dumped["train_losses"],
+                                              plain_losses))
+    check(len(dumped["train_losses"]) == len(plain_losses)
+          and loss_gap <= 1e-6, f"--dump --profile_dir moved the losses: "
+          f"{dumped['train_losses']} vs {plain_losses}")
+    dump = results_lib.load_results(dumped["results_path"])
+    check(dump["v_iter"] == list(range(20, 201, 20))
+          and dump["abs_error"][-1] == dumped["final"]["abs_error"]
+          and set(dump["model_state_dict"][-1]) == {"gc", "cell", "out"},
+          f"the dump does not read back: {dump['v_iter']}")
+    summary17 = summarize.main(["--dir", os.path.dirname(
+        dumped["results_path"]), "--type", "lstm_gnn"])
+    check(summary17["n_runs"] == 1 and summary17["abs_error_mean"]
+          == dumped["final"]["abs_error"], f"summarize: {summary17}")
+    traces = os.listdir(os.path.join(out_dir, "trace"))
+    check(len(traces) == 1 and os.path.getsize(
+        os.path.join(out_dir, "trace", traces[0])) > 0,
+        f"--profile_dir wrote {traces}")
+    drv17["lstm_gnn_coo_dump_profile"] = dict(
+        max_loss_gap=loss_gap, seconds=dump_s, trace=traces[0],
+        viz=bool(viz_flag), summary=summary17,
+        figures=(sorted(os.listdir(os.path.join(out_dir, "figure")))
+                 if viz_flag else None))
+
+    # (d) the Lotka-Volterra demo: rk4, then dopri5 with the adjoint; the
+    # first 20 iterations' losses against the same run on the CPU
+    lv17 = {}
+    for label, extra in (("rk4", ["--method", "rk4"]),
+                         ("dopri5_adjoint", ["--method", "dopri5",
+                                             "--adjoint"])):
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = lv.main(["--niters", "200", *extra])
+        gpu_s = time.perf_counter() - t0
+        add_launches(f"the LV demo {label}", [])
+        check(out["device"].startswith("cuda"), f"LV {label} ran on "
+              f"{out['device']}")
+        # the batches are random: the mean of the first 20 train losses
+        # against that of the last 20
+        tl = out["train_losses"]
+        falls([float(np.mean(tl[:20])), float(np.mean(tl[-20:]))],
+              f"the LV demo {label}")
+        t0 = time.perf_counter()
+        cpu = lv.main(["--niters", "20", "--platform", "cpu", *extra])
+        cpu_s = time.perf_counter() - t0
+        gap = max(abs(a - b) / abs(b) for a, b in
+                  zip(out["train_losses"][:20], cpu["train_losses"]))
+        check(gap <= 1e-4, f"LV {label}: the first 20 losses on the card "
+              f"part from the CPU's by {gap}")
+        lv17[label] = dict(eval_losses=out["eval_losses"],
+                           first_train_losses=out["train_losses"][:5],
+                           last_train_loss=out["train_losses"][-1],
+                           max_rel_gap_first20_vs_cpu=gap, seconds=gpu_s,
+                           cpu_seconds_20=cpu_s)
+
+    # (e) the T x alpha sweep on cora, the showcase recipe, seed 0, dense;
+    # then --resume, which must rerun no cell
+    grid_csv = os.path.join(out_dir, "t_alpha_cora.csv")
+    sweep_args = ["--dataset", "cora", *recipe, "--seed", "0",
+                  "--T_values", "0.5", "1.2", "--alpha_values", "0.0", "1.0",
+                  "--out_csv", grid_csv]
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    grid = sweep_t_alpha.main(sweep_args)
+    sweep_s = time.perf_counter() - t0
+    add_launches("the T x alpha sweep", [])
+    calls, dgnn_run = [], dgnn.run
+    dgnn.run = lambda a: calls.append(a) or dgnn_run(a)
+    try:
+        again = sweep_t_alpha.main(sweep_args + ["--resume"])
+    finally:
+        dgnn.run = dgnn_run
+    check(not calls and np.allclose(again, grid, atol=1e-6),
+          f"--resume reran {len(calls)} cells")
+    with open(os.path.join(root, "results", "t_alpha_grid_cora.csv")) as f:
+        rec_rows = [line.strip().split(",") for line in f]
+    rec_alpha = [float(a) for a in rec_rows[0][1:]]
+    record = {float(r[0]): dict(zip(rec_alpha, map(float, r[1:])))
+              for r in rec_rows[1:]}
+    cells = [dict(T=t, alpha=a, acc=float(grid[i, j]),
+                  tpu_record=record.get(t, {}).get(a))
+             for i, t in enumerate((0.5, 1.2))
+             for j, a in enumerate((0.0, 1.0))]
+    print("[17] temporal baselines, report, LV, sweep (card: " + smi + "): "
+          + json.dumps({
+              "k1_grid400_kipf_d5": k1_temporal["grid400_kipf_d5"],
+              "k3_grid400_kipf_d5": k3_temporal["grid400_kipf_d5"],
+              "train_step_card_vs_cpu": steps17, "drivers": drv17,
+              "lv": lv17, "sweep": dict(cells=cells, seconds=sweep_s,
+                                        resumed_cells_rerun=len(calls)),
+              "seconds": time.perf_counter() - t17}))
+    torch.cuda.empty_cache()
+
     # ---- p. where the time goes
     for label, srv, x0 in (("grid400", server, fx["x0"]),
                            ("200k", server_big, requests[0])):
@@ -1810,6 +2054,29 @@ def main() -> None:
             dict(profile_call(epoch, f"epoch_cora_{fmt}", root),
                  max_steps=ms_c, launches_per_epoch=epoch_launches[fmt])))
 
+    # one steady lstm_gnn train step on the grid400 Kipf operator (COO):
+    # 79 teacher steps, each a K1 launch forward and one over Aᵀ backward
+    model_t = init_temporal_gcn(torch.Generator().manual_seed(0), 1, 5, 400,
+                                10, "lstm", device=dev)
+    op_t = as_operator(kipf400, sparse=True, format="coo", device=dev)
+    y_t = y_train.to(dev)
+
+    def temporal_loss():
+        loss = l1_loss(temporal_gcn_forward(model_t, op_t, y_t[:, :-1],
+                                            "lstm"), y_t[:, 1:])
+        return loss, loss
+
+    step_t = make_sgd_step(torch_adam(model_t.parameters(), 0.01, 1e-3),
+                           temporal_loss)
+    step_t()
+    kernels.reset_launch_counts()
+    step_t()
+    torch.cuda.synchronize()
+    temporal_launches = kernels.launch_counts()
+    print("[p] train lstm_gnn grid400 COO: " + json.dumps(
+        dict(profile_call(step_t, "train_lstm_gnn_coo", root),
+             launches_per_step=temporal_launches)))
+
     def per_step(name):
         """The most launches of ``name`` in one steady train step of any
         setting above, and that setting (0 and None for a tool's kernel)."""
@@ -1902,13 +2169,18 @@ def main() -> None:
     print(json.dumps({"kernels": [
         entry("coo_spmv", "coo_spmv.cu", K1, k1_main, k1t,
               citation=citation_cases(k1_cite),
-              launches_per_cora_epoch=per_epoch("coo_spmv")),
+              launches_per_cora_epoch=per_epoch("coo_spmv"),
+              temporal=citation_cases(k1_temporal),
+              launches_per_temporal_step=temporal_launches["coo_spmv"]),
         entry("fused_rhs", "fused_rhs.cu", "ndcn_tpu/kernels/fused_rhs.py:30",
               k2_main, k2b),
         entry("bsr_spmm", "bsr_spmm.cu", "ndcn_tpu/kernels/bsr_spmm.py:91",
               k3["grid400_d20"]["fwd"], k3["grid400_d20"]["transpose"],
               citation=citation_cases(k3_cite),
-              launches_per_cora_epoch=per_epoch("bsr_spmm")),
+              launches_per_cora_epoch=per_epoch("bsr_spmm"),
+              temporal=citation_cases(k3_temporal),
+              launches_per_temporal_step=steps17["lstm_bsr"][
+                  "sparse_launches"]["bsr_spmm"]),
         entry("bsr_fused_rhs", "bsr_spmm.cu",
               "ndcn_tpu/kernels/bsr_spmm.py:176", k4["grid400_d20"]["fwd"],
               k4["grid400_d20"]["bwd"]),

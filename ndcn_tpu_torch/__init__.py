@@ -13,22 +13,31 @@ It mirrors the JAX package's module paths, so each piece has a counterpart:
                   (``odeint_with_stats``), float64 time, the continuous adjoint.
 - ``dynamics``    the heat, mutualistic and gene right-hand sides.
 - ``models``      NDCN as an ``nn.Module`` with the JAX package's forward;
-                  the GCN zoo (``models.gcn_zoo``).
+                  the GCN zoo (``models.gcn_zoo``); the temporal-GNN
+                  baselines (``models.temporal_gcn``) on the recurrent cells
+                  of ``models.nn``.
 - ``train``       time sampling, losses and metrics, Adam, step budgets,
                   elastic rollback,
                   checkpoint / resume, the SpMV roofline.
 - ``experiments`` the dynamics experiments (``python -m
                   ndcn_tpu_torch.experiments.heat``, ``.mutualistic``,
                   ``.gene``), the scale experiment
-                  (``experiments.large_graph``) and node classification
+                  (``experiments.large_graph``), node classification
                   (``experiments.dgnn``, with the legacy fronts
-                  ``train_gcn`` and ``train_resgcn``).
+                  ``train_gcn`` and ``train_resgcn``), the T × alpha sweep
+                  (``experiments.sweep_t_alpha``), the Lotka-Volterra demo
+                  (``experiments.lv``) and ``experiments.summarize``.
+- ``report``      the results dumps both packages read, their aggregation,
+                  the plots (matplotlib imported at the first plot).
+- ``utils``       atomic writes, timers and the
+                  ``torch.profiler`` trace of ``--profile_dir``.
 - ``tools``       the sparse microbenchmarks on the card.
 - ``serve``       the serving entry point ``make_server``.
 - ``convert``     weights across from the JAX package.
 
 The port imports torch, numpy and scipy (and networkx for the four
-networkx graph kinds and ``girvan_newman_labels`` only), never jax.
+networkx graph kinds and ``girvan_newman_labels`` only, matplotlib for the
+plots only), never jax.
 """
 
 __version__ = "0.1.0"

@@ -5,8 +5,10 @@ NDCN: the JAX package keeps a dict of layers ``{"enc1": {"w", "b"}, "enc2",
 in). The GCN zoo: nested dicts with lists (``middle``, ``diag``,
 ``blocks``), linears as above, ``DiagLinear`` as ``{"weight", "bias"}``, and
 plain arrays (a (1,) ``time_step``, ``time_step_list``, ``AW``); each zoo
-model's ``jax_tree`` names its parameters by those keys. The arrays cross as
-numpy.
+model's ``jax_tree`` names its parameters by those keys. The temporal GCN
+(``models.temporal_gcn``): ``{"gc", "cell": {"w_ih", "w_hh", "b_ih",
+"b_hh"}, "out"}``, the cell's arrays in the torch cells' layout on both
+sides; its ``jax_tree`` too. The arrays cross as numpy.
 """
 
 from __future__ import annotations
@@ -183,14 +185,15 @@ def zoo_params_to_jax(model: nn.Module):
 
 
 def model_to_jax(model: nn.Module):
-    """The JAX parameter tree of an NDCN or a zoo model."""
+    """The JAX parameter tree of an NDCN, a zoo model or a temporal GCN."""
     if isinstance(model, NDCN):
         return params_to_jax(model)
     return zoo_params_to_jax(model)
 
 
 def model_from_jax(tree, model: nn.Module) -> nn.Module:
-    """Load a JAX parameter tree into an NDCN or a zoo model, in place."""
+    """Load a JAX parameter tree into an NDCN, a zoo model or a temporal
+    GCN, in place."""
     if isinstance(model, NDCN):
         return params_from_jax(tree, model)
     return zoo_params_from_jax(None, tree, model)

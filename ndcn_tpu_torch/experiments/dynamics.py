@@ -15,15 +15,28 @@ adjoint's gradients), and every ``--network`` with ``--layout`` and
 and through the raw adjacency for mutualistic and gene; mutualistic cannot
 use BSR blocks, so there its physics operator is COO.
 
+The temporal-GNN baselines (``--baseline lstm_gnn / gru_gnn / rnn_gnn``,
+``models.temporal_gcn``) train on the Kipf operator whatever
+``--operator`` says, with 5 graph and 10 recurrent hidden units, one step
+ahead on the observed train grid (no step budget: they solve nothing), and
+are evaluated by rolling out the extrapolation steps after teacher-forcing
+the whole train grid. ``--dump`` records an evaluation at each
+``test_freq`` and dumps the JAX package's results dict (``report.results``)
+under ``--results_dir``; ``--viz`` plots the adjacency and the dynamics
+(``report.viz``); ``--profile_dir`` traces three training steps on copies
+of the model, the optimizer and the dropout generator
+(``utils.timing.profile_trace``), so the run's own losses do not change.
+
 ``--platform gpu`` (the default) trains on the first CUDA device and raises
 without one; ``--platform cpu`` runs the kernels' plain versions. Matrix
 products are pinned to full fp32 on both. What is not ported raises
-``NotImplementedError`` naming its ROADMAP item before any work is done.
+``NotImplementedError`` naming its ROADMAP entry before any work is done.
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import time
 from typing import Any, Dict
 
@@ -113,7 +126,19 @@ def build_parser(name: str) -> argparse.ArgumentParser:
 
 
 def _refuse_unported(dynamics_kind: str, args: argparse.Namespace) -> None:
-    """Raise before any work for what the port does not have yet."""
+    """The JAX driver's own argument errors, then what the port does not
+    have yet, all before any work."""
+    if args.export:
+        if args.baseline in TEMPORAL_BASELINES:
+            raise SystemExit("--export serializes the continuous-time "
+                             "inference forward; use a continuous baseline "
+                             "(ndcn / no_embed / no_control / no_graph)")
+        if args.replicas > 1:
+            raise SystemExit("--export needs the single-model path "
+                             "(drop --replicas)")
+        if args.mesh:
+            raise SystemExit("--export produces a single-device serving "
+                             "artifact (drop --mesh)")
     if args.emission_precision != "f32" and (
             args.method not in ("dopri5", "tsit5") or args.adjoint):
         # the emission options reach the differentiable adaptive solve only;
@@ -123,18 +148,16 @@ def _refuse_unported(dynamics_kind: str, args: argparse.Namespace) -> None:
                          "tsit5, without --adjoint); it would be a silent "
                          "no-op for this configuration")
     refused = [
-        (args.baseline in TEMPORAL_BASELINES,
-         f"--baseline {args.baseline} (temporal GNN baselines): ROADMAP "
-         f"item 7"),
-        (args.replicas > 1, "--replicas: ROADMAP item 8"),
-        (args.mesh, "--mesh: ROADMAP item 8"),
-        (args.export, "--export: ROADMAP item 8"),
+        (args.replicas > 1, "--replicas (replica sweeps): ROADMAP §1 "
+                            "entry 11"),
+        (args.mesh, "--mesh: ROADMAP §1 entry 11"),
+        (args.export, "--export (the serving artifact): ROADMAP §1 "
+                      "entry 11"),
         (args.scan_chunk > 0,
-         "--scan_chunk (steps per dispatch; CUDA graphs here): ROADMAP "
-         "item 4"),
-        (args.profile_dir, "--profile_dir: ROADMAP item 7"),
-        (args.dump or args.viz, "--dump / --viz (report/): ROADMAP item 7"),
-        (args.precision == "high", "--precision high (TF32): ROADMAP item 4"),
+         "--scan_chunk (steps per dispatch; CUDA graphs here): ROADMAP §1 "
+         "entry 6"),
+        (args.precision == "high", "--precision high (TF32): ROADMAP §1 "
+                                   "entry 6"),
     ]
     for cond, what in refused:
         if cond:
@@ -186,7 +209,9 @@ def _run(dynamics_kind: str, args: argparse.Namespace,
     from ndcn_tpu_torch.graph import generators, operators
     from ndcn_tpu_torch.graph.sparse import as_operator
     from ndcn_tpu_torch.kernels.platform import pin_fp32
-    from ndcn_tpu_torch.models import init_ndcn, ndcn_forward
+    from ndcn_tpu_torch.models import (init_ndcn, init_temporal_gcn,
+                                       ndcn_forward, temporal_gcn_forward)
+    from ndcn_tpu_torch.report import results as results_lib
     from ndcn_tpu_torch.train.budget import probe_step_budget
     from ndcn_tpu_torch.train.checkpoint import (restore_with_extra,
                                                  save_checkpoint)
@@ -194,9 +219,11 @@ def _run(dynamics_kind: str, args: argparse.Namespace,
     from ndcn_tpu_torch.train.losses import l1_loss
     from ndcn_tpu_torch.train.optim import make_sgd_step, torch_adam
     from ndcn_tpu_torch.train.sampling import sample_times
+    from ndcn_tpu_torch.utils.timing import profile_trace
 
     pin_fp32()
     t_start = time.time()
+    continuous = args.baseline not in TEMPORAL_BASELINES
 
     # ---------------------------------------------------------------- graph
     print(f"Choose graph: {args.network}")
@@ -216,6 +243,10 @@ def _run(dynamics_kind: str, args: argparse.Namespace,
 
     # ------------------------------------------------------------- operators
     om_np = operators.build_dynamics_operator(adj, args.operator)
+    if not continuous:
+        # the temporal baselines always use the Kipf operator
+        # (heat_dynamics.py:169-173)
+        om_np = operators.zipf_smoothing(adj)
     op = as_operator(om_np, sparse=args.sparse, format=args.sparse_format,
                      device=device)
     # heat diffusion integrates over L = D - A (the RHS owns the minus sign);
@@ -254,9 +285,18 @@ def _run(dynamics_kind: str, args: argparse.Namespace,
                  no_graph=args.baseline == "no_graph",
                  no_control=args.baseline == "no_control")
     print("Choose model:" + args.baseline)
-    model = init_ndcn(torch.Generator().manual_seed(args.seed), 1,
-                      args.hidden, 1, no_embed=flags["no_embed"],
-                      no_control=flags["no_control"], device=device)
+    init_gen = torch.Generator().manual_seed(args.seed)
+    max_steps, budget_is_auto = args.max_steps, False
+    if continuous:
+        model = init_ndcn(init_gen, 1, args.hidden, 1,
+                          no_embed=flags["no_embed"],
+                          no_control=flags["no_control"], device=device)
+    else:
+        rnn_type = args.baseline.split("_")[0]
+        hidden_size_gnn, hidden_size_rnn = 5, 10
+        model = init_temporal_gcn(init_gen, 1, hidden_size_gnn, n,
+                                  hidden_size_rnn, rnn_type, device=device)
+        max_steps = 0          # nothing is solved: no step budget
     fused = "auto" if args.fused_kernel else False
     solve_kw = dict(rtol=args.rtol, atol=args.atol, method=args.method,
                     fused=fused, **flags)
@@ -267,10 +307,9 @@ def _run(dynamics_kind: str, args: argparse.Namespace,
         residual_dtype=(torch.bfloat16 if args.residual_precision == "bf16"
                         else None))
 
-    max_steps, budget_is_auto = args.max_steps, False
-    if max_steps <= 0 and args.method not in ("dopri5", "tsit5"):
+    if continuous and max_steps <= 0 and args.method not in ("dopri5", "tsit5"):
         max_steps = 256        # the fixed-grid methods take no budget
-    elif max_steps <= 0:
+    elif continuous and max_steps <= 0:
         # the probe runs on the training operator and device, BSR included
         def probe():
             return ndcn_forward(model, op, splits.t, true_y0, nondiff=True,
@@ -287,46 +326,85 @@ def _run(dynamics_kind: str, args: argparse.Namespace,
 
     elastic = ElasticBudget(max_steps, enabled=budget_is_auto)
 
-    def forward(vt, rng=None):
-        out, stats = ndcn_forward(model, op, vt, true_y0,
-                                  dropout=args.dropout, rng=rng,
-                                  max_steps=elastic.max_steps, **train_kw,
-                                  **levers)
-        return out[..., 0].T, stats                      # (n, T)
+    if continuous:
+        def forward(m, vt, rng=None):
+            out, stats = ndcn_forward(m, op, vt, true_y0,
+                                      dropout=args.dropout, rng=rng,
+                                      max_steps=elastic.max_steps,
+                                      **train_kw, **levers)
+            return out[..., 0].T, stats                  # (n, T)
 
-    def train_loss(rng):
-        pred, stats = forward(t_train, rng)
-        loss = l1_loss(pred, true_y_train)
-        # a blown step budget must be loud (NaN), not silently wrong
-        loss = torch.where(torch.tensor(stats.success, device=device), loss,
-                           torch.full_like(loss, float("nan")))
-        return loss, loss / torch.mean(true_y_train)
+        def train_loss(m, rng):
+            pred, stats = forward(m, t_train, rng)
+            loss = l1_loss(pred, true_y_train)
+            # a blown step budget must be loud (NaN), not silently wrong
+            loss = torch.where(torch.tensor(stats.success, device=device),
+                               loss, torch.full_like(loss, float("nan")))
+            return loss, loss / torch.mean(true_y_train)
 
-    def evaluate():
-        with torch.no_grad():
-            pred, stats = forward(splits.t)
+        def predict():
+            """(predictions on the test and interpolation columns, NFE)."""
+            pred, stats = forward(model, splits.t)
             if not stats.success:
                 # budget exhaustion is loud here too: the full-grid solve
                 # can outgrow a budget the train solve still fits
                 pred = torch.full_like(pred, float("nan"))
-            loss_t = l1_loss(pred[:, id_test], true_y_test)
+            return (pred[:, id_test],
+                    pred[:, id_test2] if id_test2 is not None else None,
+                    stats.nfe)
+    else:
+        def train_loss(m, rng):
+            # one step ahead over the observed train grid
+            pred = temporal_gcn_forward(m, op, true_y_train[:, :-1],
+                                        rnn_type, dropout=args.dropout,
+                                        generator=rng, deterministic=False)
+            target = true_y_train[:, 1:]
+            loss = l1_loss(pred, target)
+            return loss, loss / torch.mean(target)
+
+        def predict():
+            # teacher-force the whole train grid, then roll out the
+            # extrapolation steps: they are the trailing columns
+            pred = temporal_gcn_forward(model, op, true_y_train, rnn_type,
+                                        future=len(id_test))
+            return (pred[:, -len(id_test):],
+                    (torch.zeros_like(true_y_test2) if id_test2 is not None
+                     else None), 0)
+
+    def evaluate():
+        with torch.no_grad():
+            pred_test, pred_test2, nfe = predict()
+            loss_t = l1_loss(pred_test, true_y_test)
             ev = dict(loss=float(loss_t),
                       rel=float(loss_t / torch.mean(true_y_test)),
-                      loss2=0.0, rel2=0.0)
-            if id_test2 is not None:
-                loss2 = l1_loss(pred[:, id_test2], true_y_test2)
+                      loss2=0.0, rel2=0.0, pred_test=pred_test,
+                      pred_test2=pred_test2, nfe=nfe)
+            if id_test2 is not None and continuous:
+                loss2 = l1_loss(pred_test2, true_y_test2)
                 ev["loss2"] = float(loss2)
                 ev["rel2"] = float(loss2 / torch.mean(true_y_test2))
         return ev
 
+    results = results_lib.new_results_dict(vars(args))
+    results["true_y"].append(results_lib.as_numpy(true_y))
+    results["nfe_train"] = []
+
     def report(itr, loss, rel) -> bool:
-        """Evaluate and print at test_freq; False when the evaluation solve
-        exhausted the shared budget (roll back)."""
+        """Evaluate, record (--dump) and print at test_freq; False when the
+        evaluation solve exhausted the shared budget (roll back)."""
         if itr % args.test_freq != 0:
             return True
         ev = evaluate()
         if elastic.exhausted(ev["loss"]):
             return False
+        if args.dump:
+            has2 = id_test2 is not None
+            results_lib.record_eval(
+                results, itr, ev["loss"], ev["rel"], ev["pred_test"], model,
+                abs_error2=ev["loss2"] if has2 else None,
+                rel_error2=ev["rel2"] if has2 else None,
+                predict_y2=ev["pred_test2"] if has2 else None)
+            results["nfe_train"].append(int(ev["nfe"]))
         if args.sampled_time == "irregular":
             print("Iter {:04d}| Train Loss {:.6f}({:.6f} Relative) "
                   "| Test Loss {:.6f}({:.6f} Relative) "
@@ -344,7 +422,7 @@ def _run(dynamics_kind: str, args: argparse.Namespace,
 
     # ------------------------------------------------------------- training
     opt = torch_adam(model.parameters(), args.lr, args.weight_decay)
-    train_step = make_sgd_step(opt, train_loss)
+    train_step = make_sgd_step(opt, lambda g: train_loss(model, g))
     rng = torch.Generator().manual_seed(args.seed + 1)
     # resume from the newest checkpoint: weights, Adam's state, and the
     # dropout generator and step budget the interrupted run had there
@@ -368,6 +446,23 @@ def _run(dynamics_kind: str, args: argparse.Namespace,
                         extra={"rng": rng.get_state(),
                                "max_steps": elastic.max_steps})
 
+    def profile_steps() -> None:
+        """Trace three steady training steps on copies of the model, the
+        optimizer and the dropout generator: the profiled steps must not
+        advance the run's own state, or a profiled run would train three
+        steps more and an elastic replay would part from the original."""
+        m = copy.deepcopy(model)
+        o = torch_adam(m.parameters(), args.lr, args.weight_decay)
+        # a deep copy: load_state_dict keeps the tensors it is given
+        o.load_state_dict(copy.deepcopy(opt.state_dict()))
+        g = torch.Generator().set_state(rng.get_state())
+        step = make_sgd_step(o, lambda gen: train_loss(m, gen))
+        with profile_trace(args.profile_dir) as path:
+            for _ in range(3):
+                ploss, _ = step(g)
+            float(ploss)
+        print(f"[profile] trace written to {path}")
+
     # Elastic step-budget recovery (auto budgets only): exhaustion surfaces
     # as a NaN train loss; roll back to the last finite-loss snapshot, double
     # the budget and replay with the same generator state.
@@ -375,9 +470,13 @@ def _run(dynamics_kind: str, args: argparse.Namespace,
     loss = rel = torch.tensor(0.0)
     itr = start_iter
     train_losses = []
+    profiled = False
     while itr < args.niters:
         itr += 1
         loss, rel = train_step(rng)
+        if args.profile_dir and not profiled and itr > 2:
+            profile_steps()
+            profiled = True
         ckpt_due = bool(args.ckpt_dir) and itr % args.ckpt_freq == 0
         if itr % args.test_freq == 0 or itr >= args.niters:
             # the loss read syncs the device: only at report cadence
@@ -407,14 +506,33 @@ def _run(dynamics_kind: str, args: argparse.Namespace,
               flush=True)
     t_total = time.time() - t_start
     print("Total Time {:.4f}".format(t_total))
-    return {
-        "final": {"abs_error": ev["loss"], "rel_error": ev["rel"],
-                  "abs_error2": ev["loss2"], "rel_error2": ev["rel2"],
-                  "train_loss": float(loss), "train_rel": float(rel)},
-        "train_losses": train_losses, "max_steps": elastic.max_steps,
-        "elastic_retries": elastic.total_rollbacks, "total_time": t_total,
-        "device": str(device),
-    }
+    final = {"abs_error": ev["loss"], "rel_error": ev["rel"],
+             "abs_error2": ev["loss2"], "rel_error2": ev["rel2"],
+             "train_loss": float(loss), "train_rel": float(rel)}
+    results.update(total_time=t_total, final=final,
+                   elastic_retries=elastic.total_rollbacks)
+    out = {"final": final, "train_losses": train_losses,
+           "max_steps": elastic.max_steps,
+           "elastic_retries": elastic.total_rollbacks, "total_time": t_total,
+           "device": str(device), "n_params": n_params}
+
+    if args.dump:
+        results_dir = (args.results_dir
+                       or f"results/{dynamics_kind}/{args.network}")
+        path = results_lib.results_path(results_dir, args.baseline)
+        results_lib.dump_results(results, path)
+        print("Dump results as: " + path)
+        if results_lib.load_results(path)["v_iter"] != results["v_iter"]:
+            raise RuntimeError(f"the dump {path} does not read back")
+        out["results_path"] = path
+
+    if args.viz:
+        from ndcn_tpu_torch.report import viz
+        viz.adjacency_heatmap(adj, args.network)
+        viz.dynamics_surfaces(dynamics_kind, args.network, side,
+                              results_lib.as_numpy(true_y),
+                              results_lib.as_numpy(ev["pred_test"]))
+    return out
 
 
 def main(dynamics_kind: str, title: str, argv=None) -> Dict[str, Any]:

@@ -46,8 +46,8 @@ attempts per step it assumed (``attempts_assumed``, the step budget); the
 run's record names the most attempts a train step took (``attempts_taken``).
 
 What the port does not have raises ``NotImplementedError`` naming its
-ROADMAP item before any work: ``--mesh`` (item 8), ``--precision high``
-(item 4).
+ROADMAP entry before any work: ``--mesh`` (§1 entry 11), ``--precision
+high`` (§1 entry 6).
 """
 
 from __future__ import annotations
@@ -133,8 +133,9 @@ def _refuse_unported(args: argparse.Namespace) -> None:
         # ELL pads every row to the largest degree
         raise SystemExit("mutualistic at this scale requires --fmt coo")
     refused = [
-        (args.mesh, "--mesh: ROADMAP item 8"),
-        (args.precision == "high", "--precision high (TF32): ROADMAP item 4"),
+        (args.mesh, "--mesh: ROADMAP §1 entry 11"),
+        (args.precision == "high", "--precision high (TF32): ROADMAP §1 "
+                                   "entry 6"),
     ]
     for cond, what in refused:
         if cond:

@@ -112,9 +112,16 @@ class _Unpickler(pickle.Unpickler):
         return _Foreign
 
 
-def load_checkpoint(path: str) -> Dict[str, Any]:
+def load_pickle(path: str) -> Any:
+    """Unpickle ``path`` building numpy arrays and plain containers only (an
+    object of another class comes back inert); the reader of checkpoints
+    and of results dumps (``report.results``)."""
     with open(path, "rb") as f:
         return _Unpickler(f).load()
+
+
+def load_checkpoint(path: str) -> Dict[str, Any]:
+    return load_pickle(path)
 
 
 def restore_with_extra(ckpt_dir: Optional[str], model,

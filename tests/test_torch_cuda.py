@@ -1147,3 +1147,95 @@ def test_classification_train_step_on_cuda_matches_cpu(cuda_device,
     assert nfe_gpu == nfe_cpu
     for name, want in grads_cpu.items():
         assert _rel_l1(grads_gpu[name], want) <= 1e-3, name
+
+
+# ------------------------------------------- the temporal-GNN baselines
+
+
+@pytest.fixture(scope="module")
+def heat_grid400():
+    """The heat driver's data at its defaults (grid400, T 5, tick 100,
+    irregular, seed 0): the Kipf operator and the train grid's truth."""
+    from ndcn_tpu_torch.experiments.dynamics import ground_truth
+    from ndcn_tpu_torch.train.sampling import sample_times
+
+    adj = generators.build_network("grid", 400)
+    splits = sample_times(5.0, 100, "irregular", seed=0)
+    x0 = generators.grid_block_initial_value(20).astype(np.float32)
+    sol, _ = ground_truth("heat", as_operator(operators.laplacian_dense(adj)),
+                          torch.as_tensor(x0), splits.t)
+    return dict(kipf=operators.zipf_smoothing(adj),
+                y_train=sol[..., 0].T[:, splits.id_train].contiguous())
+
+
+@pytest.mark.parametrize("fmt", ["coo", "bsr"])
+def test_k1_and_k3_cuda_at_the_temporal_width(cuda_device, heat_grid400,
+                                              fmt):
+    """K1 / K1ᵀ and K3 / K3ᵀ on the grid400 Kipf operator at d = 5, the
+    temporal baselines' graph width (K1: 4-byte loads, one edge in flight;
+    K3: one slab of 5 in 16-row tiles): within 1e-5 of the plain version
+    (K3 also 2e-6 of its split emulation), bit-equal on a repeat."""
+    op = as_operator(heat_grid400["kipf"], sparse=True, format=fmt,
+                     device=cuda_device)
+    rng = np.random.RandomState(5)
+    x = torch.as_tensor(rng.randn(400, 5).astype(np.float32),
+                        device=cuda_device)
+    g = torch.as_tensor(rng.randn(400, 5).astype(np.float32),
+                        device=cuda_device)
+    if fmt == "coo":
+        cases = [(lambda v, o=o: coo_spmv.coo_spmv(o, v),
+                  lambda v, o=o: coo_spmv.coo_spmv_plain(o.rows, o.cols,
+                                                         o.vals, v, o.n),
+                  None, v)
+                 for o, v in ((op, x), (op.transpose(), g))]
+    else:
+        cases = [(lambda v, m=m, t=t: bsr_spmm.bsr_spmm(m, t, v),
+                  lambda v, m=m: bsr_spmm.bsr_spmm_plain(m, v),
+                  lambda v, m=m: bsr_spmm.bsr_spmm_split_plain(m, v), v)
+                 for m, t, v in ((op.fwd, op.bwd, x), (op.bwd, op.fwd, g))]
+    for kern, plain, emu, v in cases:
+        y = kern(v)
+        assert _max_rel(y, plain(v)) <= 1e-5
+        if emu is not None:
+            e = emu(v)
+            assert float((y - e).abs().max()) <= 2e-6 * float(e.abs().max())
+        assert torch.equal(y, kern(v))
+
+
+@pytest.mark.parametrize("rnn_type,fmt,needed", [
+    ("lstm", "coo", "coo_spmv"), ("gru", "bsr", "bsr_spmm"),
+    ("rnn", "dense", None)])
+def test_temporal_train_step_on_cuda_matches_cpu(cuda_device, heat_grid400,
+                                                 rnn_type, fmt, needed):
+    """One train step of the temporal baseline (weights from CPU generator
+    seed 0; one step ahead over the 80 train points, so 79 graph products
+    forward and 79 transposed) on the card against the CPU: the loss within
+    1e-4, every gradient within 1e-3 rel-L1, 158 launches of the sparse
+    kernel."""
+    from ndcn_tpu_torch.models import init_temporal_gcn, temporal_gcn_forward
+    from ndcn_tpu_torch.train.losses import l1_loss
+
+    def step(dev):
+        model = init_temporal_gcn(torch.Generator().manual_seed(0), 1, 5, 400,
+                                  10, rnn_type, device=dev)
+        op = as_operator(heat_grid400["kipf"], sparse=fmt != "dense",
+                         format=fmt, device=dev)
+        y = heat_grid400["y_train"].to(dev)
+        loss = l1_loss(temporal_gcn_forward(model, op, y[:, :-1], rnn_type),
+                       y[:, 1:])
+        loss.backward()
+        return loss.item(), {n: p.grad.cpu()
+                             for n, p in model.named_parameters()}
+
+    kernels.reset_launch_counts()
+    loss_gpu, grads_gpu = step(cuda_device)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    if needed is not None:
+        assert counts[needed] == 2 * 79
+    assert counts["coo_spmv"] + counts["bsr_spmm"] == (0 if needed is None
+                                                       else 2 * 79)
+    loss_cpu, grads_cpu = step("cpu")
+    assert abs(loss_gpu - loss_cpu) <= 1e-4 * abs(loss_cpu)
+    for name, want in grads_cpu.items():
+        assert _rel_l1(grads_gpu[name], want) <= 1e-3, name

@@ -146,8 +146,8 @@ def test_scale_experiment_reads_a_ground_truth_cache_written_by_jax(tmp_path):
     (["--dynamics", "mutualistic"], None, "coo"),
     (["--dynamics", "gene"], None, "coo"),
     (["--fmt", "ell"], None, "ell"),
-    (["--mesh"], NotImplementedError, "item 8"),
-    (["--precision", "high"], NotImplementedError, "item 4"),
+    (["--mesh"], NotImplementedError, "§1 entry 11"),
+    (["--precision", "high"], NotImplementedError, "§1 entry 6"),
     (["--gt_only"], SystemExit, "--gt_cache"),
 ])
 def test_scale_experiment_refusals_name_their_item(extra, err, match):

@@ -479,31 +479,39 @@ def test_heat_experiment_trains_on_the_cpu(fmt, capsys):
     assert "Iter 0004| Train Loss" in capsys.readouterr().out
 
 
-def test_heat_experiment_auto_budget_and_refusals():
+def test_heat_experiment_auto_budget_and_refusals(tmp_path):
     out = run("heat", build_parser("t").parse_args(
         ["--n", "25", "--time_tick", "6", "--niters", "2", "--test_freq", "2",
          "--method", "dopri5", "--platform", "cpu", "--fused_kernel"]))
     assert out["max_steps"] >= 8 and np.isfinite(out["final"]["abs_error"])
     base = ["--n", "25", "--platform", "cpu"]
     for extra, item in ((["--method", "dopri5", "--export", "m.pt"],
-                         "item 8"),
-                        (["--method", "dopri5", "--replicas", "2"], "item 8"),
+                         "§1 entry 11"),
+                        (["--method", "dopri5", "--replicas", "2"],
+                         "§1 entry 11"),
                         (["--method", "dopri5", "--scan_chunk", "4"],
-                         "item 4"),
-                        (["--method", "dopri5", "--baseline", "gru_gnn"],
-                         "item 7")):
+                         "§1 entry 6")):
         with pytest.raises(NotImplementedError, match=item):
             run("heat", build_parser("t").parse_args(base + extra))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        run("gene", build_parser("t").parse_args(
-            base + ["--method", "dopri5", "--dump"]))
+    # the temporal baselines and --dump run (they were refused until
+    # ROADMAP §1 entry 10 was ported)
+    out = run("heat", build_parser("t").parse_args(
+        base + ["--time_tick", "6", "--niters", "2", "--test_freq", "2",
+                "--baseline", "gru_gnn"]))
+    assert out["max_steps"] == 0 and np.isfinite(out["final"]["abs_error"])
+    out = run("gene", build_parser("t").parse_args(
+        base + ["--time_tick", "6", "--niters", "2", "--test_freq", "2",
+                "--method", "dopri5", "--dump", "--results_dir",
+                str(tmp_path)]))
+    assert out["results_path"].startswith(str(tmp_path))
+    assert np.isfinite(out["final"]["abs_error"])
     # gene on ELL (the default sparse format) and euler (the default method)
     # run: the fixed-grid solve takes the fixed budget
     out = run("gene", build_parser("t").parse_args(
         base + ["--time_tick", "6", "--niters", "2", "--test_freq", "2",
                 "--sparse"]))
     assert out["max_steps"] == 256 and np.isfinite(out["final"]["abs_error"])
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(NotImplementedError, match="§1 entry 6"):
         run("heat", build_parser("t").parse_args(
             base + ["--method", "dopri5", "--precision", "high"]))
 
