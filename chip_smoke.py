@@ -157,7 +157,7 @@ Phases, one line each:
      build/smoke_temporal: its losses within 1e-6 of the plain run's, the
      dump read back by ``report.results.load_results`` and
      ``experiments.summarize``, the trace written; (d) ``experiments.lv``
-     for 200 iterations with rk4 and with dopri5 ``--adjoint`` (the mean of
+     for 100 iterations with rk4 and with dopri5 ``--adjoint`` (the mean of
      the last 20 train losses under that of the first 20: the batches are
      random), its first 20 train losses within 1e-4 of the same run on the
      CPU; (e) ``experiments.sweep_t_alpha`` on cora with
@@ -165,6 +165,31 @@ Phases, one line each:
      {0.0, 1.0}, then again with ``--resume``, which must rerun no cell;
      each cell beside ``results/t_alpha_grid_cora.csv``'s (a TPU record:
      no bar); (f) the phase's own wall time.
+ 18. the replica sweeps (``--replicas``, ``--batch_iters``): (a) the
+     batched forms of K1, K2, K3 and K4 (R states, and K2 / K4's R weights,
+     against one shared operator in one launch) on grid400 at d = 20 with
+     R = 1 and 16, K1 and K3 also on cora at d = 16 with R = 25: against
+     their plain versions (<= 1e-5; K2-K4 within 2e-6 of their split
+     emulation), each replica bit-equal to its own one-replica launch, two
+     calls bit-equal; times beside R one-replica launches', the bound, the
+     library route (``torch.sparse.mm`` / the BSR product on the replicas
+     side by side as an (n, R·d) X; ``relu(baddbmm(b, A @ H, W))`` for K2 /
+     K4) and, for K1 and K3, the stacked-width route (the replicas side by
+     side through the one-replica kernel); (b) the heat driver with
+     ``--replicas 16`` for 20 iterations on dense ``--fused_kernel`` (K2),
+     COO (K1) and BSR (K4, K3): the train losses fall; replicas 0-3 of a
+     16-replica step against their runs alone (the first step's losses
+     within 1e-4, NFE equal; the 20 steps' losses printed); time per
+     model-step against a step alone; the busy share under the profiler;
+     what one step launches at R = 4 and R = 16 (replicas 0-3 four times
+     over): the ATen operators it calls and the port's kernels equal (the
+     device kernels are printed beside: inside an operator cuBLAS and CUB
+     pick their kernels by size, and the count parted by 0-5 of ~1,620 in
+     the runs made), and a step alone's; (c) the showcase recipe through the dgnn driver
+     with ``--batch_iters --iter 25``, and again with ``--budget_buckets
+     4``: the mean accuracy within 0.8317 ± 3 · 0.0098 / √25, no replica
+     exhausted, seconds per model beside [16]'s single runs, the peak
+     memory beside the guard's estimate and under its limit.
   p. where the time goes: one request per serving setting and one train step
      per training setting (the 1M feature-major step included), one cora
      differential_gcn epoch (the driver's defaults, train and eval) on
@@ -175,7 +200,8 @@ Phases, one line each:
      epoch.
 Then the kernels' JSON record, and last the device JSON line. Launch counts
 are zeroed just before each main-path phase (5-6, 8, 9, 10, each run of 12,
-13, 14, each part of 15 and each run of 16 and 17) and read just after its
+13, 14, each part of 15, each run of 16 and 17, and each driver run of 18)
+and read just after its
 GPU work; the record's launches are their sums.
 
 ``ms`` is the median CUDA-event time of one call on an idle card, as in
@@ -1895,7 +1921,7 @@ def main() -> None:
                                              "--adjoint"])):
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
-        out = lv.main(["--niters", "200", *extra])
+        out = lv.main(["--niters", "100", *extra])
         gpu_s = time.perf_counter() - t0
         add_launches(f"the LV demo {label}", [])
         check(out["device"].startswith("cuda"), f"LV {label} ran on "
@@ -1955,6 +1981,367 @@ def main() -> None:
                                         resumed_cells_rerun=len(calls)),
               "seconds": time.perf_counter() - t17}))
     torch.cuda.empty_cache()
+
+    # ---- 18. replica sweeps: the batched kernels, heat --replicas 16, the
+    # showcase under --batch_iters --iter 25
+    t18 = time.perf_counter()
+    from ndcn_tpu_torch.parallel.sweep import replica_l1, stack_models
+    from ndcn_tpu_torch.ode import nan_unless
+    from ndcn_tpu_torch.train.optim import make_replica_sgd_step
+
+    def batched_record(what, kern, plain, solo, lib_call, stacked=None,
+                       emulation=None, **extra):
+        """A batched form against its plain version (<= 1e-5), each replica
+        against its own one-replica launch (bit-equal), two calls
+        bit-equal, the library route and the stacked-width route (<= 1e-5:
+        the same function); its times beside R one-replica launches'."""
+        y, ref, ones, lib = kern(), plain(), solo(), lib_call()
+        torch.cuda.synchronize()
+        err, rel = max_rel(y, ref)
+        check(rel <= 1e-5, f"{what} disagrees with its plain version: {rel}")
+        check(torch.equal(y, kern()), f"{what}: two calls differ")
+        check(all(torch.equal(y[i], one) for i, one in enumerate(ones)),
+              f"{what}: a replica differs from its own launch")
+        check(max_rel(lib, ref)[1] <= 1e-5,
+              f"{what}: the library route computes something else")
+        rec = dict(extra, max_abs_err=err, rel_err=rel, repeat_equal=True,
+                   replicas_equal_solo=True, replicas=int(y.shape[0]),
+                   ms=cuda_ms(kern, iters=15), device_ms=queued_ms(kern),
+                   plain_ms=cuda_ms(plain, iters=15),
+                   solo_ms=cuda_ms(solo, iters=15),
+                   solo_device_ms=queued_ms(solo),
+                   library_ms=cuda_ms(lib_call, iters=15),
+                   library_device_ms=queued_ms(lib_call))
+        if emulation is not None:
+            rec["rel_err_vs_split_emulation"] = max_rel(y, emulation())[1]
+            check(rec["rel_err_vs_split_emulation"] <= 2e-6,
+                  f"{what} is not the split product")
+        if stacked is not None:
+            rec["stacked_rel_err"] = max_rel(stacked(), ref)[1]
+            check(rec["stacked_rel_err"] <= 1e-5,
+                  f"{what}: the stacked-width route differs")
+            rec["stacked_ms"] = cuda_ms(stacked, iters=15)
+            rec["stacked_device_ms"] = queued_ms(stacked)
+        return rec
+
+    def stack_cols(x):
+        """(R, n, d) -> (n, R·d): the replicas side by side as columns."""
+        r, n, d = x.shape
+        return x.permute(1, 0, 2).reshape(n, r * d)
+
+    def unstack_cols(y, r):
+        n = y.shape[0]
+        return y.view(n, r, -1).permute(1, 0, 2)
+
+    def k1_batched(mat, d, r, seed):
+        op = from_scipy_coo(sp.csr_matrix(mat).astype(np.float32),
+                            device=dev)
+        x = torch.as_tensor(np.random.RandomState(seed).randn(r, op.n, d)
+                            .astype(np.float32), device=dev)
+        xs = stack_cols(x).contiguous()
+        a = library_csr(op)
+        rec = batched_record(
+            f"K1 batched n={op.n} d={d} R={r}",
+            lambda: coo_spmv.coo_spmv(op, x),
+            lambda: coo_spmv.coo_spmv_plain(op.rows, op.cols, op.vals, x,
+                                            op.n),
+            lambda: [coo_spmv.coo_spmv(op, x[i]) for i in range(r)],
+            lambda: unstack_cols(torch.sparse.mm(a, xs), r),
+            # K1 as it is on the replicas side by side: a permute, one
+            # K1 at width R·d, a permute back
+            stacked=lambda: unstack_cols(coo_spmv.coo_spmv(
+                op, stack_cols(x).contiguous()), r).contiguous(),
+            library="torch.sparse.mm(A, X) on the stacked (n, R·d) X",
+            **bound(nbytes(op.row_ptr, op.cols, op.vals, x, x),
+                    2 * int(op.cols.shape[0]) * d * r))
+        return dict(n=op.n, nnz=int(op.cols.shape[0]), d=d, **rec)
+
+    def replica_weights(rs, r, d):
+        weight = torch.as_tensor((rs.randn(r, d, d) / np.sqrt(d))
+                                 .astype(np.float32), device=dev)
+        b = torch.as_tensor((0.1 * rs.randn(r, d)).astype(np.float32),
+                            device=dev)
+        return weight, weight.transpose(-1, -2), b
+
+    def k2_batched(mat, d, r, seed):
+        rs = np.random.RandomState(seed)
+        a = torch.as_tensor(np.asarray(mat, np.float32), device=dev)
+        n = a.shape[0]
+        h = torch.as_tensor(rs.rand(r, n, d).astype(np.float32), device=dev)
+        weight, w, b = replica_weights(rs, r, d)
+        rec = batched_record(
+            f"K2 batched n={n} d={d} R={r}",
+            lambda: fused_rhs.fused_rhs(a, h, w, b),
+            lambda: fused_rhs.fused_rhs_plain(a, h, w, b),
+            lambda: [fused_rhs.fused_rhs(a, h[i], w[i], b[i])
+                     for i in range(r)],
+            lambda: torch.relu(torch.baddbmm(b.unsqueeze(1), a @ h, w)),
+            emulation=lambda: fused_rhs.fused_rhs_split_plain(a, h, w, b),
+            library="relu(baddbmm(b, A @ H, W))",
+            **bound(nbytes(a, h, weight, b, h),
+                    r * (2 * n * n * d + 2 * n * d * d), "split_tf32"))
+        return dict(n=n, d=d, **rec)
+
+    def k3_batched(mat, d, r, seed):
+        op = as_operator(sp.csr_matrix(mat), sparse=True, format="bsr",
+                         device=dev)
+        x = torch.as_tensor(np.random.RandomState(seed).rand(r, op.n, d)
+                            .astype(np.float32), device=dev)
+        xs = stack_cols(x).contiguous()
+        lib, lib_name = bsr_library(op.fwd)
+        m = op.fwd
+        rec = batched_record(
+            f"K3 batched n={op.n} d={d} R={r}",
+            lambda: bsr_spmm.bsr_spmm(op.fwd, op.bwd, x),
+            lambda: bsr_spmm.bsr_spmm_plain(op.fwd, x),
+            lambda: [bsr_spmm.bsr_spmm(op.fwd, op.bwd, x[i])
+                     for i in range(r)],
+            lambda: unstack_cols(lib(xs), r),
+            stacked=lambda: unstack_cols(bsr_spmm.bsr_spmm(
+                op.fwd, op.bwd, stack_cols(x).contiguous()), r).contiguous(),
+            emulation=lambda: bsr_spmm.bsr_spmm_split_plain(op.fwd, x),
+            library=f"{lib_name} on the stacked (n, R·d) X",
+            **bound(nbytes(m.row_ptr, m.block_cols, m.blocks, x, x),
+                    2 * int(m.blocks.shape[0]) * m.block ** 2 * d * r,
+                    "split_tf32"))
+        return dict(n=op.n, nnz_blocks=int(m.blocks.shape[0]), d=d, **rec)
+
+    def k4_batched(mat, d, r, seed):
+        op = as_operator(sp.csr_matrix(mat), sparse=True, format="bsr",
+                         device=dev)
+        rs = np.random.RandomState(seed)
+        x = torch.as_tensor(rs.rand(r, op.n, d).astype(np.float32),
+                            device=dev)
+        weight, w, b = replica_weights(rs, r, d)
+        xs = stack_cols(x).contiguous()
+        lib, lib_name = bsr_library(op.fwd)
+        m = op.fwd
+        rec = batched_record(
+            f"K4 batched n={op.n} d={d} R={r}",
+            lambda: bsr_spmm.bsr_fused_rhs(op.fwd, op.bwd, x, w, b),
+            lambda: bsr_spmm.bsr_fused_rhs_plain(op.fwd, x, w, b),
+            lambda: [bsr_spmm.bsr_fused_rhs(op.fwd, op.bwd, x[i], w[i], b[i])
+                     for i in range(r)],
+            lambda: torch.relu(torch.baddbmm(
+                b.unsqueeze(1), unstack_cols(lib(xs), r), w)),
+            emulation=lambda: bsr_spmm.bsr_fused_rhs_split_plain(
+                op.fwd, x, w, b),
+            library=f"relu(baddbmm(b, {lib_name} on the stacked X, W))",
+            **bound(nbytes(m.row_ptr, m.block_cols, m.blocks, x, weight, b,
+                           x),
+                    r * (2 * int(m.blocks.shape[0]) * m.block ** 2 * d
+                         + 2 * op.n * d * d), "split_tf32"))
+        return dict(n=op.n, d=d, **rec)
+
+    kb = {"k1": {}, "k2": {}, "k3": {}, "k4": {}}
+    for r in (1, 16):
+        kb["k1"][f"grid400_d20_r{r}"] = k1_batched(grid_lap, 20, r, 80 + r)
+        kb["k2"][f"grid400_d20_r{r}"] = k2_batched(grid_lap, 20, r, 81 + r)
+        kb["k3"][f"grid400_d20_r{r}"] = k3_batched(grid_lap, 20, r, 82 + r)
+        kb["k4"][f"grid400_d20_r{r}"] = k4_batched(grid_lap, 20, r, 83 + r)
+    kb["k1"]["cora_d16_r25"] = k1_batched(cora.operator, 16, 25, 84)
+    kb["k3"]["cora_d16_r25"] = k3_batched(cora.operator, 16, 25, 85)
+    torch.cuda.empty_cache()
+
+    # (b) the heat driver's replica sweep on grid400 (the driver's data: T
+    # 5, tick 100, irregular, seed 0), dense --fused_kernel (K2), COO (K1)
+    # and BSR (K3, K4 under 'auto')
+    x0_h = torch.as_tensor(grid_block_initial_value(20).astype(np.float32),
+                           device=dev)
+    target_h = sol400[hs.id_train].to(dev)              # (T, 400, 1)
+    t_h = hs.t[hs.id_train]
+    sweep18 = {}
+
+    def replica_step(op, fused, seeds, max_steps=64):
+        """The heat driver's replica step over a stacked model of the
+        replicas seeded ``seeds``; returns (step, model, last stats)."""
+        model = stack_models([init_ndcn(torch.Generator().manual_seed(s), 1,
+                                        20, 1) for s in seeds]).to(dev)
+        opt = torch_adam(model.parameters(), 0.01, 1e-3)
+        last = {}
+
+        def losses():
+            out, stats = ndcn_forward(model, op, t_h, x0_h, fused=fused,
+                                      max_steps=max_steps, **train_kw)
+            last["stats"] = stats
+            ls = nan_unless(stats.success,
+                            replica_l1(out.transpose(0, 1), target_h))
+            return ls, ls
+
+        return make_replica_sgd_step(opt, losses), model, last
+
+    def solo_step(op, fused, seed, max_steps=64):
+        model = init_ndcn(torch.Generator().manual_seed(seed), 1, 20, 1,
+                          device=dev)
+        opt = torch_adam(model.parameters(), 0.01, 1e-3)
+        last = {}
+
+        def loss():
+            out, stats = ndcn_forward(model, op, t_h, x0_h, fused=fused,
+                                      max_steps=max_steps, **train_kw)
+            last["stats"] = stats
+            value = l1_loss(out, target_h)
+            return value, value
+
+        return make_sgd_step(opt, loss), last
+
+    def timed_steps(step, k=5):
+        step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(k):
+            step()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / k * 1e3
+
+    def step_launches(step, label):
+        """What one step launches: the ATen operators it calls (the launch
+        stream the port issues), the port's kernels by their counters, and
+        every device kernel in the profiler's trace, those of cuBLAS apart.
+        Inside one operator the libraries pick their kernels by size (cuBLAS
+        among its gemm and gemv kernels, CUB's radix sort a pass for each
+        bits' worth of the largest index), so the device count may part by
+        a few kernels between R = 4 and 16: printed, not compared."""
+        from torch.profiler import ProfilerActivity, profile
+        step()
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+        ours = {k: v for k, v in kernels.launch_counts().items() if v}
+        trace = os.path.join(root, "build", "traces", f"{label}.json")
+        os.makedirs(os.path.dirname(trace), exist_ok=True)
+        prof.export_chrome_trace(trace)
+        with open(trace) as f:
+            events = [e for e in json.load(f)["traceEvents"]
+                      if e.get("ph") == "X"]
+        names = [e["name"] for e in events if e.get("cat") == "kernel"]
+        library = sum(1 for n in names
+                      if any(k in n.lower() for k in ("gemm", "gemv",
+                                                      "cublas")))
+        return dict(kernels=len(names), outside_cublas=len(names) - library,
+                    cublas=library, ours=ours,
+                    aten_ops=sum(1 for e in events
+                                 if e.get("cat") == "cpu_op"
+                                 and e["name"].startswith("aten::")))
+
+    for fmt, flags, fused, needed in (
+            ("dense", ["--fused_kernel"], "auto", ["fused_rhs_batched"]),
+            ("coo", ["--sparse", "--sparse_format", "coo"], False,
+             ["coo_spmv_batched"]),
+            ("bsr", ["--sparse", "--sparse_format", "bsr",
+                     "--fused_kernel"], "auto",
+             ["bsr_fused_rhs_batched", "bsr_spmm_batched"])):
+        op = as_operator(sp.csr_matrix(grid_lap) if fmt != "dense"
+                         else grid_lap, sparse=fmt != "dense", format=fmt,
+                         device=dev)
+        rec = {}
+        # the driver: 16 replicas, 20 iterations
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = run("heat", build_parser("heat").parse_args(
+            ["--network", "grid", "--n", "400", "--method", "dopri5",
+             "--niters", "20", "--test_freq", "10", "--replicas", "16",
+             *flags]))
+        torch.cuda.synchronize()
+        rec["driver_seconds"] = time.perf_counter() - t0
+        rec["driver_launches"] = {k: v for k, v in add_launches(
+            f"heat --replicas 16 {fmt}", needed).items() if v}
+        rec["final"], rec["max_steps"] = out["final"], out["max_steps"]
+        losses = out["train_losses"]
+        check(all(np.isfinite(losses[-1])) and np.mean(losses[-1])
+              < np.mean(losses[0]), f"heat --replicas 16 {fmt}: the train "
+              f"losses did not fall {losses}")
+        # replicas 0-3 against their runs alone: the first step's losses
+        # and NFE, then 20 steps' losses
+        step16, _, last16 = replica_step(op, fused, range(16))
+        solos = [solo_step(op, fused, s) for s in range(4)]
+        first16 = step16()[0].cpu()
+        first = [float(s[0]()[0]) for s in solos]
+        nfe16 = list(last16["stats"].nfe[:4])
+        nfe1 = [s[1]["stats"].nfe for s in solos]
+        loss_err = float(np.abs(first16[:4].numpy() - np.array(first)).max()
+                         / np.abs(first).max())
+        check(loss_err <= 1e-4 and nfe16 == nfe1, f"heat replicas {fmt}: "
+              f"replicas 0-3 {first16[:4].tolist()} / NFE {nfe16} against "
+              f"their runs alone {first} / {nfe1}")
+        drift = [first16[:4].tolist()]
+        for _ in range(19):
+            drift.append(step16()[0].cpu()[:4].tolist())
+        solo_losses = [[first[i]] + [float(solos[i][0]()[0])
+                                     for _ in range(19)] for i in range(4)]
+        rec.update(first_step_loss_rel_err=loss_err, nfe_replicas_0_3=nfe16,
+                   nfe_alone=nfe1,
+                   loss_rel_err_20_steps=float(np.max(np.abs(
+                       np.array(drift).T - np.array(solo_losses)))
+                       / np.abs(solo_losses).max()))
+        # time per model-step: the batched step over 16 against a step alone
+        rec["batched_step_ms"] = timed_steps(step16)
+        rec["model_step_ms"] = rec["batched_step_ms"] / 16
+        rec["solo_step_ms"] = timed_steps(solos[0][0])
+        # launches per step: 4 replicas against 16 (replicas 0-3 four
+        # times over, so the two take the same steps): equal, as one
+        # batched program's are
+        s4, _, _ = replica_step(op, fused, range(4))
+        s16, _, _ = replica_step(op, fused, list(range(4)) * 4)
+        rec["launches_r4"] = step_launches(s4, f"replicas_{fmt}_r4")
+        rec["launches_r16"] = step_launches(s16, f"replicas_{fmt}_r16")
+        same = ("aten_ops", "ours")
+        check(all(rec["launches_r4"][k] == rec["launches_r16"][k]
+                  for k in same),
+              f"heat replicas {fmt}: one step launches "
+              f"{rec['launches_r4']} at R = 4 and {rec['launches_r16']} at "
+              f"R = 16")
+        # a step alone on the same data: its solve reads the observations
+        # one at a time, where the batched solve reads every ready one of
+        # every replica in one evaluation
+        rec["launches_solo"] = step_launches(solos[0][0],
+                                             f"replicas_{fmt}_solo")
+        rec["profile"] = profile_call(step16, f"train_replicas16_{fmt}",
+                                      root)
+        sweep18[fmt] = rec
+        del step16, solos, s4, s16
+        torch.cuda.empty_cache()
+
+    # (c) the showcase recipe under --batch_iters --iter 25 (one of the
+    # record's four batches of 25): its mean accuracy within 3 standard
+    # errors of 25 models of results/showcase_cora_100.json's 0.8317
+    band25 = (0.8317 - 3 * 0.0098 / 5, 0.8317 + 3 * 0.0098 / 5)
+    solo_s = float(np.mean([show[f"cora_dense_seed{s}"]["seconds"]
+                            for s in (0, 1, 2)]))
+    show18 = {}
+    for label, extra in (("shared_budget", []),
+                         ("budget_buckets_4", ["--budget_buckets", "4"])):
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = dgnn.run(dgnn.build_parser().parse_args(
+            ["--dataset", "cora", *recipe, "--seed", "0", "--batch_iters",
+             "--iter", "25", *extra]))
+        torch.cuda.synchronize()
+        add_launches(f"the showcase under --batch_iters {label}", [])
+        mem = out["memory"] or {}
+        show18[label] = dict(
+            acc_mean=out["acc_mean"], acc_std=out["acc_std"],
+            acc_min=out["acc_min"], acc_max=out["acc_max"], dead=out["dead"],
+            sweep_seconds=out["sweep_seconds"],
+            seconds_per_model=out["sweep_seconds"] / 25,
+            solo_seconds_per_model=solo_s,
+            run_seconds=time.perf_counter() - t0, max_steps=out["max_steps"],
+            buckets=out["buckets"], peak_gb=out["peak_bytes"] / 1e9,
+            estimate_gb=mem.get("estimate", 0) / 1e9,
+            per_replica_gb=mem.get("per_replica", 0) / 1e9,
+            limit_gb=mem.get("limit", 0) / 1e9)
+        check(not out["dead"] and band25[0] <= out["acc_mean"] <= band25[1],
+              f"the showcase under --batch_iters {label}: mean accuracy "
+              f"{out['acc_mean']} (dead {out['dead']}) outside {band25}")
+        check(out["peak_bytes"] <= mem.get("limit", 0),
+              f"the showcase sweep {label} peaked over the guard's limit")
+        torch.cuda.empty_cache()
+    print("[18] replica sweeps (card: " + smi + "): " + json.dumps({
+        "kernels": kb, "heat_replicas16": sweep18, "showcase25": show18,
+        "showcase_band": band25, "seconds": time.perf_counter() - t18}))
 
     # ---- p. where the time goes
     for label, srv, x0 in (("grid400", server, fx["x0"]),
@@ -2184,6 +2571,31 @@ def main() -> None:
         entry("bsr_fused_rhs", "bsr_spmm.cu",
               "ndcn_tpu/kernels/bsr_spmm.py:176", k4["grid400_d20"]["fwd"],
               k4["grid400_d20"]["bwd"]),
+        # the replica sweeps' batched forms (R states against one operator
+        # in one launch): the grid400 d = 20 case at R = 16, R = 1 beside
+        entry("coo_spmv_batched", "coo_spmv.cu", K1,
+              kb["k1"]["grid400_d20_r16"], r1=kb["k1"]["grid400_d20_r1"],
+              citation_r25=kb["k1"]["cora_d16_r25"],
+              launches_per_replica_step=sweep18["coo"]["launches_r16"][
+                  "ours"].get(
+                  "coo_spmv_batched", 0)),
+        entry("fused_rhs_batched", "fused_rhs.cu",
+              "ndcn_tpu/kernels/fused_rhs.py:30",
+              kb["k2"]["grid400_d20_r16"], r1=kb["k2"]["grid400_d20_r1"],
+              launches_per_replica_step=sweep18["dense"]["launches_r16"][
+                  "ours"].get(
+                  "fused_rhs_batched", 0)),
+        entry("bsr_spmm_batched", "bsr_spmm.cu",
+              "ndcn_tpu/kernels/bsr_spmm.py:91",
+              kb["k3"]["grid400_d20_r16"], r1=kb["k3"]["grid400_d20_r1"],
+              citation_r25=kb["k3"]["cora_d16_r25"],
+              launches_per_replica_step=sweep18["bsr"]["launches_r16"][
+                  "ours"].get("bsr_spmm_batched", 0)),
+        entry("bsr_fused_rhs_batched", "bsr_spmm.cu",
+              "ndcn_tpu/kernels/bsr_spmm.py:176",
+              kb["k4"]["grid400_d20_r16"], r1=kb["k4"]["grid400_d20_r1"],
+              launches_per_replica_step=sweep18["bsr"]["launches_r16"][
+                  "ours"].get("bsr_fused_rhs_batched", 0)),
         entry("coo_spmv_bf16", "coo_spmv.cu",
               "ndcn_tpu/kernels/coo_spmv.py:172",
               k11["k1_bf16_200k"]["fwd"], k11["k1_bf16_200k"]["transpose"]),

@@ -9,6 +9,13 @@ model's ``jax_tree`` names its parameters by those keys. The temporal GCN
 (``models.temporal_gcn``): ``{"gc", "cell": {"w_ih", "w_hh", "b_ih",
 "b_hh"}, "out"}``, the cell's arrays in the torch cells' layout on both
 sides; its ``jax_tree`` too. The arrays cross as numpy.
+
+A replica sweep's parameters cross the same way: a JAX tree with a leading
+replica axis on every array (``jax.vmap(init_ndcn)(keys)``) loads into a
+stacked model (``parallel.sweep.stack_models``), and a stacked model
+exports such a tree. ``params_from_jax`` and ``zoo_params_from_jax`` read
+the axis off the tree (a linear's ``w`` of three dimensions);
+``params_to_jax`` and ``zoo_params_to_jax`` off the model.
 """
 
 from __future__ import annotations
@@ -21,16 +28,87 @@ import torch
 from torch import nn
 
 from ndcn_tpu_torch.models import gcn_zoo
-from ndcn_tpu_torch.models.ndcn import NDCN
+from ndcn_tpu_torch.models.ndcn import NDCN, replica_count
 
 LAYERS = ("enc1", "enc2", "wt", "dec")
+
+
+def _tree_replicas(tree) -> Optional[int]:
+    """R when the tree's arrays carry a leading replica axis (its first
+    linear's ``w`` has three dimensions), else None."""
+    if isinstance(tree, dict):
+        if "w" in tree and not isinstance(tree["w"], dict):
+            w = np.shape(tree["w"])
+            return w[0] if len(w) == 3 else None
+        nodes = tree.values()
+    elif isinstance(tree, (list, tuple)):
+        nodes = tree
+    else:
+        return None
+    for node in nodes:
+        r = _tree_replicas(node)
+        if r is not None or isinstance(node, dict) and "w" in node:
+            return r
+    return None
+
+
+def _replica_tree(tree, i: int):
+    """Replica ``i``'s tree of a tree with a leading replica axis."""
+    if isinstance(tree, dict):
+        return {k: _replica_tree(v, i) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_replica_tree(v, i) for v in tree]
+    return np.asarray(tree)[i]
+
+
+def _stack_trees(trees):
+    """R trees of one structure as one tree with a leading replica axis."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack_trees([t[k] for t in trees]) for k in first}
+    if isinstance(first, (list, tuple)):
+        return [_stack_trees([t[j] for t in trees]) for j in range(len(first))]
+    return np.stack([np.asarray(t) for t in trees])
+
+
+def _load_replicas(load, tree, model, device, replicas: int):
+    """A stacked model from a tree with a leading replica axis: each
+    replica's tree through ``load`` (into ``model``'s replicas, when given),
+    then stacked."""
+    from ndcn_tpu_torch.parallel.sweep import stack_models, unstack_model
+
+    if model is not None and replica_count(model) != replicas:
+        raise ValueError(f"the JAX tree has {replicas} replicas, the model "
+                         f"{replica_count(model)}")
+    ones = [load(_replica_tree(tree, i),
+                 None if model is None else unstack_model(model, i))
+            for i in range(replicas)]
+    stacked = stack_models(ones)
+    if model is not None:
+        with torch.no_grad():
+            for p, q in zip(model.parameters(), stacked.parameters()):
+                p.copy_(q)
+        stacked = model
+    return stacked.to(device) if device is not None else stacked
+
+
+def _export_replicas(export, model):
+    from ndcn_tpu_torch.parallel.sweep import unstack_model
+
+    return _stack_trees([export(unstack_model(model, i))
+                         for i in range(replica_count(model))])
 
 
 def params_from_jax(tree: Dict[str, Dict[str, np.ndarray]],
                     model: Optional[NDCN] = None,
                     device: Optional[torch.device] = None) -> NDCN:
     """Load a JAX parameter dict into ``model`` (built to its shapes when
-    None) and return the model. The two must have the same layers."""
+    None) and return the model. The two must have the same layers. A tree
+    with a leading replica axis loads into a stacked model."""
+    replicas = _tree_replicas(tree)
+    if replicas is not None:
+        return _load_replicas(lambda t, m: params_from_jax(t, m), tree,
+                              model, device, replicas)
     if model is None:
         w_dec = np.asarray(tree["dec"]["w"])
         no_embed = "enc1" not in tree
@@ -59,7 +137,10 @@ def params_from_jax(tree: Dict[str, Dict[str, np.ndarray]],
 
 
 def params_to_jax(model: NDCN) -> Dict[str, Dict[str, np.ndarray]]:
-    """The model's weights as the JAX package's parameter dict (numpy)."""
+    """The model's weights as the JAX package's parameter dict (numpy); a
+    stacked model's with a leading replica axis."""
+    if replica_count(model) is not None:
+        return _export_replicas(params_to_jax, model)
     tree = {}
     for name in LAYERS:
         layer = getattr(model, name)
@@ -171,7 +252,11 @@ def zoo_params_from_jax(name: Optional[str], tree,
     only then) and return the model.
     The two must have the same structure. DeepGCN3's ``num_middle_layers``
     is not in its tree: a model built here has none; pass the model to set
-    it."""
+    it. A tree with a leading replica axis loads into a stacked model."""
+    replicas = _tree_replicas(tree)
+    if replicas is not None:
+        return _load_replicas(lambda t, m: zoo_params_from_jax(name, t, m),
+                              tree, model, device, replicas)
     if model is None:
         model = _zoo_from_tree(name, tree)
     with torch.no_grad():
@@ -180,7 +265,10 @@ def zoo_params_from_jax(name: Optional[str], tree,
 
 
 def zoo_params_to_jax(model: nn.Module):
-    """A zoo model's weights as the JAX package's parameter tree (numpy)."""
+    """A zoo model's weights as the JAX package's parameter tree (numpy); a
+    stacked model's with a leading replica axis."""
+    if replica_count(model) is not None:
+        return _export_replicas(zoo_params_to_jax, model)
     return _export(model.jax_tree())
 
 

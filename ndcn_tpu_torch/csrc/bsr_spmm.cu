@@ -31,6 +31,13 @@
 //   in shared memory and phase 2 is K2's: the panel times W (W may be
 //   strided), plus b, relu.
 //
+// Replicas (the batched entries): R row-major X (R, n_cols, d) against the
+// one shared A, in one launch; K4 also with R own W and b. The replica is
+// gridDim.z for K3 (y is its slabs) and gridDim.y for K4; a CTA offsets X,
+// Y (W, b) by its replica's strides and does exactly the work of a
+// one-replica launch on that slice, so each replica is bit-equal to its own
+// launch. A's blocks are staged once per replica, from L2 after the first.
+//
 // Every sum has a fixed order and no atomics are used, so results repeat bit
 // for bit, which the adaptive controller's NFE needs. Ragged edges (B not a
 // multiple of the tile or chunk, n not a multiple of B, d not a multiple of 4
@@ -102,6 +109,8 @@ bsr_spmm_kernel(Bsr a, const float* __restrict__ x, float* __restrict__ y,
                 bool x_vec) {
   extern __shared__ __align__(16) float smem[];
   constexpr int BM = 16 * MT;
+  x += (int64_t)blockIdx.z * a.n_cols * d;      // the replica's X and Y
+  y += (int64_t)blockIdx.z * a.n_rows * d;
   const int rb = blockIdx.x / tiles_per_block;
   const int r0 = (blockIdx.x % tiles_per_block) * BM;
   const int c0 = blockIdx.y * L.width;          // the slab's first column
@@ -128,9 +137,14 @@ bsr_fused_rhs_kernel(Bsr a, const float* __restrict__ x,
                      const float* __restrict__ w, const float* __restrict__ b,
                      float* __restrict__ out, ndcn::Layout L, int64_t w_rs,
                      int64_t w_cs, int tiles_per_block, bool a_vec, bool x_vec,
-                     bool w_vec) {
+                     bool w_vec, int64_t w_bs) {
   extern __shared__ __align__(16) float smem[];
   constexpr int BM = 16 * MT;
+  const int64_t rep = blockIdx.y;  // the replica: its X, W, b and output
+  x += rep * a.n_cols * L.width;
+  w += rep * w_bs;
+  b += rep * L.width;
+  out += rep * a.n_rows * L.width;
   const int rb = blockIdx.x / tiles_per_block;
   const int r0 = (blockIdx.x % tiles_per_block) * BM;
   const int s0 = a.row_ptr[rb];
@@ -155,13 +169,14 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
 
 template <int MT>
 int launch_spmm(const Bsr& a, const float* x, float* y, int n_row_blocks,
-                int d, const ndcn::Layout& L, size_t smem,
+                int d, const ndcn::Layout& L, size_t smem, int replicas,
                 cudaStream_t stream) {
   auto kernel = bsr_spmm_kernel<MT>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const int tiles = (a.block + 16 * MT - 1) / (16 * MT);
-  const dim3 grid(n_row_blocks * tiles, (d + L.width - 1) / L.width);
+  const dim3 grid(n_row_blocks * tiles, (d + L.width - 1) / L.width,
+                  replicas);
   kernel<<<grid, ndcn::kMmaThreads, smem, stream>>>(
       a, x, y, L, d, tiles, a.block % 4 == 0 && ndcn::aligned16(a.blocks),
       d % 4 == 0 && ndcn::aligned16(x));
@@ -171,27 +186,91 @@ int launch_spmm(const Bsr& a, const float* x, float* y, int n_row_blocks,
 template <int MT, int NT>
 int launch_fused(const Bsr& a, const float* x, const float* w, const float* b,
                  float* out, int n_row_blocks, const ndcn::Layout& L,
-                 size_t smem, int64_t w_rs, int64_t w_cs,
-                 cudaStream_t stream) {
+                 size_t smem, int64_t w_rs, int64_t w_cs, int replicas,
+                 int64_t w_bs, cudaStream_t stream) {
   auto kernel = bsr_fused_rhs_kernel<MT, NT>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const int tiles = (a.block + 16 * MT - 1) / (16 * MT);
-  kernel<<<n_row_blocks * tiles, ndcn::kMmaThreads, smem, stream>>>(
+  kernel<<<dim3(n_row_blocks * tiles, replicas), ndcn::kMmaThreads, smem,
+           stream>>>(
       a, x, w, b, out, L, w_rs, w_cs, tiles,
       a.block % 4 == 0 && ndcn::aligned16(a.blocks),
       L.width % 4 == 0 && ndcn::aligned16(x),
-      ndcn::w_vec(w, w_rs, w_cs));
+      ndcn::w_vec(w, w_rs, w_cs) && (replicas == 1 || w_bs % 4 == 0), w_bs);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Both entries launch on `stream`, allocate nothing and do not synchronise,
-// and return cudaGetLastError() (0 when the launch was accepted). rows, nt,
-// wn, bk and smem_bytes are the host's plan (tile height, n8 tiles a warp,
-// warps across the columns, chunk depth, dynamic shared memory); a plan the
-// kernel does not take returns cudaErrorInvalidValue.
+namespace {
+
+int spmm_plan(const void* row_ptr, const void* block_cols, const void* blocks,
+              const void* x, void* y, int n_row_blocks, int block, int n_rows,
+              int n_cols, int d, int slab, int rows, int wn, int bk,
+              long long smem_bytes, int replicas, void* stream) {
+  if (n_row_blocks <= 0 || block <= 0 || d <= 0 || replicas <= 0) {
+    return (int)cudaGetLastError();
+  }
+  const Bsr a{(const int32_t*)row_ptr, (const int32_t*)block_cols,
+              (const float*)blocks, block, n_rows, n_cols};
+  ndcn::Layout L;
+  size_t smem = 0;
+  if (replicas > 65535 || slab < 1 || slab > d ||
+      (slab != d && slab % 8 != 0) ||
+      !ndcn::make_layout(&L, &smem, rows, kSpmmNt, wn, bk, slab) ||
+      (long long)smem != smem_bytes) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (rows == 16) {
+    return launch_spmm<1>(a, (const float*)x, (float*)y, n_row_blocks, d, L,
+                          smem, replicas, (cudaStream_t)stream);
+  }
+  return launch_spmm<2>(a, (const float*)x, (float*)y, n_row_blocks, d, L,
+                        smem, replicas, (cudaStream_t)stream);
+}
+
+int fused_plan(const void* row_ptr, const void* block_cols,
+               const void* blocks, const void* x, const void* w,
+               const void* b, void* out, int n_row_blocks, int block,
+               int n_rows, int n_cols, int d, long long w_rs, long long w_cs,
+               int rows, int nt, int wn, int bk, long long smem_bytes,
+               int replicas, long long w_bs, void* stream) {
+  if (n_row_blocks <= 0 || block <= 0 || d <= 0 || replicas <= 0) {
+    return (int)cudaGetLastError();
+  }
+  const Bsr a{(const int32_t*)row_ptr, (const int32_t*)block_cols,
+              (const float*)blocks, block, n_rows, n_cols};
+  ndcn::Layout L;
+  size_t smem = 0;
+  if (replicas > 65535 || !ndcn::make_layout(&L, &smem, rows, nt, wn, bk, d) ||
+      (long long)smem != smem_bytes) {
+    return (int)cudaErrorInvalidValue;
+  }
+#define NDCN_K4_CASE(MT, NT)                                                  \
+  if (rows == 16 * MT && nt == NT)                                            \
+    return launch_fused<MT, NT>(a, (const float*)x, (const float*)w,          \
+                                (const float*)b, (float*)out, n_row_blocks,   \
+                                L, smem, (int64_t)w_rs, (int64_t)w_cs,        \
+                                replicas, (int64_t)w_bs,                      \
+                                (cudaStream_t)stream)
+  NDCN_K4_CASE(1, 4);
+  NDCN_K4_CASE(2, 4);
+  NDCN_K4_CASE(1, 8);
+  NDCN_K4_CASE(2, 8);
+  NDCN_K4_CASE(1, 16);
+#undef NDCN_K4_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// Every entry launches on `stream`, allocates nothing and does not
+// synchronise, and returns cudaGetLastError() (0 when the launch was
+// accepted). rows, nt, wn, bk and smem_bytes are the host's plan (tile
+// height, n8 tiles a warp, warps across the columns, chunk depth, dynamic
+// shared memory); a plan the kernel does not take returns
+// cudaErrorInvalidValue.
 
 // slab: the columns of X one CTA takes (the plan's slab; gridDim.y is
 // ceil(d / slab)): all of d, or whole n8 tiles, so that every slab starts on
@@ -202,24 +281,21 @@ extern "C" int ndcn_bsr_spmm_f32(const void* row_ptr, const void* block_cols,
                                  int n_row_blocks, int block, int n_rows,
                                  int n_cols, int d, int slab, int rows, int wn,
                                  int bk, long long smem_bytes, void* stream) {
-  if (n_row_blocks <= 0 || block <= 0 || d <= 0) {
-    return (int)cudaGetLastError();
-  }
-  const Bsr a{(const int32_t*)row_ptr, (const int32_t*)block_cols,
-              (const float*)blocks, block, n_rows, n_cols};
-  ndcn::Layout L;
-  size_t smem = 0;
-  if (slab < 1 || slab > d || (slab != d && slab % 8 != 0) ||
-      !ndcn::make_layout(&L, &smem, rows, kSpmmNt, wn, bk, slab) ||
-      (long long)smem != smem_bytes) {
-    return (int)cudaErrorInvalidValue;
-  }
-  if (rows == 16) {
-    return launch_spmm<1>(a, (const float*)x, (float*)y, n_row_blocks, d, L,
-                          smem, (cudaStream_t)stream);
-  }
-  return launch_spmm<2>(a, (const float*)x, (float*)y, n_row_blocks, d, L,
-                        smem, (cudaStream_t)stream);
+  return spmm_plan(row_ptr, block_cols, blocks, x, y, n_row_blocks, block,
+                   n_rows, n_cols, d, slab, rows, wn, bk, smem_bytes, 1,
+                   stream);
+}
+
+// The batched K3: x is `replicas` row-major (n_cols, d) states one after
+// another, y `replicas` (n_rows, d).
+extern "C" int ndcn_bsr_spmm_batched_f32(
+    const void* row_ptr, const void* block_cols, const void* blocks,
+    const void* x, void* y, int n_row_blocks, int block, int n_rows,
+    int n_cols, int d, int slab, int rows, int wn, int bk,
+    long long smem_bytes, int replicas, void* stream) {
+  return spmm_plan(row_ptr, block_cols, blocks, x, y, n_row_blocks, block,
+                   n_rows, n_cols, d, slab, rows, wn, bk, smem_bytes,
+                   replicas, stream);
 }
 
 // w may be strided (nn.Linear's weight transposed is a view): element (i, j)
@@ -233,28 +309,21 @@ extern "C" int ndcn_bsr_fused_rhs_f32(const void* row_ptr,
                                       long long w_cs, int rows, int nt, int wn,
                                       int bk, long long smem_bytes,
                                       void* stream) {
-  if (n_row_blocks <= 0 || block <= 0 || d <= 0) {
-    return (int)cudaGetLastError();
-  }
-  const Bsr a{(const int32_t*)row_ptr, (const int32_t*)block_cols,
-              (const float*)blocks, block, n_rows, n_cols};
-  ndcn::Layout L;
-  size_t smem = 0;
-  if (!ndcn::make_layout(&L, &smem, rows, nt, wn, bk, d) ||
-      (long long)smem != smem_bytes) {
-    return (int)cudaErrorInvalidValue;
-  }
-#define NDCN_K4_CASE(MT, NT)                                                  \
-  if (rows == 16 * MT && nt == NT)                                            \
-    return launch_fused<MT, NT>(a, (const float*)x, (const float*)w,          \
-                                (const float*)b, (float*)out, n_row_blocks,   \
-                                L, smem, (int64_t)w_rs, (int64_t)w_cs,        \
-                                (cudaStream_t)stream)
-  NDCN_K4_CASE(1, 4);
-  NDCN_K4_CASE(2, 4);
-  NDCN_K4_CASE(1, 8);
-  NDCN_K4_CASE(2, 8);
-  NDCN_K4_CASE(1, 16);
-#undef NDCN_K4_CASE
-  return (int)cudaErrorInvalidValue;
+  return fused_plan(row_ptr, block_cols, blocks, x, w, b, out, n_row_blocks,
+                    block, n_rows, n_cols, d, w_rs, w_cs, rows, nt, wn, bk,
+                    smem_bytes, 1, 0, stream);
+}
+
+// The batched K4: x and out are `replicas` (n, d) states one after another,
+// b `replicas` rows of d, and replica r's W starts w_bs floats after
+// replica r - 1's.
+extern "C" int ndcn_bsr_fused_rhs_batched_f32(
+    const void* row_ptr, const void* block_cols, const void* blocks,
+    const void* x, const void* w, const void* b, void* out, int n_row_blocks,
+    int block, int n_rows, int n_cols, int d, long long w_rs, long long w_cs,
+    int rows, int nt, int wn, int bk, long long smem_bytes, int replicas,
+    long long w_bs, void* stream) {
+  return fused_plan(row_ptr, block_cols, blocks, x, w, b, out, n_row_blocks,
+                    block, n_rows, n_cols, d, w_rs, w_cs, rows, nt, wn, bk,
+                    smem_bytes, replicas, w_bs, stream);
 }

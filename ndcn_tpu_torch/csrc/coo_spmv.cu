@@ -33,6 +33,12 @@
 //   copy of X and rounds each value of A to bf16 as it reads it, as the TPU
 //   kernel folds vals into its bf16 one-hot; the product of two bf16 values
 //   is exact in fp32, and the sums stay fp32.
+// - Replicas (the batched entries): R states (R, n, d) against the one
+//   shared A, in one launch per pass. gridDim.y is the replica; each CTA
+//   offsets X, Y and the long rows' scratch by its replica's stride and
+//   does exactly the work of a one-replica launch on that slice, so a
+//   replica's result is bit-equal to its own launch's. A and its chunk
+//   index are read by every replica (from L2 after the first).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -50,7 +56,9 @@ csr_rows_kernel(const int32_t* __restrict__ row_ptr,
                 const int32_t* __restrict__ cols,
                 const float* __restrict__ vals, const T* __restrict__ x,
                 float* __restrict__ y, int n_rows, int d, int split_limit,
-                ndcn::LaneShape shape) {
+                ndcn::LaneShape shape, int64_t x_bs, int64_t y_bs) {
+  x += blockIdx.y * x_bs;  // this CTA's replica
+  y += blockIdx.y * y_bs;
   const int64_t first = (((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5)
                         * shape.rows;
   if (first >= n_rows) return;  // uniform across the warp
@@ -75,26 +83,31 @@ csr_rows_kernel(const int32_t* __restrict__ row_ptr,
 template <typename T, int E>
 void launch_width(const int32_t* row_ptr, const int32_t* cols,
                   const float* vals, const T* x, float* y, int n_rows, int d,
-                  const ndcn::RowSplit& split, cudaStream_t stream) {
+                  const ndcn::RowSplit& split, int replicas,
+                  cudaStream_t stream) {
   const ndcn::LaneShape shape = ndcn::lane_shape(d, E);
-  csr_rows_kernel<T, E>
-      <<<ndcn::gather_blocks(n_rows, shape.rows), kGatherThreads, 0,
-         stream>>>(row_ptr, cols, vals, x, y, n_rows, d, split.limit, shape);
-  ndcn::launch_long_rows<T, E>(split, cols, vals, x, y, d, d, 1, stream);
+  const int64_t bs = (int64_t)n_rows * d;  // one replica's X and Y
+  const dim3 grid(ndcn::gather_blocks(n_rows, shape.rows), replicas);
+  csr_rows_kernel<T, E><<<grid, kGatherThreads, 0, stream>>>(
+      row_ptr, cols, vals, x, y, n_rows, d, split.limit, shape, bs, bs);
+  ndcn::launch_long_rows<T, E>(split, cols, vals, x, y, d, d, 1, stream,
+                               replicas, bs, bs);
 }
 
 template <typename T>
 int launch(const void* row_ptr, const void* cols, const void* vals,
            const void* x, void* y, int n_rows, int d, int width,
-           const ndcn::RowSplit& split, void* stream) {
-  if (n_rows <= 0 || d <= 0) return (int)cudaGetLastError();
+           const ndcn::RowSplit& split, int replicas, void* stream) {
+  if (n_rows <= 0 || d <= 0 || replicas <= 0) return (int)cudaGetLastError();
+  if (replicas > 65535) return (int)cudaErrorInvalidValue;  // gridDim.y
   if (!ndcn::gather_width_ok<T>(x, d, width)) {
     return (int)cudaErrorInvalidValue;
   }
   ndcn::for_lane_values<T>(width, [&](auto lane_values) {
     launch_width<T, decltype(lane_values)::value>(
         (const int32_t*)row_ptr, (const int32_t*)cols, (const float*)vals,
-        (const T*)x, (float*)y, n_rows, d, split, (cudaStream_t)stream);
+        (const T*)x, (float*)y, n_rows, d, split, replicas,
+        (cudaStream_t)stream);
   });
   return (int)cudaGetLastError();
 }
@@ -115,7 +128,7 @@ extern "C" int ndcn_coo_spmv_f32(
       split_limit, long_rows, chunk_ptr, chunk_bounds, n_long, n_chunks,
       partial);
   return launch<float>(row_ptr, cols, vals, x, y, n_rows, d, width, split,
-                       stream);
+                       1, stream);
 }
 
 // x is a bf16 (n, d) copy of X; vals stay fp32 and are rounded in the kernel.
@@ -128,5 +141,33 @@ extern "C" int ndcn_coo_spmv_bf16(
       split_limit, long_rows, chunk_ptr, chunk_bounds, n_long, n_chunks,
       partial);
   return launch<__nv_bfloat16>(row_ptr, cols, vals, x, y, n_rows, d, width,
-                               split, stream);
+                               split, 1, stream);
+}
+
+// The batched forms: x and y are `replicas` row-major (n_rows, d) states one
+// after another, and partial (with n_chunks > 0) is `replicas` scratches of
+// (n_chunks, d). Each replica's y is what the one-replica entry writes for
+// its x.
+extern "C" int ndcn_coo_spmv_batched_f32(
+    const void* row_ptr, const void* cols, const void* vals, const void* x,
+    void* y, int n_rows, int d, int width, int split_limit,
+    const void* long_rows, const void* chunk_ptr, const void* chunk_bounds,
+    int n_long, int n_chunks, void* partial, int replicas, void* stream) {
+  const ndcn::RowSplit split = ndcn::row_split(
+      split_limit, long_rows, chunk_ptr, chunk_bounds, n_long, n_chunks,
+      partial);
+  return launch<float>(row_ptr, cols, vals, x, y, n_rows, d, width, split,
+                       replicas, stream);
+}
+
+extern "C" int ndcn_coo_spmv_batched_bf16(
+    const void* row_ptr, const void* cols, const void* vals, const void* x,
+    void* y, int n_rows, int d, int width, int split_limit,
+    const void* long_rows, const void* chunk_ptr, const void* chunk_bounds,
+    int n_long, int n_chunks, void* partial, int replicas, void* stream) {
+  const ndcn::RowSplit split = ndcn::row_split(
+      split_limit, long_rows, chunk_ptr, chunk_bounds, n_long, n_chunks,
+      partial);
+  return launch<__nv_bfloat16>(row_ptr, cols, vals, x, y, n_rows, d, width,
+                               split, replicas, stream);
 }

@@ -29,6 +29,13 @@
 // Copies by TMA and a producer warp, and wgmma for the products, are the
 // next steps.
 //
+// Replicas (the batched entry): R states H (R, n, k) with their own W (R, k,
+// k) and b (R, k) against the one shared A, in one launch. gridDim.y is the
+// replica; a CTA offsets H, W, b and the output by its replica's strides and
+// does exactly the work of a one-replica launch on that slice (the same
+// plan, the same sums), so each replica is bit-equal to its own launch.
+// A's panel is read once per replica, from L2 after the first.
+//
 // The ragged edges of n and k are zero-filled in the staging copies and
 // masked in the store; nothing is padded in device memory. Sums have a fixed
 // order, no atomics: two calls agree bit for bit.
@@ -62,8 +69,14 @@ __global__ void __launch_bounds__(kMmaThreads)
 fused_rhs_kernel(const float* __restrict__ a, const float* __restrict__ h,
                  const float* __restrict__ w, const float* __restrict__ b,
                  float* __restrict__ out, int n, Layout L, int64_t w_rs,
-                 int64_t w_cs, bool a_vec, bool h_vec, bool w_vec) {
+                 int64_t w_cs, bool a_vec, bool h_vec, bool w_vec,
+                 int64_t w_bs) {
   extern __shared__ __align__(16) float smem[];
+  const int64_t rep = blockIdx.y;  // the replica: its H, W, b and output
+  h += rep * n * L.width;
+  w += rep * w_bs;
+  b += rep * L.width;
+  out += rep * n * L.width;
   constexpr int BM = 16 * MT;
   const int64_t row0 = (int64_t)blockIdx.x * BM;
   const int rows = (int)min((int64_t)BM, n - row0);
@@ -75,7 +88,7 @@ fused_rhs_kernel(const float* __restrict__ a, const float* __restrict__ h,
 template <int MT, int NT>
 int launch(const float* a, const float* h, const float* w, const float* b,
            float* out, int n, const Layout& L, size_t smem, int64_t w_rs,
-           int64_t w_cs, cudaStream_t stream) {
+           int64_t w_cs, int replicas, int64_t w_bs, cudaStream_t stream) {
   auto kernel = fused_rhs_kernel<MT, NT>;
   if (smem > 48 * 1024) {  // beyond the default only after opt-in
     cudaError_t err = cudaFuncSetAttribute(
@@ -83,12 +96,42 @@ int launch(const float* a, const float* h, const float* w, const float* b,
     if (err != cudaSuccess) return (int)err;
   }
   const int k = L.width;
-  const int blocks = (n + 16 * MT - 1) / (16 * MT);
+  const dim3 blocks((n + 16 * MT - 1) / (16 * MT), replicas);
   kernel<<<blocks, kMmaThreads, smem, stream>>>(
       a, h, w, b, out, n, L, w_rs, w_cs, n % 4 == 0 && aligned16(a),
       k % 4 == 0 && aligned16(h),
-      w_vec(w, w_rs, w_cs));
+      w_vec(w, w_rs, w_cs) && (replicas == 1 || w_bs % 4 == 0), w_bs);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+namespace {
+
+int launch_plan(const void* a, const void* h, const void* w, const void* b,
+                void* out, int n, int k, long long w_rs, long long w_cs,
+                int rows, int nt, int wn, int bk, long long smem_bytes,
+                int replicas, long long w_bs, void* stream) {
+  if (n <= 0 || k <= 0 || replicas <= 0) return (int)cudaGetLastError();
+  Layout L;
+  size_t smem = 0;
+  if (replicas > 65535 || !make_layout(&L, &smem, rows, nt, wn, bk, k) ||
+      (long long)smem != smem_bytes) {
+    return (int)cudaErrorInvalidValue;
+  }
+#define NDCN_K2_CASE(MT, NT)                                                 \
+  if (rows == 16 * MT && nt == NT)                                           \
+    return launch<MT, NT>((const float*)a, (const float*)h, (const float*)w, \
+                          (const float*)b, (float*)out, n, L, smem,          \
+                          (int64_t)w_rs, (int64_t)w_cs, replicas,            \
+                          (int64_t)w_bs, (cudaStream_t)stream)
+  NDCN_K2_CASE(1, 4);
+  NDCN_K2_CASE(2, 4);
+  NDCN_K2_CASE(1, 8);
+  NDCN_K2_CASE(2, 8);
+  NDCN_K2_CASE(1, 16);
+#undef NDCN_K2_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -105,23 +148,18 @@ extern "C" int ndcn_fused_rhs_f32(const void* a, const void* h, const void* w,
                                   long long w_rs, long long w_cs, int rows,
                                   int nt, int wn, int bk,
                                   long long smem_bytes, void* stream) {
-  if (n <= 0 || k <= 0) return (int)cudaGetLastError();
-  Layout L;
-  size_t smem = 0;
-  if (!make_layout(&L, &smem, rows, nt, wn, bk, k) ||
-      (long long)smem != smem_bytes) {
-    return (int)cudaErrorInvalidValue;
-  }
-#define NDCN_K2_CASE(MT, NT)                                                 \
-  if (rows == 16 * MT && nt == NT)                                           \
-    return launch<MT, NT>((const float*)a, (const float*)h, (const float*)w, \
-                          (const float*)b, (float*)out, n, L, smem,          \
-                          (int64_t)w_rs, (int64_t)w_cs, (cudaStream_t)stream)
-  NDCN_K2_CASE(1, 4);
-  NDCN_K2_CASE(2, 4);
-  NDCN_K2_CASE(1, 8);
-  NDCN_K2_CASE(2, 8);
-  NDCN_K2_CASE(1, 16);
-#undef NDCN_K2_CASE
-  return (int)cudaErrorInvalidValue;
+  return launch_plan(a, h, w, b, out, n, k, w_rs, w_cs, rows, nt, wn, bk,
+                     smem_bytes, 1, 0, stream);
+}
+
+// The batched form: h and out are `replicas` contiguous (n, k) states one
+// after another, b `replicas` rows of k, and replica r's W starts w_bs
+// floats after replica r - 1's (the same strides within).
+extern "C" int ndcn_fused_rhs_batched_f32(
+    const void* a, const void* h, const void* w, const void* b, void* out,
+    int n, int k, long long w_rs, long long w_cs, int rows, int nt, int wn,
+    int bk, long long smem_bytes, int replicas, long long w_bs,
+    void* stream) {
+  return launch_plan(a, h, w, b, out, n, k, w_rs, w_cs, rows, nt, wn, bk,
+                     smem_bytes, replicas, w_bs, stream);
 }

@@ -225,7 +225,10 @@ chunk_partials_kernel(const int32_t* __restrict__ chunk_bounds,
                       const float* __restrict__ vals,
                       const T* __restrict__ table,
                       float* __restrict__ partial, int n_chunks, int d,
-                      LaneShape shape) {
+                      LaneShape shape, int64_t table_bs) {
+  // gridDim.y: the replica (batched K1); its table and its own scratch
+  table += blockIdx.y * table_bs;
+  partial += (int64_t)blockIdx.y * n_chunks * d;
   const int64_t first = (((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5)
                         * shape.rows;
   if (first >= n_chunks) return;  // uniform across the warp
@@ -251,7 +254,10 @@ static __global__ void __launch_bounds__(kGatherThreads)
 fold_chunks_kernel(const int32_t* __restrict__ long_rows,
                    const int32_t* __restrict__ chunk_ptr,
                    const float* __restrict__ partial, float* __restrict__ y,
-                   int d, int64_t row_stride, int64_t feature_stride) {
+                   int d, int64_t row_stride, int64_t feature_stride,
+                   int n_chunks, int64_t y_bs) {
+  partial += (int64_t)blockIdx.y * n_chunks * d;  // gridDim.y: the replica
+  y += blockIdx.y * y_bs;
   const int64_t row = long_rows[blockIdx.x];
   const int first = chunk_ptr[blockIdx.x];
   const int last = chunk_ptr[blockIdx.x + 1];
@@ -294,21 +300,27 @@ inline RowSplit row_split(int limit, const void* long_rows,
 }
 
 // The two passes over the long rows, after the rows kernel on the same
-// stream (which wrote zeros for them).
+// stream (which wrote zeros for them). With `replicas` > 1 (batched K1) the
+// table and y hold that many states `table_bs` and `y_bs` floats apart, and
+// split.partial that many scratches of (n_chunks, d); gridDim.y is the
+// replica.
 template <typename T, int E>
 void launch_long_rows(const RowSplit& split, const int32_t* cols,
                       const float* vals, const T* table, float* y, int d,
                       int64_t row_stride, int64_t feature_stride,
-                      cudaStream_t stream) {
+                      cudaStream_t stream, int replicas = 1,
+                      int64_t table_bs = 0, int64_t y_bs = 0) {
   if (split.n_chunks <= 0) return;
   const LaneShape shape = lane_shape(d, E);
   chunk_partials_kernel<T, E>
-      <<<gather_blocks(split.n_chunks, shape.rows), kGatherThreads, 0,
-         stream>>>(split.chunk_bounds, cols, vals, table, split.partial,
-                   split.n_chunks, d, shape);
-  fold_chunks_kernel<<<split.n_long, kGatherThreads, 0, stream>>>(
-      split.long_rows, split.chunk_ptr, split.partial, y, d, row_stride,
-      feature_stride);
+      <<<dim3(gather_blocks(split.n_chunks, shape.rows), replicas),
+         kGatherThreads, 0, stream>>>(split.chunk_bounds, cols, vals, table,
+                                      split.partial, split.n_chunks, d, shape,
+                                      table_bs);
+  fold_chunks_kernel<<<dim3(split.n_long, replicas), kGatherThreads, 0,
+                       stream>>>(split.long_rows, split.chunk_ptr,
+                                 split.partial, y, d, row_stride,
+                                 feature_stride, split.n_chunks, y_bs);
 }
 
 // Does the table (rows of d values of T) take loads of `width` bytes?

@@ -17,6 +17,21 @@ Dense below 8193 nodes unless ``--sparse``; sparse formats coo (K1), ell
 the first CUDA device and raises without one; ``--platform cpu`` runs the
 kernels' plain versions. Matrix products are pinned to full fp32.
 
+``--batch_iters`` trains ``--iter`` independent replicas at once (the JAX
+driver's vmapped sweep, for GCN, DeepGCN, DeepGCN2, DeepGCN4, odeGCN and
+differential_gcn): replica i is initialised and drops out from generators
+seeded ``--seed`` + i and + 1 + i (``--seed`` -1 counts as 0), i.e. as the
+single-model run at seed ``--seed`` + i; one stacked model, one launch
+stream an epoch (``parallel.sweep``). The ODE models' step budget is sized
+from the hardest of min(4, R) probed inits, or with ``--budget_buckets B``
+from every replica's own probe, the replicas grouped into at most B
+buckets that train one after another, each at its own budget. A replica
+that exhausts its budget cannot be rolled back: its logits read NaN and the
+driver names it. On the card the sweep is refused before it trains when
+its estimate exceeds 0.85 of the card's memory: the measured training
+step of a sweep of the first min(4, R) replicas, per replica, times R (the
+largest bucket's size).
+
 The port's solver is a host loop that knows at once whether a solve
 exhausted its budget, so a NaN epoch is rolled back before the next epoch
 starts: snapshots and checkpoints only ever hold a state whose epoch was
@@ -42,6 +57,9 @@ import torch
 
 MODELS = ("DeepGCN", "GCN", "DeepGCN2", "DeepGCN3", "DeepGCN4", "resGCN",
           "odeGCN", "differential_gcn")
+# the models --batch_iters trains (the JAX driver's list)
+BATCHED_MODELS = ("differential_gcn", "odeGCN", "GCN", "DeepGCN", "DeepGCN2",
+                  "DeepGCN4")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -83,11 +101,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="adaptive step budget for the differentiable solve "
                         "(0 = auto-size from a probe solve at init)")
     p.add_argument("--batch_iters", action="store_true",
-                   help="train --iter independent replicas at once (not "
-                        "ported)")
+                   help="train --iter independent replicas at once (one "
+                        "stacked model and one launch stream; differs from "
+                        "the reference's accumulating --iter loop)")
     p.add_argument("--budget_buckets", type=int, default=1,
-                   help="with --batch_iters: group replicas by step budget "
-                        "(not ported)")
+                   help="with --batch_iters and an auto budget: probe every "
+                        "replica init and train the sweep as up to this "
+                        "many batched programs grouped by step budget")
     p.add_argument("--mesh", action="store_true",
                    help="shard over several devices (not ported)")
     p.add_argument("--data_dir", type=str, default="data")
@@ -129,14 +149,18 @@ def _refuse(args: argparse.Namespace) -> None:
     if args.ckpt_dir and args.batch_iters:
         raise SystemExit("--ckpt_dir needs the single-model path "
                          "(drop --batch_iters)")
+    if args.batch_iters and args.model not in BATCHED_MODELS:
+        raise SystemExit(f"--batch_iters unsupported for {args.model}")
+    ode_model = args.model in ("odeGCN", "differential_gcn")
     refused = [
-        (args.batch_iters, "--batch_iters (replica sweeps): ROADMAP §1 "
-                           "entry 11"),
-        (args.budget_buckets > 1, "--budget_buckets (replica sweeps): "
-                                  "ROADMAP §1 entry 11"),
-        (args.mesh, "--mesh: ROADMAP §1 entry 11"),
+        (args.batch_iters and ode_model and args.method in (
+            "adams", "explicit_adams", "fixed_adams"),
+         "--batch_iters with the Adams methods (replica sweeps with the "
+         "Adams methods and the continuous adjoint): ROADMAP §1 entry "
+         "11a′"),
+        (args.mesh, "--mesh: ROADMAP §1 entry 11c"),
         (args.export, "--export (the serving artifact): ROADMAP §1 "
-                      "entry 11"),
+                      "entry 11b"),
         (args.precision == "high", "--precision high (TF32): ROADMAP §1 "
                                    "entry 6"),
     ]
@@ -190,6 +214,9 @@ def _run(args: argparse.Namespace, device: torch.device) -> Dict[str, Any]:
         for idx in (data.idx_train, data.idx_val, data.idx_test))
 
     seed = args.seed if args.seed != -1 else 0
+    if args.batch_iters:
+        return _run_batched(args, device, data, op, features, labels,
+                            (idx_train, idx_test), seed, t_very_beginning)
     init_gen = torch.Generator().manual_seed(seed)
     # the dropout masks: drawn on the CPU, so card and CPU drop alike
     rng = torch.Generator().manual_seed(seed + 1)
@@ -409,6 +436,208 @@ def _run(args: argparse.Namespace, device: torch.device) -> Dict[str, Any]:
             summary["acc_min"] * 100, summary["acc_max"] * 100))
         print("Time_Step: {:.5f};".format(float(steps.mean())))
     return summary
+
+
+def _run_batched(args: argparse.Namespace, device: torch.device, data, op,
+                 features: torch.Tensor, labels: torch.Tensor, idx,
+                 seed: int, t_very_beginning: float) -> Dict[str, Any]:
+    """``--batch_iters``: ``--iter`` independent replicas in one stacked
+    model, in budget buckets one after another (see the module docstring);
+    the JAX driver's log lines, report and summary."""
+    from ndcn_tpu_torch.models import init_ndcn, ndcn_forward
+    from ndcn_tpu_torch.models.gcn_zoo import build_zoo_model
+    from ndcn_tpu_torch.ode import nan_unless
+    from ndcn_tpu_torch.parallel.sweep import (batched_init,
+                                               replica_generators)
+    from ndcn_tpu_torch.train.budget import (bucket_budgets,
+                                             check_sweep_memory,
+                                             probe_step_budget_each,
+                                             probe_step_budget_multi,
+                                             sweep_memory_estimate)
+    from ndcn_tpu_torch.train.losses import accuracy, cross_entropy
+    from ndcn_tpu_torch.train.optim import make_replica_sgd_step, torch_adam
+
+    idx_train, idx_test = idx
+    r = args.iter
+    n, in_dim = data.features.shape
+    num_classes = int(data.labels.max()) + 1
+    model_name = args.model
+    ode_model = model_name in ("odeGCN", "differential_gcn")
+    init_gens = replica_generators(seed, r)
+    drop_gens = replica_generators(seed + 1, r)
+
+    def fresh(g: torch.Generator) -> torch.Generator:
+        """A copy of ``g``: probes must not advance the sweep's streams."""
+        return torch.Generator().set_state(g.get_state())
+
+    max_steps, replica_budgets = 0, None
+    if ode_model:
+        if model_name == "odeGCN":
+            no_control, enc_layers = True, 2
+            vt_model = np.linspace(0, 1.9, 10).astype(np.float32)
+        else:
+            print("T : {}, time tick: {}".format(args.T, args.time_tick))
+            no_control, enc_layers = args.no_control, 1
+            vt_model = np.linspace(0, args.T, args.time_tick).astype(
+                np.float32)
+        solve_kw = dict(rtol=args.rtol, atol=args.atol, method=args.method,
+                        terminal=True, no_control=no_control)
+
+        def init_one(g):
+            return init_ndcn(g, in_dim, args.hidden, num_classes,
+                             no_control=no_control, encoder_layers=enc_layers,
+                             device=device)
+
+        max_steps = args.max_steps
+        if max_steps <= 0 and args.method in ("dopri5", "tsit5"):
+            def probe_with(g):
+                model = init_one(fresh(g))
+                return lambda: ndcn_forward(model, op, vt_model, features,
+                                            max_steps=1 << 14, nondiff=True,
+                                            **solve_kw)[1]
+
+            if args.budget_buckets > 1:
+                # every replica's own budget, grouped into buckets below
+                replica_budgets = probe_step_budget_each(
+                    [probe_with(g) for g in init_gens])
+                max_steps = int(max(replica_budgets))
+            else:
+                # one shared budget for the hardest of a few probed inits
+                max_steps = probe_step_budget_multi(
+                    [probe_with(g) for g in init_gens[:min(4, r)]])
+            print(f"auto step budget: max_steps={max_steps}")
+        elif max_steps <= 0:
+            max_steps = 64
+
+        def apply(model, gens, deterministic, ms):
+            out, stats = ndcn_forward(
+                model, op, vt_model, features,
+                dropout=0.0 if deterministic else args.dropout, rng=gens,
+                max_steps=ms, **solve_kw)
+            return nan_unless(stats.success, out)
+    else:
+        def init_one(g):
+            return build_zoo_model(model_name, in_dim, args.hidden,
+                                   num_classes, n, args.nHiddenLayers,
+                                   generator=g, dropout=args.dropout,
+                                   euler=args.Euler,
+                                   normalize=args.normalize).to(device)
+
+        def apply(model, gens, deterministic, ms):
+            return model(op, features, gens, deterministic)
+
+    def replica_ce(logits: torch.Tensor) -> torch.Tensor:
+        """Each replica's cross-entropy on the train rows, (R,)."""
+        rows = logits[:, idx_train]
+        per_row = torch.nn.functional.cross_entropy(
+            rows.reshape(-1, num_classes),
+            labels[idx_train].repeat(rows.shape[0]), reduction="none")
+        return per_row.view(rows.shape[0], -1).mean(dim=1)
+
+    buckets = [(max_steps, np.arange(r))]
+    if args.budget_buckets > 1 and replica_budgets is not None:
+        buckets = bucket_budgets(replica_budgets, args.budget_buckets)
+        print("budget buckets: " + ", ".join(
+            f"{len(ix)} replica(s) @ max_steps {b}" for b, ix in buckets),
+            flush=True)
+
+    memory = None
+    if ode_model:
+        # the memory guard: the training step of a sweep of the first few
+        # replicas, measured, per replica times the largest bucket (buckets
+        # train one after another)
+        widest = max(len(ix) for _, ix in buckets)
+        probed = min(4, widest)
+
+        def probe_step():
+            model = batched_init(init_one,
+                                 [fresh(g) for g in init_gens[:probed]])
+            out = apply(model, [fresh(g) for g in drop_gens[:probed]], False,
+                        max(b for b, _ in buckets))
+            replica_ce(out).sum().backward()
+
+        memory = sweep_memory_estimate(probe_step, widest, device, probed)
+        if memory is not None:
+            print(f"memory guard: ~{memory['estimate'] / 1e9:.2f} GB for "
+                  f"{widest} replicas ({memory['per_replica'] / 1e6:.0f} MB "
+                  f"each, limit {memory['limit'] / 1e9:.1f} GB)", flush=True)
+        check_sweep_memory(memory, widest)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+
+    logits_by_idx = {}
+    t_start = time.time()
+    for bi, (ms_b, idxs) in enumerate(buckets):
+        r_b = len(idxs)
+        model = batched_init(init_one, [init_gens[i] for i in idxs])
+        gens = [drop_gens[i] for i in idxs]
+        opt = torch_adam(model.parameters(), args.lr, args.weight_decay)
+
+        def objective(model=model, gens=gens, ms_b=ms_b):
+            losses = replica_ce(apply(model, gens, False, ms_b))
+            return losses, losses
+
+        step = make_replica_sgd_step(opt, objective)
+        tag = "" if len(buckets) == 1 else f" [bucket {bi}: ms {ms_b}]"
+        for epoch in range(args.epochs):
+            losses, _ = step()
+            if (epoch + 1) % max(1, args.epochs // 10) == 0:
+                print(f"Epoch {epoch + 1:04d} | mean train loss "
+                      f"{float(losses.mean()):.4f} | {r_b} replicas"
+                      f"{tag} | time {time.time() - t_start:.2f}s",
+                      flush=True)
+        with torch.no_grad():
+            logits_bucket = apply(model, None, True, ms_b)
+        for j, i in enumerate(idxs):
+            logits_by_idx[int(i)] = logits_bucket[j]
+    logits_b = [logits_by_idx[i] for i in range(r)]
+    t_total = time.time() - t_start
+    peak = (torch.cuda.max_memory_allocated(device)
+            if device.type == "cuda" else None)
+    # a replica that exhausted its budget cannot be rolled back: name it
+    dead = [i for i in range(r)
+            if not bool(torch.isfinite(logits_b[i]).all())]
+    if dead and ode_model:
+        if args.max_steps > 0:
+            origin = f"--max_steps {max_steps} was given explicitly"
+        elif args.method not in ("dopri5", "tsit5"):
+            origin = (f"default max_steps={max_steps} (no probe for "
+                      f"method={args.method})")
+        elif len(buckets) > 1:
+            origin = "probe-sized one per bucket"
+        else:
+            origin = (f"probe-sized max_steps={max_steps} from the hardest "
+                      f"of {min(4, r)} probed inits")
+        print(f"[budget] replicas {dead} exhausted their step budget during "
+              f"training — their rows are NaN; re-run with a larger "
+              f"--max_steps (budgets: {origin})", flush=True)
+    elif dead:
+        print(f"[warn] replicas {dead} produced non-finite logits",
+              flush=True)
+    rows = []
+    for i in range(r):
+        loss_test = float(cross_entropy(logits_b[i][idx_test],
+                                        labels[idx_test]))
+        acc_test = float(accuracy(logits_b[i][idx_test], labels[idx_test]))
+        rows.append((t_total / r, loss_test, acc_test, 0.0))
+        print(f"Replica {i}: test loss= {loss_test:.4f} "
+              f"accuracy= {acc_test:.4f}")
+    accs = np.array([row[2] for row in rows])
+    print("results: {:.3f}% +/- {:.3f}%, {:.3f}% (Median);".format(
+        accs.mean() * 100, accs.std(ddof=1) * 100 if r > 1 else 0.0,
+        float(np.median(accs)) * 100))
+    print(f"batched sweep: {r} replicas x {args.epochs} epochs in "
+          f"{t_total:.2f}s total ({t_total / r:.3f}s per replica)")
+    return {"rows": rows, "total_time": time.time() - t_very_beginning,
+            "fname": None,
+            "acc_mean": float(accs.mean()),
+            "acc_std": float(accs.std(ddof=1)) if r > 1 else 0.0,
+            "acc_median": float(np.median(accs)),
+            "acc_min": float(accs.min()), "acc_max": float(accs.max()),
+            "sweep_seconds": t_total, "max_steps": max_steps,
+            "buckets": [(int(b), [int(i) for i in ix]) for b, ix in buckets],
+            "dead": dead, "memory": memory, "peak_bytes": peak,
+            "device": str(device)}
 
 
 def main(argv=None) -> Dict[str, Any]:

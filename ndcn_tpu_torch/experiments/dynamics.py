@@ -27,6 +27,16 @@ under ``--results_dir``; ``--viz`` plots the adjacency and the dynamics
 of the model, the optimizer and the dropout generator
 (``utils.timing.profile_trace``), so the run's own losses do not change.
 
+``--replicas R`` trains R independent models (replica i initialised and
+dropping out from generators seeded ``--seed`` + i, + 1 + i) at once, the
+JAX driver's vmapped sweep: one stacked model (``parallel.sweep``), one
+batched solve and one launch stream a step, the step budget sized from the
+hardest of min(4, R) probed inits, no rollback (one replica cannot be
+rolled back: a replica that exhausts the budget reads NaN, and the others
+are unaffected); ``--dump`` writes one results file per replica
+(``replicaNNN``), which ``experiments.summarize`` aggregates. The
+continuous baselines only, with dopri5, tsit5 or the fixed-grid methods.
+
 ``--platform gpu`` (the default) trains on the first CUDA device and raises
 without one; ``--platform cpu`` runs the kernels' plain versions. Matrix
 products are pinned to full fp32 on both. What is not ported raises
@@ -147,12 +157,23 @@ def _refuse_unported(dynamics_kind: str, args: argparse.Namespace) -> None:
                          "differentiable adaptive solve (--method dopri5/"
                          "tsit5, without --adjoint); it would be a silent "
                          "no-op for this configuration")
+    if args.replicas > 1:
+        if args.baseline in TEMPORAL_BASELINES:
+            raise SystemExit("--replicas currently supports the continuous "
+                             "(ndcn/ablation) baselines")
+        if args.ckpt_dir or args.profile_dir or args.scan_chunk:
+            raise SystemExit("--replicas is incompatible with --ckpt_dir/"
+                             "--profile_dir/--scan_chunk (per-replica "
+                             "training runs as one vmapped program)")
     refused = [
-        (args.replicas > 1, "--replicas (replica sweeps): ROADMAP §1 "
-                            "entry 11"),
-        (args.mesh, "--mesh: ROADMAP §1 entry 11"),
+        (args.replicas > 1 and (args.adjoint or args.method in (
+            "adams", "explicit_adams", "fixed_adams")),
+         "--replicas with --adjoint or the Adams methods (replica sweeps "
+         "with the Adams methods and the continuous adjoint): ROADMAP §1 "
+         "entry 11a′"),
+        (args.mesh, "--mesh: ROADMAP §1 entry 11c"),
         (args.export, "--export (the serving artifact): ROADMAP §1 "
-                      "entry 11"),
+                      "entry 11b"),
         (args.scan_chunk > 0,
          "--scan_chunk (steps per dispatch; CUDA graphs here): ROADMAP §1 "
          "entry 6"),
@@ -307,6 +328,12 @@ def _run(dynamics_kind: str, args: argparse.Namespace,
         residual_dtype=(torch.bfloat16 if args.residual_precision == "bf16"
                         else None))
 
+    if args.replicas > 1:
+        return _run_replicas(dynamics_kind, args, device, dict(
+            t_start=t_start, op=op, splits=splits, true_y=true_y,
+            true_y0=true_y0, true_y_train=true_y_train,
+            true_y_test=true_y_test, true_y_test2=true_y_test2,
+            solve_kw=solve_kw, levers=levers))
     if continuous and max_steps <= 0 and args.method not in ("dopri5", "tsit5"):
         max_steps = 256        # the fixed-grid methods take no budget
     elif continuous and max_steps <= 0:
@@ -532,6 +559,126 @@ def _run(dynamics_kind: str, args: argparse.Namespace,
         viz.dynamics_surfaces(dynamics_kind, args.network, side,
                               results_lib.as_numpy(true_y),
                               results_lib.as_numpy(ev["pred_test"]))
+    return out
+
+
+def _run_replicas(dynamics_kind: str, args: argparse.Namespace,
+                  device: torch.device, ctx: Dict[str, Any]) -> Dict[str, Any]:
+    """``--replicas R``: the JAX driver's vmapped sweep, as one stacked
+    model and one launch stream (see the module docstring)."""
+    from ndcn_tpu_torch.models import init_ndcn, ndcn_forward
+    from ndcn_tpu_torch.ode import nan_unless
+    from ndcn_tpu_torch.parallel.sweep import (batched_init, replica_l1,
+                                               replica_generators,
+                                               unstack_model)
+    from ndcn_tpu_torch.report import results as results_lib
+    from ndcn_tpu_torch.train.budget import probe_step_budget_multi
+    from ndcn_tpu_torch.train.optim import make_replica_sgd_step, torch_adam
+
+    r = args.replicas
+    op, splits, true_y0 = ctx["op"], ctx["splits"], ctx["true_y0"]
+    true_y_train, true_y_test = ctx["true_y_train"], ctx["true_y_test"]
+    true_y_test2 = ctx["true_y_test2"]
+    id_test, id_test2 = splits.id_test, splits.id_test2
+    solve_kw, levers = ctx["solve_kw"], ctx["levers"]
+    flags = {k: solve_kw[k] for k in ("no_embed", "no_control")}
+
+    def init_one(g):
+        return init_ndcn(g, 1, args.hidden, 1, device=device, **flags)
+
+    gens = replica_generators(args.seed, r)
+    max_steps = args.max_steps
+    if max_steps <= 0 and args.method in ("dopri5", "tsit5"):
+        # one replica cannot be rolled back: size the shared budget for the
+        # hardest of several probed inits (the sweep's own), with headroom
+        def probe_with(g):
+            model = init_one(torch.Generator().set_state(g.get_state()))
+            return lambda: ndcn_forward(model, op, splits.t, true_y0,
+                                        nondiff=True, max_steps=1 << 14,
+                                        **solve_kw)[1]
+
+        max_steps = probe_step_budget_multi(
+            [probe_with(g) for g in gens[:min(4, r)]])
+        print(f"auto step budget: max_steps={max_steps}")
+    elif max_steps <= 0:
+        max_steps = 256
+    model = batched_init(init_one, gens)
+    rngs = replica_generators(args.seed + 1, r)
+    n_params = sum(p.numel() for p in model.parameters()) // r
+    print(f"Total {n_params:d} Trainable {n_params:d} (x {r} replicas)")
+
+    def forward(vt, rng=None):
+        out, stats = ndcn_forward(model, op, vt, true_y0,
+                                  dropout=args.dropout, rng=rng,
+                                  max_steps=max_steps, **solve_kw, **levers)
+        return out[..., 0].permute(1, 2, 0), stats       # (R, n, T)
+
+    def train_loss():
+        pred, stats = forward(splits.t[splits.id_train], rngs)
+        losses = nan_unless(stats.success, replica_l1(pred, true_y_train))
+        return losses, losses / torch.mean(true_y_train)
+
+    def evaluate():
+        with torch.no_grad():
+            pred, stats = forward(splits.t)
+            pred = nan_unless(stats.success, pred)
+            ev = {"pred_test": pred[..., id_test]}
+            ev["loss"] = replica_l1(ev["pred_test"], true_y_test)
+            ev["rel"] = ev["loss"] / torch.mean(true_y_test)
+            if id_test2 is not None:
+                ev["pred_test2"] = pred[..., id_test2]
+                ev["loss2"] = replica_l1(ev["pred_test2"], true_y_test2)
+                ev["rel2"] = ev["loss2"] / torch.mean(true_y_test2)
+            else:
+                ev["loss2"] = ev["rel2"] = torch.zeros(r)
+        return {k: v.cpu().numpy() for k, v in ev.items()}
+
+    opt = torch_adam(model.parameters(), args.lr, args.weight_decay)
+    step = make_replica_sgd_step(opt, train_loss)
+    t_start = ctx["t_start"]
+    train_losses = []
+    for itr in range(1, args.niters + 1):
+        losses, rels = step()
+        if itr % args.test_freq == 0:
+            ev = evaluate()
+            rels = rels.cpu().numpy()
+            train_losses.append(losses.cpu().numpy().tolist())
+            print(f"Iter {itr:04d}| {r} replicas | train rel "
+                  f"{float(np.mean(rels)):.6f}±{float(np.std(rels)):.6f} "
+                  f"| test rel {float(np.mean(ev['rel'])):.6f}"
+                  f"±{float(np.std(ev['rel'])):.6f} "
+                  f"| Time {time.time() - t_start:.4f}", flush=True)
+
+    ev = evaluate()
+    t_total = time.time() - t_start
+    print("Total Time {:.4f}".format(t_total))
+    out = {"final": {
+        "abs_error": float(np.mean(ev["loss"])),
+        "rel_error": float(np.mean(ev["rel"])),
+        "rel_error_std": float(np.std(ev["rel"])),
+        "abs_error2": float(np.mean(ev["loss2"])),
+        "rel_error2": float(np.mean(ev["rel2"])),
+    }, "replicas": r, "total_time": t_total, "max_steps": max_steps,
+        "train_losses": train_losses, "device": str(device)}
+    if args.dump:
+        results_dir = (args.results_dir
+                       or f"results/{dynamics_kind}/{args.network}")
+        has2 = id_test2 is not None
+        paths = []
+        for i in range(r):
+            res_i = results_lib.new_results_dict(vars(args))
+            results_lib.record_eval(
+                res_i, args.niters, float(ev["loss"][i]), float(ev["rel"][i]),
+                ev["pred_test"][i], unstack_model(model, i),
+                abs_error2=float(ev["loss2"][i]) if has2 else None,
+                rel_error2=float(ev["rel2"][i]) if has2 else None,
+                predict_y2=ev["pred_test2"][i] if has2 else None)
+            res_i["total_time"] = t_total / r
+            paths.append(results_lib.dump_results(
+                res_i, results_lib.results_path(results_dir, args.baseline,
+                                                appendix=f"replica{i:03d}")))
+        print(f"Dumped {r} replica results under {results_dir}")
+        out["results_paths"] = paths
     return out
 
 

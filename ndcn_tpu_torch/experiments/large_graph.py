@@ -46,7 +46,7 @@ attempts per step it assumed (``attempts_assumed``, the step budget); the
 run's record names the most attempts a train step took (``attempts_taken``).
 
 What the port does not have raises ``NotImplementedError`` naming its
-ROADMAP entry before any work: ``--mesh`` (§1 entry 11), ``--precision
+ROADMAP entry before any work: ``--mesh`` (§1 entry 11c), ``--precision
 high`` (§1 entry 6).
 """
 
@@ -133,7 +133,7 @@ def _refuse_unported(args: argparse.Namespace) -> None:
         # ELL pads every row to the largest degree
         raise SystemExit("mutualistic at this scale requires --fmt coo")
     refused = [
-        (args.mesh, "--mesh: ROADMAP §1 entry 11"),
+        (args.mesh, "--mesh: ROADMAP §1 entry 11c"),
         (args.precision == "high", "--precision high (TF32): ROADMAP §1 "
                                    "entry 6"),
     ]

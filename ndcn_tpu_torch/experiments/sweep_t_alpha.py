@@ -9,8 +9,9 @@ package's format. Each finished cell is appended to ``<out_csv>.cells``
 unfinished cell; without ``--resume`` that file is removed first.
 ``--heatmap``, ``--surface`` and ``--errorbar`` draw the grid
 (matplotlib imported at the first figure; without it, a skip). A cell of
-several replicas (``--batch_iters``) raises with the dgnn driver's refusal
-(ROADMAP §1 entry 11).
+several replicas (``--batch_iters --iter R``) trains them at once through
+the dgnn driver's sweep and records their mean accuracy and its standard
+deviation, as the JAX sweep does.
 
 Usage:
     python -m ndcn_tpu_torch.experiments.sweep_t_alpha --dataset cora \

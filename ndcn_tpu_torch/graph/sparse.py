@@ -212,7 +212,9 @@ def use_tiled_kernel(op: GraphOperator) -> bool:
 
 
 def matvec(op: GraphOperator, x: torch.Tensor) -> torch.Tensor:
-    """A @ X for X of shape (n, d). The hot op of every model RHS."""
+    """A @ X for X of shape (n, d), or of R replicas' X (R, n, d) against
+    the one A: a broadcast ``torch.matmul`` (dense), K1 / K3's batched forms
+    (COO / BSR), the gather (ELL). The hot op of every model RHS."""
     if isinstance(op, DenseGraph):
         return torch.matmul(op.mat, x)
     if isinstance(op, CooGraph):
@@ -220,6 +222,9 @@ def matvec(op: GraphOperator, x: torch.Tensor) -> torch.Tensor:
     if isinstance(op, BsrGraph):
         return bsr_spmm(op.fwd, op.bwd, x)
     if isinstance(op, EllGraph):
+        if x.ndim == 3:
+            return torch.einsum("nk,rnkd->rnd", op.vals.to(x.dtype),
+                                x[:, op.cols])
         return torch.einsum("nk,nkd->nd", op.vals.to(x.dtype), x[op.cols])
     raise TypeError(f"unknown graph operator {type(op).__name__}")
 

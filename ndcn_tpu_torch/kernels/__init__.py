@@ -13,6 +13,9 @@ and a backward.
 - K3 and K4 ``bsr_spmm``: BSR SpMM and its fused RHS, replace
   ``ndcn_tpu/kernels/bsr_spmm.py``. K2, K3 and K4 multiply on the tensor
   cores (split TF32, ``csrc/mma_split.cuh``).
+- K1, K2, K3 and K4 each also have a batched form for the replica sweeps:
+  R replicas' states (and K2 / K4's R weights) against one shared operator
+  in one launch, the replica a grid dimension.
 - P1a and P1b / P2 ``sparse_bench``: the sparse microbenchmarks' sliced-tile
   reduce and row gather, replace the Pallas kernels of
   ``tools/microbench_sparse.py`` and ``tools/probe_inkernel_gather.py``.
@@ -25,14 +28,19 @@ from ndcn_tpu_torch.kernels import (bsr_spmm, coo_mutual, coo_spmv, fused_rhs,
 _COUNTERS = {
     "coo_spmv": (coo_spmv, "LAUNCHES"),
     "coo_spmv_bf16": (coo_spmv, "BF16_LAUNCHES"),
+    "coo_spmv_batched": (coo_spmv, "BATCHED_LAUNCHES"),
+    "coo_spmv_batched_bf16": (coo_spmv, "BATCHED_BF16_LAUNCHES"),
     "coo_spmv_T": (coo_spmv, "T_LAUNCHES"),
     "coo_spmv_T_pack": (coo_spmv, "PACK_LAUNCHES"),
     "coo_spmv_T_wide": (coo_spmv, "WIDE_LAUNCHES"),
     "coo_mutual": (coo_mutual, "LAUNCHES"),             # either form
     "coo_mutual_edges": (coo_mutual, "EDGE_LAUNCHES"),  # the edge form
     "fused_rhs": (fused_rhs, "LAUNCHES"),
+    "fused_rhs_batched": (fused_rhs, "BATCHED_LAUNCHES"),
     "bsr_spmm": (bsr_spmm, "SPMM_LAUNCHES"),
+    "bsr_spmm_batched": (bsr_spmm, "BATCHED_SPMM_LAUNCHES"),
     "bsr_fused_rhs": (bsr_spmm, "FUSED_LAUNCHES"),
+    "bsr_fused_rhs_batched": (bsr_spmm, "BATCHED_FUSED_LAUNCHES"),
     "sliced_tile_reduce": (sparse_bench, "SLICED_LAUNCHES"),
     "row_gather": (sparse_bench, "GATHER_LAUNCHES"),
 }

@@ -19,6 +19,12 @@ Both multiply on the tensor cores with split-TF32 products
 (``kernels.fused_rhs.panel_plan``); K3's plan (``bsr_spmm_plan``) also cuts
 the columns into slabs.
 
+Both also take R replicas at once against the one shared A (the replica
+sweeps): x (R, n, d), and for K4 w (R, d, d) and b (R, d), in one launch of
+the batched forms (``ndcn_bsr_spmm_batched_f32``, the replica as
+``gridDim.z``; ``ndcn_bsr_fused_rhs_batched_f32``, as ``gridDim.y``), each
+replica bit-equal to its own launch; the backward is the same, batched.
+
 The plain PyTorch versions beside the kernels (a per-block batched product
 and a scatter over row blocks) are the CPU path, inside the same
 ``autograd.Function``s, and the references the kernels are held against on
@@ -48,6 +54,8 @@ BLOCK = 128
 # calls do not count)
 SPMM_LAUNCHES = 0
 FUSED_LAUNCHES = 0
+BATCHED_SPMM_LAUNCHES = 0
+BATCHED_FUSED_LAUNCHES = 0
 
 # widest X the fused kernel takes: 8 warps of 16 n8 tiles each, where
 # ``panel_plan`` places a 16-row tile and a ring of two 16-deep chunks in
@@ -114,7 +122,12 @@ def from_scipy_bsr(mat: sp.spmatrix, block: int = BLOCK,
 def bsr_spmm_plain(a: BsrMatrix, x: torch.Tensor,
                    bmm=torch.bmm) -> torch.Tensor:
     """The plain version of K3: each stored block times its X row block in
-    one batched product (``bmm``), summed into the row blocks."""
+    one batched product (``bmm``), summed into the row blocks. R replicas'
+    x (R, n, d) go through as the columns of one (n, R·d) X."""
+    if x.ndim == 3:
+        r, n, d = x.shape
+        y = bsr_spmm_plain(a, x.permute(1, 0, 2).reshape(n, r * d), bmm)
+        return y.view(-1, r, d).permute(1, 0, 2).contiguous()
     B, d = a.block, x.shape[1]
     ncb = -(-a.n_cols // B)
     xb = torch.nn.functional.pad(x, (0, 0, 0, ncb * B - a.n_cols))
@@ -125,8 +138,8 @@ def bsr_spmm_plain(a: BsrMatrix, x: torch.Tensor,
 
 def bsr_fused_rhs_plain(a: BsrMatrix, x: torch.Tensor, w: torch.Tensor,
                         b: torch.Tensor) -> torch.Tensor:
-    """The plain version of K4."""
-    return torch.relu(bsr_spmm_plain(a, x) @ w + b)
+    """The plain version of K4 (one replica, or R with a leading axis)."""
+    return torch.relu(bsr_spmm_plain(a, x) @ w + b.unsqueeze(-2))
 
 
 def bsr_spmm_split_plain(a: BsrMatrix, x: torch.Tensor,
@@ -140,7 +153,7 @@ def bsr_fused_rhs_split_plain(a: BsrMatrix, x: torch.Tensor, w: torch.Tensor,
                               b: torch.Tensor, passes: int = 3) -> torch.Tensor:
     """The plain version of K4 with the kernel's split-TF32 products."""
     return torch.relu(split_matmul(bsr_spmm_split_plain(a, x, passes), w,
-                                   passes) + b)
+                                   passes) + b.unsqueeze(-2))
 
 
 @functools.lru_cache(maxsize=None)
@@ -217,6 +230,7 @@ def bsr_spmm_plan(n_row_blocks: int, block: int, d: int) -> SpmmPlan:
 
 
 def _check_bsr(a: BsrMatrix, x: torch.Tensor, name: str) -> None:
+    """x is (n_cols, d), or (R, n_cols, d) for R replicas."""
     if (a.row_ptr.dtype != torch.int32 or a.block_cols.dtype != torch.int32
             or a.blocks.dtype != torch.float32 or a.blocks.ndim != 3
             or not a.blocks.is_contiguous()):
@@ -224,9 +238,10 @@ def _check_bsr(a: BsrMatrix, x: torch.Tensor, name: str) -> None:
                          f"contiguous float32 (nnzb, B, B) blocks")
     if x.dtype != torch.float32:
         raise TypeError(f"{name} takes float32 x, got {x.dtype}")
-    if x.ndim != 2 or x.shape[0] != a.n_cols or x.shape[1] < 1:
-        raise ValueError(f"{name} takes x of shape ({a.n_cols}, d >= 1), got "
-                         f"{tuple(x.shape)}")
+    if (x.ndim not in (2, 3) or x.shape[-2] != a.n_cols or x.shape[-1] < 1
+            or x.ndim == 3 and not 1 <= x.shape[0] <= 65535):
+        raise ValueError(f"{name} takes x of shape ({a.n_cols}, d >= 1) or "
+                         f"(R <= 65535, {a.n_cols}, d), got {tuple(x.shape)}")
     if not x.is_contiguous():
         raise ValueError(f"{name} takes a contiguous (row-major) x")
 
@@ -236,20 +251,28 @@ def _launch_spmm(a: BsrMatrix, x: torch.Tensor) -> torch.Tensor:
         return bsr_spmm_plain(a, x)
     x = x.contiguous()
     lib = build.load()
-    d = x.shape[1]
+    d = x.shape[-1]
     plan = bsr_spmm_plan(a.n_row_blocks, a.block, d)
     p = plan.panel
-    y = torch.empty((a.n_rows, d), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        rc = lib.ndcn_bsr_spmm_f32(
-            a.row_ptr.data_ptr(), a.block_cols.data_ptr(),
+    y = torch.empty((*x.shape[:-2], a.n_rows, d), dtype=torch.float32,
+                    device=x.device)
+    args = (a.row_ptr.data_ptr(), a.block_cols.data_ptr(),
             a.blocks.data_ptr(), x.data_ptr(), y.data_ptr(), a.n_row_blocks,
             a.block, a.n_rows, a.n_cols, d, plan.slab, p.rows, p.wn, p.bk,
-            p.smem_bytes, torch.cuda.current_stream().cuda_stream)
+            p.smem_bytes)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if x.ndim == 3:
+            rc = lib.ndcn_bsr_spmm_batched_f32(*args, x.shape[0], stream)
+        else:
+            rc = lib.ndcn_bsr_spmm_f32(*args, stream)
     if rc != 0:
         raise RuntimeError(f"bsr_spmm kernel launch failed: CUDA error {rc}")
-    global SPMM_LAUNCHES
-    SPMM_LAUNCHES += 1
+    global SPMM_LAUNCHES, BATCHED_SPMM_LAUNCHES
+    if x.ndim == 3:
+        BATCHED_SPMM_LAUNCHES += 1
+    else:
+        SPMM_LAUNCHES += 1
     return y
 
 
@@ -257,22 +280,29 @@ def _launch_fused(a: BsrMatrix, x, w, b) -> torch.Tensor:
     if not on_cuda(x, w, b, a.row_ptr, a.block_rows, a.block_cols, a.blocks):
         return bsr_fused_rhs_plain(a, x, w, b)
     lib = build.load()
-    d = x.shape[1]
+    d = x.shape[-1]
     plan = bsr_fused_plan(a.n_row_blocks, a.block, d)
-    out = torch.empty((a.n_rows, d), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        rc = lib.ndcn_bsr_fused_rhs_f32(
-            a.row_ptr.data_ptr(), a.block_cols.data_ptr(),
+    out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    args = (a.row_ptr.data_ptr(), a.block_cols.data_ptr(),
             a.blocks.data_ptr(), x.data_ptr(), w.data_ptr(), b.data_ptr(),
             out.data_ptr(), a.n_row_blocks, a.block, a.n_rows, a.n_cols, d,
-            w.stride(0), w.stride(1), plan.rows, plan.nt, plan.wn, plan.bk,
-            plan.smem_bytes,
-            torch.cuda.current_stream().cuda_stream)
+            w.stride(-2), w.stride(-1), plan.rows, plan.nt, plan.wn, plan.bk,
+            plan.smem_bytes)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if x.ndim == 3:
+            rc = lib.ndcn_bsr_fused_rhs_batched_f32(*args, x.shape[0],
+                                                    w.stride(0), stream)
+        else:
+            rc = lib.ndcn_bsr_fused_rhs_f32(*args, stream)
     if rc != 0:
         raise RuntimeError(f"bsr_fused_rhs kernel launch failed: CUDA error "
                            f"{rc}")
-    global FUSED_LAUNCHES
-    FUSED_LAUNCHES += 1
+    global FUSED_LAUNCHES, BATCHED_FUSED_LAUNCHES
+    if x.ndim == 3:
+        BATCHED_FUSED_LAUNCHES += 1
+    else:
+        FUSED_LAUNCHES += 1
     return out
 
 
@@ -307,14 +337,15 @@ class _BsrFusedRhs(torch.autograd.Function):
         x, w, out = ctx.saved_tensors
         g = g * (out > 0).to(g.dtype)          # relu mask (out == 0: blocked)
         ah = _launch_spmm(ctx.a, x)            # recomputed, not stored
-        dx = _launch_spmm(ctx.at, g @ w.t())
+        dx = _launch_spmm(ctx.at, g @ w.transpose(-1, -2))
         return (None, None, *_zero_cotangents(ctx, ctx.a.blocks,
                                               ctx.at.blocks),
-                dx, ah.t() @ g, g.sum(0))
+                dx, ah.transpose(-1, -2) @ g, g.sum(-2))
 
 
 def bsr_spmm(a: BsrMatrix, at: BsrMatrix, x: torch.Tensor) -> torch.Tensor:
-    """A · X, differentiable in X; ``at`` packs Aᵀ for the backward.
+    """A · X, differentiable in X; ``at`` packs Aᵀ for the backward. x is
+    (n, d), or (R, n, d) for R replicas against the same A.
 
     CPU tensors take the plain version; CUDA tensors launch K3 on the current
     stream, forward and backward (and raise if it cannot)."""
@@ -325,12 +356,14 @@ def bsr_spmm(a: BsrMatrix, at: BsrMatrix, x: torch.Tensor) -> torch.Tensor:
 def bsr_fused_rhs(a: BsrMatrix, at: BsrMatrix, x: torch.Tensor,
                   w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """relu((A · X) · W + b) for a square A, x (n, d), w (d, d) (possibly a
-    strided view), b (d,); differentiable in x, w and b.
+    strided view), b (d,); or for R replicas, x (R, n, d), w (R, d, d) and
+    b (R, d). Differentiable in x, w and b.
 
     CPU tensors take the plain version; CUDA tensors launch K4 on the current
     stream and K3 in the backward (and raise if it cannot)."""
     _check_bsr(a, x, "bsr_fused_rhs")
-    d = x.shape[1]
+    d = x.shape[-1]
+    lead = tuple(x.shape[:-2])
     if a.n_rows != a.n_cols:
         raise ValueError(f"bsr_fused_rhs takes a square A, got "
                          f"({a.n_rows}, {a.n_cols})")
@@ -338,9 +371,10 @@ def bsr_fused_rhs(a: BsrMatrix, at: BsrMatrix, x: torch.Tensor,
         if t.dtype != torch.float32:
             raise TypeError(f"bsr_fused_rhs takes float32 tensors; {name} is "
                             f"{t.dtype}")
-    if (w.shape != (d, d) or b.shape != (d,) or not b.is_contiguous()
-            or d > K_MAX):
+    if (w.shape != (*lead, d, d) or b.shape != (*lead, d)
+            or not b.is_contiguous() or d > K_MAX):
         raise ValueError(f"bsr_fused_rhs takes w (d, d), contiguous b (d,) "
+                         f"(for R replicas w (R, d, d), b (R, d)) "
                          f"with d <= {K_MAX}; got x {tuple(x.shape)}, w "
                          f"{tuple(w.shape)}, b {tuple(b.shape)}")
     bsr_fused_plan(a.n_row_blocks, a.block, d)  # raises if nothing fits

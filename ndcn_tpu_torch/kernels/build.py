@@ -38,6 +38,10 @@ ENTRY_POINTS = {
     # long_rows, chunk_ptr, chunk_bounds, n_long, n_chunks, partial, stream
     "ndcn_coo_spmv_f32": _GATHER,
     "ndcn_coo_spmv_bf16": _GATHER,
+    # the same and the replica count before the stream (batched K1: x, y
+    # and partial hold that many states / scratches one after another)
+    "ndcn_coo_spmv_batched_f32": _GATHER[:-1] + (_I, _P),
+    "ndcn_coo_spmv_batched_bf16": _GATHER[:-1] + (_I, _P),
     "ndcn_coo_spmv_T_f32": _GATHER,
     "ndcn_coo_spmv_T_bf16": _GATHER,
     # side (0 forward, 1 row side, 2 column side), row_ptr, rows, cols,
@@ -64,6 +68,10 @@ ENTRY_POINTS = {
     # nt, wn, bk, smem bytes), stream
     "ndcn_fused_rhs_f32": (_P, _P, _P, _P, _P, _I, _I, _L, _L, _I, _I, _I,
                            _I, _L, _P),
+    # the batched K2: the same and, before the stream, the replica count and
+    # the stride between the replicas' W
+    "ndcn_fused_rhs_batched_f32": (_P, _P, _P, _P, _P, _I, _I, _L, _L, _I, _I,
+                                   _I, _I, _L, _I, _L, _P),
     # row_ptr, block_cols, blocks, x, y, n_row_blocks, block, n_rows,
     # n_cols, d, the plan (slab, rows, wn, bk, smem bytes), stream
     "ndcn_bsr_spmm_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -73,6 +81,13 @@ ENTRY_POINTS = {
     # smem bytes), stream
     "ndcn_bsr_fused_rhs_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                _I, _L, _L, _I, _I, _I, _I, _L, _P),
+    # the batched K3 and K4: the same and, before the stream, the replica
+    # count (and K4's stride between the replicas' W)
+    "ndcn_bsr_spmm_batched_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                  _I, _I, _I, _L, _I, _P),
+    "ndcn_bsr_fused_rhs_batched_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                       _I, _I, _L, _L, _I, _I, _I, _I, _L, _I,
+                                       _L, _P),
 }
 
 

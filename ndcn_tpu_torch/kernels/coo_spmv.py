@@ -39,6 +39,12 @@ state (the physics solve) is never rounded: its path there is not the tiled
 kernel. ``GATHER_WIDE`` changes only ``spmv_T``: the row-major K1 already
 gathers contiguous rows, the content of the wide mode.
 
+``coo_spmv`` also takes R replicas' states at once, x (R, n, d) against
+the one shared A (the replica sweeps): one launch of the batched form
+(``ndcn_coo_spmv_batched_*``, the replica as ``gridDim.y``) per product,
+each replica bit-equal to its own launch; its backward is the batched form
+over the transpose.
+
 The plain PyTorch versions beside the kernels (gather, scale, ``index_add_``,
 with the same rounding) are the CPU path, inside the same
 ``autograd.Function``s, and the reference the kernels are held against on
@@ -57,10 +63,12 @@ from ndcn_tpu_torch.kernels import build
 from ndcn_tpu_torch.kernels.platform import on_cuda
 
 # launches of the CUDA kernels in this process, forward and backward (CPU
-# calls do not count): row-major K1 in fp32 and in bf16, K1-fm's gather and
-# its pack kernel, K5
+# calls do not count): row-major K1 in fp32 and in bf16, its batched form
+# (fp32, bf16), K1-fm's gather and its pack kernel, K5
 LAUNCHES = 0
 BF16_LAUNCHES = 0
+BATCHED_LAUNCHES = 0
+BATCHED_BF16_LAUNCHES = 0
 T_LAUNCHES = 0
 PACK_LAUNCHES = 0
 WIDE_LAUNCHES = 0
@@ -130,12 +138,12 @@ def round_bf16(t: torch.Tensor) -> torch.Tensor:
 def coo_spmv_plain(rows: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
                    x: torch.Tensor, n: int, bf16: bool = False) -> torch.Tensor:
     """Gather, scale, scatter-add: the plain version of K1 (and of its bf16
-    instance with ``bf16``)."""
+    instance with ``bf16``), for x (n, d) or R replicas' x (R, n, d)."""
     if bf16:
         x, vals = round_bf16(x), round_bf16(vals)
-    return torch.zeros((n, x.shape[1]), dtype=torch.float32,
-                       device=x.device).index_add_(0, rows,
-                                                   vals[:, None] * x[cols])
+    return torch.zeros((*x.shape[:-2], n, x.shape[-1]), dtype=torch.float32,
+                       device=x.device).index_add_(
+                           x.ndim - 2, rows, vals[:, None] * x[..., cols, :])
 
 
 def coo_spmv_T_plain(rows: torch.Tensor, cols: torch.Tensor,
@@ -204,12 +212,17 @@ def pack_rows_plain(xT: torch.Tensor, bf16: bool = False) -> torch.Tensor:
                        device=xT.device).copy_(xT.t())
 
 
-def _check(op, x: torch.Tensor, what: str = "coo_spmv") -> None:
+def _check(op, x: torch.Tensor, what: str = "coo_spmv",
+           batched: bool = False) -> None:
     if x.dtype != torch.float32:
         raise TypeError(f"{what} takes float32 x, got {x.dtype}")
-    if x.ndim != 2 or x.shape[0] != op.n or x.shape[1] < 1:
-        raise ValueError(f"{what} takes x of shape ({op.n}, d >= 1), "
-                         f"got {tuple(x.shape)}")
+    ndim = 3 if batched else 2
+    if (x.ndim not in (2, ndim) or x.shape[-2] != op.n or x.shape[-1] < 1
+            or x.ndim == 3 and not 1 <= x.shape[0] <= 65535):
+        shapes = f"({op.n}, d >= 1)" + (f" or (R <= 65535, {op.n}, d)"
+                                        if batched else "")
+        raise ValueError(f"{what} takes x of shape {shapes}, got "
+                         f"{tuple(x.shape)}")
     nnz = op.cols.shape[0]
     if (op.row_ptr.dtype != torch.int32 or op.cols.dtype != torch.int32
             or op.vals.dtype != torch.float32
@@ -248,20 +261,24 @@ def _gather_width(table: torch.Tensor) -> int:
 
 
 def _launch_gather(entry: str, op, table: torch.Tensor, y: torch.Tensor,
-                   d: int) -> None:
+                   d: int, replicas: Optional[int] = None) -> None:
     """One product of the shared gather over ``op``'s forward CSR: the rows
     kernel, and for an operator with long rows the chunk kernel into a
-    scratch and the fold, all on the current stream."""
+    scratch and the fold, all on the current stream. With ``replicas`` the
+    entry is a batched one: ``table`` and ``y`` hold that many states."""
     split = op.split
     n_chunks = split.chunk_bounds.shape[0]
-    partial = (torch.empty((n_chunks, d), dtype=torch.float32,
-                           device=table.device) if n_chunks else None)
+    partial = (torch.empty(((replicas or 1) * n_chunks, d),
+                           dtype=torch.float32, device=table.device)
+               if n_chunks else None)
     _call(entry, table.device,
           op.row_ptr.data_ptr(), op.cols.data_ptr(), op.vals.data_ptr(),
-          table.data_ptr(), y.data_ptr(), op.n, d, _gather_width(table),
-          split.limit, split.long_rows.data_ptr(), split.chunk_ptr.data_ptr(),
+          table.data_ptr(), y.data_ptr(), op.n, d,
+          _gather_width(table.view(-1, table.shape[-1])), split.limit,
+          split.long_rows.data_ptr(), split.chunk_ptr.data_ptr(),
           split.chunk_bounds.data_ptr(), split.long_rows.shape[0], n_chunks,
-          partial.data_ptr() if n_chunks else None)
+          partial.data_ptr() if n_chunks else None,
+          *(() if replicas is None else (replicas,)))
 
 
 def pack_rows(xT: torch.Tensor, bf16: bool = False) -> torch.Tensor:
@@ -284,15 +301,25 @@ def pack_rows(xT: torch.Tensor, bf16: bool = False) -> torch.Tensor:
 
 
 def _apply(op, x: torch.Tensor) -> torch.Tensor:
-    """One row-major product over ``op``'s forward CSR: the kernel for CUDA
-    tensors, else the plain version."""
-    bf16 = GATHER_BF16 and x.shape[1] > 1
+    """One row-major product over ``op``'s forward CSR, of x (n, d) or of R
+    replicas' x (R, n, d): the kernel for CUDA tensors, else the plain
+    version."""
+    bf16 = GATHER_BF16 and x.shape[-1] > 1
     if not on_cuda(x, op.row_ptr, op.cols, op.vals, op.rows, *op.split[:3]):
         return coo_spmv_plain(op.rows, op.cols, op.vals, x, op.n, bf16)
-    global LAUNCHES, BF16_LAUNCHES
+    global LAUNCHES, BF16_LAUNCHES, BATCHED_LAUNCHES, BATCHED_BF16_LAUNCHES
     x = x.contiguous()
-    d = x.shape[1]
-    y = torch.empty((op.n, d), dtype=torch.float32, device=x.device)
+    d = x.shape[-1]
+    y = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    if x.ndim == 3:
+        precision = "bf16" if bf16 else "f32"
+        _launch_gather(f"ndcn_coo_spmv_batched_{precision}", op,
+                       x.to(torch.bfloat16) if bf16 else x, y, d, x.shape[0])
+        if bf16:
+            BATCHED_BF16_LAUNCHES += 1
+        else:
+            BATCHED_LAUNCHES += 1
+        return y
     if bf16:
         _launch_gather("ndcn_coo_spmv_bf16", op, x.to(torch.bfloat16), y, d)
         BF16_LAUNCHES += 1
@@ -364,11 +391,12 @@ class _SpmvT(torch.autograd.Function):
 
 
 def coo_spmv(op, x: torch.Tensor) -> torch.Tensor:
-    """A · X for a ``graph.sparse.CooGraph`` ``op``, differentiable in x.
+    """A · X for a ``graph.sparse.CooGraph`` ``op``, differentiable in x;
+    x is (n, d), or (R, n, d) for R replicas against the same A.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel on the
     current stream, forward and backward (and raise if it cannot)."""
-    _check(op, x)
+    _check(op, x, batched=True)
     if not x.is_contiguous():
         raise ValueError("coo_spmv takes a contiguous (row-major) x")
     return _CooSpmv.apply(op, op.vals, op.vals_t, x)

@@ -16,6 +16,12 @@ two TF32 parts and three products summed in fp32
 owns, the warps' split of columns and depth, the ring of staged chunks) is
 decided here on the host by ``panel_plan``, which K4 shares.
 
+``fused_rhs`` also takes R replicas at once: h (R, n, k) with their own w
+(R, k, k) and b (R, k) against the one shared a (the replica sweeps), in one
+launch of the batched form (``ndcn_fused_rhs_batched_f32``, the replica as
+``gridDim.y``), each replica bit-equal to its own launch; the backward is
+the same recompute with batched products.
+
 The plain PyTorch version beside the kernel is the CPU path, inside the same
 ``autograd.Function``, and the reference the kernel is held against on the
 card. ``fused_rhs_split_plain`` emulates the kernel's split arithmetic in
@@ -32,8 +38,10 @@ import torch
 from ndcn_tpu_torch.kernels import build
 from ndcn_tpu_torch.kernels.platform import on_cuda
 
-# launches of the CUDA kernel in this process (CPU calls do not count)
+# launches of the CUDA kernel in this process, one replica and batched (CPU
+# calls do not count)
 LAUNCHES = 0
+BATCHED_LAUNCHES = 0
 
 # widest hidden state the kernel takes: 8 warps of 16 n8 tiles each; there
 # ``panel_plan`` places a 16-row panel (16 · 1028 · 4 bytes) and a ring of
@@ -144,7 +152,9 @@ def fused_rhs_plan(n: int, k: int) -> PanelPlan:
 
 def fused_rhs_plain(a: torch.Tensor, h: torch.Tensor, w: torch.Tensor,
                     b: torch.Tensor) -> torch.Tensor:
-    return torch.relu((a @ h) @ w + b)
+    """relu((a @ h) @ w + b), one replica or R (h, w and b with a leading
+    replica axis)."""
+    return torch.relu((a @ h) @ w + b.unsqueeze(-2))
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
@@ -170,7 +180,8 @@ def split_matmul(x: torch.Tensor, y: torch.Tensor, passes: int = 3,
 def fused_rhs_split_plain(a: torch.Tensor, h: torch.Tensor, w: torch.Tensor,
                           b: torch.Tensor, passes: int = 3) -> torch.Tensor:
     """The plain version with the kernel's split-TF32 products."""
-    return torch.relu(split_matmul(split_matmul(a, h, passes), w, passes) + b)
+    return torch.relu(split_matmul(split_matmul(a, h, passes), w, passes)
+                      + b.unsqueeze(-2))
 
 
 def _check(a, h, w, b) -> None:
@@ -181,14 +192,16 @@ def _check(a, h, w, b) -> None:
         if t is not w and not t.is_contiguous():
             raise ValueError(f"fused_rhs takes contiguous a, h and b; {name} "
                              f"is not")
-    if h.ndim != 2:
-        raise ValueError(f"fused_rhs takes h of shape (n, k), got "
-                         f"{tuple(h.shape)}")
-    n, k = h.shape
-    if (a.shape != (n, n) or w.shape != (k, k) or b.shape != (k,)
+    if h.ndim not in (2, 3) or h.ndim == 3 and not 1 <= h.shape[0] <= 65535:
+        raise ValueError(f"fused_rhs takes h of shape (n, k) or (R <= "
+                         f"65535, n, k), got {tuple(h.shape)}")
+    *lead, n, k = h.shape
+    lead = tuple(lead)
+    if (a.shape != (n, n) or w.shape != (*lead, k, k) or b.shape != (*lead, k)
             or not 1 <= k <= K_MAX or n < 1):
         raise ValueError(f"fused_rhs takes a (n, n), h (n, k), w (k, k), "
-                         f"b (k,) with 1 <= k <= {K_MAX}; got a "
+                         f"b (k,) (for R replicas h (R, n, k), w (R, k, k), "
+                         f"b (R, k)) with 1 <= k <= {K_MAX}; got a "
                          f"{tuple(a.shape)}, h {tuple(h.shape)}, w "
                          f"{tuple(w.shape)}, b {tuple(b.shape)}")
     fused_rhs_plan(n, k)    # raises for a shape no plan can place
@@ -198,19 +211,26 @@ def _forward(a, h, w, b) -> torch.Tensor:
     if not on_cuda(a, h, w, b):
         return fused_rhs_plain(a, h, w, b)
     lib = build.load()
-    n, k = h.shape
+    n, k = h.shape[-2:]
     plan = fused_rhs_plan(n, k)
-    out = torch.empty((n, k), dtype=torch.float32, device=h.device)
+    out = torch.empty(h.shape, dtype=torch.float32, device=h.device)
+    args = (a.data_ptr(), h.data_ptr(), w.data_ptr(), b.data_ptr(),
+            out.data_ptr(), n, k, w.stride(-2), w.stride(-1), plan.rows,
+            plan.nt, plan.wn, plan.bk, plan.smem_bytes)
     with torch.cuda.device(h.device):
-        rc = lib.ndcn_fused_rhs_f32(
-            a.data_ptr(), h.data_ptr(), w.data_ptr(), b.data_ptr(),
-            out.data_ptr(), n, k, w.stride(0), w.stride(1), plan.rows,
-            plan.nt, plan.wn, plan.bk, plan.smem_bytes,
-            torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if h.ndim == 3:
+            rc = lib.ndcn_fused_rhs_batched_f32(*args, h.shape[0],
+                                                w.stride(0), stream)
+        else:
+            rc = lib.ndcn_fused_rhs_f32(*args, stream)
     if rc != 0:
         raise RuntimeError(f"fused_rhs kernel launch failed: CUDA error {rc}")
-    global LAUNCHES
-    LAUNCHES += 1
+    global LAUNCHES, BATCHED_LAUNCHES
+    if h.ndim == 3:
+        BATCHED_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
     return out
 
 
@@ -218,9 +238,9 @@ def fused_rhs_backward(a, h, w, out, g, need_a: bool = False):
     """(da, dh, dw, db) of relu((a @ h) @ w + b) at its output ``out``, for
     the cotangent ``g``; da is NaN when asked for, else None."""
     g = g * (out > 0).to(g.dtype)              # relu mask (out == 0: blocked)
-    dh = a.t() @ (g @ w.t())
-    dw = (a @ h).t() @ g                       # A·H recomputed, not stored
-    db = g.sum(0)
+    dh = a.t() @ (g @ w.transpose(-1, -2))
+    dw = (a @ h).transpose(-1, -2) @ g         # A·H recomputed, not stored
+    db = g.sum(-2)
     da = torch.full_like(a, float("nan")) if need_a else None
     return da, dh, dw, db
 
@@ -241,7 +261,9 @@ class _FusedRhs(torch.autograd.Function):
 
 def fused_rhs(a: torch.Tensor, h: torch.Tensor, w: torch.Tensor,
               b: torch.Tensor) -> torch.Tensor:
-    """relu((a @ h) @ w + b) with a (n, n), h (n, k), w (k, k), b (k,).
+    """relu((a @ h) @ w + b) with a (n, n), h (n, k), w (k, k), b (k,); or
+    for R replicas against the same a, h (R, n, k), w (R, k, k) (each
+    possibly a strided view) and b (R, k).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel on the
     current stream (and raise if it cannot)."""

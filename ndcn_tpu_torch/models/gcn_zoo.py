@@ -25,6 +25,14 @@ JAX function's order of sites (its keys); no generator, or
 on the CPU, with the JAX package's distributions; ``jax_tree`` names every
 parameter by its key in the JAX package's parameter dict
 (``convert.zoo_params_from_jax`` carries weights across).
+
+GCN, DeepGCN, DeepGCN2 and DeepGCN4 (the JAX driver's ``--batch_iters``
+models) also run R replicas at once when their parameters are stacked
+along a leading axis (``parallel.sweep.stack_models``): the shared features
+go in as they are, every hidden state is (R, n, h) and its products with
+the operator are the kernels' batched forms (DeepGCN2's A·X on the raw
+features is shared and taken once), ``generator`` is a list of R
+generators, and the logits are (R, n, c).
 """
 
 from __future__ import annotations
@@ -52,6 +60,14 @@ def _drop(generator, x, rate, deterministic):
     if generator is None:
         return x
     return dropout(generator, x, rate, deterministic)
+
+
+def _scale(x: torch.Tensor, step: torch.Tensor) -> torch.Tensor:
+    """x times a learned step: one model's (x (n, h)), or R replicas' (x (R,
+    n, h), the step's leading axis the replica's)."""
+    if x.ndim == 3:
+        step = step.reshape(step.shape[0], 1, 1)
+    return x * step
 
 
 def _step(value: float, generator: Optional[torch.Generator] = None,
@@ -109,7 +125,7 @@ class DeepGCN(GCN):
         for layer in self.middle:
             f = drop(x)
             f = torch.relu(matvec(op, linear_apply(layer, f)))
-            x = x + f * self.time_step
+            x = x + _scale(f, self.time_step)
         x = drop(x)
         return matvec(op, linear_apply(self.gc2, x))
 
@@ -219,7 +235,7 @@ class DeepGCN4(nn.Module):
         for i in range(len(self.diag)):
             f = matvec(op, x)
             f = _drop(generator, f, self.dropout, deterministic)
-            x = x + torch.relu(f) * self.time_step_list[i]
+            x = x + _scale(torch.relu(f), self.time_step_list[..., i])
         return linear_apply(self.linear2, x)
 
 

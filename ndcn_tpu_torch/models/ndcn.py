@@ -7,6 +7,14 @@ dropout, the ``fused`` dispatch over dense (K2) and BSR (K4) operators, and
 the scale path's memory levers ``emission_dtype`` and ``residual_dtype``.
 Options that belong to later slices raise ``NotImplementedError`` naming
 their ROADMAP item; none is ignored.
+
+A model whose parameters are stacked along a leading replica axis
+(``parallel.sweep.stack_models``: R models in one) runs R replicas at once,
+``jax.vmap`` of the forward in the JAX package: the encoder maps the shared
+input to an (R, n, d) state, one batched solve integrates all replicas
+(``ode.adaptive.solve_batched``; the operator products are the kernels'
+batched forms), and the output carries the replica axis after the time
+axis: (T, R, n, c), or (R, n, c) if terminal.
 """
 
 from __future__ import annotations
@@ -117,11 +125,11 @@ def ode_func(model: NDCN, op: GraphOperator, t, h: torch.Tensor,
                 f"{'on' if drop_mask is not None else 'off'}); use "
                 "fused='auto' (or drop the flag) for the standard path")
         n, width = h.shape[-2:]
+        w_t = model.wt.weight.transpose(-1, -2)
         if dense_ok and (fused is True or fused_profitable("dense", width, n)):
-            return fused_rhs(op.mat, h, model.wt.weight.t(), model.wt.bias)
+            return fused_rhs(op.mat, h, w_t, model.wt.bias)
         if bsr_ok and (fused is True or fused_profitable("bsr", width, n)):
-            return bsr_fused_rhs(op.fwd, op.bwd, h, model.wt.weight.t(),
-                                 model.wt.bias)
+            return bsr_fused_rhs(op.fwd, op.bwd, h, w_t, model.wt.bias)
     if not no_graph:
         h = matvec(op, h)
     if residual_dtype is not None and not no_graph and not no_control:
@@ -140,8 +148,10 @@ def ode_func(model: NDCN, op: GraphOperator, t, h: torch.Tensor,
 def ode_block(func, h0: torch.Tensor, vt, rtol: float, atol: float,
               method: str, terminal: bool = False, adjoint: bool = False,
               params=None, max_steps: int = 256, nondiff: bool = False,
-              emission_dtype=None, emission_readout=None):
+              emission_dtype=None, emission_readout=None,
+              batched: bool = False):
     """odeint wrapper mirroring ODEBlock semantics; returns (out, stats).
+    ``batched``: h0 carries a leading replica axis (one batched solve).
 
     With ``adjoint=True`` the gradients come from the continuous adjoint
     (``ode.adjoint``), taken for h0 and ``params``, the tuple of tensors the
@@ -157,12 +167,20 @@ def ode_block(func, h0: torch.Tensor, vt, rtol: float, atol: float,
             options={"max_steps": max_steps})
         return (sol[-1] if terminal else sol), stats
     options = {"max_steps": max_steps, "differentiable": not nondiff}
+    if batched:
+        options["batched"] = True
     if method in ("dopri5", "tsit5") and not nondiff:
         options.update(emission_dtype=emission_dtype,
                        emission_readout=emission_readout)
     sol, stats = odeint_with_stats(func, h0, vt, rtol=rtol, atol=atol,
                                    method=method, options=options)
     return (sol[-1] if terminal else sol), stats
+
+
+def replica_count(model) -> Optional[int]:
+    """R for a model stacked from R replicas (``parallel.sweep``), None for
+    one model."""
+    return getattr(model, "replicas", None)
 
 
 # Above this node count 'auto' picks the feature-major layout, as the JAX
@@ -219,6 +237,9 @@ class _RoundedControl(torch.autograd.Function):
         rf = r.to(ah.dtype)
         if feature_major:
             return torch.addmm(bias[:, None], weight, rf)
+        if ah.ndim == 3:        # R replicas, each with its own layer
+            return torch.baddbmm(bias.unsqueeze(-2), rf,
+                                 weight.transpose(-1, -2))
         return torch.addmm(bias, rf, weight.t())
 
     @staticmethod
@@ -228,7 +249,8 @@ class _RoundedControl(torch.autograd.Function):
         if ctx.feature_major:
             dw, db, dah = g @ rf.t(), g.sum(dim=1), weight.t() @ g
         else:
-            dw, db, dah = g.t() @ rf, g.sum(dim=0), g @ weight
+            dw, db, dah = (g.transpose(-1, -2) @ rf, g.sum(dim=-2),
+                           g @ weight)
         need = ctx.needs_input_grad
         return (dw if need[0] else None, db if need[1] else None,
                 dah if need[2] else None, None, None)
@@ -293,19 +315,31 @@ def ndcn_forward(model: NDCN, op: GraphOperator, vt, x: torch.Tensor, *,
     the solver as its ``emission_readout`` in the feature-major layout
     (always) and in the (n, d) layout when ``emission_dtype`` is set (so the
     rounded tensor is the one the JAX package rounds); otherwise the
-    interpolated states are decoded afterwards, the same linear function."""
+    interpolated states are decoded afterwards, the same linear function.
+
+    A stacked model (``replica_count(model)`` = R) runs R replicas on the
+    shared ``x``: ``rng`` is then a list of R generators (or None), the
+    solve is batched and the stats are a ``BatchedSolveStats``. The adjoint
+    and the Adams methods under replicas are ROADMAP §1 entry 11a′."""
+    replicas = replica_count(model)
+    if replicas is not None and adjoint:
+        raise NotImplementedError("not ported yet: replica sweeps with the "
+                                  "continuous adjoint: ROADMAP §1 entry 11a′")
     with torch.set_grad_enabled(torch.is_grad_enabled() and not nondiff):
         h = x
         if not no_embed:
             h = torch.tanh(linear_apply(model.enc1, h))
             if model.enc2 is not None:
                 h = linear_apply(model.enc2, h)
+        if replicas is not None and h.ndim == x.ndim:
+            h = h.expand(replicas, *h.shape).contiguous()   # no encoder
         feature_major = resolve_layout(layout, op, h, no_graph, no_control,
                                        dropout, fused) == "feature_major"
 
         drop_mask = None
         if dropout > 0.0 and rng is not None:
-            drop_mask = dropout_mask(rng, h.shape, dropout, h.dtype, h.device)
+            shape = h.shape if replicas is None else h.shape[1:]
+            drop_mask = dropout_mask(rng, shape, dropout, h.dtype, h.device)
 
         use_readout = (not terminal and not nondiff and not adjoint
                        and method in ("dopri5", "tsit5"))
@@ -316,7 +350,8 @@ def ndcn_forward(model: NDCN, op: GraphOperator, vt, x: torch.Tensor, *,
                       else (model.wt.weight, model.wt.bias))
         solve_kw = dict(adjoint=adjoint, params=ode_params,
                         max_steps=max_steps, nondiff=nondiff,
-                        emission_dtype=emission_dtype)
+                        emission_dtype=emission_dtype,
+                        batched=replicas is not None)
         if feature_major:
             d = h.shape[1]
             hT = F.pad(h, (0, sublane_pad(d) - d)).t().contiguous()
@@ -344,10 +379,11 @@ def ndcn_forward(model: NDCN, op: GraphOperator, vt, x: torch.Tensor, *,
                             fused=fused, residual_dtype=residual_dtype)
 
         if use_readout and emission_dtype is not None:
-            sol, stats = ode_block(func, h, vt, rtol, atol, method,
-                                   emission_readout=lambda s: s @ w_dec.t(),
-                                   **solve_kw)
-            return sol + b_dec, stats
+            sol, stats = ode_block(
+                func, h, vt, rtol, atol, method,
+                emission_readout=lambda s: s @ w_dec.transpose(-1, -2),
+                **solve_kw)
+            return sol + b_dec.unsqueeze(-2), stats
         hvx, stats = ode_block(func, h, vt, rtol, atol, method,
                                terminal=terminal, **solve_kw)
         out = linear_apply(model.dec, hvx)

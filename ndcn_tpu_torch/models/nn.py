@@ -5,6 +5,12 @@ Every weight and bias of a linear layer is U(-1/sqrt(fan_in),
 1/sqrt(fan_in)), the ``torch.nn.Linear`` default bound, and of a recurrent
 cell U(±1/sqrt(hidden)), the torch cells' bound; each is drawn from an
 explicit ``torch.Generator`` (never from the global generator).
+
+A replica sweep stacks R models' parameters along a new leading axis
+(``parallel.sweep.stack_models``): ``linear_apply`` then multiplies each
+replica's input by its own weight (one batched product), and ``dropout`` /
+``dropout_mask`` take a list of R generators, each drawing its replica's
+mask as its own model would.
 """
 
 from __future__ import annotations
@@ -29,11 +35,24 @@ def linear_init(in_features: int, out_features: int, *,
 
 def linear_apply(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     """x @ W + b with W (in, out), as the JAX package's ``linear_apply``
-    (``nn.Linear`` stores W transposed)."""
-    out = x @ layer.weight.t()
+    (``nn.Linear`` stores W transposed). A stacked layer (weight (R, out,
+    in), bias (R, out)) maps x (..., R, m, in), or a shared x (m, in), to
+    (..., R, m, out)."""
+    out = x @ layer.weight.transpose(-1, -2)
     if layer.bias is not None:
-        out = out + layer.bias
+        out = out + layer.bias.unsqueeze(-2)
     return out
+
+
+def _replica_uniform(generators, shape) -> torch.Tensor:
+    """U(0, 1) of ``shape`` from one generator (on its own device), or of
+    (R, *shape) from a list of R, each replica's draw its own generator's."""
+    if isinstance(generators, (list, tuple)):
+        return torch.stack([torch.rand(tuple(shape), generator=g,
+                                       device=g.device)
+                            for g in generators])
+    return torch.rand(tuple(shape), generator=generators,
+                      device=generators.device)
 
 
 def dropout(generator: torch.Generator, x: torch.Tensor, rate: float,
@@ -42,12 +61,18 @@ def dropout(generator: torch.Generator, x: torch.Tensor, rate: float,
     ``deterministic`` is the identity (no draw). The mask is drawn from
     ``generator`` on its own device (the CPU for the drivers' generators)
     and moved to x's, so a card run and a CPU run at one seed drop the same
-    elements."""
+    elements.
+
+    A list of R generators drops R replicas: x is (R, n, f), or a shared
+    (n, f) that each replica drops on its own (the result is (R, n, f))."""
     if deterministic or rate == 0.0:
         return x
     keep = 1.0 - rate
-    u = torch.rand(tuple(x.shape), generator=generator,
-                   device=generator.device)
+    if isinstance(generator, (list, tuple)):
+        shape = x.shape[1:] if x.ndim == 3 else x.shape
+    else:
+        shape = x.shape
+    u = _replica_uniform(generator, shape)
     return torch.where((u < keep).to(x.device), x / keep,
                        torch.zeros((), dtype=x.dtype, device=x.device))
 
@@ -60,9 +85,10 @@ def dropout_mask(generator: torch.Generator, shape, rate: float,
     As the JAX package's ``dropout_mask``: the reference resamples dropout at
     every RHS evaluation inside the solver, which makes the ODE stochastic per
     evaluation and the adaptive controller ill-posed; one mask per forward
-    keeps the ODE well defined."""
+    keeps the ODE well defined. With a list of R generators, ``shape`` is
+    one replica's and the masks are stacked (R, *shape)."""
     keep = 1.0 - rate
-    u = torch.rand(tuple(shape), generator=generator, device=generator.device)
+    u = _replica_uniform(generator, shape)
     return ((u < keep).to(dtype) / keep).to(device)
 
 

@@ -2,6 +2,8 @@
 fixed-grid and fixed-order methods (differentiable and inference solves)
 and the continuous adjoint."""
 
-from ndcn_tpu_torch.ode.adaptive import SolveStats  # noqa: F401
+from ndcn_tpu_torch.ode.adaptive import (BatchedSolveStats,  # noqa: F401
+                                         SolveStats)
 from ndcn_tpu_torch.ode.adjoint import odeint_adjoint  # noqa: F401
-from ndcn_tpu_torch.ode.api import SOLVERS, odeint, odeint_with_stats  # noqa: F401
+from ndcn_tpu_torch.ode.api import (SOLVERS, nan_unless, odeint,  # noqa: F401
+                                    odeint_with_stats)

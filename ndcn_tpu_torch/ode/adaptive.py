@@ -37,6 +37,17 @@ emission levers act where the observations are read:
   weights to it, the same tensors the JAX package stores in its emission
   buffers; the sum is float32. Solver steps are unaffected.
 
+``solve_batched`` runs R independent replicas of one problem (a leading
+replica axis on every leaf of the state, the grid shared) in one loop and
+one launch stream: every attempt is one batched attempt for all replicas,
+and the host reads the (R, 4) block of (t1, accept, underflow, finite) in
+one copy. Each replica keeps its own step size, accept flag, observation
+pointer, attempt count, success flag and NFE; a replica that has read every
+observation, run out of attempts or underflowed is frozen (its attempts
+run at dt = 0 and ``torch.where`` keeps its state), and the loop ends when
+every replica is frozen. Each replica computes what its own ``solve``
+computes (see ``solve_batched``).
+
 The state is a tensor or a flat tuple of tensors (``tree_math``); the
 controller takes one error ratio per leaf. Time (t0, t1, dt and the
 controller's scalars) runs in the grid's dtype: float32, or float64 when the
@@ -59,7 +70,7 @@ from ndcn_tpu_torch.ode.step_control import (Controller, accept_and_max_ratio,
                                              select_initial_step)
 from ndcn_tpu_torch.ode.tableaux import (DOPRI5, TSIT5,
                                          TSIT5_REFERENCE_WEIGHTS, Tableau)
-from ndcn_tpu_torch.ode.tree_math import leaves, tmap
+from ndcn_tpu_torch.ode.tree_math import bcast, leaves, tmap
 
 # The reference passes order 4 to the initial-step heuristic for its
 # 5th-order methods; kept for identical first steps.
@@ -150,14 +161,15 @@ def _attempt_step(method: AdaptiveMethod, func, rk: RKState, ctrl: Controller,
 
 def _init_rk_state(method: AdaptiveMethod, func, y0: torch.Tensor,
                    t0: torch.Tensor, ctrl: Controller,
-                   first_step: Optional[float]):
+                   first_step: Optional[float], batched: bool = False):
     f0 = func(t0, y0)
     if first_step is None:
         dt0 = select_initial_step(func, t0, y0, _INIT_STEP_ORDER, ctrl.rtol,
-                                  ctrl.atol, f0)
+                                  ctrl.atol, f0, batched)
         nfe0 = 2
     else:
-        dt0 = torch.tensor(first_step, dtype=t0.dtype, device=t0.device)
+        dt0 = torch.full(t0.shape, first_step, dtype=t0.dtype,
+                         device=t0.device)
         nfe0 = 1
     rk = RKState(y=y0, f=f0, t0=t0, t1=t0, dt=dt0,
                  interp=method.interp_init(y0))
@@ -226,3 +238,216 @@ def stack_solution(sol: list, T: int):
         nan = tmap(lambda leaf: torch.full_like(leaf, float("nan")), sol[0])
         sol = sol + [nan] * (T - len(sol))
     return tmap(lambda *ls: torch.stack(ls), *sol)
+
+
+# ------------------------------------------------------------ replicas
+
+
+class BatchedSolveStats(NamedTuple):
+    """The stats of ``solve_batched``: a tuple of one value per replica for
+    each of ``SolveStats``' fields, and the host reads of the one loop."""
+    nfe: tuple
+    n_accepted: tuple
+    n_rejected: tuple
+    success: tuple
+    host_syncs: int
+
+    def replica(self, i: int) -> SolveStats:
+        """Replica ``i``'s stats, in the form its own solve returns."""
+        return SolveStats(nfe=self.nfe[i], n_accepted=self.n_accepted[i],
+                          n_rejected=self.n_rejected[i],
+                          success=self.success[i], host_syncs=self.host_syncs)
+
+    @classmethod
+    def shared(cls, stats: SolveStats, replicas: int) -> "BatchedSolveStats":
+        """Every replica with the same stats (the fixed-grid methods)."""
+        return cls(*((v,) * replicas for v in stats[:4]),
+                   host_syncs=stats.host_syncs)
+
+
+def _replica_finite(*tensors: torch.Tensor, stage_axis: bool = False):
+    """(R,) bool: every element of replica r of every tensor is finite; the
+    replica axis leads, or follows a leading stage axis."""
+    ok = None
+    for t in tensors:
+        f = torch.isfinite(t)
+        if stage_axis:
+            f = f.all(dim=0)
+        f = f.reshape(f.shape[0], -1).all(dim=1)
+        ok = f if ok is None else ok & f
+    return ok
+
+
+def _attempt_batched(method: AdaptiveMethod, func, rk: RKState,
+                     ctrl: Controller, coeffs: StageCoeffs,
+                     live: torch.Tensor, bad: Optional[torch.Tensor] = None):
+    """One branch-free attempt of every replica; ``live`` (R,) marks the
+    replicas still solving, the others keep their state. Returns (state,
+    accept, ok), accept and ok (R,) bool; ok is the attempt's finite flag.
+
+    The attempt of a replica that is not live, or is marked ``bad``, runs
+    at dt = 0: its stages are the RHS at its own state, finite, so that
+    nothing non-finite enters the tape where ``torch.where`` drops it (a
+    zero cotangent times an overflowed stage would be NaN). A bad replica
+    is rejected with dt·dfactor, what its non-finite attempt gives, and is
+    ``forced_reject``'s counterpart for one replica."""
+    go = live if bad is None else live & ~bad
+    dt = torch.where(go, rk.dt, torch.zeros_like(rk.dt))
+    y1, f1, y1_error, k = runge_kutta_step(func, rk.y, rk.f, rk.t1, dt,
+                                           coeffs)
+    finite = (_replica_finite(*leaves(y1), *leaves(y1_error))
+              & _replica_finite(*leaves(k), stage_axis=True))
+    ratios = error_ratios(y1_error, rk.y, y1, ctrl.rtol, ctrl.atol,
+                          rk.t1.dtype, batched=True)
+    accept, max_ratio = accept_and_max_ratio(ratios)
+    ok = finite if bad is None else finite & ~bad
+    accept = accept & ok & live
+    dt_next = torch.where(ok, optimal_step_size(rk.dt, max_ratio, ctrl),
+                          rk.dt * ctrl.dfactor)
+    dt_next = torch.where(live, dt_next, rk.dt)
+    new_interp = method.interp_make(rk.y, y1, k, dt, coeffs)
+
+    def pick(a, b):
+        return torch.where(bcast(accept, a), a, b)
+
+    state = RKState(y=tmap(pick, y1, rk.y),
+                    f=tmap(pick, f1, rk.f),
+                    t0=pick(rk.t1, rk.t0),
+                    t1=pick(rk.t1 + rk.dt, rk.t1),
+                    dt=dt_next,
+                    interp=type(new_interp)(*(
+                        tmap(pick, a, b)
+                        for a, b in zip(new_interp, rk.interp))))
+    return state, accept, ok
+
+
+def solve_batched(method: AdaptiveMethod, func, y0, t: torch.Tensor,
+                  ctrl: Controller, max_steps: int,
+                  first_step: Optional[float] = None,
+                  emission_dtype: Optional[torch.dtype] = None,
+                  emission_readout: Optional[Callable] = None):
+    """``solve`` for R replicas at once: every leaf of ``y0`` is (R, ...),
+    ``func(t, y)`` takes t of shape (R,) and the batched state, and the grid
+    ``t`` is shared. Returns (solution (len(t), R, ...), BatchedSolveStats).
+
+    Replica r takes the steps its own ``solve`` takes: its error ratios,
+    initial step and controller read only its own elements, it consumes its
+    observations when its own accepted interval passes them (a consumption
+    round evaluates the ready observations of every replica at once), and
+    it is frozen when it has read every observation, spent ``max_steps``
+    attempts or underflowed, as its own loop would stop there. Its
+    observations come from the same arithmetic as its own solve's; the
+    batched products and reductions may round differently in the last bit.
+
+    An observation a replica did not reach (its budget ran out) holds its
+    y0 (read out), a finite placeholder, and ``stats.success[r]`` is False:
+    the JAX package's batched scan also leaves finite values there and
+    flags the replica, and the caller turns them to NaN (``odeint``, the
+    drivers' losses) with ``torch.where``, which keeps a zero cotangent
+    there and no 0·NaN on the tape.
+
+    Under autograd an attempt whose internals are non-finite for some live
+    replica is recorded again with that replica at dt = 0 and rejected
+    (``_attempt_batched``), so that its gradient is exactly zero, as
+    ``forced_reject`` makes it for one solve."""
+    T = t.shape[0]
+    t_host = t.tolist()
+    lead = leaves(y0)[0]
+    R, device = lead.shape[0], lead.device
+    t_dev = t.to(device)
+    coeffs = stage_coeffs(method.tableau, lead.dtype, device)
+    n_evals = len(method.tableau.alpha)
+    rk, nfe0 = _init_rk_state(method, func, y0, t_dev[0].expand(R).clone(),
+                              ctrl, first_step, batched=True)
+
+    def read_out(state):
+        return state if emission_readout is None else emission_readout(state)
+
+    def observe(rk: RKState, times) -> object:
+        """Each replica's dense output at its own row of ``times`` (R, m):
+        leaves (R, m, ...)."""
+        interp = type(rk.interp)(*(read_out(c) for c in rk.interp))
+        src = type(interp)(*(tmap(lambda leaf: leaf.unsqueeze(1), c)
+                             for c in interp))
+        rank = leaves(interp[0])[0].ndim
+        ones = (1,) * (rank - 1)
+        t_obs = torch.tensor(times, dtype=t.dtype).to(device)
+        return method.interp_eval(src, rk.t0.view(R, 1, *ones),
+                                  rk.t1.view(R, 1, *ones),
+                                  t_obs.view(R, len(times[0]), *ones),
+                                  emission_dtype)
+
+    # slot 0 of every replica is y0 (read out); each consumption round adds
+    # m slots, and slot_of[r][i] is where replica r's observation i went
+    rounds = [tmap(lambda leaf: leaf.unsqueeze(1), read_out(y0))]
+    n_slots = 1
+    slot_of = [[0] * T for _ in range(R)]
+    ptr = [1] * R
+    nfe = [nfe0] * R
+    nacc, nrej, ok, t1_host = [0] * R, [0] * R, [True] * R, [t_host[0]] * R
+    syncs = 0
+
+    def live_now():
+        return [ptr[r] < T and nacc[r] + nrej[r] < max_steps and ok[r]
+                for r in range(R)]
+
+    while True:
+        live = live_now()
+        ready = []
+        for r in range(R):
+            i, got = ptr[r], []
+            while live[r] and i < T and t_host[i] <= t1_host[r]:
+                got.append(i)
+                i += 1
+            ready.append(got)
+        m = max(len(got) for got in ready)
+        if m:
+            # consume: the dense output of each replica's last accepted
+            # step at its ready observations (padded with its t1)
+            rounds.append(observe(rk, [
+                [t_host[i] for i in got] + [t1_host[r]] * (m - len(got))
+                for r, got in enumerate(ready)]))
+            for r, got in enumerate(ready):
+                for j, i in enumerate(got):
+                    slot_of[r][i] = n_slots + j
+                ptr[r] += len(got)
+            n_slots += m
+            live = live_now()
+        if not any(live):
+            break
+        live_t = torch.tensor(live, device=device)
+        # dt-underflow guard (the reference asserts): flag and freeze
+        underflow = ~((rk.t1 + rk.dt) > rk.t1)
+        new, accept, fin = _attempt_batched(method, func, rk, ctrl, coeffs,
+                                            live_t)
+        t1_new, acc, under, fin = torch.stack(
+            [new.t1, accept.to(new.t1.dtype), underflow.to(new.t1.dtype),
+             fin.to(new.t1.dtype)]).tolist()
+        syncs += 1
+        bad = [lv and not f for lv, f in zip(live, fin)]
+        if any(bad) and torch.is_grad_enabled():
+            new, _, _ = _attempt_batched(method, func, rk, ctrl, coeffs,
+                                         live_t,
+                                         torch.tensor(bad, device=device))
+        rk = new
+        for r in range(R):
+            if not live[r]:
+                continue
+            nfe[r] += n_evals
+            if acc[r]:
+                nacc[r] += 1
+            else:
+                nrej[r] += 1
+            ok[r] = not under[r]
+            t1_host[r] = t1_new[r]
+
+    stats = BatchedSolveStats(
+        nfe=tuple(nfe), n_accepted=tuple(nacc), n_rejected=tuple(nrej),
+        success=tuple(ok[r] and ptr[r] >= T for r in range(R)),
+        host_syncs=syncs)
+    # one gather for all replicas: observation i of replica r is slot
+    # slot_of[r][i] of its row of the concatenated rounds
+    slots = tmap(lambda *ls: torch.cat(ls, dim=1), *rounds)
+    idx = torch.tensor(slot_of, device=device).t()             # (T, R)
+    reps = torch.arange(R, device=device).expand(T, R)
+    return tmap(lambda leaf: leaf[reps, idx], slots), stats

@@ -24,6 +24,14 @@ Every method of the JAX package:
   accept and ignore the common options, as in the JAX package;
   ``differentiable=False`` runs them under ``torch.no_grad()`` too.
 
+``batched=True`` solves R independent replicas of the problem at once
+(``jax.vmap`` of the solve in the JAX package): every leaf of ``y0`` has a
+leading replica axis, the grid is shared, the solution is (len(t), R, ...)
+and the stats a ``BatchedSolveStats`` (one value per replica). dopri5 and
+tsit5 run ``adaptive.solve_batched``; euler, midpoint and rk4 run their
+grid with the batched state as it is. The Adams family and the adjoint
+under replicas are ROADMAP §1 entry 11a′ and raise ``NotImplementedError``.
+
 The validation errors are the JAX package's.
 """
 
@@ -36,7 +44,7 @@ import torch
 
 from ndcn_tpu_torch.ode import adaptive, fixed_adams, fixed_grid, vcabm
 from ndcn_tpu_torch.ode.step_control import Controller
-from ndcn_tpu_torch.ode.tree_math import tmap
+from ndcn_tpu_torch.ode.tree_math import leaves, tmap
 
 _ADAPTIVE = {"dopri5": adaptive.DOPRI5_METHOD,
              "tsit5": adaptive.TSIT5_METHOD}
@@ -52,7 +60,12 @@ _DEFAULT_MAX_STEPS_WHILE = 1 << 16
 # option silently ignored is a debugging trap, so unknown keys warn); the
 # fixed-grid and fixed-order methods accept and ignore the common options,
 # so that one options dict serves every method
-_COMMON_OPTIONS = {"differentiable", "max_steps"}
+_COMMON_OPTIONS = {"differentiable", "max_steps", "batched"}
+
+# the methods that solve R replicas at once (``batched=True``)
+BATCHED_SOLVERS = ("dopri5", "tsit5", "euler", "midpoint", "rk4")
+NOT_BATCHED = ("replica sweeps with the Adams methods and the continuous "
+               "adjoint: ROADMAP §1 entry 11a′")
 _METHOD_OPTIONS = {
     "dopri5": _COMMON_OPTIONS | {"safety", "ifactor", "dfactor", "first_step",
                                  "time_dtype", "emission_dtype",
@@ -128,6 +141,10 @@ def odeint_with_stats(func: Callable, y0, t, rtol: float = 1e-7,
                   if method in ("dopri5", "tsit5", "adams") else None)
     func, t = _maybe_reverse(func, t, time_dtype)
     differentiable = bool(options.get("differentiable", True))
+    batched = bool(options.get("batched", False))
+    if batched and method not in BATCHED_SOLVERS:
+        raise NotImplementedError(f"not ported yet: {NOT_BATCHED} "
+                                  f"(method={method!r})")
 
     def recording():
         # autograd records the solve only when it is differentiable
@@ -136,9 +153,14 @@ def odeint_with_stats(func: Callable, y0, t, rtol: float = 1e-7,
 
     if method in fixed_grid.STEP_FUNCS:
         with recording():
-            return fixed_grid.solve_fixed_grid(
+            sol, stats = fixed_grid.solve_fixed_grid(
                 fixed_grid.STEP_FUNCS[method], func, y0, t,
                 step_size=options.get("step_size"))
+        if batched:
+            # the grid is shared: every replica takes the same steps
+            stats = adaptive.BatchedSolveStats.shared(
+                stats, leaves(y0)[0].shape[0])
+        return sol, stats
     if method in ("explicit_adams", "fixed_adams"):
         with recording():
             return fixed_adams.solve_fixed_adams(
@@ -170,10 +192,10 @@ def odeint_with_stats(func: Callable, y0, t, rtol: float = 1e-7,
         # bit-compatibility mode: the reference's (non-converging) tsit5
         # error weights (``tableaux.TSIT5_REFERENCE_WEIGHTS``)
         m = adaptive.TSIT5_REFERENCE_METHOD
+    solve = adaptive.solve_batched if batched else adaptive.solve
     with recording():
-        return adaptive.solve(m, func, y0, t, ctrl, max_steps=max_steps,
-                              first_step=options.get("first_step"),
-                              **emission)
+        return solve(m, func, y0, t, ctrl, max_steps=max_steps,
+                     first_step=options.get("first_step"), **emission)
 
 
 def odeint(func: Callable, y0, t, rtol: float = 1e-7, atol: float = 1e-9,
@@ -185,6 +207,17 @@ def odeint(func: Callable, y0, t, rtol: float = 1e-7, atol: float = 1e-9,
     ``odeint_with_stats`` to branch on ``stats.success`` instead."""
     sol, stats = odeint_with_stats(func, y0, t, rtol=rtol, atol=atol,
                                    method=method, options=options)
+    if isinstance(stats, adaptive.BatchedSolveStats):
+        return tmap(lambda b: nan_unless(stats.success, b, 1), sol)
     if stats.success:
         return sol
     return tmap(lambda b: torch.full_like(b, float("nan")), sol)
+
+
+def nan_unless(success, x: torch.Tensor, axis: int = 0) -> torch.Tensor:
+    """``x`` with the replicas whose solve failed set to NaN: ``success``
+    is one flag per replica, along ``x``'s axis ``axis``. A ``torch.where``,
+    so a failed replica's entries get a zero cotangent, never 0·NaN."""
+    ok = torch.tensor(success, device=x.device)
+    ok = ok.view((-1,) + (1,) * (x.ndim - axis - 1))
+    return torch.where(ok, x, torch.full_like(x, float("nan")))

@@ -7,6 +7,11 @@
   1/dfactor), with dfactor forced to 1 when the step was accepted
 - Hairer's heuristic for the initial step, with per-leaf norms
 
+With ``batched`` (R replicas in one solve, ``adaptive.solve_batched``)
+every leaf has a leading replica axis and every quantity here is one value
+per replica, shape (R,): each norm and mean is taken over one replica's
+elements only, so the replicas' step sizes stay independent.
+
 Every quantity stays a tensor of the time dtype on the state's device
 (float32 unless the caller asks for float64 time, as the JAX package's
 ``time_dtype``): the host never branches here, and doing this arithmetic in
@@ -20,7 +25,8 @@ from typing import List, NamedTuple
 
 import torch
 
-from ndcn_tpu_torch.ode.tree_math import cast, leaves, rms_norm, tmax
+from ndcn_tpu_torch.ode.tree_math import (bcast, cast, leaves, rms_norm, tmax,
+                                          tmax_rows)
 
 # Guard against division by zero; a normal float32 (see the JAX package).
 _TINY = 1e-30
@@ -36,24 +42,30 @@ class Controller(NamedTuple):
 
 
 def error_ratios(y1_error, y0, y1, rtol: float, atol: float,
-                 tdtype: torch.dtype = torch.float32) -> List[torch.Tensor]:
+                 tdtype: torch.dtype = torch.float32,
+                 batched: bool = False) -> List[torch.Tensor]:
     """The mean squared error ratio of each leaf, as 0-dim tensors of the
     time dtype (the ratios of a float32 state are widened before the mean
-    under float64 time, as in the JAX package)."""
+    under float64 time, as in the JAX package); with ``batched``, (R,)
+    tensors, each the mean over one replica's elements."""
     out = []
     for err, a, b in zip(leaves(y1_error), leaves(y0), leaves(y1)):
         tol = atol + rtol * torch.maximum(torch.abs(a), torch.abs(b))
         r = cast(err / tol, tdtype)
-        out.append(torch.mean(r * r))
+        if batched:
+            out.append(torch.mean((r * r).reshape(r.shape[0], -1), dim=1))
+        else:
+            out.append(torch.mean(r * r))
     return out
 
 
 def accept_and_max_ratio(ratios: List[torch.Tensor]):
-    """(accept, max_ratio): accept iff every leaf's ratio is <= 1."""
+    """(accept, max_ratio): accept iff every leaf's ratio is <= 1 (per
+    replica, for (R,) ratios)."""
     if len(ratios) == 1:
         return ratios[0] <= 1.0, ratios[0]
     stacked = torch.stack(ratios)
-    return torch.all(stacked <= 1.0), torch.max(stacked)
+    return torch.all(stacked <= 1.0, dim=0), torch.amax(stacked, dim=0)
 
 
 def optimal_step_size(last_step: torch.Tensor, max_ratio: torch.Tensor,
@@ -72,33 +84,37 @@ def optimal_step_size(last_step: torch.Tensor, max_ratio: torch.Tensor,
 
 
 def select_initial_step(func, t0: torch.Tensor, y0, order: int,
-                        rtol: float, atol: float, f0) -> torch.Tensor:
+                        rtol: float, atol: float, f0,
+                        batched: bool = False) -> torch.Tensor:
     """Hairer's empirical initial step, in ``t0``'s dtype; the reference's
     host branches become ``torch.where`` with the same thresholds. Calls
-    ``func`` once.
+    ``func`` once. With ``batched`` (``t0`` of shape (R,)), one step per
+    replica from that replica's own norms.
 
     The norms are taken per leaf and the largest kept, as in the JAX
     package; a leaf whose derivative norm is under 1e-5 (the adjoint-time
     scalar of the augmented system) gives no step-size ratio, where its raw
     ratio would be inf or NaN."""
     tdtype = t0.dtype
+    vmax = tmax_rows if batched else tmax
     ys, fs = leaves(y0), leaves(f0)
     scales = [atol + torch.abs(y) * rtol for y in ys]
-    d0s = [rms_norm(y / s) for y, s in zip(ys, scales)]
-    d1s = [rms_norm(f / s) for f, s in zip(fs, scales)]
+    d0s = [rms_norm(y / s, batched) for y, s in zip(ys, scales)]
+    d1s = [rms_norm(f / s, batched) for f, s in zip(fs, scales)]
     ratios = [torch.where(b < 1e-5, torch.zeros_like(a),
                           a / torch.clamp(b, min=_TINY))
               for a, b in zip(d0s, d1s)]
-    d0, d1 = cast(tmax(d0s), tdtype), cast(tmax(d1s), tdtype)
+    d0, d1 = cast(vmax(d0s), tdtype), cast(vmax(d1s), tdtype)
     h0 = torch.where((d0 < 1e-5) | (d1 < 1e-5), torch.full_like(d0, 1e-6),
-                     0.01 * cast(tmax(ratios), tdtype))
+                     0.01 * cast(vmax(ratios), tdtype))
 
     if isinstance(y0, torch.Tensor):
-        y1 = y0 + cast(h0, y0.dtype) * f0
+        y1 = y0 + bcast(cast(h0, y0.dtype), y0) * f0
     else:
-        y1 = tuple(y + cast(h0, y.dtype) * f for y, f in zip(ys, fs))
+        y1 = tuple(y + bcast(cast(h0, y.dtype), y) * f
+                   for y, f in zip(ys, fs))
     f1 = func(t0 + h0, y1)
-    d2 = cast(tmax([rms_norm((a - b) / s) / cast(h0, a.dtype)
+    d2 = cast(vmax([rms_norm((a - b) / s, batched) / cast(h0, a.dtype)
                     for a, b, s in zip(leaves(f1), fs, scales)]), tdtype)
 
     h1_small = torch.clamp(h0 * 1e-3, min=1e-6)

@@ -5,6 +5,11 @@ state is one tensor, or a flat tuple of tensors: the continuous adjoint
 integrates (y, adj_y, adj_t, *adj_params). Every helper maps a bare tensor to
 the same single call it would make on that tensor alone, so the one-tensor
 solve launches exactly the kernels it did before states could be tuples.
+
+A batched solve (R replicas in one loop, ``adaptive.solve_batched``) gives
+every leaf a leading replica axis and every time scalar the shape (R,);
+``bcast`` lays such a per-replica vector over a leaf, and leaves a 0-dim
+scalar as it is.
 """
 
 from __future__ import annotations
@@ -20,6 +25,14 @@ def cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """``x`` in ``dtype``, with no dispatch when it is already: the solver
     loop is the host's, and a no-op ``.to`` a stage adds up."""
     return x if x.dtype == dtype else x.to(dtype)
+
+
+def bcast(s: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
+    """A per-replica vector ``s`` (R,) shaped to broadcast over ``leaf``
+    (R, ...) along its leading axis; a 0-dim ``s`` unchanged."""
+    if s.ndim == 0:
+        return s
+    return s.reshape(s.shape + (1,) * (leaf.ndim - s.ndim))
 
 
 def tmap(fn: Callable, *trees):
@@ -52,9 +65,20 @@ def tmin(values: Sequence[torch.Tensor]) -> torch.Tensor:
     return values[0] if len(values) == 1 else torch.min(torch.stack(values))
 
 
-def rms_norm(x: torch.Tensor) -> torch.Tensor:
-    """||x||_2 / sqrt(numel) of one leaf, as the reference ``_norm``."""
+def rms_norm(x: torch.Tensor, batched: bool = False) -> torch.Tensor:
+    """||x||_2 / sqrt(numel) of one leaf, as the reference ``_norm``; with
+    ``batched`` one norm per replica (the leading axis), shape (R,)."""
+    if batched:
+        rows = x.reshape(x.shape[0], -1)
+        return torch.sqrt(torch.sum(torch.square(rows), dim=1)
+                          / rows.shape[1])
     return torch.sqrt(torch.sum(torch.square(x)) / x.numel())
+
+
+def tmax_rows(values: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The elementwise largest of a list of (R,) tensors (``tmax`` per
+    replica)."""
+    return values[0] if len(values) == 1 else torch.stack(values).amax(0)
 
 
 def tree_dot(a, b) -> torch.Tensor:
@@ -71,9 +95,10 @@ def scaled_dot_product(scale: torch.Tensor, coeffs: torch.Tensor,
     """scale * sum_i coeffs[i] * stacked[i] along the leading stage axis of
     one leaf; ``coeffs`` is a 1-D tensor of len <= stacked.shape[0]. A
     float64 ``scale`` (float64 time) is rounded to the leaf's dtype first,
-    as the JAX package casts it."""
-    return (cast(scale, stacked.dtype)
-            * torch.tensordot(coeffs, stacked[: coeffs.shape[0]], dims=1))
+    as the JAX package casts it; a per-replica ``scale`` (R,) scales each
+    replica of a batched leaf."""
+    combined = torch.tensordot(coeffs, stacked[: coeffs.shape[0]], dims=1)
+    return bcast(cast(scale, stacked.dtype), combined) * combined
 
 
 def tscaled_dot_product(scale: torch.Tensor, coeffs: torch.Tensor, stacked):

@@ -8,7 +8,7 @@ solve is forced onto the inference (while-loop) path, and ``nondiff`` /
 budget / underflow flag: serve a failed answer loudly, never silently.
 
 The server runs in-process; a portable artifact (``torch.export`` of the
-data-dependent solver loop) waits for ROADMAP §1 entry 11.
+data-dependent solver loop) waits for ROADMAP §1 entry 11b.
 """
 
 from __future__ import annotations

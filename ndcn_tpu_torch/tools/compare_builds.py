@@ -1,18 +1,24 @@
-"""K2 and K4 from two checkouts of the repository on the same inputs, bit
-for bit.
+"""K1, K2, K3 and K4 from two checkouts of the repository on the same
+inputs, bit for bit.
 
     python -m ndcn_tpu_torch.tools.compare_builds <other checkout>
 
 builds the other checkout's kernels with its own build module (into its own
 ``build/kernels/``), loads its library beside this checkout's, and runs K2
-(``fused_rhs``) and K4 (``bsr_fused_rhs``) through this checkout's wrappers
-once with each library, on the same inputs and plans: K2 at the shapes of
-``chip_smoke.py`` [4], K4 on the 400-node grid and a 2000-node 5 % matrix at
-the widths of [7] and [7b], W as ``nn.Linear`` hands it over (a transposed
-view). Both libraries must export the two C entries with this checkout's
-arguments. One JSON line on stdout: for each shape whether the two outputs
-are equal (``torch.equal``), the largest difference where they are not, and
-each build's device time (ms per call of ten queued behind a spin kernel,
+(``fused_rhs``), K4 (``bsr_fused_rhs``), K1 (``coo_spmv``) and K3
+(``bsr_spmm``) through this checkout's wrappers once with each library, on
+the same inputs and plans: K2 at the shapes of ``chip_smoke.py`` [4], K4 on
+the 400-node grid and a 2000-node 5 % matrix at the widths of [7] and [7b],
+W as ``nn.Linear`` hands it over (a transposed view), K1 on the grid and on
+a hub graph (its long rows through the chunk kernels) at d = 1, 7 and 20,
+K3 on both BSR matrices at d = 20 and 256. Both libraries must export those
+four one-replica C entries with this checkout's arguments. Then this
+checkout's batched forms at one replica (``x[None]``) against the other's
+one-replica launches at the same shapes (``batched_r1``): a replica grid of
+one must be the launch it was before the replica axis. One JSON line on
+stdout: for each shape whether the two outputs are equal (``torch.equal``),
+the largest difference where they are not, and each build's device time
+(ms per call of ten queued behind a spin kernel,
 ``tune_fused_plan.device_ms``), taken in turns: this, other, other, this.
 """
 
@@ -29,17 +35,19 @@ import scipy.sparse as sp
 import torch
 
 from ndcn_tpu_torch.graph import generators, operators
-from ndcn_tpu_torch.graph.sparse import from_scipy_bsr_graph
-from ndcn_tpu_torch.kernels import build, bsr_spmm, fused_rhs
+from ndcn_tpu_torch.graph.sparse import from_scipy_bsr_graph, from_scipy_coo
+from ndcn_tpu_torch.kernels import build, bsr_spmm, coo_spmv, fused_rhs
 from ndcn_tpu_torch.tools import log, require_cuda
 from ndcn_tpu_torch.tools.tune_fused_plan import device_ms
 
-ENTRIES = ("ndcn_fused_rhs_f32", "ndcn_bsr_fused_rhs_f32")
+ENTRIES = ("ndcn_fused_rhs_f32", "ndcn_bsr_fused_rhs_f32", "ndcn_coo_spmv_f32",
+           "ndcn_bsr_spmm_f32")
 
 
 def load_other(root: Path) -> ctypes.CDLL:
     """Build the checkout at ``root`` with its own build module and load
-    its library, K2's and K4's entries declared as this checkout's."""
+    its library, the four one-replica entries declared as this
+    checkout's."""
     proc = subprocess.run(
         [sys.executable, "-c", "from ndcn_tpu_torch.kernels import build; "
          "print(build.build())"], cwd=root, capture_output=True, text=True)
@@ -62,16 +70,20 @@ def main(argv=None) -> dict:
     ours = build.load()
     original = build.load
 
-    def both(call):
+    def both(call, this_call=None):
+        """``call`` with each library; with ``this_call``, that one with
+        this checkout's library instead."""
+        this_call = this_call or call
         outs, ms = [], {"this": [], "other": []}
         try:
-            for lib in (ours, other):
+            for lib, fn in ((ours, this_call), (other, call)):
                 build.load = lambda lib=lib: lib
-                outs.append(call())
+                outs.append(fn())
             for which in ("this", "other", "other", "this"):
                 lib = ours if which == "this" else other
                 build.load = lambda lib=lib: lib
-                ms[which].append(device_ms(call))
+                ms[which].append(device_ms(this_call if which == "this"
+                                           else call))
         finally:
             build.load = original
         torch.cuda.synchronize()
@@ -81,8 +93,18 @@ def main(argv=None) -> dict:
                 else float((outs[0] - outs[1]).abs().max()),
                 "device_ms": ms}
 
+    def batched_r1(call):
+        """``call(lead)`` with a leading replica axis of one (this
+        checkout's batched form) against ``call(None)`` (the other's
+        one-replica launch)."""
+        return both(lambda: call(False), lambda: call(True)[0])
+
     rng = np.random.RandomState(0)
-    results = {"device": torch.cuda.get_device_name(dev), "k2": {}, "k4": {}}
+    results = {"device": torch.cuda.get_device_name(dev), "k2": {}, "k4": {},
+               "k1": {}, "k3": {}, "batched_r1": {}}
+
+    def lead(t, one):
+        return t[None] if one else t
     shapes = [(400, 20), (275, 13)] + [(n, k) for n in (400, 1000, 4000, 10000)
                                        for k in (20, 64, 128)]
     for n, k in shapes:
@@ -92,6 +114,10 @@ def main(argv=None) -> dict:
                 for s in ((k, k), (k,)))
         results["k2"][f"{n}x{k}"] = both(lambda: fused_rhs.fused_rhs(a, h, w,
                                                                      b))
+        if (n, k) in ((400, 20), (275, 13), (4000, 64)):
+            results["batched_r1"][f"k2_{n}x{k}"] = batched_r1(
+                lambda one: fused_rhs.fused_rhs(a, lead(h, one), lead(w, one),
+                                                lead(b, one)))
     mats = {"grid400": sp.csr_matrix(operators.normalized_laplacian(
         generators.build_network("grid", 400))),
         "2000": sp.csr_matrix(rng.rand(2000, 2000)
@@ -108,9 +134,40 @@ def main(argv=None) -> dict:
             results["k4"][f"{label}_d{d}"] = both(
                 lambda: bsr_spmm.bsr_fused_rhs(op.fwd, op.bwd, x, weight.t(),
                                                b))
-    results["all_equal"] = all(r["equal"] for part in ("k2", "k4")
+            if d in (20, 256):
+                results["k3"][f"{label}_d{d}"] = both(
+                    lambda: bsr_spmm.bsr_spmm(op.fwd, op.bwd, x))
+                results["batched_r1"][f"k3_{label}_d{d}"] = batched_r1(
+                    lambda one: bsr_spmm.bsr_spmm(op.fwd, op.bwd,
+                                                  lead(x, one)))
+                results["batched_r1"][f"k4_{label}_d{d}"] = batched_r1(
+                    lambda one: bsr_spmm.bsr_fused_rhs(
+                        op.fwd, op.bwd, lead(x, one), lead(weight.t(), one),
+                        lead(b, one)))
+    # K1: the grid, and a graph with a 2000-edge row (the chunk kernels)
+    hub_rows = np.concatenate([rng.zipf(1.5, 40000) % 3001, np.full(2000, 7)])
+    hub_cols = np.concatenate([rng.randint(0, 3001, 40000),
+                               rng.choice(3001, 2000, replace=False)])
+    coo = {"grid400": mats["grid400"],
+           "hub3001": sp.csr_matrix((rng.randn(hub_rows.size)
+                                     .astype(np.float32),
+                                     (hub_rows, hub_cols)),
+                                    shape=(3001, 3001))}
+    for label, mat in coo.items():
+        op = from_scipy_coo(mat.astype(np.float32), device=dev)
+        for d in (1, 7, 20):
+            x = torch.as_tensor(rng.randn(mat.shape[0], d).astype(np.float32),
+                                device=dev)
+            results["k1"][f"{label}_d{d}"] = both(
+                lambda: coo_spmv.coo_spmv(op, x))
+            results["batched_r1"][f"k1_{label}_d{d}"] = batched_r1(
+                lambda one: coo_spmv.coo_spmv(op, lead(x, one)))
+    results["all_equal"] = all(r["equal"] for part in ("k2", "k4", "k1", "k3")
                                for r in results[part].values())
-    log(f"K2 / K4 bit-equal to {argv[0]}: {results['all_equal']}")
+    results["batched_r1_equal"] = all(
+        r["equal"] for r in results["batched_r1"].values())
+    log(f"K1 / K2 / K3 / K4 bit-equal to {argv[0]}: {results['all_equal']}; "
+        f"batched at one replica: {results['batched_r1_equal']}")
     print(json.dumps(results))
     return results
 

@@ -4,6 +4,11 @@ The reference trains with ``torch.optim.Adam(params, lr, weight_decay)``:
 coupled L2 (the decay joins the gradient before the moments) and eps added
 after the square root of the bias-corrected second moment. The JAX package
 rebuilds that update as an optax chain; the port uses it as it is.
+
+Over a replica sweep's stacked parameters (``parallel.sweep``) the same
+Adam updates every replica at once: its moments, bias correction (one step
+count for all replicas, which all step together) and weight decay are
+elementwise, so replica r's update is its own model's.
 """
 
 from __future__ import annotations
@@ -34,5 +39,24 @@ def make_sgd_step(opt: torch.optim.Optimizer,
         loss.backward()
         opt.step()
         return loss.detach(), aux.detach()
+
+    return step
+
+
+def make_replica_sgd_step(opt: torch.optim.Optimizer,
+                          loss_fn: Callable[[], Tuple[torch.Tensor,
+                                                      torch.Tensor]]):
+    """``make_sgd_step`` for a replica sweep: ``loss_fn()`` returns (losses,
+    aux), one loss per replica (R,), and the step backpropagates their SUM,
+    so that each replica's gradient is its own loss's (a mean would scale
+    it by 1/R). A NaN loss of one replica (``ode.nan_unless``) carries a
+    zero gradient; the others' are unchanged."""
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        losses, aux = loss_fn()
+        losses.sum().backward()
+        opt.step()
+        return losses.detach(), aux.detach()
 
     return step

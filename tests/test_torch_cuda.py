@@ -1239,3 +1239,176 @@ def test_temporal_train_step_on_cuda_matches_cpu(cuda_device, heat_grid400,
     assert abs(loss_gpu - loss_cpu) <= 1e-4 * abs(loss_cpu)
     for name, want in grads_cpu.items():
         assert _rel_l1(grads_gpu[name], want) <= 1e-3, name
+
+
+# ---------------------------------------------------------------- replicas
+
+
+def _replica_x(rng, r, n, d, device):
+    return torch.as_tensor(rng.randn(r, n, d).astype(np.float32),
+                           device=device)
+
+
+@pytest.mark.parametrize("limit", [256, 16])
+@pytest.mark.parametrize("r", [1, 3])
+@pytest.mark.parametrize("d", [1, 7, 20])
+def test_batched_k1_cuda_matches_plain_and_solo_launches(cuda_device, d, r,
+                                                         limit):
+    """K1's batched form (R replicas' X against one A, one launch) within
+    1e-5 of the plain version, forward and through autograd (K1 batched over
+    the transpose), and each replica bit-equal to its own one-replica
+    launch; a hub graph with empty rows, its long rows through the chunk
+    kernels at both limits."""
+    n = 3001
+    a = _hub_coo(n, 40000, 2000, seed=d)
+    op = _resplit(from_scipy_coo(a, device=cuda_device), limit)
+    rng = np.random.RandomState(d + r)
+    x = _replica_x(rng, r, n, d, cuda_device)
+    g = _replica_x(rng, r, n, d, cuda_device)
+    before = (coo_spmv.BATCHED_LAUNCHES, coo_spmv.LAUNCHES)
+    xg = x.clone().requires_grad_()
+    y = coo_spmv.coo_spmv(op, xg)
+    (dx,) = torch.autograd.grad((y * g).sum(), xg)
+    torch.cuda.synchronize()
+    assert (coo_spmv.BATCHED_LAUNCHES, coo_spmv.LAUNCHES) == (
+        before[0] + 2, before[1])
+    assert _max_rel(y, coo_spmv.coo_spmv_plain(op.rows, op.cols, op.vals, x,
+                                               n)) <= 1e-5
+    assert _max_rel(dx, coo_spmv.coo_spmv_plain(op.rows_t, op.cols_t,
+                                                op.vals_t, g, n)) <= 1e-5
+    for i in range(r):
+        assert torch.equal(y[i], coo_spmv.coo_spmv(op, x[i].contiguous()))
+        assert torch.equal(dx[i], coo_spmv.coo_spmv(op.transpose(),
+                                                    g[i].contiguous()))
+    assert torch.equal(y, coo_spmv.coo_spmv(op, x))    # repeatable
+
+
+def _replica_weights(rng, r, k, device):
+    """R nn.Linear-like weights (R, k, k) and the transposed views K2 / K4
+    take, and biases (R, k)."""
+    weight = torch.as_tensor((rng.randn(r, k, k) / np.sqrt(k))
+                             .astype(np.float32), device=device)
+    b = torch.as_tensor((0.1 * rng.randn(r, k)).astype(np.float32),
+                        device=device)
+    return weight, b
+
+
+@pytest.mark.parametrize("r", [1, 3])
+@pytest.mark.parametrize("n,k", [(400, 20), (275, 13), (64, 300)])
+def test_batched_k2_cuda_matches_plain_and_solo_launches(cuda_device, n, k,
+                                                         r):
+    """K2's batched form (own W, b per replica, one shared A) within K2's
+    bounds of the plain version and its split emulation, its backward
+    against autograd of the plain version, and each replica bit-equal to
+    its own one-replica launch."""
+    rng = np.random.RandomState(n + k + r)
+    a = torch.as_tensor(rng.rand(n, n).astype(np.float32), device=cuda_device)
+    h = torch.as_tensor(rng.rand(r, n, k).astype(np.float32),
+                        device=cuda_device)
+    weight, b = _replica_weights(rng, r, k, cuda_device)
+    w = weight.transpose(-1, -2)
+    before = fused_rhs.BATCHED_LAUNCHES
+    y = fused_rhs.fused_rhs(a, h, w, b)
+    torch.cuda.synchronize()
+    assert fused_rhs.BATCHED_LAUNCHES == before + 1
+    ref = fused_rhs.fused_rhs_plain(a, h, w, b)
+    torch.testing.assert_close(y, ref, rtol=1e-5,
+                               atol=1e-5 * float(ref.abs().max()))
+    emu = fused_rhs.fused_rhs_split_plain(a, h, w, b)
+    assert float((y - emu).abs().max()) <= 2e-6 * float(emu.abs().max())
+    for i in range(r):
+        assert torch.equal(y[i], fused_rhs.fused_rhs(a, h[i], w[i], b[i]))
+    # no cotangent where relu's input is within the forward's bound of 0
+    z = (a @ h) @ w + b.unsqueeze(-2)
+    g = torch.as_tensor(rng.randn(r, n, k).astype(np.float32),
+                        device=cuda_device).masked_fill(
+        z.abs() <= 1e-5 * z.abs().max(), 0.0)
+    ins = [t.clone().requires_grad_() for t in (h, weight, b)]
+    out = fused_rhs.fused_rhs(a, ins[0], ins[1].transpose(-1, -2), ins[2])
+    got = torch.autograd.grad((out * g).sum(), ins)
+    ref_ins = [t.clone().requires_grad_() for t in (h, weight, b)]
+    ref_out = fused_rhs.fused_rhs_plain(a, ref_ins[0],
+                                        ref_ins[1].transpose(-1, -2),
+                                        ref_ins[2])
+    want = torch.autograd.grad((ref_out * g).sum(), ref_ins)
+    for x_, y_ in zip(got, want):
+        torch.testing.assert_close(x_, y_, rtol=1e-5,
+                                   atol=1e-5 * float(y_.abs().max()))
+
+
+@pytest.mark.parametrize("r", [1, 3])
+@pytest.mark.parametrize("n,d", [(400, 20), (2000, 256), (300, 7)])
+def test_batched_k3_k4_cuda_match_plain_and_solo_launches(cuda_device, n, d,
+                                                          r):
+    """K3's and K4's batched forms (one launch for R replicas) within 1e-5
+    of their plain versions and 2e-6 of their split emulations, forward and
+    through autograd, and each replica bit-equal to its own launch."""
+    from ndcn_tpu_torch.graph.sparse import from_scipy_bsr_graph
+    rng = np.random.RandomState(n + d + r)
+    a = sp.random(n, n, density=0.05, random_state=rng, format="csr")
+    op = from_scipy_bsr_graph(a, device=cuda_device)
+    x = torch.as_tensor(rng.rand(r, n, d).astype(np.float32),
+                        device=cuda_device)
+    g = _replica_x(rng, r, n, d, cuda_device)
+    weight, b = _replica_weights(rng, r, d, cuda_device)
+    before = (bsr_spmm.BATCHED_SPMM_LAUNCHES, bsr_spmm.BATCHED_FUSED_LAUNCHES)
+    xg = x.clone().requires_grad_()
+    y = bsr_spmm.bsr_spmm(op.fwd, op.bwd, xg)
+    (dx,) = torch.autograd.grad((y * g).sum(), xg)
+    z = bsr_spmm.bsr_fused_rhs(op.fwd, op.bwd, x, weight.transpose(-1, -2), b)
+    torch.cuda.synchronize()
+    assert (bsr_spmm.BATCHED_SPMM_LAUNCHES,
+            bsr_spmm.BATCHED_FUSED_LAUNCHES) == (before[0] + 2, before[1] + 1)
+    for got, mat, v in ((y.detach(), op.fwd, x), (dx, op.bwd, g)):
+        assert _max_rel(got, bsr_spmm.bsr_spmm_plain(mat, v)) <= 1e-5
+        emu = bsr_spmm.bsr_spmm_split_plain(mat, v)
+        assert float((got - emu).abs().max()) <= 2e-6 * float(emu.abs().max())
+    emu = bsr_spmm.bsr_fused_rhs_split_plain(op.fwd, x,
+                                             weight.transpose(-1, -2), b)
+    assert float((z - emu).abs().max()) <= 2e-6 * float(emu.abs().max())
+    assert _max_rel(z, bsr_spmm.bsr_fused_rhs_plain(
+        op.fwd, x, weight.transpose(-1, -2), b)) <= 1e-5
+    for i in range(r):
+        assert torch.equal(y[i], bsr_spmm.bsr_spmm(op.fwd, op.bwd, x[i]))
+        assert torch.equal(dx[i], bsr_spmm.bsr_spmm(op.bwd, op.fwd,
+                                                    g[i].contiguous()))
+        assert torch.equal(z[i], bsr_spmm.bsr_fused_rhs(
+            op.fwd, op.bwd, x[i], weight[i].t(), b[i]))
+
+
+@pytest.mark.parametrize("fmt,fused,needed", [
+    ("dense", True, "fused_rhs_batched"), ("coo", False, "coo_spmv_batched"),
+    ("bsr", False, "bsr_spmm_batched"), ("bsr", True, "bsr_fused_rhs_batched")])
+def test_replica_train_step_on_cuda_matches_cpu(cuda_device, fmt, fused,
+                                                needed):
+    """One replica-sweep train step (R = 3, grid400, hidden 20) on the card
+    against the CPU: losses within 1e-4 and the updated parameters within
+    1e-3 rel-L1, equal NFE per replica; only the batched forms launch."""
+    from ndcn_tpu_torch.parallel.sweep import (make_ndcn_replica_train_step,
+                                               replica_generators)
+    lap = operators.normalized_laplacian(generators.build_network("grid", 400))
+    mat = lap if fmt == "dense" else sp.csr_matrix(lap)
+    vt = np.linspace(0.0, 2.0, 10).astype(np.float32)
+    x0 = np.random.RandomState(0).uniform(0.0, 25.0, (400, 1)) \
+        .astype(np.float32)
+    target = np.random.RandomState(1).rand(10, 400, 1).astype(np.float32)
+
+    def step(dev):
+        op = as_operator(mat, sparse=fmt != "dense", format=fmt, device=dev)
+        init_fn, step_fn = make_ndcn_replica_train_step(
+            op, vt, torch.as_tensor(x0, device=dev),
+            torch.as_tensor(target, device=dev), fused=fused)
+        model, opt = init_fn(replica_generators(3, 3))
+        losses = step_fn(model, opt)
+        return losses.cpu(), [p.detach().cpu() for p in model.parameters()]
+
+    kernels.reset_launch_counts()
+    losses, params = step(cuda_device)
+    counts = kernels.launch_counts()
+    assert counts[needed] > 0
+    assert all(c == 0 for name, c in counts.items()
+               if not name.endswith("batched"))
+    losses_cpu, params_cpu = step("cpu")
+    assert float((losses - losses_cpu).abs().max()) <= 1e-4
+    for p, q in zip(params, params_cpu):
+        assert _rel_l1(p, q) <= 1e-3

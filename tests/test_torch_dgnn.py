@@ -297,7 +297,10 @@ def test_driver_resumes_mid_iter_bit_equal(synth_dir, tmp_path):
 
 
 @pytest.mark.parametrize("flag,entry", [
-    (["--batch_iters"], "entry 11"), (["--budget_buckets", "2"], "entry 11"),
+    (["--batch_iters", "--model", "differential_gcn", "--method", "adams"],
+     "entry 11a′"),
+    (["--batch_iters", "--budget_buckets", "2", "--model", "odeGCN",
+      "--method", "fixed_adams"], "entry 11a′"),
     (["--mesh"], "entry 11"),
     (["--export", "x.bin", "--model", "differential_gcn"], "entry 11"),
     (["--precision", "high"], "entry 6")])

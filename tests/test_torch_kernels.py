@@ -160,7 +160,9 @@ def test_build_names_the_library_by_source_hash(monkeypatch, tmp_path):
         "ndcn_coo_spmv_T_bf16", "ndcn_pack_rows_f32", "ndcn_pack_rows_bf16",
         "ndcn_sliced_tile_reduce_f32",
         "ndcn_row_gather_f32", "ndcn_fused_rhs_f32", "ndcn_bsr_spmm_f32",
-        "ndcn_bsr_fused_rhs_f32"}
+        "ndcn_bsr_fused_rhs_f32", "ndcn_coo_spmv_batched_f32",
+        "ndcn_coo_spmv_batched_bf16", "ndcn_fused_rhs_batched_f32",
+        "ndcn_bsr_spmm_batched_f32", "ndcn_bsr_fused_rhs_batched_f32"}
     entries = "".join(src.read_text() for src in build.sources())
     assert all(f"int {name}(" in entries for name in build.ENTRY_POINTS)
     # without nvcc the build says so, instead of falling back

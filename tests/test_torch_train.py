@@ -487,8 +487,8 @@ def test_heat_experiment_auto_budget_and_refusals(tmp_path):
     base = ["--n", "25", "--platform", "cpu"]
     for extra, item in ((["--method", "dopri5", "--export", "m.pt"],
                          "§1 entry 11"),
-                        (["--method", "dopri5", "--replicas", "2"],
-                         "§1 entry 11"),
+                        (["--method", "adams", "--replicas", "2"],
+                         "§1 entry 11a′"),
                         (["--method", "dopri5", "--scan_chunk", "4"],
                          "§1 entry 6")):
         with pytest.raises(NotImplementedError, match=item):
