@@ -190,6 +190,25 @@ Phases, one line each:
      4``: the mean accuracy within 0.8317 ± 3 · 0.0098 / √25, no replica
      exhausted, seconds per model beside [16]'s single runs, the peak
      memory beside the guard's estimate and under its limit.
+ 19. the mesh (``--mesh``, ``parallel.coo_shard``): (a) the 200k / 2.0M
+     operator of [3] / [10] split into 4 row blocks in one process: K1 and
+     K1-fm's gather (fp32 and bf16), on A's blocks and on Aᵀ's, each block
+     against the gathered table; the blocks' outputs concatenated
+     bit-equal to the whole operator's launch and within 1e-6·max|y| of
+     the plain version; each block's times, bound and library call
+     (``torch.sparse.mm`` on the block's CSR), their sums beside the whole
+     launch's; K1's batched form on the blocks (4 replicas, the data x
+     model mesh's product), each replica bit-equal to its own launch; (b) ``experiments.large_graph --mesh`` at 200k (hidden 20,
+     5 iterations), in the (n, d) layout and feature-major, on a one-rank
+     NCCL group: its first-step parity under 1e-4, the train loss falling,
+     the row-block launches, steps/s beside the same run without
+     ``--mesh``; one steady sharded train step's launches and busy share,
+     and its time against the same step unsharded (bit-equal weights),
+     alternating;
+     (c) the heat driver with ``--mesh`` on one rank (the JAX notice: it
+     runs unsharded) with the losses of the run without it. Only one card:
+     meshes of more ranks are checked on the CPU (gloo), by
+     ``python -m ndcn_tpu_torch.parallel.dryrun 4`` and the tests.
   p. where the time goes: one request per serving setting and one train step
      per training setting (the 1M feature-major step included), one cora
      differential_gcn epoch (the driver's defaults, train and eval) on
@@ -200,7 +219,8 @@ Phases, one line each:
      epoch.
 Then the kernels' JSON record, and last the device JSON line. Launch counts
 are zeroed just before each main-path phase (5-6, 8, 9, 10, each run of 12,
-13, 14, each part of 15, each run of 16 and 17, and each driver run of 18)
+13, 14, each part of 15, each run of 16 and 17, each driver run of 18 and
+19)
 and read just after its
 GPU work; the record's launches are their sums.
 
@@ -326,10 +346,29 @@ def plain_versions(on: bool = True):
     from ndcn_tpu_torch.graph import sparse
     from ndcn_tpu_torch.kernels import bsr_spmm, coo_spmv, fused_rhs
     from ndcn_tpu_torch.models import ndcn
+    from ndcn_tpu_torch.parallel import coo_shard
+    from ndcn_tpu_torch.parallel.mesh import gather_rows
+
+    def rowblock_plain(op, x, transpose):
+        bl = op.block_t if transpose else op.block
+        table = gather_rows(x, op.rows_per, op.group)
+        return coo_spmv.coo_spmv_plain(
+            bl.rows, bl.cols, bl.vals, table, bl.n,
+            coo_spmv.GATHER_BF16 and x.shape[1] > 1)[:op.stop - op.start]
+
+    def rowblock_T_plain(op, xT, transpose):
+        bl = op.block_t if transpose else op.block
+        table = gather_rows(xT.t(), op.rows_per, op.group)
+        return coo_spmv.coo_spmv_T_plain(
+            bl.rows, bl.cols, bl.vals, table.t(), bl.n,
+            coo_spmv.GATHER_BF16)[:, :op.stop - op.start]
 
     saved = (sparse.coo_spmv, sparse.bsr_spmm, ndcn.fused_rhs,
-             ndcn.bsr_fused_rhs, ndcn.spmv_T)
+             ndcn.bsr_fused_rhs, ndcn.spmv_T, coo_shard._block_product,
+             coo_shard._block_product_T)
     if on:
+        coo_shard._block_product = rowblock_plain
+        coo_shard._block_product_T = rowblock_T_plain
         sparse.coo_spmv = lambda op, x: coo_spmv.coo_spmv_plain(
             op.rows, op.cols, op.vals, x, op.n,
             coo_spmv.GATHER_BF16 and x.shape[1] > 1)
@@ -345,7 +384,8 @@ def plain_versions(on: bool = True):
         yield
     finally:
         (sparse.coo_spmv, sparse.bsr_spmm, ndcn.fused_rhs,
-         ndcn.bsr_fused_rhs, ndcn.spmv_T) = saved
+         ndcn.bsr_fused_rhs, ndcn.spmv_T, coo_shard._block_product,
+         coo_shard._block_product_T) = saved
 
 
 def main() -> None:
@@ -2343,6 +2383,259 @@ def main() -> None:
         "kernels": kb, "heat_replicas16": sweep18, "showcase25": show18,
         "showcase_band": band25, "seconds": time.perf_counter() - t18}))
 
+    # ---- 19. the mesh: K1 / K1ᵀ / K1-fm on row blocks, the sharded drivers
+    import torch.distributed as dist
+
+    from ndcn_tpu_torch.parallel import coo_shard
+    from ndcn_tpu_torch.parallel.mesh import make_mesh, process_group
+
+    t19 = time.perf_counter()
+    P19 = 4
+    blocks19 = [coo_shard.shard_coo_at(op_big, P19, r, None)
+                for r in range(P19)]
+    n_pad19 = blocks19[0].n_pad
+    x19 = torch.as_tensor(np.random.RandomState(19).randn(op_big.n, 20)
+                          .astype(np.float32), device=dev)
+    xT19 = torch.zeros((24, op_big.n), device=dev)
+    xT19[:20] = x19.t()
+
+    def rowblock_case(form, transpose, bf16):
+        """One kernel on each of the 4 row blocks of the 200k operator (A's,
+        or Aᵀ's with ``transpose``) against the gathered table: the blocks'
+        outputs concatenate bit-equal to the whole operator's launch and
+        come within 1e-6·max|y| of the plain version; each block's times,
+        bound and library call (``torch.sparse.mm`` on the block's CSR
+        against the table), and their sums beside the whole launch's."""
+        whole = op_big.transpose() if transpose else op_big
+        parts = [b.block_t if transpose else b.block for b in blocks19]
+        rows19 = [b.stop - b.start for b in blocks19]
+        with gather_mode(False, bf16), torch.no_grad():
+            if form == "k1":
+                table = torch.cat([x19, x19.new_zeros((n_pad19 - op_big.n,
+                                                       20))])
+                run = lambda bl: coo_spmv._apply(bl, table)   # noqa: E731
+                whole_run = lambda: coo_spmv._apply(whole, x19)  # noqa: E731
+                ref = coo_spmv.coo_spmv_plain(whole.rows, whole.cols,
+                                              whole.vals, x19, whole.n, bf16)
+                y = torch.cat([run(bl)[:m] for bl, m in zip(parts, rows19)])
+                y_whole = whole_run()
+
+                def plain(bl):
+                    return coo_spmv.coo_spmv_plain(bl.rows, bl.cols, bl.vals,
+                                                   table, bl.n, bf16)
+            else:
+                packed = coo_spmv.pack_rows(xT19, bf16)
+                table = torch.cat([packed, packed.new_zeros(
+                    (n_pad19 - op_big.n, 24))])
+                run = lambda bl: coo_spmv.gather_T(bl, table)  # noqa: E731
+                whole_run = lambda: coo_spmv.gather_T(  # noqa: E731
+                    whole, table[:op_big.n])
+                ref = coo_spmv.coo_spmv_T_plain(whole.rows, whole.cols,
+                                                whole.vals, xT19, whole.n,
+                                                bf16)
+                y = torch.cat([run(bl)[:, :m] for bl, m in zip(parts, rows19)],
+                              dim=1)
+                y_whole = coo_spmv._apply_T(whole, xT19)
+
+                def plain(bl):
+                    return coo_spmv.coo_spmv_T_plain(
+                        bl.rows, bl.cols, bl.vals, table.t().float(), bl.n,
+                        bf16)
+            torch.cuda.synchronize()
+            what = f"row-block {form} bf16={bf16} transpose={transpose}"
+            check(torch.equal(y, y_whole),
+                  f"{what}: the blocks part from the whole launch")
+            err, rel = max_rel(y, ref)
+            check(rel <= 1e-6, f"{what} disagrees with its plain version: "
+                               f"{rel}")
+            check(torch.equal(run(parts[0]), run(parts[0])),
+                  f"{what}: two calls differ")
+            per_block = []
+            for bl in parts:
+                vals = coo_spmv.round_bf16(bl.vals) if bf16 else bl.vals
+                a = torch.sparse_csr_tensor(bl.row_ptr, bl.cols, vals,
+                                            size=(bl.n, bl.n_table))
+                tf = (coo_spmv.round_bf16(table) if bf16 and form == "k1"
+                      else table.float())
+
+                def library(a=a, tf=tf):
+                    out = torch.sparse.mm(a, tf)
+                    return out if form == "k1" else out.t().contiguous()
+
+                out = run(bl)
+                nnz = int(bl.cols.shape[0])
+                per_block.append(dict(
+                    rows=bl.n, nnz=nnz, ms=cuda_ms(lambda bl=bl: run(bl),
+                                                   iters=15),
+                    device_ms=queued_ms(lambda bl=bl: run(bl)),
+                    plain_ms=cuda_ms(lambda bl=bl: plain(bl), iters=15),
+                    library_ms=cuda_ms(library, iters=15),
+                    library_device_ms=queued_ms(library),
+                    **bound(nbytes(bl.row_ptr, bl.cols, bl.vals, table, out),
+                            2 * nnz * table.shape[1])))
+            summed = {k: sum(b[k] for b in per_block)
+                      for k in ("ms", "device_ms", "plain_ms", "library_ms",
+                                "library_device_ms", "bound_ms")}
+            return dict(summed, max_abs_err=err, rel_err=rel,
+                        bound_by=("bytes" if all(b["bound_by"] == "bytes"
+                                                 for b in per_block)
+                                  else "operations"),
+                        whole_ms=cuda_ms(whole_run, iters=15),
+                        whole_device_ms=queued_ms(whole_run),
+                        blocks=per_block, repeat_equal=True,
+                        concat_equal_whole=True)
+
+    k19 = {}
+    for form in ("k1", "k1fm"):
+        for bf16 in (False, True):
+            k19[f"{form}_{'bf16' if bf16 else 'f32'}"] = {
+                label: rowblock_case(form, transpose, bf16)
+                for label, transpose in (("fwd", False), ("transpose", True))}
+    # the batched form on the row blocks (R = 4 replicas, the data x model
+    # mesh's product): each replica bit-equal to its own block launch, the
+    # blocks to the whole batched launch
+    xr19 = torch.stack([x19 * (i + 1) for i in range(4)])
+    tab19 = torch.cat([xr19, xr19.new_zeros((4, n_pad19 - op_big.n, 20))], 1)
+    with torch.no_grad():
+        ys = [coo_spmv._apply(b.block, tab19) for b in blocks19]
+        check(all(torch.equal(y[i], coo_spmv._apply(b.block,
+                                                    tab19[i].contiguous()))
+                  for y, b in zip(ys, blocks19) for i in range(4)),
+              "row-block batched K1: a replica parts from its own launch")
+        y = torch.cat([y[:, :b.stop - b.start] for y, b in zip(ys, blocks19)],
+                      1)
+        check(torch.equal(y, coo_spmv._apply(op_big, xr19)),
+              "row-block batched K1: the blocks part from the whole launch")
+        err, rel = max_rel(y, coo_spmv.coo_spmv_plain(
+            op_big.rows, op_big.cols, op_big.vals, xr19, op_big.n))
+        check(rel <= 1e-6, f"row-block batched K1 vs plain: {rel}")
+        k19["k1_batched_r4"] = dict(
+            max_abs_err=err, rel_err=rel, replicas=4,
+            device_ms=sum(queued_ms(lambda b=b: coo_spmv._apply(b.block,
+                                                                tab19))
+                          for b in blocks19),
+            solo_device_ms=sum(queued_ms(
+                lambda b=b, i=i: coo_spmv._apply(b.block,
+                                                 tab19[i].contiguous()))
+                for b in blocks19 for i in range(4)),
+            whole_device_ms=queued_ms(lambda: coo_spmv._apply(op_big, xr19)),
+            bound_ms=sum(bound(nbytes(b.block.row_ptr, b.block.cols,
+                                      b.block.vals, tab19, ys[0]),
+                               2 * int(b.block.cols.shape[0]) * 80)
+                         ["bound_ms"] for b in blocks19))
+    del xr19, tab19, ys, y
+    csr_tensors.clear()
+    torch.cuda.empty_cache()
+
+    # b. the scale driver with --mesh at 200k on a one-rank NCCL group
+    # (ground truth cached for the three runs), and without it
+    gt19 = os.path.join(root, "build", "smoke_mesh_gt.npz")
+    if os.path.exists(gt19):
+        os.remove(gt19)
+    mesh_argv = ("--n", "200000", "--iters", "5", "--gt_cache", gt19)
+    runs19 = {}
+    with process_group(dev):
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+              f"the mesh runs on {dist.get_backend()}")
+        for label, extra, needed in (
+                ("mesh_nd", (), ["coo_spmv_rowblock", "coo_spmv"]),
+                ("mesh_feature_major", ("--layout", "feature_major"),
+                 ["coo_spmv_T_rowblock", "coo_spmv_T_pack"])):
+            rec, counts = scale_run(f"200k --mesh {label}", needed,
+                                    *mesh_argv, "--mesh", *extra)
+            check(rec["mesh_backend"] == "nccl" and rec["mesh_devices"] == 1
+                  and rec["mesh_parity"] < 1e-4,
+                  f"200k --mesh {label}: {rec['mesh_backend']}, parity "
+                  f"{rec['mesh_parity']}")
+            check(rec["train_losses"][-1] < rec["train_losses"][0],
+                  f"200k --mesh {label}: the train loss did not fall")
+            runs19[label] = dict(scale_summary(rec, counts),
+                                 mesh_parity=rec["mesh_parity"],
+                                 mesh_devices=rec["mesh_devices"],
+                                 mesh_backend=rec["mesh_backend"])
+        # one steady sharded train step: its launches and the busy share
+        rs_big = coo_shard.shard_coo_rows(op_big, make_mesh(dev))
+        model19 = init_ndcn(torch.Generator().manual_seed(0), 1, 20, 1,
+                            device=dev)
+        opt19 = torch_adam(model19.parameters(), 0.01, 1e-3)
+
+        def loss19():
+            out, _ = ndcn_forward(model19, rs_big, t_train, x0_big,
+                                  max_steps=budget, **train_kw)
+            loss = l1_loss(out, target_big)
+            return loss, loss
+
+        step19 = make_sgd_step(opt19, loss19)
+        step19()
+        kernels.reset_launch_counts()
+        step19()
+        torch.cuda.synchronize()
+        per_step19 = kernels.launch_counts()
+        check(per_step19["coo_spmv_rowblock"] > 0
+              and per_step19["coo_spmv"] == 0,
+              f"the sharded step launched K1 {per_step19['coo_spmv']} times "
+              f"on the whole operator and "
+              f"{per_step19['coo_spmv_rowblock']} on its row block")
+        # the same step unsharded, from the same weights, after as many
+        # steps; then the two alternately, in one process
+        model19u = init_ndcn(torch.Generator().manual_seed(0), 1, 20, 1,
+                             device=dev)
+        opt19u = torch_adam(model19u.parameters(), 0.01, 1e-3)
+
+        def loss19u():
+            out, _ = ndcn_forward(model19u, op_big, t_train, x0_big,
+                                  max_steps=budget, **train_kw)
+            loss = l1_loss(out, target_big)
+            return loss, loss
+
+        step19u = make_sgd_step(opt19u, loss19u)
+        step19u()
+        step19u()
+
+        def timed19(fn):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3
+
+        alt19 = {"sharded": [], "unsharded": []}
+        for which in ("sharded", "unsharded", "unsharded", "sharded") * 3:
+            alt19[which].append(timed19(step19 if which == "sharded"
+                                        else step19u))
+        check(all(torch.equal(p, q) for p, q in zip(
+            model19.parameters(), model19u.parameters())),
+              "the one-rank sharded steps part from the unsharded ones")
+        alt19["median_ratio"] = (statistics.median(alt19["sharded"])
+                                 / statistics.median(alt19["unsharded"]))
+        prof19 = profile_call(step19, "train_200k_mesh", root)
+        del rs_big, model19, opt19, model19u, opt19u
+    check(not dist.is_initialized(), "the process group outlived [19]")
+    rec_u, counts_u = scale_run("200k without --mesh", ["coo_spmv"],
+                                *mesh_argv)
+    runs19["unsharded"] = scale_summary(rec_u, counts_u)
+    runs19["steps_per_s_sharded_over_unsharded"] = (
+        runs19["mesh_nd"]["train_steps_per_sec"]
+        / rec_u["train_steps_per_sec"])
+
+    # c. the heat driver with --mesh on one rank: the JAX notice, and the
+    # losses of the run without it
+    dyn19 = {}
+    for label, extra in (("mesh", ("--mesh",)), ("plain", ())):
+        kernels.reset_launch_counts()
+        out = run("heat", build_parser("heat").parse_args([
+            "--niters", "20", "--test_freq", "10", "--method", "dopri5",
+            "--sparse", "--sparse_format", "coo", *extra]))
+        dyn19[label] = dict(train_losses=out["train_losses"],
+                            launches=add_launches(f"heat {label}",
+                                                  ["coo_spmv"]))
+    check(dyn19["mesh"]["train_losses"] == dyn19["plain"]["train_losses"],
+          "heat --mesh on one rank parts from the run without it")
+    print("[19] mesh (card: " + smi + "): " + json.dumps({
+        "row_blocks": P19, "kernels": k19, "scale": runs19,
+        "launches_per_mesh_step": per_step19, "mesh_step_profile": prof19,
+        "step_ms_alternating": alt19,
+        "heat": dyn19, "seconds": time.perf_counter() - t19}))
+
     # ---- p. where the time goes
     for label, srv, x0 in (("grid400", server, fx["x0"]),
                            ("200k", server_big, requests[0])):
@@ -2619,6 +2912,18 @@ def main() -> None:
               edge_form_launches=main_launches["coo_mutual_edges"],
               warp_form_source="ndcn_tpu_torch/csrc/coo_mutual.cu",
               launches_per_ground_truth=c_mut["coo_mutual"]),
+        # K1 and K1-fm's gather on each rank's row block (the mesh path,
+        # [19]): the 200k operator's 4 blocks, times summed over them
+        entry("coo_spmv_rowblock", "coo_spmv.cu",
+              "ndcn_tpu/parallel/coo_shard.py:134", k19["k1_f32"]["fwd"],
+              k19["k1_f32"]["transpose"], pallas_site=K1,
+              bf16=k19["k1_bf16"], batched_r4=k19["k1_batched_r4"],
+              launches_per_mesh_step=per_step19["coo_spmv_rowblock"]),
+        entry("coo_spmv_T_rowblock", "coo_spmv_T.cu",
+              "ndcn_tpu/parallel/coo_shard.py:165", k19["k1fm_f32"]["fwd"],
+              k19["k1fm_f32"]["transpose"],
+              reached_through="ndcn_tpu/kernels/coo_spmv.py:322",
+              bf16=k19["k1fm_bf16"]),
         entry("sliced_tile_reduce", "sparse_bench.cu",
               "tools/microbench_sparse.py:235", p1a,
               spmv_e2e_ms=p1a["spmv_e2e_ms"],

@@ -38,7 +38,9 @@
 //   offsets X, Y and the long rows' scratch by its replica's stride and
 //   does exactly the work of a one-replica launch on that slice, so a
 //   replica's result is bit-equal to its own launch's. A and its chunk
-//   index are read by every replica (from L2 after the first).
+//   index are read by every replica (from L2 after the first). X's stride
+//   is its own row count times d: on a rank's row block of the mesh path
+//   X holds every node's rows (the gathered table) and Y the block's.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -83,30 +85,33 @@ csr_rows_kernel(const int32_t* __restrict__ row_ptr,
 template <typename T, int E>
 void launch_width(const int32_t* row_ptr, const int32_t* cols,
                   const float* vals, const T* x, float* y, int n_rows, int d,
-                  const ndcn::RowSplit& split, int replicas,
+                  const ndcn::RowSplit& split, int replicas, int table_rows,
                   cudaStream_t stream) {
   const ndcn::LaneShape shape = ndcn::lane_shape(d, E);
-  const int64_t bs = (int64_t)n_rows * d;  // one replica's X and Y
+  const int64_t x_bs = (int64_t)table_rows * d;  // one replica's X
+  const int64_t y_bs = (int64_t)n_rows * d;      // and its Y
   const dim3 grid(ndcn::gather_blocks(n_rows, shape.rows), replicas);
   csr_rows_kernel<T, E><<<grid, kGatherThreads, 0, stream>>>(
-      row_ptr, cols, vals, x, y, n_rows, d, split.limit, shape, bs, bs);
+      row_ptr, cols, vals, x, y, n_rows, d, split.limit, shape, x_bs, y_bs);
   ndcn::launch_long_rows<T, E>(split, cols, vals, x, y, d, d, 1, stream,
-                               replicas, bs, bs);
+                               replicas, x_bs, y_bs);
 }
 
 template <typename T>
 int launch(const void* row_ptr, const void* cols, const void* vals,
            const void* x, void* y, int n_rows, int d, int width,
-           const ndcn::RowSplit& split, int replicas, void* stream) {
+           const ndcn::RowSplit& split, int replicas, int table_rows,
+           void* stream) {
   if (n_rows <= 0 || d <= 0 || replicas <= 0) return (int)cudaGetLastError();
   if (replicas > 65535) return (int)cudaErrorInvalidValue;  // gridDim.y
+  if (table_rows <= 0) return (int)cudaErrorInvalidValue;
   if (!ndcn::gather_width_ok<T>(x, d, width)) {
     return (int)cudaErrorInvalidValue;
   }
   ndcn::for_lane_values<T>(width, [&](auto lane_values) {
     launch_width<T, decltype(lane_values)::value>(
         (const int32_t*)row_ptr, (const int32_t*)cols, (const float*)vals,
-        (const T*)x, (float*)y, n_rows, d, split, replicas,
+        (const T*)x, (float*)y, n_rows, d, split, replicas, table_rows,
         (cudaStream_t)stream);
   });
   return (int)cudaGetLastError();
@@ -128,7 +133,7 @@ extern "C" int ndcn_coo_spmv_f32(
       split_limit, long_rows, chunk_ptr, chunk_bounds, n_long, n_chunks,
       partial);
   return launch<float>(row_ptr, cols, vals, x, y, n_rows, d, width, split,
-                       1, stream);
+                       1, n_rows, stream);
 }
 
 // x is a bf16 (n, d) copy of X; vals stay fp32 and are rounded in the kernel.
@@ -141,33 +146,37 @@ extern "C" int ndcn_coo_spmv_bf16(
       split_limit, long_rows, chunk_ptr, chunk_bounds, n_long, n_chunks,
       partial);
   return launch<__nv_bfloat16>(row_ptr, cols, vals, x, y, n_rows, d, width,
-                               split, 1, stream);
+                               split, 1, n_rows, stream);
 }
 
-// The batched forms: x and y are `replicas` row-major (n_rows, d) states one
-// after another, and partial (with n_chunks > 0) is `replicas` scratches of
-// (n_chunks, d). Each replica's y is what the one-replica entry writes for
-// its x.
+// The batched forms: x is `replicas` row-major (table_rows, d) states one
+// after another, y `replicas` (n_rows, d) results, and partial (with
+// n_chunks > 0) `replicas` scratches of (n_chunks, d). table_rows is n_rows
+// for a square A, and every node's row count for a row block's CSR (the
+// mesh path). Each replica's y is what the one-replica entry writes for its
+// x.
 extern "C" int ndcn_coo_spmv_batched_f32(
     const void* row_ptr, const void* cols, const void* vals, const void* x,
     void* y, int n_rows, int d, int width, int split_limit,
     const void* long_rows, const void* chunk_ptr, const void* chunk_bounds,
-    int n_long, int n_chunks, void* partial, int replicas, void* stream) {
+    int n_long, int n_chunks, void* partial, int replicas, int table_rows,
+    void* stream) {
   const ndcn::RowSplit split = ndcn::row_split(
       split_limit, long_rows, chunk_ptr, chunk_bounds, n_long, n_chunks,
       partial);
   return launch<float>(row_ptr, cols, vals, x, y, n_rows, d, width, split,
-                       replicas, stream);
+                       replicas, table_rows, stream);
 }
 
 extern "C" int ndcn_coo_spmv_batched_bf16(
     const void* row_ptr, const void* cols, const void* vals, const void* x,
     void* y, int n_rows, int d, int width, int split_limit,
     const void* long_rows, const void* chunk_ptr, const void* chunk_bounds,
-    int n_long, int n_chunks, void* partial, int replicas, void* stream) {
+    int n_long, int n_chunks, void* partial, int replicas, int table_rows,
+    void* stream) {
   const ndcn::RowSplit split = ndcn::row_split(
       split_limit, long_rows, chunk_ptr, chunk_bounds, n_long, n_chunks,
       partial);
   return launch<__nv_bfloat16>(row_ptr, cols, vals, x, y, n_rows, d, width,
-                               split, replicas, stream);
+                               split, replicas, table_rows, stream);
 }

@@ -38,6 +38,19 @@ starts: snapshots and checkpoints only ever hold a state whose epoch was
 verified finite. What is not ported raises ``NotImplementedError`` naming
 its ROADMAP entry before any data loads.
 
+``--mesh`` under ``torchrun --nproc_per_node P`` (P > 1) lays the ranks
+out as ``make_mesh(data_divides=R, model_divides=n)`` (R the ``--iter``
+replicas of ``--batch_iters``, else 1) and shards the operator, the
+features and the labels over the model axis
+(``parallel.sweep.shard_operator``: K1 on each rank's row block, dense rows
+through ``torch.matmul``); the losses and accuracies are over every rank's
+split nodes and the replicated parameters' gradients are summed over the
+model axis; with ``--batch_iters`` each data rank trains its R / data
+replicas (``--budget_buckets`` is ignored, as in JAX) and the report
+gathers every replica; rank 0 writes the checkpoints and the dump. A
+world of one prints the JAX driver's notice and runs unsharded. Under P >
+1 the GCN zoo is ROADMAP §1 entry 11c′.
+
 Usage: python -m ndcn_tpu_torch.experiments.dgnn --dataset cora \\
            --model differential_gcn --iter 5 --dropout 0 --hidden 256 \\
            --T 1.2 --time_tick 16 --epochs 100 --weight_decay 0.024 \\
@@ -47,6 +60,7 @@ Usage: python -m ndcn_tpu_torch.experiments.dgnn --dataset cora \\
 from __future__ import annotations
 
 import argparse
+import contextlib
 import datetime
 import os
 import time
@@ -109,7 +123,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "replica init and train the sweep as up to this "
                         "many batched programs grouped by step budget")
     p.add_argument("--mesh", action="store_true",
-                   help="shard over several devices (not ported)")
+                   help="shard the nodes over the torchrun ranks (a world "
+                        "of one runs unsharded)")
     p.add_argument("--data_dir", type=str, default="data")
     p.add_argument("--ckpt_dir", type=str, default=None,
                    help="enable periodic checkpoint / resume in this "
@@ -135,6 +150,8 @@ def build_parser() -> argparse.ArgumentParser:
 def _refuse(args: argparse.Namespace) -> None:
     """The JAX driver's own argument errors (dgnn.py:108-124), then what
     the port does not have yet, all before any data loads."""
+    from ndcn_tpu_torch.parallel.mesh import world_size
+
     if args.export:
         if args.model not in ("differential_gcn", "odeGCN"):
             raise SystemExit("--export serializes the continuous-time "
@@ -152,13 +169,16 @@ def _refuse(args: argparse.Namespace) -> None:
     if args.batch_iters and args.model not in BATCHED_MODELS:
         raise SystemExit(f"--batch_iters unsupported for {args.model}")
     ode_model = args.model in ("odeGCN", "differential_gcn")
+    sharded = args.mesh and world_size() > 1
     refused = [
+        (sharded and not ode_model,
+         "--mesh on more than one rank with a GCN zoo model: ROADMAP §1 "
+         "entry 11c′"),
         (args.batch_iters and ode_model and args.method in (
             "adams", "explicit_adams", "fixed_adams"),
          "--batch_iters with the Adams methods (replica sweeps with the "
          "Adams methods and the continuous adjoint): ROADMAP §1 entry "
          "11a′"),
-        (args.mesh, "--mesh: ROADMAP §1 entry 11c"),
         (args.export, "--export (the serving artifact): ROADMAP §1 "
                       "entry 11b"),
         (args.precision == "high", "--precision high (TF32): ROADMAP §1 "
@@ -171,10 +191,13 @@ def _refuse(args: argparse.Namespace) -> None:
 
 def run(args: argparse.Namespace) -> Dict[str, Any]:
     from ndcn_tpu_torch.experiments.dynamics import select_device
+    from ndcn_tpu_torch.parallel.mesh import process_group, world_size
 
     _refuse(args)
     device = select_device(args.platform)
-    return _run(args, device)
+    with (process_group(device) if args.mesh and world_size() > 1
+          else contextlib.nullcontext()):
+        return _run(args, device)
 
 
 def _run(args: argparse.Namespace, device: torch.device) -> Dict[str, Any]:
@@ -183,6 +206,11 @@ def _run(args: argparse.Namespace, device: torch.device) -> Dict[str, Any]:
     from ndcn_tpu_torch.kernels.platform import pin_fp32
     from ndcn_tpu_torch.models import init_ndcn, ndcn_forward
     from ndcn_tpu_torch.models.gcn_zoo import build_zoo_model
+    from ndcn_tpu_torch.parallel.coo_shard import (node_group, take_index,
+                                                   take_rows)
+    from ndcn_tpu_torch.parallel.mesh import (all_reduce_grads, make_mesh,
+                                              rank, world_size)
+    from ndcn_tpu_torch.parallel.sweep import shard_operator
     from ndcn_tpu_torch.train.budget import probe_step_budget
     from ndcn_tpu_torch.train.checkpoint import (restore_with_extra,
                                                  save_checkpoint)
@@ -213,10 +241,29 @@ def _run(args: argparse.Namespace, device: torch.device) -> Dict[str, Any]:
         torch.as_tensor(np.minimum(idx, n - 1), device=device).long()
         for idx in (data.idx_train, data.idx_val, data.idx_test))
 
+    if args.mesh and world_size() > 1:
+        # --batch_iters' replicas over the ranks' data axis, the
+        # operator's rows and the node-major arrays over their model axis,
+        # the parameters replicated; each split keeps this rank's nodes
+        mesh = make_mesh(device, data_divides=(args.iter if args.batch_iters
+                                               else 1), model_divides=n)
+        print(f"mesh: {mesh.shape}")
+        op = shard_operator(mesh, op)
+        features, labels = take_rows(features, op), take_rows(labels, op)
+        idx_train, idx_val, idx_test = (take_index(i, op) for i in
+                                        (idx_train, idx_val, idx_test))
+    else:
+        mesh = None
+        if args.mesh:
+            print("--mesh: single device visible; running unsharded")
+    group = node_group(op)
+    lead = rank() == 0              # the rank that writes files
+
     seed = args.seed if args.seed != -1 else 0
     if args.batch_iters:
         return _run_batched(args, device, data, op, features, labels,
-                            (idx_train, idx_test), seed, t_very_beginning)
+                            (idx_train, idx_test), seed, t_very_beginning,
+                            mesh)
     init_gen = torch.Generator().manual_seed(seed)
     # the dropout masks: drawn on the CPU, so card and CPU drop alike
     rng = torch.Generator().manual_seed(seed + 1)
@@ -298,28 +345,29 @@ def _run(args: argparse.Namespace, device: torch.device) -> Dict[str, Any]:
         opt.zero_grad(set_to_none=True)
         logits, ok = apply(rng, False, elastic.max_steps)
         loss = nan_unless(ok, cross_entropy(logits[idx_train],
-                                            labels[idx_train]))
+                                            labels[idx_train], group))
         loss.backward()
+        all_reduce_grads(model.parameters(), group)
         opt.step()
         with torch.no_grad():
             logits = logits.detach() if args.fastmode else eval_logits()
             st = torch.stack([
                 loss.detach(),
-                cross_entropy(logits[idx_train], labels[idx_train]),
-                accuracy(logits[idx_train], labels[idx_train]),
-                cross_entropy(logits[idx_val], labels[idx_val]),
-                accuracy(logits[idx_val], labels[idx_val])])
+                cross_entropy(logits[idx_train], labels[idx_train], group),
+                accuracy(logits[idx_train], labels[idx_train], group),
+                cross_entropy(logits[idx_val], labels[idx_val], group),
+                accuracy(logits[idx_val], labels[idx_val], group)])
         return st.cpu().numpy()
 
     def metrics(logits, idx):
-        return (float(cross_entropy(logits[idx], labels[idx])),
-                float(accuracy(logits[idx], labels[idx])))
+        return (float(cross_entropy(logits[idx], labels[idx], group)),
+                float(accuracy(logits[idx], labels[idx], group)))
 
     n_params = sum(p.numel() for p in model.parameters())
     print(f"{model_name}: {n_params:d} parameters on {device}")
 
     fout = fname = None
-    if args.dump:
+    if args.dump and lead:
         os.makedirs("results", exist_ok=True)
         stamp = datetime.datetime.now().__str__().replace(":", "-")
         fname = f"results/results_{stamp}.txt"
@@ -371,7 +419,8 @@ def _run(args: argparse.Namespace, device: torch.device) -> Dict[str, Any]:
                 # statistics were verified finite
                 if elastic.enabled and epoch % snap_freq == 0:
                     elastic.snapshot(g0 + epoch, rng.get_state(), state())
-                if args.ckpt_dir and (g0 + epoch) % args.ckpt_freq == 0:
+                if (args.ckpt_dir and lead
+                        and (g0 + epoch) % args.ckpt_freq == 0):
                     save_checkpoint(args.ckpt_dir, g0 + epoch, model, opt,
                                     extra=extra(rows))
                 st = epoch_step()
@@ -404,7 +453,7 @@ def _run(args: argparse.Namespace, device: torch.device) -> Dict[str, Any]:
             if fout is not None:
                 fout.write("{:.5f}\t{:.5f}\t{:.5f}\t{:.5f}\n".format(*rows[-1]))
                 fout.flush()
-            if args.ckpt_dir and np.isfinite(loss_test):
+            if args.ckpt_dir and lead and np.isfinite(loss_test):
                 # the iteration boundary: its row is durable, so a run
                 # interrupted between iterations resumes at the next one
                 save_checkpoint(args.ckpt_dir, g0 + args.epochs, model, opt,
@@ -440,13 +489,18 @@ def _run(args: argparse.Namespace, device: torch.device) -> Dict[str, Any]:
 
 def _run_batched(args: argparse.Namespace, device: torch.device, data, op,
                  features: torch.Tensor, labels: torch.Tensor, idx,
-                 seed: int, t_very_beginning: float) -> Dict[str, Any]:
+                 seed: int, t_very_beginning: float,
+                 mesh=None) -> Dict[str, Any]:
     """``--batch_iters``: ``--iter`` independent replicas in one stacked
     model, in budget buckets one after another (see the module docstring);
-    the JAX driver's log lines, report and summary."""
+    the JAX driver's log lines, report and summary. Under a mesh, this data
+    rank's replicas on this model rank's nodes, in one bucket."""
     from ndcn_tpu_torch.models import init_ndcn, ndcn_forward
     from ndcn_tpu_torch.models.gcn_zoo import build_zoo_model
     from ndcn_tpu_torch.ode import nan_unless
+    from ndcn_tpu_torch.parallel.coo_shard import node_group
+    from ndcn_tpu_torch.parallel.mesh import (all_true, gather_replicas,
+                                              replica_range, shard_mean)
     from ndcn_tpu_torch.parallel.sweep import (batched_init,
                                                replica_generators)
     from ndcn_tpu_torch.train.budget import (bucket_budgets,
@@ -459,6 +513,9 @@ def _run_batched(args: argparse.Namespace, device: torch.device, data, op,
 
     idx_train, idx_test = idx
     r = args.iter
+    group = node_group(op)
+    lo, hi = (0, r) if mesh is None else replica_range(mesh, r)
+    data_group = None if mesh is None else mesh.data_group
     n, in_dim = data.features.shape
     num_classes = int(data.labels.max()) + 1
     model_name = args.model
@@ -496,7 +553,7 @@ def _run_batched(args: argparse.Namespace, device: torch.device, data, op,
                                             max_steps=1 << 14, nondiff=True,
                                             **solve_kw)[1]
 
-            if args.budget_buckets > 1:
+            if args.budget_buckets > 1 and mesh is None:
                 # every replica's own budget, grouped into buckets below
                 replica_budgets = probe_step_budget_each(
                     [probe_with(g) for g in init_gens])
@@ -527,15 +584,20 @@ def _run_batched(args: argparse.Namespace, device: torch.device, data, op,
             return model(op, features, gens, deterministic)
 
     def replica_ce(logits: torch.Tensor) -> torch.Tensor:
-        """Each replica's cross-entropy on the train rows, (R,)."""
+        """Each replica's cross-entropy on the train rows (every rank's),
+        (R,)."""
         rows = logits[:, idx_train]
         per_row = torch.nn.functional.cross_entropy(
             rows.reshape(-1, num_classes),
             labels[idx_train].repeat(rows.shape[0]), reduction="none")
-        return per_row.view(rows.shape[0], -1).mean(dim=1)
+        return shard_mean(per_row.view(rows.shape[0], -1), group,
+                          per_replica=True)
 
-    buckets = [(max_steps, np.arange(r))]
-    if args.budget_buckets > 1 and replica_budgets is not None:
+    buckets = [(max_steps, np.arange(lo, hi))]
+    if args.budget_buckets > 1 and mesh is not None:
+        print("--budget_buckets ignored under --mesh (single shared "
+              "budget)", flush=True)
+    elif args.budget_buckets > 1 and replica_budgets is not None:
         buckets = bucket_budgets(replica_budgets, args.budget_buckets)
         print("budget buckets: " + ", ".join(
             f"{len(ix)} replica(s) @ max_steps {b}" for b, ix in buckets),
@@ -568,7 +630,6 @@ def _run_batched(args: argparse.Namespace, device: torch.device, data, op,
     logits_by_idx = {}
     t_start = time.time()
     for bi, (ms_b, idxs) in enumerate(buckets):
-        r_b = len(idxs)
         model = batched_init(init_one, [init_gens[i] for i in idxs])
         gens = [drop_gens[i] for i in idxs]
         opt = torch_adam(model.parameters(), args.lr, args.weight_decay)
@@ -577,26 +638,37 @@ def _run_batched(args: argparse.Namespace, device: torch.device, data, op,
             losses = replica_ce(apply(model, gens, False, ms_b))
             return losses, losses
 
-        step = make_replica_sgd_step(opt, objective)
+        step = make_replica_sgd_step(opt, objective, group)
         tag = "" if len(buckets) == 1 else f" [bucket {bi}: ms {ms_b}]"
         for epoch in range(args.epochs):
             losses, _ = step()
             if (epoch + 1) % max(1, args.epochs // 10) == 0:
+                losses = gather_replicas(losses, data_group)
                 print(f"Epoch {epoch + 1:04d} | mean train loss "
-                      f"{float(losses.mean()):.4f} | {r_b} replicas"
+                      f"{float(losses.mean()):.4f} | {len(losses)} replicas"
                       f"{tag} | time {time.time() - t_start:.2f}s",
                       flush=True)
         with torch.no_grad():
             logits_bucket = apply(model, None, True, ms_b)
         for j, i in enumerate(idxs):
             logits_by_idx[int(i)] = logits_bucket[j]
-    logits_b = [logits_by_idx[i] for i in range(r)]
+    # each replica's test metrics (over every model rank's test nodes),
+    # then every data rank's replicas
+    logits_b = [logits_by_idx[i] for i in sorted(logits_by_idx)]
     t_total = time.time() - t_start
     peak = (torch.cuda.max_memory_allocated(device)
             if device.type == "cuda" else None)
+    with torch.no_grad():
+        test = [torch.stack([metric(lg[idx_test], labels[idx_test], group)
+                             for lg in logits_b])
+                for metric in (cross_entropy, accuracy)]
+        finite = all_true(torch.stack([torch.isfinite(lg).all()
+                                       for lg in logits_b]), group)
+    losses_test, accs_test, finite = (
+        gather_replicas(t, data_group).cpu().numpy()
+        for t in (*test, finite))
     # a replica that exhausted its budget cannot be rolled back: name it
-    dead = [i for i in range(r)
-            if not bool(torch.isfinite(logits_b[i]).all())]
+    dead = [i for i in range(r) if not finite[i]]
     if dead and ode_model:
         if args.max_steps > 0:
             origin = f"--max_steps {max_steps} was given explicitly"
@@ -616,9 +688,7 @@ def _run_batched(args: argparse.Namespace, device: torch.device, data, op,
               flush=True)
     rows = []
     for i in range(r):
-        loss_test = float(cross_entropy(logits_b[i][idx_test],
-                                        labels[idx_test]))
-        acc_test = float(accuracy(logits_b[i][idx_test], labels[idx_test]))
+        loss_test, acc_test = float(losses_test[i]), float(accs_test[i])
         rows.append((t_total / r, loss_test, acc_test, 0.0))
         print(f"Replica {i}: test loss= {loss_test:.4f} "
               f"accuracy= {acc_test:.4f}")

@@ -37,6 +37,21 @@ are unaffected); ``--dump`` writes one results file per replica
 (``replicaNNN``), which ``experiments.summarize`` aggregates. The
 continuous baselines only, with dopri5, tsit5 or the fixed-grid methods.
 
+``--mesh`` under ``torchrun --nproc_per_node P`` (P > 1) lays the ranks
+out as ``make_mesh(data_divides=R, model_divides=n)`` (R the replica
+count, 1 without ``--replicas``) and shards the operator and every
+node-major tensor over the model axis (``parallel.sweep.shard_operator``:
+K1 on each rank's row block, dense rows through ``torch.matmul``; ELL and
+BSR stay whole, with the JAX notice); the losses are means over every
+rank's rows and the replicated parameters' gradients are summed over the
+model axis, so every rank takes the unsharded run's steps. With
+``--replicas`` each data rank trains its R / data replicas (replica i's
+generators are the unsharded sweep's), and the log line's mean and std
+gather every replica. Rank 0 writes the checkpoints, the dump and the
+figures. A world of one prints the JAX driver's notice and runs unsharded.
+Under P > 1 the temporal baselines and ``--adjoint`` are ROADMAP §1 entry
+11c′.
+
 ``--platform gpu`` (the default) trains on the first CUDA device and raises
 without one; ``--platform cpu`` runs the kernels' plain versions. Matrix
 products are pinned to full fp32 on both. What is not ported raises
@@ -46,7 +61,9 @@ products are pinned to full fp32 on both. What is not ported raises
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
+import os
 import time
 from typing import Any, Dict
 
@@ -165,13 +182,18 @@ def _refuse_unported(dynamics_kind: str, args: argparse.Namespace) -> None:
             raise SystemExit("--replicas is incompatible with --ckpt_dir/"
                              "--profile_dir/--scan_chunk (per-replica "
                              "training runs as one vmapped program)")
+    from ndcn_tpu_torch.parallel.mesh import world_size
+
+    sharded = args.mesh and world_size() > 1
     refused = [
         (args.replicas > 1 and (args.adjoint or args.method in (
             "adams", "explicit_adams", "fixed_adams")),
          "--replicas with --adjoint or the Adams methods (replica sweeps "
          "with the Adams methods and the continuous adjoint): ROADMAP §1 "
          "entry 11a′"),
-        (args.mesh, "--mesh: ROADMAP §1 entry 11c"),
+        (sharded and (args.adjoint or args.baseline in TEMPORAL_BASELINES),
+         "--mesh on more than one rank with --adjoint or a temporal "
+         "baseline: ROADMAP §1 entry 11c′"),
         (args.export, "--export (the serving artifact): ROADMAP §1 "
                       "entry 11b"),
         (args.scan_chunk > 0,
@@ -186,13 +208,15 @@ def _refuse_unported(dynamics_kind: str, args: argparse.Namespace) -> None:
 
 
 def select_device(platform: str) -> torch.device:
+    """The run's device: the CPU for ``--platform cpu``, else the card of
+    torchrun's ``LOCAL_RANK`` (the first for a plain ``python``)."""
     if platform == "cpu":
         return torch.device("cpu")
     if not torch.cuda.is_available():
         raise RuntimeError("--platform gpu needs a CUDA device and none is "
                            "visible; pass --platform cpu to run the plain "
                            "versions on the CPU")
-    return torch.device("cuda", 0)
+    return torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
 
 
 def ground_truth(dynamics_kind: str, physics_op, x0: torch.Tensor, t,
@@ -216,11 +240,14 @@ def heat_ground_truth(physics_op, x0: torch.Tensor, t, rtol: float = 1e-7,
 
 def run(dynamics_kind: str, args: argparse.Namespace) -> Dict[str, Any]:
     from ndcn_tpu_torch.kernels import coo_spmv
+    from ndcn_tpu_torch.parallel.mesh import process_group, world_size
 
     _refuse_unported(dynamics_kind, args)
     device = select_device(args.platform)
     # --kernel_precision bf16 sets the JAX package's GATHER_BF16 for the run
-    with coo_spmv.gather_precision(args.kernel_precision == "bf16"):
+    with (process_group(device) if args.mesh and world_size() > 1
+          else contextlib.nullcontext()), \
+            coo_spmv.gather_precision(args.kernel_precision == "bf16"):
         return _run(dynamics_kind, args, device)
 
 
@@ -237,6 +264,11 @@ def _run(dynamics_kind: str, args: argparse.Namespace,
     from ndcn_tpu_torch.train.checkpoint import (restore_with_extra,
                                                  save_checkpoint)
     from ndcn_tpu_torch.train.elastic import ElasticBudget
+    from ndcn_tpu_torch.parallel.coo_shard import (gather_nodes, node_group,
+                                                   take_rows)
+    from ndcn_tpu_torch.parallel.mesh import (make_mesh, rank, shard_mean,
+                                              world_size)
+    from ndcn_tpu_torch.parallel.sweep import shard_operator
     from ndcn_tpu_torch.train.losses import l1_loss
     from ndcn_tpu_torch.train.optim import make_sgd_step, torch_adam
     from ndcn_tpu_torch.train.sampling import sample_times
@@ -301,6 +333,25 @@ def _run(dynamics_kind: str, args: argparse.Namespace,
     true_y_test2 = true_y[:, id_test2] if id_test2 is not None else None
     t_train = splits.t[id_train]
 
+    # ------------------------------------------------------------------ mesh
+    # replicas over the ranks' data axis, and the operator's rows and every
+    # node-major tensor over their model axis, the parameters replicated
+    # (true_y stays whole: the dump records it)
+    mesh = None
+    if args.mesh and world_size() > 1:
+        mesh = make_mesh(device, data_divides=args.replicas,
+                         model_divides=n)
+        print(f"mesh: {mesh.shape}")
+        op = shard_operator(mesh, op)
+        true_y0, true_y_train, true_y_test = (
+            take_rows(a, op) for a in (true_y0, true_y_train, true_y_test))
+        if true_y_test2 is not None:
+            true_y_test2 = take_rows(true_y_test2, op)
+    elif args.mesh:
+        print("--mesh: single device visible; running unsharded")
+    group = node_group(op)
+    lead = rank() == 0              # the rank that writes files
+
     # ----------------------------------------------------------------- model
     flags = dict(no_embed=args.baseline == "no_embed",
                  no_graph=args.baseline == "no_graph",
@@ -330,7 +381,7 @@ def _run(dynamics_kind: str, args: argparse.Namespace,
 
     if args.replicas > 1:
         return _run_replicas(dynamics_kind, args, device, dict(
-            t_start=t_start, op=op, splits=splits, true_y=true_y,
+            t_start=t_start, op=op, mesh=mesh, splits=splits, true_y=true_y,
             true_y0=true_y0, true_y_train=true_y_train,
             true_y_test=true_y_test, true_y_test2=true_y_test2,
             solve_kw=solve_kw, levers=levers))
@@ -363,11 +414,11 @@ def _run(dynamics_kind: str, args: argparse.Namespace,
 
         def train_loss(m, rng):
             pred, stats = forward(m, t_train, rng)
-            loss = l1_loss(pred, true_y_train)
+            loss = l1_loss(pred, true_y_train, group)
             # a blown step budget must be loud (NaN), not silently wrong
             loss = torch.where(torch.tensor(stats.success, device=device),
                                loss, torch.full_like(loss, float("nan")))
-            return loss, loss / torch.mean(true_y_train)
+            return loss, loss / shard_mean(true_y_train, group)
 
         def predict():
             """(predictions on the test and interpolation columns, NFE)."""
@@ -401,15 +452,19 @@ def _run(dynamics_kind: str, args: argparse.Namespace,
     def evaluate():
         with torch.no_grad():
             pred_test, pred_test2, nfe = predict()
-            loss_t = l1_loss(pred_test, true_y_test)
+            loss_t = l1_loss(pred_test, true_y_test, group)
+            # the records and figures take every rank's rows
             ev = dict(loss=float(loss_t),
-                      rel=float(loss_t / torch.mean(true_y_test)),
-                      loss2=0.0, rel2=0.0, pred_test=pred_test,
-                      pred_test2=pred_test2, nfe=nfe)
+                      rel=float(loss_t / shard_mean(true_y_test, group)),
+                      loss2=0.0, rel2=0.0,
+                      pred_test=gather_nodes(pred_test, op),
+                      pred_test2=(None if pred_test2 is None
+                                  else gather_nodes(pred_test2, op)),
+                      nfe=nfe)
             if id_test2 is not None and continuous:
-                loss2 = l1_loss(pred_test2, true_y_test2)
+                loss2 = l1_loss(pred_test2, true_y_test2, group)
                 ev["loss2"] = float(loss2)
-                ev["rel2"] = float(loss2 / torch.mean(true_y_test2))
+                ev["rel2"] = float(loss2 / shard_mean(true_y_test2, group))
         return ev
 
     results = results_lib.new_results_dict(vars(args))
@@ -449,7 +504,7 @@ def _run(dynamics_kind: str, args: argparse.Namespace,
 
     # ------------------------------------------------------------- training
     opt = torch_adam(model.parameters(), args.lr, args.weight_decay)
-    train_step = make_sgd_step(opt, lambda g: train_loss(model, g))
+    train_step = make_sgd_step(opt, lambda g: train_loss(model, g), group)
     rng = torch.Generator().manual_seed(args.seed + 1)
     # resume from the newest checkpoint: weights, Adam's state, and the
     # dropout generator and step budget the interrupted run had there
@@ -469,6 +524,8 @@ def _run(dynamics_kind: str, args: argparse.Namespace,
             print(f"[ckpt] skipping iter {itr}: loss is non-finite (budget "
                   f"exhaustion pending recovery)", flush=True)
             return
+        if not lead:
+            return
         save_checkpoint(args.ckpt_dir, itr, model, opt,
                         extra={"rng": rng.get_state(),
                                "max_steps": elastic.max_steps})
@@ -483,7 +540,7 @@ def _run(dynamics_kind: str, args: argparse.Namespace,
         # a deep copy: load_state_dict keeps the tensors it is given
         o.load_state_dict(copy.deepcopy(opt.state_dict()))
         g = torch.Generator().set_state(rng.get_state())
-        step = make_sgd_step(o, lambda gen: train_loss(m, gen))
+        step = make_sgd_step(o, lambda gen: train_loss(m, gen), group)
         with profile_trace(args.profile_dir) as path:
             for _ in range(3):
                 ploss, _ = step(g)
@@ -543,7 +600,7 @@ def _run(dynamics_kind: str, args: argparse.Namespace,
            "elastic_retries": elastic.total_rollbacks, "total_time": t_total,
            "device": str(device), "n_params": n_params}
 
-    if args.dump:
+    if args.dump and lead:
         results_dir = (args.results_dir
                        or f"results/{dynamics_kind}/{args.network}")
         path = results_lib.results_path(results_dir, args.baseline)
@@ -553,7 +610,7 @@ def _run(dynamics_kind: str, args: argparse.Namespace,
             raise RuntimeError(f"the dump {path} does not read back")
         out["results_path"] = path
 
-    if args.viz:
+    if args.viz and lead:
         from ndcn_tpu_torch.report import viz
         viz.adjacency_heatmap(adj, args.network)
         viz.dynamics_surfaces(dynamics_kind, args.network, side,
@@ -565,10 +622,15 @@ def _run(dynamics_kind: str, args: argparse.Namespace,
 def _run_replicas(dynamics_kind: str, args: argparse.Namespace,
                   device: torch.device, ctx: Dict[str, Any]) -> Dict[str, Any]:
     """``--replicas R``: the JAX driver's vmapped sweep, as one stacked
-    model and one launch stream (see the module docstring)."""
+    model and one launch stream (see the module docstring); under a mesh,
+    this data rank's replicas on this model rank's rows."""
     from ndcn_tpu_torch.models import init_ndcn, ndcn_forward
     from ndcn_tpu_torch.ode import nan_unless
-    from ndcn_tpu_torch.parallel.sweep import (batched_init, replica_l1,
+    from ndcn_tpu_torch.parallel.coo_shard import gather_nodes, node_group
+    from ndcn_tpu_torch.parallel.mesh import (gather_replicas, rank,
+                                              replica_range, shard_mean)
+    from ndcn_tpu_torch.parallel.sweep import (batched_init, gather_stacked,
+                                               replica_l1,
                                                replica_generators,
                                                unstack_model)
     from ndcn_tpu_torch.report import results as results_lib
@@ -582,6 +644,9 @@ def _run_replicas(dynamics_kind: str, args: argparse.Namespace,
     id_test, id_test2 = splits.id_test, splits.id_test2
     solve_kw, levers = ctx["solve_kw"], ctx["levers"]
     flags = {k: solve_kw[k] for k in ("no_embed", "no_control")}
+    mesh, group = ctx["mesh"], node_group(op)
+    lo, hi = (0, r) if mesh is None else replica_range(mesh, r)
+    data_group = None if mesh is None else mesh.data_group
 
     def init_one(g):
         return init_ndcn(g, 1, args.hidden, 1, device=device, **flags)
@@ -602,9 +667,9 @@ def _run_replicas(dynamics_kind: str, args: argparse.Namespace,
         print(f"auto step budget: max_steps={max_steps}")
     elif max_steps <= 0:
         max_steps = 256
-    model = batched_init(init_one, gens)
-    rngs = replica_generators(args.seed + 1, r)
-    n_params = sum(p.numel() for p in model.parameters()) // r
+    model = batched_init(init_one, gens[lo:hi])
+    rngs = replica_generators(args.seed + 1, r)[lo:hi]
+    n_params = sum(p.numel() for p in model.parameters()) // (hi - lo)
     print(f"Total {n_params:d} Trainable {n_params:d} (x {r} replicas)")
 
     def forward(vt, rng=None):
@@ -615,34 +680,44 @@ def _run_replicas(dynamics_kind: str, args: argparse.Namespace,
 
     def train_loss():
         pred, stats = forward(splits.t[splits.id_train], rngs)
-        losses = nan_unless(stats.success, replica_l1(pred, true_y_train))
-        return losses, losses / torch.mean(true_y_train)
+        losses = nan_unless(stats.success,
+                            replica_l1(pred, true_y_train, group))
+        return losses, losses / shard_mean(true_y_train, group)
 
     def evaluate():
+        """Every replica's test metrics (gathered over the data axis) and
+        predictions (over both axes)."""
         with torch.no_grad():
             pred, stats = forward(splits.t)
             pred = nan_unless(stats.success, pred)
             ev = {"pred_test": pred[..., id_test]}
-            ev["loss"] = replica_l1(ev["pred_test"], true_y_test)
-            ev["rel"] = ev["loss"] / torch.mean(true_y_test)
+            ev["loss"] = replica_l1(ev["pred_test"], true_y_test, group)
+            ev["rel"] = ev["loss"] / shard_mean(true_y_test, group)
             if id_test2 is not None:
                 ev["pred_test2"] = pred[..., id_test2]
-                ev["loss2"] = replica_l1(ev["pred_test2"], true_y_test2)
-                ev["rel2"] = ev["loss2"] / torch.mean(true_y_test2)
+                ev["loss2"] = replica_l1(ev["pred_test2"], true_y_test2,
+                                         group)
+                ev["rel2"] = ev["loss2"] / shard_mean(true_y_test2, group)
             else:
-                ev["loss2"] = ev["rel2"] = torch.zeros(r)
-        return {k: v.cpu().numpy() for k, v in ev.items()}
+                ev["loss2"] = ev["rel2"] = torch.zeros(hi - lo,
+                                                       device=pred.device)
+            for k in ("pred_test", "pred_test2"):
+                if k in ev:
+                    ev[k] = gather_nodes(ev[k], op, axis=1)
+        return {k: gather_replicas(v, data_group).cpu().numpy()
+                for k, v in ev.items()}
 
     opt = torch_adam(model.parameters(), args.lr, args.weight_decay)
-    step = make_replica_sgd_step(opt, train_loss)
+    step = make_replica_sgd_step(opt, train_loss, group)
     t_start = ctx["t_start"]
     train_losses = []
     for itr in range(1, args.niters + 1):
         losses, rels = step()
         if itr % args.test_freq == 0:
             ev = evaluate()
-            rels = rels.cpu().numpy()
-            train_losses.append(losses.cpu().numpy().tolist())
+            rels = gather_replicas(rels, data_group).cpu().numpy()
+            train_losses.append(
+                gather_replicas(losses, data_group).cpu().numpy().tolist())
             print(f"Iter {itr:04d}| {r} replicas | train rel "
                   f"{float(np.mean(rels)):.6f}±{float(np.std(rels)):.6f} "
                   f"| test rel {float(np.mean(ev['rel'])):.6f}"
@@ -661,15 +736,16 @@ def _run_replicas(dynamics_kind: str, args: argparse.Namespace,
     }, "replicas": r, "total_time": t_total, "max_steps": max_steps,
         "train_losses": train_losses, "device": str(device)}
     if args.dump:
+        every = gather_stacked(model, data_group)
         results_dir = (args.results_dir
                        or f"results/{dynamics_kind}/{args.network}")
         has2 = id_test2 is not None
         paths = []
-        for i in range(r):
+        for i in range(r if rank() == 0 else 0):
             res_i = results_lib.new_results_dict(vars(args))
             results_lib.record_eval(
                 res_i, args.niters, float(ev["loss"][i]), float(ev["rel"][i]),
-                ev["pred_test"][i], unstack_model(model, i),
+                ev["pred_test"][i], unstack_model(every, i),
                 abs_error2=float(ev["loss2"][i]) if has2 else None,
                 rel_error2=float(ev["rel2"][i]) if has2 else None,
                 predict_y2=ev["pred_test2"][i] if has2 else None)
@@ -677,7 +753,8 @@ def _run_replicas(dynamics_kind: str, args: argparse.Namespace,
             paths.append(results_lib.dump_results(
                 res_i, results_lib.results_path(results_dir, args.baseline,
                                                 appendix=f"replica{i:03d}")))
-        print(f"Dumped {r} replica results under {results_dir}")
+        if paths:
+            print(f"Dumped {r} replica results under {results_dir}")
         out["results_paths"] = paths
     return out
 

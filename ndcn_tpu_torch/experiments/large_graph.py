@@ -45,14 +45,29 @@ describe XLA on a TPU and have no counterpart here. The record names the
 attempts per step it assumed (``attempts_assumed``, the step budget); the
 run's record names the most attempts a train step took (``attempts_taken``).
 
+``--mesh`` shards the model's operator and every node-major tensor over a
+model axis of ``torch.distributed`` ranks (``make_mesh(data_divides=1,
+model_divides=n)``, ``parallel.sweep.shard_operator``: K1 on each rank's
+row block against the all-gathered state); the parameters are replicated
+and their gradients summed over the ranks. Launch it with ``torchrun
+--nproc_per_node P -m ndcn_tpu_torch.experiments.large_graph --mesh ...``
+(NCCL on the cards, gloo with ``--platform cpu``); a plain ``python -m``
+is a world of one, which still runs the sharded program on a one-rank
+group. Before the timed loop the first train step runs both ways from the
+same weights, the parity line is printed and it must be under 1e-4; the
+unsharded operator is then freed. The record's ``mesh_devices`` is the
+rank count and ``mesh_parity`` that first step's relative loss delta;
+rank 0 prints it. The ground truth is solved whole on every rank.
+
 What the port does not have raises ``NotImplementedError`` naming its
-ROADMAP entry before any work: ``--mesh`` (§1 entry 11c), ``--precision
-high`` (§1 entry 6).
+ROADMAP entry before any work: ``--precision high`` (§1 entry 6).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import copy
 import json
 import os
 import sys
@@ -133,7 +148,6 @@ def _refuse_unported(args: argparse.Namespace) -> None:
         # ELL pads every row to the largest degree
         raise SystemExit("mutualistic at this scale requires --fmt coo")
     refused = [
-        (args.mesh, "--mesh: ROADMAP §1 entry 11c"),
         (args.precision == "high", "--precision high (TF32): ROADMAP §1 "
                                    "entry 6"),
     ]
@@ -348,19 +362,21 @@ def train_objective(args, problem: Problem, model, target, max_steps,
     of budget; relative L1). Each solve's step attempts are appended to
     ``attempts`` when given."""
     from ndcn_tpu_torch.models import ndcn_forward
+    from ndcn_tpu_torch.parallel.coo_shard import node_group
     from ndcn_tpu_torch.train.losses import l1_loss, relative_l1
 
     kw = solve_kwargs(args, max_steps)
+    group = node_group(problem.op)
 
     def loss_fn():
         out, stats = ndcn_forward(model, problem.op, problem.t_train,
                                   problem.x0, **kw)
         if attempts is not None:
             attempts.append(stats.n_accepted + stats.n_rejected)
-        loss = l1_loss(out, target)
+        loss = l1_loss(out, target, group)
         if not stats.success:
             loss = torch.full_like(loss, float("nan"))
-        return loss, relative_l1(out.detach(), target)
+        return loss, relative_l1(out.detach(), target, group)
 
     return loss_fn
 
@@ -370,15 +386,56 @@ def run(args: argparse.Namespace) -> Optional[Dict[str, Any]]:
     record with ``--estimate`` / ``--gt_only``)."""
     from ndcn_tpu_torch.experiments.dynamics import select_device
     from ndcn_tpu_torch.kernels import coo_spmv
+    from ndcn_tpu_torch.parallel.mesh import process_group
 
     _refuse_unported(args)
     device = select_device(args.platform)
-    with coo_spmv.gather_precision(args.kernel_precision == "bf16"):
+    with (process_group(device) if args.mesh
+          else contextlib.nullcontext()), \
+            coo_spmv.gather_precision(args.kernel_precision == "bf16"):
         return _run(args, device)
 
 
+def shard_problem(args, problem: Problem, model, target, max_steps: int):
+    """``--mesh``: this rank's share of the problem over a model axis of
+    every rank (``examples/large_graph.py``'s mesh block). The first train
+    step runs unsharded and sharded from the same weights; their relative
+    loss delta must be under 1e-4. Returns (the sharded problem, this
+    rank's target rows, the delta, the mesh's rank count)."""
+    from ndcn_tpu_torch.parallel.coo_shard import node_group, take_rows
+    from ndcn_tpu_torch.parallel.mesh import make_mesh
+    from ndcn_tpu_torch.parallel.sweep import shard_operator
+    from ndcn_tpu_torch.train.optim import make_sgd_step, torch_adam
+
+    mesh = make_mesh(problem.x0.device, data_divides=1,
+                     model_divides=problem.n)
+    log(f"mesh: {mesh.shape}")
+    op = shard_operator(mesh, problem.op)
+    sharded = problem._replace(op=op, physics_op=None,
+                               x0=take_rows(problem.x0, op))
+    target_s = take_rows(target, op, axis=1)
+    losses = []
+    for prob, tgt in ((problem, target), (sharded, target_s)):
+        m = copy.deepcopy(model)
+        step = make_sgd_step(torch_adam(m.parameters(), 0.01, 1e-3),
+                             train_objective(args, prob, m, tgt, max_steps),
+                             group=node_group(prob.op))
+        losses.append(float(step()[0]))
+    l_u, l_s = losses
+    parity = abs(l_s - l_u) / (abs(l_u) + 1e-30)
+    log(f"mesh parity: sharded vs unsharded first-step loss rel delta "
+        f"{parity:.3e} ({l_s:.6f} vs {l_u:.6f})")
+    if not parity < 1e-4:
+        raise RuntimeError(f"the sharded step diverged from the unsharded "
+                           f"math: {parity:.3e}")
+    return sharded, target_s, parity, mesh.data * mesh.model
+
+
 def _run(args: argparse.Namespace, device: torch.device) -> Dict[str, Any]:
+    import torch.distributed as dist
+
     from ndcn_tpu_torch.kernels.platform import pin_fp32
+    from ndcn_tpu_torch.parallel.coo_shard import node_group
     from ndcn_tpu_torch.train.elastic import ElasticBudget
     from ndcn_tpu_torch.train.optim import make_sgd_step, torch_adam
 
@@ -404,6 +461,12 @@ def _run(args: argparse.Namespace, device: torch.device) -> Dict[str, Any]:
 
     max_steps, probe_nfe = probe_budget(args, problem, model)
     log(f"step budget: {max_steps} (train solve nfe {probe_nfe})")
+    mesh_devices, mesh_parity = 1, None
+    if args.mesh:
+        # the unsharded operator and data are freed with ``problem``
+        problem, target, mesh_parity, mesh_devices = shard_problem(
+            args, problem, model, target, max_steps)
+    group = node_group(problem.op)
 
     elastic = ElasticBudget(max_steps, enabled=True)
     opt = torch_adam(model.parameters(), 0.01, 1e-3)
@@ -412,7 +475,7 @@ def _run(args: argparse.Namespace, device: torch.device) -> Dict[str, Any]:
     def build_step():
         return make_sgd_step(opt, train_objective(args, problem, model,
                                                   target, elastic.max_steps,
-                                                  attempts))
+                                                  attempts), group=group)
 
     def sync():
         if device.type == "cuda":
@@ -485,7 +548,10 @@ def _run(args: argparse.Namespace, device: torch.device) -> Dict[str, Any]:
         log("hbm probe: the CPU has no device arena; skipped")
 
     roofline = None
-    if args.roofline and device.type != "cuda":
+    if args.roofline and args.mesh:
+        log("roofline: the --mesh operator is row-sharded; use the run "
+            "without --mesh for the SpMV floor")
+    elif args.roofline and device.type != "cuda":
         log("roofline: measures the SpMV on the card; skipped on the CPU")
     elif args.roofline and args.fmt != "coo":
         log("roofline: measures the COO kernels; skipped for --fmt ell")
@@ -516,7 +582,8 @@ def _run(args: argparse.Namespace, device: torch.device) -> Dict[str, Any]:
         "max_steps": int(elastic.max_steps),
         "attempts_taken": max(attempts),
         "elastic_rollbacks": int(elastic.total_rollbacks),
-        "mesh_devices": 1, "mesh_parity": None,
+        "mesh_devices": mesh_devices, "mesh_parity": mesh_parity,
+        "mesh_backend": dist.get_backend() if args.mesh else None,
         "hbm_peak_gb": hbm_peak_gb, "hbm_peak_source": hbm_peak_source,
         "roofline": roofline,
         "hbm_program_gb": None, "hbm_breakdown_gb": None,
@@ -528,6 +595,8 @@ def _run(args: argparse.Namespace, device: torch.device) -> Dict[str, Any]:
         "iters": args.iters, "hidden": args.hidden,
         "train_losses": losses,
     }
+    if group is not None and dist.get_rank() != 0:
+        return record                   # rank 0 reports
     print(json.dumps(record))
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)

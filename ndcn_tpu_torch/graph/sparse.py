@@ -31,6 +31,8 @@ import torch
 from ndcn_tpu_torch.kernels.bsr_spmm import (BLOCK, BsrMatrix, bsr_spmm,
                                              from_scipy_bsr)
 from ndcn_tpu_torch.kernels.coo_spmv import RowSplit, coo_spmv, split_rows
+from ndcn_tpu_torch.parallel.coo_shard import (RowShardedCoo, RowShardedDense,
+                                               rs_matvec)
 
 
 class DenseGraph(NamedTuple):
@@ -78,6 +80,11 @@ class CooGraph(NamedTuple):
     @property
     def device(self) -> torch.device:
         return self.vals.device
+
+    @property
+    def n_table(self) -> int:
+        """Rows of the state K1 gathers from: A is square."""
+        return self.n
 
     def transpose(self) -> "CooGraph":
         """Aᵀ from the arrays the backward holds (no copy)."""
@@ -207,14 +214,20 @@ def use_tiled_kernel(op: GraphOperator) -> bool:
     accelerator. The JAX predicate also needs a tile packing, which exists
     above ``TILE_PACK_THRESHOLD`` (50,000 edges) or with ``tiled=True``;
     every ``CooGraph`` here serves K1, so any one qualifies. At the 'auto'
-    threshold (>= 500k nodes, ~5M edges) the two choices coincide."""
-    return isinstance(op, CooGraph) and op.device.type == "cuda"
+    threshold (>= 500k nodes, ~5M edges) the two choices coincide. A
+    ``parallel.coo_shard.RowShardedCoo`` serves K1 on its row blocks."""
+    return (isinstance(op, (CooGraph, RowShardedCoo))
+            and op.device.type == "cuda")
 
 
 def matvec(op: GraphOperator, x: torch.Tensor) -> torch.Tensor:
     """A @ X for X of shape (n, d), or of R replicas' X (R, n, d) against
     the one A: a broadcast ``torch.matmul`` (dense), K1 / K3's batched forms
-    (COO / BSR), the gather (ELL). The hot op of every model RHS."""
+    (COO / BSR), the gather (ELL). The hot op of every model RHS. A
+    row-sharded operator (``parallel.coo_shard``) takes this rank's rows
+    of X and gives this rank's rows of A·X."""
+    if isinstance(op, (RowShardedCoo, RowShardedDense)):
+        return rs_matvec(op, x)
     if isinstance(op, DenseGraph):
         return torch.matmul(op.mat, x)
     if isinstance(op, CooGraph):

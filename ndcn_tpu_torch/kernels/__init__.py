@@ -19,6 +19,9 @@ and a backward.
 - P1a and P1b / P2 ``sparse_bench``: the sparse microbenchmarks' sliced-tile
   reduce and row gather, replace the Pallas kernels of
   ``tools/microbench_sparse.py`` and ``tools/probe_inkernel_gather.py``.
+- The mesh path (``parallel.coo_shard``) launches K1 and K1-fm's gather on
+  each rank's row block (``coo_spmv.CsrBlock``); those launches are counted
+  as ``coo_spmv_rowblock`` / ``coo_spmv_T_rowblock`` alone.
 """
 
 from ndcn_tpu_torch.kernels import (bsr_spmm, coo_mutual, coo_spmv, fused_rhs,
@@ -33,6 +36,8 @@ _COUNTERS = {
     "coo_spmv_T": (coo_spmv, "T_LAUNCHES"),
     "coo_spmv_T_pack": (coo_spmv, "PACK_LAUNCHES"),
     "coo_spmv_T_wide": (coo_spmv, "WIDE_LAUNCHES"),
+    "coo_spmv_rowblock": (coo_spmv, "ROWBLOCK_LAUNCHES"),      # any form
+    "coo_spmv_T_rowblock": (coo_spmv, "T_ROWBLOCK_LAUNCHES"),
     "coo_mutual": (coo_mutual, "LAUNCHES"),             # either form
     "coo_mutual_edges": (coo_mutual, "EDGE_LAUNCHES"),  # the edge form
     "fused_rhs": (fused_rhs, "LAUNCHES"),

@@ -38,10 +38,11 @@ ENTRY_POINTS = {
     # long_rows, chunk_ptr, chunk_bounds, n_long, n_chunks, partial, stream
     "ndcn_coo_spmv_f32": _GATHER,
     "ndcn_coo_spmv_bf16": _GATHER,
-    # the same and the replica count before the stream (batched K1: x, y
-    # and partial hold that many states / scratches one after another)
-    "ndcn_coo_spmv_batched_f32": _GATHER[:-1] + (_I, _P),
-    "ndcn_coo_spmv_batched_bf16": _GATHER[:-1] + (_I, _P),
+    # the same and the replica count and x's row count before the stream
+    # (batched K1: x, y and partial hold that many states / scratches one
+    # after another; x's rows are n_rows but on a row block's CSR)
+    "ndcn_coo_spmv_batched_f32": _GATHER[:-1] + (_I, _I, _P),
+    "ndcn_coo_spmv_batched_bf16": _GATHER[:-1] + (_I, _I, _P),
     "ndcn_coo_spmv_T_f32": _GATHER,
     "ndcn_coo_spmv_T_bf16": _GATHER,
     # side (0 forward, 1 row side, 2 column side), row_ptr, rows, cols,

@@ -45,6 +45,12 @@ the one shared A (the replica sweeps): one launch of the batched form
 each replica bit-equal to its own launch; its backward is the batched form
 over the transpose.
 
+K1 and the gather of K1-fm / K5 also take a ``CsrBlock``, one rank's row
+block of the operator on the mesh path (``parallel.coo_shard``): ``n``
+output rows against a gathered table of ``n_table`` rows, as they are.
+Their launches on a block are counted apart (``ROWBLOCK_LAUNCHES``,
+``T_ROWBLOCK_LAUNCHES``).
+
 The plain PyTorch versions beside the kernels (gather, scale, ``index_add_``,
 with the same rounding) are the CPU path, inside the same
 ``autograd.Function``s, and the reference the kernels are held against on
@@ -64,7 +70,8 @@ from ndcn_tpu_torch.kernels.platform import on_cuda
 
 # launches of the CUDA kernels in this process, forward and backward (CPU
 # calls do not count): row-major K1 in fp32 and in bf16, its batched form
-# (fp32, bf16), K1-fm's gather and its pack kernel, K5
+# (fp32, bf16), K1-fm's gather and its pack kernel, K5; and, counted there
+# alone, K1 in any form and the gather of K1-fm or K5 on a ``CsrBlock``
 LAUNCHES = 0
 BF16_LAUNCHES = 0
 BATCHED_LAUNCHES = 0
@@ -72,6 +79,8 @@ BATCHED_BF16_LAUNCHES = 0
 T_LAUNCHES = 0
 PACK_LAUNCHES = 0
 WIDE_LAUNCHES = 0
+ROWBLOCK_LAUNCHES = 0
+T_ROWBLOCK_LAUNCHES = 0
 
 # the JAX package's switches (ndcn_tpu/kernels/coo_spmv.py), read per call
 GATHER_BF16 = False
@@ -111,6 +120,44 @@ def split_rows(row_ptr: np.ndarray, limit: int = SPLIT_EDGES,
     bounds = np.stack([lo, np.minimum(lo + limit, ends[owner])], axis=1)
     return RowSplit(*(torch.as_tensor(a.astype(np.int32), device=device)
                       for a in (long_rows, chunk_ptr, bounds)), limit)
+
+
+class CsrBlock(NamedTuple):
+    """Rows [start, start + n) of a CSR operator, the operand of K1 and of
+    K1-fm's gather on one rank's row block (``parallel.coo_shard``):
+    ``row_ptr`` from 0 (rows past the operator's end are empty), ``rows``
+    the block-relative row of each edge (the plain version's), ``cols``
+    global indices into a table of ``n_table`` rows."""
+    row_ptr: torch.Tensor   # (n + 1,) int32
+    rows: torch.Tensor      # (nnz,) int64
+    cols: torch.Tensor      # (nnz,) int32
+    vals: torch.Tensor      # (nnz,) float32
+    n: int                  # output rows: the block's rows_per
+    n_table: int            # rows of the gathered table: n_pad
+    split: RowSplit
+
+    @property
+    def device(self) -> torch.device:
+        return self.vals.device
+
+
+def csr_row_block(row_ptr: torch.Tensor, rows: torch.Tensor,
+                  cols: torch.Tensor, vals: torch.Tensor, start: int,
+                  stop: int, rows_per: int, n_table: int) -> CsrBlock:
+    """Rows [start, stop) of a CSR operator as a block of ``rows_per``
+    output rows (the rows past ``stop`` empty), on the operator's device,
+    in arrays of its own (the whole operator can be freed). Each row keeps
+    its edges in order and ``split_rows`` cuts the same chunks, so the
+    blocks' products concatenate to the whole operator's."""
+    ptr = row_ptr[start:stop + 1].long()
+    e0, e1 = int(ptr[0]), int(ptr[-1])
+    local = torch.cat([ptr - e0, ptr.new_full((rows_per - (stop - start),),
+                                              e1 - e0)])
+    return CsrBlock(row_ptr=local.to(torch.int32), rows=rows[e0:e1] - start,
+                    cols=cols[e0:e1].clone(), vals=vals[e0:e1].clone(),
+                    n=rows_per, n_table=n_table,
+                    split=split_rows(local.cpu().numpy(),
+                                     device=row_ptr.device))
 
 
 @contextlib.contextmanager
@@ -217,10 +264,11 @@ def _check(op, x: torch.Tensor, what: str = "coo_spmv",
     if x.dtype != torch.float32:
         raise TypeError(f"{what} takes float32 x, got {x.dtype}")
     ndim = 3 if batched else 2
-    if (x.ndim not in (2, ndim) or x.shape[-2] != op.n or x.shape[-1] < 1
+    if (x.ndim not in (2, ndim) or x.shape[-2] != op.n_table
+            or x.shape[-1] < 1
             or x.ndim == 3 and not 1 <= x.shape[0] <= 65535):
-        shapes = f"({op.n}, d >= 1)" + (f" or (R <= 65535, {op.n}, d)"
-                                        if batched else "")
+        shapes = f"({op.n_table}, d >= 1)" + (
+            f" or (R <= 65535, {op.n_table}, d)" if batched else "")
         raise ValueError(f"{what} takes x of shape {shapes}, got "
                          f"{tuple(x.shape)}")
     nnz = op.cols.shape[0]
@@ -265,7 +313,8 @@ def _launch_gather(entry: str, op, table: torch.Tensor, y: torch.Tensor,
     """One product of the shared gather over ``op``'s forward CSR: the rows
     kernel, and for an operator with long rows the chunk kernel into a
     scratch and the fold, all on the current stream. With ``replicas`` the
-    entry is a batched one: ``table`` and ``y`` hold that many states."""
+    entry is a batched one: ``table`` holds that many (op.n_table, d)
+    states and ``y`` that many (op.n, d) results."""
     split = op.split
     n_chunks = split.chunk_bounds.shape[0]
     partial = (torch.empty(((replicas or 1) * n_chunks, d),
@@ -278,7 +327,7 @@ def _launch_gather(entry: str, op, table: torch.Tensor, y: torch.Tensor,
           split.long_rows.data_ptr(), split.chunk_ptr.data_ptr(),
           split.chunk_bounds.data_ptr(), split.long_rows.shape[0], n_chunks,
           partial.data_ptr() if n_chunks else None,
-          *(() if replicas is None else (replicas,)))
+          *(() if replicas is None else (replicas, op.n_table)))
 
 
 def pack_rows(xT: torch.Tensor, bf16: bool = False) -> torch.Tensor:
@@ -308,23 +357,25 @@ def _apply(op, x: torch.Tensor) -> torch.Tensor:
     if not on_cuda(x, op.row_ptr, op.cols, op.vals, op.rows, *op.split[:3]):
         return coo_spmv_plain(op.rows, op.cols, op.vals, x, op.n, bf16)
     global LAUNCHES, BF16_LAUNCHES, BATCHED_LAUNCHES, BATCHED_BF16_LAUNCHES
+    global ROWBLOCK_LAUNCHES
     x = x.contiguous()
     d = x.shape[-1]
-    y = torch.empty(x.shape, dtype=torch.float32, device=x.device)
-    if x.ndim == 3:
-        precision = "bf16" if bf16 else "f32"
-        _launch_gather(f"ndcn_coo_spmv_batched_{precision}", op,
-                       x.to(torch.bfloat16) if bf16 else x, y, d, x.shape[0])
-        if bf16:
-            BATCHED_BF16_LAUNCHES += 1
-        else:
-            BATCHED_LAUNCHES += 1
-        return y
-    if bf16:
-        _launch_gather("ndcn_coo_spmv_bf16", op, x.to(torch.bfloat16), y, d)
+    y = torch.empty((*x.shape[:-2], op.n, d), dtype=torch.float32,
+                    device=x.device)
+    batched = x.ndim == 3
+    _launch_gather(f"ndcn_coo_spmv_{'batched_' if batched else ''}"
+                   f"{'bf16' if bf16 else 'f32'}", op,
+                   x.to(torch.bfloat16) if bf16 else x, y, d,
+                   x.shape[0] if batched else None)
+    if isinstance(op, CsrBlock):
+        ROWBLOCK_LAUNCHES += 1
+    elif batched and bf16:
+        BATCHED_BF16_LAUNCHES += 1
+    elif batched:
+        BATCHED_LAUNCHES += 1
+    elif bf16:
         BF16_LAUNCHES += 1
     else:
-        _launch_gather("ndcn_coo_spmv_f32", op, x, y, d)
         LAUNCHES += 1
     return y
 
@@ -337,17 +388,36 @@ def _apply_T(op, xT: torch.Tensor) -> torch.Tensor:
     if not on_cuda(xT, op.row_ptr, op.cols, op.vals, op.rows, *op.split[:3]):
         plain = coo_spmv_T_wide_plain if wide else coo_spmv_T_plain
         return plain(op.rows, op.cols, op.vals, xT, op.n, bf16)
-    global T_LAUNCHES, WIDE_LAUNCHES
     xT = xT.contiguous()
-    d_sub = xT.shape[0]
-    y = torch.empty((d_sub, op.n), dtype=torch.float32, device=xT.device)
     # K5's row-major (n, d_sub) table is materialised once per call in one
     # copy, as the JAX package materialises its (n, 128) table; K1-fm's is
     # the pack kernel's scratch, for this call only
-    table = pack_rows_plain(xT, bf16) if wide else pack_rows(xT, bf16)
-    _launch_gather(f"ndcn_coo_spmv_T_{'bf16' if bf16 else 'f32'}", op, table,
-                   y, d_sub)
-    if wide:
+    return gather_T(op, pack_rows_plain(xT, bf16) if wide
+                    else pack_rows(xT, bf16))
+
+
+def gather_T(op, table: torch.Tensor) -> torch.Tensor:
+    """The gather of K1-fm (of K5 under ``GATHER_WIDE``) over ``op``'s
+    forward CSR from a row-major (op.n_table, d_sub) table, fp32 or bf16
+    (``pack_rows``'s): (A·X)ᵀ, (d_sub, op.n) fp32. A bf16 table is the
+    bf16 instance. CPU tensors take the plain version."""
+    bf16 = table.dtype == torch.bfloat16
+    if table.ndim != 2 or table.shape[0] != op.n_table:
+        raise ValueError(f"gather_T takes a ({op.n_table}, d_sub) table, got "
+                         f"{tuple(table.shape)}")
+    if not on_cuda(table, op.row_ptr, op.cols, op.vals, op.rows,
+                   *op.split[:3]):
+        plain = coo_spmv_T_wide_plain if GATHER_WIDE else coo_spmv_T_plain
+        return plain(op.rows, op.cols, op.vals, table.t().float(), op.n,
+                     bf16)
+    global T_LAUNCHES, WIDE_LAUNCHES, T_ROWBLOCK_LAUNCHES
+    d_sub = table.shape[1]
+    y = torch.empty((d_sub, op.n), dtype=torch.float32, device=table.device)
+    _launch_gather(f"ndcn_coo_spmv_T_{'bf16' if bf16 else 'f32'}", op,
+                   table.contiguous(), y, d_sub)
+    if isinstance(op, CsrBlock):
+        T_ROWBLOCK_LAUNCHES += 1
+    elif GATHER_WIDE:
         WIDE_LAUNCHES += 1
     else:
         T_LAUNCHES += 1
@@ -406,8 +476,8 @@ def spmv_T(op, xT: torch.Tensor) -> torch.Tensor:
     """(A · X)ᵀ for xT = Xᵀ of shape (d_sub, n), differentiable in xT; the
     feature-major counterpart of ``coo_spmv`` (same device rules)."""
     if xT.ndim != 2:
-        raise ValueError(f"spmv_T takes xT of shape (d_sub, {op.n}), got "
-                         f"{tuple(xT.shape)}")
+        raise ValueError(f"spmv_T takes xT of shape (d_sub, {op.n_table}), "
+                         f"got {tuple(xT.shape)}")
     _check(op, xT.t())
     if not xT.is_contiguous():
         raise ValueError("spmv_T takes a contiguous (feature-major) xT")

@@ -34,6 +34,10 @@ from ndcn_tpu_torch.kernels.fused_rhs import fused_rhs
 from ndcn_tpu_torch.models.nn import dropout_mask, linear_apply, linear_init
 from ndcn_tpu_torch.ode import odeint_with_stats
 from ndcn_tpu_torch.ode.adjoint import odeint_adjoint_with_stats
+from ndcn_tpu_torch.ode.tree_math import node_sharded
+from ndcn_tpu_torch.parallel.coo_shard import (RowShardedCoo, is_sharded,
+                                               node_group, rs_spmv_T,
+                                               take_rows)
 
 
 def fused_profitable(kind: str, width: int, n: int) -> bool:
@@ -195,7 +199,7 @@ def _feature_major_ok(op, h, no_graph, no_control, dropout, fused) -> bool:
     a COO operator that serves the SpMV kernels (``use_tiled_kernel``), the
     full RHS (graph and control on, dropout 0, unfused), and a hidden width
     above 1 that is not a multiple of 128."""
-    return (isinstance(op, CooGraph)
+    return (isinstance(op, (CooGraph, RowShardedCoo))
             and not (no_graph or no_control or dropout > 0.0 or fused)
             and h.ndim == 2 and h.shape[1] > 1 and h.shape[1] % 128 != 0
             and graph_sparse.use_tiled_kernel(op))
@@ -216,8 +220,9 @@ def resolve_layout(layout: str, op, h: torch.Tensor, no_graph: bool = False,
                          "dropout 0, unfused) and a hidden width above 1 "
                          "that is not a multiple of 128")
     if layout == "auto":
+        nodes = op.n if is_sharded(op) else h.shape[0]
         return ("feature_major"
-                if h.shape[0] >= _FEATURE_MAJOR_AUTO_NODES and ok else "nd")
+                if nodes >= _FEATURE_MAJOR_AUTO_NODES and ok else "nd")
     return layout
 
 
@@ -275,7 +280,7 @@ def ode_func_T(model: NDCN, op: CooGraph, t, hT: torch.Tensor,
     # nn.Linear stores W transposed: its weight is already Wᵀ
     w_p = F.pad(model.wt.weight, (0, d_sub - d, 0, d_sub - d))
     b_p = F.pad(model.wt.bias, (0, d_sub - d))
-    ahT = spmv_T(op, hT)
+    ahT = (rs_spmv_T if isinstance(op, RowShardedCoo) else spmv_T)(op, hT)
     if residual_dtype is not None:
         return torch.relu(rounded_control(w_p, b_p, ahT, residual_dtype,
                                           True))
@@ -320,12 +325,24 @@ def ndcn_forward(model: NDCN, op: GraphOperator, vt, x: torch.Tensor, *,
     A stacked model (``replica_count(model)`` = R) runs R replicas on the
     shared ``x``: ``rng`` is then a list of R generators (or None), the
     solve is batched and the stats are a ``BatchedSolveStats``. The adjoint
-    and the Adams methods under replicas are ROADMAP §1 entry 11a′."""
+    and the Adams methods under replicas are ROADMAP §1 entry 11a′.
+
+    A row-sharded operator (``parallel.coo_shard``) takes this rank's rows
+    of ``x`` and gives this rank's rows of the output; the solve's norms
+    are then over every rank's rows (``ode.tree_math.node_sharded``), and
+    the dropout mask is drawn whole and cut to this rank's rows, so the
+    ranks together compute the unsharded forward."""
     replicas = replica_count(model)
     if replicas is not None and adjoint:
         raise NotImplementedError("not ported yet: replica sweeps with the "
                                   "continuous adjoint: ROADMAP §1 entry 11a′")
-    with torch.set_grad_enabled(torch.is_grad_enabled() and not nondiff):
+    group = node_group(op)
+    if group is not None and adjoint:
+        raise NotImplementedError(
+            "not ported yet: the continuous adjoint on a model axis of more "
+            "than one rank: ROADMAP §1 entry 11c′")
+    with torch.set_grad_enabled(torch.is_grad_enabled() and not nondiff), \
+            node_sharded(group):
         h = x
         if not no_embed:
             h = torch.tanh(linear_apply(model.enc1, h))
@@ -339,7 +356,13 @@ def ndcn_forward(model: NDCN, op: GraphOperator, vt, x: torch.Tensor, *,
         drop_mask = None
         if dropout > 0.0 and rng is not None:
             shape = h.shape if replicas is None else h.shape[1:]
-            drop_mask = dropout_mask(rng, shape, dropout, h.dtype, h.device)
+            if is_sharded(op):
+                # drawn whole, as the unsharded run draws it; then this
+                # rank's rows
+                shape = (op.n, *shape[1:])
+            drop_mask = take_rows(dropout_mask(rng, shape, dropout, h.dtype,
+                                               h.device), op,
+                                  axis=0 if replicas is None else 1)
 
         use_readout = (not terminal and not nondiff and not adjoint
                        and method in ("dopri5", "tsit5"))

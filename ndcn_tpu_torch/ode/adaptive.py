@@ -70,7 +70,8 @@ from ndcn_tpu_torch.ode.step_control import (Controller, accept_and_max_ratio,
                                              select_initial_step)
 from ndcn_tpu_torch.ode.tableaux import (DOPRI5, TSIT5,
                                          TSIT5_REFERENCE_WEIGHTS, Tableau)
-from ndcn_tpu_torch.ode.tree_math import bcast, leaves, tmap
+from ndcn_tpu_torch.ode.tree_math import bcast, leaves, node_group, tmap
+from ndcn_tpu_torch.parallel.mesh import all_true
 
 # The reference passes order 4 to the initial-step heuristic for its
 # 5th-order methods; kept for identical first steps.
@@ -295,8 +296,9 @@ def _attempt_batched(method: AdaptiveMethod, func, rk: RKState,
     dt = torch.where(go, rk.dt, torch.zeros_like(rk.dt))
     y1, f1, y1_error, k = runge_kutta_step(func, rk.y, rk.f, rk.t1, dt,
                                            coeffs)
-    finite = (_replica_finite(*leaves(y1), *leaves(y1_error))
-              & _replica_finite(*leaves(k), stage_axis=True))
+    finite = all_true(_replica_finite(*leaves(y1), *leaves(y1_error))
+                      & _replica_finite(*leaves(k), stage_axis=True),
+                      node_group())
     ratios = error_ratios(y1_error, rk.y, y1, ctrl.rtol, ctrl.atol,
                           rk.t1.dtype, batched=True)
     accept, max_ratio = accept_and_max_ratio(ratios)

@@ -10,7 +10,9 @@
 With ``batched`` (R replicas in one solve, ``adaptive.solve_batched``)
 every leaf has a leading replica axis and every quantity here is one value
 per replica, shape (R,): each norm and mean is taken over one replica's
-elements only, so the replicas' step sizes stay independent.
+elements only, so the replicas' step sizes stay independent. While the
+state is node-sharded (``tree_math.node_sharded``) each mean is over every
+rank's elements, so every rank takes the same steps.
 
 Every quantity stays a tensor of the time dtype on the state's device
 (float32 unless the caller asks for float64 time, as the JAX package's
@@ -26,7 +28,8 @@ from typing import List, NamedTuple
 import torch
 
 from ndcn_tpu_torch.ode.tree_math import (bcast, cast, leaves, rms_norm, tmax,
-                                          tmax_rows)
+                                          tmax_rows, whole_mean,
+                                          whole_mean_rows)
 
 # Guard against division by zero; a normal float32 (see the JAX package).
 _TINY = 1e-30
@@ -53,9 +56,9 @@ def error_ratios(y1_error, y0, y1, rtol: float, atol: float,
         tol = atol + rtol * torch.maximum(torch.abs(a), torch.abs(b))
         r = cast(err / tol, tdtype)
         if batched:
-            out.append(torch.mean((r * r).reshape(r.shape[0], -1), dim=1))
+            out.append(whole_mean_rows(r * r))
         else:
-            out.append(torch.mean(r * r))
+            out.append(whole_mean(r * r))
     return out
 
 

@@ -10,15 +10,67 @@ A batched solve (R replicas in one loop, ``adaptive.solve_batched``) gives
 every leaf a leading replica axis and every time scalar the shape (R,);
 ``bcast`` lays such a per-replica vector over a leaf, and leaves a 0-dim
 scalar as it is.
+
+A node-sharded solve (``node_sharded``: the state's node rows split over
+the ranks of a process group, ``parallel.coo_shard``) takes every norm and
+mean over the whole state: a sum and a count, all-reduced over the group
+(differentiably: the step controller is on the tape). Every rank then
+reads the same step sizes and flags and takes the same steps. The JAX
+package gets this from GSPMD.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, List, Sequence, Tuple, Union
 
 import torch
 
+from ndcn_tpu_torch.parallel.mesh import sharded_sum_and_count
+
 State = Union[torch.Tensor, Tuple[torch.Tensor, ...]]
+
+
+# the process group the state's node rows split over, while a sharded
+# model solves; None: every rank holds the whole state
+_NODE_GROUP = None
+
+
+@contextlib.contextmanager
+def node_sharded(group):
+    """Take the solvers' norms and means over ``group``'s ranks (None: over
+    the local state) for the duration."""
+    global _NODE_GROUP
+    saved, _NODE_GROUP = _NODE_GROUP, group
+    try:
+        yield
+    finally:
+        _NODE_GROUP = saved
+
+
+def node_group():
+    return _NODE_GROUP
+
+
+def whole_mean(terms: torch.Tensor) -> torch.Tensor:
+    """The mean of ``terms`` over the whole state: over every rank's
+    elements while node-sharded, else ``torch.mean``."""
+    if _NODE_GROUP is None:
+        return torch.mean(terms)
+    total, count = sharded_sum_and_count(torch.sum(terms), terms.numel(),
+                                         _NODE_GROUP)
+    return (total / count).to(terms.dtype)
+
+
+def whole_mean_rows(terms: torch.Tensor) -> torch.Tensor:
+    """``whole_mean`` per replica: the mean of each index of the leading
+    axis, (R,)."""
+    rows = terms.reshape(terms.shape[0], -1)
+    if _NODE_GROUP is None:
+        return torch.mean(rows, dim=1)
+    total, count = sharded_sum_and_count(torch.sum(rows, dim=1),
+                                         rows.shape[1], _NODE_GROUP)
+    return (total / count).to(terms.dtype)
 
 
 def cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -68,10 +120,14 @@ def tmin(values: Sequence[torch.Tensor]) -> torch.Tensor:
 def rms_norm(x: torch.Tensor, batched: bool = False) -> torch.Tensor:
     """||x||_2 / sqrt(numel) of one leaf, as the reference ``_norm``; with
     ``batched`` one norm per replica (the leading axis), shape (R,)."""
+    if batched and _NODE_GROUP is not None:
+        return torch.sqrt(whole_mean_rows(torch.square(x)))
     if batched:
         rows = x.reshape(x.shape[0], -1)
         return torch.sqrt(torch.sum(torch.square(rows), dim=1)
                           / rows.shape[1])
+    if _NODE_GROUP is not None:
+        return torch.sqrt(whole_mean(torch.square(x)))
     return torch.sqrt(torch.sum(torch.square(x)) / x.numel())
 
 

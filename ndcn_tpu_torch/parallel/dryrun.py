@@ -1,0 +1,475 @@
+"""The multi-rank dryrun: the node-sharded NDCN path on N ranks, every check
+against the same computation unsharded, as ``ndcn_tpu/parallel/dryrun.py``
+checks its 8-device CPU mesh.
+
+    python -m ndcn_tpu_torch.parallel.dryrun N
+
+starts N rank processes: NCCL on N cards where a card is visible, gloo on
+the CPU with ``--device cpu`` or where none is (fewer than N cards is an
+error, not a switch to the CPU), lays them out as one model axis of N (checks 1-5) and as
+``make_mesh``'s (data, model) factorization (check 6), and prints on rank
+0:
+
+1. the dense dopri5 train step, operator rows and state row-sharded: loss
+   and updated parameters against the same step unsharded (rel-L1 <=
+   1e-5);
+2. the row-sharded COO SpMV (K1 on each rank's row block, the backward
+   over Aᵀ's block) on a graph with a hub row longer than ``SPLIT_EDGES``
+   and a node count the ranks do not divide: forward and gradient against
+   the unsharded product (<= 1e-5);
+3. the sparse train step: dopri5 over the row-sharded COO operator against
+   the dense unsharded step (<= 1e-5);
+4. feature-major x mesh: the rk4 loss and gradients of the (d_sub, n)
+   solve over the row-sharded operator (``rs_spmv_T``: K1-fm's pack, the
+   all-gathered table, the gather on the row block) against the unsharded
+   feature-major solve (<= 1e-5), and against the dense (n, d) solve (the
+   JAX dryrun's 1e-4 / 1e-3: the layouts differ);
+5. every rank's NFE equal and its parameters after the steps bit-equal to
+   rank 0's;
+6. the replica sweep on the (data, model) mesh of ``make_mesh``'s default
+   factorization (2 x 2 on 4 ranks): 2 · data replicas over the data
+   ranks, each replica's nodes over the model ranks (K1's batched form on
+   the row blocks): the replicas' losses and updated parameters against
+   the same replicas unsharded (<= 1e-5), each replica's NFE equal.
+
+Each rank is a process of its own (``python -m ndcn_tpu_torch.parallel.dryrun
+--rank r ...``), imports only the port, and pins one intra-op thread; the
+parent waits ``--timeout`` seconds and kills the ranks on expiry, so a
+collective that hangs fails the run. With ``--out DIR`` each rank also
+writes its arrays to DIR/rank<r>.npz (the tests hold them against the JAX
+package).
+"""
+
+from __future__ import annotations
+
+import argparse
+import copy
+import os
+import subprocess
+import sys
+import tempfile
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+
+TOL = 1e-5          # sharded against unsharded, as the JAX dryrun
+N_NODES = 500       # the train steps' graph (the model axis divides it)
+N_HUB = 502         # the SpMV check's graph: a hub row, uneven blocks
+HUB_EDGES = 400     # edges of the hub row (over SPLIT_EDGES)
+D_SPMV = 5
+HIDDEN = 8
+
+
+def train_problem(n: int = N_NODES, seed: int = 0) -> Dict[str, np.ndarray]:
+    """The train steps' problem, from numpy: the normalized Laplacian of a
+    random sparse graph (dense and CSR), x0 and a target trajectory."""
+    import scipy.sparse as sp
+
+    from ndcn_tpu_torch.graph.generators import build_sparse_graph
+    from ndcn_tpu_torch.graph.operators import normalized_laplacian_sparse
+
+    lap = normalized_laplacian_sparse(build_sparse_graph(n, 6, seed))
+    rs = np.random.RandomState(seed + 1)
+    vt = np.linspace(0.0, 1.0, 5).astype(np.float32)
+    return dict(lap=sp.csr_matrix(lap, dtype=np.float32),
+                x0=rs.uniform(0.0, 5.0, (n, 1)).astype(np.float32),
+                target=rs.uniform(0.0, 5.0, (len(vt), n, 1))
+                .astype(np.float32), vt=vt)
+
+
+def spmv_problem(n: int = N_HUB, d: int = D_SPMV, seed: int = 3):
+    """A non-symmetric sparse matrix with a hub row (and hub column) of
+    ``HUB_EDGES`` edges, and an (n, d) state."""
+    import scipy.sparse as sp
+
+    rs = np.random.RandomState(seed)
+    m = 6 * n
+    rows = np.concatenate([rs.randint(0, n, m), np.full(HUB_EDGES, 7),
+                           rs.choice(n, HUB_EDGES, replace=False)])
+    cols = np.concatenate([rs.randint(0, n, m),
+                           rs.choice(n, HUB_EDGES, replace=False),
+                           np.full(HUB_EDGES, 11)])
+    mat = sp.coo_matrix((rs.randn(rows.size).astype(np.float32) / 6,
+                         (rows, cols)), shape=(n, n)).tocsr()
+    mat.sum_duplicates()
+    return mat, rs.randn(n, d).astype(np.float32)
+
+
+def rel_l1(a, b) -> float:
+    a = np.concatenate([np.ravel(np.asarray(x, np.float64)) for x in a])
+    b = np.concatenate([np.ravel(np.asarray(x, np.float64)) for x in b])
+    return float(np.abs(a - b).sum() / (np.abs(b).sum() + 1e-30))
+
+
+def _params(model) -> List[np.ndarray]:
+    return [p.detach().cpu().numpy().copy() for p in model.parameters()]
+
+
+def _grads(model) -> List[np.ndarray]:
+    return [p.grad.detach().cpu().numpy().copy() for p in model.parameters()]
+
+
+def _tree(model, arrays: List[np.ndarray], prefix: str) -> dict:
+    """The arrays (one per parameter, the model's order) as flat npz keys
+    of the JAX package's parameter dict."""
+    from ndcn_tpu_torch.convert import params_to_jax
+
+    import torch
+
+    holder = copy.deepcopy(model).cpu()
+    with torch.no_grad():
+        for p, a in zip(holder.parameters(), arrays):
+            p.copy_(torch.as_tensor(a))
+    return {f"{prefix}/{layer}/{k}": v
+            for layer, leaves in params_to_jax(holder).items()
+            for k, v in leaves.items()}
+
+
+def run_checks(rank: int, world: int, device, out: Optional[str] = None,
+               log=print) -> Dict[str, float]:
+    """The checks on one rank of a started process group; returns their
+    rel-L1 values (and raises on a failed one)."""
+    import torch
+    import torch.distributed as dist
+
+    from ndcn_tpu_torch.graph import sparse as graph_sparse
+    from ndcn_tpu_torch.graph.sparse import (from_dense, from_scipy_coo,
+                                             matvec)
+    from ndcn_tpu_torch.kernels.coo_spmv import spmv_T, sublane_pad
+    from ndcn_tpu_torch.kernels.platform import pin_fp32
+    from ndcn_tpu_torch.models import init_ndcn, ndcn_forward
+    from ndcn_tpu_torch.parallel.coo_shard import (gather_nodes, node_group,
+                                                   rs_spmv_T, shard_coo_rows,
+                                                   take_rows)
+    from ndcn_tpu_torch.parallel.mesh import (all_reduce_grads,
+                                              gather_replicas, make_mesh,
+                                              replica_range)
+    from ndcn_tpu_torch.parallel.sweep import (batched_init, gather_stacked,
+                                               place_problem_on_mesh,
+                                               replica_generators,
+                                               replica_l1)
+    from ndcn_tpu_torch.train.losses import l1_loss
+    from ndcn_tpu_torch.train.optim import make_replica_sgd_step, torch_adam
+
+    pin_fp32()
+    mesh = make_mesh(device, data_divides=1)
+    if rank == 0:
+        log(f"mesh: {world} ranks = data={mesh.data} x model={mesh.model} "
+            f"on {device.type} ({dist.get_backend()})")
+    saved: Dict[str, np.ndarray] = {}
+    checks: Dict[str, float] = {}
+    nfes: List[int] = []
+
+    def expect(name: str, value: float, tol: float = TOL) -> None:
+        checks[name] = value
+        if not value <= tol:
+            raise AssertionError(f"dryrun check {name}: {value:.3e} > {tol}")
+
+    pb = train_problem()
+    t = lambda a: torch.as_tensor(a, device=device)   # noqa: E731
+    x0, target = t(pb["x0"]), t(pb["target"])
+
+    def train_step(op, x0_, target_, seed, tag):
+        """One dopri5 Adam step from the seed's init on ``op``; returns
+        (loss, the model after the step, the summed gradients)."""
+        model = init_ndcn(torch.Generator().manual_seed(seed), 1, HIDDEN, 1,
+                          device=device)
+        init = _params(model)
+        opt = torch_adam(model.parameters(), 0.01, 1e-3)
+        group = node_group(op)
+        out, stats = ndcn_forward(model, op, pb["vt"], x0_, method="dopri5",
+                                  max_steps=64)
+        loss = l1_loss(out, target_, group)
+        loss.backward()
+        all_reduce_grads(model.parameters(), group)
+        grads = _grads(model)
+        opt.step()
+        nfes.append(stats.nfe)
+        saved.update(_tree(model, init, f"{tag}/init"))
+        saved.update(_tree(model, grads, f"{tag}/grad"))
+        saved[f"{tag}/loss"] = np.float32(loss.item())
+        saved[f"{tag}/nfe"] = np.int64(stats.nfe)
+        return float(loss.detach()), model, grads
+
+    # ---- 1. the dense step, rows sharded, against unsharded
+    dense = from_dense(pb["lap"].toarray(), device=device)
+    l_u, m_u, _ = train_step(dense, x0, target, 0, "dense_unsharded")
+    op_s, x0_s, target_s, _ = place_problem_on_mesh(mesh, dense, x0, target,
+                                                    pb["vt"])
+    l_s, m_s, _ = train_step(op_s, x0_s, target_s, 0, "dense")
+    d_loss, d_par = rel_l1([l_s], [l_u]), rel_l1(_params(m_s), _params(m_u))
+    expect("dense_step_loss", d_loss)
+    expect("dense_step_params", d_par)
+    if rank == 0:
+        log(f"sharded dense dopri5 train step vs unsharded: rel-L1 "
+            f"loss={d_loss:.3e} params={d_par:.3e} (loss {l_s:.6f})")
+
+    # ---- 2. the row-sharded COO SpMV, forward and gradient
+    mat, x_np = spmv_problem()
+    coo = from_scipy_coo(mat, device=device)
+    rs = shard_coo_rows(coo, mesh)
+    x_whole = t(x_np)
+    x_loc = take_rows(x_whole, rs).clone().requires_grad_()
+    y_loc = matvec(rs, x_loc)
+    (y_loc * y_loc).sum().backward()
+    xw = x_whole.clone().requires_grad_()
+    y_ref = matvec(coo, xw)
+    (y_ref * y_ref).sum().backward()
+    y_all = gather_nodes(y_loc.detach(), rs)
+    dx_all = gather_nodes(x_loc.grad, rs)
+    d_fwd = rel_l1([y_all.cpu()], [y_ref.detach().cpu()])
+    d_grad = rel_l1([dx_all.cpu()], [xw.grad.cpu()])
+    expect("coo_spmv_fwd", d_fwd)
+    expect("coo_spmv_grad", d_grad)
+    saved.update(coo_y=y_loc.detach().cpu().numpy(),
+                 coo_dx=x_loc.grad.cpu().numpy(),
+                 coo_rows=np.array([rs.start, rs.stop]))
+    if rank == 0:
+        log(f"row-sharded COO SpMV (K1 on each row block, hub row of "
+            f"{HUB_EDGES} edges, n={mat.shape[0]} over {world}): rel-L1 "
+            f"fwd={d_fwd:.3e} grad={d_grad:.3e}")
+
+    # ---- 3. the sparse step against the dense unsharded step
+    coo_t = from_scipy_coo(pb["lap"], device=device)
+    op_c, x0_c, target_c, _ = place_problem_on_mesh(mesh, coo_t, x0, target,
+                                                    pb["vt"])
+    l_c, m_c, _ = train_step(op_c, x0_c, target_c, 1, "coo")
+    l_d, m_d, _ = train_step(dense, x0, target, 1, "coo_dense_unsharded")
+    d_sl, d_sp = rel_l1([l_c], [l_d]), rel_l1(_params(m_c), _params(m_d))
+    expect("sparse_step_loss", d_sl)
+    expect("sparse_step_params", d_sp)
+    if rank == 0:
+        log(f"sparse train-step parity (row-sharded COO vs dense "
+            f"unsharded): rel-L1 loss={d_sl:.3e} params={d_sp:.3e}")
+
+    # ---- 4. feature-major x mesh (the layout needs the seam on the CPU)
+    seam = graph_sparse.use_tiled_kernel
+    graph_sparse.use_tiled_kernel = lambda op: True
+    try:
+        def fm(op, x0_, target_, layout):
+            model = init_ndcn(torch.Generator().manual_seed(2), 1, 6, 1,
+                              device=device)
+            out, stats = ndcn_forward(model, op, pb["vt"], x0_,
+                                      method="rk4", max_steps=8,
+                                      layout=layout)
+            loss = l1_loss(out, target_, node_group(op))
+            loss.backward()
+            all_reduce_grads(model.parameters(), node_group(op))
+            return float(loss.detach()), _grads(model)
+
+        l_fm, g_fm = fm(op_c, x0_c, target_c, "feature_major")
+        l_fu, g_fu = fm(coo_t, x0, target, "feature_major")
+        l_nd, g_nd = fm(dense, x0, target, "nd")
+        # the table product itself, forward and over Aᵀ
+        d_sub = sublane_pad(D_SPMV)
+        xT = torch.zeros((d_sub, mat.shape[0]), device=device)
+        xT[:D_SPMV] = x_whole.t()
+        xT_loc = take_rows(xT, rs, axis=1).clone().requires_grad_()
+        yT = rs_spmv_T(rs, xT_loc)
+        (yT * yT).sum().backward()
+        xTw = xT.clone().requires_grad_()
+        yTw = spmv_T(coo, xTw)
+        (yTw * yTw).sum().backward()
+    finally:
+        graph_sparse.use_tiled_kernel = seam
+    d_fm = rel_l1([l_fm], [l_fu])
+    d_fmg = rel_l1(g_fm, g_fu)
+    d_fmt = rel_l1([gather_nodes(yT.detach(), rs, axis=1).cpu()],
+                   [yTw.detach().cpu()])
+    d_fmtg = rel_l1([gather_nodes(xT_loc.grad, rs, axis=1).cpu()],
+                    [xTw.grad.cpu()])
+    expect("feature_major_loss", d_fm)
+    expect("feature_major_grads", d_fmg)
+    expect("feature_major_spmv_fwd", d_fmt)
+    expect("feature_major_spmv_grad", d_fmtg)
+    expect("feature_major_vs_nd_loss", rel_l1([l_fm], [l_nd]), 1e-4)
+    expect("feature_major_vs_nd_grads", rel_l1(g_fm, g_nd), 1e-3)
+    saved.update(fm_y=yT.detach().cpu().numpy(),
+                 fm_dx=xT_loc.grad.cpu().numpy())
+    if rank == 0:
+        log(f"feature-major x mesh parity (sharded (d_sub, n) rk4 vs "
+            f"unsharded): rel loss={d_fm:.3e} grads={d_fmg:.3e}; rs_spmv_T "
+            f"fwd={d_fmt:.3e} grad={d_fmtg:.3e}; vs dense (n, d): loss="
+            f"{checks['feature_major_vs_nd_loss']:.3e} grads="
+            f"{checks['feature_major_vs_nd_grads']:.3e}")
+
+    # ---- 5. every rank the same steps and the same parameters
+    all_nfe = [None] * world
+    dist.all_gather_object(all_nfe, nfes)
+    flat = torch.cat([p.detach().reshape(-1)
+                      for m in (m_s, m_c) for p in m.parameters()])
+    every = [torch.empty_like(flat) for _ in range(world)]
+    dist.all_gather(every, flat)
+    same_nfe = all(v == all_nfe[0] for v in all_nfe)
+    same_params = all(torch.equal(v, every[0]) for v in every)
+    checks["nfe_equal"] = float(same_nfe)
+    checks["params_bit_equal"] = float(same_params)
+    if not (same_nfe and same_params):
+        raise AssertionError(f"the ranks parted: NFE {all_nfe}, parameters "
+                             f"bit-equal {same_params}")
+    if rank == 0:
+        log(f"every rank: the NFE of its {len(nfes)} solves {all_nfe[0]} "
+            f"(equal on {world} ranks), parameters after the steps "
+            f"bit-equal")
+    # ---- 6. the replica sweep on the (data, model) mesh: R replicas over
+    # the data ranks, each replica's nodes over the model ranks (K1's
+    # batched form on the row blocks), against the R replicas unsharded
+    mesh2 = make_mesh(device)
+    r_all = 2 * mesh2.data
+    lo, hi = replica_range(mesh2, r_all)
+    op_r, x0_r, target_r, _ = place_problem_on_mesh(mesh2, coo_t, x0, target,
+                                                    pb["vt"])
+
+    def replica_step(op, x0_, target_, which):
+        gens = replica_generators(3, r_all)[which]
+        model = batched_init(lambda g: init_ndcn(g, 1, HIDDEN, 1),
+                             gens, device=device)
+        init = gather_stacked(model, mesh2.data_group if op is op_r
+                              else None)
+        opt = torch_adam(model.parameters(), 0.01, 1e-3)
+        stats_box = []
+
+        def losses_fn():
+            out, stats = ndcn_forward(model, op, pb["vt"], x0_,
+                                      method="dopri5", max_steps=64)
+            stats_box.append(stats)
+            losses = replica_l1(out.transpose(0, 1), target_, node_group(op))
+            return losses, losses
+
+        losses = make_replica_sgd_step(opt, losses_fn, node_group(op))()[0]
+        return losses, model, init, stats_box[0]
+
+    l_r, m_r, init_r, st_r = replica_step(op_r, x0_r, target_r,
+                                          slice(lo, hi))
+    l_ru, m_ru, _, st_ru = replica_step(coo_t, x0, target, slice(0, r_all))
+    l_r = gather_replicas(l_r, mesh2.data_group)
+    every_r = gather_stacked(m_r, mesh2.data_group)
+    d_rl = rel_l1([l_r.cpu()], [l_ru.cpu()])
+    d_rp = rel_l1(_params(every_r), _params(m_ru))
+    expect("replica_step_losses", d_rl)
+    expect("replica_step_params", d_rp)
+    nfe_r = gather_replicas(torch.tensor(st_r.nfe, device=device),
+                            mesh2.data_group).tolist()
+    if nfe_r != list(st_ru.nfe):
+        raise AssertionError(f"the replicas' NFE parted: {nfe_r} against "
+                             f"{list(st_ru.nfe)} unsharded")
+    if rank == 0:
+        log(f"replica sweep on data={mesh2.data} x model={mesh2.model}: "
+            f"{r_all} replicas, rel-L1 losses={d_rl:.3e} params="
+            f"{d_rp:.3e} against the {r_all} replicas unsharded; NFE "
+            f"{nfe_r} equal")
+    if out is not None:
+        from ndcn_tpu_torch.convert import params_to_jax
+
+        saved.update({f"replicas/init/{layer}/{k}": v
+                      for layer, leaves in params_to_jax(init_r).items()
+                      for k, v in leaves.items()})
+        saved["replicas/loss"] = l_r.cpu().numpy()
+        saved["replicas/params_after"] = torch.cat(
+            [p.detach().reshape(-1) for p in every_r.parameters()]
+        ).cpu().numpy()
+        saved["params_after"] = flat.cpu().numpy()
+        np.savez(os.path.join(out, f"rank{rank}.npz"), **saved)
+    return checks
+
+
+def _worker(args) -> int:
+    import torch
+    import torch.distributed as dist
+
+    from ndcn_tpu_torch.parallel.mesh import init_group
+
+    torch.set_num_threads(1)
+    if args.device == "cuda":
+        device = torch.device("cuda", args.rank)
+    else:
+        device = torch.device("cpu")
+    import datetime
+
+    init_group(device, init_method=args.init, rank=args.rank,
+               world_size=args.world,
+               timeout=datetime.timedelta(seconds=args.timeout))
+    try:
+        if device.type == "cuda":
+            from ndcn_tpu_torch.kernels import build
+
+            if args.rank == 0:
+                build.build()
+            dist.barrier(device_ids=[args.rank])
+            build.load()
+        run_checks(args.rank, args.world, device, args.out)
+        dist.barrier(**({"device_ids": [args.rank]}
+                        if device.type == "cuda" else {}))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def spawn(world: int, device: str = "cpu", out: Optional[str] = None,
+          timeout: float = 240.0) -> int:
+    """Start ``world`` rank processes of this module and wait for them;
+    returns the first nonzero exit code (0 when every rank passed). Ranks
+    still running after ``timeout`` seconds are killed (exit 124)."""
+    store = tempfile.mkdtemp(prefix="ndcn_dryrun_")
+    env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (root, env.get("PYTHONPATH")) if p)
+    cmd = [sys.executable, "-m", "ndcn_tpu_torch.parallel.dryrun",
+           "--world", str(world), "--device", device,
+           "--init", f"file://{os.path.join(store, 'store')}",
+           "--timeout", str(int(timeout))]
+    if out is not None:
+        cmd += ["--out", out]
+    procs = [subprocess.Popen(cmd + ["--rank", str(r)], env=env)
+             for r in range(world)]
+    deadline = time.monotonic() + timeout
+    codes = []
+    try:
+        for p in procs:
+            try:
+                codes.append(p.wait(max(0.0, deadline - time.monotonic())))
+            except subprocess.TimeoutExpired:
+                codes.append(124)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return next((c for c in codes if c != 0), 0)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser("dryrun")
+    ap.add_argument("n", type=int, nargs="?", default=4,
+                    help="ranks (processes) to start")
+    ap.add_argument("--world", type=int, default=None)
+    ap.add_argument("--rank", type=int, default=None,
+                    help="run as this rank of --world (the spawned worker)")
+    ap.add_argument("--device", choices=["cpu", "cuda"], default=None)
+    ap.add_argument("--init", type=str, default=None)
+    ap.add_argument("--out", type=str, default=None)
+    ap.add_argument("--timeout", type=float, default=240.0)
+    args = ap.parse_args(argv)
+    if args.rank is not None:
+        return _worker(args)
+    import torch
+
+    device = args.device or ("cuda" if torch.cuda.is_available() else "cpu")
+    if device == "cuda" and torch.cuda.device_count() < args.n:
+        print(f"dryrun: {args.n} NCCL ranks need {args.n} cards and "
+              f"{torch.cuda.device_count()} are visible; pass --device cpu "
+              f"to run the ranks on the CPU with gloo", file=sys.stderr)
+        return 2
+    t0 = time.perf_counter()
+    rc = spawn(args.n, device, args.out, args.timeout)
+    print(f"dryrun {'ok' if rc == 0 else f'FAILED (exit {rc})'}: {args.n} "
+          f"ranks on {device} ({'nccl' if device == 'cuda' else 'gloo'}) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return rc
+
+
+if __name__ == "__main__":
+    sys.exit(main())

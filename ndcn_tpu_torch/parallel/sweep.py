@@ -1,6 +1,11 @@
-"""Replica sweeps on one GPU, as ``ndcn_tpu/parallel/sweep.py`` without its
-mesh (``make_sharded_ndcn_train_step(mesh=None, ...)``, the single-device
-reference of a replica step).
+"""Replica sweeps, as ``ndcn_tpu/parallel/sweep.py``: a stacked model of R
+replicas on one device (``make_sharded_ndcn_train_step(mesh=None, ...)``,
+the single-device reference of a replica step), and the placement of a
+problem on a mesh (``shard_operator``, ``place_problem_on_mesh``). On a
+(data, model) mesh each data rank stacks its own replicas (the drivers
+take them by ``mesh.replica_range``, each from its generator of the
+unsharded sweep), ``replica_l1`` and ``make_replica_sgd_step`` take the
+model group, and ``gather_stacked`` gathers every data rank's replicas.
 
 R independent models train in one launch stream: their parameters are
 stacked along a new leading axis into one module (``stack_models``), the
@@ -32,6 +37,7 @@ from torch import nn
 
 from ndcn_tpu_torch.models.ndcn import init_ndcn, ndcn_forward, replica_count
 from ndcn_tpu_torch.ode import nan_unless
+from ndcn_tpu_torch.parallel.mesh import shard_mean
 from ndcn_tpu_torch.train.optim import make_replica_sgd_step, torch_adam
 
 
@@ -65,6 +71,22 @@ def unstack_model(stacked: nn.Module, i: int) -> nn.Module:
     return one
 
 
+def gather_stacked(stacked: nn.Module, group) -> nn.Module:
+    """A stacked module holding every data rank's replicas, in rank order
+    (the module itself for a group of one): each rank's parameters
+    all-gathered along the replica axis, into a copy."""
+    if group is None:
+        return stacked
+    from ndcn_tpu_torch.parallel.mesh import gather_replicas
+
+    every = copy.deepcopy(stacked)
+    for name, p in stacked.named_parameters():
+        _set_parameter(every, name, nn.Parameter(
+            gather_replicas(p.detach(), group)))
+    every.replicas = every.get_parameter(name).shape[0]
+    return every
+
+
 def replica_generators(seed: int, replicas: int) -> List[torch.Generator]:
     """The R generators of a sweep: replica i's is seeded ``seed + i`` (on
     the CPU), so replica i draws what a single run at seed ``seed + i``
@@ -81,11 +103,12 @@ def batched_init(init_fn: Callable[[torch.Generator], nn.Module],
     return model.to(device) if device is not None else model
 
 
-def replica_l1(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+def replica_l1(pred: torch.Tensor, target: torch.Tensor,
+               group=None) -> torch.Tensor:
     """The L1 loss of each replica: pred (R, ...) against a shared target
-    (...), one mean per replica, (R,)."""
-    diff = torch.abs(pred - target)
-    return diff.reshape(diff.shape[0], -1).mean(dim=1)
+    (...), one mean per replica, (R,); with a node-sharded model's
+    ``group``, each over every rank's rows (``mesh.shard_mean``)."""
+    return shard_mean(torch.abs(pred - target), group, per_replica=True)
 
 
 def make_ndcn_replica_train_step(op, vt, x0: torch.Tensor,
@@ -124,3 +147,43 @@ def make_ndcn_replica_train_step(op, vt, x0: torch.Tensor,
         return make_replica_sgd_step(opt, lambda: loss_fn(model))()[0]
 
     return init_fn, step_fn
+
+
+def shard_operator(mesh, op):
+    """This rank's share of a graph operator over the mesh's model axis
+    (``ndcn_tpu/parallel/sweep.py:shard_operator``): a dense operator's row
+    blocks (the model axis must divide n: ``make_mesh(model_divides=n)``),
+    a COO operator's row blocks (``parallel.coo_shard``). ELL and BSR have
+    no model-axis placement: they stay whole, with the JAX package's
+    notice, and so does every node-major tensor of their problem
+    (``coo_shard.take_rows`` keeps it whole), each rank computing the
+    unsharded problem."""
+    from ndcn_tpu_torch.graph.sparse import CooGraph, DenseGraph
+    from ndcn_tpu_torch.parallel.coo_shard import shard_coo_rows, \
+        shard_dense_at
+
+    if isinstance(op, DenseGraph):
+        n = op.mat.shape[0]
+        if n % mesh.model:
+            raise ValueError(
+                f"dense operator with {n} nodes cannot row-shard over a "
+                f"model axis of {mesh.model}; build the mesh with "
+                f"make_mesh(model_divides={n})")
+        return shard_dense_at(op.mat, mesh.model, mesh.model_rank,
+                              mesh.model_group)
+    if isinstance(op, CooGraph):
+        return shard_coo_rows(op, mesh)
+    print(f"mesh: {type(op).__name__} operator has no 'model'-axis "
+          f"placement; leaving it replicated")
+    return op
+
+
+def place_problem_on_mesh(mesh, op, x0: torch.Tensor, target: torch.Tensor,
+                          vt):
+    """The shared problem on the mesh: the operator's row blocks
+    (``shard_operator``) and this rank's rows of x0 (n, c) and of the
+    target (T, n, c); the time grid whole."""
+    from ndcn_tpu_torch.parallel.coo_shard import take_rows
+
+    op = shard_operator(mesh, op)
+    return op, take_rows(x0, op), take_rows(target, op, axis=1), vt

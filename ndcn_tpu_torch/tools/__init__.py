@@ -15,7 +15,9 @@ and probes and sweeps of the port's own kernels:
 - ``tune_mutual_plan``: K1-w in both forms by width (what
   ``kernels.coo_mutual.mutual_plan``'s crossover rests on);
 - ``time_checkouts``: K1-w, K5 and the 1M step's three solves in several
-  checkouts, one process each (parent against change in one call).
+  checkouts, one process each (parent against change in one call);
+- ``microbench_sharded_spmv``: K1 on the whole operator against the
+  row-sharded product on a one-rank NCCL group (the mesh path).
 
 Each runs as ``python -m ndcn_tpu_torch.tools.<name> [args]``, prints one
 line per measurement on stderr and JSON on stdout, and raises without a

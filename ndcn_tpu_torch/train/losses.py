@@ -4,6 +4,12 @@ definitions, which define the benchmark numbers):
 - dynamics: abs error = mean |pred - true| (l1), rel error = l1 / mean(true);
 - classification: softmax cross-entropy with mean reduction over the rows
   given, accuracy, and micro / macro F1.
+
+Under a node-sharded model (``parallel.coo_shard``) each rank holds its
+own rows: with its model ``group`` a mean is over every rank's rows, this
+rank's sum all-reduced over the whole count (``parallel.mesh.shard_mean``:
+the value is the whole loss, the gradient this rank's share). ``group``
+None is the unsharded mean.
 """
 
 from __future__ import annotations
@@ -12,22 +18,32 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-
-def l1_loss(pred: torch.Tensor, true: torch.Tensor) -> torch.Tensor:
-    return torch.mean(torch.abs(pred - true))
+from ndcn_tpu_torch.parallel.mesh import shard_mean
 
 
-def relative_l1(pred: torch.Tensor, true: torch.Tensor) -> torch.Tensor:
-    return l1_loss(pred, true) / torch.mean(true)
+def l1_loss(pred: torch.Tensor, true: torch.Tensor,
+            group=None) -> torch.Tensor:
+    return shard_mean(torch.abs(pred - true), group)
 
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def relative_l1(pred: torch.Tensor, true: torch.Tensor,
+                group=None) -> torch.Tensor:
+    return l1_loss(pred, true, group) / shard_mean(true, group)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  group=None) -> torch.Tensor:
     """Softmax CE, mean over rows. logits (m, C), labels (m,) int."""
-    return F.cross_entropy(logits, labels.long())
+    if group is None:
+        return F.cross_entropy(logits, labels.long())
+    return shard_mean(F.cross_entropy(logits, labels.long(),
+                                      reduction="none"), group)
 
 
-def accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    return torch.mean((torch.argmax(logits, -1) == labels).to(torch.float32))
+def accuracy(logits: torch.Tensor, labels: torch.Tensor,
+             group=None) -> torch.Tensor:
+    return shard_mean((torch.argmax(logits, -1) == labels).to(torch.float32),
+                      group)
 
 
 def f1_scores(logits, labels):

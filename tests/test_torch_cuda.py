@@ -1412,3 +1412,129 @@ def test_replica_train_step_on_cuda_matches_cpu(cuda_device, fmt, fused,
     assert float((losses - losses_cpu).abs().max()) <= 1e-4
     for p, q in zip(params, params_cpu):
         assert _rel_l1(p, q) <= 1e-3
+
+
+# ------------------------------------------- the mesh path's row blocks
+def _hub_state(n, seed, d):
+    """A power-law graph with one hub row of 3,000 edges (its chunks
+    fall inside one row block), and an (n, d) state."""
+    a, x = _power_law_coo(n, 12 * n, seed, d)
+    rng = np.random.RandomState(seed + 1)
+    hub = sp.coo_matrix((rng.randn(3000).astype(np.float32),
+                         (np.full(3000, n // 3),
+                          rng.choice(n, 3000, replace=False))), shape=(n, n))
+    a = (a + hub).tocsr()
+    a.sum_duplicates()
+    return a, x
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("p", [2, 4])
+def test_row_block_kernels_match_the_whole_launch(cuda_device, p, bf16):
+    """K1, K1ᵀ and K1-fm on each of p row blocks against the gathered
+    table: concatenated, bit-equal to the whole operator's launch, and
+    within K1's 1e-5·max|y| of the plain version (the 3,000-edge hub row
+    sums in another order: 1.0e-6·max|y| measured)."""
+    from ndcn_tpu_torch.parallel.coo_shard import shard_coo_at
+
+    a, x_np = _hub_state(3001, 5, 20)
+    op = from_scipy_coo(a, device=cuda_device)
+    x = torch.as_tensor(x_np, device=cuda_device)
+    xT = torch.zeros((24, op.n), device=cuda_device)
+    xT[:20] = x.t()
+    with coo_spmv.gather_precision(bf16):
+        blocks = [shard_coo_at(op, p, r, None) for r in range(p)]
+        assert sum(b.block.split.long_rows.numel() for b in blocks) > 0
+        n_pad = blocks[0].n_pad
+        table = torch.cat([x, x.new_zeros((n_pad - op.n, 20))])
+        packed = coo_spmv.pack_rows(xT, bf16)
+        packed = torch.cat([packed, packed.new_zeros((n_pad - op.n, 24))])
+        for whole_op, pick in ((op, lambda b: b.block),
+                               (op.transpose(), lambda b: b.block_t)):
+            y = torch.cat([coo_spmv._apply(pick(b), table)[:b.stop - b.start]
+                           for b in blocks])
+            yT = torch.cat([coo_spmv.gather_T(pick(b), packed)
+                            [:, :b.stop - b.start] for b in blocks], dim=1)
+            torch.cuda.synchronize()
+            assert torch.equal(y, coo_spmv._apply(whole_op, x))
+            assert torch.equal(yT, coo_spmv._apply_T(whole_op, xT))
+            ref = coo_spmv.coo_spmv_plain(whole_op.rows, whole_op.cols,
+                                          whole_op.vals, x, op.n, bf16)
+            assert float((y - ref).abs().max()) <= \
+                1e-5 * float(ref.abs().max())
+            assert float((yT[:20] - ref.t()).abs().max()) <= \
+                1e-5 * float(ref.abs().max())
+
+
+def test_one_rank_nccl_matvec_matches_plain(cuda_device):
+    """The row-sharded product on a one-rank NCCL group (the whole
+    operator as one row block, no collective): K1 forward and over Aᵀ,
+    against the plain version, and K1-fm's sharded form likewise."""
+    import torch.distributed as dist
+
+    from ndcn_tpu_torch.graph.sparse import matvec
+    from ndcn_tpu_torch.parallel import coo_shard
+    from ndcn_tpu_torch.parallel.mesh import make_mesh, process_group
+
+    a, x_np = _hub_state(3001, 6, 20)
+    op = from_scipy_coo(a, device=cuda_device)
+    with process_group(cuda_device):
+        assert dist.get_backend() == "nccl"
+        rs = coo_shard.shard_coo_rows(op, make_mesh(cuda_device))
+        before = (coo_spmv.ROWBLOCK_LAUNCHES, coo_spmv.T_ROWBLOCK_LAUNCHES,
+                  coo_spmv.LAUNCHES, coo_spmv.T_LAUNCHES)
+        x = torch.as_tensor(x_np, device=cuda_device).requires_grad_()
+        y = matvec(rs, x)
+        y.backward(torch.ones_like(y))
+        xT = torch.zeros((24, op.n), device=cuda_device)
+        xT[:20] = x.detach().t()
+        yT = coo_shard.rs_spmv_T(rs, xT)
+        torch.cuda.synchronize()
+        # the row-block launches count there alone
+        assert (coo_spmv.ROWBLOCK_LAUNCHES, coo_spmv.T_ROWBLOCK_LAUNCHES,
+                coo_spmv.LAUNCHES, coo_spmv.T_LAUNCHES) == (
+            before[0] + 2, before[1] + 1, before[2], before[3])
+    assert not dist.is_initialized()
+    ref = coo_spmv.coo_spmv_plain(op.rows, op.cols, op.vals, x.detach(),
+                                  op.n)
+    ref_t = coo_spmv.coo_spmv_plain(op.rows_t, op.cols_t, op.vals_t,
+                                    torch.ones_like(ref), op.n)
+    scale = float(ref.abs().max())
+    assert float((y.detach() - ref).abs().max()) <= 1e-5 * scale
+    assert float((yT[:20] - ref.t()).abs().max()) <= 1e-5 * scale
+    assert float((x.grad - ref_t).abs().max()) <= \
+        1e-5 * float(ref_t.abs().max())
+
+
+@pytest.mark.parametrize("p", [2, 4])
+def test_batched_row_block_k1_matches_solo_launches(cuda_device, p):
+    """K1's batched form on each of p row blocks (R = 3 replicas; the
+    table's replica stride n_pad rows, the output's the block's): each
+    replica bit-equal to its own one-replica launch on the block, the
+    blocks concatenated bit-equal to the whole batched launch, and within
+    1e-5·max|y| of the plain version."""
+    from ndcn_tpu_torch.parallel.coo_shard import shard_coo_at
+
+    a, x_np = _hub_state(3001, 7, 20)
+    op = from_scipy_coo(a, device=cuda_device)
+    x = torch.as_tensor(np.stack([x_np, x_np[::-1].copy(), -2 * x_np]),
+                        device=cuda_device)
+    blocks = [shard_coo_at(op, p, r, None) for r in range(p)]
+    table = torch.cat([x, x.new_zeros((3, blocks[0].n_pad - op.n, 20))], 1)
+    before = (coo_spmv.ROWBLOCK_LAUNCHES, coo_spmv.BATCHED_LAUNCHES)
+    parts = []
+    for b in blocks:
+        y = coo_spmv._apply(b.block, table)
+        for i in range(3):
+            assert torch.equal(y[i], coo_spmv._apply(b.block,
+                                                     table[i].contiguous()))
+        parts.append(y[:, :b.stop - b.start])
+    y = torch.cat(parts, 1)
+    torch.cuda.synchronize()
+    # a launch on a row block counts there alone: p batched and 3 · p
+    # one-replica launches
+    assert (coo_spmv.ROWBLOCK_LAUNCHES, coo_spmv.BATCHED_LAUNCHES) == (
+        before[0] + 4 * p, before[1])
+    assert torch.equal(y, coo_spmv._apply(op, x))
+    ref = coo_spmv.coo_spmv_plain(op.rows, op.cols, op.vals, x, op.n)
+    assert float((y - ref).abs().max()) <= 1e-5 * float(ref.abs().max())

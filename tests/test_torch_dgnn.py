@@ -304,7 +304,12 @@ def test_driver_resumes_mid_iter_bit_equal(synth_dir, tmp_path):
     (["--mesh"], "entry 11"),
     (["--export", "x.bin", "--model", "differential_gcn"], "entry 11"),
     (["--precision", "high"], "entry 6")])
-def test_driver_refuses_unported_flags_before_loading(flag, entry, tmp_path):
+def test_driver_refuses_unported_flags_before_loading(flag, entry, tmp_path,
+                                                     monkeypatch):
+    if "--mesh" in flag:
+        # a world of one runs --mesh unsharded; torchrun's two ranks
+        # refuse the GCN zoo (the default model) under it: entry 11c′
+        monkeypatch.setenv("WORLD_SIZE", "2")
     args, _ = dgnn.build_parser().parse_known_args(
         ["--data_dir", str(tmp_path / "nothing_here"), "--platform", "cpu",
          *flag])

@@ -226,11 +226,19 @@ def test_heat_replicas_dump_summarize_and_refusals(tmp_path, capsys):
             (["--baseline", "lstm_gnn"], SystemExit, "continuous"),
             (["--ckpt_dir", str(tmp_path)], SystemExit, "incompatible"),
             (["--method", "dopri5", "--adjoint"], NotImplementedError,
-             "§1 entry 11a′"),
-            (["--mesh"], NotImplementedError, "§1 entry 11c")):
+             "§1 entry 11a′")):
         with pytest.raises(err, match=match):
             run("heat", build_parser("t").parse_args(
                 base + ["--replicas", "2", *extra]))
+    # --mesh is no refusal: a world of one runs the sweep unsharded, as the
+    # JAX driver does on one device
+    capsys.readouterr()
+    meshed = run("heat", build_parser("t").parse_args(
+        base + ["--method", "dopri5", "--niters", "2", "--test_freq", "2",
+                "--replicas", "3", "--mesh"]))
+    assert "--mesh: single device visible; running unsharded" in \
+        capsys.readouterr().out
+    assert meshed["final"] == out["final"]
 
 
 def test_sweep_cell_of_two_replicas(synth_dir, tmp_path, monkeypatch):

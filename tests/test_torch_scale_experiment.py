@@ -146,20 +146,22 @@ def test_scale_experiment_reads_a_ground_truth_cache_written_by_jax(tmp_path):
     (["--dynamics", "mutualistic"], None, "coo"),
     (["--dynamics", "gene"], None, "coo"),
     (["--fmt", "ell"], None, "ell"),
-    (["--mesh"], NotImplementedError, "§1 entry 11"),
+    (["--mesh"], None, "coo"),
     (["--precision", "high"], NotImplementedError, "§1 entry 6"),
     (["--gt_only"], SystemExit, "--gt_cache"),
 ])
 def test_scale_experiment_refusals_name_their_item(extra, err, match):
-    """What the port lacks raises naming its ROADMAP item; the dynamics and
-    the format that the port has (``err`` None) run one step, on the
-    format ``match``."""
+    """What the port lacks raises naming its ROADMAP item; the dynamics,
+    the format and the mesh that the port has (``err`` None) run one step,
+    on the format ``match`` (``--mesh`` on a one-rank group)."""
     from ndcn_tpu_torch.experiments import large_graph
 
     if err is None:
         rec = large_graph.main(SMALL + extra + ["--iters", "1"])
         assert rec["fmt"] == match and rec["solve_layout"] == "nd"
         assert np.isfinite(rec["rel_loss_final"]) and rec["attempts_taken"] > 0
+        assert rec["mesh_devices"] == 1
+        assert (rec["mesh_parity"] is not None) == ("--mesh" in extra)
         return
     with pytest.raises(err, match=match):
         large_graph.main(SMALL + extra)
