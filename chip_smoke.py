@@ -149,7 +149,7 @@ Phases, one line each:
      tick 100, irregular, seed 0) on dense, COO and BSR, card against CPU:
      loss within 1e-4, gradients within 1e-3 rel-L1, 79 K1 (K3) launches
      forward and 79 over the transpose on COO (BSR), none on dense, with
-     the per-step ms; (c) the heat driver for 200 iterations with lstm_gnn
+     the per-step ms; (c) the heat driver for 100 iterations with lstm_gnn
      on COO, gru_gnn on BSR and rnn_gnn dense (the train loss falls, the
      final test error printed), and the lstm_gnn run again with ``--dump
      --profile_dir`` (and ``--viz`` where matplotlib imports; where it does
@@ -157,7 +157,7 @@ Phases, one line each:
      build/smoke_temporal: its losses within 1e-6 of the plain run's, the
      dump read back by ``report.results.load_results`` and
      ``experiments.summarize``, the trace written; (d) ``experiments.lv``
-     for 100 iterations with rk4 and with dopri5 ``--adjoint`` (the mean of
+     for 60 iterations with rk4 and with dopri5 ``--adjoint`` (the mean of
      the last 20 train losses under that of the first 20: the batches are
      random), its first 20 train losses within 1e-4 of the same run on the
      CPU; (e) ``experiments.sweep_t_alpha`` on cora with
@@ -209,6 +209,18 @@ Phases, one line each:
      runs unsharded) with the losses of the run without it. Only one card:
      meshes of more ranks are checked on the CPU (gloo), by
      ``python -m ndcn_tpu_torch.parallel.dryrun 4`` and the tests.
+ 20. the serving artifact (``serve.export_ndcn``): grid400 dense
+     ``fused="auto"`` (K2), grid400 BSR ``fused=False`` (K3) and ``"auto"``
+     (K4) at the fixture's weights, and the 200k / 2.0M COO operator (K1),
+     hidden 20, rtol 0.01, atol 0.001, each exported on the card and served
+     by ``tools.serve_artifact`` in one fresh process that imports torch and
+     the kernels' operators only: its answer within 1e-6 max|Δ| of the
+     in-process ``Server``'s on the same weights, its kernel's launches in
+     one request > 0 and equal to the server's NFE (one launch an RHS
+     evaluation), the artifact's bytes, the median latency of 10 requests
+     beside the server's, host reads per request; then the dgnn driver's
+     ``--export`` on cora (the showcase recipe, 2 epochs), the served
+     logits' test accuracy within 0.01 of the driver's.
   p. where the time goes: one request per serving setting and one train step
      per training setting (the 1M feature-major step included), one cora
      differential_gcn epoch (the driver's defaults, train and eval) on
@@ -220,9 +232,10 @@ Phases, one line each:
 Then the kernels' JSON record, and last the device JSON line. Launch counts
 are zeroed just before each main-path phase (5-6, 8, 9, 10, each run of 12,
 13, 14, each part of 15, each run of 16 and 17, each driver run of 18 and
-19)
-and read just after its
-GPU work; the record's launches are their sums.
+19, each in-process request of 20) and read just after its GPU work; the
+served artifacts of 20 count their own launches in their own processes,
+and the record's launches are the sums of all of them
+(``launches_in_artifact``: K1-K4 in one request of their artifact).
 
 ``ms`` is the median CUDA-event time of one call on an idle card, as in
 every earlier record; every kernel also gives ``device_ms``, the time per
@@ -1882,7 +1895,7 @@ def main() -> None:
                                      for k in sparse_l},
                 launches={k: v for k, v in counts.items() if v})
 
-    # (c) the heat driver, 200 iterations of each baseline; the lstm_gnn
+    # (c) the heat driver, 100 iterations of each baseline; the lstm_gnn
     # run again with --dump and --profile_dir (and --viz where matplotlib
     # imports): its losses within 1e-6 of the plain run's
     drv17 = {}
@@ -1896,7 +1909,7 @@ def main() -> None:
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
         runs17[label] = out = heat_experiment(
-            "--baseline", label.rsplit("_", 1)[0], *extra, "--niters", "200",
+            "--baseline", label.rsplit("_", 1)[0], *extra, "--niters", "100",
             "--test_freq", "20")
         counts = add_launches(f"the heat driver {label}", needed)
         falls(out["train_losses"], f"the heat driver {label}")
@@ -1921,7 +1934,7 @@ def main() -> None:
         t0 = time.perf_counter()
         dumped = heat_experiment(
             "--baseline", "lstm_gnn", "--sparse", "--sparse_format", "coo",
-            "--niters", "200", "--test_freq", "20", "--dump",
+            "--niters", "100", "--test_freq", "20", "--dump",
             "--results_dir", os.path.join(out_dir, "results"),
             "--profile_dir", os.path.join(out_dir, "trace"), *viz_flag)
         dump_s = time.perf_counter() - t0
@@ -1935,7 +1948,7 @@ def main() -> None:
           and loss_gap <= 1e-6, f"--dump --profile_dir moved the losses: "
           f"{dumped['train_losses']} vs {plain_losses}")
     dump = results_lib.load_results(dumped["results_path"])
-    check(dump["v_iter"] == list(range(20, 201, 20))
+    check(dump["v_iter"] == list(range(20, 101, 20))
           and dump["abs_error"][-1] == dumped["final"]["abs_error"]
           and set(dump["model_state_dict"][-1]) == {"gc", "cell", "out"},
           f"the dump does not read back: {dump['v_iter']}")
@@ -1961,7 +1974,7 @@ def main() -> None:
                                              "--adjoint"])):
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
-        out = lv.main(["--niters", "100", *extra])
+        out = lv.main(["--niters", "60", *extra])
         gpu_s = time.perf_counter() - t0
         add_launches(f"the LV demo {label}", [])
         check(out["device"].startswith("cuda"), f"LV {label} ran on "
@@ -2636,6 +2649,133 @@ def main() -> None:
         "step_ms_alternating": alt19,
         "heat": dyn19, "seconds": time.perf_counter() - t19}))
 
+    # ---- 20. the serving artifact: export, then serve in a fresh process
+    from ndcn_tpu_torch.data import load_planetoid
+    from ndcn_tpu_torch.serve import export_ndcn, save_artifact
+    from ndcn_tpu_torch.tools.serve_artifact import host_reads
+
+    t20 = time.perf_counter()
+    exp_dir = os.path.join(root, "build", "smoke_export")
+    shutil.rmtree(exp_dir, ignore_errors=True)
+    os.makedirs(exp_dir)
+    kw20 = dict(rtol=0.01, atol=0.001, method="dopri5")
+    settings20 = {   # model, operator, grid, fused, request, its kernel
+        "grid400_dense_k2": (model_grid, op_grid, fx["t"], "auto",
+                             fx["x0"], "fused_rhs"),
+        "grid400_bsr_k3": (model_grid, op_gb, fx["t"], False, fx["x0"],
+                           "bsr_spmm"),
+        "grid400_bsr_k4": (model_grid, op_gb, fx["t"], "auto", fx["x0"],
+                           "bsr_fused_rhs"),
+        "200k_coo_k1": (model_big, op_big, splits.t, False,
+                        np.random.RandomState(0).uniform(
+                            0.0, 25.0, (op_big.n, 1)).astype(np.float32),
+                        "coo_spmv")}
+    art20, served20 = {}, []   # the records; (artifact, request) to serve
+    for label, (mdl, op20, vt20, fused, x0, kname) in settings20.items():
+        t0 = time.perf_counter()
+        blob = export_ndcn(mdl, op20, vt20, x0.shape, fused=fused, **kw20)
+        export_s = time.perf_counter() - t0
+        path = os.path.join(exp_dir, f"{label}.pt2")
+        save_artifact(path, blob)
+        np.save(os.path.join(exp_dir, f"{label}_x0.npy"), x0)
+        served20 += [path, os.path.join(exp_dir, f"{label}_x0.npy")]
+        # the in-process server on the same weights: one request counted,
+        # then ten timed
+        srv = make_server(mdl, op20, vt20, fused=fused, **kw20)
+        kernels.reset_launch_counts()
+        with host_reads() as srv_reads:
+            out_s, ok_s = srv(x0)
+        torch.cuda.synchronize()
+        counts = add_launches(f"{label} in-process", [kname])
+        st = srv.last_stats
+        check(ok_s, f"{label}: the server's solve failed")
+        np.save(os.path.join(exp_dir, f"{label}_server.npy"),
+                out_s.cpu().numpy())
+        srv_ms = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            srv(x0)
+            torch.cuda.synchronize()
+            srv_ms.append((time.perf_counter() - t0) * 1e3)
+        art20[label] = dict(
+            bytes=len(blob), export_s=export_s, nfe_server=st.nfe,
+            accepted=st.n_accepted, rejected=st.n_rejected,
+            server_median_ms=statistics.median(srv_ms),
+            server_latency_ms=srv_ms, server_host_reads=srv_reads[0],
+            # the loop's own reads: while_loop's predicate an iteration and
+            # once more, torch.cond's an iteration (the server's count also
+            # holds its copies of x0, the grid and the tableau to the card)
+            host_reads_expected=2 * (st.n_accepted + st.n_rejected
+                                     + len(vt20) - 1) + 1,
+            server_launch_counts={k: v for k, v in counts.items() if v})
+        del blob, srv, out_s
+        torch.cuda.empty_cache()
+
+    # the dgnn driver's --export on cora (the showcase recipe, 2 epochs)
+    cora_path = os.path.join(exp_dir, "cora.pt2")
+    _, out20 = driver("the cora showcase with --export", [], "--dataset",
+                      "cora", *recipe, "--seed", "0", "--epochs", "2",
+                      "--export", cora_path)
+    check(out20.get("export") == cora_path, "dgnn --export wrote nothing")
+    cora20 = load_planetoid("cora", alpha=0.0,
+                            data_dir=os.path.join(root, "data"))
+    np.save(os.path.join(exp_dir, "cora_x0.npy"), cora20.features)
+    served20 += [cora_path, os.path.join(exp_dir, "cora_x0.npy")]
+
+    # every artifact served by tools.serve_artifact in one fresh process
+    # that imports torch and the kernels' operators only
+    r = subprocess.run(
+        [sys.executable, "-m", "ndcn_tpu_torch.tools.serve_artifact",
+         *served20, "--requests", "10", "--answers", exp_dir],
+        capture_output=True, text=True, timeout=900, cwd=root)
+    check(r.returncode == 0, f"serving the artifacts failed: "
+          f"{r.stderr[-3000:]}")
+    recs20 = {os.path.splitext(rec["artifact"])[0]: rec for rec in
+              map(json.loads, r.stdout.strip().splitlines())}
+    for label, rec in recs20.items():
+        check(rec["success"], f"{label}: the artifact's solve failed")
+        check(not rec["model_code_imported"], f"{label}: the serving "
+              f"process imported {rec['model_code_imported']}")
+        for name, c in rec["launch_counts"].items():
+            main_launches[name] += c
+    artifact_launches = {}
+    for label, (*_, kname) in settings20.items():
+        rec, a = recs20[label], art20[label]
+        launched = rec["launch_counts"].get(kname, 0)
+        check(launched > 0, f"{label}: the artifact never launched {kname}")
+        artifact_launches[kname] = launched
+        diff = float(np.abs(
+            np.load(os.path.join(exp_dir, f"{label}.npy"))
+            - np.load(os.path.join(exp_dir, f"{label}_server.npy"))).max())
+        check(diff <= 1e-6, f"{label}: the artifact parts from the server "
+              f"by {diff}")
+        # one launch of the kernel an RHS evaluation: its launches are the
+        # artifact's NFE
+        check(launched == a["nfe_server"]
+              == a["server_launch_counts"][kname],
+              f"{label}: NFE {launched} in the artifact, "
+              f"{a['nfe_server']} in process")
+        a.update(max_abs_diff=diff, nfe_artifact=launched,
+                 success=rec["success"], median_ms=rec["median_ms"],
+                 latency_ms=rec["latency_ms"],
+                 first_request_ms=rec["first_request_ms"],
+                 load_s=rec["load_s"], host_reads=rec["host_reads"],
+                 launch_counts=rec["launch_counts"])
+    rec = recs20["cora"]
+    pred = np.load(os.path.join(exp_dir, "cora.npy")).argmax(1)
+    acc20 = float((pred[cora20.idx_test]
+                   == cora20.labels[cora20.idx_test]).mean())
+    check(abs(acc20 - out20["rows"][-1][2]) < 0.01,
+          f"the cora artifact's accuracy {acc20} against the driver's "
+          f"{out20['rows'][-1][2]}")
+    art20["cora_dgnn_export"] = dict(
+        bytes=rec["bytes"], artifact_test_acc=acc20,
+        driver_test_acc=out20["rows"][-1][2], median_ms=rec["median_ms"],
+        host_reads=rec["host_reads"], launch_counts=rec["launch_counts"])
+    shutil.rmtree(exp_dir, ignore_errors=True)
+    print("[20] serving artifact (card: " + smi + "): " + json.dumps(dict(
+        art20, seconds=time.perf_counter() - t20)))
+
     # ---- p. where the time goes
     for label, srv, x0 in (("grid400", server, fx["x0"]),
                            ("200k", server_big, requests[0])):
@@ -2848,14 +2988,17 @@ def main() -> None:
     K1 = "ndcn_tpu/kernels/coo_spmv.py:159"
     print(json.dumps({"kernels": [
         entry("coo_spmv", "coo_spmv.cu", K1, k1_main, k1t,
+              launches_in_artifact=artifact_launches["coo_spmv"],
               citation=citation_cases(k1_cite),
               launches_per_cora_epoch=per_epoch("coo_spmv"),
               temporal=citation_cases(k1_temporal),
               launches_per_temporal_step=temporal_launches["coo_spmv"]),
         entry("fused_rhs", "fused_rhs.cu", "ndcn_tpu/kernels/fused_rhs.py:30",
-              k2_main, k2b),
+              k2_main, k2b,
+              launches_in_artifact=artifact_launches["fused_rhs"]),
         entry("bsr_spmm", "bsr_spmm.cu", "ndcn_tpu/kernels/bsr_spmm.py:91",
               k3["grid400_d20"]["fwd"], k3["grid400_d20"]["transpose"],
+              launches_in_artifact=artifact_launches["bsr_spmm"],
               citation=citation_cases(k3_cite),
               launches_per_cora_epoch=per_epoch("bsr_spmm"),
               temporal=citation_cases(k3_temporal),
@@ -2863,7 +3006,8 @@ def main() -> None:
                   "sparse_launches"]["bsr_spmm"]),
         entry("bsr_fused_rhs", "bsr_spmm.cu",
               "ndcn_tpu/kernels/bsr_spmm.py:176", k4["grid400_d20"]["fwd"],
-              k4["grid400_d20"]["bwd"]),
+              k4["grid400_d20"]["bwd"],
+              launches_in_artifact=artifact_launches["bsr_fused_rhs"]),
         # the replica sweeps' batched forms (R states against one operator
         # in one launch): the grid400 d = 20 case at R = 16, R = 1 beside
         entry("coo_spmv_batched", "coo_spmv.cu", K1,

@@ -10,7 +10,10 @@ epoch statistics read in one host transfer), its per-epoch log line, the
 step budget with elastic rollback and budget doubling, ``--ckpt_dir`` /
 ``--ckpt_freq`` (global step ``it·epochs + epoch``; the dropout generator's
 state and the result rows ride in the checkpoint) and ``--dump`` (the
-results txt and the accuracy summary).
+results txt and the accuracy summary). ``--export PATH`` writes the last
+iteration's model (odeGCN, differential_gcn) as the serving artifact,
+features → (logits, success) (``serve.export_ndcn``; the Adams methods are
+ROADMAP §1 entry 11b′).
 
 Dense below 8193 nodes unless ``--sparse``; sparse formats coo (K1), ell
 (gather and einsum) and bsr (K3). ``--platform gpu`` (the default) trains on
@@ -133,8 +136,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="checkpoint every this many epochs (global step = "
                         "iter*epochs + epoch, so resume lands mid-ITER too)")
     p.add_argument("--export", type=str, default=None, metavar="PATH",
-                   help="serialize the trained inference forward (not "
-                        "ported)")
+                   help="serialize the trained inference forward "
+                        "(serve.export_ndcn) to PATH")
     p.add_argument("--platform", type=str, default="gpu",
                    choices=["gpu", "cpu"],
                    help="gpu: the first CUDA device and the CUDA kernels "
@@ -179,8 +182,9 @@ def _refuse(args: argparse.Namespace) -> None:
          "--batch_iters with the Adams methods (replica sweeps with the "
          "Adams methods and the continuous adjoint): ROADMAP §1 entry "
          "11a′"),
-        (args.export, "--export (the serving artifact): ROADMAP §1 "
-                      "entry 11b"),
+        (args.export and ode_model and args.method in (
+            "adams", "explicit_adams", "fixed_adams"),
+         "--export with the Adams methods: ROADMAP §1 entry 11b′"),
         (args.precision == "high", "--precision high (TF32): ROADMAP §1 "
                                    "entry 6"),
     ]
@@ -469,6 +473,18 @@ def _run(args: argparse.Namespace, device: torch.device) -> Dict[str, Any]:
         "elastic_retries": elastic.total_rollbacks,
         "max_steps": elastic.max_steps, "train_losses": train_losses,
         "device": str(device)}
+    if args.export:
+        # the last iteration's trained model becomes the serving artifact
+        from ndcn_tpu_torch.serve import export_ndcn, save_artifact
+
+        blob = export_ndcn(model, op, vt_model, tuple(features.shape),
+                           terminal=True, no_control=no_control,
+                           rtol=args.rtol, atol=args.atol, method=args.method,
+                           max_steps=1 << 14)
+        save_artifact(args.export, blob)
+        print(f"exported serving artifact ({len(blob):,} bytes) -> "
+              f"{args.export}")
+        summary["export"] = args.export
     if args.dump and rows:
         accs = np.array([r[2] for r in rows])
         steps = np.array([r[3] for r in rows])

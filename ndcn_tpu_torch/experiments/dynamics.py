@@ -26,6 +26,10 @@ under ``--results_dir``; ``--viz`` plots the adjacency and the dynamics
 (``report.viz``); ``--profile_dir`` traces three training steps on copies
 of the model, the optimizer and the dropout generator
 (``utils.timing.profile_trace``), so the run's own losses do not change.
+``--export PATH`` writes the trained model's inference forward over the
+full observation grid, x0 → (trajectory, success), as the serving
+artifact (``serve.export_ndcn``; the continuous baselines, one model, one
+device; the Adams methods are ROADMAP §1 entry 11b′).
 
 ``--replicas R`` trains R independent models (replica i initialised and
 dropping out from generators seeded ``--seed`` + i, + 1 + i) at once, the
@@ -194,8 +198,9 @@ def _refuse_unported(dynamics_kind: str, args: argparse.Namespace) -> None:
         (sharded and (args.adjoint or args.baseline in TEMPORAL_BASELINES),
          "--mesh on more than one rank with --adjoint or a temporal "
          "baseline: ROADMAP §1 entry 11c′"),
-        (args.export, "--export (the serving artifact): ROADMAP §1 "
-                      "entry 11b"),
+        (args.export and args.method in (
+            "adams", "explicit_adams", "fixed_adams"),
+         "--export with the Adams methods: ROADMAP §1 entry 11b′"),
         (args.scan_chunk > 0,
          "--scan_chunk (steps per dispatch; CUDA graphs here): ROADMAP §1 "
          "entry 6"),
@@ -616,6 +621,20 @@ def _run(dynamics_kind: str, args: argparse.Namespace,
         viz.dynamics_surfaces(dynamics_kind, args.network, side,
                               results_lib.as_numpy(true_y),
                               results_lib.as_numpy(ev["pred_test"]))
+
+    if args.export:
+        # the trained model's trajectory forward over the run's full
+        # observation grid (the reference's eval protocol) becomes the
+        # serving artifact; its runtime input is x0 alone
+        from ndcn_tpu_torch.serve import export_ndcn, save_artifact
+
+        blob = export_ndcn(model, op, splits.t, tuple(true_y0.shape),
+                           rtol=args.rtol, atol=args.atol, method=args.method,
+                           max_steps=1 << 14, **flags)
+        save_artifact(args.export, blob)
+        print(f"exported serving artifact ({len(blob):,} bytes) -> "
+              f"{args.export}", flush=True)
+        out["export"] = args.export
     return out
 
 

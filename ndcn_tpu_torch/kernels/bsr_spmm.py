@@ -343,13 +343,23 @@ class _BsrFusedRhs(torch.autograd.Function):
                 dx, ah.transpose(-1, -2) @ g, g.sum(-2))
 
 
+def _op_args(a: BsrMatrix) -> tuple:
+    """``a`` as the operators of ``kernels.ops`` take it."""
+    return (a.row_ptr, a.block_rows, a.block_cols, a.blocks, a.n_rows,
+            a.n_cols)
+
+
 def bsr_spmm(a: BsrMatrix, at: BsrMatrix, x: torch.Tensor) -> torch.Tensor:
     """A · X, differentiable in X; ``at`` packs Aᵀ for the backward. x is
     (n, d), or (R, n, d) for R replicas against the same A.
 
     CPU tensors take the plain version; CUDA tensors launch K3 on the current
-    stream, forward and backward (and raise if it cannot)."""
+    stream, forward and backward (and raise if it cannot). While a program
+    is traced it is the operator ``ndcn_tpu_torch::bsr_spmm``
+    (``kernels.ops``), forward only."""
     _check_bsr(a, x, "bsr_spmm")
+    if torch.compiler.is_compiling():
+        return torch.ops.ndcn_tpu_torch.bsr_spmm(*_op_args(a), x)
     return _BsrSpmm.apply(a, at, a.blocks, at.blocks, x)
 
 
@@ -360,7 +370,9 @@ def bsr_fused_rhs(a: BsrMatrix, at: BsrMatrix, x: torch.Tensor,
     b (R, d). Differentiable in x, w and b.
 
     CPU tensors take the plain version; CUDA tensors launch K4 on the current
-    stream and K3 in the backward (and raise if it cannot)."""
+    stream and K3 in the backward (and raise if it cannot). While a program
+    is traced it is the operator ``ndcn_tpu_torch::bsr_fused_rhs``
+    (``kernels.ops``), forward only."""
     _check_bsr(a, x, "bsr_fused_rhs")
     d = x.shape[-1]
     lead = tuple(x.shape[:-2])
@@ -378,4 +390,6 @@ def bsr_fused_rhs(a: BsrMatrix, at: BsrMatrix, x: torch.Tensor,
                          f"with d <= {K_MAX}; got x {tuple(x.shape)}, w "
                          f"{tuple(w.shape)}, b {tuple(b.shape)}")
     bsr_fused_plan(a.n_row_blocks, a.block, d)  # raises if nothing fits
+    if torch.compiler.is_compiling():
+        return torch.ops.ndcn_tpu_torch.bsr_fused_rhs(*_op_args(a), x, w, b)
     return _BsrFusedRhs.apply(a, at, a.blocks, at.blocks, x, w, b)

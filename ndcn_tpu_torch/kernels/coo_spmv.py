@@ -465,10 +465,17 @@ def coo_spmv(op, x: torch.Tensor) -> torch.Tensor:
     x is (n, d), or (R, n, d) for R replicas against the same A.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel on the
-    current stream, forward and backward (and raise if it cannot)."""
+    current stream, forward and backward (and raise if it cannot). While a
+    program is traced it is the operator ``ndcn_tpu_torch::coo_spmv``
+    (``kernels.ops``), forward only."""
     _check(op, x, batched=True)
     if not x.is_contiguous():
         raise ValueError("coo_spmv takes a contiguous (row-major) x")
+    if torch.compiler.is_compiling():
+        # a traced program holds the operator (``kernels.ops``)
+        return torch.ops.ndcn_tpu_torch.coo_spmv(
+            op.row_ptr, op.rows, op.cols, op.vals, *op.split[:3],
+            op.split.limit, x, GATHER_BF16)
     return _CooSpmv.apply(op, op.vals, op.vals_t, x)
 
 

@@ -266,6 +266,10 @@ def fused_rhs(a: torch.Tensor, h: torch.Tensor, w: torch.Tensor,
     possibly a strided view) and b (R, k).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel on the
-    current stream (and raise if it cannot)."""
+    current stream (and raise if it cannot). While a program is traced it
+    is the operator ``ndcn_tpu_torch::fused_rhs`` (``kernels.ops``),
+    forward only."""
     _check(a, h, w, b)
+    if torch.compiler.is_compiling():
+        return torch.ops.ndcn_tpu_torch.fused_rhs(a, h, w, b)
     return _FusedRhs.apply(a, h, w, b)

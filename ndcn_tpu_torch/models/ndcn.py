@@ -33,6 +33,7 @@ from ndcn_tpu_torch.kernels.coo_spmv import spmv_T, sublane_pad
 from ndcn_tpu_torch.kernels.fused_rhs import fused_rhs
 from ndcn_tpu_torch.models.nn import dropout_mask, linear_apply, linear_init
 from ndcn_tpu_torch.ode import odeint_with_stats
+from ndcn_tpu_torch.ode.api import NOT_EXPORTED, grad_mode
 from ndcn_tpu_torch.ode.adjoint import odeint_adjoint_with_stats
 from ndcn_tpu_torch.ode.tree_math import node_sharded
 from ndcn_tpu_torch.parallel.coo_shard import (RowShardedCoo, is_sharded,
@@ -312,7 +313,11 @@ def ndcn_forward(model: NDCN, op: GraphOperator, vt, x: torch.Tensor, *,
     ``ode.adaptive`` and ``ode_func``.
 
     ``nondiff=True`` runs the inference solve under ``torch.no_grad()``;
-    otherwise autograd records the differentiable solve. ``dropout`` > 0
+    otherwise autograd records the differentiable solve. Under
+    ``torch.export`` (``serve.export_ndcn``) the ``nondiff=True`` forward
+    traces in the (n, d) layout: every host decision on it is made from
+    shapes and Python values; the feature-major layout raises
+    ``NotImplementedError`` (ROADMAP §1 entry 11b′). ``dropout`` > 0
     with a ``rng`` (a ``torch.Generator``) draws one mask per forward;
     without ``rng`` the forward is deterministic, as in JAX.
 
@@ -341,7 +346,7 @@ def ndcn_forward(model: NDCN, op: GraphOperator, vt, x: torch.Tensor, *,
         raise NotImplementedError(
             "not ported yet: the continuous adjoint on a model axis of more "
             "than one rank: ROADMAP §1 entry 11c′")
-    with torch.set_grad_enabled(torch.is_grad_enabled() and not nondiff), \
+    with grad_mode(torch.is_grad_enabled() and not nondiff), \
             node_sharded(group):
         h = x
         if not no_embed:
@@ -352,6 +357,9 @@ def ndcn_forward(model: NDCN, op: GraphOperator, vt, x: torch.Tensor, *,
             h = h.expand(replicas, *h.shape).contiguous()   # no encoder
         feature_major = resolve_layout(layout, op, h, no_graph, no_control,
                                        dropout, fused) == "feature_major"
+        if feature_major and torch.compiler.is_exporting():
+            raise NotImplementedError(f"not ported yet: {NOT_EXPORTED} "
+                                      f"(layout='feature_major')")
 
         drop_mask = None
         if dropout > 0.0 and rng is not None:

@@ -6,10 +6,13 @@ The port of ``ndcn_tpu/ode/adaptive.py``. There ``solve_while`` runs a
 ``solve_scan`` a bounded ``lax.scan`` of step attempts followed by a
 searchsorted over the emitted dense outputs. Here both are one loop on the
 host around a branch-free step (``torch.where`` on accept, as the JAX
-package's ``_attempt_step_core``). The host needs four numbers after each step attempt
-(the new t1, accept, the dt-underflow flag and the attempt's finite flag) and
-reads them in one device→host copy: one sync per attempt and none per
-observation. ``SolveStats.host_syncs`` counts them.
+package's ``_attempt_step_core``). The host needs four numbers after each
+step attempt (the new t1, accept, the dt-underflow flag and the attempt's
+finite flag) and reads them in one device→host copy: one sync per attempt
+and none per observation. ``SolveStats.host_syncs`` counts them.
+``solve_while`` is the inference solve as one device-resident program
+(``while_loop`` and ``torch.cond`` around the same step), which
+``torch.export`` traces for the serving artifact.
 
 Under autograd the loop records the differentiable solve with the JAX scan
 path's gradient semantics:
@@ -60,6 +63,7 @@ import dataclasses
 from typing import Callable, NamedTuple, Optional
 
 import torch
+from torch._higher_order_ops import while_loop
 
 from ndcn_tpu_torch.ode import interp as interp_lib
 from ndcn_tpu_torch.ode.grad_guard import all_finite, forced_reject
@@ -230,6 +234,135 @@ def solve(method: AdaptiveMethod, func, y0, t: torch.Tensor,
     stats = SolveStats(nfe=nfe, n_accepted=nacc, n_rejected=nrej,
                        success=ok and len(sol) >= T, host_syncs=syncs)
     return stack_solution(sol, T), stats
+
+
+class _Carry(NamedTuple):
+    """How ``solve_while`` lays its loop state out as one flat tuple of
+    tensors (``while_loop`` and ``torch.cond`` carry tensors only): the RK
+    state, then the solution buffers, then (obs_i, nfe, nacc, nrej, ok).
+    The state has ``n_leaves`` leaves (a bare tensor when ``bare``); the
+    dense output's fields are of ``interp_type``."""
+    bare: bool
+    n_leaves: int
+    interp_type: type
+
+    @property
+    def rk_size(self) -> int:
+        """Entries of the RK state: y, f, t0, t1, dt and the dense output."""
+        return (2 + len(self.interp_type._fields)) * self.n_leaves + 3
+
+    def tree(self, flat):
+        return flat[0] if self.bare else tuple(flat)
+
+    def pack(self, rk: RKState, sol, counts) -> tuple:
+        return (*leaves(rk.y), *leaves(rk.f), rk.t0, rk.t1, rk.dt,
+                *(leaf for c in rk.interp for leaf in leaves(c)),
+                *leaves(sol), *counts)
+
+    def unpack(self, flat):
+        """(RKState, the solution buffers, (obs_i, nfe, nacc, nrej, ok))."""
+        m = self.n_leaves
+
+        def tree_at(i):
+            return self.tree(flat[i:i + m])
+
+        fields = len(self.interp_type._fields)
+        rk = RKState(y=tree_at(0), f=tree_at(m), t0=flat[2 * m],
+                     t1=flat[2 * m + 1], dt=flat[2 * m + 2],
+                     interp=self.interp_type(*(
+                         tree_at(2 * m + 3 + j * m) for j in range(fields))))
+        return rk, tree_at(self.rk_size), tuple(flat[self.rk_size + m:])
+
+
+def _clone(flat) -> tuple:
+    return tuple(c.clone() for c in flat)
+
+
+def solve_while(method: AdaptiveMethod, func, y0, t: torch.Tensor,
+                ctrl: Controller, max_steps: int,
+                first_step: Optional[float] = None):
+    """The inference solve as one device-resident program, the counterpart
+    of the JAX package's ``solve_while``: a ``while_loop`` whose body is
+    ``torch.cond(ready, consume_obs, take_step)``. It is what
+    ``torch.export`` traces (``serve.export_ndcn``); run eagerly it gives
+    what ``solve`` gives.
+
+    ``t`` is the grid as a tensor of the time dtype, on any device (it is
+    moved to the state's); the loop never reads the device from the host:
+    every decision is a tensor (observations are picked with
+    ``index_select``), and ``while_loop`` and ``torch.cond`` read their
+    predicates themselves. The carry is flat tensors: the RK state with its
+    dense output, one solution buffer (len(t), *leaf.shape) a leaf, and
+    obs_i, nfe, nacc, nrej and ok.
+
+    The arithmetic is ``solve``'s: ``take_step`` is ``_attempt_step`` as it
+    stands, and on a non-finite attempt the state it returns IS
+    ``forced_reject``'s (accept is false there, so every field is the old
+    one, and dt is dt·dfactor), which ``solve`` picks with ``if fin``. The
+    dt-underflow flag and the ``max_steps`` budget end the loop as there,
+    and the rows not reached stay NaN. Returns (solution, SolveStats) with
+    0-dim tensors for the counts and ``success``, and ``host_syncs`` None:
+    the reads are the loop's own, not counted here.
+
+    A branch of ``torch.cond`` may not return one of its inputs, so each
+    branch clones what it passes through: ``take_step`` the solution
+    buffers, ``consume_obs`` the RK state (one copy a leaf an iteration)."""
+    T = t.shape[0]
+    lead = leaves(y0)[0]
+    device = lead.device
+    t = t.to(device)
+    coeffs = stage_coeffs(method.tableau, lead.dtype, device)
+    n_evals = len(method.tableau.alpha)  # f0 comes from the last step (FSAL)
+    rk0, nfe0 = _init_rk_state(method, func, y0, t[0], ctrl, first_step)
+    layout = _Carry(isinstance(y0, torch.Tensor), len(leaves(y0)),
+                    type(rk0.interp))
+
+    def count(v):
+        return torch.tensor(v, dtype=torch.int64, device=device)
+
+    sol0 = tmap(lambda y: torch.cat([y.unsqueeze(0), torch.full(
+        (T - 1, *y.shape), float("nan"), dtype=y.dtype, device=device)]), y0)
+    counts0 = (count(1), count(nfe0), count(0), count(0),
+               torch.tensor(True, device=device))
+    # the carries may not alias one another (t0 is t1, y0 is in interp)
+    carry0 = _clone(layout.pack(rk0, sol0, counts0))
+
+    def cond_fn(*c):
+        _, _, (obs_i, _, nacc, nrej, ok) = layout.unpack(c)
+        return (obs_i < T) & (nacc + nrej < max_steps) & ok
+
+    def t_obs(obs_i):
+        return t.index_select(0, obs_i.reshape(1)).reshape(())
+
+    def consume_obs(*c):
+        rk, sol, (obs_i, nfe, nacc, nrej, ok) = layout.unpack(c)
+        # the dense output of the last accepted step
+        y_obs = method.interp_eval(rk.interp, rk.t0, rk.t1, t_obs(obs_i))
+        sol = tmap(lambda buf, v: buf.index_copy(0, obs_i.reshape(1),
+                                                 v.unsqueeze(0)), sol, y_obs)
+        rk_flat = layout.pack(rk, (), ())           # the RK state alone
+        return (_clone(rk_flat) + tuple(leaves(sol))
+                + (obs_i + 1, *_clone((nfe, nacc, nrej, ok))))
+
+    def take_step(*c):
+        rk, sol, (obs_i, nfe, nacc, nrej, ok) = layout.unpack(c)
+        # dt-underflow guard (the reference asserts): flag and stop
+        underflow = ~((rk.t1 + rk.dt) > rk.t1)
+        new, accept, _ = _attempt_step(method, func, rk, ctrl, coeffs)
+        return layout.pack(new, tmap(torch.clone, sol), (
+            obs_i.clone(), nfe + n_evals, nacc + accept.long(),
+            nrej + (~accept).long(), ok & ~underflow))
+
+    def body(*c):
+        rk, _, (obs_i, *_) = layout.unpack(c)
+        return tuple(torch.cond(t_obs(obs_i) <= rk.t1, consume_obs,
+                                take_step, c))
+
+    final = while_loop(cond_fn, body, carry0)
+    _, sol, (obs_i, nfe, nacc, nrej, ok) = layout.unpack(final)
+    stats = SolveStats(nfe=nfe, n_accepted=nacc, n_rejected=nrej,
+                       success=ok & (obs_i >= T), host_syncs=None)
+    return sol, stats
 
 
 def stack_solution(sol: list, T: int):

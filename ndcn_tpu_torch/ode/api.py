@@ -32,11 +32,19 @@ tsit5 run ``adaptive.solve_batched``; euler, midpoint and rk4 run their
 grid with the batched state as it is. The Adams family and the adjoint
 under replicas are ROADMAP §1 entry 11a′ and raise ``NotImplementedError``.
 
+Under ``torch.export`` (the serving artifact, ``serve.export_ndcn``) the
+inference solve of dopri5 and tsit5 is ``adaptive.solve_while``, the loop
+as one device-resident program, as the JAX package takes its while-loop
+path for the inference solve; euler, midpoint and rk4 trace as they stand
+(a Python loop over the static grid), and the Adams family raises
+``NotImplementedError`` naming ROADMAP §1 entry 11b′.
+
 The validation errors are the JAX package's.
 """
 
 from __future__ import annotations
 
+import contextlib
 import warnings
 from typing import Any, Callable, Dict, Optional
 
@@ -66,6 +74,8 @@ _COMMON_OPTIONS = {"differentiable", "max_steps", "batched"}
 BATCHED_SOLVERS = ("dopri5", "tsit5", "euler", "midpoint", "rk4")
 NOT_BATCHED = ("replica sweeps with the Adams methods and the continuous "
                "adjoint: ROADMAP §1 entry 11a′")
+NOT_EXPORTED = ("the serving artifact with the Adams methods or the "
+                "feature-major layout: ROADMAP §1 entry 11b′")
 _METHOD_OPTIONS = {
     "dopri5": _COMMON_OPTIONS | {"safety", "ifactor", "dfactor", "first_step",
                                  "time_dtype", "emission_dtype",
@@ -94,22 +104,33 @@ def _check_options(method: str, options: Dict[str, Any]) -> None:
                       f"(recognized: {sorted(_METHOD_OPTIONS[method])})")
 
 
+def _time_dtype(time_dtype) -> torch.dtype:
+    if time_dtype not in _TIME_DTYPES:
+        raise ValueError(f"time_dtype must be float32 or float64; got "
+                         f"{time_dtype!r}")
+    return _TIME_DTYPES[time_dtype]
+
+
 def _canonical_time(t, time_dtype=None) -> torch.Tensor:
     """The grid as a tensor of the time dtype on the CPU (the solver loop
     reads it on the host): float32, or float64 with ``time_dtype``, where
     the grid keeps the precision it came in (as the JAX package's under
     x64)."""
-    if time_dtype not in _TIME_DTYPES:
-        raise ValueError(f"time_dtype must be float32 or float64; got "
-                         f"{time_dtype!r}")
-    tdtype = _TIME_DTYPES[time_dtype]
+    tdtype = _time_dtype(time_dtype)
     if isinstance(t, torch.Tensor):
         return t.detach().to("cpu", tdtype)
     return torch.as_tensor(t, dtype=tdtype)
 
 
 def _maybe_reverse(func, t, time_dtype=None):
-    """Validate the grid on the host; a decreasing grid integrates s = -t."""
+    """Validate the grid on the host; a decreasing grid integrates s = -t.
+
+    Under ``torch.export`` the grid is traced data the host cannot read:
+    it is taken as it is, an increasing grid that the exporter checked
+    before the trace (``serve.export_ndcn``), in the time dtype on its own
+    device."""
+    if torch.compiler.is_exporting():
+        return func, t.to(_time_dtype(time_dtype))
     t = _canonical_time(t, time_dtype)
     if t.ndim != 1 or t.shape[0] < 2:
         raise ValueError("t must be a 1-D grid with at least 2 points")
@@ -119,6 +140,17 @@ def _maybe_reverse(func, t, time_dtype=None):
     if not bool(torch.all(t[1:] > t[:-1])):
         raise ValueError("t must be strictly increasing or decreasing")
     return func, t
+
+
+def grad_mode(enabled: bool):
+    """``torch.set_grad_enabled(enabled)``; nothing under ``torch.export``,
+    which traces the serving artifact under ``torch.no_grad()`` already,
+    and whose pass over grad-mode regions loses the branches of a
+    ``torch.cond`` inside a ``while_loop`` in such a region (seen with
+    torch 2.13)."""
+    if torch.compiler.is_exporting():
+        return contextlib.nullcontext()
+    return torch.set_grad_enabled(enabled)
 
 
 def odeint_with_stats(func: Callable, y0, t, rtol: float = 1e-7,
@@ -148,9 +180,12 @@ def odeint_with_stats(func: Callable, y0, t, rtol: float = 1e-7,
 
     def recording():
         # autograd records the solve only when it is differentiable
-        return torch.set_grad_enabled(differentiable
-                                      and torch.is_grad_enabled())
+        return grad_mode(differentiable and torch.is_grad_enabled())
 
+    if torch.compiler.is_exporting() and method in (
+            "adams", "explicit_adams", "fixed_adams"):
+        raise NotImplementedError(f"not ported yet: {NOT_EXPORTED} "
+                                  f"(method={method!r})")
     if method in fixed_grid.STEP_FUNCS:
         with recording():
             sol, stats = fixed_grid.solve_fixed_grid(
@@ -192,6 +227,11 @@ def odeint_with_stats(func: Callable, y0, t, rtol: float = 1e-7,
         # bit-compatibility mode: the reference's (non-converging) tsit5
         # error weights (``tableaux.TSIT5_REFERENCE_WEIGHTS``)
         m = adaptive.TSIT5_REFERENCE_METHOD
+    if torch.compiler.is_exporting() and not differentiable and not batched:
+        # the host loop cannot be traced: the device-resident loop can
+        with recording():
+            return adaptive.solve_while(m, func, y0, t, ctrl, max_steps,
+                                        first_step=options.get("first_step"))
     solve = adaptive.solve_batched if batched else adaptive.solve
     with recording():
         return solve(m, func, y0, t, ctrl, max_steps=max_steps,

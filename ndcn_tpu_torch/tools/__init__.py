@@ -17,7 +17,10 @@ and probes and sweeps of the port's own kernels:
 - ``time_checkouts``: K1-w, K5 and the 1M step's three solves in several
   checkouts, one process each (parent against change in one call);
 - ``microbench_sharded_spmv``: K1 on the whole operator against the
-  row-sharded product on a one-rank NCCL group (the mesh path).
+  row-sharded product on a one-rank NCCL group (the mesh path);
+- ``serve_artifact``: a serving artifact (``serve.export_ndcn``) served in
+  a process that imports none of the model code: latency, launches and
+  host reads per request.
 
 Each runs as ``python -m ndcn_tpu_torch.tools.<name> [args]``, prints one
 line per measurement on stderr and JSON on stdout, and raises without a

@@ -1538,3 +1538,51 @@ def test_batched_row_block_k1_matches_solo_launches(cuda_device, p):
     assert torch.equal(y, coo_spmv._apply(op, x))
     ref = coo_spmv.coo_spmv_plain(op.rows, op.cols, op.vals, x, op.n)
     assert float((y - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("fmt,fused,kernel", [
+    ("dense", "auto", "fused_rhs"), ("coo", False, "coo_spmv"),
+    ("bsr", False, "bsr_spmm"), ("bsr", "auto", "bsr_fused_rhs")])
+def test_artifact_on_cuda_launches_its_kernel_and_matches_the_server(
+        cuda_device, fmt, fused, kernel):
+    """The serving artifact exported on the card (``serve.export_ndcn``)
+    runs its kernel's CUDA implementation: one launch an RHS evaluation,
+    as the in-process server, and the server's answer within 1e-6; an
+    eager ``solve_while`` on the card repeats ``solve`` bit for bit."""
+    from ndcn_tpu_torch.models.ndcn import ode_func
+    from ndcn_tpu_torch.ode import adaptive
+    from ndcn_tpu_torch.ode.step_control import Controller
+    from ndcn_tpu_torch.serve import export_ndcn, load_ndcn
+
+    lap = operators.normalized_laplacian(generators.build_network("grid", 400))
+    mat = lap if fmt == "dense" else sp.csr_matrix(lap)
+    op = as_operator(mat, sparse=fmt != "dense", format=fmt,
+                     device=cuda_device)
+    model = init_ndcn(torch.Generator().manual_seed(0), 1, 20, 1,
+                      device=cuda_device)
+    vt = np.linspace(0.0, 5.0, 12).astype(np.float32)
+    x = np.random.RandomState(1).uniform(0.0, 25.0, (400, 1)).astype(
+        np.float32)
+    kw = dict(rtol=0.01, atol=0.001, method="dopri5", fused=fused)
+    serve = load_ndcn(export_ndcn(model, op, vt, x.shape, **kw))
+    server = make_server(model, op, vt, **kw)
+    ref, ok = server(x)
+    kernels.reset_launch_counts()
+    out, success = serve(x)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert out.device.type == "cuda" and bool(success) and ok
+    assert counts[kernel] == server.last_stats.nfe > 0
+    assert float((out - ref).abs().max()) <= 1e-6
+    h0 = torch.as_tensor(np.random.RandomState(2).uniform(
+        -1, 1, (400, 20)).astype(np.float32), device=cuda_device)
+    with torch.no_grad():
+        def func(t, h):
+            return ode_func(model, op, t, h, fused=fused)
+
+        ctrl = Controller(rtol=0.01, atol=0.001)
+        a, sa = adaptive.solve(adaptive.DOPRI5_METHOD, func, h0,
+                               torch.as_tensor(vt), ctrl, 1 << 16)
+        b, sb = adaptive.solve_while(adaptive.DOPRI5_METHOD, func, h0,
+                                     torch.as_tensor(vt), ctrl, 1 << 16)
+    assert torch.equal(a, b) and sa.nfe == int(sb.nfe)

@@ -302,7 +302,10 @@ def test_driver_resumes_mid_iter_bit_equal(synth_dir, tmp_path):
     (["--batch_iters", "--budget_buckets", "2", "--model", "odeGCN",
       "--method", "fixed_adams"], "entry 11a′"),
     (["--mesh"], "entry 11"),
-    (["--export", "x.bin", "--model", "differential_gcn"], "entry 11"),
+    # --export runs since ROADMAP §1 entry 11b; the Adams methods under it
+    # are entry 11b′ (the id keeps the case's name)
+    pytest.param(["--export", "x.bin", "--model", "differential_gcn",
+                  "--method", "adams"], "entry 11b′", id="flag3-entry 11"),
     (["--precision", "high"], "entry 6")])
 def test_driver_refuses_unported_flags_before_loading(flag, entry, tmp_path,
                                                      monkeypatch):

@@ -485,8 +485,8 @@ def test_heat_experiment_auto_budget_and_refusals(tmp_path):
          "--method", "dopri5", "--platform", "cpu", "--fused_kernel"]))
     assert out["max_steps"] >= 8 and np.isfinite(out["final"]["abs_error"])
     base = ["--n", "25", "--platform", "cpu"]
-    for extra, item in ((["--method", "dopri5", "--export", "m.pt"],
-                         "§1 entry 11"),
+    for extra, item in ((["--method", "adams", "--export", "m.pt"],
+                         "§1 entry 11b′"),
                         (["--method", "adams", "--replicas", "2"],
                          "§1 entry 11a′"),
                         (["--method", "dopri5", "--scan_chunk", "4"],
