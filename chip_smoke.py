@@ -149,7 +149,7 @@ Phases, one line each:
      tick 100, irregular, seed 0) on dense, COO and BSR, card against CPU:
      loss within 1e-4, gradients within 1e-3 rel-L1, 79 K1 (K3) launches
      forward and 79 over the transpose on COO (BSR), none on dense, with
-     the per-step ms; (c) the heat driver for 100 iterations with lstm_gnn
+     the per-step ms; (c) the heat driver for 50 iterations with lstm_gnn
      on COO, gru_gnn on BSR and rnn_gnn dense (the train loss falls, the
      final test error printed), and the lstm_gnn run again with ``--dump
      --profile_dir`` (and ``--viz`` where matplotlib imports; where it does
@@ -179,7 +179,7 @@ Phases, one line each:
      ``--replicas 16`` for 20 iterations on dense ``--fused_kernel`` (K2),
      COO (K1) and BSR (K4, K3): the train losses fall; replicas 0-3 of a
      16-replica step against their runs alone (the first step's losses
-     within 1e-4, NFE equal; the 20 steps' losses printed); time per
+     within 1e-4, NFE equal; 5 steps' losses printed); time per
      model-step against a step alone; the busy share under the profiler;
      what one step launches at R = 4 and R = 16 (replicas 0-3 four times
      over): the ATen operators it calls and the port's kernels equal (the
@@ -221,6 +221,27 @@ Phases, one line each:
      beside the server's, host reads per request; then the dgnn driver's
      ``--export`` on cora (the showcase recipe, 2 epochs), the served
      logits' test accuracy within 0.01 of the driver's.
+ 21. the Adams family and the continuous adjoint under replicas, and the
+     artifact with the Adams methods and the feature-major layout: (a) the
+     heat driver with ``--replicas 4`` for 5 iterations with adams,
+     fixed_adams and explicit_adams (dense ``--fused_kernel``: K2's batched
+     form), dopri5 ``--adjoint`` on dense (K2), COO (K1, K1ᵀ) and BSR (K4,
+     K3, K3ᵀ), and adams ``--adjoint`` on dense; for each, the first step's
+     losses and gradients of replicas 0 and 1 against their runs alone on
+     the card and of the four against the CPU (losses 1e-4; gradients
+     1e-3 rel-L1, or twice the CPU's own float32-vs-float64 distance where
+     that is larger), only batched forms launched, each replica's NFE and
+     backward NFE, seconds a model-step beside [18]'s, the step's peak
+     beside the memory guard's estimate; (b) grid400 dense with adams,
+     fixed_adams and explicit_adams, the 1M / 11M COO operator of [12]
+     with ``layout="auto"`` (feature-major: K1-fm's ``pack_rows`` and
+     ``gather_T`` operators) and the 200k operator feature-major under
+     ``GATHER_WIDE`` (K5's ``gather_T_wide``), exported on the card and
+     served by ``tools.serve_artifact`` in one fresh process: against the
+     in-process ``Server`` within 1e-6 max|Δ| (adams, the masked machine
+     against the host-indexed solve: 1e-5 rel-L1), each kernel launched
+     once an RHS evaluation (= the ``Server``'s NFE), the bytes, export
+     seconds, median latency of 10 requests and host reads.
   p. where the time goes: one request per serving setting and one train step
      per training setting (the 1M feature-major step included), one cora
      differential_gcn epoch (the driver's defaults, train and eval) on
@@ -232,10 +253,11 @@ Phases, one line each:
 Then the kernels' JSON record, and last the device JSON line. Launch counts
 are zeroed just before each main-path phase (5-6, 8, 9, 10, each run of 12,
 13, 14, each part of 15, each run of 16 and 17, each driver run of 18 and
-19, each in-process request of 20) and read just after its GPU work; the
-served artifacts of 20 count their own launches in their own processes,
-and the record's launches are the sums of all of them
-(``launches_in_artifact``: K1-K4 in one request of their artifact).
+19, each in-process request of 20 and 21, each driver run of 21) and read
+just after its GPU work; the served artifacts of 20 and 21 count their own
+launches in their own processes, and the record's launches are the sums of
+all of them (``launches_in_artifact``: K1-K4, K1-fm's pack and gather and
+K5 in one request of their artifact).
 
 ``ms`` is the median CUDA-event time of one call on an idle card, as in
 every earlier record; every kernel also gives ``device_ms``, the time per
@@ -1895,7 +1917,7 @@ def main() -> None:
                                      for k in sparse_l},
                 launches={k: v for k, v in counts.items() if v})
 
-    # (c) the heat driver, 100 iterations of each baseline; the lstm_gnn
+    # (c) the heat driver, 50 iterations of each baseline; the lstm_gnn
     # run again with --dump and --profile_dir (and --viz where matplotlib
     # imports): its losses within 1e-6 of the plain run's
     drv17 = {}
@@ -1909,8 +1931,8 @@ def main() -> None:
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
         runs17[label] = out = heat_experiment(
-            "--baseline", label.rsplit("_", 1)[0], *extra, "--niters", "100",
-            "--test_freq", "20")
+            "--baseline", label.rsplit("_", 1)[0], *extra, "--niters", "50",
+            "--test_freq", "10")
         counts = add_launches(f"the heat driver {label}", needed)
         falls(out["train_losses"], f"the heat driver {label}")
         drv17[label] = dict(train_losses=out["train_losses"],
@@ -1934,7 +1956,7 @@ def main() -> None:
         t0 = time.perf_counter()
         dumped = heat_experiment(
             "--baseline", "lstm_gnn", "--sparse", "--sparse_format", "coo",
-            "--niters", "100", "--test_freq", "20", "--dump",
+            "--niters", "50", "--test_freq", "10", "--dump",
             "--results_dir", os.path.join(out_dir, "results"),
             "--profile_dir", os.path.join(out_dir, "trace"), *viz_flag)
         dump_s = time.perf_counter() - t0
@@ -1948,7 +1970,7 @@ def main() -> None:
           and loss_gap <= 1e-6, f"--dump --profile_dir moved the losses: "
           f"{dumped['train_losses']} vs {plain_losses}")
     dump = results_lib.load_results(dumped["results_path"])
-    check(dump["v_iter"] == list(range(20, 101, 20))
+    check(dump["v_iter"] == list(range(10, 51, 10))
           and dump["abs_error"][-1] == dumped["final"]["abs_error"]
           and set(dump["model_state_dict"][-1]) == {"gc", "cell", "out"},
           f"the dump does not read back: {dump['v_iter']}")
@@ -2308,7 +2330,7 @@ def main() -> None:
               < np.mean(losses[0]), f"heat --replicas 16 {fmt}: the train "
               f"losses did not fall {losses}")
         # replicas 0-3 against their runs alone: the first step's losses
-        # and NFE, then 20 steps' losses
+        # and NFE, then 5 steps' losses
         step16, _, last16 = replica_step(op, fused, range(16))
         solos = [solo_step(op, fused, s) for s in range(4)]
         first16 = step16()[0].cpu()
@@ -2321,13 +2343,13 @@ def main() -> None:
               f"replicas 0-3 {first16[:4].tolist()} / NFE {nfe16} against "
               f"their runs alone {first} / {nfe1}")
         drift = [first16[:4].tolist()]
-        for _ in range(19):
+        for _ in range(4):
             drift.append(step16()[0].cpu()[:4].tolist())
         solo_losses = [[first[i]] + [float(solos[i][0]()[0])
-                                     for _ in range(19)] for i in range(4)]
+                                     for _ in range(4)] for i in range(4)]
         rec.update(first_step_loss_rel_err=loss_err, nfe_replicas_0_3=nfe16,
                    nfe_alone=nfe1,
-                   loss_rel_err_20_steps=float(np.max(np.abs(
+                   loss_rel_err_5_steps=float(np.max(np.abs(
                        np.array(drift).T - np.array(solo_losses)))
                        / np.abs(solo_losses).max()))
         # time per model-step: the batched step over 16 against a step alone
@@ -2776,6 +2798,267 @@ def main() -> None:
     print("[20] serving artifact (card: " + smi + "): " + json.dumps(dict(
         art20, seconds=time.perf_counter() - t20)))
 
+    # ---- 21. the Adams family and the continuous adjoint under replicas;
+    # the artifact with the Adams methods and the feature-major layout
+    from ndcn_tpu_torch.parallel.sweep import (make_ndcn_replica_train_step,
+                                               replica_generators)
+    from ndcn_tpu_torch.train.budget import sweep_memory_estimate
+
+    t21 = time.perf_counter()
+    R21 = 4
+    dense_f = ["--fused_kernel"]
+    coo_f = ["--sparse", "--sparse_format", "coo"]
+    bsr_f = ["--sparse", "--sparse_format", "bsr", "--fused_kernel"]
+    settings21 = {   # format, driver flags, fused, method, adjoint, kernels
+        "adams_dense": ("dense", dense_f, "auto", "adams", False,
+                        ["fused_rhs_batched"]),
+        "fixed_adams_dense": ("dense", dense_f, "auto", "fixed_adams", False,
+                              ["fused_rhs_batched"]),
+        "explicit_adams_dense": ("dense", dense_f, "auto", "explicit_adams",
+                                 False, ["fused_rhs_batched"]),
+        "dopri5_adjoint_dense": ("dense", dense_f, "auto", "dopri5", True,
+                                 ["fused_rhs_batched"]),
+        "dopri5_adjoint_coo": ("coo", coo_f, False, "dopri5", True,
+                               ["coo_spmv_batched"]),
+        "dopri5_adjoint_bsr": ("bsr", bsr_f, "auto", "dopri5", True,
+                               ["bsr_fused_rhs_batched", "bsr_spmm_batched"]),
+        "adams_adjoint_dense": ("dense", dense_f, "auto", "adams", True,
+                                ["fused_rhs_batched"]),
+    }
+
+    def first_grads(op, fused, method, adjoint, seeds, device):
+        """The first step's losses and gradients of the heat driver's
+        replica step over the replicas seeded ``seeds`` (one model when
+        there is one seed), on ``device``."""
+        models = [init_ndcn(torch.Generator().manual_seed(s), 1, 20, 1)
+                  for s in seeds]
+        model = (stack_models(models) if len(seeds) > 1
+                 else models[0]).to(device)
+        out, stats = ndcn_forward(
+            model, op, t_h, x0_h.to(device), method=method, fused=fused,
+            adjoint=adjoint, max_steps=256, rtol=0.01, atol=0.001)
+        tgt = target_h.to(device)
+        losses = (nan_unless(stats.success,
+                             replica_l1(out.transpose(0, 1), tgt))
+                  if len(seeds) > 1 else l1_loss(out, tgt).reshape(1))
+        losses.sum().backward()
+        return (losses.detach().cpu(),
+                [p.grad.detach().cpu() for p in model.parameters()], stats)
+
+    def first_grads_64(op64, method, adjoint):
+        """``first_grads`` of the R replicas in float64 on the CPU (the
+        unfused route, the same function)."""
+        model = stack_models([
+            init_ndcn(torch.Generator().manual_seed(s), 1, 20, 1)
+            for s in range(R21)]).double()
+        out, stats = ndcn_forward(
+            model, op64, t_h, x0_h.cpu().double(), method=method,
+            adjoint=adjoint, max_steps=256, rtol=0.01, atol=0.001)
+        losses = nan_unless(stats.success, replica_l1(
+            out.transpose(0, 1), target_h.cpu().double()))
+        losses.sum().backward()
+        return losses.detach(), [p.grad for p in model.parameters()], stats
+
+    rep21 = {}
+    for label, (fmt, flags, fused, method, adjoint, needed) in \
+            settings21.items():
+        mat = sp.csr_matrix(grid_lap) if fmt != "dense" else grid_lap
+        op = as_operator(mat, sparse=fmt != "dense", format=fmt, device=dev)
+        rec = {}
+        # the heat driver: R = 4 replicas, 5 iterations
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = run("heat", build_parser("heat").parse_args(
+            ["--network", "grid", "--n", "400", "--method", method,
+             "--niters", "5", "--test_freq", "5", "--replicas", str(R21),
+             *flags, *(["--adjoint"] if adjoint else [])]))
+        torch.cuda.synchronize()
+        rec["driver_seconds"] = time.perf_counter() - t0
+        rec["driver_launches"] = {k: v for k, v in add_launches(
+            f"heat --replicas {R21} {label}", needed).items() if v}
+        rec["final"], rec["max_steps"] = out["final"], out["max_steps"]
+        # explicit Adams is unstable on this grid's longer steps (the JAX
+        # package's alike): its losses are recorded, not held finite
+        check(method == "explicit_adams"
+              or all(np.isfinite(out["train_losses"][-1])),
+              f"heat --replicas {R21} {label}: train losses "
+              f"{out['train_losses']}")
+        # the first step's losses and gradients: replicas 0 and 1 against
+        # their runs alone on the card, the card against the CPU
+        kernels.reset_launch_counts()
+        loss_c, grads_c, st_c = first_grads(op, fused, method, adjoint,
+                                            range(R21), dev)
+        torch.cuda.synchronize()
+        rec["step_launches"] = {k: v for k, v in
+                                kernels.launch_counts().items() if v}
+        check(all(rec["step_launches"].get(k, 0) > 0 for k in needed)
+              and not any(v for k, v in rec["step_launches"].items()
+                          if not k.endswith("batched")),
+              f"{label}: the replica step launched {rec['step_launches']}")
+        errs = []
+        for i in (0, 1):
+            loss_1, grads_1, _ = first_grads(op, fused, method, adjoint, [i],
+                                             dev)
+            errs.append(dict(
+                loss=float(abs(loss_c[i] - loss_1[0]) / abs(loss_1[0])),
+                grads=max(rel_l1(g[i], h) for g, h in zip(grads_c,
+                                                          grads_1))))
+        op_cpu = as_operator(mat, sparse=fmt != "dense", format=fmt)
+        loss_h, grads_h, st_h = first_grads(op_cpu, fused, method, adjoint,
+                                            range(R21), "cpu")
+        vs_cpu = dict(loss=float((loss_c - loss_h).abs().max()
+                                 / loss_h.abs().max()),
+                      grads=max(rel_l1(g, h) for g, h in zip(grads_c,
+                                                             grads_h)))
+        grad_bar = 1e-3
+        if max(vs_cpu["grads"], *(e["grads"] for e in errs)) > grad_bar:
+            # backprop through adams's step-size and order controller
+            # moves with float32's rounding (its NFE too), and explicit
+            # Adams is unstable on this grid: the bar is twice the CPU's
+            # own float32-vs-float64 distance where that is larger, as
+            # [15] holds the other solvers' answers
+            _, grads_64, _ = first_grads_64(
+                from_dense(grid_lap, dtype=torch.float64), method, adjoint)
+            vs_cpu["cpu_f32_vs_f64"] = max(
+                rel_l1(g.double(), h) for g, h in zip(grads_h, grads_64))
+            grad_bar = max(grad_bar, 2 * vs_cpu["cpu_f32_vs_f64"])
+        check(all(e["loss"] <= 1e-4 and e["grads"] <= grad_bar
+                  for e in errs)
+              and vs_cpu["loss"] <= 1e-4 and vs_cpu["grads"] <= grad_bar,
+              f"{label}: replicas 0-1 against their runs alone {errs}, the "
+              f"card against the CPU {vs_cpu}")
+        rec.update(first_step_vs_alone=errs, first_step_card_vs_cpu=vs_cpu,
+                   nfe_replicas=list(st_c.nfe), nfe_cpu=list(st_h.nfe))
+        if adjoint:
+            rec["backward_nfe_replicas"] = [
+                sum(b.nfe[i] for b in st_c.backward) for i in range(R21)]
+            rec["backward_intervals"] = len(st_c.backward)
+        # seconds a model-step, and the step's peak beside the memory
+        # guard's estimate (one replica's probe step, times R)
+        init_fn, step_fn = make_ndcn_replica_train_step(
+            op, t_h, x0_h, target_h, method=method, fused=fused,
+            adjoint=adjoint, max_steps=256)
+        model, opt = init_fn(replica_generators(0, R21))
+        one_model, one_opt = init_fn(replica_generators(0, 1))
+        est = sweep_memory_estimate(lambda: step_fn(one_model, one_opt), R21,
+                                    dev)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        ms = timed_steps(lambda: step_fn(model, opt), k=1)
+        rec["step_peak_gb"] = (torch.cuda.max_memory_allocated(dev)
+                               - base) / 1e9
+        rec["guard_estimate_gb"] = est["estimate"] / 1e9
+        rec.update(batched_step_ms=ms, model_step_ms=ms / R21,
+                   model_step_ms_18=sweep18.get(fmt, {}).get(
+                       "model_step_ms"))
+        rep21[label] = rec
+        del model, opt, one_model, one_opt
+        torch.cuda.empty_cache()
+
+    # (b) the artifacts, served in a fresh process
+    exp21 = os.path.join(root, "build", "smoke_export21")
+    shutil.rmtree(exp21, ignore_errors=True)
+    os.makedirs(exp21)
+    args_1m_kw = dict(rtol=0.01, atol=0.001, method="dopri5", layout="auto")
+    x0_200k = np.random.RandomState(0).uniform(
+        0.0, 25.0, (op_big.n, 1)).astype(np.float32)
+    settings21b = {  # model, operator, grid, forward kwargs, request,
+        # wide gather, the kernels each RHS evaluation launches once
+        **{f"grid400_dense_{m}": (model_grid, op_grid, fx["t"],
+                                  dict(kw20, method=m, fused="auto"),
+                                  fx["x0"], False, ["fused_rhs"])
+           for m in ("adams", "fixed_adams", "explicit_adams")},
+        "1m_coo_auto_feature_major": (
+            model_1m, prob.op, prob.splits.t, args_1m_kw,
+            prob.x0.cpu().numpy(), False, ["coo_spmv_T_pack", "coo_spmv_T"]),
+        "200k_coo_feature_major_wide": (
+            model_big, op_big, splits.t,
+            dict(kw20, layout="feature_major"), x0_200k, True,
+            ["coo_spmv_T_wide"]),
+    }
+    art21, served21 = {}, []
+    for label, (mdl, op21, vt21, fkw, x0, wide, knames) in \
+            settings21b.items():
+        with gather_mode(wide, False):
+            t0 = time.perf_counter()
+            blob = export_ndcn(mdl, op21, vt21, x0.shape, **fkw)
+            export_s = time.perf_counter() - t0
+            path = os.path.join(exp21, f"{label}.pt2")
+            save_artifact(path, blob)
+            np.save(os.path.join(exp21, f"{label}_x0.npy"), x0)
+            served21 += [path, os.path.join(exp21, f"{label}_x0.npy")]
+            srv = make_server(mdl, op21, vt21, **fkw)
+            kernels.reset_launch_counts()
+            with host_reads() as srv_reads:
+                out_s, ok_s = srv(x0)
+            torch.cuda.synchronize()
+            counts = add_launches(f"{label} in-process", knames)
+            st = srv.last_stats
+            check(ok_s, f"{label}: the server's solve failed")
+            np.save(os.path.join(exp21, f"{label}_server.npy"),
+                    out_s.cpu().numpy())
+            srv_ms = []
+            for _ in range(10):
+                t0 = time.perf_counter()
+                srv(x0)
+                torch.cuda.synchronize()
+                srv_ms.append((time.perf_counter() - t0) * 1e3)
+        art21[label] = dict(
+            bytes=len(blob), export_s=export_s, nfe_server=st.nfe,
+            accepted=st.n_accepted, rejected=st.n_rejected,
+            server_median_ms=statistics.median(srv_ms),
+            server_host_reads=srv_reads[0],
+            server_launch_counts={k: v for k, v in counts.items() if v})
+        del blob, srv, out_s
+        torch.cuda.empty_cache()
+    r = subprocess.run(
+        [sys.executable, "-m", "ndcn_tpu_torch.tools.serve_artifact",
+         *served21, "--requests", "10", "--answers", exp21],
+        capture_output=True, text=True, timeout=600, cwd=root)
+    check(r.returncode == 0, f"serving the [21] artifacts failed: "
+          f"{r.stderr[-3000:]}")
+    recs21 = {os.path.splitext(rec["artifact"])[0]: rec for rec in
+              map(json.loads, r.stdout.strip().splitlines())}
+    for label, (*_, knames) in settings21b.items():
+        rec, a = recs21[label], art21[label]
+        check(rec["success"] and not rec["model_code_imported"],
+              f"{label}: the artifact's solve failed or the serving process "
+              f"imported {rec['model_code_imported']}")
+        for name, c in rec["launch_counts"].items():
+            main_launches[name] += c
+        got = np.load(os.path.join(exp21, f"{label}.npy"))
+        ref = np.load(os.path.join(exp21, f"{label}_server.npy"))
+        diff = float(np.abs(got - ref).max())
+        rel = rel_l1(torch.as_tensor(got), torch.as_tensor(ref))
+        # the adams artifact runs the masked machine against the server's
+        # host-indexed solve; every other one the server's operations
+        ok = rel <= 1e-5 if label.endswith("_adams") and "fixed" not in \
+            label and "explicit" not in label else diff <= 1e-6
+        check(ok, f"{label}: the artifact parts from the server by {diff} "
+              f"max|Δ|, {rel} rel-L1")
+        launched = {k: rec["launch_counts"].get(k, 0) for k in knames}
+        # one launch of each kernel an RHS evaluation: the artifact's NFE
+        check(all(v == a["nfe_server"] for v in launched.values()),
+              f"{label}: launches {launched} in the artifact, NFE "
+              f"{a['nfe_server']} in process")
+        a.update(max_abs_diff=diff, rel_l1=rel, launches_per_request=launched,
+                 median_ms=rec["median_ms"], latency_ms=rec["latency_ms"],
+                 first_request_ms=rec["first_request_ms"],
+                 load_s=rec["load_s"], host_reads=rec["host_reads"])
+    shutil.rmtree(exp21, ignore_errors=True)
+    artifact_launches.update(
+        coo_spmv_T=art21["1m_coo_auto_feature_major"][
+            "launches_per_request"]["coo_spmv_T"],
+        coo_spmv_T_pack=art21["1m_coo_auto_feature_major"][
+            "launches_per_request"]["coo_spmv_T_pack"],
+        coo_spmv_T_wide=art21["200k_coo_feature_major_wide"][
+            "launches_per_request"]["coo_spmv_T_wide"])
+    print("[21] Adams and adjoint under replicas, Adams and feature-major "
+          "artifacts (card: " + smi + "): " + json.dumps(dict(
+              replicas=rep21, artifacts=art21,
+              seconds=time.perf_counter() - t21)))
+
     # ---- p. where the time goes
     for label, srv, x0 in (("grid400", server, fx["x0"]),
                            ("200k", server_big, requests[0])):
@@ -3039,12 +3322,15 @@ def main() -> None:
         # the Pallas kernel at :159, reached through _spmv_T (:322)
         entry("coo_spmv_T", "coo_spmv_T.cu", K1, k11["k1fm_f32_1m"]["fwd"],
               k11["k1fm_f32_1m"]["transpose"],
-              reached_through="ndcn_tpu/kernels/coo_spmv.py:322"),
+              reached_through="ndcn_tpu/kernels/coo_spmv.py:322",
+              launches_in_artifact=artifact_launches["coo_spmv_T"]),
         entry("coo_spmv_T_pack", "coo_spmv_T.cu", K1, k11["pack_f32_1m"],
-              reached_through="ndcn_tpu/kernels/coo_spmv.py:322"),
+              reached_through="ndcn_tpu/kernels/coo_spmv.py:322",
+              launches_in_artifact=artifact_launches["coo_spmv_T_pack"]),
         entry("coo_spmv_T_wide", "coo_spmv_T.cu",
               "ndcn_tpu/kernels/coo_spmv.py:207", k11["k5_f32_1m"]["fwd"],
-              k11["k5_f32_1m"]["transpose"]),
+              k11["k5_f32_1m"]["transpose"],
+              launches_in_artifact=artifact_launches["coo_spmv_T_wide"]),
         # the Pallas kernel at coo_spmv.py:314, driven with per-edge weights
         # by the mutualistic interaction: at d = 1 its edge form (the warp
         # form, coo_mutual.cu, takes d > 8); launches of either form, and

@@ -12,8 +12,7 @@ step budget with elastic rollback and budget doubling, ``--ckpt_dir`` /
 state and the result rows ride in the checkpoint) and ``--dump`` (the
 results txt and the accuracy summary). ``--export PATH`` writes the last
 iteration's model (odeGCN, differential_gcn) as the serving artifact,
-features → (logits, success) (``serve.export_ndcn``; the Adams methods are
-ROADMAP §1 entry 11b′).
+features → (logits, success) (``serve.export_ndcn``, every ``--method``).
 
 Dense below 8193 nodes unless ``--sparse``; sparse formats coo (K1), ell
 (gather and einsum) and bsr (K3). ``--platform gpu`` (the default) trains on
@@ -25,8 +24,10 @@ driver's vmapped sweep, for GCN, DeepGCN, DeepGCN2, DeepGCN4, odeGCN and
 differential_gcn): replica i is initialised and drops out from generators
 seeded ``--seed`` + i and + 1 + i (``--seed`` -1 counts as 0), i.e. as the
 single-model run at seed ``--seed`` + i; one stacked model, one launch
-stream an epoch (``parallel.sweep``). The ODE models' step budget is sized
-from the hardest of min(4, R) probed inits, or with ``--budget_buckets B``
+stream an epoch (``parallel.sweep``). The ODE models run every
+``--method`` (adams through ``ode.vcabm.solve_vcabm_batched``); their step
+budget is sized, for dopri5 and tsit5, from the hardest of min(4, R)
+probed inits (64 for the other methods), or with ``--budget_buckets B``
 from every replica's own probe, the replicas grouped into at most B
 buckets that train one after another, each at its own budget. A replica
 that exhausts its budget cannot be rolled back: its logits read NaN and the
@@ -177,14 +178,6 @@ def _refuse(args: argparse.Namespace) -> None:
         (sharded and not ode_model,
          "--mesh on more than one rank with a GCN zoo model: ROADMAP §1 "
          "entry 11c′"),
-        (args.batch_iters and ode_model and args.method in (
-            "adams", "explicit_adams", "fixed_adams"),
-         "--batch_iters with the Adams methods (replica sweeps with the "
-         "Adams methods and the continuous adjoint): ROADMAP §1 entry "
-         "11a′"),
-        (args.export and ode_model and args.method in (
-            "adams", "explicit_adams", "fixed_adams"),
-         "--export with the Adams methods: ROADMAP §1 entry 11b′"),
         (args.precision == "high", "--precision high (TF32): ROADMAP §1 "
                                    "entry 6"),
     ]

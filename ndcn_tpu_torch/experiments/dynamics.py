@@ -29,7 +29,7 @@ of the model, the optimizer and the dropout generator
 ``--export PATH`` writes the trained model's inference forward over the
 full observation grid, x0 → (trajectory, success), as the serving
 artifact (``serve.export_ndcn``; the continuous baselines, one model, one
-device; the Adams methods are ROADMAP §1 entry 11b′).
+device, every ``--method``).
 
 ``--replicas R`` trains R independent models (replica i initialised and
 dropping out from generators seeded ``--seed`` + i, + 1 + i) at once, the
@@ -39,7 +39,9 @@ hardest of min(4, R) probed inits, no rollback (one replica cannot be
 rolled back: a replica that exhausts the budget reads NaN, and the others
 are unaffected); ``--dump`` writes one results file per replica
 (``replicaNNN``), which ``experiments.summarize`` aggregates. The
-continuous baselines only, with dopri5, tsit5 or the fixed-grid methods.
+continuous baselines only, with every ``--method`` and with ``--adjoint``
+(the batched continuous adjoint, ``ode.adjoint``); the budget is probed
+for dopri5 and tsit5 only, 256 otherwise, as the JAX driver sizes it.
 
 ``--mesh`` under ``torchrun --nproc_per_node P`` (P > 1) lays the ranks
 out as ``make_mesh(data_divides=R, model_divides=n)`` (R the replica
@@ -53,8 +55,9 @@ model axis, so every rank takes the unsharded run's steps. With
 generators are the unsharded sweep's), and the log line's mean and std
 gather every replica. Rank 0 writes the checkpoints, the dump and the
 figures. A world of one prints the JAX driver's notice and runs unsharded.
-Under P > 1 the temporal baselines and ``--adjoint`` are ROADMAP §1 entry
-11c′.
+Under P > 1 the temporal baselines, and ``--adjoint`` on a model axis of
+more than one rank, are ROADMAP §1 entry 11c′ (on the data axis alone each
+rank runs the batched adjoint of its replicas).
 
 ``--platform gpu`` (the default) trains on the first CUDA device and raises
 without one; ``--platform cpu`` runs the kernels' plain versions. Matrix
@@ -186,21 +189,18 @@ def _refuse_unported(dynamics_kind: str, args: argparse.Namespace) -> None:
             raise SystemExit("--replicas is incompatible with --ckpt_dir/"
                              "--profile_dir/--scan_chunk (per-replica "
                              "training runs as one vmapped program)")
-    from ndcn_tpu_torch.parallel.mesh import world_size
+    from ndcn_tpu_torch.parallel.mesh import mesh_shape, world_size
 
     sharded = args.mesh and world_size() > 1
+    # the model axis the mesh will have: the adjoint runs on the data axis
+    # (one rank's replicas whole), not on a model axis of more than one rank
+    model_axis = (mesh_shape(world_size(), data_divides=args.replicas,
+                             model_divides=args.n)[1] if sharded else 1)
     refused = [
-        (args.replicas > 1 and (args.adjoint or args.method in (
-            "adams", "explicit_adams", "fixed_adams")),
-         "--replicas with --adjoint or the Adams methods (replica sweeps "
-         "with the Adams methods and the continuous adjoint): ROADMAP §1 "
-         "entry 11a′"),
-        (sharded and (args.adjoint or args.baseline in TEMPORAL_BASELINES),
+        (sharded and (args.adjoint and model_axis > 1
+                      or args.baseline in TEMPORAL_BASELINES),
          "--mesh on more than one rank with --adjoint or a temporal "
          "baseline: ROADMAP §1 entry 11c′"),
-        (args.export and args.method in (
-            "adams", "explicit_adams", "fixed_adams"),
-         "--export with the Adams methods: ROADMAP §1 entry 11b′"),
         (args.scan_chunk > 0,
          "--scan_chunk (steps per dispatch; CUDA graphs here): ROADMAP §1 "
          "entry 6"),
@@ -691,14 +691,16 @@ def _run_replicas(dynamics_kind: str, args: argparse.Namespace,
     n_params = sum(p.numel() for p in model.parameters()) // (hi - lo)
     print(f"Total {n_params:d} Trainable {n_params:d} (x {r} replicas)")
 
-    def forward(vt, rng=None):
+    def forward(vt, rng=None, adjoint=False):
         out, stats = ndcn_forward(model, op, vt, true_y0,
                                   dropout=args.dropout, rng=rng,
-                                  max_steps=max_steps, **solve_kw, **levers)
+                                  adjoint=adjoint, max_steps=max_steps,
+                                  **solve_kw, **levers)
         return out[..., 0].permute(1, 2, 0), stats       # (R, n, T)
 
     def train_loss():
-        pred, stats = forward(splits.t[splits.id_train], rngs)
+        pred, stats = forward(splits.t[splits.id_train], rngs,
+                              adjoint=args.adjoint)
         losses = nan_unless(stats.success,
                             replica_l1(pred, true_y_train, group))
         return losses, losses / shard_mean(true_y_train, group)

@@ -22,7 +22,8 @@ and a backward.
 - The mesh path (``parallel.coo_shard``) launches K1 and K1-fm's gather on
   each rank's row block (``coo_spmv.CsrBlock``); those launches are counted
   as ``coo_spmv_rowblock`` / ``coo_spmv_T_rowblock`` alone.
-- ``ops``: K1, K2, K3 and K4 as ``torch.library`` operators (namespace
+- ``ops``: K1, K1-fm (pack, gather), K5, K2, K3 and K4 as
+  ``torch.library`` operators (namespace
   ``ndcn_tpu_torch``), which a traced program (the serving artifact) holds;
   importing this package registers them. Their launches count as the
   wrappers' do.

@@ -396,18 +396,20 @@ def _apply_T(op, xT: torch.Tensor) -> torch.Tensor:
                     else pack_rows(xT, bf16))
 
 
-def gather_T(op, table: torch.Tensor) -> torch.Tensor:
-    """The gather of K1-fm (of K5 under ``GATHER_WIDE``) over ``op``'s
-    forward CSR from a row-major (op.n_table, d_sub) table, fp32 or bf16
-    (``pack_rows``'s): (A·X)ᵀ, (d_sub, op.n) fp32. A bf16 table is the
-    bf16 instance. CPU tensors take the plain version."""
+def gather_T(op, table: torch.Tensor,
+             wide: Optional[bool] = None) -> torch.Tensor:
+    """The gather of K1-fm (of K5 under ``GATHER_WIDE``, or with ``wide``)
+    over ``op``'s forward CSR from a row-major (op.n_table, d_sub) table,
+    fp32 or bf16 (``pack_rows``'s): (A·X)ᵀ, (d_sub, op.n) fp32. A bf16
+    table is the bf16 instance. CPU tensors take the plain version."""
+    wide = GATHER_WIDE if wide is None else wide
     bf16 = table.dtype == torch.bfloat16
     if table.ndim != 2 or table.shape[0] != op.n_table:
         raise ValueError(f"gather_T takes a ({op.n_table}, d_sub) table, got "
                          f"{tuple(table.shape)}")
     if not on_cuda(table, op.row_ptr, op.cols, op.vals, op.rows,
                    *op.split[:3]):
-        plain = coo_spmv_T_wide_plain if GATHER_WIDE else coo_spmv_T_plain
+        plain = coo_spmv_T_wide_plain if wide else coo_spmv_T_plain
         return plain(op.rows, op.cols, op.vals, table.t().float(), op.n,
                      bf16)
     global T_LAUNCHES, WIDE_LAUNCHES, T_ROWBLOCK_LAUNCHES
@@ -417,7 +419,7 @@ def gather_T(op, table: torch.Tensor) -> torch.Tensor:
                    table.contiguous(), y, d_sub)
     if isinstance(op, CsrBlock):
         T_ROWBLOCK_LAUNCHES += 1
-    elif GATHER_WIDE:
+    elif wide:
         WIDE_LAUNCHES += 1
     else:
         T_LAUNCHES += 1
@@ -481,7 +483,12 @@ def coo_spmv(op, x: torch.Tensor) -> torch.Tensor:
 
 def spmv_T(op, xT: torch.Tensor) -> torch.Tensor:
     """(A · X)ᵀ for xT = Xᵀ of shape (d_sub, n), differentiable in xT; the
-    feature-major counterpart of ``coo_spmv`` (same device rules)."""
+    feature-major counterpart of ``coo_spmv`` (same device rules). While a
+    program is traced it is the operators ``ndcn_tpu_torch::pack_rows``
+    and ``ndcn_tpu_torch::gather_T`` (K1-fm), or the copied table and
+    ``ndcn_tpu_torch::gather_T_wide`` (K5) under ``GATHER_WIDE``
+    (``kernels.ops``), forward only; both switches are read at the
+    trace."""
     if xT.ndim != 2:
         raise ValueError(f"spmv_T takes xT of shape (d_sub, {op.n_table}), "
                          f"got {tuple(xT.shape)}")
@@ -491,4 +498,12 @@ def spmv_T(op, xT: torch.Tensor) -> torch.Tensor:
     if GATHER_WIDE and xT.shape[0] > D_WIDE:
         raise ValueError(f"the wide gather takes d_sub <= {D_WIDE}, got "
                          f"{xT.shape[0]}")
+    if torch.compiler.is_compiling():
+        # a traced program holds the operators (``kernels.ops``)
+        ops = torch.ops.ndcn_tpu_torch
+        csr = (op.row_ptr, op.rows, op.cols, op.vals, *op.split[:3],
+               op.split.limit)
+        if GATHER_WIDE:
+            return ops.gather_T_wide(*csr, pack_rows_plain(xT, GATHER_BF16))
+        return ops.gather_T(*csr, ops.pack_rows(xT, GATHER_BF16))
     return _SpmvT.apply(op, op.vals, op.vals_t, xT)

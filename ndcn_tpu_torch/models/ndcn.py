@@ -12,9 +12,11 @@ A model whose parameters are stacked along a leading replica axis
 (``parallel.sweep.stack_models``: R models in one) runs R replicas at once,
 ``jax.vmap`` of the forward in the JAX package: the encoder maps the shared
 input to an (R, n, d) state, one batched solve integrates all replicas
-(``ode.adaptive.solve_batched``; the operator products are the kernels'
-batched forms), and the output carries the replica axis after the time
-axis: (T, R, n, c), or (R, n, c) if terminal.
+(``ode.adaptive.solve_batched``, ``ode.vcabm.solve_vcabm_batched`` for
+adams, the fixed grids as they are; with ``adjoint=True`` the batched
+continuous adjoint; the operator products are the kernels' batched forms),
+and the output carries the replica axis after the time axis: (T, R, n, c),
+or (R, n, c) if terminal.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ from ndcn_tpu_torch.kernels.coo_spmv import spmv_T, sublane_pad
 from ndcn_tpu_torch.kernels.fused_rhs import fused_rhs
 from ndcn_tpu_torch.models.nn import dropout_mask, linear_apply, linear_init
 from ndcn_tpu_torch.ode import odeint_with_stats
-from ndcn_tpu_torch.ode.api import NOT_EXPORTED, grad_mode
+from ndcn_tpu_torch.ode.api import grad_mode
 from ndcn_tpu_torch.ode.adjoint import odeint_adjoint_with_stats
 from ndcn_tpu_torch.ode.tree_math import node_sharded
 from ndcn_tpu_torch.parallel.coo_shard import (RowShardedCoo, is_sharded,
@@ -160,16 +162,20 @@ def ode_block(func, h0: torch.Tensor, vt, rtol: float, atol: float,
 
     With ``adjoint=True`` the gradients come from the continuous adjoint
     (``ode.adjoint``), taken for h0 and ``params``, the tuple of tensors the
-    RHS closes over; the stats are the forward solve's. The emission options
+    RHS closes over (stacked, when ``batched``); the stats are the forward
+    solve's. The emission options
     reach the solver on the differentiable adaptive path only, as the JAX
     package's ``ode_block`` passes them (not under the adjoint)."""
     if adjoint:
         if params is None:
             raise ValueError("adjoint=True requires the params the RHS "
                              "closes over")
+        options = {"max_steps": max_steps}
+        if batched:
+            options["batched"] = True
         sol, stats = odeint_adjoint_with_stats(
             func, h0, vt, tuple(params), rtol=rtol, atol=atol, method=method,
-            options={"max_steps": max_steps})
+            options=options)
         return (sol[-1] if terminal else sol), stats
     options = {"max_steps": max_steps, "differentiable": not nondiff}
     if batched:
@@ -315,9 +321,8 @@ def ndcn_forward(model: NDCN, op: GraphOperator, vt, x: torch.Tensor, *,
     ``nondiff=True`` runs the inference solve under ``torch.no_grad()``;
     otherwise autograd records the differentiable solve. Under
     ``torch.export`` (``serve.export_ndcn``) the ``nondiff=True`` forward
-    traces in the (n, d) layout: every host decision on it is made from
-    shapes and Python values; the feature-major layout raises
-    ``NotImplementedError`` (ROADMAP §1 entry 11b′). ``dropout`` > 0
+    traces in either layout: every host decision on it is made from
+    shapes and Python values. ``dropout`` > 0
     with a ``rng`` (a ``torch.Generator``) draws one mask per forward;
     without ``rng`` the forward is deterministic, as in JAX.
 
@@ -329,8 +334,8 @@ def ndcn_forward(model: NDCN, op: GraphOperator, vt, x: torch.Tensor, *,
 
     A stacked model (``replica_count(model)`` = R) runs R replicas on the
     shared ``x``: ``rng`` is then a list of R generators (or None), the
-    solve is batched and the stats are a ``BatchedSolveStats``. The adjoint
-    and the Adams methods under replicas are ROADMAP §1 entry 11a′.
+    solve is batched and the stats are a ``BatchedSolveStats`` (with
+    ``adjoint=True``, an ``AdjointStats`` of per-replica tuples).
 
     A row-sharded operator (``parallel.coo_shard``) takes this rank's rows
     of ``x`` and gives this rank's rows of the output; the solve's norms
@@ -338,9 +343,6 @@ def ndcn_forward(model: NDCN, op: GraphOperator, vt, x: torch.Tensor, *,
     the dropout mask is drawn whole and cut to this rank's rows, so the
     ranks together compute the unsharded forward."""
     replicas = replica_count(model)
-    if replicas is not None and adjoint:
-        raise NotImplementedError("not ported yet: replica sweeps with the "
-                                  "continuous adjoint: ROADMAP §1 entry 11a′")
     group = node_group(op)
     if group is not None and adjoint:
         raise NotImplementedError(
@@ -357,9 +359,6 @@ def ndcn_forward(model: NDCN, op: GraphOperator, vt, x: torch.Tensor, *,
             h = h.expand(replicas, *h.shape).contiguous()   # no encoder
         feature_major = resolve_layout(layout, op, h, no_graph, no_control,
                                        dropout, fused) == "feature_major"
-        if feature_major and torch.compiler.is_exporting():
-            raise NotImplementedError(f"not ported yet: {NOT_EXPORTED} "
-                                      f"(layout='feature_major')")
 
         drop_mask = None
         if dropout > 0.0 and rng is not None:

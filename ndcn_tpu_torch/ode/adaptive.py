@@ -500,17 +500,14 @@ def solve_batched(method: AdaptiveMethod, func, y0, t: torch.Tensor,
 
     def observe(rk: RKState, times) -> object:
         """Each replica's dense output at its own row of ``times`` (R, m):
-        leaves (R, m, ...)."""
+        leaves (R, m, ...); the (R, m) weights are laid over each leaf,
+        whatever its rank (the adjoint's adj_t is (R,))."""
         interp = type(rk.interp)(*(read_out(c) for c in rk.interp))
         src = type(interp)(*(tmap(lambda leaf: leaf.unsqueeze(1), c)
                              for c in interp))
-        rank = leaves(interp[0])[0].ndim
-        ones = (1,) * (rank - 1)
         t_obs = torch.tensor(times, dtype=t.dtype).to(device)
-        return method.interp_eval(src, rk.t0.view(R, 1, *ones),
-                                  rk.t1.view(R, 1, *ones),
-                                  t_obs.view(R, len(times[0]), *ones),
-                                  emission_dtype)
+        return method.interp_eval(src, rk.t0.view(R, 1), rk.t1.view(R, 1),
+                                  t_obs, emission_dtype)
 
     # slot 0 of every replica is y0 (read out); each consumption round adds
     # m slots, and slot_of[r][i] is where replica r's observation i went
@@ -585,4 +582,5 @@ def solve_batched(method: AdaptiveMethod, func, y0, t: torch.Tensor,
     slots = tmap(lambda *ls: torch.cat(ls, dim=1), *rounds)
     idx = torch.tensor(slot_of, device=device).t()             # (T, R)
     reps = torch.arange(R, device=device).expand(T, R)
-    return tmap(lambda leaf: leaf[reps, idx], slots), stats
+    # row-major, as every solve returns it (the kernels take no other)
+    return tmap(lambda leaf: leaf[reps, idx].contiguous(), slots), stats

@@ -27,6 +27,19 @@ input, so the NaN they give an operator cotangent is never computed.
 The cotangent -adj_y of the JAX package is passed as adj_y and the VJPs'
 sign folded in: negation is exact and the VJP is linear, so the values are
 the same and two negations a step are saved.
+
+With ``options={"batched": True}`` R replicas run at once, ``jax.vmap`` of
+the JAX adjoint: y0 and every leaf of the state are (R, ...), ``params``
+are stacked (R, ...) (``parallel.sweep.stack_models``), and the forward is
+the batched inference solve (``adaptive.solve_batched``, or
+``vcabm.solve_vcabm_batched`` for adams), NaN for a replica whose budget
+ran out. The backward's augmented state is batched too: y and adj_y (R, n,
+d), adj_t (R,), each parameter cotangent (R, ...). The batched solve takes
+its norms per replica over that replica's leaves, every reduction here is
+per replica (``tree_dot_rows``), a replica that runs out of budget on an
+interval reads NaN alone, and replica r's parameter cotangent is its own,
+since replica r of the stacked RHS reads only its own slice of the
+parameters. The kernels' batched forms run inside the VJP.
 """
 
 from __future__ import annotations
@@ -35,15 +48,18 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence
 
 import torch
 
-from ndcn_tpu_torch.ode.adaptive import SolveStats
-from ndcn_tpu_torch.ode.api import _canonical_time, odeint_with_stats
-from ndcn_tpu_torch.ode.tree_math import tree_dot
+from ndcn_tpu_torch.ode.adaptive import BatchedSolveStats, SolveStats
+from ndcn_tpu_torch.ode.api import (_canonical_time, nan_unless,
+                                    odeint_with_stats)
+from ndcn_tpu_torch.ode.tree_math import tmap, tree_dot, tree_dot_rows
 
 
 class AdjointStats(NamedTuple):
     """The forward solve's SolveStats fields, and ``backward``: the
     SolveStats of each interval solve of the backward pass, last interval
-    first, filled when the backward runs (empty before)."""
+    first, filled when the backward runs (empty before). Batched: the
+    fields are BatchedSolveStats' (a tuple a replica), ``backward`` holds
+    BatchedSolveStats, and ``replica(i)`` is replica i's."""
     nfe: int
     n_accepted: int
     n_rejected: int
@@ -51,17 +67,25 @@ class AdjointStats(NamedTuple):
     host_syncs: int
     backward: List[SolveStats]
 
+    def replica(self, i: int) -> "AdjointStats":
+        """Replica i's stats of a batched adjoint, as its own adjoint
+        returns them."""
+        return AdjointStats(*BatchedSolveStats(*self[:5]).replica(i),
+                            backward=[b.replica(i) for b in self.backward])
+
 
 def _nondiff(options: Optional[Dict[str, Any]]) -> Dict[str, Any]:
     return dict(options or {}, differentiable=False)
 
 
-def _nan_on_failure(sol, stats: SolveStats):
+def _nan_on_failure(sol, stats, axis: int = 0):
+    """``sol`` with NaN where the solve failed: all of it, or with
+    BatchedSolveStats the failed replicas along each leaf's ``axis``."""
+    if isinstance(stats, BatchedSolveStats):
+        return tmap(lambda b: nan_unless(stats.success, b, axis), sol)
     if stats.success:
         return sol
-    if isinstance(sol, torch.Tensor):
-        return torch.full_like(sol, float("nan"))
-    return tuple(torch.full_like(s, float("nan")) for s in sol)
+    return tmap(lambda b: torch.full_like(b, float("nan")), sol)
 
 
 class _OdeintAdjoint(torch.autograd.Function):
@@ -73,7 +97,7 @@ class _OdeintAdjoint(torch.autograd.Function):
                                        method=method,
                                        options=_nondiff(options))
         record.append(stats)
-        sol = _nan_on_failure(sol, stats)
+        sol = _nan_on_failure(sol, stats, axis=1)
         ctx.func, ctx.t, ctx.solve = func, t, (rtol, atol, method, options)
         ctx.backward = []
         record.append(ctx.backward)
@@ -87,6 +111,9 @@ class _OdeintAdjoint(torch.autograd.Function):
         func, t, params = ctx.func, ctx.t, ctx.params
         rtol, atol, method, options = ctx.solve
         n_p = len(params)
+        batched = bool((options or {}).get("batched", False))
+        # time for the RHS: one per replica in a batched solve
+        lead = () if not batched else (sol.shape[1],)
 
         def augmented(s, aug):
             y, adj_y = aug[0], aug[1]
@@ -105,20 +132,21 @@ class _OdeintAdjoint(torch.autograd.Function):
         T = t.shape[0]
         t_dev = t.to(sol.device)
         adj_y = grad_sol[-1]
-        adj_t = torch.zeros((), dtype=t.dtype, device=sol.device)
+        adj_t = torch.zeros(lead, dtype=t.dtype, device=sol.device)
         adj_p = tuple(torch.zeros_like(p) for p in params)
+        dot = tree_dot_rows if batched else tree_dot
         for i in range(T - 1, 0, -1):
-            f_i = func(t_dev[i], sol[i])
-            adj_t = adj_t - tree_dot(f_i, grad_sol[i]).to(adj_t.dtype)
+            f_i = func(t_dev[i].expand(lead), sol[i])
+            adj_t = adj_t - dot(f_i, grad_sol[i]).to(adj_t.dtype)
             aug0 = (sol[i], adj_y, adj_t, *adj_p)
             aug_sol, stats = odeint_with_stats(
                 augmented, aug0, torch.stack([-t[i], -t[i - 1]]), rtol=rtol,
                 atol=atol, method=method, options=_nondiff(options))
             ctx.backward.append(stats)
-            aug_sol = _nan_on_failure(aug_sol, stats)
-            adj_y = aug_sol[1][1] + grad_sol[i - 1]
-            adj_t = aug_sol[2][1]
-            adj_p = tuple(a[1] for a in aug_sol[3:3 + n_p])
+            aug_sol = _nan_on_failure(tmap(lambda a: a[1], aug_sol), stats)
+            adj_y = aug_sol[1] + grad_sol[i - 1]
+            adj_t = aug_sol[2]
+            adj_p = tuple(aug_sol[3:3 + n_p])
         return (None, None, None, None, None, None, None, adj_y, *adj_p)
 
 

@@ -28,16 +28,16 @@ Every method of the JAX package:
 (``jax.vmap`` of the solve in the JAX package): every leaf of ``y0`` has a
 leading replica axis, the grid is shared, the solution is (len(t), R, ...)
 and the stats a ``BatchedSolveStats`` (one value per replica). dopri5 and
-tsit5 run ``adaptive.solve_batched``; euler, midpoint and rk4 run their
-grid with the batched state as it is. The Adams family and the adjoint
-under replicas are ROADMAP §1 entry 11a′ and raise ``NotImplementedError``.
+tsit5 run ``adaptive.solve_batched``, adams ``vcabm.solve_vcabm_batched``;
+euler, midpoint, rk4, explicit_adams and fixed_adams run their grid with
+the batched state as it is (every replica takes the same steps).
 
 Under ``torch.export`` (the serving artifact, ``serve.export_ndcn``) the
-inference solve of dopri5 and tsit5 is ``adaptive.solve_while``, the loop
-as one device-resident program, as the JAX package takes its while-loop
-path for the inference solve; euler, midpoint and rk4 trace as they stand
-(a Python loop over the static grid), and the Adams family raises
-``NotImplementedError`` naming ROADMAP §1 entry 11b′.
+inference solve of dopri5 and tsit5 is ``adaptive.solve_while`` and that of
+adams ``vcabm.solve_vcabm_while``, the loop as one device-resident program,
+as the JAX package takes its while-loop path for the inference solve;
+euler, midpoint, rk4, explicit_adams and fixed_adams trace as they stand (a
+Python loop over the static grid, unrolled).
 
 The validation errors are the JAX package's.
 """
@@ -70,12 +70,6 @@ _DEFAULT_MAX_STEPS_WHILE = 1 << 16
 # so that one options dict serves every method
 _COMMON_OPTIONS = {"differentiable", "max_steps", "batched"}
 
-# the methods that solve R replicas at once (``batched=True``)
-BATCHED_SOLVERS = ("dopri5", "tsit5", "euler", "midpoint", "rk4")
-NOT_BATCHED = ("replica sweeps with the Adams methods and the continuous "
-               "adjoint: ROADMAP §1 entry 11a′")
-NOT_EXPORTED = ("the serving artifact with the Adams methods or the "
-                "feature-major layout: ROADMAP §1 entry 11b′")
 _METHOD_OPTIONS = {
     "dopri5": _COMMON_OPTIONS | {"safety", "ifactor", "dfactor", "first_step",
                                  "time_dtype", "emission_dtype",
@@ -174,34 +168,29 @@ def odeint_with_stats(func: Callable, y0, t, rtol: float = 1e-7,
     func, t = _maybe_reverse(func, t, time_dtype)
     differentiable = bool(options.get("differentiable", True))
     batched = bool(options.get("batched", False))
-    if batched and method not in BATCHED_SOLVERS:
-        raise NotImplementedError(f"not ported yet: {NOT_BATCHED} "
-                                  f"(method={method!r})")
+    exporting = torch.compiler.is_exporting()
 
     def recording():
         # autograd records the solve only when it is differentiable
         return grad_mode(differentiable and torch.is_grad_enabled())
 
-    if torch.compiler.is_exporting() and method in (
-            "adams", "explicit_adams", "fixed_adams"):
-        raise NotImplementedError(f"not ported yet: {NOT_EXPORTED} "
-                                  f"(method={method!r})")
-    if method in fixed_grid.STEP_FUNCS:
+    if method in fixed_grid.STEP_FUNCS or method in ("explicit_adams",
+                                                      "fixed_adams"):
         with recording():
-            sol, stats = fixed_grid.solve_fixed_grid(
-                fixed_grid.STEP_FUNCS[method], func, y0, t,
-                step_size=options.get("step_size"))
+            if method in fixed_grid.STEP_FUNCS:
+                sol, stats = fixed_grid.solve_fixed_grid(
+                    fixed_grid.STEP_FUNCS[method], func, y0, t,
+                    step_size=options.get("step_size"))
+            else:
+                sol, stats = fixed_adams.solve_fixed_adams(
+                    func, y0, t, implicit=method == "fixed_adams",
+                    max_order=int(options.get("max_order", 12)),
+                    max_iters=int(options.get("max_iters", 4)))
         if batched:
             # the grid is shared: every replica takes the same steps
             stats = adaptive.BatchedSolveStats.shared(
                 stats, leaves(y0)[0].shape[0])
         return sol, stats
-    if method in ("explicit_adams", "fixed_adams"):
-        with recording():
-            return fixed_adams.solve_fixed_adams(
-                func, y0, t, implicit=method == "fixed_adams",
-                max_order=int(options.get("max_order", 12)),
-                max_iters=int(options.get("max_iters", 4)))
 
     max_steps = int(options.get("max_steps", _DEFAULT_MAX_STEPS_SCAN
                                 if differentiable
@@ -210,11 +199,17 @@ def odeint_with_stats(func: Callable, y0, t, rtol: float = 1e-7,
                    ifactor=float(options.get("ifactor", 10.0)),
                    dfactor=float(options.get("dfactor", 0.2)))
     if method == "adams":
+        if batched:
+            solve = vcabm.solve_vcabm_batched
+        elif exporting and not differentiable:
+            # the host loop cannot be traced: the device-resident loop can
+            solve = vcabm.solve_vcabm_while
+        else:
+            solve = vcabm.solve_vcabm
         with recording():
-            return vcabm.solve_vcabm(
-                func, y0, t, rtol=float(rtol), atol=float(atol),
-                max_order=int(options.get("max_order", 12)),
-                max_steps=max_steps, **ctrl_kw)
+            return solve(func, y0, t, rtol=float(rtol), atol=float(atol),
+                         max_order=int(options.get("max_order", 12)),
+                         max_steps=max_steps, **ctrl_kw)
 
     emission = {k: options.get(k) for k in ("emission_dtype",
                                              "emission_readout")}
@@ -227,7 +222,7 @@ def odeint_with_stats(func: Callable, y0, t, rtol: float = 1e-7,
         # bit-compatibility mode: the reference's (non-converging) tsit5
         # error weights (``tableaux.TSIT5_REFERENCE_WEIGHTS``)
         m = adaptive.TSIT5_REFERENCE_METHOD
-    if torch.compiler.is_exporting() and not differentiable and not batched:
+    if exporting and not differentiable and not batched:
         # the host loop cannot be traced: the device-resident loop can
         with recording():
             return adaptive.solve_while(m, func, y0, t, ctrl, max_steps,

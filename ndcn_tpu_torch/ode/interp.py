@@ -17,7 +17,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ndcn_tpu_torch.ode.runge_kutta import StageCoeffs
-from ndcn_tpu_torch.ode.tree_math import (cast, tindex, tmap,
+from ndcn_tpu_torch.ode.tree_math import (bcast, cast, tindex, tmap,
                                           tscaled_dot_product)
 
 
@@ -65,19 +65,21 @@ def _weighted_sum(w, state, dtype: Optional[torch.dtype]):
     ``emission_dtype``) the sources and their weights are rounded to it, as
     the JAX scan path stores its emitted coefficients and casts the
     evaluation weights to the buffer's type; the products and their sum are
-    taken in float32, and the result is float32."""
+    taken in float32, and the result is float32. Weights with leading axes
+    (a batched solve's (R, m)) are laid over each leaf's leading axes
+    (``bcast``), whatever the leaf's rank."""
     if dtype is None:
         def leaf(*src):
             out = None
             for wi, s in zip(w, src):
-                term = cast(wi, s.dtype) * s
+                term = bcast(cast(wi, s.dtype), s) * s
                 out = term if out is None else out + term
             return out
     else:
         def leaf(*src):
             out = None
             for wi, s in zip(w, src):
-                term = (wi.to(dtype).to(torch.float32)
+                term = (bcast(wi.to(dtype).to(torch.float32), s)
                         * s.to(dtype).to(torch.float32))
                 out = term if out is None else out + term
             return out

@@ -146,6 +146,16 @@ def tree_dot(a, b) -> torch.Tensor:
     return out
 
 
+def tree_dot_rows(a, b) -> torch.Tensor:
+    """``tree_dot`` per replica: Σ a·b over each index of every leaf's
+    leading axis, (R,)."""
+    out = None
+    for x, y in zip(leaves(a), leaves(b)):
+        s = torch.sum((x * y).reshape(x.shape[0], -1), dim=1)
+        out = s if out is None else out + s
+    return out
+
+
 def scaled_dot_product(scale: torch.Tensor, coeffs: torch.Tensor,
                        stacked: torch.Tensor) -> torch.Tensor:
     """scale * sum_i coeffs[i] * stacked[i] along the leading stage axis of

@@ -20,21 +20,47 @@ error estimate and the divided differences. Every attempt evaluates the RHS
 twice (predictor and corrector), as the JAX package's branch-free attempt
 does. The history (times, divided differences) is rebuilt out of place each
 attempt; nothing is written in place, so autograd can record it.
+
+The JAX package's own design, the machine computed to the static maximum
+order and masked to the live one, is here too (``_masked_attempt``), with
+the order, the history count, the newest-first times and the divided
+differences carried as tensors: phi is one (R, H, ...) tensor a leaf, H =
+max_order + 1, and every replica r has its own order, step and history. Two
+solves run it:
+
+- ``solve_vcabm_batched``: R replicas in one host loop, ``jax.vmap`` of the
+  JAX solve, as ``adaptive.solve_batched`` is for dopri5 (one (R, 4) read an
+  attempt; a finished replica is frozen). Differentiable when autograd
+  records it.
+- ``solve_vcabm_while``: the inference solve of one model as one
+  ``while_loop`` with no branch, for the serving artifact, as
+  ``adaptive.solve_while`` is for dopri5. An accepted attempt lands on its
+  observation exactly, so an observation is a masked write of the
+  predictor.
+
+The masked sums run over zeros past the live order: the history past it is
+kept at zero, so that no weight of zero meets a non-finite entry. They may
+round differently from the host-indexed sums in the last bit.
 """
 
 from __future__ import annotations
 
-from typing import List, NamedTuple
+from typing import List, NamedTuple, Optional
 
 import torch
 
-from ndcn_tpu_torch.ode.adaptive import SolveStats, stack_solution
+from torch._higher_order_ops import while_loop
+
+from ndcn_tpu_torch.ode.adaptive import (BatchedSolveStats, SolveStats,
+                                         _replica_finite, stack_solution)
 from ndcn_tpu_torch.ode.grad_guard import all_finite
 from ndcn_tpu_torch.ode.step_control import (Controller, accept_and_max_ratio,
                                              error_ratios, optimal_step_size,
                                              select_initial_step)
-from ndcn_tpu_torch.ode.tree_math import (cast, leaves, tmap, tmax, tmin,
+from ndcn_tpu_torch.ode.tree_math import (bcast, cast, leaves, node_group,
+                                          tmap, tmax, tmax_rows, tmin,
                                           tscaled_dot_product, tstack)
+from ndcn_tpu_torch.parallel.mesh import all_true
 
 _MIN_ORDER = 1
 _MAX_ORDER = 12
@@ -214,3 +240,423 @@ def solve_vcabm(func, y0, t: torch.Tensor, rtol: float, atol: float,
     stats = SolveStats(nfe=nfe, n_accepted=nacc, n_rejected=nrej,
                        success=ok and len(sol) >= T, host_syncs=syncs)
     return stack_solution(sol, T), stats
+
+
+# ------------------------------------------------------- the masked machine
+
+
+class _Machine(NamedTuple):
+    """The VCABM state of R replicas as tensors, each replica with its own
+    order, history and step: leaves of ``y`` (R, ...), of ``phi`` (R, H,
+    ...), ``prev_t`` (R, H), the rest (R,)."""
+    y: object                 # the last accepted predictor
+    prev_t: torch.Tensor      # accepted times, newest first
+    phi: object               # divided differences, newest first
+    next_t: torch.Tensor      # the proposed end of the next step
+    order: torch.Tensor       # int64
+    n_hist: torch.Tensor      # int64, accepted points in the history
+
+
+def _init_machine(y0, f0, t0: torch.Tensor, first_step: torch.Tensor,
+                  H: int) -> _Machine:
+    """Order 1, one point of history (t0, f0), the rest of phi zero."""
+    R = t0.shape[0]
+
+    def hist(f):
+        return torch.cat([f.unsqueeze(1), f.new_zeros(
+            (R, H - 1, *f.shape[1:]))], dim=1)
+
+    one = torch.ones(R, dtype=torch.int64, device=t0.device)
+    return _Machine(y=y0, prev_t=t0.unsqueeze(1).expand(R, H).clone(),
+                    phi=tmap(hist, f0), next_t=t0 + first_step, order=one,
+                    n_hist=one.clone())
+
+
+def _nonzero(x: torch.Tensor) -> torch.Tensor:
+    return torch.where(x == 0, torch.ones_like(x), x)
+
+
+def _masked_g_and_beta(prev_t: torch.Tensor, next_t: torch.Tensor, H: int):
+    """g[:, 0..H-1] and beta[:, 0..H-1] of every replica, by the recurrences
+    of ``_g_and_explicit_phi`` taken to the static order. A zero gap (a
+    replica frozen at dt = 0, a history not yet filled) divides by one, so
+    that every entry stays finite; a live attempt never meets one in the
+    entries its order reads."""
+    curr_t = prev_t[:, 0]
+    dt = next_t - curr_t
+    num = next_t.unsqueeze(1) - prev_t
+    den = curr_t.unsqueeze(1) - prev_t
+    ratios = torch.cat([torch.ones_like(num[:, :1]),
+                        num[:, :-1] / _nonzero(den[:, 1:])], dim=1)
+    beta = torch.cumprod(ratios, dim=1)
+    c = (1.0 / torch.arange(1, H + 2, dtype=prev_t.dtype,
+                            device=prev_t.device)).expand(prev_t.shape[0],
+                                                          H + 1)
+    g = [torch.ones_like(dt)]
+    for j in range(1, H):
+        if j == 1:
+            c = c[:, :-1] - c[:, 1:]
+        else:
+            factor = dt / _nonzero(next_t - prev_t[:, j - 1])
+            c = c[:, :-1] - c[:, 1:] * factor.unsqueeze(1)
+        g.append(c[:, 0])
+    return torch.stack(g, dim=1), beta
+
+
+def _masked_implicit(explicit, f, H: int):
+    """phi[:, 0] = f, phi[:, j] = phi[:, j-1] - explicit[:, j-1], to H."""
+    def leaf(ep, fn):
+        out = [fn]
+        for j in range(1, H):
+            out.append(out[-1] - ep[:, j - 1])
+        return torch.stack(out, dim=1)
+
+    return tmap(leaf, explicit, f)
+
+
+def _row(leaf: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """leaf[r, idx[r]] for every replica r: leaf (R, H, ...), idx (R,)."""
+    index = idx.view(-1, 1, *([1] * (leaf.ndim - 2))).expand(
+        leaf.shape[0], 1, *leaf.shape[2:])
+    return torch.gather(leaf, 1, index).squeeze(1)
+
+
+def _rows(tree, idx: torch.Tensor):
+    return tmap(lambda leaf: _row(leaf, idx), tree)
+
+
+def _scaled_rows(factors, x):
+    """(f_0 · f_1 · …) · x replica by replica, each (R,) factor rounded to
+    the leaf's dtype first (``_scaled`` with a replica axis)."""
+    def leaf(v):
+        s = cast(factors[0], v.dtype)
+        for f in factors[1:]:
+            s = s * cast(f, v.dtype)
+        return bcast(s, v) * v
+
+    return tmap(leaf, x)
+
+
+def _weighted_rows(w: torch.Tensor, phi):
+    """Σ_j w[r, j] · phi[r, j] for every replica r: w (R, H)."""
+    def leaf(p):
+        R, H = p.shape[:2]
+        out = torch.bmm(cast(w, p.dtype).unsqueeze(1), p.reshape(R, H, -1))
+        return out.reshape(R, *p.shape[2:])
+
+    return tmap(leaf, phi)
+
+
+def _step_for_order(dt: torch.Tensor, max_ratio: torch.Tensor,
+                    order: torch.Tensor, ctrl: Controller) -> torch.Tensor:
+    """``optimal_step_size`` with a per-replica order (R,): the exponent
+    1/order is applied as ``tensor ** float`` applies it (orders 1 and 2 as
+    the identity and a square root)."""
+    max_ratio = torch.where(torch.isnan(max_ratio),
+                            torch.full_like(max_ratio, float("inf")),
+                            max_ratio)
+    dfactor = torch.where(max_ratio < 1.0, torch.ones_like(max_ratio),
+                          torch.full_like(max_ratio, ctrl.dfactor))
+    error_ratio = torch.sqrt(torch.clamp(max_ratio, min=1e-30))
+    k = order.to(error_ratio.dtype)
+    powered = torch.where(order == 1, error_ratio, torch.where(
+        order == 2, torch.sqrt(error_ratio), error_ratio ** (1.0 / k)))
+    factor = torch.clamp(torch.minimum(powered / ctrl.safety, 1.0 / dfactor),
+                         min=1.0 / ctrl.ifactor)
+    return dt / factor
+
+
+def _tmin_rows(values):
+    return values[0] if len(values) == 1 else torch.stack(values).amin(0)
+
+
+def _masked_attempt(func, st: _Machine, obs_i: torch.Tensor,
+                    live: torch.Tensor, t: torch.Tensor, ctrl: Controller,
+                    max_order: int, gamma_star: torch.Tensor,
+                    bad: Optional[torch.Tensor] = None):
+    """One branch-free attempt of every replica, ``_make_vcabm_machine``'s
+    ``attempt`` of the JAX package with a replica axis. ``obs_i`` (R,) is
+    each replica's pending observation, ``gamma_star`` is ``_GAMMA_STAR``
+    in the time dtype (made by the caller, outside any traced loop),
+    ``live`` (R,) marks the replicas
+    still solving; the others keep their state and attempt at dt = 0, as
+    does a replica marked ``bad``, which is rejected with dt·dfactor (the
+    forced rejection of a non-finite attempt, ``grad_guard``).
+
+    Returns (state, accept, reached, underflow, ok, p_next): accept,
+    reached (an accepted attempt that landed on its observation), underflow
+    and ok (the attempt's finite flag) are (R,) bool, p_next the predictor
+    that an observation reads."""
+    H = max_order + 1
+    tdtype = t.dtype
+    go = live if bad is None else live & ~bad
+    curr_t = st.prev_t[:, 0]
+    t_obs = t.index_select(0, torch.clamp(obs_i, max=t.shape[0] - 1))
+    # the pending observation bounds the step, so that an accepted attempt
+    # lands on it exactly
+    next_prop = torch.minimum(st.next_t, t_obs)
+    dt_prop = next_prop - curr_t
+    next_t = torch.where(go, next_prop, curr_t)
+    dt = next_t - curr_t
+    g, beta = _masked_g_and_beta(st.prev_t, next_t, H)
+    phi = tmap(lambda p: p * bcast(cast(beta, p.dtype), p), st.phi)
+
+    order = st.order
+    j = torch.arange(H, device=order.device)
+    pred_w = torch.where(j < torch.clamp(order - 1, min=1).unsqueeze(1), g,
+                         torch.zeros_like(g))
+    p_next = tmap(torch.add, st.y,
+                  _scaled_rows((dt,), _weighted_rows(pred_w, phi)))
+    f_pred = func(next_t, p_next)
+    iphi_p = _masked_implicit(phi, f_pred, H)
+
+    om1 = torch.clamp(order - 1, min=0)
+    g_om1 = _row(g, om1)
+    y_next = tmap(torch.add, p_next,
+                  _scaled_rows((dt, g_om1), _rows(iphi_p, om1)))
+    local_error = _scaled_rows((dt, _row(g, order) - g_om1),
+                               _rows(iphi_p, order))
+    ratios = error_ratios(local_error, st.y, y_next, ctrl.rtol, ctrl.atol,
+                          tdtype, batched=True)
+    accept, max_ratio = accept_and_max_ratio(ratios)
+    f_corr = func(next_t, y_next)
+    finite = all_true(_replica_finite(
+        *leaves(p_next), *leaves(f_pred), *leaves(y_next), *leaves(f_corr),
+        *leaves(local_error)), node_group())
+    ok = finite if bad is None else finite & ~bad
+    accept = accept & ok & live
+
+    # order adaptation from the errors at orders k-1, k-2 and k+1
+    def err_min(k):
+        gd = _row(g, torch.clamp(k, min=1)) - _row(g, torch.clamp(k - 1,
+                                                                 min=0))
+        e = _scaled_rows((dt, gd), _rows(iphi_p, torch.clamp(k, min=0)))
+        return _tmin_rows(error_ratios(e, st.y, y_next, ctrl.rtol, ctrl.atol,
+                                       tdtype, batched=True))
+
+    gamma = gamma_star.index_select(
+        0, torch.clamp(order, max=len(_GAMMA_STAR) - 1))
+    ekp1_max = tmax_rows(error_ratios(
+        _scaled_rows((dt, gamma), _rows(iphi_p, order)), st.y, y_next,
+        ctrl.rtol, ctrl.atol, tdtype, batched=True))
+    ramp = (st.n_hist <= 4) | (order < 3)
+    dec = torch.minimum(err_min(order - 1), err_min(order - 2)) < max_ratio
+    inc = ~dec & (order < max_order) & (ekp1_max < max_ratio)
+    k_next = torch.where(ramp, torch.clamp(order + 1, max=min(3, max_order)),
+                         torch.where(dec, order - 1,
+                                     torch.where(inc, order + 1, order)))
+    dt_acc = torch.where(k_next > order, dt,
+                         _step_for_order(dt, max_ratio, order + 1, ctrl))
+    dt_rej = torch.where(ok, _step_for_order(dt, max_ratio, order, ctrl),
+                         dt_prop * ctrl.dfactor)
+
+    # the history an accepted attempt leaves: the entries past its order
+    # are never read, and are kept at zero
+    keep = j <= order.unsqueeze(1)
+    phi_acc = tmap(lambda p: torch.where(bcast(keep, p), p,
+                                         torch.zeros_like(p)),
+                   _masked_implicit(phi, f_corr, H))
+
+    def pick(a, b):
+        return torch.where(bcast(accept, a), a, b)
+
+    new = _Machine(
+        y=tmap(pick, p_next, st.y),
+        prev_t=pick(torch.cat([next_t.unsqueeze(1), st.prev_t[:, :-1]],
+                              dim=1), st.prev_t),
+        phi=tmap(pick, phi_acc, st.phi),
+        next_t=torch.where(accept, next_t + dt_acc, torch.where(
+            live, curr_t + dt_rej, st.next_t)),
+        order=torch.where(accept, k_next, order),
+        n_hist=torch.where(accept, torch.clamp(st.n_hist + 1, max=H),
+                           st.n_hist))
+    reached = accept & (next_t >= t_obs)
+    underflow = live & ~(next_prop > curr_t)
+    return new, accept, reached, underflow, ok, p_next
+
+
+def _clamped_order(max_order: int) -> int:
+    return int(max(_MIN_ORDER, min(max_order, _MAX_ORDER)))
+
+
+def solve_vcabm_batched(func, y0, t: torch.Tensor, rtol: float, atol: float,
+                        max_order: int = _MAX_ORDER, max_steps: int = 1 << 16,
+                        safety: float = 0.9, ifactor: float = 10.0,
+                        dfactor: float = 0.2):
+    """``solve_vcabm`` for R replicas at once, ``jax.vmap`` of the JAX
+    solve: every leaf of ``y0`` is (R, ...), ``func(t, y)`` takes t of
+    shape (R,) and the batched state, the grid ``t`` (on the CPU) is
+    shared. Returns (solution (len(t), R, ...), BatchedSolveStats).
+
+    Each replica keeps its own order, step, history, accept flag,
+    observation pointer, attempt count and NFE (two an attempt); one that
+    has read every observation, spent ``max_steps`` attempts or underflowed
+    is frozen, and the loop ends when every replica is. Each attempt ends
+    in one (R, 4) read of (accept, reached, underflow, finite). An
+    observation a replica did not reach holds its y0, a finite
+    placeholder, with ``stats.success[r]`` False, as in
+    ``adaptive.solve_batched``. Differentiable when autograd records it:
+    the gradient crosses the step-size and order controller, and an
+    attempt that is non-finite for a live replica is recorded again with
+    that replica at dt = 0 and rejected, so that its gradient is zero."""
+    max_order = _clamped_order(max_order)
+    H = max_order + 1
+    T = t.shape[0]
+    lead = leaves(y0)[0]
+    R, device = lead.shape[0], lead.device
+    t_dev = t.to(device)
+    ctrl = Controller(rtol=rtol, atol=atol, safety=safety, ifactor=ifactor,
+                      dfactor=dfactor, order=0)
+    t0 = t_dev[0].expand(R).clone()
+    f0 = func(t0, y0)
+    first = select_initial_step(func, t0, y0, 2, rtol, atol, f0,
+                                batched=True)
+    st = _init_machine(y0, f0, t0, first, H)
+    obs_i = torch.ones(R, dtype=torch.int64, device=device)
+    gamma_star = torch.tensor(_GAMMA_STAR, dtype=t.dtype, device=device)
+
+    # slot 0 of every replica is y0; every attempt that reaches some
+    # replica's observation adds a slot, slot_of[r][i] is where replica r's
+    # observation i went
+    rounds = [tmap(lambda leaf: leaf.unsqueeze(1), y0)]
+    slot_of = [[0] * T for _ in range(R)]
+    ptr, nfe = [1] * R, [2] * R
+    nacc, nrej, ok = [0] * R, [0] * R, [True] * R
+    syncs = 0
+    while True:
+        live = [ptr[r] < T and nacc[r] + nrej[r] < max_steps and ok[r]
+                for r in range(R)]
+        if not any(live):
+            break
+        live_t = torch.tensor(live, device=device)
+        out = _masked_attempt(func, st, obs_i, live_t, t_dev, ctrl,
+                              max_order, gamma_star)
+        acc, hit, under, fin = torch.stack(
+            [f.to(torch.int32) for f in out[1:5]]).tolist()
+        syncs += 1
+        bad = [lv and not f for lv, f in zip(live, fin)]
+        if any(bad) and torch.is_grad_enabled():
+            out = _masked_attempt(func, st, obs_i, live_t, t_dev, ctrl,
+                                  max_order, gamma_star,
+                                  bad=torch.tensor(bad, device=device))
+        st, _, reached, _, _, p_next = out
+        obs_i = obs_i + reached.long()
+        if any(hit):
+            rounds.append(tmap(lambda leaf: leaf.unsqueeze(1), p_next))
+        for r in range(R):
+            if not live[r]:
+                continue
+            nfe[r] += 2
+            if acc[r]:
+                nacc[r] += 1
+            else:
+                nrej[r] += 1
+            ok[r] = not under[r]
+            if hit[r]:
+                slot_of[r][ptr[r]] = len(rounds) - 1
+                ptr[r] += 1
+
+    stats = BatchedSolveStats(
+        nfe=tuple(nfe), n_accepted=tuple(nacc), n_rejected=tuple(nrej),
+        success=tuple(ok[r] and ptr[r] >= T for r in range(R)),
+        host_syncs=syncs)
+    slots = tmap(lambda *ls: torch.cat(ls, dim=1), *rounds)
+    idx = torch.tensor(slot_of, device=device).t()             # (T, R)
+    reps = torch.arange(R, device=device).expand(T, R)
+    # row-major, as every solve returns it (the kernels take no other)
+    return tmap(lambda leaf: leaf[reps, idx].contiguous(), slots), stats
+
+
+def solve_vcabm_while(func, y0, t: torch.Tensor, rtol: float, atol: float,
+                      max_order: int = _MAX_ORDER, max_steps: int = 1 << 16,
+                      safety: float = 0.9, ifactor: float = 10.0,
+                      dfactor: float = 0.2):
+    """The inference solve of one model as one device-resident program, the
+    JAX package's ``solve_vcabm`` (a ``lax.while_loop``): a ``while_loop``
+    whose body is ``_masked_attempt`` on a replica axis of one, with no
+    branch. It is what ``torch.export`` traces (``serve.export_ndcn``);
+    run eagerly it gives what ``solve_vcabm`` gives, to the rounding of the
+    masked sums.
+
+    ``t`` is the grid in the time dtype, on any device (moved to the
+    state's). The carry is flat tensors: the machine, (obs_i, nfe, nacc,
+    nrej, ok) and one solution buffer a leaf, (len(t) + 1, 1, ...): an
+    attempt that reaches its observation writes the predictor at obs_i,
+    every other attempt writes into the last row, which is dropped. The
+    rows not reached stay NaN. Returns (solution, SolveStats) with 0-dim
+    tensors for the counts and ``success``, and ``host_syncs`` None."""
+    max_order = _clamped_order(max_order)
+    H = max_order + 1
+    T = t.shape[0]
+    lead = leaves(y0)[0]
+    device = lead.device
+    t = t.to(device)
+    bare = isinstance(y0, torch.Tensor)
+    m = len(leaves(y0))
+    ctrl = Controller(rtol=rtol, atol=atol, safety=safety, ifactor=ifactor,
+                      dfactor=dfactor, order=0)
+
+    def one(tree):
+        return tmap(lambda leaf: leaf.unsqueeze(0), tree)
+
+    def func_r(tt, y):
+        # the model's RHS on the replica axis of one
+        return one(func(tt.reshape(()), tmap(lambda leaf: leaf[0], y)))
+
+    y0_r = one(y0)
+    t0 = t[:1].clone()
+    f0 = func_r(t0, y0_r)
+    first = select_initial_step(func_r, t0, y0_r, 2, rtol, atol, f0,
+                                batched=True)
+    st0 = _init_machine(y0_r, f0, t0, first, H)
+
+    def count(v):
+        return torch.full((1,), v, dtype=torch.int64, device=device)
+
+    sol0 = tmap(lambda y: torch.cat([y.unsqueeze(0), torch.full(
+        (T, *y.shape), float("nan"), dtype=y.dtype, device=device)]), y0_r)
+
+    def tree(flat):
+        return flat[0] if bare else tuple(flat)
+
+    def pack(st: _Machine, counts, sol):
+        return (*leaves(st.y), st.prev_t, *leaves(st.phi), st.next_t,
+                st.order, st.n_hist, *counts, *leaves(sol))
+
+    def unpack(flat):
+        st = _Machine(y=tree(flat[:m]), prev_t=flat[m],
+                      phi=tree(flat[m + 1:2 * m + 1]), next_t=flat[2 * m + 1],
+                      order=flat[2 * m + 2], n_hist=flat[2 * m + 3])
+        return st, flat[2 * m + 4:2 * m + 9], tree(flat[2 * m + 9:])
+
+    carry0 = tuple(c.clone() for c in pack(st0, (
+        count(1), count(2), count(0), count(0),
+        torch.ones(1, dtype=torch.bool, device=device)), sol0))
+    rep = torch.zeros(1, dtype=torch.int64, device=device)
+    gamma_star = torch.tensor(_GAMMA_STAR, dtype=t.dtype, device=device)
+
+    def live_of(counts):
+        obs_i, _, nacc, nrej, ok = counts
+        return (obs_i < T) & (nacc + nrej < max_steps) & ok
+
+    def cond_fn(*c):
+        return live_of(unpack(c)[1]).any()
+
+    def body(*c):
+        st, counts, sol = unpack(c)
+        obs_i, nfe, nacc, nrej, ok = counts
+        live = live_of(counts)
+        new, accept, reached, underflow, _, p_next = _masked_attempt(
+            func_r, st, obs_i, live, t, ctrl, max_order, gamma_star)
+        idx = torch.where(reached, obs_i, torch.full_like(obs_i, T))
+        sol = tmap(lambda buf, v: buf.index_put((idx, rep), v), sol, p_next)
+        return pack(new, (obs_i + reached.long(), nfe + 2 * live.long(),
+                          nacc + accept.long(),
+                          nrej + (live & ~accept).long(), ok & ~underflow),
+                    sol)
+
+    final = while_loop(cond_fn, body, carry0)
+    _, (obs_i, nfe, nacc, nrej, ok), sol = unpack(final)
+    stats = SolveStats(nfe=nfe[0], n_accepted=nacc[0], n_rejected=nrej[0],
+                       success=ok[0] & (obs_i[0] >= T), host_syncs=None)
+    return tmap(lambda buf: buf[:T, 0], sol), stats

@@ -116,9 +116,12 @@ def make_ndcn_replica_train_step(op, vt, x0: torch.Tensor,
                                  atol: float = 0.001, method: str = "dopri5",
                                  lr: float = 0.01, weight_decay: float = 1e-3,
                                  max_steps: int = 64, hidden: int = 20,
-                                 fused=False):
+                                 fused=False, adjoint: bool = False):
     """A multi-replica NDCN training step on one device; the port of
-    ``make_sharded_ndcn_train_step(None, op, vt, x0, target, ...)``.
+    ``make_sharded_ndcn_train_step(None, op, vt, x0, target, ...)``. Every
+    ``method`` runs; ``adjoint`` takes the gradients from the batched
+    continuous adjoint (``ode.adjoint``) instead of backprop through the
+    solve.
 
     Returns (init_fn, step_fn):
       init_fn(generators) -> (model, opt): R replicas stacked, one per
@@ -137,7 +140,7 @@ def make_ndcn_replica_train_step(op, vt, x0: torch.Tensor,
     def loss_fn(model):
         out, stats = ndcn_forward(model, op, vt, x0, rtol=rtol, atol=atol,
                                   method=method, max_steps=max_steps,
-                                  fused=fused)
+                                  fused=fused, adjoint=adjoint)
         losses = replica_l1(out.transpose(0, 1), target)
         return nan_unless(stats.success, losses), losses
 

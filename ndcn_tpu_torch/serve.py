@@ -10,16 +10,21 @@ serve a failed answer loudly, never silently. Two ways to serve:
 - In-process, ``make_server`` / ``Server``: the eager forward, with the
   solver's host loop (``ode.adaptive.solve``, one host read an attempt).
 - The portable artifact, ``export_ndcn`` / ``load_ndcn``: ``torch.export``
-  of the whole inference forward (encoder, the adaptive solve over the
-  frozen grid as one device-resident ``while_loop``
-  (``ode.adaptive.solve_while``), the operator's products, decoder) into
-  bytes, which ``save_artifact`` writes. Parameters, the operator's arrays
-  and the grid are baked in as the program's buffers (dense, contiguous
-  copies); the runtime input is x0 alone. The kernels are in the program
-  as the operators of ``kernels.ops``: an artifact exported on CUDA tensors
-  launches K1-K4 on the card, one exported on the CPU runs their plain
-  versions. The artifact records the device it was exported on (as the JAX
-  one records its platform) and is served there.
+  of the whole inference forward (encoder, the solve over the frozen grid,
+  the operator's products, decoder) into bytes, which ``save_artifact``
+  writes. The adaptive solves are one device-resident ``while_loop`` each
+  (dopri5 / tsit5: ``ode.adaptive.solve_while``; adams: the masked VCABM
+  machine, ``ode.vcabm.solve_vcabm_while``); the fixed grids (euler,
+  midpoint, rk4, explicit_adams, fixed_adams) are unrolled over the frozen
+  grid. Either layout exports: the (n, d) state, and the feature-major
+  (d_sub, n) state that ``layout="auto"`` picks from 500k nodes on a COO
+  operator. Parameters, the operator's arrays and the grid are baked in as
+  the program's buffers (dense, contiguous copies); the runtime input is
+  x0 alone. The kernels are in the program as the operators of
+  ``kernels.ops``: an artifact exported on CUDA tensors launches K1, K1-fm
+  (pack and gather) or K5, K2, K3 and K4 on the card, one exported on the
+  CPU runs their plain versions. The artifact records the device it was
+  exported on (as the JAX one records its platform) and is served there.
 
 The artifact loads without the model code. A process that serves it
 imports torch and ``ndcn_tpu_torch.kernels`` (which registers the kernels'
@@ -136,10 +141,9 @@ def export_ndcn(model: NDCN, op: GraphOperator, vt, x_shape: Sequence[int],
     ``op``'s device; hand the bytes to ``save_artifact`` / ``load_ndcn``.
 
     ``forward_kwargs`` pass through to ``models.ndcn_forward`` (rtol / atol
-    / method / terminal / max_steps / fused / the ablations); the solve is
-    forced onto the inference path. dopri5, tsit5, euler, midpoint and rk4
-    export; the Adams methods and the feature-major layout raise
-    ``NotImplementedError`` (ROADMAP §1 entry 11b′). ``vt`` must be a
+    / method / terminal / max_steps / fused / layout / the ablations); the
+    solve is forced onto the inference path. Every method exports, in
+    either layout (see the module docstring). ``vt`` must be a
     strictly increasing 1-D grid: it is checked here, on the host, since
     the traced solve cannot read it."""
     # the artifact always serves the inference path: drop the training

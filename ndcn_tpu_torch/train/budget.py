@@ -116,6 +116,11 @@ def sweep_memory_estimate(probe_step: Callable[[], "object"], replicas: int,
     has no guard. Returns {"per_replica", "estimate", "limit"} in bytes;
     the limit is ``SWEEP_MEMORY_SHARE`` of the card's memory.
 
+    The probe must be the step the sweep will take: with the continuous
+    adjoint, the adjoint step (``make_ndcn_replica_train_step(adjoint=
+    True)``), whose peak does not grow with the trajectory; backprop's
+    does, which is the reason to run the adjoint.
+
     A batched solve records every replica's attempts until its slowest
     replica is done, so a probe of several replicas (the hardest of a few
     inits sets their attempts) sizes a replica closer than one alone."""

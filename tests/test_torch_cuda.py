@@ -1586,3 +1586,78 @@ def test_artifact_on_cuda_launches_its_kernel_and_matches_the_server(
         b, sb = adaptive.solve_while(adaptive.DOPRI5_METHOD, func, h0,
                                      torch.as_tensor(vt), ctrl, 1 << 16)
     assert torch.equal(a, b) and sa.nfe == int(sb.nfe)
+
+
+# ------------------------------- K1-fm and K5 as operators, the new paths
+@pytest.mark.parametrize("bf16", [False, True])
+def test_k1fm_and_k5_operators_match_plain_and_the_eager_wrapper(
+        cuda_device, bf16):
+    """``ndcn_tpu_torch::pack_rows``, ``::gather_T`` and
+    ``::gather_T_wide`` (what the feature-major artifact holds) on the
+    card: each its kernel, counted as the wrapper counts it, within
+    1e-5·max|y| of the plain version and bit-equal to the eager
+    wrapper."""
+    a, x = _hub_state(5000, 3, 20)
+    op = from_scipy_coo(a, device=cuda_device)
+    xT = torch.as_tensor(np.ascontiguousarray(
+        np.pad(x, ((0, 0), (0, 4))).T), device=cuda_device)
+    ops = torch.ops.ndcn_tpu_torch
+    csr = (op.row_ptr, op.rows, op.cols, op.vals, *op.split[:3],
+           op.split.limit)
+    kernels.reset_launch_counts()
+    table = ops.pack_rows(xT, bf16)
+    y = ops.gather_T(*csr, table)
+    wide_table = coo_spmv.pack_rows_plain(xT, bf16)
+    y_wide = ops.gather_T_wide(*csr, wide_table)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert (counts["coo_spmv_T_pack"], counts["coo_spmv_T"],
+            counts["coo_spmv_T_wide"]) == (1, 1, 1)
+    assert torch.equal(table, coo_spmv.pack_rows_plain(xT, bf16))
+    ref = coo_spmv.coo_spmv_T_plain(op.rows, op.cols, op.vals, xT, op.n,
+                                    bf16)
+    for got in (y, y_wide):
+        assert float((got - ref).abs().max()) <= 1e-5 * float(
+            ref.abs().max())
+    with coo_spmv.gather_precision(bf16):
+        assert torch.equal(y, coo_spmv.spmv_T(op, xT))
+        coo_spmv.GATHER_WIDE = True
+        try:
+            assert torch.equal(y_wide, coo_spmv.spmv_T(op, xT))
+        finally:
+            coo_spmv.GATHER_WIDE = False
+
+
+@pytest.mark.parametrize("method", ["dopri5", "adams"])
+def test_batched_adjoint_step_on_cuda_matches_cpu(cuda_device, method):
+    """One replica-sweep step with the batched continuous adjoint (R = 3,
+    grid400 COO, hidden 20) on the card against the CPU: losses within
+    1e-4, updated parameters within 1e-3 rel-L1; K1's batched form runs
+    forward and over Aᵀ in the VJPs, no one-replica launch."""
+    from ndcn_tpu_torch.parallel.sweep import (make_ndcn_replica_train_step,
+                                               replica_generators)
+    lap = operators.normalized_laplacian(generators.build_network("grid", 400))
+    vt = np.linspace(0.0, 2.0, 6).astype(np.float32)
+    x0 = np.random.RandomState(0).uniform(0.0, 25.0, (400, 1)) \
+        .astype(np.float32)
+    target = np.random.RandomState(1).rand(6, 400, 1).astype(np.float32)
+
+    def step(dev):
+        op = as_operator(sp.csr_matrix(lap), sparse=True, format="coo",
+                         device=dev)
+        init_fn, step_fn = make_ndcn_replica_train_step(
+            op, vt, torch.as_tensor(x0, device=dev),
+            torch.as_tensor(target, device=dev), method=method,
+            adjoint=True)
+        model, opt = init_fn(replica_generators(3, 3))
+        losses = step_fn(model, opt)
+        return losses.cpu(), [p.detach().cpu() for p in model.parameters()]
+
+    kernels.reset_launch_counts()
+    losses, params = step(cuda_device)
+    counts = kernels.launch_counts()
+    assert counts["coo_spmv_batched"] > 0 and counts["coo_spmv"] == 0
+    losses_cpu, params_cpu = step("cpu")
+    assert float((losses - losses_cpu).abs().max()) <= 1e-4
+    for p, q in zip(params, params_cpu):
+        assert _rel_l1(p, q) <= 1e-3

@@ -297,15 +297,19 @@ def test_driver_resumes_mid_iter_bit_equal(synth_dir, tmp_path):
 
 
 @pytest.mark.parametrize("flag,entry", [
-    (["--batch_iters", "--model", "differential_gcn", "--method", "adams"],
-     "entry 11a′"),
-    (["--batch_iters", "--budget_buckets", "2", "--model", "odeGCN",
-      "--method", "fixed_adams"], "entry 11a′"),
+    # the Adams methods under --batch_iters and --export run since ROADMAP
+    # §1 entries 11a′ and 11b′ were ported: these cases pass the refusals
+    # and reach the data, which is not there (the ids keep the cases'
+    # names; test_driver_runs_the_adams_methods_in_replicas_and_export runs
+    # them on data)
+    pytest.param(["--batch_iters", "--model", "differential_gcn",
+                  "--method", "adams"], None, id="flag0-entry 11a′"),
+    pytest.param(["--batch_iters", "--budget_buckets", "2", "--model",
+                  "odeGCN", "--method", "fixed_adams"], None,
+                 id="flag1-entry 11a′"),
     (["--mesh"], "entry 11"),
-    # --export runs since ROADMAP §1 entry 11b; the Adams methods under it
-    # are entry 11b′ (the id keeps the case's name)
     pytest.param(["--export", "x.bin", "--model", "differential_gcn",
-                  "--method", "adams"], "entry 11b′", id="flag3-entry 11"),
+                  "--method", "adams"], None, id="flag3-entry 11"),
     (["--precision", "high"], "entry 6")])
 def test_driver_refuses_unported_flags_before_loading(flag, entry, tmp_path,
                                                      monkeypatch):
@@ -316,8 +320,43 @@ def test_driver_refuses_unported_flags_before_loading(flag, entry, tmp_path,
     args, _ = dgnn.build_parser().parse_known_args(
         ["--data_dir", str(tmp_path / "nothing_here"), "--platform", "cpu",
          *flag])
+    if entry is None:
+        with pytest.raises(FileNotFoundError):
+            dgnn.run(args)
+        return
     with pytest.raises(NotImplementedError, match=entry):
         dgnn.run(args)
+
+
+@pytest.mark.parametrize("method,model,extra", [
+    ("adams", "differential_gcn", ["--T", "1.2", "--time_tick", "4"]),
+    ("fixed_adams", "odeGCN", ["--budget_buckets", "2"]),
+    ("explicit_adams", "differential_gcn", ["--T", "1.2", "--time_tick",
+                                            "4"])])
+def test_driver_runs_the_adams_methods_in_replicas_and_export(
+        synth_dir, method, model, extra, tmp_path):
+    """``--batch_iters`` with the Adams methods (ROADMAP §1 entry 11a′):
+    each replica's accuracies are its single-model run's; ``--export``
+    with them (entry 11b′) serves the trained model's test accuracy."""
+    from ndcn_tpu_torch.serve import load_artifact, load_ndcn
+
+    argv = ["--epochs", "2", "--hidden", "8", "--method", method,
+            "--dropout", "0", *extra]
+    out = _run(synth_dir, *argv, "--iter", "2", "--batch_iters",
+               model=model)
+    for i in range(2):
+        alone = _run(synth_dir, *argv, "--seed", str(1 + i), "--iter", "1",
+                     model=model)
+        np.testing.assert_allclose(alone["rows"][0][1:3],
+                                   out["rows"][i][1:3], rtol=1e-5)
+    path = str(tmp_path / "m.pt2")
+    res = _run(synth_dir, *argv, "--export", path, model=model)
+    data = load_planetoid("dgnn_torch", alpha=0.5, data_dir=synth_dir)
+    logits, ok = load_ndcn(load_artifact(path))(data.features)
+    assert bool(ok)
+    pred = logits.argmax(1).numpy()[data.idx_test]
+    acc = float((pred == data.labels[data.idx_test]).mean())
+    assert abs(acc - res["rows"][-1][2]) < 0.01
 
 
 @pytest.mark.parametrize("flag", [

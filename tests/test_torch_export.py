@@ -1,15 +1,18 @@
 """The serving artifact: ``serve.export_ndcn`` / ``load_ndcn``, the drivers'
-``--export`` and the device-resident solve under them
-(``ode.adaptive.solve_while``), against the JAX package's artifact, the
-port's in-process server and the host-loop solve.
+``--export`` and the device-resident solves under them
+(``ode.adaptive.solve_while``, ``ode.vcabm.solve_vcabm_while``), against
+the JAX package's artifact, the port's in-process server and the host-loop
+solves.
 
 Weights cross through ``convert.params_from_jax``; inputs come from numpy
 seeds. Bars: ``solve_while`` bit-equal to ``solve`` with equal NFE and
-step counts (the same operations in the same order); the artifact 1e-4
-rel-L1 of JAX's ``load_ndcn(export_ndcn(...))`` (the bound of
-``tests/test_torch_ndcn.py``) and 1e-6 max|Δ| of the port's ``Server``,
-both ``success`` true. Each ``torch.export`` takes seconds, so the file
-makes eight.
+step counts (the same operations in the same order); ``solve_vcabm_while``
+within 1e-5 rel-L1 of ``solve_vcabm`` with equal NFE (its masked sums
+round apart); the artifact 1e-4 rel-L1 of JAX's
+``load_ndcn(export_ndcn(...))`` (the bound of ``tests/test_torch_ndcn.py``)
+and 1e-6 max|Δ| of the port's ``Server`` (the adams artifact 1e-5
+rel-L1), both ``success`` true. Each ``torch.export`` takes seconds, so
+the file makes twelve.
 """
 
 import io
@@ -33,7 +36,7 @@ from ndcn_tpu_torch.convert import params_from_jax
 from ndcn_tpu_torch.graph import generators, operators
 from ndcn_tpu_torch.graph.sparse import as_operator, from_dense
 from ndcn_tpu_torch.models import ndcn_forward
-from ndcn_tpu_torch.ode import adaptive
+from ndcn_tpu_torch.ode import adaptive, vcabm
 from ndcn_tpu_torch.ode.step_control import Controller
 from ndcn_tpu_torch.serve import (export_ndcn, load_artifact, load_ndcn,
                                   make_server, save_artifact)
@@ -145,6 +148,32 @@ def test_solve_while_repeats_solve(name, tdtype):
     assert got[1].host_syncs is None
 
 
+@pytest.mark.parametrize("tdtype", [torch.float32, torch.float64])
+def test_solve_vcabm_while_repeats_solve_vcabm(tdtype):
+    """The masked VCABM machine in one ``while_loop`` against the host
+    loop's ``solve_vcabm``: equal NFE and step counts, observations within
+    1e-5 rel-L1 (the masked sums may round differently)."""
+    func, h0 = _grid400_rhs()
+    t = torch.as_tensor(np.sort(np.random.RandomState(2).uniform(0, 5, 12)),
+                        dtype=tdtype)
+    t = torch.cat([torch.zeros(1, dtype=tdtype), t])
+    with torch.no_grad():
+        a, sa = vcabm.solve_vcabm(func, h0, t, 0.01, 0.001)
+        b, sb = vcabm.solve_vcabm_while(func, h0, t, 0.01, 0.001)
+    assert sa.success and sa.n_accepted > 10
+    assert (sa.nfe, sa.n_accepted, sa.n_rejected, sa.success) == (
+        int(sb.nfe), int(sb.n_accepted), int(sb.n_rejected), bool(sb.success))
+    assert rel_l1(b.numpy(), a.numpy()) <= 1e-5
+    # a blown budget: the same rows reached, the rest NaN
+    with torch.no_grad():
+        a, sa = vcabm.solve_vcabm(func, h0, t, 0.01, 0.001, max_steps=6)
+        b, sb = vcabm.solve_vcabm_while(func, h0, t, 0.01, 0.001,
+                                        max_steps=6)
+    assert not sa.success and not bool(sb.success)
+    assert torch.equal(torch.isnan(a), torch.isnan(b))
+    assert (sa.nfe, sa.n_accepted) == (int(sb.nfe), int(sb.n_accepted))
+
+
 def test_solve_while_stops_as_solve_does():
     """A blown budget and a dt underflow end the loop where ``solve``
     ends: success false, the same rows reached, the rest NaN."""
@@ -204,19 +233,104 @@ def test_terminal_classifier_drops_training_switches(tmp_path):
     assert float((out - ref).abs().max()) <= 1e-6
 
 
-def test_export_refuses_adams_and_feature_major(monkeypatch):
-    """ROADMAP §1 entry 11b′: the Adams methods, and the feature-major
-    layout that 'auto' picks from 500k nodes on a COO operator."""
+def test_export_refuses_adams_and_feature_major(monkeypatch,
+                                                adams_artifacts):
+    """The Adams methods and the feature-major layout that 'auto' picks
+    from 500k nodes on a COO operator were refused until ROADMAP §1 entry
+    11b′ was ported; they export now. The adams artifact, the masked VCABM
+    machine in a ``while_loop``, serves the ``Server``'s host-indexed
+    solve within 1e-5 rel-L1; the 'auto' feature-major artifact holds K1-fm's
+    pack and gather and serves the ``Server``'s answer within 1e-6."""
     lap, _, model, vt, x = _problem()
-    with pytest.raises(NotImplementedError, match="entry 11b′"):
-        export_ndcn(model, from_dense(lap), vt, x.shape, rtol=0.01,
-                    atol=0.001, method="adams")
+    out, ok = load_ndcn(adams_artifacts["adams"])(x)
+    server = make_server(model, from_dense(lap), vt, fused="auto",
+                         **dict(KW, method="adams"))
+    s_out, s_ok = server(x)
+    assert bool(ok) and s_ok and rel_l1(out.numpy(), s_out.numpy()) <= 1e-5
     from ndcn_tpu_torch.graph import sparse as graph_sparse
     from ndcn_tpu_torch.models import ndcn as ndcn_mod
     monkeypatch.setattr(graph_sparse, "use_tiled_kernel", lambda op: True)
     monkeypatch.setattr(ndcn_mod, "_FEATURE_MAJOR_AUTO_NODES", 50)
-    with pytest.raises(NotImplementedError, match="entry 11b′"):
-        export_ndcn(model, _operators(lap, "coo")[0], vt, x.shape, **KW)
+    op = _operators(lap, "coo")[0]
+    blob = export_ndcn(model, op, vt, x.shape, **KW)
+    assert _kernel_ops(blob) == {"ndcn_tpu_torch.pack_rows",
+                                 "ndcn_tpu_torch.gather_T"}
+    out, ok = load_ndcn(blob)(x)
+    s_out, s_ok = make_server(model, op, vt, **KW)(x)
+    assert bool(ok) and s_ok
+    assert float((out - s_out).abs().max()) <= 1e-6
+
+
+ADAMS = ("adams", "fixed_adams", "explicit_adams")
+
+
+@pytest.fixture(scope="module")
+def adams_artifacts():
+    """The port's artifact of the 100-node grid problem (dense, K2) with
+    each Adams method."""
+    lap, _, model, vt, x = _problem()
+    return {m: export_ndcn(model, from_dense(lap), vt, x.shape, fused="auto",
+                           **dict(KW, method=m)) for m in ADAMS}
+
+
+@pytest.mark.parametrize("method", ADAMS)
+def test_adams_artifact_matches_jax_artifact_and_server(method,
+                                                        adams_artifacts):
+    """The Adams artifacts (ROADMAP §1 entry 11b′) against JAX's artifact
+    (1e-4 rel-L1) and the port's ``Server``: the fixed-grid methods unroll
+    the ``Server``'s operations (1e-6 max|Δ|); adams runs the masked
+    machine against the host-indexed solve (1e-5 rel-L1)."""
+    lap, j_params, model, vt, x = _problem()
+    kw = dict(KW, method=method)
+    blob = adams_artifacts[method]
+    assert _kernel_ops(blob) == {"ndcn_tpu_torch.fused_rhs"}
+    out, ok = load_ndcn(blob)(x)
+    ref, j_ok = j_load_ndcn(j_export_ndcn(j_params, j_from_dense(lap),
+                                          jnp.asarray(vt), x.shape, **kw))(
+        jnp.asarray(x))
+    assert bool(ok) and bool(j_ok) and out.shape == (8, 100, 1)
+    assert rel_l1(out.numpy(), ref) < 1e-4
+    s_out, s_ok = make_server(model, from_dense(lap), vt, fused="auto",
+                              **kw)(x)
+    assert s_ok
+    if method == "adams":
+        assert rel_l1(out.numpy(), s_out.numpy()) <= 1e-5
+    else:
+        assert float((out - s_out).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("wide", [False, True])
+def test_feature_major_artifact_matches_jax_artifact_and_server(
+        wide, monkeypatch):
+    """``layout="feature_major"`` exported (ROADMAP §1 entry 11b′): K1-fm's
+    pack and gather, or K5's gather under ``GATHER_WIDE``, as operators of
+    the program; against JAX's feature-major artifact (its Pallas
+    ``spmv_T`` in interpret mode; 1e-4 rel-L1) and the port's ``Server``
+    (1e-6 max|Δ|)."""
+    from ndcn_tpu.graph import sparse as j_gs
+    from ndcn_tpu.kernels import coo_spmv as j_ck
+    from ndcn_tpu_torch.graph import sparse as graph_sparse
+    from ndcn_tpu_torch.kernels import coo_spmv as ck
+    monkeypatch.setattr(graph_sparse, "use_tiled_kernel", lambda op: True)
+    monkeypatch.setattr(j_gs, "use_tiled_kernel", lambda: True)
+    monkeypatch.setattr(ck, "GATHER_WIDE", wide)
+    monkeypatch.setattr(j_ck, "GATHER_WIDE", wide)
+    lap, j_params, model, vt, x = _problem()
+    mat = sp.csr_matrix(lap)
+    kw = dict(KW, layout="feature_major")
+    op = graph_sparse.from_scipy_coo(mat)
+    blob = export_ndcn(model, op, vt, x.shape, **kw)
+    assert _kernel_ops(blob) == (
+        {"ndcn_tpu_torch.gather_T_wide"} if wide else
+        {"ndcn_tpu_torch.pack_rows", "ndcn_tpu_torch.gather_T"})
+    out, ok = load_ndcn(blob)(x)
+    ref, j_ok = j_load_ndcn(j_export_ndcn(
+        j_params, j_gs.from_scipy_coo(mat, tiled=True), jnp.asarray(vt),
+        x.shape, **kw))(jnp.asarray(x))
+    assert bool(ok) and bool(j_ok)
+    assert rel_l1(out.numpy(), ref) < 1e-4
+    s_out, s_ok = make_server(model, op, vt, **kw)(x)
+    assert s_ok and float((out - s_out).abs().max()) <= 1e-6
 
 
 def test_dynamics_driver_export(tmp_path):

@@ -462,7 +462,8 @@ def _losses(text, pattern):
     return [float(v) for v in re.findall(pattern, text)]
 
 
-@pytest.mark.parametrize("driver", ["heat", "dgnn", "heat_replicas"])
+@pytest.mark.parametrize("driver", ["heat", "dgnn", "heat_replicas",
+                                    "heat_replicas_adjoint"])
 def test_driver_mesh_two_gloo_ranks_match_unsharded(driver, tmp_path,
                                                     capsys):
     """--mesh on two ranks: the operator's rows, the node-major data and
@@ -470,8 +471,10 @@ def test_driver_mesh_two_gloo_ranks_match_unsharded(driver, tmp_path,
     dropout drawn whole: every rank prints the unsharded run's losses
     (within 1e-5, beside the printed digits), and the dump is written.
     With ``--replicas 2`` the two ranks are the data axis, a replica each,
-    and every rank prints the sweep's line over both."""
-    if driver == "heat_replicas":
+    and every rank prints the sweep's line over both; with ``--adjoint``
+    too, each rank's replica trains on the batched adjoint (a model axis
+    of one)."""
+    if driver.startswith("heat_replicas"):
         from ndcn_tpu_torch.experiments.dynamics import main as run
 
         # two steps: a replica alone and in a batch of two round apart
@@ -479,6 +482,8 @@ def test_driver_mesh_two_gloo_ranks_match_unsharded(driver, tmp_path,
         argv = ["--niters", "2", "--test_freq", "2", "--platform", "cpu",
                 "--method", "dopri5", "--sparse", "--sparse_format", "coo",
                 "--dropout", "0.1", "--replicas", "2"]
+        if driver.endswith("adjoint"):
+            argv.append("--adjoint")
         capsys.readouterr()
         run("heat", "heat", argv)
         pattern = r"(?:train|test) rel ([0-9.]+)±([0-9.]+)"

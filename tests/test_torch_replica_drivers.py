@@ -202,7 +202,8 @@ def test_batch_iters_zoo_replicas_are_their_runs_alone(synth_dir, model_name,
 def test_heat_replicas_dump_summarize_and_refusals(tmp_path, capsys):
     """``--replicas 3 --dump``: the JAX driver's log line and return, one
     results file per replica that both packages' summaries read alike; the
-    JAX driver's refusals, and the port's for entry 11a′."""
+    JAX driver's refusals; ``--adjoint`` and the Adams methods, refused
+    until ROADMAP §1 entry 11a′ was ported, run."""
     base = ["--n", "36", "--time_tick", "8", "--platform", "cpu"]
     out = run("heat", build_parser("t").parse_args(
         base + ["--method", "dopri5", "--niters", "2", "--test_freq", "2",
@@ -224,12 +225,19 @@ def test_heat_replicas_dump_summarize_and_refusals(tmp_path, capsys):
     assert np.isclose(out["final"]["rel_error_std"], mine["rel_error_std"])
     for extra, err, match in (
             (["--baseline", "lstm_gnn"], SystemExit, "continuous"),
-            (["--ckpt_dir", str(tmp_path)], SystemExit, "incompatible"),
-            (["--method", "dopri5", "--adjoint"], NotImplementedError,
-             "§1 entry 11a′")):
+            (["--ckpt_dir", str(tmp_path)], SystemExit, "incompatible")):
         with pytest.raises(err, match=match):
             run("heat", build_parser("t").parse_args(
                 base + ["--replicas", "2", *extra]))
+    for extra in (["--method", "dopri5", "--adjoint"],
+                  ["--method", "adams", "--adjoint"]):
+        res = run("heat", build_parser("t").parse_args(
+            base + ["--replicas", "2", "--niters", "2", "--test_freq", "2",
+                    *extra]))
+        assert res["replicas"] == 2 and np.isfinite(
+            res["final"]["rel_error"])
+        # the adams budget is the JAX driver's default, not a probe
+        assert (res["max_steps"] == 256) == ("adams" in extra)
     # --mesh is no refusal: a world of one runs the sweep unsharded, as the
     # JAX driver does on one device
     capsys.readouterr()

@@ -121,13 +121,13 @@ def test_without_resume_the_cell_log_is_removed(synth_dir, tmp_path,
 
 
 def test_replica_cells_and_no_card_are_refused(synth_dir, tmp_path):
-    """Cells of several replicas with an Adams method wait for ROADMAP §1
-    entry 11a′ (the dgnn driver's refusal); the default platform needs a
-    card."""
+    """Cells of several replicas with an Adams method, refused until
+    ROADMAP §1 entry 11a′ was ported, run (two replicas a cell, the dgnn
+    driver's batched adams); the default platform needs a card."""
     out_csv = str(tmp_path / "grid.csv")
-    with pytest.raises(NotImplementedError, match="§1 entry 11a′"):
-        sweep_t_alpha.main(argv(synth_dir, out_csv, "--batch_iters",
-                                "--method", "adams"))
+    grid = sweep_t_alpha.main(argv(synth_dir, out_csv, "--batch_iters",
+                                   "--iter", "2", "--method", "adams"))
+    assert grid.shape == (1, 2) and np.isfinite(grid).all()
     no_platform = [a for a in argv(synth_dir, out_csv)
                    if a not in ("--platform", "cpu")]
     if not torch.cuda.is_available():

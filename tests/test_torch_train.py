@@ -485,14 +485,19 @@ def test_heat_experiment_auto_budget_and_refusals(tmp_path):
          "--method", "dopri5", "--platform", "cpu", "--fused_kernel"]))
     assert out["max_steps"] >= 8 and np.isfinite(out["final"]["abs_error"])
     base = ["--n", "25", "--platform", "cpu"]
-    for extra, item in ((["--method", "adams", "--export", "m.pt"],
-                         "§1 entry 11b′"),
-                        (["--method", "adams", "--replicas", "2"],
-                         "§1 entry 11a′"),
-                        (["--method", "dopri5", "--scan_chunk", "4"],
-                         "§1 entry 6")):
-        with pytest.raises(NotImplementedError, match=item):
-            run("heat", build_parser("t").parse_args(base + extra))
+    with pytest.raises(NotImplementedError, match="§1 entry 6"):
+        run("heat", build_parser("t").parse_args(
+            base + ["--method", "dopri5", "--scan_chunk", "4"]))
+    # adams under --export and --replicas, refused until ROADMAP §1
+    # entries 11b′ and 11a′ were ported, run
+    short = base + ["--time_tick", "6", "--niters", "2", "--test_freq", "2"]
+    out = run("heat", build_parser("t").parse_args(
+        short + ["--method", "adams", "--export",
+                 str(tmp_path / "m.pt2")]))
+    assert os.path.getsize(out["export"]) > 0
+    out = run("heat", build_parser("t").parse_args(
+        short + ["--method", "adams", "--replicas", "2"]))
+    assert out["replicas"] == 2 and np.isfinite(out["final"]["rel_error"])
     # the temporal baselines and --dump run (they were refused until
     # ROADMAP §1 entry 10 was ported)
     out = run("heat", build_parser("t").parse_args(
