@@ -38,6 +38,26 @@
 // one-replica launch on that slice, so each replica is bit-equal to its own
 // launch. A's blocks are staged once per replica, from L2 after the first.
 //
+// K3's replica groups (bsr_spmm_group_kernel), for the batched form where
+// the one-replica plan has all 8 warps split the depth of a chunk (wn = 1:
+// slabs of up to 32 columns, the NDCN and classification hidden widths).
+// There a replica's CTAs stage every nonzero block of their row block
+// through the ring, and at R replicas A's blocks are staged R times (cora:
+// 468 blocks, 30.7 MB, 25 times at R = 25) while each CTA's X chunk is a
+// 16-column sliver. Here a CTA takes a row tile and a group of replicas:
+// it stages each chunk of A once and the group's X chunks side by side
+// (replica g's columns at g · rep_cols, rep_cols the slab rounded up to 4),
+// and the warps multiply the A tile into all of them at once, so the group
+// reads A once. Per output element nothing changes: the chunk depth and
+// order and the warps' depth split are the one-replica plan's, each warp
+// takes the same k8 steps of each chunk into a fragment that starts at
+// zero, and the depth split is folded in warp order; a replica's values
+// are therefore bit-equal to its own one-replica launch (the panel's
+// height and the columns beside it do not enter a value's sum). The host's
+// plan (kernels/bsr_spmm.py::bsr_batched_plan) sets the group, the panel
+// (32 rows and 8 n8 tiles a warp, or 16 and 16) and the shared memory;
+// gridDim.z is the groups.
+//
 // Every sum has a fixed order and no atomics are used, so results repeat bit
 // for bit, which the adaptive controller's NFE needs. Ragged edges (B not a
 // multiple of the tile or chunk, n not a multiple of B, d not a multiple of 4
@@ -133,6 +153,84 @@ bsr_spmm_kernel(Bsr a, const float* __restrict__ x, float* __restrict__ y,
 
 template <int MT, int NT>
 __global__ void __launch_bounds__(ndcn::kMmaThreads)
+bsr_spmm_group_kernel(Bsr a, const float* __restrict__ x,
+                      float* __restrict__ y, ndcn::Layout L, int d, int slab,
+                      int rep_cols, int tiles_per_block, int group,
+                      int replicas, bool a_vec, bool x_vec) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int BM = 16 * MT;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int first = blockIdx.z * group;          // the group's first replica
+  const int live = min(group, replicas - first);
+  const int64_t x_rs = (int64_t)a.n_cols * d;    // one replica's X, Y
+  const int64_t y_rs = (int64_t)a.n_rows * d;
+  const int rb = blockIdx.x / tiles_per_block;
+  const int r0 = (blockIdx.x % tiles_per_block) * BM;
+  const int c0 = blockIdx.y * slab;              // the slab's first column
+  const int x_cols = min(slab, d - c0);
+  const int s0 = a.row_ptr[rb];
+  const int chunks_per_block = (a.block + L.bk - 1) / L.bk;
+  const BsrSource src{a, x + first * x_rs + c0, d, L.bk, chunks_per_block,
+                      s0, r0};
+  float* ring = smem + BM * L.ldp;
+
+  // as ndcn::panel_product: the pads are zero, not garbage
+  for (int i = tid; i < BM * L.ldp + ndcn::kStages * L.stage_floats;
+       i += ndcn::kMmaThreads) {
+    smem[i] = 0.0f;
+  }
+  __syncthreads();
+  float acc[MT][NT][4];
+  ndcn::zero_acc<MT, NT>(acc);
+  ndcn::ring_loop(
+      (a.row_ptr[rb + 1] - s0) * chunks_per_block,
+      [&](int c, int stage) {
+        float* st = ring + stage * L.stage_floats;
+        const ndcn::Chunk ch = src.chunk(c);   // ch.x: replica `first`'s
+        if (ch.depth == L.bk && ch.x_rows == L.bk) {
+          ndcn::stage_tile_whole(st, L.lda, ch.a, ch.a_ld, ch.a_rows, L.bk,
+                                 BM, a_vec);
+          for (int g = 0; g < live; ++g) {
+            ndcn::stage_tile_whole(st + BM * L.lda + g * rep_cols, L.ldb,
+                                   ch.x + g * x_rs, ch.x_ld, L.bk, x_cols,
+                                   L.bk, x_vec);
+          }
+        } else {   // a ragged chunk, zero filled as deep as it is read
+          const int deep = (ch.depth + 7) & ~7;
+          ndcn::stage_tile(st, L.lda, ch.a, ch.a_ld, ch.a_rows, ch.depth, BM,
+                           deep, a_vec);
+          for (int g = 0; g < live; ++g) {
+            ndcn::stage_tile(st + BM * L.lda + g * rep_cols, L.ldb,
+                             ch.x + g * x_rs, ch.x_ld, ch.x_rows, x_cols,
+                             deep, rep_cols, x_vec);
+          }
+        }
+      },
+      [&](int c, int stage) {
+        // warp w takes the k8 steps w, w + 8, ... of the chunk, as in the
+        // one-replica plan (wn = 1), across the whole group's columns
+        const float* st = ring + stage * L.stage_floats;
+        ndcn::chunk_mma<MT, NT>(acc, st, L.lda, st + BM * L.lda, L.ldb, warp,
+                                ndcn::kMmaWarps, (src.depth(c) + 7) >> 3,
+                                lane);
+      });
+  ndcn::store_acc<MT, NT>(acc, ndcn::warp_tile<MT, NT>(smem, L, warp), L.ldp,
+                          lane);
+  ndcn::fold_panel<MT>(smem, L);
+  const int64_t row0 = (int64_t)rb * a.block + r0;
+  const int rows = (int)max((int64_t)0, min((int64_t)min(BM, a.block - r0),
+                                            a.n_rows - row0));
+  for (int r = warp; r < rows; r += ndcn::kMmaWarps) {
+    for (int g = 0; g < live; ++g) {
+      const float* p = smem + r * L.ldp + g * rep_cols;
+      float* dst = y + (first + g) * y_rs + (row0 + r) * d + c0;
+      for (int c = lane; c < x_cols; c += 32) dst[c] = p[c];
+    }
+  }
+}
+
+template <int MT, int NT>
+__global__ void __launch_bounds__(ndcn::kMmaThreads)
 bsr_fused_rhs_kernel(Bsr a, const float* __restrict__ x,
                      const float* __restrict__ w, const float* __restrict__ b,
                      float* __restrict__ out, ndcn::Layout L, int64_t w_rs,
@@ -184,6 +282,23 @@ int launch_spmm(const Bsr& a, const float* x, float* y, int n_row_blocks,
 }
 
 template <int MT, int NT>
+int launch_group(const Bsr& a, const float* x, float* y, int n_row_blocks,
+                 int d, int slab, int rep_cols, const ndcn::Layout& L,
+                 size_t smem, int replicas, int group, cudaStream_t stream) {
+  auto kernel = bsr_spmm_group_kernel<MT, NT>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = (a.block + 16 * MT - 1) / (16 * MT);
+  const dim3 grid(n_row_blocks * tiles, (d + slab - 1) / slab,
+                  (replicas + group - 1) / group);
+  kernel<<<grid, ndcn::kMmaThreads, smem, stream>>>(
+      a, x, y, L, d, slab, rep_cols, tiles, group, replicas,
+      a.block % 4 == 0 && ndcn::aligned16(a.blocks),
+      d % 4 == 0 && ndcn::aligned16(x));
+  return (int)cudaGetLastError();
+}
+
+template <int MT, int NT>
 int launch_fused(const Bsr& a, const float* x, const float* w, const float* b,
                  float* out, int n_row_blocks, const ndcn::Layout& L,
                  size_t smem, int64_t w_rs, int64_t w_cs, int replicas,
@@ -228,6 +343,39 @@ int spmm_plan(const void* row_ptr, const void* block_cols, const void* blocks,
   }
   return launch_spmm<2>(a, (const float*)x, (float*)y, n_row_blocks, d, L,
                         smem, replicas, (cudaStream_t)stream);
+}
+
+int group_plan(const void* row_ptr, const void* block_cols,
+               const void* blocks, const void* x, void* y, int n_row_blocks,
+               int block, int n_rows, int n_cols, int d, int slab, int rows,
+               int nt, int bk, long long smem_bytes, int replicas, int group,
+               void* stream) {
+  if (n_row_blocks <= 0 || block <= 0 || d <= 0 || replicas <= 0) {
+    return (int)cudaGetLastError();
+  }
+  const Bsr a{(const int32_t*)row_ptr, (const int32_t*)block_cols,
+              (const float*)blocks, block, n_rows, n_cols};
+  const int rep_cols = ndcn::round_up(slab, 4);
+  ndcn::Layout L;
+  size_t smem = 0;
+  if (group < 1 || group > replicas ||
+      (replicas + group - 1) / group > 65535 || slab < 1 || slab > d ||
+      (slab != d && slab % 8 != 0) ||
+      !ndcn::make_layout(&L, &smem, rows, nt, 1, bk, group * rep_cols) ||
+      (long long)smem != smem_bytes) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (rows == 32 && nt == 8) {
+    return launch_group<2, 8>(a, (const float*)x, (float*)y, n_row_blocks, d,
+                              slab, rep_cols, L, smem, replicas, group,
+                              (cudaStream_t)stream);
+  }
+  if (rows == 16 && nt == 16) {
+    return launch_group<1, 16>(a, (const float*)x, (float*)y, n_row_blocks,
+                               d, slab, rep_cols, L, smem, replicas, group,
+                               (cudaStream_t)stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 int fused_plan(const void* row_ptr, const void* block_cols,
@@ -296,6 +444,20 @@ extern "C" int ndcn_bsr_spmm_batched_f32(
   return spmm_plan(row_ptr, block_cols, blocks, x, y, n_row_blocks, block,
                    n_rows, n_cols, d, slab, rows, wn, bk, smem_bytes,
                    replicas, stream);
+}
+
+// The batched K3 in replica groups (the layout of the entry above): `group`
+// replicas a CTA, gridDim.z = ceil(replicas / group); slab and bk are the
+// one-replica plan's, rows and nt the group's panel (32 rows and 8 n8 tiles
+// a warp, or 16 and 16), smem_bytes its shared memory.
+extern "C" int ndcn_bsr_spmm_grouped_f32(
+    const void* row_ptr, const void* block_cols, const void* blocks,
+    const void* x, void* y, int n_row_blocks, int block, int n_rows,
+    int n_cols, int d, int slab, int rows, int nt, int bk,
+    long long smem_bytes, int replicas, int group, void* stream) {
+  return group_plan(row_ptr, block_cols, blocks, x, y, n_row_blocks, block,
+                    n_rows, n_cols, d, slab, rows, nt, bk, smem_bytes,
+                    replicas, group, stream);
 }
 
 // w may be strided (nn.Linear's weight transposed is a view): element (i, j)

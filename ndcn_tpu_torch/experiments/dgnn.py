@@ -638,6 +638,7 @@ def _run_batched(args: argparse.Namespace, device: torch.device, data, op,
 
     logits_by_idx = {}
     t_start = time.time()
+    epoch_losses = []   # each epoch's mean train loss over the bucket
     for bi, (ms_b, idxs) in enumerate(buckets):
         model = batched_init(init_one, [init_gens[i] for i in idxs])
         gens = [drop_gens[i] for i in idxs]
@@ -651,6 +652,7 @@ def _run_batched(args: argparse.Namespace, device: torch.device, data, op,
         tag = "" if len(buckets) == 1 else f" [bucket {bi}: ms {ms_b}]"
         for epoch in range(args.epochs):
             losses, _ = step()
+            epoch_losses.append(losses.detach().mean())
             if (epoch + 1) % max(1, args.epochs // 10) == 0:
                 losses = gather_replicas(losses, data_group)
                 print(f"Epoch {epoch + 1:04d} | mean train loss "
@@ -714,6 +716,7 @@ def _run_batched(args: argparse.Namespace, device: torch.device, data, op,
             "acc_median": float(np.median(accs)),
             "acc_min": float(accs.min()), "acc_max": float(accs.max()),
             "sweep_seconds": t_total, "max_steps": max_steps,
+            "train_losses": torch.stack(epoch_losses).tolist(),
             "buckets": [(int(b), [int(i) for i in ix]) for b, ix in buckets],
             "dead": dead, "memory": memory, "peak_bytes": peak,
             "device": str(device)}

@@ -15,7 +15,13 @@ and a backward.
   cores (split TF32, ``csrc/mma_split.cuh``).
 - K1, K2, K3 and K4 each also have a batched form for the replica sweeps:
   R replicas' states (and K2 / K4's R weights) against one shared operator
-  in one launch, the replica a grid dimension.
+  in one launch, the replica a grid dimension (K3 at narrow widths: a CTA
+  for a group of replicas, which share each staged chunk of A).
+- K1's rows wider than a warp's 32 loads (the citation graphs' raw
+  features) take its wide form, a warp for each 32-lane tile of a row;
+  counted by entry as K1 is, and alone as ``coo_spmv_wide`` /
+  ``coo_spmv_wide_batched``; K3's replica groups alike as
+  ``bsr_spmm_grouped_batched``.
 - P1a and P1b / P2 ``sparse_bench``: the sparse microbenchmarks' sliced-tile
   reduce and row gather, replace the Pallas kernels of
   ``tools/microbench_sparse.py`` and ``tools/probe_inkernel_gather.py``.
@@ -38,6 +44,9 @@ _COUNTERS = {
     "coo_spmv_bf16": (coo_spmv, "BF16_LAUNCHES"),
     "coo_spmv_batched": (coo_spmv, "BATCHED_LAUNCHES"),
     "coo_spmv_batched_bf16": (coo_spmv, "BATCHED_BF16_LAUNCHES"),
+    # K1's wide form alone (fp32, bf16), also counted above by entry
+    "coo_spmv_wide": (coo_spmv, "K1_WIDE_LAUNCHES"),
+    "coo_spmv_wide_batched": (coo_spmv, "K1_WIDE_BATCHED_LAUNCHES"),
     "coo_spmv_T": (coo_spmv, "T_LAUNCHES"),
     "coo_spmv_T_pack": (coo_spmv, "PACK_LAUNCHES"),
     "coo_spmv_T_wide": (coo_spmv, "WIDE_LAUNCHES"),
@@ -48,7 +57,8 @@ _COUNTERS = {
     "fused_rhs": (fused_rhs, "LAUNCHES"),
     "fused_rhs_batched": (fused_rhs, "BATCHED_LAUNCHES"),
     "bsr_spmm": (bsr_spmm, "SPMM_LAUNCHES"),
-    "bsr_spmm_batched": (bsr_spmm, "BATCHED_SPMM_LAUNCHES"),
+    "bsr_spmm_batched": (bsr_spmm, "BATCHED_SPMM_LAUNCHES"),  # either grid
+    "bsr_spmm_grouped_batched": (bsr_spmm, "GROUPED_SPMM_LAUNCHES"),
     "bsr_fused_rhs": (bsr_spmm, "FUSED_LAUNCHES"),
     "bsr_fused_rhs_batched": (bsr_spmm, "BATCHED_FUSED_LAUNCHES"),
     "sliced_tile_reduce": (sparse_bench, "SLICED_LAUNCHES"),

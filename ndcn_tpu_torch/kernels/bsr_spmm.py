@@ -24,6 +24,11 @@ sweeps): x (R, n, d), and for K4 w (R, d, d) and b (R, d), in one launch of
 the batched forms (``ndcn_bsr_spmm_batched_f32``, the replica as
 ``gridDim.z``; ``ndcn_bsr_fused_rhs_batched_f32``, as ``gridDim.y``), each
 replica bit-equal to its own launch; the backward is the same, batched.
+Where K3's one-replica plan has every warp split the depth (slabs of up to
+32 columns), its batched form takes replica groups instead
+(``ndcn_bsr_spmm_grouped_f32``, ``bsr_batched_plan``): a CTA stages each
+chunk of A once for a group of replicas, whose X chunks lie side by side,
+with each value's sum as in the one-replica launch.
 
 The plain PyTorch versions beside the kernels (a per-block batched product
 and a scatter over row blocks) are the CPU path, inside the same
@@ -44,17 +49,20 @@ import torch
 
 from ndcn_tpu_torch.kernels import build
 from ndcn_tpu_torch.kernels.fused_rhs import (SMEM_LIMIT, SMS,
-                                              TWO_CTAS_SMEM, PanelPlan,
-                                              panel_plan, split_matmul)
+                                              TWO_CTAS_SMEM, WARPS,
+                                              PanelPlan, panel_plan,
+                                              plan_smem_bytes, split_matmul)
 from ndcn_tpu_torch.kernels.platform import on_cuda
 
 BLOCK = 128
 
 # launches of each CUDA kernel in this process, forward and backward (CPU
-# calls do not count)
+# calls do not count); K3's batched form in either grid, and counted there
+# too, in replica groups
 SPMM_LAUNCHES = 0
 FUSED_LAUNCHES = 0
 BATCHED_SPMM_LAUNCHES = 0
+GROUPED_SPMM_LAUNCHES = 0
 BATCHED_FUSED_LAUNCHES = 0
 
 # widest X the fused kernel takes: 8 warps of 16 n8 tiles each, where
@@ -229,6 +237,62 @@ def bsr_spmm_plan(n_row_blocks: int, block: int, d: int) -> SpmmPlan:
     return spmm_plan_for(n_row_blocks, block, d, slab, rows, limit)
 
 
+class GroupPlan(NamedTuple):
+    """How one launch of K3's batched form is cut. ``group`` 1: a CTA a
+    replica, each replica's CTAs as ``base`` says (the replica grid).
+    Otherwise ``groups`` CTAs (``gridDim.z``) for each row tile and slab of
+    ``base``, each for ``group`` replicas (the last group may hold fewer),
+    whose X chunks lie ``rep_cols`` columns apart in a panel of ``rows``
+    rows and ``nt`` n8 tiles a warp; ``base``'s slab, chunk depth and
+    depth split are kept, so each replica is bit-equal to its own
+    launch."""
+    base: SpmmPlan
+    group: int
+    groups: int
+    rows: int
+    nt: int
+    rep_cols: int
+    smem_bytes: int
+
+
+@functools.lru_cache(maxsize=None)
+def bsr_batched_plan(n_row_blocks: int, block: int, d: int,
+                     replicas: int) -> GroupPlan:
+    """K3's batched plan for ``replicas`` states of ``d`` columns.
+
+    Groups where the one-replica plan has all 8 warps split a chunk's depth
+    (``wn`` 1, slabs of up to 32 columns): there a CTA's X chunk is a
+    sliver beside its A tile, so a group shares the A tile, the larger part
+    of each chunk. A group is as many replicas as 8 n8 tiles a warp hold
+    beside a 32-row panel (a 16-row one with 16 tiles where a block is no
+    taller), fewer (down to 2) while the CTAs number fewer than
+    ``SPMM_MIN_CTAS`` (a CTA's time is a chain of chunk copies, as in
+    ``bsr_spmm_plan``); the replicas then spread evenly over the groups.
+    Wider slabs keep a CTA a replica: their X chunks outweigh the A
+    tile. The rule follows the card's numbers (``tools/tune_wide_plan.py``,
+    NVIDIA H100 80GB HBM3, 700.00 W): cora at d = 16, R = 25 takes 0.310 ms
+    in 7 groups of 4 against 0.353 / 0.486 for groups of 3 / 2, 0.46-1.03
+    with 16-row panels and 0.671 for the replica grid; grid400 at d = 20 and
+    5, R = 16, 0.0157 / 0.0150 in groups of 2 (128 CTAs) against 0.0170 /
+    0.0163 in groups of 3 and 0.0213 / 0.0227 for the replica grid."""
+    base = bsr_spmm_plan(n_row_blocks, block, d)
+    p = base.panel
+    if replicas == 1 or p.wn != 1:
+        return GroupPlan(base, 1, replicas, p.rows, p.nt, base.slab,
+                         p.smem_bytes)
+    rep_cols = -(-base.slab // 4) * 4
+    rows, nt = (32, 8) if block > 16 else (16, 16)
+    tiles = n_row_blocks * -(-block // rows) * base.slabs
+    most = min(replicas, 8 * nt // rep_cols)
+    while most > 2 and tiles * -(-replicas // most) < SPMM_MIN_CTAS:
+        most -= 1
+    groups = -(-replicas // most)
+    group = -(-replicas // groups)
+    return GroupPlan(base, group, groups, rows, nt, rep_cols,
+                     plan_smem_bytes(rows, nt, WARPS, p.bk,
+                                     group * rep_cols))
+
+
 def _check_bsr(a: BsrMatrix, x: torch.Tensor, name: str) -> None:
     """x is (n_cols, d), or (R, n_cols, d) for R replicas."""
     if (a.row_ptr.dtype != torch.int32 or a.block_cols.dtype != torch.int32
@@ -256,21 +320,29 @@ def _launch_spmm(a: BsrMatrix, x: torch.Tensor) -> torch.Tensor:
     p = plan.panel
     y = torch.empty((*x.shape[:-2], a.n_rows, d), dtype=torch.float32,
                     device=x.device)
-    args = (a.row_ptr.data_ptr(), a.block_cols.data_ptr(),
+    ptrs = (a.row_ptr.data_ptr(), a.block_cols.data_ptr(),
             a.blocks.data_ptr(), x.data_ptr(), y.data_ptr(), a.n_row_blocks,
-            a.block, a.n_rows, a.n_cols, d, plan.slab, p.rows, p.wn, p.bk,
-            p.smem_bytes)
+            a.block, a.n_rows, a.n_cols, d, plan.slab)
+    args = (*ptrs, p.rows, p.wn, p.bk, p.smem_bytes)
+    group = (bsr_batched_plan(a.n_row_blocks, a.block, d, x.shape[0])
+             if x.ndim == 3 else None)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if x.ndim == 3:
+        if group is not None and group.group > 1:
+            rc = lib.ndcn_bsr_spmm_grouped_f32(
+                *ptrs, group.rows, group.nt, p.bk, group.smem_bytes,
+                x.shape[0], group.group, stream)
+        elif x.ndim == 3:
             rc = lib.ndcn_bsr_spmm_batched_f32(*args, x.shape[0], stream)
         else:
             rc = lib.ndcn_bsr_spmm_f32(*args, stream)
     if rc != 0:
         raise RuntimeError(f"bsr_spmm kernel launch failed: CUDA error {rc}")
-    global SPMM_LAUNCHES, BATCHED_SPMM_LAUNCHES
+    global SPMM_LAUNCHES, BATCHED_SPMM_LAUNCHES, GROUPED_SPMM_LAUNCHES
     if x.ndim == 3:
         BATCHED_SPMM_LAUNCHES += 1
+        if group.group > 1:
+            GROUPED_SPMM_LAUNCHES += 1
     else:
         SPMM_LAUNCHES += 1
     return y

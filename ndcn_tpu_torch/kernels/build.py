@@ -43,6 +43,14 @@ ENTRY_POINTS = {
     # after another; x's rows are n_rows but on a row block's CSR)
     "ndcn_coo_spmv_batched_f32": _GATHER[:-1] + (_I, _I, _P),
     "ndcn_coo_spmv_batched_bf16": _GATHER[:-1] + (_I, _I, _P),
+    # K1's wide form (one replica or batched): after the scratch the heavy
+    # rows (heavy_rows, n_heavy, their edge threshold), the batched
+    # arguments, the plan (row lanes a lane takes, tiles a row, gridDim.x),
+    # the stream
+    "ndcn_coo_spmv_wide_f32": _GATHER[:-1] + (_P, _I, _I, _I, _I, _I, _I,
+                                              _L, _P),
+    "ndcn_coo_spmv_wide_bf16": _GATHER[:-1] + (_P, _I, _I, _I, _I, _I, _I,
+                                               _L, _P),
     "ndcn_coo_spmv_T_f32": _GATHER,
     "ndcn_coo_spmv_T_bf16": _GATHER,
     # side (0 forward, 1 row side, 2 column side), row_ptr, rows, cols,
@@ -89,6 +97,11 @@ ENTRY_POINTS = {
     "ndcn_bsr_fused_rhs_batched_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                        _I, _I, _L, _L, _I, _I, _I, _I, _L, _I,
                                        _L, _P),
+    # K3's batched form in replica groups: the pointers and shapes as K3's,
+    # the slab, the group's panel (rows, nt), bk, smem bytes, the replica
+    # count and the group, stream
+    "ndcn_bsr_spmm_grouped_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                  _I, _I, _I, _L, _I, _I, _P),
 }
 
 

@@ -24,6 +24,14 @@ pass folds a row's chunks in chunk order. No atomics anywhere: the order of
 every sum is fixed by the operator and the width, so results repeat bit for
 bit, which the adaptive step controller needs for repeatable NFE.
 
+A row of K1 wider than one warp's 32 lanes (the raw features of the
+citation graphs, and any d past 32 loads) takes K1's wide form
+(``ndcn_coo_spmv_wide_*``): a warp for each tile of each row (32 lanes,
+each taking up to 4 of the row's lanes), so a wide row's tiles run side
+by side, with the same sums in the same order (bit-equal to the narrow
+form at those widths). ``gather_plan`` says which form a width takes and
+lays out the wide form's grid; K1-fm and K5 keep the narrow form.
+
 Each backward is the same kernel over the transpose CSR that ``CooGraph``
 holds (``row_ptr_t``, ``cols_t``, ``vals_t``, ``split_t``), as the JAX
 backward runs the TPU kernel over ``tiles_t``. The operator is a constant: a
@@ -70,12 +78,16 @@ from ndcn_tpu_torch.kernels.platform import on_cuda
 
 # launches of the CUDA kernels in this process, forward and backward (CPU
 # calls do not count): row-major K1 in fp32 and in bf16, its batched form
-# (fp32, bf16), K1-fm's gather and its pack kernel, K5; and, counted there
-# alone, K1 in any form and the gather of K1-fm or K5 on a ``CsrBlock``
+# (fp32, bf16), each in either form, and counted there too, the wide form
+# (fp32 and bf16; one replica, batched); K1-fm's gather and its pack
+# kernel, K5; and, counted there alone, K1 in any form and the gather of
+# K1-fm or K5 on a ``CsrBlock``
 LAUNCHES = 0
 BF16_LAUNCHES = 0
 BATCHED_LAUNCHES = 0
 BATCHED_BF16_LAUNCHES = 0
+K1_WIDE_LAUNCHES = 0
+K1_WIDE_BATCHED_LAUNCHES = 0
 T_LAUNCHES = 0
 PACK_LAUNCHES = 0
 WIDE_LAUNCHES = 0
@@ -91,35 +103,103 @@ D_WIDE = 128
 
 # rows with more edges than this are cut into chunks of this many edges
 SPLIT_EDGES = 256
+# K1's wide form starts the warps of rows with more edges than this (and
+# at most SPLIT_EDGES) before the others: one load of a warp's indices
+HEAVY_EDGES = 32
+
+# lanes of a warp: K1's rows wider than this many loads take the wide form
+WARP_LANES = 32
+# the wide form's lanes take 4 or 2 of a row's lanes only where that leaves
+# a row this many tiles (``gather_plan``)
+WIDE_MIN_TILES = 8
+# warps of a block of the gather kernels (``kGatherThreads`` / 32)
+BLOCK_WARPS = 8
+
+
+class GatherPlan(NamedTuple):
+    """How K1 lays a product of rows of d values over the card. A lane
+    loads ``lane_values`` values of a row (E: the widest load that divides
+    a row's bytes), so a row takes ``row_lanes`` = d / E lanes. Up to a
+    warp's 32 the narrow form shares a warp among a row's edges or among
+    rows (``csrc/spmv_gather.cuh``); past it (``wide``) a warp takes one
+    tile of one row, 32 lanes of ``lane_columns`` row lanes each (32
+    apart), ``tiles`` warps a row side by side, and the replica is the
+    grid's second axis."""
+    wide: bool
+    lane_values: int
+    row_lanes: int
+    lane_columns: int
+    tiles: int
+
+    def grid(self, rows: int, replicas: int = 1) -> tuple:
+        """(gridDim.x, gridDim.y) of the wide form over ``rows`` rows (or
+        chunks) of ``replicas`` states: a warp a tile, 8 warps a block."""
+        return -(-rows * self.tiles // BLOCK_WARPS), replicas
+
+
+def gather_plan(d: int, width: int, itemsize: int,
+                columns: Optional[int] = None) -> GatherPlan:
+    """K1's form for rows of ``d`` values of ``itemsize`` bytes read
+    ``width`` bytes a lane (``_gather_width``): wide where a row takes more
+    lanes than a warp has. A wide lane takes ``columns`` row lanes (1, 2 or
+    4, at most 4 words of loads an edge) and keeps 32 words of loads in
+    flight, so 32 / columns edges' worth at 4-byte loads.
+
+    By default the most row lanes a lane can take that still leave a row
+    ``WIDE_MIN_TILES`` tiles, else one. The rule follows the card's numbers
+    (``tools/tune_wide_plan.py``, NVIDIA H100 80GB HBM3, 700.00 W): at cora's
+    d = 1433 (12 tiles of 128 lanes) 4 columns take 0.0446 ms against 0.062
+    for 2 and 0.112 for 1, at citeseer's 3703 0.125 against 0.205 / 0.361
+    (fewer waves of warps, and 8 edges in flight enough for rows of some
+    five edges); at d = 129 one column takes 0.0148 against 0.0383 for 4,
+    whose second tile would hold one live lane in 128."""
+    lane_values = width // itemsize
+    row_lanes = d // lane_values
+    if columns is None:
+        words = max(1, width // 4)
+        columns = next((c for c in (4, 2) if c * words <= 4 and -(
+            -row_lanes // (WARP_LANES * c)) >= WIDE_MIN_TILES), 1)
+    return GatherPlan(row_lanes > WARP_LANES, lane_values, row_lanes,
+                      columns, -(-row_lanes // (WARP_LANES * columns)))
 
 
 class RowSplit(NamedTuple):
     """The chunks of one CSR's long rows. Row ``long_rows[j]`` has more than
     ``limit`` edges; its chunks are ``chunk_ptr[j] .. chunk_ptr[j + 1]``, and
     chunk c covers the edges ``chunk_bounds[c, 0] .. chunk_bounds[c, 1]``,
-    consecutive and in order. Every other row is walked whole."""
+    consecutive and in order. Every other row is walked whole.
+    ``heavy_rows``: the rows walked whole that have more than
+    ``HEAVY_EDGES`` edges, in order; K1's wide form starts their warps
+    first, so that their longer chains run beside the short rows' instead
+    of after them (None: no such list, every row in row order)."""
     long_rows: torch.Tensor     # (n_long,) int32
     chunk_ptr: torch.Tensor     # (n_long + 1,) int32
     chunk_bounds: torch.Tensor  # (n_chunks, 2) int32
     limit: int
+    heavy_rows: Optional[torch.Tensor] = None   # (n_heavy,) int32
 
 
 def split_rows(row_ptr: np.ndarray, limit: int = SPLIT_EDGES,
                device: Optional[torch.device] = None) -> RowSplit:
     """Cut the rows of a CSR pointer that are longer than ``limit`` into
-    chunks of ``limit`` edges (the last one shorter), on the host."""
+    chunks of ``limit`` edges (the last one shorter), and list the heavy
+    rows, on the host."""
     if limit < 1:
         raise ValueError(f"split_rows takes a limit >= 1, got {limit}")
     row_ptr = np.asarray(row_ptr, np.int64)
-    long_rows = np.flatnonzero(np.diff(row_ptr) > limit)
+    lens = np.diff(row_ptr)
+    long_rows = np.flatnonzero(lens > limit)
     starts, ends = row_ptr[long_rows], row_ptr[long_rows + 1]
     per_row = -(-(ends - starts) // limit)
     chunk_ptr = np.concatenate([[0], np.cumsum(per_row)])
     owner = np.repeat(np.arange(long_rows.size), per_row)
     lo = starts[owner] + (np.arange(chunk_ptr[-1]) - chunk_ptr[owner]) * limit
     bounds = np.stack([lo, np.minimum(lo + limit, ends[owner])], axis=1)
-    return RowSplit(*(torch.as_tensor(a.astype(np.int32), device=device)
-                      for a in (long_rows, chunk_ptr, bounds)), limit)
+    heavy = np.flatnonzero((lens > HEAVY_EDGES) & (lens <= limit))
+    long_rows, chunk_ptr, bounds, heavy = (
+        torch.as_tensor(a.astype(np.int32), device=device)
+        for a in (long_rows, chunk_ptr, bounds, heavy))
+    return RowSplit(long_rows, chunk_ptr, bounds, limit, heavy)
 
 
 class CsrBlock(NamedTuple):
@@ -277,13 +357,17 @@ def _check(op, x: torch.Tensor, what: str = "coo_spmv",
             or op.row_ptr.shape != (op.n + 1,) or op.vals.shape != (nnz,)):
         raise ValueError(f"{what} takes int32 row_ptr (n+1,), int32 cols "
                          f"(nnz,) and float32 vals (nnz,)")
-    long_rows, chunk_ptr, chunk_bounds, _ = op.split
+    long_rows, chunk_ptr, chunk_bounds = op.split[:3]
+    heavy = op.split.heavy_rows
     if (any(t.dtype != torch.int32 for t in op.split[:3])
             or chunk_ptr.shape != (long_rows.shape[0] + 1,)
-            or chunk_bounds.ndim != 2 or chunk_bounds.shape[1] != 2):
+            or chunk_bounds.ndim != 2 or chunk_bounds.shape[1] != 2
+            or heavy is not None and (heavy.dtype != torch.int32
+                                      or heavy.ndim != 1)):
         raise ValueError(f"{what} takes the int32 chunk index that "
                          f"split_rows builds: long_rows (n_long,), chunk_ptr "
-                         f"(n_long + 1,), chunk_bounds (n_chunks, 2)")
+                         f"(n_long + 1,), chunk_bounds (n_chunks, 2), "
+                         f"heavy_rows (n_heavy,) or None")
 
 
 def _call(entry: str, device: torch.device, *args) -> None:
@@ -309,25 +393,36 @@ def _gather_width(table: torch.Tensor) -> int:
 
 
 def _launch_gather(entry: str, op, table: torch.Tensor, y: torch.Tensor,
-                   d: int, replicas: Optional[int] = None) -> None:
+                   d: int, replicas: int = 1, tail: tuple = ()) -> None:
     """One product of the shared gather over ``op``'s forward CSR: the rows
     kernel, and for an operator with long rows the chunk kernel into a
-    scratch and the fold, all on the current stream. With ``replicas`` the
-    entry is a batched one: ``table`` holds that many (op.n_table, d)
-    states and ``y`` that many (op.n, d) results."""
+    scratch and the fold, all on the current stream. ``table`` holds
+    ``replicas`` (op.n_table, d) states and ``y`` that many (op.n, d)
+    results; ``tail`` is what the entry takes after the scratch (a batched
+    entry's replica count and table rows, the wide form's plan too)."""
     split = op.split
     n_chunks = split.chunk_bounds.shape[0]
-    partial = (torch.empty(((replicas or 1) * n_chunks, d),
-                           dtype=torch.float32, device=table.device)
-               if n_chunks else None)
+    partial = (torch.empty((replicas * n_chunks, d), dtype=torch.float32,
+                           device=table.device) if n_chunks else None)
     _call(entry, table.device,
           op.row_ptr.data_ptr(), op.cols.data_ptr(), op.vals.data_ptr(),
           table.data_ptr(), y.data_ptr(), op.n, d,
           _gather_width(table.view(-1, table.shape[-1])), split.limit,
           split.long_rows.data_ptr(), split.chunk_ptr.data_ptr(),
           split.chunk_bounds.data_ptr(), split.long_rows.shape[0], n_chunks,
-          partial.data_ptr() if n_chunks else None,
-          *(() if replicas is None else (replicas, op.n_table)))
+          partial.data_ptr() if n_chunks else None, *tail)
+
+
+def coo_spmv_narrow(op, x: torch.Tensor, bf16: bool = False) -> torch.Tensor:
+    """K1's narrow form at any width, one replica of CUDA x (n_table, d):
+    the one-replica entry, which walks a row wider than a warp 32 lanes at
+    a time (the form every width took before the wide one, whose sums the
+    wide form keeps). Tests, tools and the chip smoke script hold the wide
+    form against it; the port does not call it."""
+    y = torch.empty((op.n, x.shape[1]), dtype=torch.float32, device=x.device)
+    _launch_gather(f"ndcn_coo_spmv_{'bf16' if bf16 else 'f32'}", op,
+                   x.to(torch.bfloat16) if bf16 else x, y, x.shape[1])
+    return y
 
 
 def pack_rows(xT: torch.Tensor, bf16: bool = False) -> torch.Tensor:
@@ -357,19 +452,37 @@ def _apply(op, x: torch.Tensor) -> torch.Tensor:
     if not on_cuda(x, op.row_ptr, op.cols, op.vals, op.rows, *op.split[:3]):
         return coo_spmv_plain(op.rows, op.cols, op.vals, x, op.n, bf16)
     global LAUNCHES, BF16_LAUNCHES, BATCHED_LAUNCHES, BATCHED_BF16_LAUNCHES
-    global ROWBLOCK_LAUNCHES
+    global ROWBLOCK_LAUNCHES, K1_WIDE_LAUNCHES, K1_WIDE_BATCHED_LAUNCHES
     x = x.contiguous()
     d = x.shape[-1]
     y = torch.empty((*x.shape[:-2], op.n, d), dtype=torch.float32,
                     device=x.device)
     batched = x.ndim == 3
-    _launch_gather(f"ndcn_coo_spmv_{'batched_' if batched else ''}"
-                   f"{'bf16' if bf16 else 'f32'}", op,
-                   x.to(torch.bfloat16) if bf16 else x, y, d,
-                   x.shape[0] if batched else None)
+    replicas = x.shape[0] if batched else 1
+    table = x.to(torch.bfloat16) if bf16 else x
+    dtype = "bf16" if bf16 else "f32"
+    plan = gather_plan(d, _gather_width(table.view(-1, d)),
+                       table.element_size())
+    if plan.wide:
+        heavy = op.split.heavy_rows
+        n_heavy = 0 if heavy is None else heavy.shape[0]
+        _launch_gather(f"ndcn_coo_spmv_wide_{dtype}", op, table, y, d,
+                       replicas, (heavy.data_ptr() if n_heavy else None,
+                                  n_heavy, HEAVY_EDGES, replicas, op.n_table,
+                                  plan.lane_columns, plan.tiles,
+                                  plan.grid(op.n + n_heavy)[0]))
+    else:
+        _launch_gather(f"ndcn_coo_spmv_{'batched_' if batched else ''}"
+                       f"{dtype}", op, table, y, d, replicas,
+                       (replicas, op.n_table) if batched else ())
     if isinstance(op, CsrBlock):
         ROWBLOCK_LAUNCHES += 1
-    elif batched and bf16:
+        return y
+    if plan.wide and batched:
+        K1_WIDE_BATCHED_LAUNCHES += 1
+    elif plan.wide:
+        K1_WIDE_LAUNCHES += 1
+    if batched and bf16:
         BATCHED_BF16_LAUNCHES += 1
     elif batched:
         BATCHED_LAUNCHES += 1

@@ -4,9 +4,10 @@ checks its 8-device CPU mesh.
 
     python -m ndcn_tpu_torch.parallel.dryrun N
 
-starts N rank processes: NCCL on N cards where a card is visible, gloo on
-the CPU with ``--device cpu`` or where none is (fewer than N cards is an
-error, not a switch to the CPU), lays them out as one model axis of N (checks 1-5) and as
+starts N rank processes: NCCL on N cards by default (``--device cuda``),
+gloo on the CPU with ``--device cpu``; fewer than N visible cards, none
+included, is an error that names ``--device cpu``, never a quiet switch to
+the CPU. It lays them out as one model axis of N (checks 1-5) and as
 ``make_mesh``'s (data, model) factorization (check 6), and prints on rank
 0:
 
@@ -448,7 +449,8 @@ def main(argv=None) -> int:
     ap.add_argument("--world", type=int, default=None)
     ap.add_argument("--rank", type=int, default=None,
                     help="run as this rank of --world (the spawned worker)")
-    ap.add_argument("--device", choices=["cpu", "cuda"], default=None)
+    ap.add_argument("--device", choices=["cpu", "cuda"], default="cuda",
+                    help="cuda: NCCL ranks, one card each; cpu: gloo ranks")
     ap.add_argument("--init", type=str, default=None)
     ap.add_argument("--out", type=str, default=None)
     ap.add_argument("--timeout", type=float, default=240.0)
@@ -457,8 +459,9 @@ def main(argv=None) -> int:
         return _worker(args)
     import torch
 
-    device = args.device or ("cuda" if torch.cuda.is_available() else "cpu")
-    if device == "cuda" and torch.cuda.device_count() < args.n:
+    device = args.device
+    if device == "cuda" and (not torch.cuda.is_available()
+                             or torch.cuda.device_count() < args.n):
         print(f"dryrun: {args.n} NCCL ranks need {args.n} cards and "
               f"{torch.cuda.device_count()} are visible; pass --device cpu "
               f"to run the ranks on the CPU with gloo", file=sys.stderr)

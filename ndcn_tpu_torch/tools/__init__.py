@@ -8,9 +8,16 @@ and probes and sweeps of the port's own kernels:
 - ``tune_fused_plan``: K2 and K4 (and with ``k3``, K3) under every launch
   plan they are built for (what ``kernels.fused_rhs.panel_plan``'s and
   ``kernels.bsr_spmm.bsr_spmm_plan``'s rules rest on);
+- ``tune_wide_plan``: K1's wide form under each lane-column count and row
+  order, and K3's batched form under each replica group (what
+  ``kernels.coo_spmv.gather_plan``'s and ``kernels.bsr_spmm.
+  bsr_batched_plan``'s rules rest on);
+- ``trace_adams_attempts``: the first attempt where the card's masked
+  VCABM machine parts from the CPU's on ``chip_smoke.py`` [21] a's adams
+  step, and the controller's numbers there;
 - ``probe_mma_accumulate``: the tensor core's truncating fp32 accumulate
   against the fused kernels' chunk-wise fold;
-- ``compare_builds``: K2 and K4 from two checkouts on the same inputs, bit
+- ``compare_builds``: K1-K4 from two checkouts on the same inputs, bit
   for bit;
 - ``tune_mutual_plan``: K1-w in both forms by width (what
   ``kernels.coo_mutual.mutual_plan``'s crossover rests on);

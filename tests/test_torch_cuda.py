@@ -1661,3 +1661,150 @@ def test_batched_adjoint_step_on_cuda_matches_cpu(cuda_device, method):
     assert float((losses - losses_cpu).abs().max()) <= 1e-4
     for p, q in zip(params, params_cpu):
         assert _rel_l1(p, q) <= 1e-3
+
+
+# the last narrow and the first wide width of each load (fp32: 16-byte
+# loads to d = 128, 4-byte ones at 129; bf16: 16-byte loads to 256, 264 the
+# first wide one, 2-byte ones at 257), and the citation graphs' raw features
+_WIDE_CASES = [(d, False) for d in (128, 129, 132, 1433, 3703)] + [
+    (d, True) for d in (256, 257, 264, 1433)]
+
+
+@pytest.mark.parametrize("limit", [256, 16])
+@pytest.mark.parametrize("r", [1, 3])
+@pytest.mark.parametrize("d,bf16", _WIDE_CASES)
+def test_k1_wide_form_cuda_matches_plain_narrow_and_solo(cuda_device, d,
+                                                         bf16, r, limit):
+    """K1 at the widths around a warp's 32 loads, on a hub graph whose
+    2,000-edge row is past ``SPLIT_EDGES`` (and at a split limit of 16,
+    where most rows are): one replica and batched (R = 3), forward and
+    through autograd (over the transpose), fp32 and bf16. Within 1e-5 of
+    the plain version, two calls bit-equal, each replica bit-equal to its
+    own launch, and bit-equal to the narrow form's sums (the launch of
+    every width before the wide form); the wide form launched exactly
+    where the plan says."""
+    n = 3001
+    a = _hub_coo(n, 40000, 2000, seed=d)
+    op = _resplit(from_scipy_coo(a, device=cuda_device), limit)
+    assert op.split.long_rows.numel() > 0
+    rng = np.random.RandomState(d + r)
+    x = _replica_x(rng, r, n, d, cuda_device)
+    g = _replica_x(rng, r, n, d, cuda_device)
+    table = x.to(torch.bfloat16) if bf16 else x
+    plan = coo_spmv.gather_plan(d, coo_spmv._gather_width(table[0]),
+                                table.element_size())
+    kernels.reset_launch_counts()
+    with coo_spmv.gather_precision(bf16):
+        xg = x.clone().requires_grad_()
+        y = coo_spmv.coo_spmv(op, xg if r > 1 else xg[0])
+        (dx,) = torch.autograd.grad((y * (g if r > 1 else g[0])).sum(), xg)
+        torch.cuda.synchronize()
+        wide = kernels.launch_counts()["coo_spmv_wide_batched" if r > 1
+                                       else "coo_spmv_wide"]
+        assert wide == (2 if plan.wide else 0)
+        y = y.detach().reshape(r, n, d)
+        for got, o, v in ((y, op, x), (dx, op.transpose(), g)):
+            ref = coo_spmv.coo_spmv_plain(o.rows, o.cols, o.vals, v, n, bf16)
+            assert _max_rel(got, ref) <= 1e-5
+            assert torch.equal(got, coo_spmv.coo_spmv(o, v if r > 1
+                                                      else v[0]).reshape(
+                                                          r, n, d))
+            for i in range(r):
+                one = coo_spmv.coo_spmv(o, v[i].contiguous())
+                assert torch.equal(got[i], one)
+                assert torch.equal(one, coo_spmv.coo_spmv_narrow(
+                    o, v[i].contiguous(), bf16))
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("p", [2, 4])
+def test_row_block_k1_wide_form_matches_the_whole_launch(cuda_device, p,
+                                                         bf16):
+    """K1's wide form on each of p row blocks (d = 1433, the table of every
+    node's rows), one replica and R = 3: the blocks concatenated bit-equal
+    to the whole operator's launch, each replica bit-equal to its own
+    launch on the block, within 1e-5·max|y| of the plain version."""
+    from ndcn_tpu_torch.parallel.coo_shard import shard_coo_at
+
+    d = 1433
+    a, _ = _hub_state(3001, 9, 1)
+    op = from_scipy_coo(a, device=cuda_device)
+    rng = np.random.RandomState(p)
+    x = _replica_x(rng, 3, op.n, d, cuda_device)
+    with coo_spmv.gather_precision(bf16):
+        blocks = [shard_coo_at(op, p, r, None) for r in range(p)]
+        pad = blocks[0].n_pad - op.n
+        table = torch.cat([x, x.new_zeros((3, pad, d))], 1)
+        for whole_op, pick in ((op, lambda b: b.block),
+                               (op.transpose(), lambda b: b.block_t)):
+            parts = []
+            for b in blocks:
+                yb = coo_spmv._apply(pick(b), table)
+                for i in range(3):
+                    assert torch.equal(yb[i], coo_spmv._apply(
+                        pick(b), table[i].contiguous()))
+                parts.append(yb[:, :b.stop - b.start])
+            y = torch.cat(parts, 1)
+            torch.cuda.synchronize()
+            assert torch.equal(y, coo_spmv._apply(whole_op, x))
+            ref = coo_spmv.coo_spmv_plain(whole_op.rows, whole_op.cols,
+                                          whole_op.vals, x, op.n, bf16)
+            assert _max_rel(y, ref) <= 1e-5
+
+
+def _bsr_cases():
+    """A 2,708-node random matrix that stores ~97 % of its 128 x 128
+    blocks (cora's operator stores 468 of 484), and the grid400 Laplacian
+    (10 of 16)."""
+    rng = np.random.RandomState(16)
+    return {"dense_blocks": sp.random(2708, 2708, density=2.4e-4,
+                                      random_state=rng, format="csr",
+                                      dtype=np.float32)
+            + sp.eye(2708, dtype=np.float32, format="csr"),
+            "grid400": sp.csr_matrix(operators.normalized_laplacian(
+                generators.build_network("grid", 400)).astype(np.float32))}
+
+
+@pytest.fixture(scope="module")
+def bsr_cases():
+    return _bsr_cases()
+
+
+@pytest.mark.parametrize("r", [1, 3, 25])
+@pytest.mark.parametrize("d", [5, 16, 20, 256])
+@pytest.mark.parametrize("case", ["dense_blocks", "grid400"])
+def test_k3_replica_groups_cuda_match_plain_and_solo_launches(
+        cuda_device, bsr_cases, case, d, r):
+    """K3's batched form (replica groups where the plan takes them, the
+    replica grid where not), forward and over Aᵀ through autograd: within
+    1e-5 of the plain version and 2e-6 of the split emulation, two calls
+    bit-equal, each replica bit-equal to its own one-replica launch, and
+    the grouped entry launched exactly where the plan has groups."""
+    from ndcn_tpu_torch.graph.sparse import from_scipy_bsr_graph
+    mat = bsr_cases[case]
+    op = from_scipy_bsr_graph(mat, device=cuda_device)
+    if case == "dense_blocks":
+        assert op.fwd.blocks.shape[0] >= 0.95 * op.fwd.n_row_blocks ** 2
+    rng = np.random.RandomState(d + r)
+    n = op.n
+    x = torch.as_tensor(rng.rand(r, n, d).astype(np.float32),
+                        device=cuda_device)
+    g = _replica_x(rng, r, n, d, cuda_device)
+    plan = bsr_spmm.bsr_batched_plan(op.fwd.n_row_blocks, op.fwd.block, d, r)
+    kernels.reset_launch_counts()
+    xg = x.clone().requires_grad_()
+    y = bsr_spmm.bsr_spmm(op.fwd, op.bwd, xg)
+    (dx,) = torch.autograd.grad((y * g).sum(), xg)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["bsr_spmm_batched"] == 2
+    assert counts["bsr_spmm_grouped_batched"] == (2 if plan.group > 1 else 0)
+    for got, mat_, v in ((y.detach(), op.fwd, x), (dx, op.bwd, g)):
+        assert _max_rel(got, bsr_spmm.bsr_spmm_plain(mat_, v)) <= 1e-5
+        emu = bsr_spmm.bsr_spmm_split_plain(mat_, v)
+        assert float((got - emu).abs().max()) <= 2e-6 * float(emu.abs().max())
+        other = op.bwd if mat_ is op.fwd else op.fwd
+        assert torch.equal(got, bsr_spmm.bsr_spmm(mat_, other, v))
+        for i in range(r):
+            assert torch.equal(got[i], bsr_spmm.bsr_spmm(mat_, other,
+                                                         v[i].contiguous()))

@@ -162,7 +162,9 @@ def test_build_names_the_library_by_source_hash(monkeypatch, tmp_path):
         "ndcn_row_gather_f32", "ndcn_fused_rhs_f32", "ndcn_bsr_spmm_f32",
         "ndcn_bsr_fused_rhs_f32", "ndcn_coo_spmv_batched_f32",
         "ndcn_coo_spmv_batched_bf16", "ndcn_fused_rhs_batched_f32",
-        "ndcn_bsr_spmm_batched_f32", "ndcn_bsr_fused_rhs_batched_f32"}
+        "ndcn_bsr_spmm_batched_f32", "ndcn_bsr_fused_rhs_batched_f32",
+        "ndcn_coo_spmv_wide_f32", "ndcn_coo_spmv_wide_bf16",
+        "ndcn_bsr_spmm_grouped_f32"}
     entries = "".join(src.read_text() for src in build.sources())
     assert all(f"int {name}(" in entries for name in build.ENTRY_POINTS)
     # without nvcc the build says so, instead of falling back
@@ -170,3 +172,118 @@ def test_build_names_the_library_by_source_hash(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.nvcc()
+
+
+@pytest.mark.parametrize("d,itemsize,width,wide,columns,tiles", [
+    (1, 4, 4, False, 4, 1), (20, 4, 16, False, 1, 1), (32, 4, 4, False, 1, 1),
+    (33, 4, 4, True, 1, 2), (128, 4, 16, False, 1, 1),
+    (129, 4, 4, True, 1, 5), (132, 4, 16, True, 1, 2),
+    (256, 4, 16, True, 1, 2), (256, 2, 16, False, 1, 1),
+    (264, 2, 16, True, 1, 2), (258, 2, 4, True, 1, 5), (130, 4, 8, True, 1, 3),
+    (514, 4, 8, True, 1, 9), (1026, 4, 8, True, 2, 9),
+    (1433, 4, 4, True, 4, 12), (1433, 2, 2, True, 4, 12),
+    (3703, 4, 4, True, 4, 29)])
+def test_k1_gather_plan_takes_the_wide_form_past_a_warp(d, itemsize, width,
+                                                        wide, columns, tiles):
+    """A row of d / E lanes (E = width / itemsize values a lane) takes the
+    narrow form up to a warp's 32 lanes and the wide form past it: the last
+    narrow and the first wide width of each load. A wide lane takes 4 or 2
+    row lanes (at most 4 words of loads) where that leaves a row 8 tiles,
+    else 1, and a row's tiles cover its lanes once."""
+    plan = coo_spmv.gather_plan(d, width, itemsize)
+    assert plan.lane_values == width // itemsize
+    assert plan.row_lanes == d // plan.lane_values
+    assert plan.wide is wide
+    if wide:
+        tile = 32 * plan.lane_columns
+        assert (plan.lane_columns, plan.tiles) == (columns, tiles)
+        assert plan.tiles * tile >= plan.row_lanes > (plan.tiles - 1) * tile
+        assert plan.lane_columns * max(1, width // 4) <= 4
+        assert plan.tiles >= coo_spmv.WIDE_MIN_TILES or plan.lane_columns == 1
+
+
+@pytest.mark.parametrize("d,wide", [(7, False), (16, False), (128, False),
+                                    (129, True), (256, True), (1433, True),
+                                    (3703, True)])
+def test_k1_gather_plan_reads_the_wrappers_width(d, wide):
+    """The plan of the widths the classification path hands K1, from the
+    load width the wrapper picks for a contiguous fp32 state (1433 and 3703
+    are odd: 4-byte loads, 45 and 116 tiles a row)."""
+    x = torch.zeros(8, d)
+    plan = coo_spmv.gather_plan(d, coo_spmv._gather_width(x), 4)
+    assert plan.wide is wide
+
+
+@pytest.mark.parametrize("rows", [1, 400, 2708, 3327, 1_000_000, 10_000_000])
+@pytest.mark.parametrize("d", [33, 1433, 3703])
+@pytest.mark.parametrize("replicas", [1, 25, 65535])
+def test_k1_wide_grid_stays_within_cuda_limits(rows, d, replicas):
+    """gridDim.x (8 warps a block) covers every (row, tile) warp once and
+    stays under 2^31; gridDim.y, the replica, under 65536."""
+    plan = coo_spmv.gather_plan(d, 4, 4)
+    gx, gy = plan.grid(rows, replicas)
+    assert gy == replicas <= 65535
+    assert gx <= 2**31 - 1
+    assert (gx - 1) * coo_spmv.BLOCK_WARPS < rows * plan.tiles <= (
+        gx * coo_spmv.BLOCK_WARPS)
+
+
+class _Recorder:
+    """Stands in for the kernel library: records each entry's name and
+    arguments and reports success."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        return lambda *args: self.calls.append((name, args)) or 0
+
+
+@pytest.mark.parametrize("d,entry", [(16, "ndcn_coo_spmv_batched_f32"),
+                                     (1433, "ndcn_coo_spmv_wide_f32")])
+def test_k1_wrapper_hands_the_wide_form_its_plan(d, entry, monkeypatch):
+    """The batched wrapper on a hub graph: the narrow width takes the
+    batched entry, the wide one the wide entry with the operator's heavy
+    rows, the replica count and the table's rows, and the plan's lane
+    columns, tiles and gridDim.x (over the heavy rows' slots and every
+    row's)."""
+    a, _ = _power_law_coo(300, 3000, 1, d)
+    op = from_scipy_coo(a)
+    assert op.split.chunk_bounds.shape[0] > 0
+    lib = _Recorder()
+    monkeypatch.setattr(coo_spmv, "on_cuda", lambda *t: True)
+    monkeypatch.setattr(build, "load", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: __import__(
+        "contextlib").nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda: type(
+        "S", (), {"cuda_stream": 0})())
+    counts = dict(coo_spmv.__dict__)
+    y = coo_spmv._apply(op, torch.zeros(3, op.n, d))
+    assert y.shape == (3, op.n, d)
+    (name, args), = lib.calls
+    assert name == entry
+    plan = coo_spmv.gather_plan(d, 16 if d % 4 == 0 else 4, 4)
+    tail = args[15:-1]
+    if plan.wide:
+        heavy = op.split.heavy_rows
+        assert heavy.numel() > 0
+        assert tail == (heavy.data_ptr(), heavy.numel(),
+                        coo_spmv.HEAVY_EDGES, 3, op.n, plan.lane_columns,
+                        plan.tiles, plan.grid(op.n + heavy.numel(), 3)[0])
+        assert coo_spmv.K1_WIDE_BATCHED_LAUNCHES == (
+            counts["K1_WIDE_BATCHED_LAUNCHES"] + 1)
+    else:
+        assert tail == (3, op.n)
+    assert coo_spmv.BATCHED_LAUNCHES == counts["BATCHED_LAUNCHES"] + 1
+
+
+@pytest.mark.parametrize("tool", ["tune_wide_plan", "trace_adams_attempts"])
+def test_the_new_tools_need_the_card(tool):
+    """The plans' sweep and the adams trace measure the card: without one
+    they raise."""
+    import importlib
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        importlib.import_module(f"ndcn_tpu_torch.tools.{tool}").main([])

@@ -538,11 +538,12 @@ def test_microbench_sharded_spmv_needs_the_card():
 
 
 @pytest.mark.parametrize("cards,argv", [(1, ["4"]),
-                                        (0, ["2", "--device", "cuda"])])
+                                        (0, ["2", "--device", "cuda"]),
+                                        (0, ["2"])])
 def test_dryrun_refuses_fewer_cards_than_ranks(cards, argv, monkeypatch,
                                                capsys):
-    """Where a card is visible (or ``--device cuda`` is asked), the ranks
-    are NCCL ranks, one card each: fewer cards than ranks is an error that
+    """Unless ``--device cpu`` is asked, the ranks are NCCL ranks, one card
+    each: fewer cards than ranks (none at all included) is an error that
     names ``--device cpu``, never a quiet switch to gloo."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: cards > 0)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)

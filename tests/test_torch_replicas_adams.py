@@ -11,7 +11,11 @@ each replica's ``solve_vcabm`` alone, and with equal step counts on a
 float64 state (the masked sums round differently from the host-indexed
 ones only in float32's last bits); one replica-sweep train step within
 1e-4 (losses) and 1e-3 rel-L1 (updated parameters) of ``jax.vmap(sgd_step)``;
-a starved replica reads NaN and leaves the others bit-equal.
+a starved replica reads NaN and leaves the others bit-equal. The first
+step of the heat driver's ``--replicas 4`` adams sweep (grid400, backprop
+through the controller) moves with float32's rounding: the port's float32
+gradients no farther from its float64 ones than the JAX package's from
+theirs.
 """
 
 import jax
@@ -27,14 +31,16 @@ from ndcn_tpu.train.losses import l1_loss as j_l1_loss
 from ndcn_tpu.train.optim import make_sgd_step as j_make_sgd_step
 from ndcn_tpu.train.optim import torch_adam as j_torch_adam
 from ndcn_tpu_torch.convert import params_from_jax, params_to_jax
+from ndcn_tpu_torch.experiments.dynamics import heat_ground_truth
 from ndcn_tpu_torch.graph import generators, operators
-from ndcn_tpu_torch.graph.sparse import as_operator
+from ndcn_tpu_torch.graph.sparse import as_operator, from_dense
 from ndcn_tpu_torch.models import init_ndcn, ndcn_forward
 from ndcn_tpu_torch.ode import BatchedSolveStats, nan_unless, vcabm
 from ndcn_tpu_torch.parallel.sweep import (batched_init, replica_generators,
                                            replica_l1, stack_models,
                                            unstack_model)
 from ndcn_tpu_torch.train.optim import make_replica_sgd_step, torch_adam
+from ndcn_tpu_torch.train.sampling import sample_times
 
 R, HIDDEN = 3, 8
 ADAMS = ("adams", "fixed_adams", "explicit_adams")
@@ -229,3 +235,64 @@ def test_starved_adams_replica_reads_nan_and_leaves_the_others_bit_equal(
     for j, i in enumerate(others):
         for a, b in zip(state(model_s, opt_s, i), state(model_w, opt_w, j)):
             assert torch.equal(a, b)
+
+
+def test_adams_backprop_gradients_move_with_float32_as_jax_s_do():
+    """The first step of ``heat --replicas 4 --method adams`` (grid400, T 5,
+    tick 100, irregular, seed 0; the replicas seeded 0-3): backprop through
+    adams's step-size and order controller. Its float32 gradients part from
+    its float64 ones by some 1e-3 rel-L1 (the controller's choices move
+    with the rounding), in the JAX package as in the port: the port's
+    float32 gradients are no farther from its float64 ones (float64 time
+    too) than the JAX package's from theirs (4.4e-3 against 9.0e-3)."""
+    adj = generators.build_network("grid", 400)
+    lap = operators.normalized_laplacian(adj)
+    hs = sample_times(5.0, 100, "irregular", seed=0)
+    x0 = torch.as_tensor(generators.grid_block_initial_value(20)
+                         .astype(np.float32))
+    sol, _ = heat_ground_truth(as_operator(operators.laplacian_dense(adj)),
+                               x0, hs.t)
+    target, t = sol[hs.id_train], hs.t[hs.id_train]
+
+    def port_grads(dtype):
+        """The port's gradients as the JAX package's parameter tree."""
+        model = stack_models([init_ndcn(torch.Generator().manual_seed(s), 1,
+                                        20, 1) for s in range(4)]).to(dtype)
+        op = (from_dense(lap, dtype=dtype) if dtype == torch.float64
+              else as_operator(lap))
+        vt = np.asarray(t, np.float64 if dtype == torch.float64
+                        else np.float32)
+        out, stats = ndcn_forward(model, op, vt, x0.to(dtype), method="adams",
+                                  max_steps=256, rtol=0.01, atol=0.001)
+        nan_unless(stats.success, replica_l1(
+            out.transpose(0, 1), target.to(dtype))).sum().backward()
+        weights = params_to_jax(model)
+        with torch.no_grad():
+            for p in model.parameters():
+                p.copy_(p.grad)
+        return weights, params_to_jax(model)
+
+    def jax_grads(tree, dtype):
+        params = jax.tree_util.tree_map(lambda a: jnp.asarray(a, dtype), tree)
+
+        def loss(p):
+            out, _ = j_ndcn_forward(
+                p, j_as_operator(np.asarray(lap, dtype)),
+                jnp.asarray(np.asarray(t, dtype)),
+                jnp.asarray(x0.numpy(), dtype), rtol=0.01, atol=0.001,
+                method="adams", max_steps=256)
+            return j_l1_loss(out, jnp.asarray(target.numpy(), dtype))
+
+        return _to_np(jax.jit(jax.vmap(jax.grad(loss)))(params))
+
+    weights, port32 = port_grads(torch.float32)
+    _, port64 = port_grads(torch.float64)
+    jax32 = jax_grads(weights, np.float32)
+    with jax.enable_x64(True):
+        jax64 = jax_grads(weights, np.float64)
+
+    def dist(a, b):
+        return max(rel_l1(a[k][leaf], b[k][leaf]) for k in a for leaf in a[k])
+
+    port_dist, jax_dist = dist(port32, port64), dist(jax32, jax64)
+    assert 1e-3 < port_dist <= jax_dist, (port_dist, jax_dist)

@@ -23,6 +23,7 @@ mantissa rounded to 10 bits). Held here:
   cover X's columns).
 """
 
+import contextlib
 import os
 
 import jax.numpy as jnp
@@ -383,3 +384,80 @@ def test_tuning_variants_fit_a_block_and_include_the_plan(n, k):
         assert plan.smem_bytes == fused_rhs.plan_smem_bytes(
             plan.rows, plan.nt, plan.wk, plan.bk, k)
         assert (plan.nt, plan.wn, plan.wk) == (base.nt, base.wn, base.wk)
+
+
+@pytest.mark.parametrize("blocks,block,d", [
+    (22, 128, 16), (22, 128, 7), (4, 128, 20), (4, 128, 5), (22, 128, 256),
+    (22, 128, 1433), (16, 128, 20), (16, 128, 64), (7, 48, 33), (29, 9, 5),
+    (200, 128, 1)])
+@pytest.mark.parametrize("replicas", [1, 2, 3, 16, 25, 100, 65535])
+def test_k3_replica_groups_keep_the_one_replica_arithmetic(blocks, block, d,
+                                                           replicas):
+    """K3's batched plan: replica groups only where the one-replica plan has
+    all 8 warps split the depth (wn 1), with that plan's slab, chunk depth
+    and depth split; the group's X chunks side by side fit the warps' n8
+    tiles and the block's shared memory (as make_layout lays them out); the
+    groups cover every replica once, evenly, within gridDim.z."""
+    bsr_spmm.bsr_batched_plan.cache_clear()
+    plan = bsr_spmm.bsr_batched_plan(blocks, block, d, replicas)
+    base = bsr_spmm.bsr_spmm_plan(blocks, block, d)
+    assert plan.base == base
+    assert plan.group * plan.groups >= replicas > plan.group * (
+        plan.groups - 1)
+    assert plan.groups <= 65535
+    if plan.group == 1:
+        assert replicas == 1 or base.panel.wn != 1
+        assert plan.groups == replicas
+        return
+    assert base.panel.wn == 1 and base.slab <= 32
+    assert plan.rep_cols % 4 == 0 and base.slab <= plan.rep_cols < base.slab + 4
+    assert (plan.rows, plan.nt) in ((32, 8), (16, 16))
+    assert plan.group * plan.rep_cols <= 8 * plan.nt
+    assert plan.smem_bytes == fused_rhs.plan_smem_bytes(
+        plan.rows, plan.nt, fused_rhs.WARPS, base.panel.bk,
+        plan.group * plan.rep_cols)
+    assert plan.smem_bytes <= fused_rhs.SMEM_LIMIT
+    # what the one-replica launch sums a value over: its chunk depth and
+    # the 8 warps' k8 steps of each chunk
+    assert base.panel.wk == fused_rhs.WARPS and base.panel.bk >= 64
+    # as many replicas as the warps' tiles hold, fewer only for CTAs
+    ctas = blocks * -(-block // plan.rows) * base.slabs * plan.groups
+    if plan.group * plan.rep_cols + plan.rep_cols <= 8 * plan.nt \
+            and plan.groups > 1:
+        assert ctas >= bsr_spmm.SPMM_MIN_CTAS or plan.group == 2
+
+
+def test_k3_batched_wrapper_takes_the_grouped_entry(monkeypatch):
+    """On cora's shape (22 row blocks) at d = 16 and R = 25 the wrapper
+    launches the grouped entry with the plan's panel, the one-replica chunk
+    depth and the group; at one replica the batched entry, as before."""
+    rng = np.random.RandomState(0)
+    n = 2708
+    mat = sp.random(n, n, density=0.002, random_state=rng, format="csr",
+                    dtype=np.float32)
+    a = bsr_spmm.from_scipy_bsr(mat)
+    calls = []
+
+    class Lib:
+        def __getattr__(self, name):
+            return lambda *args: calls.append((name, args)) or 0
+
+    monkeypatch.setattr(bsr_spmm, "on_cuda", lambda *t: True)
+    monkeypatch.setattr(bsr_spmm.build, "load", lambda: Lib())
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: type("S", (), {"cuda_stream": 0})())
+    before = (bsr_spmm.BATCHED_SPMM_LAUNCHES, bsr_spmm.GROUPED_SPMM_LAUNCHES)
+    for r in (25, 1):
+        bsr_spmm._launch_spmm(a, torch.zeros(r, n, 16))
+    plan = bsr_spmm.bsr_batched_plan(a.n_row_blocks, a.block, 16, 25)
+    (grouped, args25), (batched, args1) = calls
+    assert grouped == "ndcn_bsr_spmm_grouped_f32"
+    assert args25[10:-1] == (plan.base.slab, plan.rows, plan.nt,
+                             plan.base.panel.bk, plan.smem_bytes, 25,
+                             plan.group)
+    assert plan.group == 4 and plan.groups == 7
+    assert batched == "ndcn_bsr_spmm_batched_f32" and args1[-2] == 1
+    assert (bsr_spmm.BATCHED_SPMM_LAUNCHES, bsr_spmm.GROUPED_SPMM_LAUNCHES) \
+        == (before[0] + 2, before[1] + 1)

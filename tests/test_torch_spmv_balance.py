@@ -152,6 +152,22 @@ def test_plain_chunked_fold_matches_the_unsplit_sum(graph, limit, bf16):
         assert torch.equal(got[whole], ref[whole])
 
 
+@pytest.mark.parametrize("limit", [16, 64, 256])
+@pytest.mark.parametrize("graph", sorted(GRAPHS))
+def test_heavy_rows_are_the_rows_walked_whole_past_heavy_edges(graph, limit):
+    """The heavy rows K1's wide form starts first: every row of more than
+    ``HEAVY_EDGES`` and at most ``limit`` edges, once and in order (none of
+    the chunked rows)."""
+    a = GRAPHS[graph]()
+    lens = np.diff(a.indptr)
+    split = ck.split_rows(a.indptr, limit)
+    heavy = split.heavy_rows.numpy()
+    assert split.heavy_rows.dtype == torch.int32
+    assert heavy.tolist() == np.flatnonzero(
+        (lens > ck.HEAVY_EDGES) & (lens <= limit)).tolist()
+    assert not set(heavy.tolist()) & set(split.long_rows.tolist())
+
+
 def test_plain_chunked_fold_refuses_a_wrong_index():
     op = gs.from_scipy_coo(_hub_graph())
     x = torch.ones(op.n, 3)
