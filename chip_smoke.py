@@ -114,7 +114,9 @@ Phases, one line each:
      explicit_adams: the card's answer within 1e-4 rel-L1 of the CPU's,
      or within twice the CPU's own float32-vs-float64 distance where that
      is larger (explicit_adams, order 11 near its stability limit), NFE
-     within 2 %; (c) the heat driver for 10 iterations with
+     within 2 % (the CPU's answers, NFE and float32-vs-float64 distances
+     are committed references, ``tests/fixtures/smoke_cpu_references.npz``
+     from ``ndcn_tpu_torch.tools.smoke_references``); (c) the heat driver for 10 iterations with
      ``--adjoint`` and with ``--method adams`` (the train loss falls), and
      10 iterations against 5 checkpointed (``--ckpt_dir`` under build/,
      ``--ckpt_freq 5``) and a resumed 5: the losses bit-equal.
@@ -245,7 +247,9 @@ Phases, one line each:
      the card and of the four against the CPU (losses 1e-4; gradients
      1e-3 rel-L1, or twice the CPU's own float32-vs-float64 distance where
      that is larger; for adams backprop the card's and the CPU's float32
-     gradients each against the CPU's float64 ones, printed), only batched
+     gradients each against the CPU's float64 ones, printed; the CPU's
+     losses, gradients, NFE and float64 gradients are the committed
+     references of [15] b), only batched
      forms launched, each replica's NFE and
      backward NFE, seconds a model-step beside [18]'s, the step's peak
      beside the memory guard's estimate; (b) grid400 dense with adams,
@@ -258,6 +262,22 @@ Phases, one line each:
      against the host-indexed solve: 1e-5 rel-L1), each kernel launched
      once an RHS evaluation (= the ``Server``'s NFE), the bytes, export
      seconds, median latency of 10 requests and host reads.
+ 22. the model axis's paths (``--mesh`` on more than one rank: the
+     continuous adjoint, the temporal baselines, the GCN zoo), each on a
+     row block over the one-rank NCCL world group itself (a real group,
+     so that every collective of these paths runs on the card) against
+     the same step on the whole operator: (a) the 200k / 2.0M COO
+     ``--adjoint`` step of [10] (dopri5, hidden 20), (b) the lstm_gnn step
+     on the grid400 Kipf operator (K1's row block at d = 5), (c) one cora
+     epoch of GCN, DeepGCN2 (K1's wide form at 1433 on the row block) and
+     DeepGCN3 (its dense rows against the gathered state, no K1): the
+     loss and every gradient within 1e-4 rel-L1, NFE and backward NFE
+     equal, the row-block kernels launched and the whole operator's K1
+     not, the step's ms beside the unsharded one's; (d) the heat driver
+     with ``--adjoint`` and with ``--baseline lstm_gnn``, the dgnn driver
+     with ``--model GCN`` and with ``--batch_iters --iter 2 --model
+     DeepGCN2`` (all on COO), with ``--mesh`` on one rank (the JAX notice)
+     and without it: the same losses.
   p. where the time goes: one request per serving setting and one train step
      per training setting (the 1M feature-major step included), one cora
      differential_gcn epoch (the driver's defaults, train and eval) on
@@ -269,11 +289,12 @@ Phases, one line each:
 Then the kernels' JSON record, and last the device JSON line. Launch counts
 are zeroed just before each main-path phase (5-6, 8, 9, 10, each run of 12,
 13, 14, each part of 15, each run of 16 and 17, each driver run of 18 and
-19, each in-process request of 20 and 21, each driver run of 21) and read
-just after its GPU work; the served artifacts of 20 and 21 count their own
-launches in their own processes, and the record's launches are the sums of
-all of them (``launches_in_artifact``: K1-K4, K1-fm's pack and gather and
-K5 in one request of their artifact).
+19, each in-process request of 20 and 21, each driver run of 21, each
+row-block step and driver run of 22) and read just after its GPU work;
+the served artifacts of 20 and 21 count their own launches in their own
+processes, and the record's launches are the sums of all of them
+(``launches_in_artifact``: K1-K4, K1-fm's pack and gather and K5 in one
+request of their artifact).
 
 ``ms`` is the median CUDA-event time of one call on an idle card, as in
 every earlier record; every kernel also gives ``device_ms``, the time per
@@ -471,6 +492,7 @@ def main() -> None:
     from ndcn_tpu_torch.train.losses import l1_loss
     from ndcn_tpu_torch.train.optim import make_sgd_step, torch_adam
     from ndcn_tpu_torch.train.sampling import sample_times
+    from ndcn_tpu_torch.tools import smoke_references
 
     root = os.path.dirname(os.path.abspath(__file__))
     dev = torch.device("cuda", 0)
@@ -1612,31 +1634,26 @@ def main() -> None:
             launches={k: v for k, v in counts.items() if v},
             backprop={k: v for k, v in bp.items() if k != "grads"})
 
-    # (b) serve grid400 dense with the other methods, card against CPU
+    # (b) serve grid400 dense with the other methods, card against CPU:
+    # the CPU's answers are the committed references
+    # (tools/smoke_references.py, tests/fixtures/smoke_cpu_references.npz)
     methods = {}
-    model_cpu = params_from_jax(tree)
-    op_grid_cpu = from_dense(normalized_laplacian(build_network("grid", 400)))
-    for method in ("tsit5", "adams", "fixed_adams", "explicit_adams"):
+    refs = smoke_references.load()
+    for method in smoke_references.SERVE_METHODS:
         kw = dict(serve_kw, method=method)
         kernels.reset_launch_counts()
         srv = make_server(model_grid, op_grid, fx["t"], **kw)
         answers, first = serve_all(srv, requests_grid, f"grid400 {method}")
         counts = add_launches(f"grid400 {method} serving", ["fused_rhs"])
-        srv_cpu = make_server(model_cpu, op_grid_cpu, fx["t"], **kw)
-        out_cpu, ok_cpu = srv_cpu(requests_grid[0])
+        out_cpu = torch.as_tensor(refs[f"serve/{method}/out"])
+        ok_cpu = bool(refs[f"serve/{method}/ok"])
         err = rel_l1(first.cpu(), out_cpu)
-        nfe_gpu, nfe_cpu = answers[0]["nfe"], srv_cpu.last_stats.nfe
+        nfe_gpu, nfe_cpu = answers[0]["nfe"], int(refs[f"serve/{method}/nfe"])
         # the same solve in float64 on the CPU: how far float32 rounding
         # alone moves this method's answer (explicit_adams at order 11 is
         # near its stability limit on this problem and amplifies it); the
         # card is held to 1e-4 of the CPU or to twice that distance
-        with torch.no_grad():
-            out64, _ = ndcn_forward(
-                copy.deepcopy(model_cpu).double(),
-                DenseGraph(op_grid_cpu.mat.double()), fx["t"],
-                torch.as_tensor(requests_grid[0], dtype=torch.float64),
-                nondiff=True, **dict(kw, fused=False))
-        f32_gap = rel_l1(out_cpu.double(), out64)
+        f32_gap = float(refs[f"serve/{method}/f32_vs_f64"])
         bar = max(1e-4, 2 * f32_gap)
         check(ok_cpu and err <= bar, f"grid400 {method}: card vs CPU "
               f"{err} (bar {bar})")
@@ -2986,20 +3003,13 @@ def main() -> None:
         return (losses.detach().cpu(),
                 [p.grad.detach().cpu() for p in model.parameters()], stats)
 
-    def first_grads_64(op64, method, adjoint):
-        """``first_grads`` of the R replicas in float64 on the CPU (the
-        unfused route, the same function)."""
-        model = stack_models([
-            init_ndcn(torch.Generator().manual_seed(s), 1, 20, 1)
-            for s in range(R21)]).double()
-        out, stats = ndcn_forward(
-            model, op64, t_h, x0_h.cpu().double(), method=method,
-            adjoint=adjoint, max_steps=256, rtol=0.01, atol=0.001)
-        losses = nan_unless(stats.success, replica_l1(
-            out.transpose(0, 1), target_h.cpu().double()))
-        losses.sum().backward()
-        return losses.detach(), [p.grad for p in model.parameters()], stats
-
+    # the CPU's first steps (float32, and float64 on the unfused dense
+    # route) are the committed references (tools/smoke_references.py)
+    refs21 = smoke_references.load()
+    check(R21 == smoke_references.R and {
+        k: (v[0], v[2], v[3], v[4]) for k, v in settings21.items()}
+        == smoke_references.REPLICA_SETTINGS,
+        "[21]'s settings and the CPU references' differ")
     rep21 = {}
     for label, (fmt, flags, fused, method, adjoint, needed) in \
             settings21.items():
@@ -3044,9 +3054,9 @@ def main() -> None:
                 loss=float(abs(loss_c[i] - loss_1[0]) / abs(loss_1[0])),
                 grads=max(rel_l1(g[i], h) for g, h in zip(grads_c,
                                                           grads_1))))
-        op_cpu = as_operator(mat, sparse=fmt != "dense", format=fmt)
-        loss_h, grads_h, st_h = first_grads(op_cpu, fused, method, adjoint,
-                                            range(R21), "cpu")
+        loss_h = torch.as_tensor(refs21[f"replicas/{label}/loss"])
+        grads_h = smoke_references.replica_grads(refs21, label)
+        nfe_h = refs21[f"replicas/{label}/nfe"].tolist()
         vs_cpu = dict(loss=float((loss_c - loss_h).abs().max()
                                  / loss_h.abs().max()),
                       grads=max(rel_l1(g, h) for g, h in zip(grads_c,
@@ -3061,8 +3071,8 @@ def main() -> None:
             # [15] holds the other solvers' answers. For adams backprop
             # the card's float32 gradients are held against the same
             # float64 ones beside the CPU's: no farther from them
-            _, grads_64, _ = first_grads_64(
-                from_dense(grid_lap, dtype=torch.float64), method, adjoint)
+            grads_64 = smoke_references.replica_grads(refs21, label,
+                                                      f64=True)
             vs_cpu["cpu_f32_vs_f64"] = max(
                 rel_l1(g.double(), h) for g, h in zip(grads_h, grads_64))
             vs_cpu["card_f32_vs_f64"] = max(
@@ -3075,7 +3085,7 @@ def main() -> None:
               f"{label}: replicas 0-1 against their runs alone {errs}, the "
               f"card against the CPU {vs_cpu}")
         rec.update(first_step_vs_alone=errs, first_step_card_vs_cpu=vs_cpu,
-                   nfe_replicas=list(st_c.nfe), nfe_cpu=list(st_h.nfe))
+                   nfe_replicas=list(st_c.nfe), nfe_cpu=nfe_h)
         if adjoint:
             rec["backward_nfe_replicas"] = [
                 sum(b.nfe[i] for b in st_c.backward) for i in range(R21)]
@@ -3205,6 +3215,165 @@ def main() -> None:
           "artifacts (card: " + smi + "): " + json.dumps(dict(
               replicas=rep21, artifacts=art21,
               seconds=time.perf_counter() - t21)))
+
+    # ---- 22. the model axis's paths (ROADMAP §1 entry 11c′): the
+    # continuous adjoint, the lstm_gnn step and the GCN zoo on row-sharded
+    # COO operators over the one-rank NCCL world group itself (not the None
+    # a group of one gets), so that every collective of these paths runs
+    # on the card; each step against the same step unsharded
+    from ndcn_tpu_torch.models.gcn_zoo import build_zoo_model
+    from ndcn_tpu_torch.parallel.mesh import all_reduce_grads
+    from ndcn_tpu_torch.train.losses import accuracy
+
+    t22 = time.perf_counter()
+    paths22, per_step22 = {}, {}
+
+    def world_rows(op):
+        """``op``'s one row block over the one-rank world group."""
+        return coo_shard.shard_coo_at(op, 1, 0, None)._replace(
+            group=dist.group.WORLD)
+
+    def timed_step(step, op):
+        """(loss, gradients, extra, ms) of ``step(op)``, which backprops
+        its loss and returns (loss, model, extra); the gradients summed
+        over the operator's group, as ``make_sgd_step`` sums them."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, model, extra = step(op)
+        all_reduce_grads(model.parameters(), coo_shard.node_group(op))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        return (float(loss.detach()),
+                [p.grad.detach().clone() if p.grad is not None
+                 else torch.zeros_like(p) for p in model.parameters()],
+                extra, ms)
+
+    def model_axis_path(label, step, whole_op, needed, absent=()):
+        """The unsharded step (warm, then the reference), then the step on
+        the world group's row block, its launches counted: within 1e-4 of
+        the reference (loss and every gradient, rel-L1), the same
+        ``extra`` (NFE), the row-block kernels of ``needed`` launched and
+        none of ``absent`` (the whole operator's K1)."""
+        sharded_op = world_rows(whole_op)
+        timed_step(step, whole_op)
+        ref = timed_step(step, whole_op)
+        kernels.reset_launch_counts()
+        got = timed_step(step, sharded_op)
+        counts = add_launches(f"[22] {label}", needed)
+        check(not any(counts[k] for k in absent),
+              f"[22] {label} launched {({k: counts[k] for k in absent})}")
+        loss_rel = abs(got[0] - ref[0]) / abs(ref[0])
+        grad_rel = max(rel_l1(a, b) for a, b in zip(got[1], ref[1]))
+        check(loss_rel <= 1e-4 and grad_rel <= 1e-4 and got[2] == ref[2],
+              f"[22] {label}: the row block's step against the unsharded "
+              f"one: loss {loss_rel}, gradients {grad_rel}, {got[2]} vs "
+              f"{ref[2]}")
+        per_step22[label] = {k: v for k, v in counts.items() if v}
+        paths22[label] = dict(loss=got[0], loss_rel=loss_rel,
+                              max_grad_rel_l1=grad_rel, **got[2],
+                              ms=got[3], unsharded_ms=ref[3],
+                              launches=per_step22[label])
+
+    def adjoint_step(op):
+        model = init_ndcn(torch.Generator().manual_seed(0), 1, 20, 1,
+                          device=dev)
+        out, stats = ndcn_forward(model, op, t_train, x0_big, adjoint=True,
+                                  max_steps=budget, **train_kw)
+        loss = l1_loss(out, target_big, coo_shard.node_group(op))
+        loss.backward()
+        check(stats.success and all(b.success for b in stats.backward),
+              "[22] the 200k adjoint solve failed")
+        return loss, model, dict(
+            nfe=stats.nfe, nfe_backward=sum(b.nfe for b in stats.backward))
+
+    kipf22 = from_scipy_coo(sp.csr_matrix(kipf400), device=dev)
+    y22 = y_train.to(dev)
+
+    def lstm_step(op):
+        model = init_temporal_gcn(torch.Generator().manual_seed(0), 1, 5,
+                                  400, 10, "lstm", device=dev)
+        pred = temporal_gcn_forward(
+            model, op, y22[:, :-1], "lstm", dropout=0.1, deterministic=False,
+            generator=torch.Generator().manual_seed(1))
+        loss = l1_loss(pred, y22[:, 1:], coo_shard.node_group(op))
+        loss.backward()
+        return loss, model, {}
+
+    cora22 = from_scipy_coo(cora.operator, device=dev)
+    x_cora = torch.as_tensor(cora.features, device=dev)
+    y_cora = torch.as_tensor(cora.labels, device=dev).long()
+    idx_cora = torch.as_tensor(cora.idx_train, device=dev).long()
+
+    def zoo_epoch(name):
+        def epoch(op):
+            """One epoch of the dgnn driver's: a train step with dropout
+            (the generator's masks), then the deterministic re-forward."""
+            group = coo_shard.node_group(op)
+            model = build_zoo_model(
+                name, x_cora.shape[1], 16, int(cora.labels.max()) + 1,
+                x_cora.shape[0], 2, generator=torch.Generator().manual_seed(
+                    0), dropout=0.5).to(dev)
+            logits = model(op, x_cora, torch.Generator().manual_seed(1),
+                           False)
+            loss = cross_entropy(logits[idx_cora], y_cora[idx_cora], group)
+            loss.backward()
+            with torch.no_grad():
+                accuracy(model(op, x_cora), y_cora, group)
+            return loss, model, {}
+        return epoch
+
+    with process_group(dev):
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+              f"[22] runs on {dist.get_backend()}")
+        model_axis_path("adjoint_200k_coo", adjoint_step, op_big,
+                        ["coo_spmv_rowblock"], ["coo_spmv"])
+        model_axis_path("lstm_gnn_grid400_coo", lstm_step, kipf22,
+                        ["coo_spmv_rowblock"], ["coo_spmv"])
+        for name in ("GCN", "DeepGCN2"):
+            model_axis_path(f"{name}_cora_coo", zoo_epoch(name), cora22,
+                            ["coo_spmv_rowblock"]
+                            + (["coo_spmv_wide_rowblock"]
+                               if name == "DeepGCN2" else []), ["coo_spmv"])
+        # DeepGCN3 multiplies its rows of AW ∘ A by the gathered state: a
+        # dense product, as in the JAX package; no K1, whole or row block
+        model_axis_path("DeepGCN3_cora_coo", zoo_epoch("DeepGCN3"), cora22,
+                        [], ["coo_spmv", "coo_spmv_rowblock"])
+        # (d) the drivers' newly allowed combinations with --mesh on the
+        # one-rank group: the JAX notice, and the losses of the run
+        # without it
+        drivers22 = {}
+        for label, call, argv in (
+                ("heat_adjoint", "heat", ["--adjoint"]),
+                ("heat_lstm_gnn", "heat", ["--baseline", "lstm_gnn"]),
+                ("dgnn_GCN", "dgnn", ["--model", "GCN"]),
+                ("dgnn_batch_DeepGCN2", "dgnn",
+                 ["--model", "DeepGCN2", "--batch_iters", "--iter", "2"])):
+            got = {}
+            for mode, extra in (("mesh", ["--mesh"]), ("plain", [])):
+                kernels.reset_launch_counts()
+                if call == "heat":
+                    out = run("heat", build_parser("heat").parse_args([
+                        "--niters", "4", "--test_freq", "2", "--method",
+                        "dopri5", "--sparse", "--sparse_format", "coo",
+                        *argv, *extra]))
+                else:
+                    out = dgnn.main(["--dataset", "cora", "--epochs", "3",
+                                     "--sparse", "--data_dir",
+                                     os.path.join(root, "data"), *argv,
+                                     *extra])
+                add_launches(f"[22] {label} {mode}", ["coo_spmv"])
+                got[mode] = out["train_losses"]
+            check(got["mesh"] == got["plain"],
+                  f"[22] {label}: --mesh on one rank parts from the run "
+                  f"without it: {got}")
+            drivers22[label] = got["mesh"]
+    check(not dist.is_initialized(), "the process group outlived [22]")
+    print("[22] the model axis's paths on a one-rank NCCL group (card: "
+          + smi + "): " + json.dumps(dict(
+              paths=paths22, drivers=drivers22,
+              seconds=time.perf_counter() - t22)))
+    del kipf22, cora22, x_cora
+    torch.cuda.empty_cache()
 
     # ---- p. where the time goes
     for label, srv, x0 in (("grid400", server, fx["x0"]),
@@ -3513,7 +3682,10 @@ def main() -> None:
               "ndcn_tpu/parallel/coo_shard.py:134", k19["k1_f32"]["fwd"],
               k19["k1_f32"]["transpose"], pallas_site=K1,
               bf16=k19["k1_bf16"], batched_r4=k19["k1_batched_r4"],
-              launches_per_mesh_step=per_step19["coo_spmv_rowblock"]),
+              launches_per_mesh_step=per_step19["coo_spmv_rowblock"],
+              launches_per_model_axis_step={
+                  k: v.get("coo_spmv_rowblock", 0)
+                  for k, v in per_step22.items()}),
         entry("coo_spmv_T_rowblock", "coo_spmv_T.cu",
               "ndcn_tpu/parallel/coo_shard.py:165", k19["k1fm_f32"]["fwd"],
               k19["k1fm_f32"]["transpose"],

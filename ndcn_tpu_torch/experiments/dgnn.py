@@ -51,9 +51,10 @@ through ``torch.matmul``); the losses and accuracies are over every rank's
 split nodes and the replicated parameters' gradients are summed over the
 model axis; with ``--batch_iters`` each data rank trains its R / data
 replicas (``--budget_buckets`` is ignored, as in JAX) and the report
-gathers every replica; rank 0 writes the checkpoints and the dump. A
-world of one prints the JAX driver's notice and runs unsharded. Under P >
-1 the GCN zoo is ROADMAP §1 entry 11c′.
+gathers every replica; rank 0 writes the checkpoints and the dump. The
+GCN zoo runs on the rank's rows too (``models.gcn_zoo``), with and
+without ``--batch_iters``. A world of one prints the JAX driver's notice
+and runs unsharded.
 
 Usage: python -m ndcn_tpu_torch.experiments.dgnn --dataset cora \\
            --model differential_gcn --iter 5 --dropout 0 --hidden 256 \\
@@ -154,8 +155,6 @@ def build_parser() -> argparse.ArgumentParser:
 def _refuse(args: argparse.Namespace) -> None:
     """The JAX driver's own argument errors (dgnn.py:108-124), then what
     the port does not have yet, all before any data loads."""
-    from ndcn_tpu_torch.parallel.mesh import world_size
-
     if args.export:
         if args.model not in ("differential_gcn", "odeGCN"):
             raise SystemExit("--export serializes the continuous-time "
@@ -172,12 +171,7 @@ def _refuse(args: argparse.Namespace) -> None:
                          "(drop --batch_iters)")
     if args.batch_iters and args.model not in BATCHED_MODELS:
         raise SystemExit(f"--batch_iters unsupported for {args.model}")
-    ode_model = args.model in ("odeGCN", "differential_gcn")
-    sharded = args.mesh and world_size() > 1
     refused = [
-        (sharded and not ode_model,
-         "--mesh on more than one rank with a GCN zoo model: ROADMAP §1 "
-         "entry 11c′"),
         (args.precision == "high", "--precision high (TF32): ROADMAP §1 "
                                    "entry 6"),
     ]

@@ -55,9 +55,9 @@ model axis, so every rank takes the unsharded run's steps. With
 generators are the unsharded sweep's), and the log line's mean and std
 gather every replica. Rank 0 writes the checkpoints, the dump and the
 figures. A world of one prints the JAX driver's notice and runs unsharded.
-Under P > 1 the temporal baselines, and ``--adjoint`` on a model axis of
-more than one rank, are ROADMAP §1 entry 11c′ (on the data axis alone each
-rank runs the batched adjoint of its replicas).
+``--adjoint`` runs on any model axis (the backward solve's parameter VJPs
+summed over it, ``ode.adjoint``), and the temporal baselines on the
+rank's rows (``models.temporal_gcn``).
 
 ``--platform gpu`` (the default) trains on the first CUDA device and raises
 without one; ``--platform cpu`` runs the kernels' plain versions. Matrix
@@ -189,18 +189,7 @@ def _refuse_unported(dynamics_kind: str, args: argparse.Namespace) -> None:
             raise SystemExit("--replicas is incompatible with --ckpt_dir/"
                              "--profile_dir/--scan_chunk (per-replica "
                              "training runs as one vmapped program)")
-    from ndcn_tpu_torch.parallel.mesh import mesh_shape, world_size
-
-    sharded = args.mesh and world_size() > 1
-    # the model axis the mesh will have: the adjoint runs on the data axis
-    # (one rank's replicas whole), not on a model axis of more than one rank
-    model_axis = (mesh_shape(world_size(), data_divides=args.replicas,
-                             model_divides=args.n)[1] if sharded else 1)
     refused = [
-        (sharded and (args.adjoint and model_axis > 1
-                      or args.baseline in TEMPORAL_BASELINES),
-         "--mesh on more than one rank with --adjoint or a temporal "
-         "baseline: ROADMAP §1 entry 11c′"),
         (args.scan_chunk > 0,
          "--scan_chunk (steps per dispatch; CUDA graphs here): ROADMAP §1 "
          "entry 6"),
@@ -442,8 +431,8 @@ def _run(dynamics_kind: str, args: argparse.Namespace,
                                         rnn_type, dropout=args.dropout,
                                         generator=rng, deterministic=False)
             target = true_y_train[:, 1:]
-            loss = l1_loss(pred, target)
-            return loss, loss / torch.mean(target)
+            loss = l1_loss(pred, target, group)
+            return loss, loss / shard_mean(target, group)
 
         def predict():
             # teacher-force the whole train grid, then roll out the

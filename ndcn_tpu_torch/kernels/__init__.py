@@ -51,6 +51,7 @@ _COUNTERS = {
     "coo_spmv_T_pack": (coo_spmv, "PACK_LAUNCHES"),
     "coo_spmv_T_wide": (coo_spmv, "WIDE_LAUNCHES"),
     "coo_spmv_rowblock": (coo_spmv, "ROWBLOCK_LAUNCHES"),      # any form
+    "coo_spmv_wide_rowblock": (coo_spmv, "ROWBLOCK_WIDE_LAUNCHES"),
     "coo_spmv_T_rowblock": (coo_spmv, "T_ROWBLOCK_LAUNCHES"),
     "coo_mutual": (coo_mutual, "LAUNCHES"),             # either form
     "coo_mutual_edges": (coo_mutual, "EDGE_LAUNCHES"),  # the edge form

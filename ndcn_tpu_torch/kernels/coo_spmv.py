@@ -57,7 +57,8 @@ K1 and the gather of K1-fm / K5 also take a ``CsrBlock``, one rank's row
 block of the operator on the mesh path (``parallel.coo_shard``): ``n``
 output rows against a gathered table of ``n_table`` rows, as they are.
 Their launches on a block are counted apart (``ROWBLOCK_LAUNCHES``,
-``T_ROWBLOCK_LAUNCHES``).
+``T_ROWBLOCK_LAUNCHES``), and K1's wide form on a block there too
+(``ROWBLOCK_WIDE_LAUNCHES``).
 
 The plain PyTorch versions beside the kernels (gather, scale, ``index_add_``,
 with the same rounding) are the CPU path, inside the same
@@ -81,7 +82,7 @@ from ndcn_tpu_torch.kernels.platform import on_cuda
 # (fp32, bf16), each in either form, and counted there too, the wide form
 # (fp32 and bf16; one replica, batched); K1-fm's gather and its pack
 # kernel, K5; and, counted there alone, K1 in any form and the gather of
-# K1-fm or K5 on a ``CsrBlock``
+# K1-fm or K5 on a ``CsrBlock``, K1's wide form on one also counted apart
 LAUNCHES = 0
 BF16_LAUNCHES = 0
 BATCHED_LAUNCHES = 0
@@ -92,6 +93,7 @@ T_LAUNCHES = 0
 PACK_LAUNCHES = 0
 WIDE_LAUNCHES = 0
 ROWBLOCK_LAUNCHES = 0
+ROWBLOCK_WIDE_LAUNCHES = 0
 T_ROWBLOCK_LAUNCHES = 0
 
 # the JAX package's switches (ndcn_tpu/kernels/coo_spmv.py), read per call
@@ -453,6 +455,7 @@ def _apply(op, x: torch.Tensor) -> torch.Tensor:
         return coo_spmv_plain(op.rows, op.cols, op.vals, x, op.n, bf16)
     global LAUNCHES, BF16_LAUNCHES, BATCHED_LAUNCHES, BATCHED_BF16_LAUNCHES
     global ROWBLOCK_LAUNCHES, K1_WIDE_LAUNCHES, K1_WIDE_BATCHED_LAUNCHES
+    global ROWBLOCK_WIDE_LAUNCHES
     x = x.contiguous()
     d = x.shape[-1]
     y = torch.empty((*x.shape[:-2], op.n, d), dtype=torch.float32,
@@ -477,6 +480,8 @@ def _apply(op, x: torch.Tensor) -> torch.Tensor:
                        (replicas, op.n_table) if batched else ())
     if isinstance(op, CsrBlock):
         ROWBLOCK_LAUNCHES += 1
+        if plan.wide:
+            ROWBLOCK_WIDE_LAUNCHES += 1
         return y
     if plan.wide and batched:
         K1_WIDE_BATCHED_LAUNCHES += 1

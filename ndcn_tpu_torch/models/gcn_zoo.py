@@ -26,6 +26,17 @@ on the CPU, with the JAX package's distributions; ``jax_tree`` names every
 parameter by its key in the JAX package's parameter dict
 (``convert.zoo_params_from_jax`` carries weights across).
 
+On a row-sharded operator (``parallel.coo_shard``; the JAX package's
+GSPMD sharding) x is this rank's node rows and so are the logits: every
+product with the operator is the rank's row block (``rs_matvec``: K1's,
+its wide form at cora's 1433 raw features, on COO), every linear layer
+acts on the rank's rows, and each dropout mask is drawn at the whole
+graph's shape and cut to the rank's rows (``models.nn.dropout``), so the
+ranks together compute the unsharded forward. DeepGCN3 takes its rank's
+row block of AW ∘ A as an (n_local, n) tensor, whose row sums are local,
+and multiplies it by the all-gathered x (``parallel.mesh.gather_rows``,
+differentiable).
+
 GCN, DeepGCN, DeepGCN2 and DeepGCN4 (the JAX driver's ``--batch_iters``
 models) also run R replicas at once when their parameters are stacked
 along a leading axis (``parallel.sweep.stack_models``): the shared features
@@ -43,9 +54,14 @@ from typing import Optional
 import torch
 from torch import nn
 
+import torch.nn.functional as F
+
 from ndcn_tpu_torch.graph.sparse import (DenseGraph, GraphOperator, matvec,
                                          to_dense_matrix)
 from ndcn_tpu_torch.models.nn import dropout, linear_apply, linear_init
+from ndcn_tpu_torch.parallel.coo_shard import (dense_rows, is_sharded,
+                                               node_rows)
+from ndcn_tpu_torch.parallel.mesh import gather_rows
 
 ZOO = ("GCN", "DeepGCN", "DeepGCN2", "DeepGCN3", "DeepGCN4", "resGCN")
 
@@ -56,10 +72,12 @@ def row_normalize(x: torch.Tensor) -> torch.Tensor:
     return x / torch.where(norm == 0, torch.ones_like(norm), norm)
 
 
-def _drop(generator, x, rate, deterministic):
+def _drop(generator, x, rate, deterministic, op):
+    """``models.nn.dropout`` of x, a tensor of ``op``'s node rows (a rank's,
+    on a row-sharded operator)."""
     if generator is None:
         return x
-    return dropout(generator, x, rate, deterministic)
+    return dropout(generator, x, rate, deterministic, rows=node_rows(op))
 
 
 def _scale(x: torch.Tensor, step: torch.Tensor) -> torch.Tensor:
@@ -98,7 +116,8 @@ class GCN(nn.Module):
     def forward(self, op: GraphOperator, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
                 deterministic: bool = True) -> torch.Tensor:
-        drop = (lambda h: _drop(generator, h, self.dropout, deterministic))
+        drop = (lambda h: _drop(generator, h, self.dropout, deterministic,
+                                op))
         x = drop(x)
         x = torch.relu(matvec(op, linear_apply(self.gc1, x)))
         for layer in self.middle:
@@ -119,7 +138,8 @@ class DeepGCN(GCN):
         return dict(super().jax_tree(), time_step=self.time_step)
 
     def forward(self, op, x, generator=None, deterministic=True):
-        drop = (lambda h: _drop(generator, h, self.dropout, deterministic))
+        drop = (lambda h: _drop(generator, h, self.dropout, deterministic,
+                                op))
         x = drop(x)
         x = torch.relu(matvec(op, linear_apply(self.gc1, x)))
         for layer in self.middle:
@@ -146,18 +166,22 @@ class DeepGCN2(nn.Module):
 
     def forward(self, op, x, generator=None, deterministic=True):
         x = matvec(op, x)
-        x = _drop(generator, x, self.dropout, deterministic)
+        x = _drop(generator, x, self.dropout, deterministic, op)
         x = torch.relu(linear_apply(self.linear1, x))
         x = matvec(op, x)
-        x = _drop(generator, x, self.dropout, deterministic)
+        x = _drop(generator, x, self.dropout, deterministic, op)
         return linear_apply(self.linear2, x)
 
 
 def dense_operator(op: GraphOperator) -> torch.Tensor:
     """The operator as an (n, n) tensor on its device: a dense operator's
-    own matrix, any other materialised through ``to_dense_matrix``."""
+    own matrix, any other materialised through ``to_dense_matrix``; a
+    row-sharded operator's rows of it, (n_local, n)
+    (``coo_shard.dense_rows``)."""
     if isinstance(op, DenseGraph):
         return op.mat
+    if is_sharded(op):
+        return dense_rows(op)
     return torch.as_tensor(to_dense_matrix(op), device=op.device)
 
 
@@ -184,10 +208,15 @@ class DeepGCN3(nn.Module):
 
     def forward(self, op, x, generator=None, deterministic=True):
         x = linear_apply(self.linear1, x)
-        a = self.AW * dense_operator(op)
-        lap = a - torch.diag(a.sum(1))
+        # this rank's rows [start, stop) of L (all of them unsharded): its
+        # rows of AW ∘ A less their sums on the diagonal
+        n, start, stop = node_rows(op) or (x.shape[0], 0, x.shape[0])
+        a = self.AW[start:stop] * dense_operator(op)
+        lap = a - F.pad(torch.diag(a.sum(1)), (start, n - stop))
         for _ in range(self.num_middle_layers):
-            x = x + torch.relu(lap @ x) * self.time_step
+            x_all = (gather_rows(x, op.rows_per, op.group)[:n]
+                     if is_sharded(op) else x)
+            x = x + torch.relu(lap @ x_all) * self.time_step
         return linear_apply(self.linear2, x)
 
 
@@ -234,7 +263,7 @@ class DeepGCN4(nn.Module):
         x = torch.relu(linear_apply(self.linear1, x))
         for i in range(len(self.diag)):
             f = matvec(op, x)
-            f = _drop(generator, f, self.dropout, deterministic)
+            f = _drop(generator, f, self.dropout, deterministic, op)
             x = x + _scale(torch.relu(f), self.time_step_list[..., i])
         return linear_apply(self.linear2, x)
 
@@ -290,7 +319,7 @@ class ResGCN(nn.Module):
             f = matvec(op, h)
             if blk.linear is not None:
                 f = linear_apply(blk.linear, f)
-            f = _drop(generator, f, self.dropout, deterministic)
+            f = _drop(generator, f, self.dropout, deterministic, op)
             if self.normalize:
                 f = row_normalize(f)
             f = torch.relu(f)

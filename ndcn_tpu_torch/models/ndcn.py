@@ -37,10 +37,9 @@ from ndcn_tpu_torch.models.nn import dropout_mask, linear_apply, linear_init
 from ndcn_tpu_torch.ode import odeint_with_stats
 from ndcn_tpu_torch.ode.api import grad_mode
 from ndcn_tpu_torch.ode.adjoint import odeint_adjoint_with_stats
-from ndcn_tpu_torch.ode.tree_math import node_sharded
 from ndcn_tpu_torch.parallel.coo_shard import (RowShardedCoo, is_sharded,
-                                               node_group, rs_spmv_T,
-                                               take_rows)
+                                               node_group, node_rows,
+                                               rs_spmv_T)
 
 
 def fused_profitable(kind: str, width: int, n: int) -> bool:
@@ -156,9 +155,11 @@ def ode_block(func, h0: torch.Tensor, vt, rtol: float, atol: float,
               method: str, terminal: bool = False, adjoint: bool = False,
               params=None, max_steps: int = 256, nondiff: bool = False,
               emission_dtype=None, emission_readout=None,
-              batched: bool = False):
+              batched: bool = False, node_group=None):
     """odeint wrapper mirroring ODEBlock semantics; returns (out, stats).
     ``batched``: h0 carries a leading replica axis (one batched solve).
+    ``node_group``: the process group h0's node rows split over (the
+    solve's option of that name: its norms are over every rank's rows).
 
     With ``adjoint=True`` the gradients come from the continuous adjoint
     (``ode.adjoint``), taken for h0 and ``params``, the tuple of tensors the
@@ -173,6 +174,8 @@ def ode_block(func, h0: torch.Tensor, vt, rtol: float, atol: float,
         options = {"max_steps": max_steps}
         if batched:
             options["batched"] = True
+        if node_group is not None:
+            options["node_group"] = node_group
         sol, stats = odeint_adjoint_with_stats(
             func, h0, vt, tuple(params), rtol=rtol, atol=atol, method=method,
             options=options)
@@ -180,6 +183,8 @@ def ode_block(func, h0: torch.Tensor, vt, rtol: float, atol: float,
     options = {"max_steps": max_steps, "differentiable": not nondiff}
     if batched:
         options["batched"] = True
+    if node_group is not None:
+        options["node_group"] = node_group
     if method in ("dopri5", "tsit5") and not nondiff:
         options.update(emission_dtype=emission_dtype,
                        emission_readout=emission_readout)
@@ -339,17 +344,14 @@ def ndcn_forward(model: NDCN, op: GraphOperator, vt, x: torch.Tensor, *,
 
     A row-sharded operator (``parallel.coo_shard``) takes this rank's rows
     of ``x`` and gives this rank's rows of the output; the solve's norms
-    are then over every rank's rows (``ode.tree_math.node_sharded``), and
-    the dropout mask is drawn whole and cut to this rank's rows, so the
-    ranks together compute the unsharded forward."""
+    are then over every rank's rows (its ``node_group`` option), and the
+    dropout mask is drawn whole and cut to this rank's rows, so the ranks
+    together compute the unsharded forward. With ``adjoint=True`` the
+    backward solve's parameter VJPs are summed over the group
+    (``ode.adjoint``)."""
     replicas = replica_count(model)
     group = node_group(op)
-    if group is not None and adjoint:
-        raise NotImplementedError(
-            "not ported yet: the continuous adjoint on a model axis of more "
-            "than one rank: ROADMAP §1 entry 11c′")
-    with grad_mode(torch.is_grad_enabled() and not nondiff), \
-            node_sharded(group):
+    with grad_mode(torch.is_grad_enabled() and not nondiff):
         h = x
         if not no_embed:
             h = torch.tanh(linear_apply(model.enc1, h))
@@ -363,13 +365,8 @@ def ndcn_forward(model: NDCN, op: GraphOperator, vt, x: torch.Tensor, *,
         drop_mask = None
         if dropout > 0.0 and rng is not None:
             shape = h.shape if replicas is None else h.shape[1:]
-            if is_sharded(op):
-                # drawn whole, as the unsharded run draws it; then this
-                # rank's rows
-                shape = (op.n, *shape[1:])
-            drop_mask = take_rows(dropout_mask(rng, shape, dropout, h.dtype,
-                                               h.device), op,
-                                  axis=0 if replicas is None else 1)
+            drop_mask = dropout_mask(rng, shape, dropout, h.dtype, h.device,
+                                     rows=node_rows(op))
 
         use_readout = (not terminal and not nondiff and not adjoint
                        and method in ("dopri5", "tsit5"))
@@ -381,7 +378,7 @@ def ndcn_forward(model: NDCN, op: GraphOperator, vt, x: torch.Tensor, *,
         solve_kw = dict(adjoint=adjoint, params=ode_params,
                         max_steps=max_steps, nondiff=nondiff,
                         emission_dtype=emission_dtype,
-                        batched=replicas is not None)
+                        batched=replicas is not None, node_group=group)
         if feature_major:
             d = h.shape[1]
             hT = F.pad(h, (0, sublane_pad(d) - d)).t().contiguous()

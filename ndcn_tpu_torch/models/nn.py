@@ -11,6 +11,12 @@ A replica sweep stacks R models' parameters along a new leading axis
 replica's input by its own weight (one batched product), and ``dropout`` /
 ``dropout_mask`` take a list of R generators, each drawing its replica's
 mask as its own model would.
+
+On a node-sharded model (``parallel.coo_shard``: each rank holds node rows
+[start, stop) of n) ``dropout`` and ``dropout_mask`` take ``rows`` = (n,
+start, stop) (``coo_shard.node_rows``): the mask is drawn at the whole
+graph's shape, as the unsharded run draws it, and cut to the rank's rows,
+so that the ranks together drop exactly the unsharded run's elements.
 """
 
 from __future__ import annotations
@@ -55,8 +61,20 @@ def _replica_uniform(generators, shape) -> torch.Tensor:
                       device=generators.device)
 
 
+def _uniform_rows(generators, shape, rows) -> torch.Tensor:
+    """``_replica_uniform`` of one replica's ``shape`` whose leading axis
+    holds node rows [start, stop) of n (``rows`` = (n, start, stop)):
+    drawn at (n, *shape[1:]) and cut to the rows (None: as it is)."""
+    if rows is None:
+        return _replica_uniform(generators, shape)
+    n, start, stop = rows
+    u = _replica_uniform(generators, (n, *tuple(shape)[1:]))
+    axis = 1 if isinstance(generators, (list, tuple)) else 0
+    return u.narrow(axis, start, stop - start)
+
+
 def dropout(generator: torch.Generator, x: torch.Tensor, rate: float,
-            deterministic: bool) -> torch.Tensor:
+            deterministic: bool, rows=None) -> torch.Tensor:
     """Inverted dropout, as the JAX package's ``dropout``: rate 0 or
     ``deterministic`` is the identity (no draw). The mask is drawn from
     ``generator`` on its own device (the CPU for the drivers' generators)
@@ -64,7 +82,8 @@ def dropout(generator: torch.Generator, x: torch.Tensor, rate: float,
     elements.
 
     A list of R generators drops R replicas: x is (R, n, f), or a shared
-    (n, f) that each replica drops on its own (the result is (R, n, f))."""
+    (n, f) that each replica drops on its own (the result is (R, n, f)).
+    ``rows``: x holds a rank's node rows (the module docstring)."""
     if deterministic or rate == 0.0:
         return x
     keep = 1.0 - rate
@@ -72,13 +91,13 @@ def dropout(generator: torch.Generator, x: torch.Tensor, rate: float,
         shape = x.shape[1:] if x.ndim == 3 else x.shape
     else:
         shape = x.shape
-    u = _replica_uniform(generator, shape)
+    u = _uniform_rows(generator, shape, rows)
     return torch.where((u < keep).to(x.device), x / keep,
                        torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def dropout_mask(generator: torch.Generator, shape, rate: float,
-                 dtype=torch.float32, device=None) -> torch.Tensor:
+                 dtype=torch.float32, device=None, rows=None) -> torch.Tensor:
     """A fixed inverted-dropout mask, drawn once per forward from
     ``generator`` (on the generator's device, then moved to ``device``).
 
@@ -86,9 +105,10 @@ def dropout_mask(generator: torch.Generator, shape, rate: float,
     every RHS evaluation inside the solver, which makes the ODE stochastic per
     evaluation and the adaptive controller ill-posed; one mask per forward
     keeps the ODE well defined. With a list of R generators, ``shape`` is
-    one replica's and the masks are stacked (R, *shape)."""
+    one replica's and the masks are stacked (R, *shape). ``rows``: its
+    leading axis holds a rank's node rows (the module docstring)."""
     keep = 1.0 - rate
-    u = _replica_uniform(generator, shape)
+    u = _uniform_rows(generator, shape, rows)
     return ((u < keep).to(dtype) / keep).to(device)
 
 
@@ -101,8 +121,9 @@ class RecurrentCell(nn.Module):
     """The parameters of an RNN (1 gate block), GRU (3) or LSTM (4) cell in
     the torch cells' layout: ``w_ih`` (gates·H, I), ``w_hh`` (gates·H, H),
     ``b_ih`` and ``b_hh`` (gates·H,), all U(±1/sqrt(H)) from ``generator``
-    (float32, on the CPU: move the module afterwards). ``forward(x, state)``
-    is the cell's apply function."""
+    (float32, on the CPU: move the module afterwards). ``forward(x, state,
+    gi=None)`` is the cell's apply function (``gi``: the input projection
+    W_ih x + b_ih, precomputed)."""
 
     gates = 1
 
@@ -122,22 +143,26 @@ class RecurrentCell(nn.Module):
         self.b_hh = uniform(g)
 
 
-def _gates(cell: RecurrentCell, x: torch.Tensor, h: torch.Tensor):
-    return (torch.matmul(x, cell.w_ih.t()) + cell.b_ih,
-            torch.matmul(h, cell.w_hh.t()) + cell.b_hh)
+def _gates(cell: RecurrentCell, x: torch.Tensor, h: torch.Tensor, gi=None):
+    """(W_ih x + b_ih, W_hh h + b_hh); ``gi`` is the first, when the caller
+    has computed it (a row-sharded input's projection, summed over the
+    ranks: ``models.temporal_gcn``), and x is then not read."""
+    if gi is None:
+        gi = torch.matmul(x, cell.w_ih.t()) + cell.b_ih
+    return gi, torch.matmul(h, cell.w_hh.t()) + cell.b_hh
 
 
 def rnn_cell_apply(cell: RecurrentCell, x: torch.Tensor,
-                   h: torch.Tensor) -> torch.Tensor:
+                   h: torch.Tensor, gi=None) -> torch.Tensor:
     """Elman cell: h' = tanh(W_ih x + b_ih + W_hh h + b_hh)."""
-    gi, gh = _gates(cell, x, h)
+    gi, gh = _gates(cell, x, h, gi)
     return torch.tanh(gi + gh)
 
 
 def gru_cell_apply(cell: RecurrentCell, x: torch.Tensor,
-                   h: torch.Tensor) -> torch.Tensor:
+                   h: torch.Tensor, gi=None) -> torch.Tensor:
     """GRU with torch's gate order (reset, update, new)."""
-    gi, gh = _gates(cell, x, h)
+    gi, gh = _gates(cell, x, h, gi)
     i_r, i_z, i_n = torch.chunk(gi, 3, dim=-1)
     h_r, h_z, h_n = torch.chunk(gh, 3, dim=-1)
     r = torch.sigmoid(i_r + h_r)
@@ -146,11 +171,11 @@ def gru_cell_apply(cell: RecurrentCell, x: torch.Tensor,
     return (1.0 - z) * n + z * h
 
 
-def lstm_cell_apply(cell: RecurrentCell, x: torch.Tensor, hc):
+def lstm_cell_apply(cell: RecurrentCell, x: torch.Tensor, hc, gi=None):
     """LSTM with torch's gate order (input, forget, cell, output); hc is
     (h, c), and so is the result."""
     h, c = hc
-    gi, gh = _gates(cell, x, h)
+    gi, gh = _gates(cell, x, h, gi)
     i, f, g, o = torch.chunk(gi + gh, 4, dim=-1)
     i, f, o = torch.sigmoid(i), torch.sigmoid(f), torch.sigmoid(o)
     c_new = f * c + i * torch.tanh(g)
@@ -160,22 +185,22 @@ def lstm_cell_apply(cell: RecurrentCell, x: torch.Tensor, hc):
 class RNNCell(RecurrentCell):
     gates = RNN_GATES["rnn"]
 
-    def forward(self, x, h):
-        return rnn_cell_apply(self, x, h)
+    def forward(self, x, h, gi=None):
+        return rnn_cell_apply(self, x, h, gi)
 
 
 class GRUCell(RecurrentCell):
     gates = RNN_GATES["gru"]
 
-    def forward(self, x, h):
-        return gru_cell_apply(self, x, h)
+    def forward(self, x, h, gi=None):
+        return gru_cell_apply(self, x, h, gi)
 
 
 class LSTMCell(RecurrentCell):
     gates = RNN_GATES["lstm"]
 
-    def forward(self, x, hc):
-        return lstm_cell_apply(self, x, hc)
+    def forward(self, x, hc, gi=None):
+        return lstm_cell_apply(self, x, hc, gi)
 
 
 CELLS = {"rnn": RNNCell, "gru": GRUCell, "lstm": LSTMCell}

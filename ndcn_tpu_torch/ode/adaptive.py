@@ -74,8 +74,8 @@ from ndcn_tpu_torch.ode.step_control import (Controller, accept_and_max_ratio,
                                              select_initial_step)
 from ndcn_tpu_torch.ode.tableaux import (DOPRI5, TSIT5,
                                          TSIT5_REFERENCE_WEIGHTS, Tableau)
-from ndcn_tpu_torch.ode.tree_math import bcast, leaves, node_group, tmap
-from ndcn_tpu_torch.parallel.mesh import all_true
+from ndcn_tpu_torch.ode.collectives import all_true
+from ndcn_tpu_torch.ode.tree_math import bcast, leaves, state_group, tmap
 
 # The reference passes order 4 to the initial-step heuristic for its
 # 5th-order methods; kept for identical first steps.
@@ -132,18 +132,20 @@ class RKState(NamedTuple):
 
 
 def _attempt_step(method: AdaptiveMethod, func, rk: RKState, ctrl: Controller,
-                  coeffs: StageCoeffs):
+                  coeffs: StageCoeffs, groups=None):
     """One accept-or-reject step, branch-free; the state keeps the last
     ACCEPTED step's dense output. Returns (state, accept, finite).
 
     An attempt with any non-finite stage, trial state or error estimate is
     rejected with dt·dfactor (maximal shrink), whatever its error ratio says.
+    ``groups``: the process group of each node-sharded leaf (``solve``).
     """
     y1, f1, y1_error, k = runge_kutta_step(func, rk.y, rk.f, rk.t1, rk.dt,
                                            coeffs)
-    finite = all_finite(*leaves(y1), *leaves(y1_error), *leaves(k))
+    finite = all_finite(*leaves(y1), *leaves(y1_error), *leaves(k),
+                        group=state_group(groups))
     ratios = error_ratios(y1_error, rk.y, y1, ctrl.rtol, ctrl.atol,
-                          rk.t1.dtype)
+                          rk.t1.dtype, groups=groups)
     accept, max_ratio = accept_and_max_ratio(ratios)
     accept = accept & finite
     dt_next = torch.where(finite, optimal_step_size(rk.dt, max_ratio, ctrl),
@@ -166,11 +168,12 @@ def _attempt_step(method: AdaptiveMethod, func, rk: RKState, ctrl: Controller,
 
 def _init_rk_state(method: AdaptiveMethod, func, y0: torch.Tensor,
                    t0: torch.Tensor, ctrl: Controller,
-                   first_step: Optional[float], batched: bool = False):
+                   first_step: Optional[float], batched: bool = False,
+                   groups=None):
     f0 = func(t0, y0)
     if first_step is None:
         dt0 = select_initial_step(func, t0, y0, _INIT_STEP_ORDER, ctrl.rtol,
-                                  ctrl.atol, f0, batched)
+                                  ctrl.atol, f0, batched, groups)
         nfe0 = 2
     else:
         dt0 = torch.full(t0.shape, first_step, dtype=t0.dtype,
@@ -184,7 +187,7 @@ def _init_rk_state(method: AdaptiveMethod, func, y0: torch.Tensor,
 def solve(method: AdaptiveMethod, func, y0, t: torch.Tensor,
           ctrl: Controller, max_steps: int, first_step: Optional[float] = None,
           emission_dtype: Optional[torch.dtype] = None,
-          emission_readout: Optional[Callable] = None):
+          emission_readout: Optional[Callable] = None, groups=None):
     """Solve over the grid ``t``; returns (solution, SolveStats).
 
     ``t`` is a strictly increasing 1-D float32 (or float64) tensor ON THE
@@ -193,6 +196,11 @@ def solve(method: AdaptiveMethod, func, y0, t: torch.Tensor,
     by leaf for a tuple state), or the readout's trajectory
     (len(t), *readout(y0).shape) with ``emission_readout``.
     Differentiable when autograd records it (see the module docstring).
+
+    ``groups`` (``tree_math.leaf_groups``) names the process group of each
+    node-sharded leaf of a state whose node rows split over ranks: its
+    norms and means, and the attempt's finite flag, are then over every
+    rank, so that every rank takes the same steps. None: no collective.
     """
     T = t.shape[0]
     t_host = t.tolist()              # python floats, exactly the grid's values
@@ -200,7 +208,8 @@ def solve(method: AdaptiveMethod, func, y0, t: torch.Tensor,
     t_dev = t.to(lead.device)
     coeffs = stage_coeffs(method.tableau, lead.dtype, lead.device)
     n_evals = len(method.tableau.alpha)  # f0 comes from the last step (FSAL)
-    rk, nfe = _init_rk_state(method, func, y0, t_dev[0], ctrl, first_step)
+    rk, nfe = _init_rk_state(method, func, y0, t_dev[0], ctrl, first_step,
+                             groups=groups)
 
     def observe(rk: RKState, t_obs: torch.Tensor) -> torch.Tensor:
         interp = rk.interp
@@ -218,7 +227,8 @@ def solve(method: AdaptiveMethod, func, y0, t: torch.Tensor,
             continue
         # dt-underflow guard (the reference asserts): flag and stop
         underflow = ~((rk.t1 + rk.dt) > rk.t1)
-        new, accept, finite = _attempt_step(method, func, rk, ctrl, coeffs)
+        new, accept, finite = _attempt_step(method, func, rk, ctrl, coeffs,
+                                            groups)
         nfe += n_evals
         t1_host, acc, under, fin = torch.stack(
             [new.t1, accept.to(new.t1.dtype), underflow.to(new.t1.dtype),
@@ -414,7 +424,8 @@ def _replica_finite(*tensors: torch.Tensor, stage_axis: bool = False):
 
 def _attempt_batched(method: AdaptiveMethod, func, rk: RKState,
                      ctrl: Controller, coeffs: StageCoeffs,
-                     live: torch.Tensor, bad: Optional[torch.Tensor] = None):
+                     live: torch.Tensor, bad: Optional[torch.Tensor] = None,
+                     groups=None):
     """One branch-free attempt of every replica; ``live`` (R,) marks the
     replicas still solving, the others keep their state. Returns (state,
     accept, ok), accept and ok (R,) bool; ok is the attempt's finite flag.
@@ -431,9 +442,9 @@ def _attempt_batched(method: AdaptiveMethod, func, rk: RKState,
                                            coeffs)
     finite = all_true(_replica_finite(*leaves(y1), *leaves(y1_error))
                       & _replica_finite(*leaves(k), stage_axis=True),
-                      node_group())
+                      state_group(groups))
     ratios = error_ratios(y1_error, rk.y, y1, ctrl.rtol, ctrl.atol,
-                          rk.t1.dtype, batched=True)
+                          rk.t1.dtype, batched=True, groups=groups)
     accept, max_ratio = accept_and_max_ratio(ratios)
     ok = finite if bad is None else finite & ~bad
     accept = accept & ok & live
@@ -460,7 +471,7 @@ def solve_batched(method: AdaptiveMethod, func, y0, t: torch.Tensor,
                   ctrl: Controller, max_steps: int,
                   first_step: Optional[float] = None,
                   emission_dtype: Optional[torch.dtype] = None,
-                  emission_readout: Optional[Callable] = None):
+                  emission_readout: Optional[Callable] = None, groups=None):
     """``solve`` for R replicas at once: every leaf of ``y0`` is (R, ...),
     ``func(t, y)`` takes t of shape (R,) and the batched state, and the grid
     ``t`` is shared. Returns (solution (len(t), R, ...), BatchedSolveStats).
@@ -493,7 +504,7 @@ def solve_batched(method: AdaptiveMethod, func, y0, t: torch.Tensor,
     coeffs = stage_coeffs(method.tableau, lead.dtype, device)
     n_evals = len(method.tableau.alpha)
     rk, nfe0 = _init_rk_state(method, func, y0, t_dev[0].expand(R).clone(),
-                              ctrl, first_step, batched=True)
+                              ctrl, first_step, batched=True, groups=groups)
 
     def read_out(state):
         return state if emission_readout is None else emission_readout(state)
@@ -551,7 +562,7 @@ def solve_batched(method: AdaptiveMethod, func, y0, t: torch.Tensor,
         # dt-underflow guard (the reference asserts): flag and freeze
         underflow = ~((rk.t1 + rk.dt) > rk.t1)
         new, accept, fin = _attempt_batched(method, func, rk, ctrl, coeffs,
-                                            live_t)
+                                            live_t, groups=groups)
         t1_new, acc, under, fin = torch.stack(
             [new.t1, accept.to(new.t1.dtype), underflow.to(new.t1.dtype),
              fin.to(new.t1.dtype)]).tolist()
@@ -560,7 +571,8 @@ def solve_batched(method: AdaptiveMethod, func, y0, t: torch.Tensor,
         if any(bad) and torch.is_grad_enabled():
             new, _, _ = _attempt_batched(method, func, rk, ctrl, coeffs,
                                          live_t,
-                                         torch.tensor(bad, device=device))
+                                         torch.tensor(bad, device=device),
+                                         groups)
         rk = new
         for r in range(R):
             if not live[r]:

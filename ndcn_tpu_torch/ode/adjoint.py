@@ -40,6 +40,22 @@ per replica (``tree_dot_rows``), a replica that runs out of budget on an
 interval reads NaN alone, and replica r's parameter cotangent is its own,
 since replica r of the stacked RHS reads only its own slice of the
 parameters. The kernels' batched forms run inside the VJP.
+
+With ``options={"node_group": group}`` the state's node rows split over
+the ranks of ``group`` (``parallel.coo_shard``; the JAX adjoint under
+GSPMD): y0, the trajectory, y and adj_y are this rank's rows. The
+forward and every interval solve take their norms over the group
+(``ode.api``): y and adj_y are node-sharded leaves of the augmented state,
+adj_t and the parameter cotangents replicated ones, whose norms stay
+local. Each augmented evaluation's parameter VJPs are this rank's share
+and are summed over the group in one flat all-reduce, so that adj_p is
+whole and equal on every rank; adj_t's dot is summed likewise. The y-VJP
+needs no collective of its own: the row-block product's backward gathers
+the cotangent. The parameters' gradients come back whole on the group's
+first rank and zero on the others (x + 0 is exact): the replicated
+parameters' gradients are the ranks' shares, which the caller sums over
+the group (``train.optim.make_sgd_step(group=)``), and that sum counts
+them once.
 """
 
 from __future__ import annotations
@@ -47,10 +63,12 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 from ndcn_tpu_torch.ode.adaptive import BatchedSolveStats, SolveStats
 from ndcn_tpu_torch.ode.api import (_canonical_time, nan_unless,
                                     odeint_with_stats)
+from ndcn_tpu_torch.ode.collectives import sum_flat
 from ndcn_tpu_torch.ode.tree_math import tmap, tree_dot, tree_dot_rows
 
 
@@ -112,8 +130,13 @@ class _OdeintAdjoint(torch.autograd.Function):
         rtol, atol, method, options = ctx.solve
         n_p = len(params)
         batched = bool((options or {}).get("batched", False))
+        group = (options or {}).get("node_group")
         # time for the RHS: one per replica in a batched solve
         lead = () if not batched else (sol.shape[1],)
+        aug_options = _nondiff(options)
+        if group is not None:
+            # y and adj_y are node-sharded; adj_t and adj_p replicated
+            aug_options["node_sharded"] = (True, True) + (False,) * (1 + n_p)
 
         def augmented(s, aug):
             y, adj_y = aug[0], aug[1]
@@ -124,9 +147,11 @@ class _OdeintAdjoint(torch.autograd.Function):
                                            allow_unused=True)
             vjps = [torch.zeros_like(x) if v is None else v
                     for v, x in zip(vjps, (y_, *params))]
+            # this rank's share of the parameter VJPs: the group's sum
+            vjp_p = sum_flat(vjps[1:], group)
             # reverse time: d/ds = -d/dt
             return (-f.detach(), vjps[0], torch.zeros_like(aug[2]),
-                    *vjps[1:])
+                    *vjp_p)
 
         ctx.backward.clear()
         T = t.shape[0]
@@ -137,16 +162,21 @@ class _OdeintAdjoint(torch.autograd.Function):
         dot = tree_dot_rows if batched else tree_dot
         for i in range(T - 1, 0, -1):
             f_i = func(t_dev[i].expand(lead), sol[i])
-            adj_t = adj_t - dot(f_i, grad_sol[i]).to(adj_t.dtype)
+            dot_i, = sum_flat([dot(f_i, grad_sol[i])], group)
+            adj_t = adj_t - dot_i.to(adj_t.dtype)
             aug0 = (sol[i], adj_y, adj_t, *adj_p)
             aug_sol, stats = odeint_with_stats(
                 augmented, aug0, torch.stack([-t[i], -t[i - 1]]), rtol=rtol,
-                atol=atol, method=method, options=_nondiff(options))
+                atol=atol, method=method, options=aug_options)
             ctx.backward.append(stats)
             aug_sol = _nan_on_failure(tmap(lambda a: a[1], aug_sol), stats)
             adj_y = aug_sol[1] + grad_sol[i - 1]
             adj_t = aug_sol[2]
             adj_p = tuple(aug_sol[3:3 + n_p])
+        if group is not None and dist.get_rank(group) != 0:
+            # whole on the group's first rank: the caller's sum over the
+            # group counts it once
+            adj_p = tuple(torch.zeros_like(a) for a in adj_p)
         return (None, None, None, None, None, None, None, adj_y, *adj_p)
 
 

@@ -32,6 +32,15 @@ tsit5 run ``adaptive.solve_batched``, adams ``vcabm.solve_vcabm_batched``;
 euler, midpoint, rk4, explicit_adams and fixed_adams run their grid with
 the batched state as it is (every replica takes the same steps).
 
+``node_group`` (a ``torch.distributed`` process group) solves a state
+whose node rows split over that group's ranks (``parallel.coo_shard``; the
+JAX package's GSPMD-sharded solve): the norms and means of its
+node-sharded leaves, and each attempt's finite flag, are taken over every
+rank, so that every rank takes the same steps. ``node_sharded``, one bool
+a leaf of ``y0``, marks which leaves are node-sharded (the others are
+replicated: their norms stay local); without it every leaf is. The
+fixed-grid and fixed-order methods take no norm and accept both.
+
 Under ``torch.export`` (the serving artifact, ``serve.export_ndcn``) the
 inference solve of dopri5 and tsit5 is ``adaptive.solve_while`` and that of
 adams ``vcabm.solve_vcabm_while``, the loop as one device-resident program,
@@ -52,7 +61,7 @@ import torch
 
 from ndcn_tpu_torch.ode import adaptive, fixed_adams, fixed_grid, vcabm
 from ndcn_tpu_torch.ode.step_control import Controller
-from ndcn_tpu_torch.ode.tree_math import leaves, tmap
+from ndcn_tpu_torch.ode.tree_math import leaf_groups, leaves, tmap
 
 _ADAPTIVE = {"dopri5": adaptive.DOPRI5_METHOD,
              "tsit5": adaptive.TSIT5_METHOD}
@@ -68,7 +77,8 @@ _DEFAULT_MAX_STEPS_WHILE = 1 << 16
 # option silently ignored is a debugging trap, so unknown keys warn); the
 # fixed-grid and fixed-order methods accept and ignore the common options,
 # so that one options dict serves every method
-_COMMON_OPTIONS = {"differentiable", "max_steps", "batched"}
+_COMMON_OPTIONS = {"differentiable", "max_steps", "batched", "node_group",
+                   "node_sharded"}
 
 _METHOD_OPTIONS = {
     "dopri5": _COMMON_OPTIONS | {"safety", "ifactor", "dfactor", "first_step",
@@ -169,6 +179,8 @@ def odeint_with_stats(func: Callable, y0, t, rtol: float = 1e-7,
     differentiable = bool(options.get("differentiable", True))
     batched = bool(options.get("batched", False))
     exporting = torch.compiler.is_exporting()
+    groups = leaf_groups(options.get("node_group"),
+                         options.get("node_sharded"), len(leaves(y0)))
 
     def recording():
         # autograd records the solve only when it is differentiable
@@ -209,7 +221,7 @@ def odeint_with_stats(func: Callable, y0, t, rtol: float = 1e-7,
         with recording():
             return solve(func, y0, t, rtol=float(rtol), atol=float(atol),
                          max_order=int(options.get("max_order", 12)),
-                         max_steps=max_steps, **ctrl_kw)
+                         max_steps=max_steps, groups=groups, **ctrl_kw)
 
     emission = {k: options.get(k) for k in ("emission_dtype",
                                              "emission_readout")}
@@ -230,7 +242,8 @@ def odeint_with_stats(func: Callable, y0, t, rtol: float = 1e-7,
     solve = adaptive.solve_batched if batched else adaptive.solve
     with recording():
         return solve(m, func, y0, t, ctrl, max_steps=max_steps,
-                     first_step=options.get("first_step"), **emission)
+                     first_step=options.get("first_step"), groups=groups,
+                     **emission)
 
 
 def odeint(func: Callable, y0, t, rtol: float = 1e-7, atol: float = 1e-9,

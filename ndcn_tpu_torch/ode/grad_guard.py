@@ -23,17 +23,17 @@ from typing import NamedTuple
 
 import torch
 
-from ndcn_tpu_torch.ode.tree_math import node_group
-from ndcn_tpu_torch.parallel.mesh import all_true
+from ndcn_tpu_torch.ode.collectives import all_true
 
 
-def all_finite(*tensors: torch.Tensor) -> torch.Tensor:
+def all_finite(*tensors: torch.Tensor, group=None) -> torch.Tensor:
     """0-dim bool tensor: every element of every tensor is finite (on every
-    rank, while the state is node-sharded)."""
+    rank of ``group``, the process group a node-sharded state splits
+    over)."""
     ok = torch.isfinite(tensors[0]).all()
     for t in tensors[1:]:
         ok = ok & torch.isfinite(t).all()
-    return all_true(ok, node_group())
+    return all_true(ok, group)
 
 
 def forced_reject(rk: NamedTuple, dfactor: float) -> NamedTuple:

@@ -11,8 +11,9 @@ With ``batched`` (R replicas in one solve, ``adaptive.solve_batched``)
 every leaf has a leading replica axis and every quantity here is one value
 per replica, shape (R,): each norm and mean is taken over one replica's
 elements only, so the replicas' step sizes stay independent. While the
-state is node-sharded (``tree_math.node_sharded``) each mean is over every
-rank's elements, so every rank takes the same steps.
+state is node-sharded (``groups``: one process group a leaf, None for a
+replicated leaf, ``tree_math.leaf_groups``) a node-sharded leaf's mean is
+over every rank's elements, so every rank takes the same steps.
 
 Every quantity stays a tensor of the time dtype on the state's device
 (float32 unless the caller asks for float64 time, as the JAX package's
@@ -27,9 +28,9 @@ from typing import List, NamedTuple
 
 import torch
 
-from ndcn_tpu_torch.ode.tree_math import (bcast, cast, leaves, rms_norm, tmax,
-                                          tmax_rows, whole_mean,
-                                          whole_mean_rows)
+from ndcn_tpu_torch.ode.tree_math import (bcast, cast, leaves, per_leaf,
+                                          rms_norm, tmax, tmax_rows,
+                                          whole_mean, whole_mean_rows)
 
 # Guard against division by zero; a normal float32 (see the JAX package).
 _TINY = 1e-30
@@ -46,19 +47,22 @@ class Controller(NamedTuple):
 
 def error_ratios(y1_error, y0, y1, rtol: float, atol: float,
                  tdtype: torch.dtype = torch.float32,
-                 batched: bool = False) -> List[torch.Tensor]:
+                 batched: bool = False, groups=None) -> List[torch.Tensor]:
     """The mean squared error ratio of each leaf, as 0-dim tensors of the
     time dtype (the ratios of a float32 state are widened before the mean
     under float64 time, as in the JAX package); with ``batched``, (R,)
-    tensors, each the mean over one replica's elements."""
+    tensors, each the mean over one replica's elements; with ``groups``,
+    a node-sharded leaf's over every rank's elements."""
     out = []
-    for err, a, b in zip(leaves(y1_error), leaves(y0), leaves(y1)):
+    errs = leaves(y1_error)
+    for err, a, b, g in zip(errs, leaves(y0), leaves(y1),
+                            per_leaf(groups, len(errs))):
         tol = atol + rtol * torch.maximum(torch.abs(a), torch.abs(b))
         r = cast(err / tol, tdtype)
         if batched:
-            out.append(whole_mean_rows(r * r))
+            out.append(whole_mean_rows(r * r, g))
         else:
-            out.append(whole_mean(r * r))
+            out.append(whole_mean(r * r, g))
     return out
 
 
@@ -88,7 +92,7 @@ def optimal_step_size(last_step: torch.Tensor, max_ratio: torch.Tensor,
 
 def select_initial_step(func, t0: torch.Tensor, y0, order: int,
                         rtol: float, atol: float, f0,
-                        batched: bool = False) -> torch.Tensor:
+                        batched: bool = False, groups=None) -> torch.Tensor:
     """Hairer's empirical initial step, in ``t0``'s dtype; the reference's
     host branches become ``torch.where`` with the same thresholds. Calls
     ``func`` once. With ``batched`` (``t0`` of shape (R,)), one step per
@@ -97,13 +101,14 @@ def select_initial_step(func, t0: torch.Tensor, y0, order: int,
     The norms are taken per leaf and the largest kept, as in the JAX
     package; a leaf whose derivative norm is under 1e-5 (the adjoint-time
     scalar of the augmented system) gives no step-size ratio, where its raw
-    ratio would be inf or NaN."""
+    ratio would be inf or NaN. ``groups`` as in ``error_ratios``."""
     tdtype = t0.dtype
     vmax = tmax_rows if batched else tmax
     ys, fs = leaves(y0), leaves(f0)
+    gs = per_leaf(groups, len(ys))
     scales = [atol + torch.abs(y) * rtol for y in ys]
-    d0s = [rms_norm(y / s, batched) for y, s in zip(ys, scales)]
-    d1s = [rms_norm(f / s, batched) for f, s in zip(fs, scales)]
+    d0s = [rms_norm(y / s, batched, g) for y, s, g in zip(ys, scales, gs)]
+    d1s = [rms_norm(f / s, batched, g) for f, s, g in zip(fs, scales, gs)]
     ratios = [torch.where(b < 1e-5, torch.zeros_like(a),
                           a / torch.clamp(b, min=_TINY))
               for a, b in zip(d0s, d1s)]
@@ -117,8 +122,9 @@ def select_initial_step(func, t0: torch.Tensor, y0, order: int,
         y1 = tuple(y + bcast(cast(h0, y.dtype), y) * f
                    for y, f in zip(ys, fs))
     f1 = func(t0 + h0, y1)
-    d2 = cast(vmax([rms_norm((a - b) / s, batched) / cast(h0, a.dtype)
-                    for a, b, s in zip(leaves(f1), fs, scales)]), tdtype)
+    d2 = cast(vmax([rms_norm((a - b) / s, batched, g) / cast(h0, a.dtype)
+                    for a, b, s, g in zip(leaves(f1), fs, scales, gs)]),
+              tdtype)
 
     h1_small = torch.clamp(h0 * 1e-3, min=1e-6)
     h1_big = (0.01 / torch.clamp(torch.maximum(d1, d2), min=_TINY)) \

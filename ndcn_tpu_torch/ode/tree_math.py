@@ -11,65 +11,75 @@ every leaf a leading replica axis and every time scalar the shape (R,);
 ``bcast`` lays such a per-replica vector over a leaf, and leaves a 0-dim
 scalar as it is.
 
-A node-sharded solve (``node_sharded``: the state's node rows split over
-the ranks of a process group, ``parallel.coo_shard``) takes every norm and
-mean over the whole state: a sum and a count, all-reduced over the group
-(differentiably: the step controller is on the tape). Every rank then
-reads the same step sizes and flags and takes the same steps. The JAX
-package gets this from GSPMD.
+A node-sharded solve (the state's node rows split over the ranks of a
+process group, ``parallel.coo_shard``) takes each norm and mean of a
+node-sharded leaf over the whole leaf: a sum and a count, all-reduced over
+the group (differentiably: the step controller is on the tape). Every rank
+then reads the same step sizes and flags and takes the same steps. The
+JAX package gets this from GSPMD. The group is an argument, one a leaf
+(``leaf_groups``: the solve's ``node_group`` option and its per-leaf
+``node_sharded`` marks): a replicated leaf (the adjoint's adj_t and
+parameter cotangents, equal on every rank) takes its mean locally, with no
+collective, as GSPMD computes a replicated array's mean.
 """
 
 from __future__ import annotations
 
-import contextlib
-from typing import Callable, List, Sequence, Tuple, Union
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import torch
 
-from ndcn_tpu_torch.parallel.mesh import sharded_sum_and_count
+from ndcn_tpu_torch.ode.collectives import sharded_sum_and_count
 
 State = Union[torch.Tensor, Tuple[torch.Tensor, ...]]
 
 
-# the process group the state's node rows split over, while a sharded
-# model solves; None: every rank holds the whole state
-_NODE_GROUP = None
+def leaf_groups(group, marks: Optional[Sequence[bool]],
+                n_leaves: int) -> Optional[tuple]:
+    """The group each leaf's norms and means are taken over: ``group`` for
+    a node-sharded leaf (``marks[i]`` true; no marks: every leaf), None
+    for a replicated one. None, when ``group`` is None: no leaf is
+    sharded."""
+    if group is None:
+        return None
+    if marks is None:
+        return (group,) * n_leaves
+    if len(marks) != n_leaves:
+        raise ValueError(f"node_sharded marks {len(marks)} leaves; the "
+                         f"state has {n_leaves}")
+    return tuple(group if m else None for m in marks)
 
 
-@contextlib.contextmanager
-def node_sharded(group):
-    """Take the solvers' norms and means over ``group``'s ranks (None: over
-    the local state) for the duration."""
-    global _NODE_GROUP
-    saved, _NODE_GROUP = _NODE_GROUP, group
-    try:
-        yield
-    finally:
-        _NODE_GROUP = saved
+def per_leaf(groups: Optional[Sequence], n_leaves: int) -> Sequence:
+    """``groups`` as one entry a leaf (None everywhere for None)."""
+    return (None,) * n_leaves if groups is None else groups
 
 
-def node_group():
-    return _NODE_GROUP
+def state_group(groups: Optional[Sequence]):
+    """The group of the state's node-sharded leaves (None if none is):
+    what a flag over the whole state (an attempt's finite flag) is
+    all-reduced over."""
+    return next((g for g in groups or () if g is not None), None)
 
 
-def whole_mean(terms: torch.Tensor) -> torch.Tensor:
-    """The mean of ``terms`` over the whole state: over every rank's
-    elements while node-sharded, else ``torch.mean``."""
-    if _NODE_GROUP is None:
+def whole_mean(terms: torch.Tensor, group=None) -> torch.Tensor:
+    """The mean of ``terms`` over the whole leaf: over every rank's
+    elements of a node-sharded leaf (``group``), else ``torch.mean``."""
+    if group is None:
         return torch.mean(terms)
     total, count = sharded_sum_and_count(torch.sum(terms), terms.numel(),
-                                         _NODE_GROUP)
+                                         group)
     return (total / count).to(terms.dtype)
 
 
-def whole_mean_rows(terms: torch.Tensor) -> torch.Tensor:
+def whole_mean_rows(terms: torch.Tensor, group=None) -> torch.Tensor:
     """``whole_mean`` per replica: the mean of each index of the leading
     axis, (R,)."""
     rows = terms.reshape(terms.shape[0], -1)
-    if _NODE_GROUP is None:
+    if group is None:
         return torch.mean(rows, dim=1)
     total, count = sharded_sum_and_count(torch.sum(rows, dim=1),
-                                         rows.shape[1], _NODE_GROUP)
+                                         rows.shape[1], group)
     return (total / count).to(terms.dtype)
 
 
@@ -117,17 +127,19 @@ def tmin(values: Sequence[torch.Tensor]) -> torch.Tensor:
     return values[0] if len(values) == 1 else torch.min(torch.stack(values))
 
 
-def rms_norm(x: torch.Tensor, batched: bool = False) -> torch.Tensor:
+def rms_norm(x: torch.Tensor, batched: bool = False,
+             group=None) -> torch.Tensor:
     """||x||_2 / sqrt(numel) of one leaf, as the reference ``_norm``; with
-    ``batched`` one norm per replica (the leading axis), shape (R,)."""
-    if batched and _NODE_GROUP is not None:
-        return torch.sqrt(whole_mean_rows(torch.square(x)))
+    ``batched`` one norm per replica (the leading axis), shape (R,); with
+    ``group``, over every rank's elements of a node-sharded leaf."""
+    if batched and group is not None:
+        return torch.sqrt(whole_mean_rows(torch.square(x), group))
     if batched:
         rows = x.reshape(x.shape[0], -1)
         return torch.sqrt(torch.sum(torch.square(rows), dim=1)
                           / rows.shape[1])
-    if _NODE_GROUP is not None:
-        return torch.sqrt(whole_mean(torch.square(x)))
+    if group is not None:
+        return torch.sqrt(whole_mean(torch.square(x), group))
     return torch.sqrt(torch.sum(torch.square(x)) / x.numel())
 
 

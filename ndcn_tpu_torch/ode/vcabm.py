@@ -57,10 +57,10 @@ from ndcn_tpu_torch.ode.grad_guard import all_finite
 from ndcn_tpu_torch.ode.step_control import (Controller, accept_and_max_ratio,
                                              error_ratios, optimal_step_size,
                                              select_initial_step)
-from ndcn_tpu_torch.ode.tree_math import (bcast, cast, leaves, node_group,
+from ndcn_tpu_torch.ode.collectives import all_true
+from ndcn_tpu_torch.ode.tree_math import (bcast, cast, leaves, state_group,
                                           tmap, tmax, tmax_rows, tmin,
                                           tscaled_dot_product, tstack)
-from ndcn_tpu_torch.parallel.mesh import all_true
 
 _MIN_ORDER = 1
 _MAX_ORDER = 12
@@ -133,10 +133,11 @@ def _scaled(factors, x):
 def solve_vcabm(func, y0, t: torch.Tensor, rtol: float, atol: float,
                 max_order: int = _MAX_ORDER, max_steps: int = 1 << 16,
                 safety: float = 0.9, ifactor: float = 10.0,
-                dfactor: float = 0.2):
+                dfactor: float = 0.2, groups=None):
     """Solve over the grid ``t`` (strictly increasing, 1-D, float32 or
     float64 on the CPU; its dtype is the time dtype); returns (solution,
-    SolveStats). Differentiable when autograd records it."""
+    SolveStats). Differentiable when autograd records it. ``groups``: the
+    process group of each node-sharded leaf (``adaptive.solve``)."""
     max_order = int(max(_MIN_ORDER, min(max_order, _MAX_ORDER)))
     H = max_order + 1
     T = t.shape[0]
@@ -147,7 +148,8 @@ def solve_vcabm(func, y0, t: torch.Tensor, rtol: float, atol: float,
                       dfactor=dfactor, order=0)
 
     f0 = func(t_dev[0], y0)
-    first_step = select_initial_step(func, t_dev[0], y0, 2, rtol, atol, f0)
+    first_step = select_initial_step(func, t_dev[0], y0, 2, rtol, atol, f0,
+                                     groups=groups)
     st = _State(y=y0, prev_t=t_dev[0].expand(H), phi=[f0],
                 next_t=t_dev[0] + first_step)
     order, n_hist, nfe = 1, 1, 2
@@ -173,14 +175,15 @@ def solve_vcabm(func, y0, t: torch.Tensor, rtol: float, atol: float,
         y_next = tmap(torch.add, p_next,
                       _scaled((dt, g[order - 1]), iphi_p[order - 1]))
         local_error = _scaled((dt, g[order] - g[order - 1]), iphi_p[order])
-        ratios = error_ratios(local_error, st.y, y_next, rtol, atol, tdtype)
+        ratios = error_ratios(local_error, st.y, y_next, rtol, atol, tdtype,
+                              groups=groups)
         accept, max_ratio = accept_and_max_ratio(ratios)
 
         f_corr = func(next_t, y_next)
         nfe += 2
         finite = all_finite(*leaves(p_next), *leaves(f_pred),
                             *leaves(y_next), *leaves(f_corr),
-                            *leaves(local_error))
+                            *leaves(local_error), group=state_group(groups))
         accept = accept & finite
 
         underflow = ~(next_t > curr_t)
@@ -192,11 +195,13 @@ def solve_vcabm(func, y0, t: torch.Tensor, rtol: float, atol: float,
             def err_min(k: int):
                 gd = g[max(k, 1)] - g[max(k - 1, 0)]
                 return tmin(error_ratios(_scaled((dt, gd), iphi_p[max(k, 0)]),
-                                         st.y, y_next, rtol, atol, tdtype))
+                                         st.y, y_next, rtol, atol, tdtype,
+                                         groups=groups))
 
             gamma = gamma_star[min(order, len(_GAMMA_STAR) - 1)]
             ekp1_max = tmax(error_ratios(_scaled((dt, gamma), iphi_p[order]),
-                                         st.y, y_next, rtol, atol, tdtype))
+                                         st.y, y_next, rtol, atol, tdtype,
+                                         groups=groups))
             dec = torch.minimum(err_min(order - 1), err_min(order - 2)) \
                 < max_ratio
             flags += [dec, ekp1_max < max_ratio]
@@ -373,7 +378,7 @@ def _tmin_rows(values):
 def _masked_attempt(func, st: _Machine, obs_i: torch.Tensor,
                     live: torch.Tensor, t: torch.Tensor, ctrl: Controller,
                     max_order: int, gamma_star: torch.Tensor,
-                    bad: Optional[torch.Tensor] = None):
+                    bad: Optional[torch.Tensor] = None, groups=None):
     """One branch-free attempt of every replica, ``_make_vcabm_machine``'s
     ``attempt`` of the JAX package with a replica axis. ``obs_i`` (R,) is
     each replica's pending observation, ``gamma_star`` is ``_GAMMA_STAR``
@@ -381,7 +386,8 @@ def _masked_attempt(func, st: _Machine, obs_i: torch.Tensor,
     ``live`` (R,) marks the replicas
     still solving; the others keep their state and attempt at dt = 0, as
     does a replica marked ``bad``, which is rejected with dt·dfactor (the
-    forced rejection of a non-finite attempt, ``grad_guard``).
+    forced rejection of a non-finite attempt, ``grad_guard``). ``groups``:
+    the process group of each node-sharded leaf (``adaptive.solve``).
 
     Returns (state, accept, reached, underflow, ok, p_next): accept,
     reached (an accepted attempt that landed on its observation), underflow
@@ -417,12 +423,12 @@ def _masked_attempt(func, st: _Machine, obs_i: torch.Tensor,
     local_error = _scaled_rows((dt, _row(g, order) - g_om1),
                                _rows(iphi_p, order))
     ratios = error_ratios(local_error, st.y, y_next, ctrl.rtol, ctrl.atol,
-                          tdtype, batched=True)
+                          tdtype, batched=True, groups=groups)
     accept, max_ratio = accept_and_max_ratio(ratios)
     f_corr = func(next_t, y_next)
     finite = all_true(_replica_finite(
         *leaves(p_next), *leaves(f_pred), *leaves(y_next), *leaves(f_corr),
-        *leaves(local_error)), node_group())
+        *leaves(local_error)), state_group(groups))
     ok = finite if bad is None else finite & ~bad
     accept = accept & ok & live
 
@@ -432,13 +438,13 @@ def _masked_attempt(func, st: _Machine, obs_i: torch.Tensor,
                                                                  min=0))
         e = _scaled_rows((dt, gd), _rows(iphi_p, torch.clamp(k, min=0)))
         return _tmin_rows(error_ratios(e, st.y, y_next, ctrl.rtol, ctrl.atol,
-                                       tdtype, batched=True))
+                                       tdtype, batched=True, groups=groups))
 
     gamma = gamma_star.index_select(
         0, torch.clamp(order, max=len(_GAMMA_STAR) - 1))
     ekp1_max = tmax_rows(error_ratios(
         _scaled_rows((dt, gamma), _rows(iphi_p, order)), st.y, y_next,
-        ctrl.rtol, ctrl.atol, tdtype, batched=True))
+        ctrl.rtol, ctrl.atol, tdtype, batched=True, groups=groups))
     ramp = (st.n_hist <= 4) | (order < 3)
     dec = torch.minimum(err_min(order - 1), err_min(order - 2)) < max_ratio
     inc = ~dec & (order < max_order) & (ekp1_max < max_ratio)
@@ -482,7 +488,7 @@ def _clamped_order(max_order: int) -> int:
 def solve_vcabm_batched(func, y0, t: torch.Tensor, rtol: float, atol: float,
                         max_order: int = _MAX_ORDER, max_steps: int = 1 << 16,
                         safety: float = 0.9, ifactor: float = 10.0,
-                        dfactor: float = 0.2):
+                        dfactor: float = 0.2, groups=None):
     """``solve_vcabm`` for R replicas at once, ``jax.vmap`` of the JAX
     solve: every leaf of ``y0`` is (R, ...), ``func(t, y)`` takes t of
     shape (R,) and the batched state, the grid ``t`` (on the CPU) is
@@ -510,7 +516,7 @@ def solve_vcabm_batched(func, y0, t: torch.Tensor, rtol: float, atol: float,
     t0 = t_dev[0].expand(R).clone()
     f0 = func(t0, y0)
     first = select_initial_step(func, t0, y0, 2, rtol, atol, f0,
-                                batched=True)
+                                batched=True, groups=groups)
     st = _init_machine(y0, f0, t0, first, H)
     obs_i = torch.ones(R, dtype=torch.int64, device=device)
     gamma_star = torch.tensor(_GAMMA_STAR, dtype=t.dtype, device=device)
@@ -530,7 +536,7 @@ def solve_vcabm_batched(func, y0, t: torch.Tensor, rtol: float, atol: float,
             break
         live_t = torch.tensor(live, device=device)
         out = _masked_attempt(func, st, obs_i, live_t, t_dev, ctrl,
-                              max_order, gamma_star)
+                              max_order, gamma_star, groups=groups)
         acc, hit, under, fin = torch.stack(
             [f.to(torch.int32) for f in out[1:5]]).tolist()
         syncs += 1
@@ -538,7 +544,8 @@ def solve_vcabm_batched(func, y0, t: torch.Tensor, rtol: float, atol: float,
         if any(bad) and torch.is_grad_enabled():
             out = _masked_attempt(func, st, obs_i, live_t, t_dev, ctrl,
                                   max_order, gamma_star,
-                                  bad=torch.tensor(bad, device=device))
+                                  bad=torch.tensor(bad, device=device),
+                                  groups=groups)
         st, _, reached, _, _, p_next = out
         obs_i = obs_i + reached.long()
         if any(hit):
@@ -570,7 +577,7 @@ def solve_vcabm_batched(func, y0, t: torch.Tensor, rtol: float, atol: float,
 def solve_vcabm_while(func, y0, t: torch.Tensor, rtol: float, atol: float,
                       max_order: int = _MAX_ORDER, max_steps: int = 1 << 16,
                       safety: float = 0.9, ifactor: float = 10.0,
-                      dfactor: float = 0.2):
+                      dfactor: float = 0.2, groups=None):
     """The inference solve of one model as one device-resident program, the
     JAX package's ``solve_vcabm`` (a ``lax.while_loop``): a ``while_loop``
     whose body is ``_masked_attempt`` on a replica axis of one, with no
@@ -607,7 +614,7 @@ def solve_vcabm_while(func, y0, t: torch.Tensor, rtol: float, atol: float,
     t0 = t[:1].clone()
     f0 = func_r(t0, y0_r)
     first = select_initial_step(func_r, t0, y0_r, 2, rtol, atol, f0,
-                                batched=True)
+                                batched=True, groups=groups)
     st0 = _init_machine(y0_r, f0, t0, first, H)
 
     def count(v):
@@ -647,7 +654,8 @@ def solve_vcabm_while(func, y0, t: torch.Tensor, rtol: float, atol: float,
         obs_i, nfe, nacc, nrej, ok = counts
         live = live_of(counts)
         new, accept, reached, underflow, _, p_next = _masked_attempt(
-            func_r, st, obs_i, live, t, ctrl, max_order, gamma_star)
+            func_r, st, obs_i, live, t, ctrl, max_order, gamma_star,
+            groups=groups)
         idx = torch.where(reached, obs_i, torch.full_like(obs_i, T))
         sol = tmap(lambda buf, v: buf.index_put((idx, rep), v), sol, p_next)
         return pack(new, (obs_i + reached.long(), nfe + 2 * live.long(),

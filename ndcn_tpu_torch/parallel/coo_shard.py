@@ -44,8 +44,9 @@ whole operator. The TPU's tile packing is not ported (K1 reads CSR).
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -105,6 +106,37 @@ def node_group(op) -> Optional[dist.ProcessGroup]:
     """The group a sharded operator's node rows split over (None for any
     other operator, or a group of one)."""
     return op.group if is_sharded(op) else None
+
+
+def node_rows(op) -> Optional[Tuple[int, int, int]]:
+    """(n, start, stop): the node rows [start, stop) of n that this rank
+    holds, for a sharded operator; None for any other (every row). The
+    models draw dropout masks at the whole shape and cut them to these
+    rows (``models.nn.dropout``)."""
+    return (op.n, op.start, op.stop) if is_sharded(op) else None
+
+
+def flat_columns(op, width: int) -> Optional[Tuple[int, int]]:
+    """[start · width, stop · width): the columns of a node-major
+    flattening (a row-major (n, width) tensor as one n · width vector, the
+    temporal baselines' cell input) that this rank's rows give, for a
+    sharded operator; None for any other (every column)."""
+    return ((op.start * width, op.stop * width) if is_sharded(op)
+            else None)
+
+
+def dense_rows(op) -> torch.Tensor:
+    """This rank's rows of a sharded operator as a dense (stop - start, n)
+    tensor on its device (DeepGCN3's reweighted Laplacian): the dense
+    operator's row block, or the COO block's edges summed into it, as
+    ``graph.sparse.to_dense_matrix`` sums the whole operator's."""
+    if isinstance(op, RowShardedDense):
+        return op.mat
+    b = op.block
+    dense = np.zeros((_local_rows(op), op.n), np.float32)
+    np.add.at(dense, (b.rows.cpu().numpy(), b.cols.cpu().numpy()),
+              b.vals.detach().cpu().numpy())
+    return torch.as_tensor(dense, device=op.device)
 
 
 def _layout(n: int, p: int, rank: int):

@@ -31,14 +31,28 @@ the CPU. It lays them out as one model axis of N (checks 1-5) and as
    factorization (2 x 2 on 4 ranks): 2 · data replicas over the data
    ranks, each replica's nodes over the model ranks (K1's batched form on
    the row blocks): the replicas' losses and updated parameters against
-   the same replicas unsharded (<= 1e-5), each replica's NFE equal.
+   the same replicas unsharded (<= 1e-5), each replica's NFE equal; and
+   the same sweep's step on the batched continuous adjoint;
+7. the continuous adjoint on a model axis of N (COO, dopri5): the
+   gradients against the unsharded adjoint's (<= 1e-4), the loss (<=
+   1e-5), forward and backward NFE equal;
+8. one lstm_gnn train step with dropout on the row-sharded Kipf operator
+   (K1 on each row block at d = 5; the cell's input projection summed
+   over the ranks): loss and gradients against the unsharded step (<=
+   1e-5);
+9. GCN, DeepGCN2 and DeepGCN3 on the row-sharded COO operator: one
+   cross-entropy step with dropout, loss and gradients against the
+   unsharded step (<= 1e-5), and deterministic logits and gradients
+   saved for the tests;
+10. every rank's parameters after the steps of 7-9 bit-equal to rank 0's.
 
 Each rank is a process of its own (``python -m ndcn_tpu_torch.parallel.dryrun
 --rank r ...``), imports only the port, and pins one intra-op thread; the
 parent waits ``--timeout`` seconds and kills the ranks on expiry, so a
 collective that hangs fails the run. With ``--out DIR`` each rank also
 writes its arrays to DIR/rank<r>.npz (the tests hold them against the JAX
-package).
+package: checks 7-9 at the weights of ``ndcn_model``, ``temporal_model``
+and ``zoo_model``, rebuilt from their seeds).
 """
 
 from __future__ import annotations
@@ -60,6 +74,11 @@ N_HUB = 502         # the SpMV check's graph: a hub row, uneven blocks
 HUB_EDGES = 400     # edges of the hub row (over SPLIT_EDGES)
 D_SPMV = 5
 HIDDEN = 8
+T_TEMPORAL = 6      # the lstm_gnn step's observed steps
+H_GNN, H_RNN = 5, 10
+ZOO = ("GCN", "DeepGCN2", "DeepGCN3")
+ZOO_FEATURES, ZOO_HIDDEN, ZOO_CLASSES, ZOO_NHL = 64, 16, 5, 2
+DROPOUT = 0.3
 
 
 def train_problem(n: int = N_NODES, seed: int = 0) -> Dict[str, np.ndarray]:
@@ -97,6 +116,72 @@ def spmv_problem(n: int = N_HUB, d: int = D_SPMV, seed: int = 3):
     return mat, rs.randn(n, d).astype(np.float32)
 
 
+def kipf_problem(n: int = N_NODES, seed: int = 0) -> Dict[str, np.ndarray]:
+    """The lstm_gnn and zoo steps' problem: the Kipf operator of the train
+    steps' graph (CSR), a node series (n, T_TEMPORAL + 1), features (n,
+    ZOO_FEATURES), labels and a train split."""
+    import scipy.sparse as sp
+
+    from ndcn_tpu_torch.graph.generators import build_sparse_graph
+    from ndcn_tpu_torch.graph.operators import zipf_smoothing
+
+    adj = build_sparse_graph(n, 6, seed).toarray()
+    np.fill_diagonal(adj, 0.0)
+    rs = np.random.RandomState(seed + 2)
+    return dict(kipf=sp.csr_matrix(zipf_smoothing(adj)),
+                series=rs.uniform(0.0, 5.0, (n, T_TEMPORAL + 1))
+                .astype(np.float32),
+                features=rs.rand(n, ZOO_FEATURES).astype(np.float32),
+                labels=rs.randint(0, ZOO_CLASSES, n).astype(np.int64),
+                idx_train=np.sort(rs.choice(n, n // 4, replace=False)))
+
+
+def ndcn_model(seed: int, device=None):
+    from ndcn_tpu_torch.models import init_ndcn
+
+    import torch
+
+    return init_ndcn(torch.Generator().manual_seed(seed), 1, HIDDEN, 1,
+                     device=device)
+
+
+def temporal_model(n: int = N_NODES, device=None):
+    """Check 8's lstm_gnn, the dynamics driver's widths."""
+    import torch
+
+    from ndcn_tpu_torch.models import init_temporal_gcn
+
+    return init_temporal_gcn(torch.Generator().manual_seed(5), 1, H_GNN, n,
+                             H_RNN, "lstm", device=device)
+
+
+def zoo_model(name: str, n: int = N_NODES, device=None):
+    """Check 9's zoo model ``name``."""
+    import torch
+
+    from ndcn_tpu_torch.models.gcn_zoo import build_zoo_model
+
+    model = build_zoo_model(name, ZOO_FEATURES, ZOO_HIDDEN, ZOO_CLASSES, n,
+                            ZOO_NHL, generator=torch.Generator().manual_seed(
+                                7), dropout=DROPOUT)
+    return model.to(device) if device is not None else model
+
+
+def flat_tree(tree, prefix: str) -> Dict[str, np.ndarray]:
+    """A nested dict / list of arrays (a JAX parameter tree) as flat npz
+    keys ``prefix/key/...``."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix: np.asarray(tree)}
+    out: Dict[str, np.ndarray] = {}
+    for k, v in items:
+        out.update(flat_tree(v, f"{prefix}/{k}"))
+    return out
+
+
 def rel_l1(a, b) -> float:
     a = np.concatenate([np.ravel(np.asarray(x, np.float64)) for x in a])
     b = np.concatenate([np.ravel(np.asarray(x, np.float64)) for x in b])
@@ -108,23 +193,19 @@ def _params(model) -> List[np.ndarray]:
 
 
 def _grads(model) -> List[np.ndarray]:
-    return [p.grad.detach().cpu().numpy().copy() for p in model.parameters()]
+    """Each parameter's gradient (zeros for one the forward does not use,
+    as ``jax.grad`` gives it)."""
+    return [np.zeros(tuple(p.shape), np.float32) if p.grad is None
+            else p.grad.detach().cpu().numpy().copy()
+            for p in model.parameters()]
 
 
 def _tree(model, arrays: List[np.ndarray], prefix: str) -> dict:
     """The arrays (one per parameter, the model's order) as flat npz keys
-    of the JAX package's parameter dict."""
-    from ndcn_tpu_torch.convert import params_to_jax
+    of the JAX package's parameter tree (``flat_tree``)."""
+    from ndcn_tpu_torch.convert import model_to_jax
 
-    import torch
-
-    holder = copy.deepcopy(model).cpu()
-    with torch.no_grad():
-        for p, a in zip(holder.parameters(), arrays):
-            p.copy_(torch.as_tensor(a))
-    return {f"{prefix}/{layer}/{k}": v
-            for layer, leaves in params_to_jax(holder).items()
-            for k, v in leaves.items()}
+    return flat_tree(model_to_jax(_holder(model, arrays)), prefix)
 
 
 def run_checks(rank: int, world: int, device, out: Optional[str] = None,
@@ -322,7 +403,7 @@ def run_checks(rank: int, world: int, device, out: Optional[str] = None,
     op_r, x0_r, target_r, _ = place_problem_on_mesh(mesh2, coo_t, x0, target,
                                                     pb["vt"])
 
-    def replica_step(op, x0_, target_, which):
+    def replica_step(op, x0_, target_, which, adjoint=False):
         gens = replica_generators(3, r_all)[which]
         model = batched_init(lambda g: init_ndcn(g, 1, HIDDEN, 1),
                              gens, device=device)
@@ -333,7 +414,8 @@ def run_checks(rank: int, world: int, device, out: Optional[str] = None,
 
         def losses_fn():
             out, stats = ndcn_forward(model, op, pb["vt"], x0_,
-                                      method="dopri5", max_steps=64)
+                                      method="dopri5", max_steps=64,
+                                      adjoint=adjoint)
             stats_box.append(stats)
             losses = replica_l1(out.transpose(0, 1), target_, node_group(op))
             return losses, losses
@@ -360,6 +442,34 @@ def run_checks(rank: int, world: int, device, out: Optional[str] = None,
             f"{r_all} replicas, rel-L1 losses={d_rl:.3e} params="
             f"{d_rp:.3e} against the {r_all} replicas unsharded; NFE "
             f"{nfe_r} equal")
+    # the same sweep's step on the batched continuous adjoint: the
+    # replicas over the data ranks, each augmented solve's nodes over the
+    # model ranks
+    l_ra, m_ra, _, st_ra = replica_step(op_r, x0_r, target_r,
+                                        slice(lo, hi), adjoint=True)
+    l_rau, m_rau, _, st_rau = replica_step(coo_t, x0, target,
+                                           slice(0, r_all), adjoint=True)
+    d_ral = rel_l1([gather_replicas(l_ra, mesh2.data_group).cpu()],
+                   [l_rau.cpu()])
+    d_rap = rel_l1(_params(gather_stacked(m_ra, mesh2.data_group)),
+                   _params(m_rau))
+    expect("replica_adjoint_step_losses", d_ral)
+    expect("replica_adjoint_step_params", d_rap)
+    back_r = gather_replicas(torch.tensor(
+        [sum(b.nfe[i] for b in st_ra.backward)
+         for i in range(hi - lo)], device=device), mesh2.data_group).tolist()
+    back_ru = [sum(b.nfe[i] for b in st_rau.backward) for i in range(r_all)]
+    if back_r != back_ru:
+        raise AssertionError(f"the replicas' backward NFE parted: {back_r} "
+                             f"against {back_ru} unsharded")
+    if rank == 0:
+        log(f"replica sweep on the batched adjoint, data={mesh2.data} x "
+            f"model={mesh2.model}: rel-L1 losses={d_ral:.3e} params="
+            f"{d_rap:.3e}; backward NFE {back_r} equal")
+
+    checks.update(run_model_axis_checks(rank, world, device, mesh, saved,
+                                        expect, log))
+
     if out is not None:
         from ndcn_tpu_torch.convert import params_to_jax
 
@@ -373,6 +483,181 @@ def run_checks(rank: int, world: int, device, out: Optional[str] = None,
         saved["params_after"] = flat.cpu().numpy()
         np.savez(os.path.join(out, f"rank{rank}.npz"), **saved)
     return checks
+
+
+def run_model_axis_checks(rank: int, world: int, device, mesh, saved,
+                          expect, log=print) -> Dict[str, float]:
+    """Checks 7-10 on the mesh's model axis (every rank): the continuous
+    adjoint, the lstm_gnn step and the GCN zoo on row-sharded operators,
+    each against the same step unsharded; fills ``saved`` for the tests."""
+    import torch
+    import torch.distributed as dist
+
+    from ndcn_tpu_torch.convert import model_to_jax
+    from ndcn_tpu_torch.graph.sparse import from_scipy_coo
+    from ndcn_tpu_torch.models import ndcn_forward, temporal_gcn_forward
+    from ndcn_tpu_torch.parallel.coo_shard import (gather_nodes, node_group,
+                                                   take_index, take_rows)
+    from ndcn_tpu_torch.parallel.mesh import all_reduce_grads
+    from ndcn_tpu_torch.parallel.sweep import (place_problem_on_mesh,
+                                               shard_operator)
+    from ndcn_tpu_torch.train.losses import cross_entropy, l1_loss
+    from ndcn_tpu_torch.train.optim import torch_adam
+
+    checks: Dict[str, float] = {}
+    stepped = []            # the models after their steps (check 10)
+    t = lambda a: torch.as_tensor(a, device=device)   # noqa: E731
+
+    def sgd(model, loss_fn, group):
+        """One Adam step of ``loss_fn(model)``, the gradients summed over
+        the model group (``train.optim.make_sgd_step``'s update); (loss,
+        gradients)."""
+        opt = torch_adam(model.parameters(), 0.01, 1e-3)
+        loss = loss_fn(model)
+        loss.backward()
+        all_reduce_grads(model.parameters(), group)
+        grads = _grads(model)
+        opt.step()
+        stepped.append(model)
+        return float(loss.detach()), grads
+
+    # ---- 7. the continuous adjoint on the model axis
+    pb = train_problem()
+    coo = from_scipy_coo(pb["lap"], device=device)
+    x0, target = t(pb["x0"]), t(pb["target"])
+    op_s, x0_s, target_s, _ = place_problem_on_mesh(mesh, coo, x0, target,
+                                                    pb["vt"])
+
+    def adjoint_step(op, x0_, target_, tag):
+        model = ndcn_model(4, device)
+        box = []
+
+        def loss_fn(m):
+            out, stats = ndcn_forward(m, op, pb["vt"], x0_, method="dopri5",
+                                      max_steps=64, adjoint=True)
+            box.append(stats)
+            return l1_loss(out, target_, node_group(op))
+
+        init = _params(model)
+        loss, grads = sgd(model, loss_fn, node_group(op))
+        stats = box[0]
+        back = [b.nfe for b in stats.backward]
+        saved.update(_tree(model, init, f"{tag}/init"))
+        saved.update(_tree(model, grads, f"{tag}/grad"))
+        saved[f"{tag}/loss"] = np.float32(loss)
+        saved[f"{tag}/nfe"] = np.int64(stats.nfe)
+        saved[f"{tag}/nfe_backward"] = np.array(back, np.int64)
+        return loss, grads, stats.nfe, back
+
+    l_a, g_a, nfe_a, back_a = adjoint_step(op_s, x0_s, target_s, "adjoint")
+    l_u, g_u, nfe_u, back_u = adjoint_step(coo, x0, target,
+                                           "adjoint_unsharded")
+    d_l, d_g = rel_l1([l_a], [l_u]), rel_l1(g_a, g_u)
+    expect("adjoint_loss", d_l)
+    expect("adjoint_grads", d_g, 1e-4)
+    if (nfe_a, back_a) != (nfe_u, back_u):
+        raise AssertionError(f"the sharded adjoint's NFE {nfe_a} / "
+                             f"{back_a} against {nfe_u} / {back_u}")
+    if rank == 0:
+        log(f"continuous adjoint on a model axis of {mesh.model} (COO, "
+            f"dopri5) vs unsharded: rel-L1 loss={d_l:.3e} grads={d_g:.3e}; "
+            f"NFE {nfe_a} forward, {sum(back_a)} backward, equal")
+
+    # ---- 8. one lstm_gnn step with dropout
+    kp = kipf_problem()
+    kipf = from_scipy_coo(kp["kipf"], device=device)
+    kipf_s = shard_operator(mesh, kipf)
+    series = t(kp["series"])
+
+    def temporal_step(op, tag):
+        x_seq = take_rows(series, op)
+        gen = torch.Generator().manual_seed(9)
+
+        def loss_fn(m):
+            pred = temporal_gcn_forward(m, op, x_seq[:, :-1], "lstm",
+                                        dropout=DROPOUT, generator=gen,
+                                        deterministic=False)
+            return l1_loss(pred, x_seq[:, 1:], node_group(op))
+
+        model = temporal_model(device=device)
+        loss, grads = sgd(model, loss_fn, node_group(op))
+        saved.update(_tree(model, grads, f"{tag}/grad"))
+        saved[f"{tag}/loss"] = np.float32(loss)
+        return loss, grads
+
+    l_t, g_t = temporal_step(kipf_s, "temporal")
+    l_tu, g_tu = temporal_step(kipf, "temporal_unsharded")
+    d_tl, d_tg = rel_l1([l_t], [l_tu]), rel_l1(g_t, g_tu)
+    expect("temporal_loss", d_tl)
+    expect("temporal_grads", d_tg)
+    if rank == 0:
+        log(f"lstm_gnn step with dropout on the row-sharded Kipf operator "
+            f"vs unsharded: rel-L1 loss={d_tl:.3e} grads={d_tg:.3e}")
+
+    # ---- 9. the GCN zoo, with dropout and deterministic
+    feats, labels = t(kp["features"]), t(kp["labels"])
+    idx = t(kp["idx_train"])
+    for name in ZOO:
+        def zoo_step(op, gen):
+            x, y, i = take_rows(feats, op), take_rows(labels, op), \
+                take_index(idx, op)
+            box = []
+
+            def loss_fn(m):
+                logits = m(op, x, gen, gen is None)
+                box.append(logits.detach())
+                return cross_entropy(logits[i], y[i], node_group(op))
+
+            model = zoo_model(name, device=device)
+            loss, grads = sgd(model, loss_fn, node_group(op))
+            return loss, grads, box[0], model
+
+        d = {}
+        for drop in (True, False):
+            runs = [zoo_step(op, torch.Generator().manual_seed(11) if drop
+                             else None) for op in (kipf_s, kipf)]
+            (l_z, g_z, lg_z, m_z), (l_zu, g_zu, lg_zu, _) = runs
+            tag = "drop" if drop else "det"
+            d[f"{tag}_loss"] = rel_l1([l_z], [l_zu])
+            d[f"{tag}_grads"] = rel_l1(g_z, g_zu)
+            d[f"{tag}_logits"] = rel_l1(
+                [gather_nodes(lg_z, kipf_s).cpu()], [lg_zu.cpu()])
+            for k in ("loss", "grads", "logits"):
+                expect(f"zoo_{name}_{tag}_{k}", d[f"{tag}_{k}"])
+        saved[f"zoo/{name}/logits"] = lg_z.cpu().numpy()
+        saved[f"zoo/{name}/loss"] = np.float32(l_z)
+        saved.update(flat_tree(model_to_jax(_holder(m_z, g_z)),
+                               f"zoo/{name}/grad"))
+        if rank == 0:
+            log(f"{name} on the row-sharded COO operator vs unsharded: "
+                + ", ".join(f"{k}={v:.3e}" for k, v in d.items()))
+
+    # ---- 10. every rank the same parameters after the steps
+    flat = torch.cat([p.detach().reshape(-1) for m in stepped
+                      for p in m.parameters()])
+    every = [torch.empty_like(flat) for _ in range(world)]
+    dist.all_gather(every, flat)
+    same = all(torch.equal(v, every[0]) for v in every)
+    checks["model_axis_params_bit_equal"] = float(same)
+    if not same:
+        raise AssertionError("the ranks' parameters parted after the "
+                             "adjoint, temporal and zoo steps")
+    saved["model_axis_params_after"] = flat.cpu().numpy()
+    if rank == 0:
+        log(f"every rank: parameters after the adjoint, lstm_gnn and zoo "
+            f"steps bit-equal on {world} ranks")
+    return checks
+
+
+def _holder(model, arrays):
+    """A CPU copy of ``model`` holding ``arrays`` as its parameters."""
+    import torch
+
+    holder = copy.deepcopy(model).cpu()
+    with torch.no_grad():
+        for p, a in zip(holder.parameters(), arrays):
+            p.copy_(torch.as_tensor(a))
+    return holder
 
 
 def _worker(args) -> int:

@@ -34,6 +34,12 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+# the solvers' collectives, kept in ``ode`` (which imports nothing of
+# ``parallel``) and re-exported here for the models and the drivers
+from ndcn_tpu_torch.ode.collectives import (all_reduce_sum,  # noqa: F401
+                                            all_true, sharded_sum_and_count,
+                                            sum_flat)
+
 # how long a rank waits in a collective before it fails: a rank that parts
 # from the others fails there instead of hanging
 GROUP_TIMEOUT = datetime.timedelta(seconds=300)
@@ -198,14 +204,7 @@ def group_size(group: Optional[dist.ProcessGroup]) -> int:
     return 1 if group is None else dist.get_world_size(group)
 
 
-def gather_rows(x: torch.Tensor, rows: int,
-                group: Optional[dist.ProcessGroup]) -> torch.Tensor:
-    """Every rank's row block of a row-sharded tensor, concatenated: x is
-    this rank's (m, ...) rows, m <= ``rows``, padded with zero rows to
-    ``rows`` before the all-gather; returns (p · rows, ...). A group of
-    one returns x itself."""
-    if group is None:
-        return x
+def _all_gather_rows(x: torch.Tensor, rows: int, group) -> torch.Tensor:
     if x.shape[0] < rows:
         x = torch.cat([x, x.new_zeros((rows - x.shape[0], *x.shape[1:]))])
     x = x.contiguous()
@@ -216,42 +215,35 @@ def gather_rows(x: torch.Tensor, rows: int,
     return out
 
 
-class _AllReduceSum(torch.autograd.Function):
+class _GatherRows(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        out = x.clone()
-        dist.all_reduce(out, group=group)
-        return out
+    def forward(ctx, x, rows, group):
+        ctx.rows, ctx.group, ctx.m = rows, group, x.shape[0]
+        return _all_gather_rows(x, rows, group)
 
     @staticmethod
     def backward(ctx, g):
-        # every rank's copy of the sum feeds that rank's own computation:
-        # the gradient of each term is the sum of the ranks' gradients
-        g = g.clone()
+        # every rank's copy of the gathered tensor feeds that rank's own
+        # computation: this rank's rows get the sum of the ranks' gradients
+        g = g.contiguous().clone()
         dist.all_reduce(g, group=ctx.group)
-        return g, None
+        start = dist.get_rank(ctx.group) * ctx.rows
+        return g[start:start + ctx.m], None, None
 
 
-def all_reduce_sum(x: torch.Tensor,
-                   group: Optional[dist.ProcessGroup]) -> torch.Tensor:
-    """The sum of ``x`` over the ranks of ``group``, differentiable (x
-    itself for a group of one)."""
+def gather_rows(x: torch.Tensor, rows: int,
+                group: Optional[dist.ProcessGroup]) -> torch.Tensor:
+    """Every rank's row block of a row-sharded tensor, concatenated: x is
+    this rank's (m, ...) rows, m <= ``rows``, padded with zero rows to
+    ``rows`` before the all-gather; returns (p · rows, ...). A group of
+    one returns x itself. Differentiable where autograd records x (the
+    gradient of this rank's rows is the sum of the ranks' gradients of
+    them, one all-reduce); the operators' products call it off the tape."""
     if group is None:
         return x
-    return _AllReduceSum.apply(x, group)
-
-
-def sharded_sum_and_count(s: torch.Tensor, count: int,
-                          group: Optional[dist.ProcessGroup]):
-    """(the sum of the ranks' partial sums ``s``, a scalar or one per
-    replica, and the sum of their element counts), float64: one
-    differentiable all-reduce."""
-    both = torch.cat([s.reshape(-1).to(torch.float64),
-                      torch.tensor([float(count)], dtype=torch.float64,
-                                   device=s.device)])
-    both = all_reduce_sum(both, group)
-    return both[:-1].reshape(s.shape), both[-1]
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _GatherRows.apply(x, rows, group)
+    return _all_gather_rows(x, rows, group)
 
 
 class _ShardMean(torch.autograd.Function):
@@ -294,25 +286,8 @@ def all_reduce_grads(params, group: Optional[dist.ProcessGroup]) -> None:
     if group is None:
         return
     grads = [p.grad for p in params if p.grad is not None]
-    if not grads:
-        return
-    flat = torch.cat([g.reshape(-1) for g in grads])
-    dist.all_reduce(flat, group=group)
-    offset = 0
-    for g in grads:
-        g.copy_(flat[offset:offset + g.numel()].view_as(g))
-        offset += g.numel()
-
-
-def all_true(flag: torch.Tensor,
-             group: Optional[dist.ProcessGroup]) -> torch.Tensor:
-    """A bool tensor of ``flag``'s shape, true where ``flag`` is true on
-    every rank."""
-    if group is None:
-        return flag
-    t = flag.to(torch.int32)
-    dist.all_reduce(t, op=dist.ReduceOp.MIN, group=group)
-    return t.bool()
+    for g, total in zip(grads, sum_flat(grads, group)):
+        g.copy_(total)
 
 
 def gather_replicas(x: torch.Tensor,

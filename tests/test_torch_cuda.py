@@ -1466,6 +1466,31 @@ def test_row_block_kernels_match_the_whole_launch(cuda_device, p, bf16):
                 1e-5 * float(ref.abs().max())
 
 
+@pytest.mark.parametrize("d", [5, 16])
+@pytest.mark.parametrize("p", [2, 4])
+def test_row_block_k1_at_the_model_axis_paths_widths(cuda_device, p, d):
+    """K1 and K1ᵀ on each of p row blocks at the widths the model axis's
+    new paths give them (d = 5: the temporal baselines' graph product; d =
+    16: the GCN zoo's hidden width): concatenated, bit-equal to the whole
+    operator's launch, and within 1e-5·max|y| of the plain version."""
+    from ndcn_tpu_torch.parallel.coo_shard import shard_coo_at
+
+    a, x_np = _hub_state(3001, 10 + d, d)
+    op = from_scipy_coo(a, device=cuda_device)
+    x = torch.as_tensor(x_np, device=cuda_device)
+    blocks = [shard_coo_at(op, p, r, None) for r in range(p)]
+    table = torch.cat([x, x.new_zeros((blocks[0].n_pad - op.n, d))])
+    for whole_op, pick in ((op, lambda b: b.block),
+                           (op.transpose(), lambda b: b.block_t)):
+        y = torch.cat([coo_spmv._apply(pick(b), table)[:b.stop - b.start]
+                       for b in blocks])
+        torch.cuda.synchronize()
+        assert torch.equal(y, coo_spmv._apply(whole_op, x))
+        ref = coo_spmv.coo_spmv_plain(whole_op.rows, whole_op.cols,
+                                      whole_op.vals, x, op.n)
+        assert float((y - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
 def test_one_rank_nccl_matvec_matches_plain(cuda_device):
     """The row-sharded product on a one-rank NCCL group (the whole
     operator as one row block, no collective): K1 forward and over Aᵀ,

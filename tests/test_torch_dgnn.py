@@ -307,16 +307,13 @@ def test_driver_resumes_mid_iter_bit_equal(synth_dir, tmp_path):
     pytest.param(["--batch_iters", "--budget_buckets", "2", "--model",
                   "odeGCN", "--method", "fixed_adams"], None,
                  id="flag1-entry 11a′"),
-    (["--mesh"], "entry 11"),
+    # --mesh: a world of one runs it unsharded, and reaches the data
+    pytest.param(["--mesh"], None, id="flag2-entry 11"),
     pytest.param(["--export", "x.bin", "--model", "differential_gcn",
                   "--method", "adams"], None, id="flag3-entry 11"),
     (["--precision", "high"], "entry 6")])
 def test_driver_refuses_unported_flags_before_loading(flag, entry, tmp_path,
                                                      monkeypatch):
-    if "--mesh" in flag:
-        # a world of one runs --mesh unsharded; torchrun's two ranks
-        # refuse the GCN zoo (the default model) under it: entry 11c′
-        monkeypatch.setenv("WORLD_SIZE", "2")
     args, _ = dgnn.build_parser().parse_known_args(
         ["--data_dir", str(tmp_path / "nothing_here"), "--platform", "cpu",
          *flag])

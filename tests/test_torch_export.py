@@ -233,8 +233,30 @@ def test_terminal_classifier_drops_training_switches(tmp_path):
     assert float((out - ref).abs().max()) <= 1e-6
 
 
+@pytest.fixture(scope="module")
+def feature_major_artifact():
+    """The port's artifact of the 100-node grid problem on COO with
+    ``layout="auto"`` where 'auto' picks the feature-major solve (the
+    threshold lowered to 50 nodes, the SpMV kernels' seam on): K1-fm's
+    pack and gather. The same program as ``layout="feature_major"``
+    exports (``test_feature_major_artifact_matches_jax_artifact_and_server``
+    serves it), traced once."""
+    from ndcn_tpu_torch.graph import sparse as graph_sparse
+    from ndcn_tpu_torch.models import ndcn as ndcn_mod
+
+    lap, _, model, vt, x = _problem()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(graph_sparse, "use_tiled_kernel", lambda op: True)
+        mp.setattr(ndcn_mod, "_FEATURE_MAJOR_AUTO_NODES", 50)
+        op = _operators(lap, "coo")[0]
+        assert ndcn_mod.resolve_layout("auto", op, torch.zeros(
+            (100, 20))) == "feature_major"
+        return export_ndcn(model, op, vt, x.shape, **KW)
+
+
 def test_export_refuses_adams_and_feature_major(monkeypatch,
-                                                adams_artifacts):
+                                                adams_artifacts,
+                                                feature_major_artifact):
     """The Adams methods and the feature-major layout that 'auto' picks
     from 500k nodes on a COO operator were refused until ROADMAP §1 entry
     11b′ was ported; they export now. The adams artifact, the masked VCABM
@@ -252,7 +274,7 @@ def test_export_refuses_adams_and_feature_major(monkeypatch,
     monkeypatch.setattr(graph_sparse, "use_tiled_kernel", lambda op: True)
     monkeypatch.setattr(ndcn_mod, "_FEATURE_MAJOR_AUTO_NODES", 50)
     op = _operators(lap, "coo")[0]
-    blob = export_ndcn(model, op, vt, x.shape, **KW)
+    blob = feature_major_artifact
     assert _kernel_ops(blob) == {"ndcn_tpu_torch.pack_rows",
                                  "ndcn_tpu_torch.gather_T"}
     out, ok = load_ndcn(blob)(x)
@@ -301,7 +323,7 @@ def test_adams_artifact_matches_jax_artifact_and_server(method,
 
 @pytest.mark.parametrize("wide", [False, True])
 def test_feature_major_artifact_matches_jax_artifact_and_server(
-        wide, monkeypatch):
+        wide, monkeypatch, feature_major_artifact):
     """``layout="feature_major"`` exported (ROADMAP §1 entry 11b′): K1-fm's
     pack and gather, or K5's gather under ``GATHER_WIDE``, as operators of
     the program; against JAX's feature-major artifact (its Pallas
@@ -319,7 +341,9 @@ def test_feature_major_artifact_matches_jax_artifact_and_server(
     mat = sp.csr_matrix(lap)
     kw = dict(KW, layout="feature_major")
     op = graph_sparse.from_scipy_coo(mat)
-    blob = export_ndcn(model, op, vt, x.shape, **kw)
+    # K1-fm's program is the 'auto' artifact's (traced once, the fixture)
+    blob = (export_ndcn(model, op, vt, x.shape, **kw) if wide
+            else feature_major_artifact)
     assert _kernel_ops(blob) == (
         {"ndcn_tpu_torch.gather_T_wide"} if wide else
         {"ndcn_tpu_torch.pack_rows", "ndcn_tpu_torch.gather_T"})

@@ -16,10 +16,20 @@ against the JAX package's (``ndcn_tpu.parallel``).
   sharded-vs-unsharded parity is 1e-5, checked on every rank), equal NFE
   and bit-equal parameters on every rank; the same spawn lays the 4 ranks
   out 2 x 2 (data, model) for a replica sweep held against ``jax.vmap``;
+  on the model axis of 4, the continuous adjoint against JAX's
+  ``odeint_adjoint`` gradients, an lstm_gnn step with dropout against
+  ``jax.grad`` of JAX's ``temporal_gcn_forward`` on the same dropped
+  inputs, and GCN, DeepGCN2 and DeepGCN3 against the JAX zoo (logits and
+  ``jax.grad``), the parameters after those steps bit-equal on every rank;
+- ``ode.tree_math`` holds no process group and the solvers import nothing
+  of ``parallel``: the group is the solve's option, and a replicated
+  leaf's norm takes no collective;
 - the drivers with ``--mesh`` on a world of one: the scale driver on a
   one-rank gloo group (``mesh_devices`` 1, parity < 1e-4, the losses of
   the run without ``--mesh``), the dynamics and dgnn drivers' notice and
-  their unsharded losses, and what more than one rank refuses;
+  their unsharded losses; on two gloo ranks every driver path the JAX
+  drivers shard, the adjoint, the temporal baselines and the GCN zoo
+  included, prints the unsharded run's losses;
 - the device rules: the dryrun refuses fewer cards than ranks, and the
   drivers take torchrun's ``LOCAL_RANK``-th card.
 """
@@ -360,6 +370,226 @@ def test_gloo_ranks_agree(gloo4):
                 gloo4[0]["dense_unsharded/loss"]) <= 1e-5
 
 
+def _jax_tree(tree):
+    return jax.tree_util.tree_map(jnp.asarray, tree)
+
+
+def _held_to(r0, prefix, grads, bar):
+    """Every leaf of the JAX gradient tree ``grads`` against the dryrun's
+    saved gradient under ``prefix`` (rel-L1 <= bar)."""
+    want = dryrun.flat_tree(jax.tree_util.tree_map(np.asarray, grads),
+                            prefix)
+    assert want
+    for key, g in want.items():
+        assert _rel(r0[key], g) <= bar, key
+
+
+def test_gloo_adjoint_on_a_model_axis_matches_jax(gloo4):
+    """The continuous adjoint on a model axis of 4 (COO, dopri5; the
+    augmented solve's parameter VJPs summed over the ranks) against JAX's
+    ``odeint_adjoint`` at the same weights: the loss within 1e-4, every
+    gradient within 1e-3 rel-L1 (1e-4 of the port's unsharded adjoint and
+    equal forward and backward NFE are the dryrun's own checks); not 4
+    times larger."""
+    from ndcn_tpu.graph.sparse import from_scipy_coo
+    from ndcn_tpu.models import ndcn_forward
+
+    pb = dryrun.train_problem()
+    r0 = gloo4[0]
+    params = {}
+    for key, v in r0.items():
+        parts = key.split("/")
+        if parts[:2] == ["adjoint", "init"]:
+            params.setdefault(parts[2], {})[parts[3]] = jnp.asarray(v)
+    op = from_scipy_coo(pb["lap"])
+
+    def loss_fn(p):
+        out, _ = ndcn_forward(p, op, jnp.asarray(pb["vt"]),
+                              jnp.asarray(pb["x0"]), method="dopri5",
+                              max_steps=64, adjoint=True)
+        return jnp.mean(jnp.abs(out - jnp.asarray(pb["target"])))
+
+    loss, grads = jax.value_and_grad(loss_fn)(params)
+    assert abs(float(r0["adjoint/loss"]) - float(loss)) <= 1e-4 * abs(
+        float(loss))
+    _held_to(r0, "adjoint/grad", grads, 1e-3)
+    for r in gloo4[1:]:
+        assert r["adjoint/nfe"] == r0["adjoint/nfe"]
+        assert np.array_equal(r["adjoint/nfe_backward"],
+                              r0["adjoint/nfe_backward"])
+    assert np.array_equal(r0["adjoint/nfe_backward"],
+                          r0["adjoint_unsharded/nfe_backward"])
+
+
+def _dropped_inputs(series):
+    """The lstm_gnn step's teacher inputs as its dropout leaves them: the
+    dryrun's masks, drawn at the whole (n, 1) a step from its generator."""
+    gen = torch.Generator().manual_seed(9)
+    keep = 1.0 - dryrun.DROPOUT
+    cols = []
+    for xt in torch.as_tensor(series[:, :-1]).t():
+        u = torch.rand((xt.shape[0], 1), generator=gen)
+        cols.append(torch.where(u < keep, xt[:, None] / keep,
+                                torch.zeros(())))
+    return torch.cat(cols, dim=1).numpy()
+
+
+def test_gloo_temporal_step_matches_jax(gloo4):
+    """One lstm_gnn step with dropout on 4 ranks (K1's row blocks at d =
+    5, the cell's input projection summed over the ranks) against
+    ``jax.grad`` of JAX's ``temporal_gcn_forward`` on the same dropped
+    inputs: the loss within 1e-4, gradients 1e-3 rel-L1."""
+    from ndcn_tpu.graph.sparse import from_dense
+    from ndcn_tpu.models.temporal_gcn import temporal_gcn_forward
+
+    from ndcn_tpu_torch.convert import model_to_jax
+
+    kp = dryrun.kipf_problem()
+    params = _jax_tree(model_to_jax(dryrun.temporal_model()))
+    op = from_dense(kp["kipf"].toarray())
+    x_in = jnp.asarray(_dropped_inputs(kp["series"]))
+    target = jnp.asarray(kp["series"][:, 1:])
+
+    def loss_fn(p):
+        pred = temporal_gcn_forward(p, op, x_in, "lstm")
+        return jnp.mean(jnp.abs(pred - target))
+
+    loss, grads = jax.value_and_grad(loss_fn)(params)
+    r0 = gloo4[0]
+    assert abs(float(r0["temporal/loss"]) - float(loss)) <= 1e-4 * abs(
+        float(loss))
+    _held_to(r0, "temporal/grad", grads, 1e-3)
+
+
+@pytest.mark.parametrize("name", dryrun.ZOO)
+def test_gloo_zoo_matches_jax(gloo4, name):
+    """GCN, DeepGCN2 (the raw features through K1's row blocks) and
+    DeepGCN3 (its rows of AW ∘ A against the all-gathered state) on 4
+    ranks, deterministic, against the JAX zoo at the same weights: the
+    logits within 1e-5 as max|Δ| / max|y|, every gradient of the
+    cross-entropy within 1e-4 rel-L1 of ``jax.grad``
+    (test_torch_gcn_zoo.py's bars)."""
+    from ndcn_tpu.graph.sparse import from_dense
+    from ndcn_tpu.models import gcn_zoo as jz
+    from ndcn_tpu.train.losses import cross_entropy
+
+    from ndcn_tpu_torch.convert import model_to_jax
+
+    kp = dryrun.kipf_problem()
+    params = _jax_tree(model_to_jax(dryrun.zoo_model(name)))
+    op = from_dense(kp["kipf"].toarray())
+    x = jnp.asarray(kp["features"])
+    apply = {"GCN": jz.gcn_apply, "DeepGCN2": jz.deep_gcn2_apply,
+             "DeepGCN3": lambda p, o, xx: jz.deep_gcn3_apply(
+                 p, o, xx, dryrun.ZOO_NHL)}[name]
+    idx = jnp.asarray(kp["idx_train"])
+    labels = jnp.asarray(kp["labels"])
+
+    def loss_fn(p):
+        logits = apply(p, op, x)
+        return cross_entropy(logits[idx], labels[idx]), logits
+
+    (loss, logits), grads = jax.value_and_grad(loss_fn, has_aux=True)(
+        params)
+    got = _rows(gloo4, f"zoo/{name}/logits")
+    ref = np.asarray(logits)
+    assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
+    r0 = gloo4[0]
+    assert abs(float(r0[f"zoo/{name}/loss"]) - float(loss)) <= 1e-5 * abs(
+        float(loss))
+    _held_to(r0, f"zoo/{name}/grad", grads, 1e-4)
+
+
+def test_gloo_model_axis_ranks_agree(gloo4):
+    """After the adjoint, lstm_gnn and zoo steps every rank holds the same
+    parameters, bit for bit, and the same loss."""
+    r0 = gloo4[0]
+    for r in gloo4[1:]:
+        assert np.array_equal(r["model_axis_params_after"],
+                              r0["model_axis_params_after"])
+        for key in ("adjoint/loss", "temporal/loss",
+                    *(f"zoo/{n}/loss" for n in dryrun.ZOO)):
+            assert r[key] == r0[key], key
+
+
+# ------------------------------------------------ the solvers' groups
+def test_tree_math_holds_no_group_and_the_solvers_import_no_parallel():
+    """The node group is the solve's option: ``ode.tree_math`` keeps no
+    group at module scope, and importing the solvers (and the adjoint)
+    loads nothing of ``ndcn_tpu_torch.parallel``."""
+    import ast
+    import inspect
+    import subprocess
+    import sys
+
+    from ndcn_tpu_torch.ode import tree_math
+
+    tree = ast.parse(inspect.getsource(tree_math))
+    assigned = [t.id for node in tree.body if isinstance(node, ast.Assign)
+                for t in node.targets]
+    assert assigned == ["State"]
+    assert not any(isinstance(node, ast.Global) for node in ast.walk(tree))
+    modules = [node.module for node in ast.walk(tree)
+               if isinstance(node, ast.ImportFrom)]
+    assert not any("parallel" in m for m in modules), modules
+    code = ("import sys, ndcn_tpu_torch.ode, ndcn_tpu_torch.ode.vcabm; "
+            "print(sorted(m for m in sys.modules "
+            "if m.startswith('ndcn_tpu_torch.parallel')))")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=root, check=True).stdout
+    assert out.strip() == "[]", out
+
+
+def test_replicated_leaf_norm_takes_no_collective(monkeypatch):
+    """A node-sharded leaf's error ratio and initial-step norms take one
+    sum-and-count over the group; a replicated leaf's (the adjoint's adj_t
+    and parameter cotangents) take none and equal the unsharded ones."""
+    from ndcn_tpu_torch.ode import grad_guard, step_control, tree_math
+    from ndcn_tpu_torch.ode.api import odeint_with_stats
+
+    calls = []
+
+    def local(s, count, group):
+        # a group of one: the local sum and count
+        calls.append(group)
+        return s.to(torch.float64), torch.tensor(float(count),
+                                                 dtype=torch.float64)
+
+    monkeypatch.setattr(tree_math, "sharded_sum_and_count", local)
+    monkeypatch.setattr(grad_guard, "all_true", lambda flag, grp: flag)
+    group = object()
+    g = torch.Generator().manual_seed(0)
+    y0 = (torch.rand(6, 2, generator=g), torch.rand(3, generator=g))
+    y1 = tuple(y + 0.01 for y in y0)
+    err = tuple(0.001 * torch.ones_like(y) for y in y0)
+    groups = tree_math.leaf_groups(group, (True, False), 2)
+    assert groups == (group, None)
+    ratios = step_control.error_ratios(err, y0, y1, 0.01, 0.001,
+                                       groups=groups)
+    assert calls == [group]
+    assert all(torch.equal(a, b) for a, b in zip(
+        ratios, step_control.error_ratios(err, y0, y1, 0.01, 0.001)))
+    calls.clear()
+    step_control.select_initial_step(lambda t, y: y, torch.tensor(0.0), y0,
+                                     4, 0.01, 0.001, y0, groups=groups)
+    assert calls == [group] * 3
+    # through the solve's options: the marks choose the leaves
+    calls.clear()
+    sol, stats = odeint_with_stats(
+        lambda t, y: tuple(-v for v in y), y0, torch.tensor([0.0, 0.5]),
+        rtol=0.01, atol=0.001, method="dopri5",
+        options={"node_group": group, "node_sharded": (False, False)})
+    assert calls == [] and stats.success
+    sol_s, stats_s = odeint_with_stats(
+        lambda t, y: tuple(-v for v in y), y0, torch.tensor([0.0, 0.5]),
+        rtol=0.01, atol=0.001, method="dopri5",
+        options={"node_group": group, "node_sharded": (True, False),
+                 "differentiable": False})
+    assert calls and set(map(id, calls)) == {id(group)}
+    assert stats_s.nfe == stats.nfe
+
+
 # ------------------------------------------------------------- drivers
 def test_large_graph_mesh_one_rank():
     """--mesh on a world of one: the sharded program on a one-rank gloo
@@ -397,28 +627,6 @@ def test_driver_mesh_world_of_one_runs_unsharded(driver, capsys):
     assert "--mesh: single device visible; running unsharded" in \
         capsys.readouterr().out
     assert sharded["train_losses"] == main(argv)["train_losses"]
-
-
-@pytest.mark.parametrize("driver,extra", [
-    ("heat", ["--adjoint"]), ("heat", ["--baseline", "lstm_gnn"]),
-    ("dgnn", ["--model", "GCN"]),
-    ("dgnn", ["--batch_iters", "--iter", "2", "--model", "DeepGCN2"]),
-])
-def test_mesh_refusals_name_their_entry(driver, extra, monkeypatch):
-    """More than one rank (torchrun's WORLD_SIZE) refuses what ROADMAP §1
-    entry 11c′ lists, before any work."""
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    argv = ["--mesh", "--platform", "cpu"] + extra
-    if driver == "heat":
-        from ndcn_tpu_torch.experiments.dynamics import main
-
-        call = lambda: main("heat", "heat", argv)   # noqa: E731
-    else:
-        from ndcn_tpu_torch.experiments.dgnn import main
-
-        call = lambda: main(argv)   # noqa: E731
-    with pytest.raises(NotImplementedError, match="11c′"):
-        call()
 
 
 def _two_ranks(module, argv, tmp_path, timeout=150):
@@ -463,7 +671,9 @@ def _losses(text, pattern):
 
 
 @pytest.mark.parametrize("driver", ["heat", "dgnn", "heat_replicas",
-                                    "heat_replicas_adjoint"])
+                                    "heat_replicas_adjoint", "heat_adjoint",
+                                    "heat_lstm_gnn", "dgnn_GCN",
+                                    "dgnn_batch_DeepGCN2"])
 def test_driver_mesh_two_gloo_ranks_match_unsharded(driver, tmp_path,
                                                     capsys):
     """--mesh on two ranks: the operator's rows, the node-major data and
@@ -473,7 +683,10 @@ def test_driver_mesh_two_gloo_ranks_match_unsharded(driver, tmp_path,
     With ``--replicas 2`` the two ranks are the data axis, a replica each,
     and every rank prints the sweep's line over both; with ``--adjoint``
     too, each rank's replica trains on the batched adjoint (a model axis
-    of one)."""
+    of one). ``--adjoint`` alone runs the continuous adjoint on a model
+    axis of two, ``--baseline lstm_gnn`` the temporal baseline on the
+    ranks' rows, and the GCN zoo (GCN, and DeepGCN2 under
+    ``--batch_iters``) the rows of each rank."""
     if driver.startswith("heat_replicas"):
         from ndcn_tpu_torch.experiments.dynamics import main as run
 
@@ -496,13 +709,18 @@ def test_driver_mesh_two_gloo_ranks_match_unsharded(driver, tmp_path,
             assert got.shape == ref.shape == (2, 2)
             assert np.allclose(got, ref, rtol=1e-5, atol=5e-7), (got, ref)
         return
-    if driver == "heat":
+    if driver.startswith("heat"):
         from ndcn_tpu_torch.experiments.dynamics import main as run
 
         argv = ["--niters", "4", "--test_freq", "2", "--platform", "cpu",
                 "--method", "dopri5", "--sparse", "--sparse_format", "coo",
                 "--dropout", "0.1", "--dump", "--results_dir",
                 str(tmp_path / "res")]
+        argv += {"heat": [], "heat_adjoint": ["--adjoint"],
+                 "heat_lstm_gnn": ["--baseline", "lstm_gnn"]}[driver]
+        if driver in ("heat_adjoint", "heat_lstm_gnn"):
+            # two steps of the new paths: one report
+            argv[1] = "2"
         ref = run("heat", "heat", argv)["train_losses"]
         outs = _two_ranks("ndcn_tpu_torch.experiments.heat",
                           argv + ["--mesh"], tmp_path)
@@ -511,15 +729,22 @@ def test_driver_mesh_two_gloo_ranks_match_unsharded(driver, tmp_path,
     else:
         from ndcn_tpu_torch.experiments.dgnn import main as run
 
-        argv = ["--dataset", "cora", "--model", "differential_gcn",
-                "--epochs", "2", "--platform", "cpu", "--sparse",
-                "--dropout", "0.2", "--data_dir",
+        argv = ["--dataset", "cora", "--epochs", "2", "--platform", "cpu",
+                "--sparse", "--dropout", "0.2", "--data_dir",
                 os.path.join(os.path.dirname(os.path.dirname(
                     os.path.abspath(__file__))), "data")]
+        argv += {"dgnn": ["--model", "differential_gcn"],
+                 "dgnn_GCN": ["--model", "GCN"],
+                 "dgnn_batch_DeepGCN2": ["--model", "DeepGCN2",
+                                         "--batch_iters", "--iter", "1"],
+                 }[driver]
+        if driver != "dgnn":
+            argv[3] = "1"       # one epoch of the new paths
         ref = run(argv)["train_losses"]
         outs = _two_ranks("ndcn_tpu_torch.experiments.dgnn",
                           argv + ["--mesh"], tmp_path)
-        pattern, printed = r"loss_train: ([0-9.]+)", 1e-4     # {:.4f}
+        pattern, printed = (r"(?:loss_train:|mean train loss) ([0-9.]+)",
+                            1e-4)                              # {:.4f}
     for out in outs:
         assert "mesh: {'data': 1, 'model': 2}" in out
         got = _losses(out, pattern)
@@ -535,6 +760,15 @@ def test_microbench_sharded_spmv_needs_the_card():
         pytest.skip("a CUDA device is visible")
     with pytest.raises(RuntimeError, match="CUDA"):
         microbench_sharded_spmv.main(["1000"])
+
+
+def test_profile_model_axis_step_needs_the_card():
+    from ndcn_tpu_torch.tools import profile_model_axis_step
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        profile_model_axis_step.main(["1000"])
 
 
 @pytest.mark.parametrize("cards,argv", [(1, ["4"]),

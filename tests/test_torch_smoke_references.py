@@ -1,0 +1,55 @@
+"""The committed CPU references of ``chip_smoke.py`` [15] b and [21] a
+(``tests/fixtures/smoke_cpu_references.npz``, written by
+``ndcn_tpu_torch.tools.smoke_references``) are what the port computes on
+the CPU now: the cheapest entries recomputed, within 1e-6 rel-L1 (the
+thread count may move a product's last bits) and with equal NFE and
+flags. A change that moves the port's CPU arithmetic on these paths
+fails here until the fixture is written again."""
+
+import numpy as np
+import pytest
+import torch
+
+from ndcn_tpu_torch.tools import smoke_references as sr
+
+
+@pytest.fixture(scope="module")
+def fixture():
+    return sr.load()
+
+
+def _rel(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).sum() / (np.abs(b).sum() + 1e-30))
+
+
+def test_fixture_holds_every_setting(fixture):
+    for method in sr.SERVE_METHODS:
+        assert fixture[f"serve/{method}/out"].shape[1:] == (400, 1)
+        assert bool(fixture[f"serve/{method}/ok"])
+    for label in sr.REPLICA_SETTINGS:
+        assert fixture[f"replicas/{label}/loss"].shape == (sr.R,)
+        assert fixture[f"replicas/{label}/nfe"].shape == (sr.R,)
+        grads = sr.replica_grads(fixture, label)
+        grads64 = sr.replica_grads(fixture, label, f64=True)
+        assert len(grads) == len(grads64) == 8
+        assert all(g.shape[0] == sr.R and g.dtype == torch.float32
+                   for g in grads)
+        assert all(g.dtype == torch.float64 for g in grads64)
+
+
+@pytest.mark.parametrize("key", ["serve/fixed_adams", "serve/explicit_adams",
+                                 "replicas/explicit_adams_dense"])
+def test_fixture_is_current(fixture, key):
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        now = sr.compute([key], log=lambda *a: None)
+    finally:
+        torch.set_num_threads(threads)
+    assert now
+    for k, v in now.items():
+        if v.dtype.kind in "biu":
+            assert np.array_equal(v, fixture[k]), k
+        else:
+            assert _rel(v, fixture[k]) <= 1e-6, k
