@@ -132,8 +132,10 @@ Phases, one line each:
      and on 2 row blocks (concatenated bit-equal to the whole launch);
      (b) one cora differential_gcn train step (weights from CPU generator
      seed 0, dropout 0, rtol = atol = 0.1) on dense, COO and BSR, on the
-     card against the CPU: loss within 1e-4, gradients within 1e-3
-     rel-L1, NFE equal, K1 / K3 launched; (c) the driver on its defaults
+     card against the CPU (the committed reference of
+     ``tools.smoke_references.cora_step``): loss within 1e-4, gradients
+     within 1e-3 rel-L1, NFE equal, K1 / K3 launched; (c) the driver on
+     its defaults
      (seed 0; its accuracy is printed, with no bar: the showcase is
      another recipe), then the recipe of
      ``results/showcase_cora_100.json`` (README.md:64: hidden 256, dropout
@@ -146,14 +148,16 @@ Phases, one line each:
      through the driver on cora with ``--sparse`` for 100 epochs
      (DeepGCN3 dense, 50), the train loss falling, GCN's test accuracy
      within 2 points of the same run with ``--platform cpu`` (the same
-     dropout masks); (e) the phase's own wall time.
+     dropout masks; its accuracy is the committed reference); (e) the
+     phase's own wall time.
  17. the temporal-GNN baselines, ``report``, the Lotka-Volterra demo and
      the T × alpha sweep: (a) K1 and K1ᵀ on the grid400 Kipf operator (COO)
      and K3 and K3ᵀ on its BSR form at d = 5, the baselines' graph width,
      with [3] / [7]'s bars, bit-equal repeats, times, bounds and library
      calls; (b) one train step of lstm_gnn, gru_gnn and rnn_gnn (weights
      from CPU generator seed 0) on the heat driver's data (grid400, T 5,
-     tick 100, irregular, seed 0) on dense, COO and BSR, card against CPU:
+     tick 100, irregular, seed 0) on dense, COO and BSR, card against CPU
+     (``tools.smoke_references.temporal_step``'s committed references):
      loss within 1e-4, gradients within 1e-3 rel-L1, 79 K1 (K3) launches
      forward and 79 over the transpose on COO (BSR), none on dense, with
      the per-step ms; (c) the heat driver for 20 iterations with lstm_gnn
@@ -167,7 +171,7 @@ Phases, one line each:
      for 40 iterations with rk4 and with dopri5 ``--adjoint`` (the mean of
      the last 20 train losses under that of the first 20: the batches are
      random), its first 20 train losses within 1e-4 of the same run on the
-     CPU; (e) ``experiments.sweep_t_alpha`` on cora with
+     CPU (committed references); (e) ``experiments.sweep_t_alpha`` on cora with
      the showcase recipe at seed 0, dense, T in {0.5, 1.2} × alpha in
      {0.0, 1.0}, then again with ``--resume``, which must rerun no cell;
      each cell beside ``results/t_alpha_grid_cora.csv``'s (a TPU record:
@@ -278,6 +282,26 @@ Phases, one line each:
      with ``--model GCN`` and with ``--batch_iters --iter 2 --model
      DeepGCN2`` (all on COO), with ``--mesh`` on one rank (the JAX notice)
      and without it: the same losses.
+ 23. the scan path and ``--scan_chunk`` (``ode.adaptive.solve_scan``,
+     ``train.chunk``): on grid400 dense (``fused="auto"``: K2), BSR (K4,
+     K3 in its backward) and COO (K1, K1ᵀ), 10 steps, and on [10]'s 200k
+     COO operator, 5 steps (dopri5, hidden 20, the auto budget), three
+     copies of one model from one init: the host loop, the eager bounded
+     step and a ``TrainChunk`` of the same steps (one CUDA graph
+     replayed): the graph's last loss and every parameter bit-equal to
+     the eager bounded step's, one host read for the chunk; before each
+     eager step the host loop's forward at its weights: losses within
+     1e-5 rel-L1 and NFE equal; the attempts taken against ``max_steps``;
+     K2, K4 + K3 and K1 in one replay's profiler trace (K1ᵀ: the eager
+     step's backward launches K1 beyond its recomputation); step ms three
+     ways (host loop, eager bounded, graph replay: median and range); one
+     replay's device ms and busy share under the profiler; the eager
+     bounded step's peak beside ``scan_train_bytes``; each kernel's
+     launches in a graphed step; the heat driver with ``--scan_chunk 10``
+     for 20 iterations on BSR and COO, on dense with a budget cut to 2
+     (the elastic rollback captures again: one capture a rollback more),
+     and with ``--baseline lstm_gnn`` on COO: a host read a chunk, the
+     kernels launched, finite losses.
   p. where the time goes: one request per serving setting and one train step
      per training setting (the 1M feature-major step included), one cora
      differential_gcn epoch (the driver's defaults, train and eval) on
@@ -290,7 +314,9 @@ Then the kernels' JSON record, and last the device JSON line. Launch counts
 are zeroed just before each main-path phase (5-6, 8, 9, 10, each run of 12,
 13, 14, each part of 15, each run of 16 and 17, each driver run of 18 and
 19, each in-process request of 20 and 21, each driver run of 21, each
-row-block step and driver run of 22) and read just after its GPU work;
+row-block step and driver run of 22, each step and driver run of 23)
+and read just after its GPU work (a graph's replays launch what its
+capture counted);
 the served artifacts of 20 and 21 count their own launches in their own
 processes, and the record's launches are the sums of all of them
 (``launches_in_artifact``: K1-K4, K1-fm's pack and gather and K5 in one
@@ -458,6 +484,267 @@ def plain_versions(on: bool = True):
         (sparse.coo_spmv, sparse.bsr_spmm, ndcn.fused_rhs,
          ndcn.bsr_fused_rhs, ndcn.spmv_T, coo_shard._block_product,
          coo_shard._block_product_T) = saved
+
+
+def scan_chunk_phase(dev, root: str, add_launches, big: dict) -> dict:
+    """[23] the scan path and ``--scan_chunk`` (see the module docstring):
+    returns the phase's record, whose ``launches_per_graphed_step`` the
+    kernels line takes."""
+    import re
+
+    import numpy as np
+    import scipy.sparse as sp
+    from torch.profiler import ProfilerActivity, profile
+
+    from ndcn_tpu_torch import kernels
+    from ndcn_tpu_torch.experiments import dynamics
+    from ndcn_tpu_torch.graph.sparse import as_operator
+    from ndcn_tpu_torch.models import init_ndcn, ndcn_forward
+    from ndcn_tpu_torch.tools import smoke_references
+    from ndcn_tpu_torch.train import budget as budget_lib
+    from ndcn_tpu_torch.train.chunk import TrainChunk
+    from ndcn_tpu_torch.train.losses import l1_loss
+    from ndcn_tpu_torch.train.optim import make_sgd_step, torch_adam
+
+    t23 = time.perf_counter()
+    kw = dict(rtol=0.01, atol=0.001, method="dopri5")
+    # the kernels by their device names (K1 over A and over Aᵀ is one)
+    names = {"fused_rhs": r"(?<![a-z_])fused_rhs_kernel",
+             "bsr_fused_rhs": r"bsr_fused_rhs_kernel",
+             "bsr_spmm": r"bsr_spmm_kernel", "coo_spmv": r"csr_rows_kernel"}
+
+    def wall_ms(fn) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    def spread(ms) -> dict:
+        return {"median": statistics.median(ms), "min": min(ms),
+                "max": max(ms), "n": len(ms)}
+
+    def one_setting(label, op, vt, x0, target, fused, max_steps, steps,
+                    needed):
+        """Three copies of one model trained ``steps`` steps from one init:
+        the host loop, the eager bounded step and the graph (a chunk of
+        ``steps``), with CapturableAdam for the last two. Before each eager
+        bounded step the host loop's forward runs at its weights (a fourth
+        copy): the losses and NFE of the two solves are compared there,
+        since runs trained apart part at the solver's discrete decisions
+        (an accepted attempt more or less) once their last bits differ."""
+        def make(scan, capturable):
+            model = init_ndcn(torch.Generator().manual_seed(0), 1, 20, 1,
+                              device=dev)
+            opt = torch_adam(model.parameters(), 0.01, 1e-3,
+                             capturable=capturable)
+            grid = (torch.as_tensor(vt, dtype=torch.float32, device=dev)
+                    if scan else vt)
+
+            def loss_fn():
+                out, stats = ndcn_forward(model, op, grid, x0, fused=fused,
+                                          max_steps=max_steps, scan=scan,
+                                          **kw)
+                loss_fn.nfe = stats.nfe
+                loss = dynamics.nan_unless_ok(
+                    stats.success, l1_loss(out[..., 0].T, target))
+                return loss, loss / target.mean()
+
+            def forward_stats():
+                with torch.no_grad():
+                    return ndcn_forward(model, op, grid, x0, fused=fused,
+                                        max_steps=max_steps, scan=scan,
+                                        **kw)[1]
+
+            return (model, opt, make_sgd_step(opt, loss_fn), forward_stats,
+                    loss_fn)
+
+        _, _, host, st_host, _ = make(False, False)
+        m_e, _, eager, st_eager, loss_e = make(True, True)
+        m_g, o_g, graphed, _, _ = make(True, True)
+        m_t, _, _, _, loss_t = make(False, False)
+        sh, se = st_host(), st_eager()
+        attempts = int(se.n_accepted) + int(se.n_rejected)
+        check(int(se.nfe) == sh.nfe and bool(se.success)
+              and attempts == sh.n_accepted + sh.n_rejected,
+              f"[23] {label}: the bounded solve's stats {se} part from the "
+              f"host loop's {sh}")
+        # K1 over Aᵀ: the backward's launches beyond the recomputation of
+        # every attempt (all but the initial step's two evaluations)
+        kernels.reset_launch_counts()
+        loss, _ = loss_e()
+        fwd = kernels.launch_counts()
+        loss.backward()
+        bwd = {k: v - fwd[k] for k, v in kernels.launch_counts().items()}
+        transposed = bwd["coo_spmv"] - max(0, fwd["coo_spmv"] - 2)
+        check("coo_spmv" not in needed or transposed > 0,
+              f"[23] {label}: no K1 over Aᵀ in the backward ({fwd}, {bwd})")
+        # the host loop and the eager bounded step, each loss read; the
+        # second eager step's peak memory and launches (those the graph
+        # records)
+        host_ms, host_losses = [], []
+        for _ in range(steps):
+            host_ms.append(wall_ms(lambda: host_losses.append(
+                float(host()[0]))))
+        eager_ms, eager_losses, eager_nfe = [], [], []
+        forced_losses, forced_nfe = [], []
+        for i in range(steps):
+            with torch.no_grad():
+                for a, b in zip(m_t.parameters(), m_e.parameters()):
+                    a.copy_(b)
+                forced_losses.append(float(loss_t()[0]))
+            forced_nfe.append(loss_t.nfe)
+            if i != 1:
+                eager_ms.append(wall_ms(lambda: eager_losses.append(
+                    float(eager()[0]))))
+            else:
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+                kernels.reset_launch_counts()
+                eager_losses.append(float(eager()[0]))
+                per_step = kernels.launch_counts()
+                peak = torch.cuda.max_memory_allocated(dev) - base
+            eager_nfe.append(int(loss_e.nfe))
+        step_bytes = budget_lib.scan_train_bytes(
+            "dopri5", max_steps, torch.empty((x0.shape[0], 20),
+                                             device="meta"))
+        chunk = TrainChunk(graphed, m_g.parameters(), o_g, None, step_bytes)
+        capture_s = time.perf_counter()
+        chunk.capture()
+        capture_s = time.perf_counter() - capture_s
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g_loss, _ = chunk(steps)
+        chunk_ms = (time.perf_counter() - t0) * 1e3
+        check(g_loss == eager_losses[-1] and all(
+            torch.equal(a, b) for a, b in zip(m_g.parameters(),
+                                              m_e.parameters())),
+              f"[23] {label}: the graphed steps part from the eager "
+              f"bounded steps ({g_loss} vs {eager_losses[-1]})")
+        check(chunk.host_reads == 1 and chunk.replays == steps,
+              f"[23] {label}: {chunk.host_reads} host reads for "
+              f"{chunk.replays} replays")
+        gap = rel_l1(torch.tensor(eager_losses), torch.tensor(forced_losses))
+        check(gap <= 1e-5 and eager_nfe == forced_nfe,
+              f"[23] {label}: the bounded steps' losses part from the host "
+              f"loop's at the same weights by {gap} (NFE {eager_nfe} vs "
+              f"{forced_nfe}): {eager_losses} vs {forced_losses}")
+        apart = rel_l1(torch.tensor(eager_losses), torch.tensor(host_losses))
+        replay_ms = [wall_ms(chunk.graph.replay) for _ in range(steps)]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            prof_wall = wall_ms(chunk.graph.replay)
+        out_dir = os.path.join(root, "build", "traces")
+        os.makedirs(out_dir, exist_ok=True)
+        trace = os.path.join(out_dir, f"scan23_{label}.trace.json")
+        prof.export_chrome_trace(trace)
+        with open(trace) as f:
+            kernel_events = [e for e in json.load(f)["traceEvents"]
+                             if e.get("ph") == "X"
+                             and e.get("cat") == "kernel"]
+        device_ms = sum(e["dur"] for e in kernel_events) / 1e3
+        found = {k: sum(1 for e in kernel_events if re.search(pat, e["name"]))
+                 for k, pat in names.items()}
+        for k in needed:
+            check(found.get(k, 0) > 0, f"[23] {label}: {k} was not launched "
+                  f"inside the replay (profiled kernels: {found})")
+        chunk.release()
+        return dict(
+            max_steps=max_steps, attempts=attempts, nfe=sh.nfe,
+            host_loop_nfe=sh.nfe, host_syncs_host_loop=sh.host_syncs,
+            losses_bit_equal=True, loss_rel_l1_vs_host_loop=gap,
+            nfe_per_step=eager_nfe,
+            loss_rel_l1_vs_host_loop_trained_apart=apart,
+            host_reads_per_chunk=chunk.host_reads,
+            step_ms=dict(host_loop=spread(host_ms),
+                         eager_bounded=spread(eager_ms),
+                         graph_replay=spread(replay_ms),
+                         chunk_of_steps=chunk_ms / steps),
+            capture_s=capture_s,
+            profiled=dict(wall_ms=prof_wall, device_ms=device_ms,
+                          busy_share=device_ms / prof_wall,
+                          kernel_launches=len(kernel_events),
+                          kernels_in_replay=found),
+            k1_transposed_launches_per_step=transposed,
+            peak_bytes_eager_step=peak, scan_train_bytes=step_bytes,
+            launches_per_graphed_step={k: v for k, v in per_step.items()
+                                       if v})
+
+    lap, t_h, x0_h, target_h = smoke_references.heat_replica_problem()
+    x0 = x0_h.to(dev)
+    target = target_h[..., 0].T.contiguous().to(dev)       # (n, T)
+    settings, per_graphed = {}, {}
+    for label, fmt, fused, needed in (
+            ("grid400_dense", "dense", "auto", ["fused_rhs"]),
+            ("grid400_bsr", "bsr", "auto", ["bsr_fused_rhs", "bsr_spmm"]),
+            ("grid400_coo", "coo", False, ["coo_spmv"])):
+        op = as_operator(lap if fmt == "dense" else sp.csr_matrix(lap),
+                         sparse=fmt != "dense", format=fmt, device=dev)
+        model = init_ndcn(torch.Generator().manual_seed(0), 1, 20, 1,
+                          device=dev)
+        ms = budget_lib.probe_step_budget(
+            lambda: ndcn_forward(model, op, t_h, x0, fused=fused,
+                                 nondiff=True, max_steps=1 << 14, **kw)[1],
+            floor=8, headroom=2.5, slack=4, quantum=4)
+        settings[label] = rec = one_setting(label, op, t_h, x0, target,
+                                            fused, ms, 10, needed)
+        for k, v in rec["launches_per_graphed_step"].items():
+            per_graphed.setdefault(k, {})[label] = v
+    b = big
+    target_b = b["target"][..., 0].T.contiguous()
+    settings["200k_coo"] = rec = one_setting(
+        "200k_coo", b["op"], b["t_train"], b["x0"], target_b, False,
+        b["max_steps"], 5, ["coo_spmv"])
+    for k, v in rec["launches_per_graphed_step"].items():
+        per_graphed.setdefault(k, {})["200k_coo"] = v
+    del target_b
+
+    # the heat driver with --scan_chunk 10 for 20 iterations on each
+    # operator; on dense with a budget cut below what the solve needs, so
+    # that the first chunk runs out and the elastic rollback captures again
+    drivers = {}
+    real_probe = budget_lib.probe_step_budget
+    for label, extra, needed, cut in (
+            ("grid400_dense_rollback", ["--fused_kernel"], ["fused_rhs"],
+             True),
+            ("grid400_bsr", ["--fused_kernel", "--sparse", "--sparse_format",
+                             "bsr"], ["bsr_fused_rhs", "bsr_spmm"], False),
+            ("grid400_coo", ["--sparse", "--sparse_format", "coo"],
+             ["coo_spmv"], False),
+            ("lstm_gnn_coo", ["--baseline", "lstm_gnn", "--sparse",
+                              "--sparse_format", "coo"], ["coo_spmv"],
+             False)):
+        if cut:
+            budget_lib.probe_step_budget = lambda *a, **k: 2
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            out = dynamics.run("heat", dynamics.build_parser(
+                "heat").parse_args(
+                ["--network", "grid", "--n", "400", "--method", "dopri5",
+                 "--niters", "20", "--test_freq", "10", "--scan_chunk", "10",
+                 *extra]))
+        finally:
+            budget_lib.probe_step_budget = real_probe
+        counts = add_launches(f"[23] the heat driver {label}", needed)
+        sc = out["scan_chunk"]
+        check(sc["host_reads"] == sc["chunks"] and sc["steps"] == 20
+              + 10 * out["elastic_retries"] and np.all(np.isfinite(
+                  out["train_losses"])), f"[23] {label}: {out}")
+        if cut:
+            check(out["elastic_retries"] >= 1
+                  and sc["captures"] == 1 + out["elastic_retries"],
+                  f"[23] {label}: no rollback that captured again: {sc}, "
+                  f"{out['elastic_retries']} rollbacks")
+        drivers[label] = dict(
+            train_losses=out["train_losses"], max_steps=out["max_steps"],
+            elastic_retries=out["elastic_retries"], chunks=sc,
+            seconds=time.perf_counter() - t0,
+            launches={k: v for k, v in counts.items() if v})
+    return dict(settings=settings, drivers=drivers,
+                launches_per_graphed_step=per_graphed,
+                seconds=time.perf_counter() - t23)
 
 
 def main() -> None:
@@ -1182,6 +1469,8 @@ def main() -> None:
         lambda: ndcn_forward(model_t, op_big, t_train, x0_big, nondiff=True,
                              max_steps=1 << 14, **train_kw)[1],
         floor=8, headroom=1.5, slack=2, quantum=4)
+    big10 = dict(op=op_big, t_train=t_train, x0=x0_big, target=target_big,
+                 max_steps=budget)          # [23] trains it again
     kernels.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats(dev)
     res = train(model_t, op_big, t_train, x0_big, target_big, 5, False,
@@ -1812,47 +2101,27 @@ def main() -> None:
                for d in (7, 16, 1433)}
     torch.cuda.empty_cache()
 
-    # (b) one cora differential_gcn step on the card and on the CPU
-    def cora_step(device, fmt):
-        model = init_ndcn(torch.Generator().manual_seed(0), 1433, 16, 7,
-                          encoder_layers=1, device=device)
-        op = as_operator(cora.operator, sparse=fmt != "dense", format=fmt,
-                         device=device)
-        x = torch.as_tensor(cora.features, device=device)
-        idx = torch.as_tensor(cora.idx_train, device=device).long()
-        labels = torch.as_tensor(cora.labels, device=device).long()
-        vt = np.linspace(0, 2.0, 5).astype(np.float32)
-        t0 = time.perf_counter()
-        out, stats = ndcn_forward(model, op, vt, x, rtol=0.1, atol=0.1,
-                                  method="dopri5", terminal=True,
-                                  max_steps=64)
-        loss = cross_entropy(out[idx], labels[idx])
-        loss.backward()
-        if device.type == "cuda":
-            torch.cuda.synchronize()
-        check(stats.success, f"cora {fmt} step failed on {device}")
-        return dict(loss=float(loss.detach()), nfe=stats.nfe,
-                    ms=(time.perf_counter() - t0) * 1e3,
-                    grads={n: p.grad.cpu() for n, p in
-                           model.named_parameters()})
-
+    # (b) one cora differential_gcn step on the card against the same step
+    # on the CPU (the committed reference, tools/smoke_references.py)
+    refs16 = smoke_references.load()
     steps16 = {}
     for fmt, needed in (("dense", []), ("coo", ["coo_spmv"]),
                         ("bsr", ["bsr_spmm"])):
-        cora_step(dev, fmt)                                  # warm
+        smoke_references.cora_step(dev, fmt, cora)           # warm
         kernels.reset_launch_counts()
-        gpu = cora_step(dev, fmt)
+        gpu = smoke_references.cora_step(dev, fmt, cora)
         counts = add_launches(f"the cora {fmt} step", needed)
-        cpu = cora_step(torch.device("cpu"), fmt)
-        grad_err = max(rel_l1(gpu["grads"][k], v)
-                       for k, v in cpu["grads"].items())
-        loss_err = abs(gpu["loss"] - cpu["loss"]) / abs(cpu["loss"])
-        check(loss_err <= 1e-4 and grad_err <= 1e-3
-              and gpu["nfe"] == cpu["nfe"],
+        cpu_loss = float(refs16[f"cora/{fmt}/loss"])
+        cpu_nfe = int(refs16[f"cora/{fmt}/nfe"])
+        grad_err = max(rel_l1(gpu["grads"][k], v) for k, v in
+                       smoke_references.step_grads(refs16,
+                                                   f"cora/{fmt}").items())
+        loss_err = abs(gpu["loss"] - cpu_loss) / abs(cpu_loss)
+        check(loss_err <= 1e-4 and grad_err <= 1e-3 and gpu["nfe"] == cpu_nfe,
               f"cora {fmt} step, card vs CPU: loss {loss_err}, gradients "
-              f"{grad_err}, NFE {gpu['nfe']} vs {cpu['nfe']}")
+              f"{grad_err}, NFE {gpu['nfe']} vs {cpu_nfe}")
         steps16[fmt] = dict(loss_rel_err=loss_err, max_grad_rel_l1=grad_err,
-                            nfe=gpu["nfe"], ms=gpu["ms"], cpu_ms=cpu["ms"],
+                            nfe=gpu["nfe"], ms=gpu["ms"],
                             launches={k: v for k, v in counts.items() if v})
 
     # (c) the showcase: the recipe of results/showcase_cora_100.json
@@ -1927,12 +2196,7 @@ def main() -> None:
             f"the {name} driver", [] if name == "DeepGCN3" else ["coo_spmv"],
             "--model", name, *base, *extra)
         falls(out["train_losses"], f"the {name} driver")
-    t0 = time.perf_counter()
-    gcn_cpu = dgnn.run(dgnn.build_parser().parse_args(
-        ["--model", "GCN", *base, "--sparse", "--epochs", "100",
-         "--platform", "cpu"]))
-    zoo["GCN"]["cpu_test_acc"] = gcn_cpu["rows"][-1][2]
-    zoo["GCN"]["cpu_seconds"] = time.perf_counter() - t0
+    zoo["GCN"]["cpu_test_acc"] = float(refs16["gcn_driver/test_acc"])
     check(abs(zoo["GCN"]["test_acc"] - zoo["GCN"]["cpu_test_acc"]) <= 0.02,
           f"GCN on the card {zoo['GCN']['test_acc']} against the CPU "
           f"{zoo['GCN']['cpu_test_acc']}")
@@ -1967,26 +2231,13 @@ def main() -> None:
                         .astype(np.float32)), hs.t)
     y_train = sol400[..., 0].T[:, hs.id_train].contiguous()
     n_steps = y_train.shape[1] - 1          # teacher steps: 79
+    # smoke_references.temporal_problem's (the CPU references')
+    problem17 = (kipf400, y_train)
 
     def temporal_step(rnn_type, fmt, device, split_counts=False):
-        model = init_temporal_gcn(torch.Generator().manual_seed(0), 1, 5, 400,
-                                  10, rnn_type, device=device)
-        op = as_operator(kipf400, sparse=fmt != "dense", format=fmt,
-                         device=device)
-        y = y_train.to(device)
-        if device.type == "cuda":
-            torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        pred = temporal_gcn_forward(model, op, y[:, :-1], rnn_type)
-        loss = l1_loss(pred, y[:, 1:])
-        fwd = kernels.launch_counts() if split_counts else None
-        loss.backward()
-        if device.type == "cuda":
-            torch.cuda.synchronize()
-        return dict(loss=float(loss.detach()), fwd_counts=fwd,
-                    ms=(time.perf_counter() - t0) * 1e3,
-                    grads={n: p.grad.cpu() for n, p in
-                           model.named_parameters()})
+        return smoke_references.temporal_step(
+            rnn_type, fmt, device, problem17,
+            kernels.launch_counts if split_counts else None)
 
     steps17 = {}
     for rnn_type in ("lstm", "gru", "rnn"):
@@ -1998,10 +2249,12 @@ def main() -> None:
             gpu = temporal_step(rnn_type, fmt, dev, split_counts=True)
             counts = add_launches(f"the {rnn_type}_gnn {fmt} step",
                                   [needed] if needed else [])
-            cpu = temporal_step(rnn_type, fmt, torch.device("cpu"))
-            loss_err = abs(gpu["loss"] - cpu["loss"]) / abs(cpu["loss"])
-            grad_err = max(rel_l1(gpu["grads"][k], v)
-                           for k, v in cpu["grads"].items())
+            # the CPU's step: the committed reference
+            key = f"temporal/{rnn_type}_{fmt}"
+            cpu_loss = float(refs16[f"{key}/loss"])
+            loss_err = abs(gpu["loss"] - cpu_loss) / abs(cpu_loss)
+            grad_err = max(rel_l1(gpu["grads"][k], v) for k, v in
+                           smoke_references.step_grads(refs16, key).items())
             check(loss_err <= 1e-4 and grad_err <= 1e-3,
                   f"{rnn_type}_gnn {fmt} step, card vs CPU: loss "
                   f"{loss_err}, gradients {grad_err}")
@@ -2015,7 +2268,7 @@ def main() -> None:
                   f"forward")
             steps17[f"{rnn_type}_{fmt}"] = dict(
                 loss_rel_err=loss_err, max_grad_rel_l1=grad_err,
-                step_ms=ms + [gpu["ms"]], cpu_ms=cpu["ms"],
+                step_ms=ms + [gpu["ms"]],
                 sparse_launches=sparse_l, forward_launches=fwd_l,
                 transposed_launches={k: sparse_l[k] - fwd_l[k]
                                      for k in sparse_l},
@@ -2095,9 +2348,7 @@ def main() -> None:
     # (d) the Lotka-Volterra demo: rk4, then dopri5 with the adjoint; the
     # first 20 iterations' losses against the same run on the CPU
     lv17 = {}
-    for label, extra in (("rk4", ["--method", "rk4"]),
-                         ("dopri5_adjoint", ["--method", "dopri5",
-                                             "--adjoint"])):
+    for label, extra in smoke_references.LV_RUNS.items():
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
         out = lv.main(["--niters", "40", *extra])
@@ -2110,18 +2361,16 @@ def main() -> None:
         tl = out["train_losses"]
         falls([float(np.mean(tl[:20])), float(np.mean(tl[-20:]))],
               f"the LV demo {label}")
-        t0 = time.perf_counter()
-        cpu = lv.main(["--niters", "20", "--platform", "cpu", *extra])
-        cpu_s = time.perf_counter() - t0
+        # the CPU's first 20 losses: the committed reference
+        cpu_losses = refs16[f"lv/{label}/train_losses"]
         gap = max(abs(a - b) / abs(b) for a, b in
-                  zip(out["train_losses"][:20], cpu["train_losses"]))
+                  zip(out["train_losses"][:20], cpu_losses))
         check(gap <= 1e-4, f"LV {label}: the first 20 losses on the card "
               f"part from the CPU's by {gap}")
         lv17[label] = dict(eval_losses=out["eval_losses"],
                            first_train_losses=out["train_losses"][:5],
                            last_train_loss=out["train_losses"][-1],
-                           max_rel_gap_first20_vs_cpu=gap, seconds=gpu_s,
-                           cpu_seconds_20=cpu_s)
+                           max_rel_gap_first20_vs_cpu=gap, seconds=gpu_s)
 
     # (e) the T x alpha sweep on cora, the showcase recipe, seed 0, dense;
     # then --resume, which must rerun no cell
@@ -3375,6 +3624,12 @@ def main() -> None:
     del kipf22, cora22, x_cora
     torch.cuda.empty_cache()
 
+    # ---- 23. the scan path and --scan_chunk
+    scan23 = scan_chunk_phase(dev, root, add_launches, big10)
+    print("[23] the scan path and --scan_chunk (card: " + smi + "): "
+          + json.dumps(scan23))
+    torch.cuda.empty_cache()
+
     # ---- p. where the time goes
     for label, srv, x0 in (("grid400", server, fx["x0"]),
                            ("200k", server_big, requests[0])):
@@ -3585,19 +3840,26 @@ def main() -> None:
                library_ms=probe["index_select_us"] / 1e3,
                **bound(probe["rows"] * (2 * probe["k"] * 4 + 4), 0))
     K1 = "ndcn_tpu/kernels/coo_spmv.py:159"
+    # [23]: each kernel's launches in one graphed train step, by setting
+    graphed23 = {k: scan23["launches_per_graphed_step"].get(k, {})
+                 for k in ("coo_spmv", "fused_rhs", "bsr_spmm",
+                           "bsr_fused_rhs")}
     print(json.dumps({"kernels": [
         entry("coo_spmv", "coo_spmv.cu", K1, k1_main, k1t,
               launches_in_artifact=artifact_launches["coo_spmv"],
+              launches_per_graphed_step=graphed23["coo_spmv"],
               citation=citation_cases(k1_cite),
               launches_per_cora_epoch=per_epoch("coo_spmv"),
               temporal=citation_cases(k1_temporal),
               launches_per_temporal_step=temporal_launches["coo_spmv"]),
         entry("fused_rhs", "fused_rhs.cu", "ndcn_tpu/kernels/fused_rhs.py:30",
               k2_main, k2b,
-              launches_in_artifact=artifact_launches["fused_rhs"]),
+              launches_in_artifact=artifact_launches["fused_rhs"],
+              launches_per_graphed_step=graphed23["fused_rhs"]),
         entry("bsr_spmm", "bsr_spmm.cu", "ndcn_tpu/kernels/bsr_spmm.py:91",
               k3["grid400_d20"]["fwd"], k3["grid400_d20"]["transpose"],
               launches_in_artifact=artifact_launches["bsr_spmm"],
+              launches_per_graphed_step=graphed23["bsr_spmm"],
               citation=citation_cases(k3_cite),
               launches_per_cora_epoch=per_epoch("bsr_spmm"),
               temporal=citation_cases(k3_temporal),
@@ -3606,7 +3868,8 @@ def main() -> None:
         entry("bsr_fused_rhs", "bsr_spmm.cu",
               "ndcn_tpu/kernels/bsr_spmm.py:176", k4["grid400_d20"]["fwd"],
               k4["grid400_d20"]["bwd"],
-              launches_in_artifact=artifact_launches["bsr_fused_rhs"]),
+              launches_in_artifact=artifact_launches["bsr_fused_rhs"],
+              launches_per_graphed_step=graphed23["bsr_fused_rhs"]),
         # the replica sweeps' batched forms (R states against one operator
         # in one launch): the grid400 d = 20 case at R = 16, R = 1 beside
         entry("coo_spmv_batched", "coo_spmv.cu", K1,

@@ -146,9 +146,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "(raises without one); cpu: the plain versions")
     p.add_argument("--precision", type=str, default="default",
                    choices=["default", "high", "float32", "highest"],
-                   help="matmul precision; the port pins full fp32 "
-                        "(default = highest = float32); high (TF32) is not "
-                        "ported")
+                   help="matmul precision of PyTorch's float32 "
+                        "products: full fp32 (default = highest = float32) "
+                        "or high (TF32); the hand-written kernels keep "
+                        "theirs")
     return p
 
 
@@ -171,30 +172,23 @@ def _refuse(args: argparse.Namespace) -> None:
                          "(drop --batch_iters)")
     if args.batch_iters and args.model not in BATCHED_MODELS:
         raise SystemExit(f"--batch_iters unsupported for {args.model}")
-    refused = [
-        (args.precision == "high", "--precision high (TF32): ROADMAP §1 "
-                                   "entry 6"),
-    ]
-    for cond, what in refused:
-        if cond:
-            raise NotImplementedError(f"not ported yet: {what}")
 
 
 def run(args: argparse.Namespace) -> Dict[str, Any]:
     from ndcn_tpu_torch.experiments.dynamics import select_device
+    from ndcn_tpu_torch.kernels.platform import matmul_precision
     from ndcn_tpu_torch.parallel.mesh import process_group, world_size
 
     _refuse(args)
     device = select_device(args.platform)
     with (process_group(device) if args.mesh and world_size() > 1
-          else contextlib.nullcontext()):
+          else contextlib.nullcontext()), matmul_precision(args.precision):
         return _run(args, device)
 
 
 def _run(args: argparse.Namespace, device: torch.device) -> Dict[str, Any]:
     from ndcn_tpu_torch.data import load_planetoid
     from ndcn_tpu_torch.graph.sparse import as_operator
-    from ndcn_tpu_torch.kernels.platform import pin_fp32
     from ndcn_tpu_torch.models import init_ndcn, ndcn_forward
     from ndcn_tpu_torch.models.gcn_zoo import build_zoo_model
     from ndcn_tpu_torch.parallel.coo_shard import (node_group, take_index,
@@ -209,7 +203,6 @@ def _run(args: argparse.Namespace, device: torch.device) -> Dict[str, Any]:
     from ndcn_tpu_torch.train.losses import accuracy, cross_entropy
     from ndcn_tpu_torch.train.optim import torch_adam
 
-    pin_fp32()
     if args.seed != -1:
         np.random.seed(args.seed)
     t_very_beginning = time.time()

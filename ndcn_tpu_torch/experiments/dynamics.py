@@ -23,7 +23,8 @@ are evaluated by rolling out the extrapolation steps after teacher-forcing
 the whole train grid. ``--dump`` records an evaluation at each
 ``test_freq`` and dumps the JAX package's results dict (``report.results``)
 under ``--results_dir``; ``--viz`` plots the adjacency and the dynamics
-(``report.viz``); ``--profile_dir`` traces three training steps on copies
+(``report.viz``); ``--profile_dir`` traces three training steps (one
+chunk with ``--scan_chunk``) on copies
 of the model, the optimizer and the dropout generator
 (``utils.timing.profile_trace``), so the run's own losses do not change.
 ``--export PATH`` writes the trained model's inference forward over the
@@ -59,9 +60,23 @@ figures. A world of one prints the JAX driver's notice and runs unsharded.
 summed over it, ``ode.adjoint``), and the temporal baselines on the
 rank's rows (``models.temporal_gcn``).
 
+``--scan_chunk k`` trains k steps a host read, the JAX driver's chunked
+dispatch: the train solve is the bounded one (``ode.adaptive.solve_scan``,
+dopri5 and tsit5; the fixed-grid methods and the temporal baselines are
+static already) and Adam ``optim.CapturableAdam``; on the card each step
+is one CUDA graph replay (``train.chunk``), on the CPU it runs eagerly. The
+chunk bounds are the JAX driver's (the next ``test_freq`` and ``ckpt_freq``
+boundary, ``niters``), so the log and checkpoint iterations are the same;
+the loss is read once a chunk, and an elastic rollback builds a new chunk
+at the doubled budget (a capture again on the card). With dropout the
+graph draws its masks from a generator on the card. The adjoint, the
+Adams family and ``--mesh`` with it raise (ROADMAP §1 entry 6b).
+
 ``--platform gpu`` (the default) trains on the first CUDA device and raises
 without one; ``--platform cpu`` runs the kernels' plain versions. Matrix
-products are pinned to full fp32 on both. What is not ported raises
+products are pinned to full fp32 on both; ``--precision high`` runs
+PyTorch's float32 products in TF32 for the run instead
+(``kernels.platform.matmul_precision``). What is not ported raises
 ``NotImplementedError`` naming its ROADMAP entry before any work is done.
 """
 
@@ -143,7 +158,10 @@ def build_parser(name: str) -> argparse.ArgumentParser:
     p.add_argument("--fused_kernel", action="store_true",
                    help="route the NDCN RHS through the fused kernel where "
                         "profitable (fused='auto': K2 on a dense operator)")
-    p.add_argument("--scan_chunk", type=int, default=0)
+    p.add_argument("--scan_chunk", type=int, default=0,
+                   help="train this many steps per host read (the bounded "
+                        "solve; one CUDA graph replay a step on the card); "
+                        "0 = one step at a time on the host loop")
     p.add_argument("--mesh", action="store_true")
     p.add_argument("--replicas", type=int, default=1)
     p.add_argument("--export", type=str, default=None, metavar="PATH")
@@ -153,9 +171,9 @@ def build_parser(name: str) -> argparse.ArgumentParser:
                         "(raises without one); cpu: the plain versions")
     p.add_argument("--precision", type=str, default="default",
                    choices=["default", "high", "float32", "highest"],
-                   help="matmul precision; the port pins full fp32 "
-                        "(default = highest = float32); high (TF32) is not "
-                        "ported")
+                   help="matmul precision of PyTorch's float32 products: "
+                        "full fp32 (default = highest = float32) or high "
+                        "(TF32); the hand-written kernels keep theirs")
     return p
 
 
@@ -189,16 +207,25 @@ def _refuse_unported(dynamics_kind: str, args: argparse.Namespace) -> None:
             raise SystemExit("--replicas is incompatible with --ckpt_dir/"
                              "--profile_dir/--scan_chunk (per-replica "
                              "training runs as one vmapped program)")
-    refused = [
-        (args.scan_chunk > 0,
-         "--scan_chunk (steps per dispatch; CUDA graphs here): ROADMAP §1 "
-         "entry 6"),
-        (args.precision == "high", "--precision high (TF32): ROADMAP §1 "
-                                   "entry 6"),
-    ]
-    for cond, what in refused:
-        if cond:
-            raise NotImplementedError(f"not ported yet: {what}")
+    if args.scan_chunk > 0:
+        refused = [(args.adjoint, "--adjoint"),
+                   (args.method in ("adams", "explicit_adams",
+                                    "fixed_adams"), f"--method {args.method}"),
+                   (args.mesh, "--mesh")]
+        for cond, what in refused:
+            if cond:
+                raise NotImplementedError(
+                    f"not ported yet: --scan_chunk with {what}: ROADMAP §1 "
+                    f"entry 6b")
+
+
+def nan_unless_ok(success, loss: torch.Tensor) -> torch.Tensor:
+    """``loss``, or NaN where the solve ran out of its budget: a
+    ``torch.where`` on the solve's ``success``, the bounded solve's device
+    flag as it is (no host read), the host loop's bool as a tensor."""
+    ok = (success if isinstance(success, torch.Tensor)
+          else torch.tensor(success, device=loss.device))
+    return torch.where(ok, loss, torch.full_like(loss, float("nan")))
 
 
 def select_device(platform: str) -> torch.device:
@@ -234,6 +261,7 @@ def heat_ground_truth(physics_op, x0: torch.Tensor, t, rtol: float = 1e-7,
 
 def run(dynamics_kind: str, args: argparse.Namespace) -> Dict[str, Any]:
     from ndcn_tpu_torch.kernels import coo_spmv
+    from ndcn_tpu_torch.kernels.platform import matmul_precision
     from ndcn_tpu_torch.parallel.mesh import process_group, world_size
 
     _refuse_unported(dynamics_kind, args)
@@ -241,7 +269,8 @@ def run(dynamics_kind: str, args: argparse.Namespace) -> Dict[str, Any]:
     # --kernel_precision bf16 sets the JAX package's GATHER_BF16 for the run
     with (process_group(device) if args.mesh and world_size() > 1
           else contextlib.nullcontext()), \
-            coo_spmv.gather_precision(args.kernel_precision == "bf16"):
+            coo_spmv.gather_precision(args.kernel_precision == "bf16"), \
+            matmul_precision(args.precision):
         return _run(dynamics_kind, args, device)
 
 
@@ -250,11 +279,12 @@ def _run(dynamics_kind: str, args: argparse.Namespace,
 
     from ndcn_tpu_torch.graph import generators, operators
     from ndcn_tpu_torch.graph.sparse import as_operator
-    from ndcn_tpu_torch.kernels.platform import pin_fp32
     from ndcn_tpu_torch.models import (init_ndcn, init_temporal_gcn,
                                        ndcn_forward, temporal_gcn_forward)
     from ndcn_tpu_torch.report import results as results_lib
-    from ndcn_tpu_torch.train.budget import probe_step_budget
+    from ndcn_tpu_torch.train.budget import (probe_step_budget,
+                                             scan_train_bytes)
+    from ndcn_tpu_torch.train.chunk import TrainChunk
     from ndcn_tpu_torch.train.checkpoint import (restore_with_extra,
                                                  save_checkpoint)
     from ndcn_tpu_torch.train.elastic import ElasticBudget
@@ -268,7 +298,6 @@ def _run(dynamics_kind: str, args: argparse.Namespace,
     from ndcn_tpu_torch.train.sampling import sample_times
     from ndcn_tpu_torch.utils.timing import profile_trace
 
-    pin_fp32()
     t_start = time.time()
     continuous = args.baseline not in TEMPORAL_BASELINES
 
@@ -398,20 +427,26 @@ def _run(dynamics_kind: str, args: argparse.Namespace,
 
     elastic = ElasticBudget(max_steps, enabled=budget_is_auto)
 
+    chunked = args.scan_chunk > 0
     if continuous:
-        def forward(m, vt, rng=None):
+        def forward(m, vt, rng=None, scan=False):
             out, stats = ndcn_forward(m, op, vt, true_y0,
                                       dropout=args.dropout, rng=rng,
-                                      max_steps=elastic.max_steps,
+                                      max_steps=elastic.max_steps, scan=scan,
                                       **train_kw, **levers)
             return out[..., 0].T, stats                  # (n, T)
 
+        # --scan_chunk: the bounded solve over the train grid, a tensor on
+        # the run's device (a CUDA graph reads it; nothing is copied in)
+        t_train_arg = (torch.as_tensor(t_train, dtype=torch.float32,
+                                       device=device) if chunked else t_train)
+
         def train_loss(m, rng):
-            pred, stats = forward(m, t_train, rng)
+            pred, stats = forward(m, t_train_arg, rng, scan=chunked)
             loss = l1_loss(pred, true_y_train, group)
-            # a blown step budget must be loud (NaN), not silently wrong
-            loss = torch.where(torch.tensor(stats.success, device=device),
-                               loss, torch.full_like(loss, float("nan")))
+            # a blown step budget must be loud (NaN), not silently wrong;
+            # the bounded solve's flag stays on the device
+            loss = nan_unless_ok(stats.success, loss)
             return loss, loss / shard_mean(true_y_train, group)
 
         def predict():
@@ -497,9 +532,15 @@ def _run(dynamics_kind: str, args: argparse.Namespace,
         return True
 
     # ------------------------------------------------------------- training
-    opt = torch_adam(model.parameters(), args.lr, args.weight_decay)
+    opt = torch_adam(model.parameters(), args.lr, args.weight_decay,
+                     capturable=chunked)
     train_step = make_sgd_step(opt, lambda g: train_loss(model, g), group)
-    rng = torch.Generator().manual_seed(args.seed + 1)
+    # a CUDA graph draws its dropout masks from a generator on the card
+    # (registered with the graph); otherwise they come from the CPU, so
+    # that a card run and a CPU run at one seed drop the same elements
+    rng = torch.Generator(
+        device if chunked and device.type == "cuda" and args.dropout > 0
+        else "cpu").manual_seed(args.seed + 1)
     # resume from the newest checkpoint: weights, Adam's state, and the
     # dropout generator and step budget the interrupted run had there
     start_iter, extra = restore_with_extra(args.ckpt_dir, model, opt)
@@ -524,21 +565,43 @@ def _run(dynamics_kind: str, args: argparse.Namespace,
                         extra={"rng": rng.get_state(),
                                "max_steps": elastic.max_steps})
 
+    def make_chunk(m, o, g) -> TrainChunk:
+        """--scan_chunk: the train step of model ``m`` with optimizer ``o``
+        and generator ``g`` as a ``TrainChunk`` (one CUDA graph on the
+        card), guarded by the bounded solve's ``scan_train_bytes``."""
+        step = make_sgd_step(o, lambda gen: train_loss(m, gen), group)
+        width = 1 if flags["no_embed"] else args.hidden
+        step_bytes = (scan_train_bytes(
+            args.method, elastic.max_steps,
+            torch.empty((true_y0.shape[0], width), device="meta"),
+            n_obs=len(t_train)) if continuous else 0)
+        return TrainChunk(lambda: step(g), m.parameters(), o, g, step_bytes)
+
     def profile_steps() -> None:
-        """Trace three steady training steps on copies of the model, the
-        optimizer and the dropout generator: the profiled steps must not
-        advance the run's own state, or a profiled run would train three
-        steps more and an elastic replay would part from the original."""
+        """Trace three steady training steps (with --scan_chunk one chunk,
+        its capture left out) on copies of the model, the optimizer and the
+        dropout generator: the profiled steps must not advance the run's
+        own state, or a profiled run would train three steps more and an
+        elastic replay would part from the original."""
         m = copy.deepcopy(model)
-        o = torch_adam(m.parameters(), args.lr, args.weight_decay)
+        o = torch_adam(m.parameters(), args.lr, args.weight_decay,
+                       capturable=chunked)
         # a deep copy: load_state_dict keeps the tensors it is given
         o.load_state_dict(copy.deepcopy(opt.state_dict()))
-        g = torch.Generator().set_state(rng.get_state())
-        step = make_sgd_step(o, lambda gen: train_loss(m, gen), group)
-        with profile_trace(args.profile_dir) as path:
-            for _ in range(3):
-                ploss, _ = step(g)
-            float(ploss)
+        g = torch.Generator(rng.device).set_state(rng.get_state())
+        if chunked:
+            prof_chunk = make_chunk(m, o, g)
+            if device.type == "cuda":
+                prof_chunk.capture()
+            with profile_trace(args.profile_dir) as path:
+                prof_chunk(args.scan_chunk)
+            prof_chunk.release()
+        else:
+            step = make_sgd_step(o, lambda gen: train_loss(m, gen), group)
+            with profile_trace(args.profile_dir) as path:
+                for _ in range(3):
+                    ploss, _ = step(g)
+                float(ploss)
         print(f"[profile] trace written to {path}")
 
     # Elastic step-budget recovery (auto budgets only): exhaustion surfaces
@@ -549,9 +612,31 @@ def _run(dynamics_kind: str, args: argparse.Namespace,
     itr = start_iter
     train_losses = []
     profiled = False
+    chunk = make_chunk(model, opt, rng) if chunked else None
+    chunk_stats = dict(chunks=0, host_reads=0, captures=0, steps=0)
+
+    def retire(c) -> None:
+        chunk_stats["host_reads"] += c.host_reads
+        chunk_stats["captures"] += c.graph is not None
+        c.release()
+
     while itr < args.niters:
-        itr += 1
-        loss, rel = train_step(rng)
+        if chunked:
+            # the JAX driver's chunk bounds: the same log and checkpoint
+            # iterations as one step at a time
+            bound = min(itr + args.scan_chunk,
+                        (itr // args.test_freq + 1) * args.test_freq,
+                        args.niters)
+            if args.ckpt_dir and args.ckpt_freq:
+                bound = min(bound,
+                            (itr // args.ckpt_freq + 1) * args.ckpt_freq)
+            loss, rel = chunk(bound - itr)
+            chunk_stats["chunks"] += 1
+            chunk_stats["steps"] += bound - itr
+            itr = bound
+        else:
+            itr += 1
+            loss, rel = train_step(rng)
         if args.profile_dir and not profiled and itr > 2:
             profile_steps()
             profiled = True
@@ -567,6 +652,11 @@ def _run(dynamics_kind: str, args: argparse.Namespace,
                 model.load_state_dict(model_sd)
                 opt.load_state_dict(opt_sd)
                 rng.set_state(rng_state)
+                if chunked:
+                    # Adam's tensors were replaced and the budget doubled:
+                    # capture again (the JAX driver recompiles)
+                    retire(chunk)
+                    chunk = make_chunk(model, opt, rng)
                 print(f"[elastic] step budget exhausted by iter {prev}; "
                       f"rolled back to iter {itr} with "
                       f"max_steps={elastic.max_steps}", flush=True)
@@ -576,6 +666,8 @@ def _run(dynamics_kind: str, args: argparse.Namespace,
         elif ckpt_due:
             checkpoint(itr, loss)
 
+    if chunked:
+        retire(chunk)
     # ---------------------------------------------------------------- final
     ev = evaluate()
     if not np.isfinite(ev["loss"]):
@@ -591,6 +683,7 @@ def _run(dynamics_kind: str, args: argparse.Namespace,
                    elastic_retries=elastic.total_rollbacks)
     out = {"final": final, "train_losses": train_losses,
            "max_steps": elastic.max_steps,
+           "scan_chunk": chunk_stats if chunked else None,
            "elastic_retries": elastic.total_rollbacks, "total_time": t_total,
            "device": str(device), "n_params": n_params}
 

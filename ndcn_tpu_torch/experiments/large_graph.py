@@ -60,7 +60,8 @@ rank count and ``mesh_parity`` that first step's relative loss delta;
 rank 0 prints it. The ground truth is solved whole on every rank.
 
 What the port does not have raises ``NotImplementedError`` naming its
-ROADMAP entry before any work: ``--precision high`` (§1 entry 6).
+ROADMAP entry before any work; ``--precision high`` runs PyTorch's float32
+products in TF32 (``kernels.platform.matmul_precision``).
 """
 
 from __future__ import annotations
@@ -138,8 +139,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "(raises without one); cpu: the plain versions")
     ap.add_argument("--precision", type=str, default="default",
                     choices=["default", "high", "float32", "highest"],
-                    help="matmul precision; the port pins full fp32, high "
-                         "(TF32) is not ported")
+                    help="matmul precision of PyTorch's float32 "
+                         "products: full fp32 (default = highest = float32) "
+                         "or high (TF32); the hand-written kernels keep "
+                         "theirs")
     return ap
 
 
@@ -147,13 +150,6 @@ def _refuse_unported(args: argparse.Namespace) -> None:
     if args.dynamics == "mutualistic" and args.fmt != "coo":
         # ELL pads every row to the largest degree
         raise SystemExit("mutualistic at this scale requires --fmt coo")
-    refused = [
-        (args.precision == "high", "--precision high (TF32): ROADMAP §1 "
-                                   "entry 6"),
-    ]
-    for cond, what in refused:
-        if cond:
-            raise NotImplementedError(f"not ported yet: {what}")
     if args.gt_only and not args.gt_cache:
         raise SystemExit("--gt_only without --gt_cache computes a trajectory "
                          "nobody keeps; pass --gt_cache")
@@ -386,13 +382,15 @@ def run(args: argparse.Namespace) -> Optional[Dict[str, Any]]:
     record with ``--estimate`` / ``--gt_only``)."""
     from ndcn_tpu_torch.experiments.dynamics import select_device
     from ndcn_tpu_torch.kernels import coo_spmv
+    from ndcn_tpu_torch.kernels.platform import matmul_precision
     from ndcn_tpu_torch.parallel.mesh import process_group
 
     _refuse_unported(args)
     device = select_device(args.platform)
     with (process_group(device) if args.mesh
           else contextlib.nullcontext()), \
-            coo_spmv.gather_precision(args.kernel_precision == "bf16"):
+            coo_spmv.gather_precision(args.kernel_precision == "bf16"), \
+            matmul_precision(args.precision):
         return _run(args, device)
 
 
@@ -434,12 +432,10 @@ def shard_problem(args, problem: Problem, model, target, max_steps: int):
 def _run(args: argparse.Namespace, device: torch.device) -> Dict[str, Any]:
     import torch.distributed as dist
 
-    from ndcn_tpu_torch.kernels.platform import pin_fp32
     from ndcn_tpu_torch.parallel.coo_shard import node_group
     from ndcn_tpu_torch.train.elastic import ElasticBudget
     from ndcn_tpu_torch.train.optim import make_sgd_step, torch_adam
 
-    pin_fp32()
     problem = build_problem(args, device)
     solve_layout(args, problem)          # an ineligible layout raises here
     model = new_model(args, device)

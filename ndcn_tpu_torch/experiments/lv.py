@@ -12,7 +12,9 @@ adjoint (``ode.odeint_adjoint``, rtol 1e-7, atol 1e-9). Every
 (dopri5, rtol 1e-5, atol 1e-7) and its mean |error| printed.
 
 ``--platform gpu`` (the default) runs on the first CUDA device and raises
-without one; ``--platform cpu`` runs on the CPU.
+without one; ``--platform cpu`` runs on the CPU. ``--precision high`` runs
+the float32 products in TF32 for the run
+(``kernels.platform.matmul_precision``).
 
 Usage: python -m ndcn_tpu_torch.experiments.lv --niters 400 --platform cpu
 """
@@ -47,9 +49,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "cpu: the CPU")
     p.add_argument("--precision", type=str, default="default",
                    choices=["default", "high", "float32", "highest"],
-                   help="matmul precision; the port pins full fp32 "
-                        "(default = highest = float32); high (TF32) is not "
-                        "ported")
+                   help="matmul precision of PyTorch's float32 "
+                        "products: full fp32 (default = highest = float32) "
+                        "or high (TF32); the hand-written kernels keep "
+                        "theirs")
     return p
 
 
@@ -99,16 +102,18 @@ def lv_loss(func: LVFunc, batch_y0: torch.Tensor, batch_y: torch.Tensor,
 
 def run(args: argparse.Namespace) -> Dict[str, Any]:
     from ndcn_tpu_torch.experiments.dynamics import select_device
-    from ndcn_tpu_torch.kernels.platform import pin_fp32
+    from ndcn_tpu_torch.kernels.platform import matmul_precision
+
+    device = select_device(args.platform)
+    with matmul_precision(args.precision):
+        return _run(args, device)
+
+
+def _run(args: argparse.Namespace, device: torch.device) -> Dict[str, Any]:
     from ndcn_tpu_torch.ode import odeint, odeint_with_stats
     from ndcn_tpu_torch.train.optim import torch_adam
     from ndcn_tpu_torch.train.sampling import sample_trajectory_windows
 
-    if args.precision == "high":
-        raise NotImplementedError("not ported yet: --precision high (TF32): "
-                                  "ROADMAP §1 entry 6")
-    device = select_device(args.platform)
-    pin_fp32()
     t_start = time.time()
     true_y0 = torch.tensor([[0.9, 1.8]], device=device)
     t = torch.as_tensor(np.linspace(-5.0, 5.0, args.data_size)

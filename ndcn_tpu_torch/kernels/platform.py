@@ -8,9 +8,13 @@ and ``ndcn_tpu/utils/platform.py``).
   (which raises if it cannot run); anything else raises.
 - ``pin_fp32``: float32 matrix products in full fp32, TF32 off for matmuls
   and cuDNN alike. The counterpart of ``--precision highest``.
+- ``matmul_precision``: the drivers' ``--precision`` for one run, and the
+  settings as they were afterwards.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -24,6 +28,31 @@ def pin_fp32() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
+
+
+@contextlib.contextmanager
+def matmul_precision(precision: str):
+    """The drivers' ``--precision`` for the body: ``pin_fp32``, and with
+    "high" ``torch.set_float32_matmul_precision("high")``, TF32 for the
+    float32 products that PyTorch runs (the encoder, the decoder, the
+    unfused control layer, the backward's products, the scan path's
+    readout): about three decimal digits where full fp32 keeps seven.
+    The hand-written kernels (K1-K5; K2, K3 and K4 split-TF32 with fp32
+    accuracy) do not read the setting. Every other value ("default",
+    "float32", "highest") is full fp32. The settings the body found are
+    restored after it."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32,
+             torch.get_float32_matmul_precision())
+    pin_fp32()
+    if precision == "high":
+        torch.set_float32_matmul_precision("high")
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved[0]
+        torch.backends.cudnn.allow_tf32 = saved[1]
+        torch.set_float32_matmul_precision(saved[2])
 
 
 def device_report() -> dict:

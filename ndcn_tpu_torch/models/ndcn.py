@@ -155,8 +155,12 @@ def ode_block(func, h0: torch.Tensor, vt, rtol: float, atol: float,
               method: str, terminal: bool = False, adjoint: bool = False,
               params=None, max_steps: int = 256, nondiff: bool = False,
               emission_dtype=None, emission_readout=None,
-              batched: bool = False, node_group=None):
+              batched: bool = False, node_group=None, scan: bool = False):
     """odeint wrapper mirroring ODEBlock semantics; returns (out, stats).
+    ``scan``: dopri5's and tsit5's differentiable solve is the bounded one
+    (the solve's ``scan`` option, ``ode.adaptive.solve_scan``); the
+    fixed-grid methods solve as they are (their loop reads nothing), and
+    the adjoint and the Adams family raise (ROADMAP §1 entry 6b).
     ``batched``: h0 carries a leading replica axis (one batched solve).
     ``node_group``: the process group h0's node rows split over (the
     solve's option of that name: its norms are over every rank's rows).
@@ -167,6 +171,11 @@ def ode_block(func, h0: torch.Tensor, vt, rtol: float, atol: float,
     solve's. The emission options
     reach the solver on the differentiable adaptive path only, as the JAX
     package's ``ode_block`` passes them (not under the adjoint)."""
+    if scan and (adjoint or method in ("adams", "explicit_adams",
+                                       "fixed_adams")):
+        raise NotImplementedError(
+            "not ported yet: the bounded solve (scan) with the continuous "
+            "adjoint or the Adams family: ROADMAP §1 entry 6b")
     if adjoint:
         if params is None:
             raise ValueError("adjoint=True requires the params the RHS "
@@ -187,7 +196,7 @@ def ode_block(func, h0: torch.Tensor, vt, rtol: float, atol: float,
         options["node_group"] = node_group
     if method in ("dopri5", "tsit5") and not nondiff:
         options.update(emission_dtype=emission_dtype,
-                       emission_readout=emission_readout)
+                       emission_readout=emission_readout, scan=scan)
     sol, stats = odeint_with_stats(func, h0, vt, rtol=rtol, atol=atol,
                                    method=method, options=options)
     return (sol[-1] if terminal else sol), stats
@@ -307,7 +316,7 @@ def ndcn_forward(model: NDCN, op: GraphOperator, vt, x: torch.Tensor, *,
                  rng: Optional[torch.Generator] = None, adjoint: bool = False,
                  max_steps: int = 256, nondiff: bool = False, fused=False,
                  layout: str = "auto", emission_dtype=None,
-                 residual_dtype=None):
+                 residual_dtype=None, scan: bool = False):
     """Full NDCN forward. Returns (output, stats).
 
     output: (T, n, num_classes) trajectory, or (n, num_classes) if terminal.
@@ -324,8 +333,10 @@ def ndcn_forward(model: NDCN, op: GraphOperator, vt, x: torch.Tensor, *,
     ``ode.adaptive`` and ``ode_func``.
 
     ``nondiff=True`` runs the inference solve under ``torch.no_grad()``;
-    otherwise autograd records the differentiable solve. Under
-    ``torch.export`` (``serve.export_ndcn``) the ``nondiff=True`` forward
+    otherwise autograd records the differentiable solve: the host loop, or
+    with ``scan`` the bounded solve that never reads the device
+    (``ode_block``; the train step a CUDA graph records, ``train.chunk``).
+    Under ``torch.export`` (``serve.export_ndcn``) the ``nondiff=True`` forward
     traces in either layout: every host decision on it is made from
     shapes and Python values. ``dropout`` > 0
     with a ``rng`` (a ``torch.Generator``) draws one mask per forward;
@@ -378,7 +389,8 @@ def ndcn_forward(model: NDCN, op: GraphOperator, vt, x: torch.Tensor, *,
         solve_kw = dict(adjoint=adjoint, params=ode_params,
                         max_steps=max_steps, nondiff=nondiff,
                         emission_dtype=emission_dtype,
-                        batched=replicas is not None, node_group=group)
+                        batched=replicas is not None, node_group=group,
+                        scan=scan)
         if feature_major:
             d = h.shape[1]
             hT = F.pad(h, (0, sublane_pad(d) - d)).t().contiguous()

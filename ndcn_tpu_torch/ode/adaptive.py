@@ -1,5 +1,6 @@
 """Adaptive Runge-Kutta integration (dopri5, tsit5): one host loop for the
-inference and the differentiable solve.
+inference and the differentiable solve, and the bounded differentiable
+solve that never reads the device (``solve_scan``).
 
 The port of ``ndcn_tpu/ode/adaptive.py``. There ``solve_while`` runs a
 ``lax.while_loop`` of ``lax.cond(ready, consume_obs, take_step)`` and
@@ -12,7 +13,11 @@ finite flag) and reads them in one device→host copy: one sync per attempt
 and none per observation. ``SolveStats.host_syncs`` counts them.
 ``solve_while`` is the inference solve as one device-resident program
 (``while_loop`` and ``torch.cond`` around the same step), which
-``torch.export`` traces for the serving artifact.
+``torch.export`` traces for the serving artifact. ``solve_scan`` is the
+JAX package's ``solve_scan``: ``max_steps`` masked attempts and the
+observations read from their emissions after the loop, with no host read,
+so that a CUDA graph can record a whole train step (``train.chunk``); it
+takes the same attempts as the host loop (see its docstring).
 
 Under autograd the loop records the differentiable solve with the JAX scan
 path's gradient semantics:
@@ -89,6 +94,7 @@ class AdaptiveMethod:
     interp_init: Callable
     interp_make: Callable
     interp_eval: Callable
+    interp_weights: Callable  # (x, dt) of shape (O,) -> C weights of (O,)
 
 
 DOPRI5_METHOD = AdaptiveMethod(
@@ -97,6 +103,7 @@ DOPRI5_METHOD = AdaptiveMethod(
     interp_init=interp_lib._interp_init,
     interp_make=interp_lib._interp_state,
     interp_eval=interp_lib._interp_eval,
+    interp_weights=interp_lib.dopri5_interp_weights,
 )
 
 TSIT5_METHOD = AdaptiveMethod(
@@ -105,6 +112,7 @@ TSIT5_METHOD = AdaptiveMethod(
     interp_init=interp_lib.tsit5_interp_init,
     interp_make=interp_lib.tsit5_interp_state,
     interp_eval=interp_lib.tsit5_interp_eval,
+    interp_weights=interp_lib.tsit5_interp_weights,
 )
 
 # options={"reference_weights": True}: the same solver with the reference's
@@ -131,6 +139,28 @@ class RKState(NamedTuple):
     interp: Optional[object] = None  # last accepted step's dense output
 
 
+def _trial(func, rk: RKState, ctrl: Controller, coeffs: StageCoeffs,
+           dt: torch.Tensor, veto: Optional[torch.Tensor] = None,
+           groups=None):
+    """The RK step of one attempt from ``rk`` at step size ``dt`` (rk.dt,
+    or ``solve_scan``'s masked step) and its verdict: (y1, f1, k, accept,
+    finite, dt_next). An attempt with any non-finite stage, trial state or
+    error estimate, or one that ``veto`` (a 0-dim bool) marks, is rejected
+    with rk.dt·dfactor (maximal shrink), whatever its error ratio says."""
+    y1, f1, y1_error, k = runge_kutta_step(func, rk.y, rk.f, rk.t1, dt,
+                                           coeffs)
+    finite = all_finite(*leaves(y1), *leaves(y1_error), *leaves(k),
+                        group=state_group(groups))
+    ok = finite if veto is None else finite & ~veto
+    ratios = error_ratios(y1_error, rk.y, y1, ctrl.rtol, ctrl.atol,
+                          rk.t1.dtype, groups=groups)
+    accept, max_ratio = accept_and_max_ratio(ratios)
+    accept = accept & ok
+    dt_next = torch.where(ok, optimal_step_size(rk.dt, max_ratio, ctrl),
+                          rk.dt * ctrl.dfactor)
+    return y1, f1, k, accept, finite, dt_next
+
+
 def _attempt_step(method: AdaptiveMethod, func, rk: RKState, ctrl: Controller,
                   coeffs: StageCoeffs, groups=None):
     """One accept-or-reject step, branch-free; the state keeps the last
@@ -140,16 +170,8 @@ def _attempt_step(method: AdaptiveMethod, func, rk: RKState, ctrl: Controller,
     rejected with dt·dfactor (maximal shrink), whatever its error ratio says.
     ``groups``: the process group of each node-sharded leaf (``solve``).
     """
-    y1, f1, y1_error, k = runge_kutta_step(func, rk.y, rk.f, rk.t1, rk.dt,
-                                           coeffs)
-    finite = all_finite(*leaves(y1), *leaves(y1_error), *leaves(k),
-                        group=state_group(groups))
-    ratios = error_ratios(y1_error, rk.y, y1, ctrl.rtol, ctrl.atol,
-                          rk.t1.dtype, groups=groups)
-    accept, max_ratio = accept_and_max_ratio(ratios)
-    accept = accept & finite
-    dt_next = torch.where(finite, optimal_step_size(rk.dt, max_ratio, ctrl),
-                          rk.dt * ctrl.dfactor)
+    y1, f1, k, accept, finite, dt_next = _trial(func, rk, ctrl, coeffs,
+                                                rk.dt, groups=groups)
     new_interp = method.interp_make(rk.y, y1, k, rk.dt, coeffs)
 
     def pick(a, b):
@@ -244,6 +266,168 @@ def solve(method: AdaptiveMethod, func, y0, t: torch.Tensor,
     stats = SolveStats(nfe=nfe, n_accepted=nacc, n_rejected=nrej,
                        success=ok and len(sol) >= T, host_syncs=syncs)
     return stack_solution(sol, T), stats
+
+
+def solve_scan(method: AdaptiveMethod, func, y0, t: torch.Tensor,
+               ctrl: Controller, max_steps: int,
+               first_step: Optional[float] = None,
+               emission_dtype: Optional[torch.dtype] = None,
+               emission_readout: Optional[Callable] = None):
+    """The differentiable solve as a bounded program that never reads the
+    device from the host: the port of the JAX package's ``solve_scan``.
+    Returns (solution, SolveStats) with 0-dim device tensors for the counts
+    and ``success``, and ``host_syncs`` 0.
+
+    It runs exactly ``max_steps`` step attempts. An attempt is live until
+    the carry reaches t[-1] or its dt underflows; a live attempt is
+    ``solve``'s attempt, the same arithmetic, and one that is not (frozen)
+    runs at dt = 0 and is masked out with ``torch.where``: it adds nothing
+    to the carry, to NFE or the accept / reject counts, and a zero
+    cotangent to the gradients. (The JAX package skips frozen iterations
+    with ``lax.cond``; here they cost an attempt each, ROADMAP §1 entry
+    6b.) Each attempt emits its dense-output sources, read out by
+    ``emission_readout`` and rounded to ``emission_dtype`` where given,
+    masked to zero unless accepted, with its interval's ends and accept
+    flag. The observations are then read from the emissions as JAX reads
+    them: a running max of the accepted ends, ``searchsorted`` of t[1:] on
+    it, and one (O, S·C) × (S·C, numel) matmul a leaf whose one-hot rows
+    carry each observation's C interpolation weights (float32 sums, also
+    for bf16 emissions). Its answers agree with ``solve``'s to float32
+    rounding (the matmul sums the same terms in another order) with equal
+    NFE and counts.
+
+    Each attempt runs under a non-reentrant ``torch.utils.checkpoint``, the
+    counterpart of JAX's per-iteration rematerialization: the tape keeps
+    the carry between attempts and the emissions, and the backward runs
+    every attempt again, the operator products included (the graph
+    product's output is not kept, unlike JAX's ``ndcn_spmv`` policy: a kept
+    product of an overflowed attempt would reach the guard below
+    unmasked). The recomputation is the gradient guard (``grad_guard``): an
+    attempt whose forward went non-finite is recomputed at dt = 0 and
+    rejected, which is exactly ``forced_reject``'s primal, so its RHS
+    parameters get zero and dt keeps its dfactor sensitivity, where the
+    backward through the overflowed stages would give NaN. The flag that
+    selects this is set after the attempt's forward, from its own finite
+    flag, and read only by the recomputation: the forward never waits for
+    it.
+
+    ``t`` is the grid in the time dtype, on any device (it is moved to the
+    state's); a blown budget gives ``success`` False and finite values
+    where the observations were not reached (the callers turn them to NaN
+    with ``torch.where``)."""
+    from torch.utils.checkpoint import checkpoint
+
+    T = t.shape[0]
+    lead = leaves(y0)[0]
+    device = lead.device
+    t = t.to(device)
+    t_final = t[-1]
+    coeffs = stage_coeffs(method.tableau, lead.dtype, device)
+    n_evals = len(method.tableau.alpha)  # f0 comes from the last step (FSAL)
+    rk0, nfe0 = _init_rk_state(method, func, y0, t[0], ctrl, first_step)
+    bare = isinstance(y0, torch.Tensor)
+    m = len(leaves(y0))
+
+    def tree(flat):
+        return flat[0] if bare else tuple(flat)
+
+    def read_out(state):
+        return state if emission_readout is None else emission_readout(state)
+
+    def emit(interp, accept):
+        """The attempt's sources, read out and stacked (C, ...) leaf by
+        leaf, zero unless accepted."""
+        srcs = [leaves(read_out(c)) for c in interp]
+        out = []
+        for j in range(len(srcs[0])):
+            stack = torch.stack([src[j] for src in srcs])
+            if emission_dtype is not None:
+                stack = stack.to(emission_dtype)
+            out.append(torch.where(accept, stack, torch.zeros_like(stack)))
+        return out
+
+    def attempt(veto, live, t1, dt, *carry):
+        """One masked attempt (checkpointed). ``veto`` is the one-element
+        list the guard writes after the forward (see the docstring)."""
+        rk = RKState(y=tree(carry[:m]), f=tree(carry[m:]), t0=t1, t1=t1,
+                     dt=dt)
+        vetoed = veto[0]
+        dt_eff = torch.where(live & ~vetoed, dt, torch.zeros_like(dt))
+        y1, f1, k, accept, finite, dt_next = _trial(func, rk, ctrl, coeffs,
+                                                    dt_eff, vetoed)
+        accept = accept & live
+
+        def pick(a, b):
+            return torch.where(accept, a, b)
+
+        interp = method.interp_make(rk.y, y1, k, dt_eff, coeffs)
+        return (*leaves(tmap(pick, y1, rk.y)), *leaves(tmap(pick, f1, rk.f)),
+                pick(t1 + dt, t1), torch.where(live, dt_next, dt),
+                accept, finite, *emit(interp, accept))
+
+    def count(v):
+        return torch.full((), v, dtype=torch.int64, device=device)
+
+    carry = (*leaves(rk0.y), *leaves(rk0.f))
+    t1, dt = rk0.t1, rk0.dt
+    nfe, nacc, nrej = count(nfe0), count(0), count(0)
+    ok = torch.ones((), dtype=torch.bool, device=device)
+    accepts, ends0, ends1, emitted = [], [], [], []
+    for _ in range(max_steps):
+        live = (t1 < t_final) & ok
+        # dt-underflow guard (the reference asserts): flag and freeze
+        underflow = ~((t1 + dt) > t1)
+        veto = [torch.zeros((), dtype=torch.bool, device=device)]
+        out = checkpoint(attempt, veto, live, t1, dt, *carry,
+                         use_reentrant=False, preserve_rng_state=False)
+        accept, finite = out[2 * m + 2], out[2 * m + 3]
+        veto[0] = ~finite
+        accepts.append(accept)
+        ends0.append(t1)
+        ends1.append(torch.where(live, t1 + dt, t1))
+        emitted.append(out[2 * m + 4:])
+        carry, t1, dt = out[:2 * m], out[2 * m], out[2 * m + 1]
+        nfe = nfe + live.long() * n_evals
+        nacc = nacc + accept.long()
+        nrej = nrej + (live & ~accept).long()
+        ok = ok & ~(live & underflow)
+
+    # the dense output of every observation after t[0], from the accepted
+    # attempt whose interval covers it: rejected and frozen slots hold the
+    # running max of the accepted ends, so searchsorted lands on the first
+    # (accepting) slot of each value
+    acc = torch.stack(accepts)
+    t0s, t1s = torch.stack(ends0), torch.stack(ends1)
+    t1_acc = torch.cummax(torch.where(acc, t1s.detach(), torch.full_like(
+        t1s.detach(), float("-inf"))), dim=0).values
+    t_obs = t[1:].contiguous()
+    idx = torch.searchsorted(t1_acc, t_obs, side="left").clamp(
+        0, max_steps - 1)
+    t0g = t0s[idx]
+    dtg = t1s[idx] - t0g
+    x = (t_obs - t0g) / torch.where(dtg == 0, torch.ones_like(dtg), dtg)
+    w = torch.stack(method.interp_weights(x, dtg), dim=1)          # (O, C)
+    sel = idx[:, None] == torch.arange(max_steps, device=device)[None, :]
+    w_full = (sel.to(w.dtype)[:, :, None] * w[:, None, :]).reshape(
+        T - 1, -1)                                                  # (O, S·C)
+
+    def eval_leaf(j: int, y: torch.Tensor) -> torch.Tensor:
+        buf = torch.stack([e[j] for e in emitted])             # (S, C, ...)
+        flat = buf.reshape(buf.shape[0] * buf.shape[1], -1)
+        if emission_dtype is None:
+            out = w_full.to(flat.dtype) @ flat
+        else:
+            # the weights ride in the emission dtype, the sums in float32
+            out = w_full.to(emission_dtype).float() @ flat.float()
+        return torch.cat([y.unsqueeze(0), out.reshape(
+            (T - 1, *y.shape)).to(y.dtype)])
+
+    y0_out = read_out(y0)
+    sol = (eval_leaf(0, y0_out) if isinstance(y0_out, torch.Tensor)
+           else tuple(eval_leaf(j, y) for j, y in enumerate(y0_out)))
+    stats = SolveStats(nfe=nfe, n_accepted=nacc, n_rejected=nrej,
+                       success=ok & (t1 >= t_final), host_syncs=0)
+    return sol, stats
 
 
 class _Carry(NamedTuple):

@@ -24,6 +24,17 @@ Every method of the JAX package:
   accept and ignore the common options, as in the JAX package;
   ``differentiable=False`` runs them under ``torch.no_grad()`` too.
 
+``scan=True`` sends dopri5's and tsit5's differentiable solve to
+``adaptive.solve_scan``, the JAX package's bounded scan path: exactly
+``max_steps`` attempts and no read of the device from the host, so that a
+train step can be recorded into one CUDA graph (``train.chunk``); its
+stats are 0-dim device tensors. It takes one replica on one rank (not
+``batched``, no ``node_group``) and the differentiable solve only. Without
+it the differentiable solve is the host loop (``adaptive.solve``), whose
+numbers it keeps. While a CUDA graph is being captured the grid is taken
+as a tensor of the time dtype on the card, unchecked: the eager warm-up
+step that every capture follows checked the same grid.
+
 ``batched=True`` solves R independent replicas of the problem at once
 (``jax.vmap`` of the solve in the JAX package): every leaf of ``y0`` has a
 leading replica axis, the grid is shared, the solution is (len(t), R, ...)
@@ -83,10 +94,10 @@ _COMMON_OPTIONS = {"differentiable", "max_steps", "batched", "node_group",
 _METHOD_OPTIONS = {
     "dopri5": _COMMON_OPTIONS | {"safety", "ifactor", "dfactor", "first_step",
                                  "time_dtype", "emission_dtype",
-                                 "emission_readout"},
+                                 "emission_readout", "scan"},
     "tsit5": _COMMON_OPTIONS | {"safety", "ifactor", "dfactor", "first_step",
                                 "time_dtype", "reference_weights",
-                                "emission_dtype", "emission_readout"},
+                                "emission_dtype", "emission_readout", "scan"},
     "euler": _COMMON_OPTIONS | {"step_size"},
     "midpoint": _COMMON_OPTIONS | {"step_size"},
     "rk4": _COMMON_OPTIONS | {"step_size"},
@@ -126,6 +137,13 @@ def _canonical_time(t, time_dtype=None) -> torch.Tensor:
     return torch.as_tensor(t, dtype=tdtype)
 
 
+def _capturing(t) -> bool:
+    """Whether ``t`` is a card tensor read while a CUDA graph is captured,
+    when no copy to the host may be made."""
+    return (isinstance(t, torch.Tensor) and t.is_cuda
+            and torch.cuda.is_current_stream_capturing())
+
+
 def _maybe_reverse(func, t, time_dtype=None):
     """Validate the grid on the host; a decreasing grid integrates s = -t.
 
@@ -133,7 +151,7 @@ def _maybe_reverse(func, t, time_dtype=None):
     it is taken as it is, an increasing grid that the exporter checked
     before the trace (``serve.export_ndcn``), in the time dtype on its own
     device."""
-    if torch.compiler.is_exporting():
+    if torch.compiler.is_exporting() or _capturing(t):
         return func, t.to(_time_dtype(time_dtype))
     t = _canonical_time(t, time_dtype)
     if t.ndim != 1 or t.shape[0] < 2:
@@ -239,6 +257,15 @@ def odeint_with_stats(func: Callable, y0, t, rtol: float = 1e-7,
         with recording():
             return adaptive.solve_while(m, func, y0, t, ctrl, max_steps,
                                         first_step=options.get("first_step"))
+    if options.get("scan"):
+        if not differentiable or batched or groups is not None:
+            raise ValueError("scan=True is the differentiable solve of one "
+                             "replica on one rank (not differentiable="
+                             "False, batched or node_group)")
+        with recording():
+            return adaptive.solve_scan(m, func, y0, t, ctrl, max_steps,
+                                       first_step=options.get("first_step"),
+                                       **emission)
     solve = adaptive.solve_batched if batched else adaptive.solve
     with recording():
         return solve(m, func, y0, t, ctrl, max_steps=max_steps,
@@ -257,6 +284,9 @@ def odeint(func: Callable, y0, t, rtol: float = 1e-7, atol: float = 1e-9,
                                    method=method, options=options)
     if isinstance(stats, adaptive.BatchedSolveStats):
         return tmap(lambda b: nan_unless(stats.success, b, 1), sol)
+    if isinstance(stats.success, torch.Tensor):     # scan=True: no host read
+        return tmap(lambda b: torch.where(stats.success, b, torch.full_like(
+            b, float("nan"))), sol)
     if stats.success:
         return sol
     return tmap(lambda b: torch.full_like(b, float("nan")), sol)

@@ -3,7 +3,7 @@ fixed-grid rk4 step.
 
 As ``ndcn_tpu/ode/runge_kutta.py``: the stage derivatives are kept as a list
 and stacked out of place before each combination, a tensordot with the
-tableau's coefficients (as float32 tensors, made once per solve), leaf by
+tableau's coefficients (as tensors, made once per dtype and device), leaf by
 leaf of the state (``tree_math``). Nothing is written in place, so autograd
 can record the step: the differentiable solve backpropagates through every
 stage.
@@ -11,6 +11,7 @@ stage.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
@@ -30,16 +31,31 @@ class StageCoeffs(NamedTuple):
 def stage_coeffs(tab: Tableau, dtype: torch.dtype,
                  device: torch.device) -> StageCoeffs:
     """The step below takes the last stage as the solution (FSAL), which
-    holds for every tableau the port has."""
+    holds for every tableau the port has.
+
+    Made once per (tableau, dtype, device) and shared, never written: a
+    solve recorded into a CUDA graph (``train.chunk``) may copy nothing
+    from the host, and the first solve of a run has made them. A program
+    being traced (``torch.export``) and a solve under inference mode make
+    their own, so that no traced or inference tensor is kept."""
     if not tab.fsal:
         raise ValueError("runge_kutta_step takes FSAL tableaux only")
+    if torch.compiler.is_compiling() or torch.is_inference_mode_enabled():
+        return _make_coeffs(tab, dtype, device)
+    return _shared_coeffs(tab, dtype, device)
 
+
+def _make_coeffs(tab: Tableau, dtype: torch.dtype,
+                 device: torch.device) -> StageCoeffs:
     def vec(c):
         return torch.tensor(c, dtype=dtype, device=device)
 
     return StageCoeffs(alpha=tab.alpha, beta=tuple(vec(b) for b in tab.beta),
                        c_error=vec(tab.c_error),
                        c_mid=None if tab.c_mid is None else vec(tab.c_mid))
+
+
+_shared_coeffs = functools.lru_cache(maxsize=None)(_make_coeffs)
 
 
 def runge_kutta_step(func: Callable, y0, f0, t0: torch.Tensor,

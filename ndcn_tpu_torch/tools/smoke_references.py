@@ -1,6 +1,6 @@
-"""The CPU references ``chip_smoke.py`` holds the card against in [15] b
-and [21] a, computed once on the CPU and kept as a fixture, so that the
-smoke's call spends no time on them:
+"""The CPU references ``chip_smoke.py`` holds the card against in [15] b,
+[16] b / d, [17] b / d and [21] a, computed once on the CPU and kept as a
+fixture, so that the smoke's call spends no time on them:
 
 - [15] b: the grid400 dense serving problem (the ``ndcn_forward_grid400``
   weights and x0) served on the CPU with tsit5, adams, fixed_adams and
@@ -10,7 +10,18 @@ smoke's call spends no time on them:
   100, irregular, seed 0; replica i seeded i) on each of [21]'s settings:
   the first step's losses, gradients and NFE on the CPU (the plain
   versions of the kernels), and the gradients of the same step in
-  float64 on the dense unfused route.
+  float64 on the dense unfused route;
+- [16] b: one cora differential_gcn step (``cora_step``) on dense, COO and
+  BSR: its loss, NFE and gradients; [16] d: the GCN driver's test
+  accuracy after 100 epochs on cora with ``--sparse``;
+- [17] b: one train step of each temporal baseline (``temporal_step``,
+  lstm / gru / rnn on dense, COO and BSR) on the heat driver's grid400
+  data: its loss and gradients;
+- [17] d: the LV demo's first 20 train losses, rk4 and dopri5
+  ``--adjoint``.
+
+``cora_step`` and ``temporal_step`` are the steps the smoke also runs on
+the card.
 
     python -m ndcn_tpu_torch.tools.smoke_references [--out PATH]
 
@@ -148,10 +159,136 @@ def replica_reference(label: str, problem) -> Dict[str, np.ndarray]:
     return out
 
 
+def data_dir() -> str:
+    return os.path.join(ROOT, "data")
+
+
+def load_cora():
+    from ndcn_tpu_torch.data import load_planetoid
+
+    return load_planetoid("cora", alpha=0.5, data_dir=data_dir())
+
+
+CORA_FORMATS = ("dense", "coo", "bsr")
+
+
+def cora_step(device, fmt: str, cora) -> dict:
+    """([16] b) one differential_gcn step on cora from seed 0's weights
+    (hidden 16, T 2 in 5 ticks, dopri5 at rtol = atol = 0.1, terminal):
+    its loss, NFE, wall ms and gradients (CPU tensors by name)."""
+    from ndcn_tpu_torch.graph.sparse import as_operator
+    from ndcn_tpu_torch.models import init_ndcn, ndcn_forward
+    from ndcn_tpu_torch.train.losses import cross_entropy
+
+    model = init_ndcn(torch.Generator().manual_seed(0), 1433, 16, 7,
+                      encoder_layers=1, device=device)
+    op = as_operator(cora.operator, sparse=fmt != "dense", format=fmt,
+                     device=device)
+    x = torch.as_tensor(cora.features, device=device)
+    idx = torch.as_tensor(cora.idx_train, device=device).long()
+    labels = torch.as_tensor(cora.labels, device=device).long()
+    vt = np.linspace(0, 2.0, 5).astype(np.float32)
+    t0 = time.perf_counter()
+    out, stats = ndcn_forward(model, op, vt, x, rtol=0.1, atol=0.1,
+                              method="dopri5", terminal=True, max_steps=64)
+    loss = cross_entropy(out[idx], labels[idx])
+    loss.backward()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    if not stats.success:
+        raise RuntimeError(f"cora {fmt} step failed on {device}")
+    return dict(loss=float(loss.detach()), nfe=stats.nfe,
+                ms=(time.perf_counter() - t0) * 1e3,
+                grads={n: p.grad.cpu() for n, p in model.named_parameters()})
+
+
+def gcn_driver_accuracy() -> float:
+    """([16] d) the dgnn driver's GCN on cora with ``--sparse``, 100
+    epochs, seed 0, on the CPU: the last row's test accuracy."""
+    from ndcn_tpu_torch.experiments import dgnn
+
+    out = dgnn.run(dgnn.build_parser().parse_args(
+        ["--model", "GCN", "--dataset", "cora", "--seed", "0", "--data_dir",
+         data_dir(), "--sparse", "--epochs", "100", "--platform", "cpu"]))
+    return float(out["rows"][-1][2])
+
+
+RNN_TYPES = ("lstm", "gru", "rnn")
+
+
+def temporal_problem():
+    """([17] b) the grid400 Kipf operator and the heat driver's train
+    observations (n, T) (T 5, tick 100, irregular, seed 0)."""
+    from ndcn_tpu_torch.graph.generators import build_network
+    from ndcn_tpu_torch.graph.operators import zipf_smoothing
+
+    _, _, _, target = heat_replica_problem()
+    return (zipf_smoothing(build_network("grid", 400)),
+            target[..., 0].T.contiguous())
+
+
+def temporal_step(rnn_type: str, fmt: str, device, problem,
+                  launch_counts=None) -> dict:
+    """([17] b) one train step of the ``rnn_type`` baseline (5 graph and 10
+    recurrent units, seed 0) one step ahead over the train grid: its loss,
+    wall ms, gradients (CPU tensors by name) and, with ``launch_counts``
+    (a callable), the counts it returns after the forward."""
+    from ndcn_tpu_torch.graph.sparse import as_operator
+    from ndcn_tpu_torch.models import init_temporal_gcn, temporal_gcn_forward
+    from ndcn_tpu_torch.train.losses import l1_loss
+
+    kipf, y_train = problem
+    model = init_temporal_gcn(torch.Generator().manual_seed(0), 1, 5, 400,
+                              10, rnn_type, device=device)
+    op = as_operator(kipf, sparse=fmt != "dense", format=fmt, device=device)
+    y = y_train.to(device)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pred = temporal_gcn_forward(model, op, y[:, :-1], rnn_type)
+    loss = l1_loss(pred, y[:, 1:])
+    fwd = launch_counts() if launch_counts is not None else None
+    loss.backward()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return dict(loss=float(loss.detach()), fwd_counts=fwd,
+                ms=(time.perf_counter() - t0) * 1e3,
+                grads={n: p.grad.cpu() for n, p in model.named_parameters()})
+
+
+LV_RUNS = {"rk4": ["--method", "rk4"],
+           "dopri5_adjoint": ["--method", "dopri5", "--adjoint"]}
+
+
+def lv_losses(label: str) -> np.ndarray:
+    """([17] d) the LV demo's first 20 train losses on the CPU."""
+    from ndcn_tpu_torch.experiments import lv
+
+    out = lv.main(["--niters", "20", "--platform", "cpu", *LV_RUNS[label]])
+    return np.asarray(out["train_losses"], np.float64)
+
+
+def _step_entry(rec: dict) -> Dict[str, np.ndarray]:
+    out = {"loss": np.float64(rec["loss"])}
+    if rec.get("nfe") is not None:
+        out["nfe"] = np.int64(rec["nfe"])
+    out.update({f"grad/{n}": g.numpy() for n, g in rec["grads"].items()})
+    return out
+
+
+def step_grads(ref: Dict[str, np.ndarray], key: str) -> dict:
+    """A step entry's gradients as CPU tensors by name."""
+    head = f"{key}/grad/"
+    return {k[len(head):]: torch.as_tensor(v) for k, v in ref.items()
+            if k.startswith(head)}
+
+
 def compute(keys: Optional[Sequence[str]] = None,
             log=print) -> Dict[str, np.ndarray]:
-    """The references as flat npz keys ``serve/<method>/...`` and
-    ``replicas/<label>/...``; ``keys`` limits them to those settings."""
+    """The references as flat npz keys ``serve/<method>/...``,
+    ``replicas/<label>/...``, ``cora/<fmt>/...``, ``gcn_driver/...``,
+    ``temporal/<rnn>_<fmt>/...`` and ``lv/<label>/...``; ``keys`` limits
+    them to those settings."""
     out: Dict[str, np.ndarray] = {}
     problem = None
     for method in SERVE_METHODS:
@@ -168,6 +305,34 @@ def compute(keys: Optional[Sequence[str]] = None,
                         for k, v in replica_reference(label,
                                                       problem).items()})
             log(f"replicas/{label}: {time.perf_counter() - t0:.1f} s")
+    cora = None
+    for fmt in CORA_FORMATS:
+        if keys is None or f"cora/{fmt}" in keys:
+            t0 = time.perf_counter()
+            cora = cora or load_cora()
+            out.update({f"cora/{fmt}/{k}": v for k, v in _step_entry(
+                cora_step(torch.device("cpu"), fmt, cora)).items()})
+            log(f"cora/{fmt}: {time.perf_counter() - t0:.1f} s")
+    if keys is None or "gcn_driver" in keys:
+        t0 = time.perf_counter()
+        out["gcn_driver/test_acc"] = np.float64(gcn_driver_accuracy())
+        log(f"gcn_driver: {time.perf_counter() - t0:.1f} s")
+    tp = None
+    for rnn_type in RNN_TYPES:
+        for fmt in CORA_FORMATS:
+            key = f"temporal/{rnn_type}_{fmt}"
+            if keys is None or key in keys:
+                t0 = time.perf_counter()
+                tp = tp or temporal_problem()
+                out.update({f"{key}/{k}": v for k, v in _step_entry(
+                    temporal_step(rnn_type, fmt, torch.device("cpu"),
+                                  tp)).items()})
+                log(f"{key}: {time.perf_counter() - t0:.1f} s")
+    for label in LV_RUNS:
+        if keys is None or f"lv/{label}" in keys:
+            t0 = time.perf_counter()
+            out[f"lv/{label}/train_losses"] = lv_losses(label)
+            log(f"lv/{label}: {time.perf_counter() - t0:.1f} s")
     return out
 
 

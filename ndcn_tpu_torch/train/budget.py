@@ -4,10 +4,13 @@
 The experiments probe the inference solve once at initialization and size the
 step-attempt budget of the training solve from it, with headroom. Exhaustion
 during training surfaces as a NaN loss (the solver flags success=False),
-never as a silently short trajectory. The JAX package's byte estimators are
-TPU layout models and are not ported; the scale experiment's ``--estimate``
-carries the port's own census (``experiments/large_graph.py``), and a replica
-sweep's guard measures one replica's step (``sweep_memory_estimate``).
+never as a silently short trajectory. Of the JAX package's byte estimators
+``scan_train_bytes`` is ported, the footprint of one bounded differentiable
+solve from its shapes, which the chunked train step's guard reads
+(``check_step_memory``, ``train.chunk``); the others are TPU layout models
+and are not: the scale experiment's ``--estimate`` carries the port's own
+census (``experiments/large_graph.py``), and a replica sweep's guard
+measures one replica's step (``sweep_memory_estimate``).
 
 For replica sweeps (``--replicas``, ``--batch_iters``) the budget helpers
 are the JAX package's, carried over as they are (arithmetic on attempt
@@ -30,6 +33,61 @@ def accelerator_memory_limit(device: torch.device) -> Optional[int]:
     if device.type != "cuda":
         return None
     return int(torch.cuda.get_device_properties(device).total_memory)
+
+
+def _tree_bytes(tree) -> int:
+    from ndcn_tpu_torch.ode.tree_math import leaves
+
+    return sum(leaf.numel() * leaf.element_size() for leaf in leaves(tree))
+
+
+def scan_train_bytes(method: str, max_steps: int, y_state,
+                     n_obs: int = 0, max_order: int = 12) -> int:
+    """The device memory of ONE bounded differentiable solve inside a train
+    step (``ode.adaptive.solve_scan``), from the solve's shapes: the JAX
+    package's ``scan_train_bytes``, the same formula. Per attempt the
+    forward emits the dense-output sources (whose cotangents the backward
+    materializes again) and the backward keeps the carry (y, f). ``y_state``
+    is the ODE state, a tensor or a tuple of them, on any device (``meta``
+    included): (n, hidden) for NDCN.
+
+    dopri5 / tsit5: max_steps · (2 · interp + 2 · y) bytes, interp the
+    method's dense-output sources (5 states for dopri5, 8 for tsit5); adams:
+    max_steps · (2 (max_order + 1) + 3) · y, the JAX package's VCABM carry;
+    any other method: 2 · max(n_obs, 2) · y, a carry a grid point."""
+    from ndcn_tpu_torch.ode import adaptive
+    from ndcn_tpu_torch.ode.tree_math import tmap
+
+    y_meta = tmap(lambda leaf: torch.empty_like(leaf, device="meta"), y_state)
+    y_b = _tree_bytes(y_meta)
+    if method in ("dopri5", "tsit5"):
+        m = {"dopri5": adaptive.DOPRI5_METHOD,
+             "tsit5": adaptive.TSIT5_METHOD}[method]
+        interp_b = sum(_tree_bytes(c) for c in m.interp_init(y_meta))
+        return max_steps * (2 * interp_b + 2 * y_b)
+    if method == "adams":
+        return max_steps * (2 * (max_order + 1) + 3) * y_b
+    return 2 * max(n_obs, 2) * y_b
+
+
+def check_step_memory(step_bytes: int, params, device: torch.device) -> None:
+    """Refuse a train step whose estimate does not fit the card, before it
+    runs: ``step_bytes`` (``scan_train_bytes``) plus the model's own bytes
+    (its parameters, their gradients and Adam's two moments) against
+    ``SWEEP_MEMORY_SHARE`` of the card's memory, as the sweep's guard sizes
+    its limit. Nothing on the CPU."""
+    limit = accelerator_memory_limit(device)
+    if limit is None:
+        return
+    model_b = 4 * sum(p.numel() * p.element_size() for p in params)
+    share = int(SWEEP_MEMORY_SHARE * limit)
+    if step_bytes + model_b > share:
+        raise SystemExit(
+            f"the bounded train step needs ~{(step_bytes + model_b) / 1e9:.1f}"
+            f" GB of device memory ({step_bytes / 1e9:.1f} GB for the solve's "
+            f"attempts, {model_b / 1e6:.0f} MB for the model and Adam; budget "
+            f"{share / 1e9:.1f} GB): lower --max_steps or --hidden, or drop "
+            f"--scan_chunk")
 
 
 def probe_step_budget(solve_nondiff: Callable[[], "object"],

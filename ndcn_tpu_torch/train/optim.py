@@ -22,9 +22,76 @@ from ndcn_tpu_torch.parallel.mesh import all_reduce_grads
 
 def torch_adam(params: Iterable[torch.Tensor], lr: float,
                weight_decay: float = 0.0, b1: float = 0.9, b2: float = 0.999,
-               eps: float = 1e-8) -> torch.optim.Adam:
-    return torch.optim.Adam(params, lr=lr, betas=(b1, b2), eps=eps,
-                            weight_decay=weight_decay)
+               eps: float = 1e-8,
+               capturable: bool = False) -> torch.optim.Adam:
+    """The reference's Adam; ``capturable`` gives ``CapturableAdam``, whose
+    update a CUDA graph can record (the chunked train step, ``train.chunk``),
+    on the CPU too."""
+    cls = CapturableAdam if capturable else torch.optim.Adam
+    return cls(params, lr=lr, betas=(b1, b2), eps=eps,
+               weight_decay=weight_decay)
+
+
+class CapturableAdam(torch.optim.Adam):
+    """``torch.optim.Adam`` whose step count is a 0-dim float32 tensor on
+    each parameter's device and whose update is ``torch.optim.Adam(
+    capturable=True)``'s arithmetic (the bias corrections and the step size
+    as device tensors; coupled L2, eps after the square root), on any
+    device: PyTorch's own capturable update refuses the CPU, and the
+    chunked step runs one optimizer on the card (graphed) and on the CPU
+    (eager). The update reads nothing on the host, so a CUDA graph can
+    record it. It rounds the step size otherwise than the default Adam,
+    whose bias corrections are host floats: the two part in the last bits.
+    At lr 0 it leaves the parameters alone (the capturable form would
+    divide by the zero step size), and still updates the moments.
+
+    Its hyper-parameters and ``state_dict`` are ``torch.optim.Adam``'s
+    (``capturable`` False in the groups), so that either loads the other's
+    checkpoints; a loaded step count moves to its parameter's device."""
+
+    def load_state_dict(self, state_dict) -> None:
+        super().load_state_dict(state_dict)
+        for p, state in self.state.items():
+            if "step" in state:
+                state["step"] = torch.as_tensor(
+                    state["step"], dtype=torch.float32).to(p.device)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("CapturableAdam.step takes no closure")
+        for group in self.param_groups:
+            beta1, beta2 = group["betas"]
+            lr, eps = group["lr"], group["eps"]
+            weight_decay = group["weight_decay"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                if not state:
+                    state["step"] = torch.zeros((), dtype=torch.float32,
+                                                device=p.device)
+                    state["exp_avg"] = torch.zeros_like(p)
+                    state["exp_avg_sq"] = torch.zeros_like(p)
+                step_t = state["step"]
+                exp_avg, exp_avg_sq = state["exp_avg"], state["exp_avg_sq"]
+                step_t += 1
+                grad = p.grad
+                if weight_decay != 0:
+                    grad = grad.add(p, alpha=weight_decay)
+                exp_avg.lerp_(grad, 1 - beta1)
+                exp_avg_sq.mul_(beta2).addcmul_(grad, grad, value=1 - beta2)
+                if lr == 0:
+                    # the capturable form divides by the step size
+                    continue
+                bias_correction1 = 1 - beta1 ** step_t
+                bias_correction2 = 1 - beta2 ** step_t
+                step_size_neg = (lr / bias_correction1).neg()
+                denom = (exp_avg_sq.sqrt()
+                         / (bias_correction2.sqrt() * step_size_neg)
+                         ).add_(eps / step_size_neg)
+                p.addcdiv_(exp_avg, denom)
+        return None
 
 
 def make_sgd_step(opt: torch.optim.Optimizer,

@@ -17,7 +17,9 @@ rel-L1 for a served trajectory on the GPU against the same server on the CPU
 (for the other solvers, or twice the CPU's own float32-vs-float64 distance
 where that is larger), and 1e-3 rel-L1 for a train step's gradients on the
 GPU against the CPU, the continuous adjoint's against its fixture too.
-Backward checks use non-symmetric matrices.
+Backward checks use non-symmetric matrices. The scan path's train step as
+a CUDA graph (``train.chunk``) is bit-equal to the same steps run eagerly,
+and K2 and K4 are bit-equal under ``--precision high``.
 """
 
 import os
@@ -1833,3 +1835,109 @@ def test_k3_replica_groups_cuda_match_plain_and_solo_launches(
         for i in range(r):
             assert torch.equal(got[i], bsr_spmm.bsr_spmm(mat_, other,
                                                          v[i].contiguous()))
+
+
+# ------------------------------------------------------------ the scan path
+
+def _heat_step(device, fmt, fused, dropout=0.0, rng=None, n=100):
+    """A model, its CapturableAdam and the bounded train step (the solve's
+    ``scan`` option) on an n-node grid's heat problem."""
+    from ndcn_tpu_torch.experiments.dynamics import nan_unless_ok
+    from ndcn_tpu_torch.train.losses import l1_loss
+    from ndcn_tpu_torch.train.optim import make_sgd_step, torch_adam
+
+    lap = operators.normalized_laplacian(generators.build_network("grid", n))
+    op = as_operator(lap if fmt == "dense" else sp.csr_matrix(lap),
+                     sparse=fmt != "dense", format=fmt, device=device)
+    rs = np.random.RandomState(0)
+    x0 = torch.as_tensor(rs.rand(n, 1).astype(np.float32), device=device)
+    vt = torch.linspace(0.0, 2.0, 9, device=device)
+    target = torch.as_tensor(rs.rand(n, 9).astype(np.float32), device=device)
+    model = init_ndcn(torch.Generator().manual_seed(0), 1, 20, 1,
+                      device=device)
+    opt = torch_adam(model.parameters(), 0.01, 1e-3, capturable=True)
+
+    def loss_fn():
+        out, stats = ndcn_forward(model, op, vt, x0, fused=fused,
+                                  max_steps=24, scan=True, dropout=dropout,
+                                  rng=rng, rtol=0.01, atol=0.001,
+                                  method="dopri5")
+        loss = nan_unless_ok(stats.success, l1_loss(out[..., 0].T, target))
+        return loss, loss / target.mean()
+
+    return model, opt, make_sgd_step(opt, loss_fn)
+
+
+@pytest.mark.parametrize("fmt,fused,dropout", [
+    ("dense", "auto", 0.0), ("bsr", "auto", 0.0), ("coo", False, 0.0),
+    ("coo", False, 0.2)])
+def test_graphed_step_is_bit_equal_to_the_eager_bounded_step(
+        cuda_device, fmt, fused, dropout):
+    """Three train steps as CUDA graph replays (``train.chunk``) against
+    the same steps run eagerly: losses and parameters bit-equal, one host
+    read; with dropout the masks come from a card generator the graph
+    registers."""
+    from ndcn_tpu_torch.train.chunk import TrainChunk
+
+    def gen():
+        return (torch.Generator(cuda_device).manual_seed(5) if dropout
+                else None)
+
+    g_e, g_g = gen(), gen()
+    m_e, _, eager = _heat_step(cuda_device, fmt, fused, dropout, g_e)
+    m_g, o_g, graphed = _heat_step(cuda_device, fmt, fused, dropout, g_g)
+    losses = [float(eager()[0]) for _ in range(3)]
+    chunk = TrainChunk(graphed, m_g.parameters(), o_g, g_g)
+    loss, _ = chunk(3)
+    assert chunk.host_reads == 1 and chunk.replays == 3
+    assert np.isfinite(loss) and loss == losses[-1]
+    assert all(torch.equal(a, b) for a, b in zip(m_e.parameters(),
+                                                 m_g.parameters()))
+    chunk.release()
+
+
+def test_chunk_captures_again_after_a_rollback(cuda_device):
+    """An optimizer state loaded with ``load_state_dict`` (the elastic
+    rollback) needs a new chunk, which captures again and replays the
+    steps the first one took from that state, bit for bit."""
+    import copy
+
+    from ndcn_tpu_torch.train.chunk import TrainChunk
+
+    model, opt, step = _heat_step(cuda_device, "dense", "auto")
+    first = TrainChunk(step, model.parameters(), opt)
+    first(2)
+    snap = copy.deepcopy((model.state_dict(), opt.state_dict()))
+    after = [first(1)[0], first(1)[0]]
+    params = [p.detach().clone() for p in model.parameters()]
+    first.release()
+    model.load_state_dict(snap[0])
+    opt.load_state_dict(snap[1])
+    again = TrainChunk(step, model.parameters(), opt)
+    assert [again(1)[0], again(1)[0]] == after
+    assert again.graph is not None
+    assert all(torch.equal(a, b) for a, b in zip(model.parameters(), params))
+
+
+def test_precision_high_leaves_k2_and_k4_bit_equal(cuda_device):
+    """``--precision high`` (TF32 for PyTorch's float32 products) does not
+    reach the split-TF32 kernels: K2 and K4 give the same bits."""
+    from ndcn_tpu_torch.kernels.platform import matmul_precision
+
+    a, h, w, b = _fused_inputs(400, 20, 3, cuda_device)
+    lap = operators.normalized_laplacian(generators.build_network("grid", 400))
+    op = as_operator(sp.csr_matrix(lap), sparse=True, format="bsr",
+                     device=cuda_device)
+
+    def both():
+        out = (fused_rhs.fused_rhs(a, h, w, b),
+               bsr_spmm.bsr_fused_rhs(op.fwd, op.bwd, h, w, b))
+        torch.cuda.synchronize()
+        return out
+
+    ref = both()
+    with matmul_precision("high"):
+        assert torch.get_float32_matmul_precision() == "high"
+        got = both()
+    assert torch.get_float32_matmul_precision() == "highest"
+    assert all(torch.equal(x, y) for x, y in zip(got, ref))

@@ -120,11 +120,15 @@ def test_driver_runs_finite_on_the_cpu(capsys):
 
 def test_driver_defaults_to_the_card():
     """``--platform`` defaults to gpu, which raises without a card;
-    ``--precision high`` is refused before any work."""
+    ``--precision high`` runs (TF32 for PyTorch's float32 products; on
+    the CPU the same losses) and restores the precision it found."""
     args = lv.build_parser().parse_args([])
     assert args.platform == "gpu" and args.method == "rk4"
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             lv.run(args)
-    with pytest.raises(NotImplementedError, match="§1 entry 6"):
-        lv.main(["--precision", "high", "--platform", "cpu"])
+    precision = torch.get_float32_matmul_precision()
+    argv = ["--niters", "4", "--test_freq", "2", "--platform", "cpu"]
+    out = lv.main(argv + ["--precision", "high"])
+    assert torch.get_float32_matmul_precision() == precision
+    assert out["train_losses"] == lv.main(argv)["train_losses"]

@@ -49,6 +49,16 @@ KW = dict(rtol=0.01, atol=0.001, method="dopri5")
 LAYERS = ("enc1", "enc2", "wt", "dec")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """Many small tensor operations: one thread runs them faster than a
+    pool that shares the cores with the other test processes."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def rel_l1(a, b):
     a, b = np.asarray(a), np.asarray(b)
     return float(np.abs(a - b).sum() / (np.abs(b).sum() + 1e-30))
@@ -485,9 +495,18 @@ def test_heat_experiment_auto_budget_and_refusals(tmp_path):
          "--method", "dopri5", "--platform", "cpu", "--fused_kernel"]))
     assert out["max_steps"] >= 8 and np.isfinite(out["final"]["abs_error"])
     base = ["--n", "25", "--platform", "cpu"]
-    with pytest.raises(NotImplementedError, match="§1 entry 6"):
+    # --scan_chunk, refused until ROADMAP §1 entry 6a was ported, runs
+    # (tests/test_torch_scan.py holds it against the JAX driver); what
+    # entry 6b keeps is refused
+    out = run("heat", build_parser("t").parse_args(
+        base + ["--time_tick", "6", "--niters", "4", "--test_freq", "4",
+                "--method", "dopri5", "--scan_chunk", "4"]))
+    assert out["scan_chunk"]["host_reads"] == 1
+    assert np.isfinite(out["final"]["abs_error"])
+    with pytest.raises(NotImplementedError, match="§1 entry 6b"):
         run("heat", build_parser("t").parse_args(
-            base + ["--method", "dopri5", "--scan_chunk", "4"]))
+            base + ["--method", "dopri5", "--scan_chunk", "4",
+                    "--adjoint"]))
     # adams under --export and --replicas, refused until ROADMAP §1
     # entries 11b′ and 11a′ were ported, run
     short = base + ["--time_tick", "6", "--niters", "2", "--test_freq", "2"]
@@ -516,24 +535,42 @@ def test_heat_experiment_auto_budget_and_refusals(tmp_path):
         base + ["--time_tick", "6", "--niters", "2", "--test_freq", "2",
                 "--sparse"]))
     assert out["max_steps"] == 256 and np.isfinite(out["final"]["abs_error"])
-    with pytest.raises(NotImplementedError, match="§1 entry 6"):
-        run("heat", build_parser("t").parse_args(
-            base + ["--method", "dopri5", "--precision", "high"]))
+    # --precision high (TF32 for PyTorch's float32 products) runs: on the
+    # CPU it changes nothing, and the run restores the setting it found
+    argv = base + ["--time_tick", "6", "--niters", "2", "--test_freq", "2",
+                   "--method", "dopri5"]
+    ref = run("heat", build_parser("t").parse_args(argv))
+    precision = torch.get_float32_matmul_precision()
+    out = run("heat", build_parser("t").parse_args(
+        argv + ["--precision", "high"]))
+    assert torch.get_float32_matmul_precision() == precision
+    assert out["train_losses"] == ref["train_losses"]
+    assert out["final"] == ref["final"]
+
+
+_LEVER_ARGV = ["--n", "36", "--time_tick", "8", "--niters", "4",
+               "--test_freq", "4", "--method", "dopri5", "--max_steps", "32",
+               "--platform", "cpu", "--sparse", "--sparse_format", "coo"]
+
+
+@pytest.fixture(scope="module")
+def lever_reference():
+    """The f32 run the three levers are held against (one run for the
+    three: it is deterministic)."""
+    return run("heat", build_parser("t").parse_args(_LEVER_ARGV))
 
 
 @pytest.mark.parametrize("flag", ["--kernel_precision", "--emission_precision",
                                   "--residual_precision"])
-def test_heat_experiment_runs_each_precision_lever(flag):
+def test_heat_experiment_runs_each_precision_lever(flag, lever_reference):
     """The three bf16 levers run in the heat experiment (COO operator, so that the
     kernel lever reaches K1), close to the f32 run, and the kernel switch is
     restored afterwards."""
     from ndcn_tpu_torch.kernels import coo_spmv
 
-    argv = ["--n", "36", "--time_tick", "8", "--niters", "4", "--test_freq",
-            "4", "--method", "dopri5", "--max_steps", "32", "--platform",
-            "cpu", "--sparse", "--sparse_format", "coo"]
-    ref = run("heat", build_parser("t").parse_args(argv))
-    out = run("heat", build_parser("t").parse_args(argv + [flag, "bf16"]))
+    ref = lever_reference
+    out = run("heat", build_parser("t").parse_args(_LEVER_ARGV
+                                                   + [flag, "bf16"]))
     assert coo_spmv.GATHER_BF16 is False
     got, want = out["final"]["train_loss"], ref["final"]["train_loss"]
     assert np.isfinite(got) and got != want
