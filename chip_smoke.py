@@ -193,7 +193,7 @@ Phases, one line each:
      ``--replicas 16`` for 10 iterations on dense ``--fused_kernel`` (K2),
      COO (K1) and BSR (K4, K3): the train losses fall; replicas 0-3 of a
      16-replica step against their runs alone (the first step's losses
-     within 1e-4, NFE equal; 5 steps' losses printed); time per
+     within 1e-4, NFE equal; 3 steps' losses printed); time per
      model-step against a step alone; the busy share under the profiler;
      what one step launches at R = 4 and R = 16 (replicas 0-3 four times
      over): the ATen operators it calls and the port's kernels equal (the
@@ -229,6 +229,9 @@ Phases, one line each:
      runs unsharded) with the losses of the run without it. Only one card:
      meshes of more ranks are checked on the CPU (gloo), by
      ``python -m ndcn_tpu_torch.parallel.dryrun 4 --device cpu`` and the tests.
+ [20]-[24] run beside a second process on the card ([23] and [24]'s), so
+ every time they print is a host-clock one under its load (``LOADED``);
+ [3]-[19], which time the kernels and their library calls, run alone.
  20. the serving artifact (``serve.export_ndcn``): grid400 dense
      ``fused="auto"`` (K2), grid400 BSR ``fused=False`` (K3) and ``"auto"``
      (K4) at the fixture's weights, and the 200k / 2.0M COO operator (K1),
@@ -244,11 +247,12 @@ Phases, one line each:
  21. the Adams family and the continuous adjoint under replicas, and the
      artifact with the Adams methods and the feature-major layout: (a) the
      heat driver with ``--replicas 4`` for 2 iterations with adams,
-     fixed_adams and explicit_adams (dense ``--fused_kernel``: K2's batched
+     fixed_adams and explicit_adams (at tick 20: its solve diverges on
+     this model from tick 40 on; dense ``--fused_kernel``: K2's batched
      form), dopri5 ``--adjoint`` on dense (K2), COO (K1, K1ᵀ) and BSR (K4,
      K3, K3ᵀ), and adams ``--adjoint`` on dense; for each, the first step's
-     losses and gradients of replicas 0 and 1 against their runs alone on
-     the card and of the four against the CPU (losses 1e-4; gradients
+     losses and gradients of replica 0 against its run alone on the card
+     and of the four against the CPU (losses 1e-4; gradients
      1e-3 rel-L1, or twice the CPU's own float32-vs-float64 distance where
      that is larger; for adams backprop the card's and the CPU's float32
      gradients each against the CPU's float64 ones, printed; the CPU's
@@ -282,10 +286,12 @@ Phases, one line each:
      with ``--model GCN`` and with ``--batch_iters --iter 2 --model
      DeepGCN2`` (all on COO), with ``--mesh`` on one rank (the JAX notice)
      and without it: the same losses.
- 23. the scan path and ``--scan_chunk`` (``ode.adaptive.solve_scan``,
+ 23. (with [24], in a process of its own started after [19], beside
+     [20]-[22]: ``scan_phases_main``) the scan path and ``--scan_chunk``
+     (``ode.adaptive.solve_scan``,
      ``train.chunk``): on grid400 dense (``fused="auto"``: K2), BSR (K4,
-     K3 in its backward) and COO (K1, K1ᵀ), 10 steps, and on [10]'s 200k
-     COO operator, 5 steps (dopri5, hidden 20, the auto budget), three
+     K3 in its backward) and COO (K1, K1ᵀ), 5 steps, and
+     on [10]'s 200k COO operator, 5 steps (dopri5, hidden 20, the auto budget), three
      copies of one model from one init: the host loop, the eager bounded
      step and a ``TrainChunk`` of the same steps (one CUDA graph
      replayed): the graph's last loss and every parameter bit-equal to
@@ -302,6 +308,29 @@ Phases, one line each:
      (the elastic rollback captures again: one capture a rollback more),
      and with ``--baseline lstm_gnn`` on COO: a host read a chunk, the
      kernels launched, finite losses.
+ 24. ``--scan_chunk`` with the Adams family, the continuous adjoint and
+     the mesh (``ode.vcabm.solve_vcabm_scan``, the bounded inference
+     solve under ``ode.adjoint``, the solves' ``node_group``), as [23]'s
+     settings (the host loop, the eager bounded step and the graph, 2
+     steps; ``bounded_setting``) on the heat driver's grid400 data cut in
+     time where a graph would hold too many attempts
+     (``tools.smoke_references.SCAN_SETTINGS``): (a) adams at tick 20
+     (``max_steps`` 32) and explicit_adams (tick 20: its solve diverges
+     on this model from tick 40 on) on dense (K2); (b)
+     the dopri5 adjoint at tick 6 (4 intervals × 12 attempts) on dense
+     (K2), COO (K1, K1ᵀ) and BSR (K4 + K3), and adams' adjoint (16
+     attempts); the first bounded step of each against the CPU's
+     committed reference (loss 1e-4, gradients 1e-3, NFE equal), the
+     adjoint's backward NFE an interval;
+     (c) [10]'s 200k COO step on a row block over the one-rank NCCL world
+     group (the solve's norms and the gradients' sum as collectives in
+     the graph; the row block's K1 launched, the whole operator's not),
+     beside [23]'s unsharded 200k step; then the heat driver with
+     ``--scan_chunk 3`` for 6 iterations with adams (tick 20) and with the
+     adjoint on COO (tick 6). Each setting prints live attempts beside
+     ``max_steps``, step ms three ways, capture seconds, launches a
+     replay and each kernel's count in one replay's trace, the eager
+     peak beside ``scan_train_bytes``.
   p. where the time goes: one request per serving setting and one train step
      per training setting (the 1M feature-major step included), one cora
      differential_gcn epoch (the driver's defaults, train and eval) on
@@ -310,11 +339,13 @@ Phases, one line each:
      kernel, kernel, plain), a torch.profiler breakdown (traces to
      build/traces/), and each kernel's launches in that one steady step or
      epoch.
-Then the kernels' JSON record, and last the device JSON line. Launch counts
+Then each phase's wall seconds (``[t]``), the kernels' JSON record, and
+last the device JSON line. Launch counts
 are zeroed just before each main-path phase (5-6, 8, 9, 10, each run of 12,
 13, 14, each part of 15, each run of 16 and 17, each driver run of 18 and
 19, each in-process request of 20 and 21, each driver run of 21, each
-row-block step and driver run of 22, each step and driver run of 23)
+row-block step and driver run of 22, each step and driver run of 23 and
+24, counted in their own process and added)
 and read just after its GPU work (a graph's replays launch what its
 capture counted);
 the served artifacts of 20 and 21 count their own launches in their own
@@ -339,6 +370,7 @@ Exits non-zero, printing no result, when there is no CUDA device or the
 package is missing; any failed check raises.
 """
 
+import atexit
 import contextlib
 import copy
 import json
@@ -370,6 +402,10 @@ PEAK_FLOPS = {"fp32": 67e12, "split_tf32": 495e12 / 3}
 # 'auto' must pick the route whose time on the card is no more than this
 # factor over the other's; shapes inside the factor are printed as ties
 ROUTE_TIE = 1.10
+
+# what [20]-[24]'s records say of their times
+LOADED = ("host-clock, taken while [20]-[22] and [23] / [24] shared the "
+          "card from two processes")
 
 
 def bound(n_bytes: float, flops: float, kind: str = "fp32") -> dict:
@@ -486,15 +522,318 @@ def plain_versions(on: bool = True):
          coo_shard._block_product_T) = saved
 
 
+# the kernels by their device names in a replay's trace (K1 over A and
+# over Aᵀ is one)
+SCAN_KERNEL_NAMES = {"fused_rhs": r"(?<![a-z_])fused_rhs_kernel",
+                     "bsr_fused_rhs": r"bsr_fused_rhs_kernel",
+                     "bsr_spmm": r"bsr_spmm_kernel",
+                     "coo_spmv": r"csr_rows_kernel"}
+
+
+def wall_ms(fn) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def spread(ms) -> dict:
+    return {"median": statistics.median(ms), "min": min(ms), "max": max(ms),
+            "n": len(ms)}
+
+
+def bounded_setting(dev, root: str, phase: str, label: str, op, vt, x0,
+                    target, fused, max_steps: int, steps: int, needed,
+                    method: str = "dopri5", adjoint: bool = False,
+                    group=None, ref=None) -> dict:
+    """One setting of [23] / [24]: three copies of one model trained
+    ``steps`` steps from one init: the host loop, the eager bounded step
+    and the graph (a ``TrainChunk`` of ``steps``), with CapturableAdam for
+    the last two. Before each eager bounded step the host loop's forward
+    runs at its weights (a fourth copy): the losses and NFE of the two
+    solves are compared there, since runs trained apart part at the
+    solver's discrete decisions (an accepted attempt more or less) once
+    their last bits differ. ``group``: the operator is a row block of it
+    (the loss and the gradients' sum over it). ``ref``: the CPU's first
+    step (loss, gradients and the bar of each gradient), held against the
+    eager bounded step's first."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from ndcn_tpu_torch import kernels
+    from ndcn_tpu_torch.experiments import dynamics
+    from ndcn_tpu_torch.models import init_ndcn, ndcn_forward
+    from ndcn_tpu_torch.train import budget as budget_lib
+    from ndcn_tpu_torch.train.chunk import TrainChunk
+    from ndcn_tpu_torch.train.losses import l1_loss
+    from ndcn_tpu_torch.train.optim import make_sgd_step, torch_adam
+
+    kw = dict(rtol=0.01, atol=0.001, method=method, adjoint=adjoint)
+    where = f"{phase} {label}"
+
+    def make(scan, capturable):
+        model = init_ndcn(torch.Generator().manual_seed(0), 1, 20, 1,
+                          device=dev)
+        opt = torch_adam(model.parameters(), 0.01, 1e-3,
+                         capturable=capturable)
+        grid = (torch.as_tensor(vt, dtype=torch.float32, device=dev)
+                if scan else vt)
+
+        def loss_fn():
+            out, stats = ndcn_forward(model, op, grid, x0, fused=fused,
+                                      max_steps=max_steps, scan=scan, **kw)
+            loss_fn.nfe = stats.nfe
+            loss_fn.stats = stats
+            loss = dynamics.nan_unless_ok(
+                stats.success, l1_loss(out[..., 0].T, target, group))
+            return loss, loss / target.mean()
+
+        def forward_stats():
+            with torch.no_grad():
+                return ndcn_forward(model, op, grid, x0, fused=fused,
+                                    max_steps=max_steps, scan=scan,
+                                    **dict(kw, adjoint=False))[1]
+
+        return (model, opt, make_sgd_step(opt, loss_fn, group),
+                forward_stats, loss_fn)
+
+    _, _, host, st_host, _ = make(False, False)
+    m_e, _, eager, st_eager, loss_e = make(True, True)
+    m_g, o_g, graphed, _, _ = make(True, True)
+    m_t, _, _, _, loss_t = make(False, False)
+    sh, se = st_host(), st_eager()
+    attempts = int(se.n_accepted) + int(se.n_rejected)
+    check(int(se.nfe) == sh.nfe and bool(se.success)
+          and attempts == sh.n_accepted + sh.n_rejected,
+          f"{where}: the bounded solve's stats {se} part from the host "
+          f"loop's {sh}")
+    # K1 over Aᵀ: the backward's launches beyond the recomputation of every
+    # attempt (all but the initial step's two evaluations); under the
+    # adjoint every augmented evaluation is one over A and one over Aᵀ. On
+    # a row block K1 counts apart.
+    k1 = "coo_spmv" if group is None else "coo_spmv_rowblock"
+    kernels.reset_launch_counts()
+    loss, _ = loss_e()
+    fwd = kernels.launch_counts()
+    loss.backward()
+    bwd = {k: v - fwd[k] for k, v in kernels.launch_counts().items()}
+    transposed = (bwd[k1] // 2 if adjoint
+                  else bwd[k1] - max(0, fwd[k1] - 2))
+    check("coo_spmv" not in needed or transposed > 0,
+          f"{where}: no K1 over Aᵀ in the backward ({fwd}, {bwd})")
+    first = None
+    if ref is not None:
+        grads = [p.grad.detach().cpu() for p in m_e.parameters()]
+        first = dict(loss_rel_l1_vs_cpu=abs(float(loss) - ref["loss"])
+                     / abs(ref["loss"]),
+                     grad_rel_l1_vs_cpu=[rel_l1(g, r) for g, r in
+                                         zip(grads, ref["grads"])],
+                     grad_bars=ref["bars"])
+        check(first["loss_rel_l1_vs_cpu"] <= 1e-4 and all(
+            e <= b for e, b in zip(first["grad_rel_l1_vs_cpu"],
+                                   ref["bars"])),
+              f"{where}: the first step parts from the CPU's: {first}")
+    m_e.zero_grad(set_to_none=True)
+    backward_nfe = ([int(b.nfe) for b in loss_e.stats.backward] if adjoint
+                    else None)
+    # the host loop and the eager bounded step, each loss read; the second
+    # eager step's peak memory and launches (those the graph records)
+    host_ms, host_losses = [], []
+    for _ in range(steps):
+        host_ms.append(wall_ms(lambda: host_losses.append(
+            float(host()[0]))))
+    eager_ms, eager_losses, eager_nfe = [], [], []
+    forced_losses, forced_nfe = [], []
+    for i in range(steps):
+        with torch.no_grad():
+            for a, b in zip(m_t.parameters(), m_e.parameters()):
+                a.copy_(b)
+            forced_losses.append(float(loss_t()[0]))
+        forced_nfe.append(int(loss_t.nfe))
+        if i != 1:
+            eager_ms.append(wall_ms(lambda: eager_losses.append(
+                float(eager()[0]))))
+        else:
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            kernels.reset_launch_counts()
+            eager_losses.append(float(eager()[0]))
+            per_step = kernels.launch_counts()
+            peak = torch.cuda.max_memory_allocated(dev) - base
+        eager_nfe.append(int(loss_e.nfe))
+    step_bytes = budget_lib.scan_train_bytes(
+        method, max_steps, torch.empty((x0.shape[0], 20), device="meta"))
+    chunk = TrainChunk(graphed, m_g.parameters(), o_g, None, step_bytes)
+    capture_s = time.perf_counter()
+    chunk.capture()
+    capture_s = time.perf_counter() - capture_s
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g_loss, _ = chunk(steps)
+    chunk_ms = (time.perf_counter() - t0) * 1e3
+    check(g_loss == eager_losses[-1] and all(
+        torch.equal(a, b) for a, b in zip(m_g.parameters(),
+                                          m_e.parameters())),
+          f"{where}: the graphed steps part from the eager bounded steps "
+          f"({g_loss} vs {eager_losses[-1]})")
+    check(chunk.host_reads == 1 and chunk.replays == steps,
+          f"{where}: {chunk.host_reads} host reads for {chunk.replays} "
+          f"replays")
+    gap = rel_l1(torch.tensor(eager_losses), torch.tensor(forced_losses))
+    check(gap <= 1e-5 and eager_nfe == forced_nfe,
+          f"{where}: the bounded steps' losses part from the host loop's at "
+          f"the same weights by {gap} (NFE {eager_nfe} vs {forced_nfe}): "
+          f"{eager_losses} vs {forced_losses}")
+    apart = rel_l1(torch.tensor(eager_losses), torch.tensor(host_losses))
+    replay_ms = [wall_ms(chunk.graph.replay) for _ in range(steps)]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        prof_wall = wall_ms(chunk.graph.replay)
+    out_dir = os.path.join(root, "build", "traces")
+    os.makedirs(out_dir, exist_ok=True)
+    trace = os.path.join(out_dir, f"scan{phase.strip('[]')}_{label}"
+                         ".trace.json")
+    prof.export_chrome_trace(trace)
+    with open(trace) as f:
+        kernel_events = [e for e in json.load(f)["traceEvents"]
+                         if e.get("ph") == "X" and e.get("cat") == "kernel"]
+    device_ms = sum(e["dur"] for e in kernel_events) / 1e3
+    found = {k: sum(1 for e in kernel_events if re.search(pat, e["name"]))
+             for k, pat in SCAN_KERNEL_NAMES.items()}
+    for k in needed:
+        check(found.get(k, 0) > 0, f"{where}: {k} was not launched inside "
+              f"the replay (profiled kernels: {found})")
+    chunk.release()
+    return dict(
+        method=method, adjoint=adjoint, max_steps=max_steps,
+        attempts=attempts, nfe=sh.nfe, host_loop_nfe=sh.nfe,
+        backward_nfe=backward_nfe, host_syncs_host_loop=sh.host_syncs,
+        losses_bit_equal=True, loss_rel_l1_vs_host_loop=gap,
+        nfe_per_step=eager_nfe, first_step_vs_cpu=first,
+        loss_rel_l1_vs_host_loop_trained_apart=apart,
+        host_reads_per_chunk=chunk.host_reads,
+        step_ms=dict(host_loop=spread(host_ms),
+                     eager_bounded=spread(eager_ms),
+                     graph_replay=spread(replay_ms),
+                     chunk_of_steps=chunk_ms / steps),
+        capture_s=capture_s,
+        profiled=dict(wall_ms=prof_wall, device_ms=device_ms,
+                      busy_share=device_ms / prof_wall,
+                      kernel_launches=len(kernel_events),
+                      kernels_in_replay=found),
+        k1_transposed_launches_per_step=transposed,
+        peak_bytes_eager_step=peak, scan_train_bytes=step_bytes,
+        launches_per_graphed_step={k: v for k, v in per_step.items() if v})
+
+
+def scan_more_phase(dev, root: str, add_launches, big: dict) -> dict:
+    """[24] the Adams family, the continuous adjoint and the mesh under
+    ``--scan_chunk`` (see the module docstring): returns the phase's
+    record, whose ``launches_per_graphed_step`` the kernels line takes."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch.distributed as dist
+
+    from ndcn_tpu_torch import kernels
+    from ndcn_tpu_torch.experiments import dynamics
+    from ndcn_tpu_torch.graph.sparse import as_operator
+    from ndcn_tpu_torch.parallel import coo_shard
+    from ndcn_tpu_torch.parallel.mesh import process_group
+    from ndcn_tpu_torch.tools import smoke_references as sr
+
+    t24 = time.perf_counter()
+    refs = sr.load()
+    problems, settings, per_graphed = {}, {}, {}
+    names = ("enc1.weight", "enc1.bias", "enc2.weight", "enc2.bias",
+             "wt.weight", "wt.bias", "dec.weight", "dec.bias")
+    for label, needed, steps in (
+            ("adams_dense", ["fused_rhs"], 2),
+            ("explicit_adams_dense", ["fused_rhs"], 2),
+            ("dopri5_adjoint_dense", ["fused_rhs"], 2),
+            ("dopri5_adjoint_coo", ["coo_spmv"], 2),
+            ("dopri5_adjoint_bsr", ["bsr_fused_rhs", "bsr_spmm"], 2),
+            ("adams_adjoint_dense", ["fused_rhs"], 2)):
+        fmt, fused, method, adjoint, tick, max_steps = \
+            sr.SCAN_SETTINGS[label]
+        if tick not in problems:
+            lap, t_h, x0_h, target_h = sr.heat_replica_problem(tick)
+            problems[tick] = (lap, t_h, x0_h.to(dev),
+                              target_h[..., 0].T.contiguous().to(dev))
+        lap, t_h, x0, target = problems[tick]
+        op = as_operator(lap if fmt == "dense" else sp.csr_matrix(lap),
+                         sparse=fmt != "dense", format=fmt, device=dev)
+        grads = sr.step_grads(refs, f"scan/{label}")
+        ref = dict(loss=float(refs[f"scan/{label}/loss"]),
+                   grads=[grads[n] for n in names], bars=[1e-3] * len(names))
+        settings[label] = rec = bounded_setting(
+            dev, root, "[24]", label, op, t_h, x0, target, fused, max_steps,
+            steps, needed, method=method, adjoint=adjoint, ref=ref)
+        rec["time_tick"] = tick
+        check(rec["nfe"] == int(refs[f"scan/{label}/nfe"]),
+              f"[24] {label}: NFE {rec['nfe']} on the card, "
+              f"{int(refs[f'scan/{label}/nfe'])} on the CPU")
+        for k, v in rec["launches_per_graphed_step"].items():
+            per_graphed.setdefault(k, {})[label] = v
+
+    # (c) [10]'s 200k COO step on a row block over the one-rank NCCL world
+    # group (every collective of the solve's norms and the gradients' sum
+    # runs, and the graph records them), beside [23]'s unsharded one
+    b = big
+    target_b = b["target"][..., 0].T.contiguous()
+    with process_group(dev):
+        op_rb = coo_shard.shard_coo_at(b["op"], 1, 0, None)._replace(
+            group=dist.group.WORLD)
+        settings["200k_coo_mesh"] = rec = bounded_setting(
+            dev, root, "[24]", "200k_coo_mesh", op_rb, b["t_train"],
+            b["x0"], target_b, False, b["max_steps"], 2, ["coo_spmv"],
+            group=dist.group.WORLD)
+        launched = rec["launches_per_graphed_step"]
+        check(launched.get("coo_spmv_rowblock", 0) > 0
+              and not launched.get("coo_spmv", 0),
+              f"[24] 200k_coo_mesh: the row-block step launched {launched}")
+    for k, v in rec["launches_per_graphed_step"].items():
+        per_graphed.setdefault(k, {})["200k_coo_mesh"] = v
+    del target_b
+
+    # the heat driver with --scan_chunk 3 for 6 iterations on the cut
+    # grids: adams on dense at tick 20, the adjoint on COO at tick 6
+    drivers = {}
+    for label, extra, needed in (
+            ("adams_dense", ["--method", "adams", "--max_steps", "48",
+                             "--time_tick", "20", "--fused_kernel"],
+             ["fused_rhs"]),
+            ("dopri5_adjoint_coo", ["--method", "dopri5", "--adjoint",
+                                    "--time_tick", "6", "--sparse",
+                                    "--sparse_format", "coo"],
+             ["coo_spmv"])):
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = dynamics.run("heat", dynamics.build_parser("heat").parse_args(
+            ["--network", "grid", "--n", "400", "--niters", "6",
+             "--test_freq", "3", "--scan_chunk", "3", *extra]))
+        counts = add_launches(f"[24] the heat driver {label}", needed)
+        sc = out["scan_chunk"]
+        check(sc["host_reads"] == sc["chunks"] == 2 and sc["steps"] == 6
+              and np.all(np.isfinite(out["train_losses"])),
+              f"[24] the heat driver {label}: {out}")
+        drivers[label] = dict(
+            train_losses=out["train_losses"], max_steps=out["max_steps"],
+            chunks=sc, seconds=time.perf_counter() - t0,
+            launches={k: v for k, v in counts.items() if v})
+    return dict(settings=settings, drivers=drivers,
+                launches_per_graphed_step=per_graphed,
+                seconds=time.perf_counter() - t24)
+
+
 def scan_chunk_phase(dev, root: str, add_launches, big: dict) -> dict:
     """[23] the scan path and ``--scan_chunk`` (see the module docstring):
     returns the phase's record, whose ``launches_per_graphed_step`` the
     kernels line takes."""
-    import re
-
     import numpy as np
     import scipy.sparse as sp
-    from torch.profiler import ProfilerActivity, profile
 
     from ndcn_tpu_torch import kernels
     from ndcn_tpu_torch.experiments import dynamics
@@ -502,174 +841,9 @@ def scan_chunk_phase(dev, root: str, add_launches, big: dict) -> dict:
     from ndcn_tpu_torch.models import init_ndcn, ndcn_forward
     from ndcn_tpu_torch.tools import smoke_references
     from ndcn_tpu_torch.train import budget as budget_lib
-    from ndcn_tpu_torch.train.chunk import TrainChunk
-    from ndcn_tpu_torch.train.losses import l1_loss
-    from ndcn_tpu_torch.train.optim import make_sgd_step, torch_adam
 
     t23 = time.perf_counter()
     kw = dict(rtol=0.01, atol=0.001, method="dopri5")
-    # the kernels by their device names (K1 over A and over Aᵀ is one)
-    names = {"fused_rhs": r"(?<![a-z_])fused_rhs_kernel",
-             "bsr_fused_rhs": r"bsr_fused_rhs_kernel",
-             "bsr_spmm": r"bsr_spmm_kernel", "coo_spmv": r"csr_rows_kernel"}
-
-    def wall_ms(fn) -> float:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3
-
-    def spread(ms) -> dict:
-        return {"median": statistics.median(ms), "min": min(ms),
-                "max": max(ms), "n": len(ms)}
-
-    def one_setting(label, op, vt, x0, target, fused, max_steps, steps,
-                    needed):
-        """Three copies of one model trained ``steps`` steps from one init:
-        the host loop, the eager bounded step and the graph (a chunk of
-        ``steps``), with CapturableAdam for the last two. Before each eager
-        bounded step the host loop's forward runs at its weights (a fourth
-        copy): the losses and NFE of the two solves are compared there,
-        since runs trained apart part at the solver's discrete decisions
-        (an accepted attempt more or less) once their last bits differ."""
-        def make(scan, capturable):
-            model = init_ndcn(torch.Generator().manual_seed(0), 1, 20, 1,
-                              device=dev)
-            opt = torch_adam(model.parameters(), 0.01, 1e-3,
-                             capturable=capturable)
-            grid = (torch.as_tensor(vt, dtype=torch.float32, device=dev)
-                    if scan else vt)
-
-            def loss_fn():
-                out, stats = ndcn_forward(model, op, grid, x0, fused=fused,
-                                          max_steps=max_steps, scan=scan,
-                                          **kw)
-                loss_fn.nfe = stats.nfe
-                loss = dynamics.nan_unless_ok(
-                    stats.success, l1_loss(out[..., 0].T, target))
-                return loss, loss / target.mean()
-
-            def forward_stats():
-                with torch.no_grad():
-                    return ndcn_forward(model, op, grid, x0, fused=fused,
-                                        max_steps=max_steps, scan=scan,
-                                        **kw)[1]
-
-            return (model, opt, make_sgd_step(opt, loss_fn), forward_stats,
-                    loss_fn)
-
-        _, _, host, st_host, _ = make(False, False)
-        m_e, _, eager, st_eager, loss_e = make(True, True)
-        m_g, o_g, graphed, _, _ = make(True, True)
-        m_t, _, _, _, loss_t = make(False, False)
-        sh, se = st_host(), st_eager()
-        attempts = int(se.n_accepted) + int(se.n_rejected)
-        check(int(se.nfe) == sh.nfe and bool(se.success)
-              and attempts == sh.n_accepted + sh.n_rejected,
-              f"[23] {label}: the bounded solve's stats {se} part from the "
-              f"host loop's {sh}")
-        # K1 over Aᵀ: the backward's launches beyond the recomputation of
-        # every attempt (all but the initial step's two evaluations)
-        kernels.reset_launch_counts()
-        loss, _ = loss_e()
-        fwd = kernels.launch_counts()
-        loss.backward()
-        bwd = {k: v - fwd[k] for k, v in kernels.launch_counts().items()}
-        transposed = bwd["coo_spmv"] - max(0, fwd["coo_spmv"] - 2)
-        check("coo_spmv" not in needed or transposed > 0,
-              f"[23] {label}: no K1 over Aᵀ in the backward ({fwd}, {bwd})")
-        # the host loop and the eager bounded step, each loss read; the
-        # second eager step's peak memory and launches (those the graph
-        # records)
-        host_ms, host_losses = [], []
-        for _ in range(steps):
-            host_ms.append(wall_ms(lambda: host_losses.append(
-                float(host()[0]))))
-        eager_ms, eager_losses, eager_nfe = [], [], []
-        forced_losses, forced_nfe = [], []
-        for i in range(steps):
-            with torch.no_grad():
-                for a, b in zip(m_t.parameters(), m_e.parameters()):
-                    a.copy_(b)
-                forced_losses.append(float(loss_t()[0]))
-            forced_nfe.append(loss_t.nfe)
-            if i != 1:
-                eager_ms.append(wall_ms(lambda: eager_losses.append(
-                    float(eager()[0]))))
-            else:
-                torch.cuda.synchronize()
-                base = torch.cuda.memory_allocated(dev)
-                torch.cuda.reset_peak_memory_stats(dev)
-                kernels.reset_launch_counts()
-                eager_losses.append(float(eager()[0]))
-                per_step = kernels.launch_counts()
-                peak = torch.cuda.max_memory_allocated(dev) - base
-            eager_nfe.append(int(loss_e.nfe))
-        step_bytes = budget_lib.scan_train_bytes(
-            "dopri5", max_steps, torch.empty((x0.shape[0], 20),
-                                             device="meta"))
-        chunk = TrainChunk(graphed, m_g.parameters(), o_g, None, step_bytes)
-        capture_s = time.perf_counter()
-        chunk.capture()
-        capture_s = time.perf_counter() - capture_s
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        g_loss, _ = chunk(steps)
-        chunk_ms = (time.perf_counter() - t0) * 1e3
-        check(g_loss == eager_losses[-1] and all(
-            torch.equal(a, b) for a, b in zip(m_g.parameters(),
-                                              m_e.parameters())),
-              f"[23] {label}: the graphed steps part from the eager "
-              f"bounded steps ({g_loss} vs {eager_losses[-1]})")
-        check(chunk.host_reads == 1 and chunk.replays == steps,
-              f"[23] {label}: {chunk.host_reads} host reads for "
-              f"{chunk.replays} replays")
-        gap = rel_l1(torch.tensor(eager_losses), torch.tensor(forced_losses))
-        check(gap <= 1e-5 and eager_nfe == forced_nfe,
-              f"[23] {label}: the bounded steps' losses part from the host "
-              f"loop's at the same weights by {gap} (NFE {eager_nfe} vs "
-              f"{forced_nfe}): {eager_losses} vs {forced_losses}")
-        apart = rel_l1(torch.tensor(eager_losses), torch.tensor(host_losses))
-        replay_ms = [wall_ms(chunk.graph.replay) for _ in range(steps)]
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            prof_wall = wall_ms(chunk.graph.replay)
-        out_dir = os.path.join(root, "build", "traces")
-        os.makedirs(out_dir, exist_ok=True)
-        trace = os.path.join(out_dir, f"scan23_{label}.trace.json")
-        prof.export_chrome_trace(trace)
-        with open(trace) as f:
-            kernel_events = [e for e in json.load(f)["traceEvents"]
-                             if e.get("ph") == "X"
-                             and e.get("cat") == "kernel"]
-        device_ms = sum(e["dur"] for e in kernel_events) / 1e3
-        found = {k: sum(1 for e in kernel_events if re.search(pat, e["name"]))
-                 for k, pat in names.items()}
-        for k in needed:
-            check(found.get(k, 0) > 0, f"[23] {label}: {k} was not launched "
-                  f"inside the replay (profiled kernels: {found})")
-        chunk.release()
-        return dict(
-            max_steps=max_steps, attempts=attempts, nfe=sh.nfe,
-            host_loop_nfe=sh.nfe, host_syncs_host_loop=sh.host_syncs,
-            losses_bit_equal=True, loss_rel_l1_vs_host_loop=gap,
-            nfe_per_step=eager_nfe,
-            loss_rel_l1_vs_host_loop_trained_apart=apart,
-            host_reads_per_chunk=chunk.host_reads,
-            step_ms=dict(host_loop=spread(host_ms),
-                         eager_bounded=spread(eager_ms),
-                         graph_replay=spread(replay_ms),
-                         chunk_of_steps=chunk_ms / steps),
-            capture_s=capture_s,
-            profiled=dict(wall_ms=prof_wall, device_ms=device_ms,
-                          busy_share=device_ms / prof_wall,
-                          kernel_launches=len(kernel_events),
-                          kernels_in_replay=found),
-            k1_transposed_launches_per_step=transposed,
-            peak_bytes_eager_step=peak, scan_train_bytes=step_bytes,
-            launches_per_graphed_step={k: v for k, v in per_step.items()
-                                       if v})
 
     lap, t_h, x0_h, target_h = smoke_references.heat_replica_problem()
     x0 = x0_h.to(dev)
@@ -687,15 +861,16 @@ def scan_chunk_phase(dev, root: str, add_launches, big: dict) -> dict:
             lambda: ndcn_forward(model, op, t_h, x0, fused=fused,
                                  nondiff=True, max_steps=1 << 14, **kw)[1],
             floor=8, headroom=2.5, slack=4, quantum=4)
-        settings[label] = rec = one_setting(label, op, t_h, x0, target,
-                                            fused, ms, 10, needed)
+        settings[label] = rec = bounded_setting(
+            dev, root, "[23]", label, op, t_h, x0, target, fused, ms, 5,
+            needed)
         for k, v in rec["launches_per_graphed_step"].items():
             per_graphed.setdefault(k, {})[label] = v
     b = big
     target_b = b["target"][..., 0].T.contiguous()
-    settings["200k_coo"] = rec = one_setting(
-        "200k_coo", b["op"], b["t_train"], b["x0"], target_b, False,
-        b["max_steps"], 5, ["coo_spmv"])
+    settings["200k_coo"] = rec = bounded_setting(
+        dev, root, "[23]", "200k_coo", b["op"], b["t_train"], b["x0"],
+        target_b, False, b["max_steps"], 5, ["coo_spmv"])
     for k, v in rec["launches_per_graphed_step"].items():
         per_graphed.setdefault(k, {})["200k_coo"] = v
     del target_b
@@ -745,6 +920,77 @@ def scan_chunk_phase(dev, root: str, add_launches, big: dict) -> dict:
     return dict(settings=settings, drivers=drivers,
                 launches_per_graphed_step=per_graphed,
                 seconds=time.perf_counter() - t23)
+
+
+def heat_200k(op, splits, dev) -> dict:
+    """[10]'s 200k training problem on ``op`` (the 200k / 2.2M normalized
+    Laplacian): x0 from seed 0, the port's heat ground truth at rtol 1e-6
+    / atol 1e-8 as the target, the train grid and the probed step budget
+    (an init from seed 0, dopri5, hidden 20)."""
+    import numpy as np
+
+    from ndcn_tpu_torch.experiments.dynamics import heat_ground_truth
+    from ndcn_tpu_torch.models import init_ndcn, ndcn_forward
+    from ndcn_tpu_torch.train.budget import probe_step_budget
+
+    x0 = torch.as_tensor(np.random.RandomState(0).uniform(
+        0.0, 25.0, (op.n, 1)).astype(np.float32), device=dev)
+    t0 = time.perf_counter()
+    truth, gt_stats = heat_ground_truth(op, x0, splits.t, rtol=1e-6,
+                                        atol=1e-8)
+    torch.cuda.synchronize()
+    gt_s = time.perf_counter() - t0
+    check(gt_stats.success, f"200k ground truth failed: {gt_stats}")
+    t_train = splits.t[splits.id_train]
+    model = init_ndcn(torch.Generator().manual_seed(0), 1, 20, 1, device=dev)
+    budget = probe_step_budget(
+        lambda: ndcn_forward(model, op, t_train, x0, nondiff=True,
+                             max_steps=1 << 14, rtol=0.01, atol=0.001,
+                             method="dopri5")[1],
+        floor=8, headroom=1.5, slack=2, quantum=4)
+    return dict(op=op, t_train=t_train, x0=x0, target=truth[splits.id_train],
+                max_steps=budget, gt_nfe=gt_stats.nfe, gt_seconds=gt_s)
+
+
+def scan_phases_main(out_path: str) -> None:
+    """[23] and [24] in a process of their own (``python3 chip_smoke.py
+    --scan-phases OUT``), which ``main`` starts once the phases that time a
+    kernel or a library call ([3]-[19]) are done and which runs beside
+    [20]-[22]: both sides are launch-bound on the host, and the smoke's
+    time limit holds them only side by side. It rebuilds [10]'s 200k problem from the same seeds and
+    writes the two records and the launches of their main-path runs to
+    ``out_path``; a failed check exits non-zero."""
+    from ndcn_tpu_torch import kernels
+    from ndcn_tpu_torch.graph.generators import build_sparse_graph
+    from ndcn_tpu_torch.graph.operators import normalized_laplacian_sparse
+    from ndcn_tpu_torch.graph.sparse import from_scipy_coo
+    from ndcn_tpu_torch.kernels import build
+    from ndcn_tpu_torch.kernels.platform import pin_fp32
+    from ndcn_tpu_torch.train.sampling import sample_times
+
+    torch.set_num_threads(2)
+    pin_fp32()
+    build.load()
+    dev = torch.device("cuda", 0)
+    root = os.path.dirname(os.path.abspath(__file__))
+    op = from_scipy_coo(normalized_laplacian_sparse(
+        build_sparse_graph(200_000, 10, seed=0)), device=dev)
+    big = heat_200k(op, sample_times(5.0, 40, "irregular", seed=0), dev)
+    launches = dict.fromkeys(kernels.launch_counts(), 0)
+
+    def add_launches(what: str, needed) -> dict:
+        counts = kernels.launch_counts()
+        for name in needed:
+            check(counts[name] > 0, f"{what} never launched {name}")
+        for name, c in counts.items():
+            launches[name] += c
+        return counts
+
+    scan23 = scan_chunk_phase(dev, root, add_launches, big)
+    torch.cuda.empty_cache()
+    scan24 = scan_more_phase(dev, root, add_launches, big)
+    with open(out_path, "w") as f:
+        json.dump(dict(scan23=scan23, scan24=scan24, launches=launches), f)
 
 
 def main() -> None:
@@ -848,6 +1094,15 @@ def main() -> None:
                                 host_syncs=st.host_syncs))
         return answers, first
 
+    # each phase's wall seconds, printed before the records: where the
+    # smoke's time limit goes
+    clock = {"at": time.perf_counter(), "phase": "1", "seconds": {}}
+
+    def mark_phase(phase: str) -> None:
+        now = time.perf_counter()
+        clock["seconds"][clock["phase"]] = now - clock["at"]
+        clock.update(at=now, phase=phase)
+
     # ---- 1. device
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -862,6 +1117,7 @@ def main() -> None:
           f"{torch.backends.cudnn.allow_tf32}")
     print(smi)
 
+    mark_phase("2")
     # ---- 2. build
     t0 = time.perf_counter()
     lib_path = build.build()
@@ -873,6 +1129,7 @@ def main() -> None:
     print(f"[2] build: {build_s:.3f} s for {[p.name for p in build.sources()]}"
           f" -> {lib_path.relative_to(root)}; ptxas: {regs}")
 
+    mark_phase("3")
     # ---- 3. K1 against its plain version
     t0 = time.perf_counter()
     adj = build_sparse_graph(200_000, 10, seed=0)
@@ -952,6 +1209,7 @@ def main() -> None:
           + json.dumps({"200k_d20": k1_main, "200k_d1": k1_d1,
                         "hub_d20": k1_hub}))
 
+    mark_phase("4")
     # ---- 4. K2 against its plain version, and the fused-vs-unfused sweep
     def routes(kind, op, width, n, seed):
         """One shape of the ``fused_profitable`` sweep: ``ode_func`` with the
@@ -1043,6 +1301,7 @@ def main() -> None:
                         "sweep": sweep}))
     check_routes([c["routes"] for c in sweep.values()])
 
+    mark_phase("5")
     # ---- 5. serve the 400-node grid, dense operator, fused="auto"
     kernels.reset_launch_counts()
     fx = dict(np.load(os.path.join(root, "tests", "fixtures",
@@ -1067,6 +1326,7 @@ def main() -> None:
                         "k2_launches": fused_rhs.LAUNCHES,
                         "requests": answers}))
 
+    mark_phase("6")
     # ---- 6. serve the 200k-node COO graph
     splits = sample_times(5.0, 40, "irregular", seed=0)
     gen = torch.Generator().manual_seed(0)
@@ -1107,6 +1367,7 @@ def main() -> None:
             main_launches[name] += c
         return counts
 
+    mark_phase("7")
     # ---- 7. backward and BSR kernels against their plain versions
     def grads_of(fn, ins, g):
         """(outputs of fn, a timed closure of the backward alone)."""
@@ -1320,6 +1581,7 @@ def main() -> None:
                   for r in dense_routes + bsr_routes if r["tie"]]}))
     check_routes(bsr_routes)
 
+    mark_phase("8-10")
     # ---- 8-10. training
     gx = dict(np.load(os.path.join(root, "tests", "fixtures",
                                    "ndcn_grads_grid400.npz")))
@@ -1450,27 +1712,12 @@ def main() -> None:
                                              "max_steps", "total_time")})))
 
     # 10. 200k COO: K1 forward, K1ᵀ backward
-    id_train = splits.id_train
-    x0_big = torch.as_tensor(np.random.RandomState(0).uniform(
-        0.0, 25.0, (op_big.n, 1)).astype(np.float32), device=dev)
-    t0 = time.perf_counter()
-    truth, gt_stats = heat_ground_truth(op_big, x0_big, splits.t, rtol=1e-6,
-                                        atol=1e-8)
-    torch.cuda.synchronize()
-    gt_s = time.perf_counter() - t0
-    check(gt_stats.success, f"200k ground truth failed: {gt_stats}")
-    target_big = truth[id_train]
-    del truth
-    t_train = splits.t[id_train]
+    big10 = heat_200k(op_big, splits, dev)
+    x0_big, target_big, t_train, budget = (
+        big10[k] for k in ("x0", "target", "t_train", "max_steps"))
     model_t = init_ndcn(torch.Generator().manual_seed(0), 1, 20, 1,
                         device=dev)
     model_p = copy.deepcopy(model_t)
-    budget = probe_step_budget(
-        lambda: ndcn_forward(model_t, op_big, t_train, x0_big, nondiff=True,
-                             max_steps=1 << 14, **train_kw)[1],
-        floor=8, headroom=1.5, slack=2, quantum=4)
-    big10 = dict(op=op_big, t_train=t_train, x0=x0_big, target=target_big,
-                 max_steps=budget)          # [23] trains it again
     kernels.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats(dev)
     res = train(model_t, op_big, t_train, x0_big, target_big, 5, False,
@@ -1486,10 +1733,12 @@ def main() -> None:
             for n, p in model_p.named_parameters()}
     check(max(errs.values()) <= 1e-3, f"200k kernel vs plain grads: {errs}")
     print("[10] train 200k COO: " + json.dumps(
-        dict(summary(res), ground_truth=dict(nfe=gt_stats.nfe, seconds=gt_s),
+        dict(summary(res), ground_truth=dict(nfe=big10["gt_nfe"],
+                                              seconds=big10["gt_seconds"]),
              max_steps=budget, peak_allocated_gb=peak_train_gb,
              launches=counts, grad_rel_l1_kernel_vs_plain=max(errs.values()))))
 
+    mark_phase("11")
     # ---- 11. the scale path's SpMV kernels against their plain versions
     t0 = time.perf_counter()
     adj_1m = build_sparse_graph(1_000_000, 10, seed=0)   # [14] takes it too
@@ -1595,6 +1844,7 @@ def main() -> None:
     csr_tensors.clear()
     torch.cuda.empty_cache()
 
+    mark_phase("12")
     # ---- 12. the scale experiment at 1M nodes (and 200k, bf16 and wide)
     def scale_args(*argv):
         return large_graph.build_parser().parse_args(list(argv))
@@ -1702,6 +1952,7 @@ def main() -> None:
         "200k_kernel_bf16": scale_summary(rec_k1bf, c_k1bf),
         "200k_fm_wide": scale_summary(rec_wide, c_wide)}))
 
+    mark_phase("13")
     # ---- 13. the microbenchmarks at their defaults
     from ndcn_tpu_torch.tools import (bench_wide_gather, microbench_sparse,
                                       probe_inkernel_gather)
@@ -1727,6 +1978,7 @@ def main() -> None:
         {"microbench_sparse": mb, "probe_inkernel_gather": probe,
          "bench_wide_gather": wide_tab, "launches": c_tools}))
 
+    mark_phase("14")
     # ---- 14. K1-w and the mutualistic and gene dynamics
     def k1w_case(a, d, seed):
         """K1-w forward and backward on the adjacency ``a`` at width d
@@ -1859,6 +2111,7 @@ def main() -> None:
     del hub_abs
     torch.cuda.empty_cache()
 
+    mark_phase("15")
     # ---- 15. the continuous adjoint, the other solvers, checkpoint / resume
     t15 = time.perf_counter()
     gx_t = torch.as_tensor(gx["target"].T[..., None], device=dev)
@@ -1989,6 +2242,7 @@ def main() -> None:
                         "drivers": drv15,
                         "seconds": time.perf_counter() - t15}))
 
+    mark_phase("16")
     # ---- 16. the classification tasks: K1 and K3 at the citation widths,
     # the card's train step against the CPU's, the showcase, the GCN zoo
     t16 = time.perf_counter()
@@ -2208,6 +2462,7 @@ def main() -> None:
         "seconds": time.perf_counter() - t16}))
     torch.cuda.empty_cache()
 
+    mark_phase("17")
     # ---- 17. the temporal-GNN baselines, report/, the Lotka-Volterra demo
     # and the T x alpha sweep
     t17 = time.perf_counter()
@@ -2410,6 +2665,7 @@ def main() -> None:
               "seconds": time.perf_counter() - t17}))
     torch.cuda.empty_cache()
 
+    mark_phase("18")
     # ---- 18. replica sweeps: the batched kernels, heat --replicas 16, the
     # showcase under --batch_iters --iter 25
     t18 = time.perf_counter()
@@ -2629,8 +2885,9 @@ def main() -> None:
 
         return make_sgd_step(opt, loss), last
 
-    def timed_steps(step, k=5):
-        step()
+    def timed_steps(step, k=5, warm=True):
+        if warm:
+            step()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(k):
@@ -2699,7 +2956,7 @@ def main() -> None:
               < np.mean(losses[0]), f"heat --replicas 16 {fmt}: the train "
               f"losses did not fall {losses}")
         # replicas 0-3 against their runs alone: the first step's losses
-        # and NFE, then 5 steps' losses
+        # and NFE, then 3 steps' losses
         step16, _, last16 = replica_step(op, fused, range(16))
         solos = [solo_step(op, fused, s) for s in range(4)]
         first16 = step16()[0].cpu()
@@ -2712,13 +2969,13 @@ def main() -> None:
               f"replicas 0-3 {first16[:4].tolist()} / NFE {nfe16} against "
               f"their runs alone {first} / {nfe1}")
         drift = [first16[:4].tolist()]
-        for _ in range(4):
+        for _ in range(2):
             drift.append(step16()[0].cpu()[:4].tolist())
         solo_losses = [[first[i]] + [float(solos[i][0]()[0])
-                                     for _ in range(4)] for i in range(4)]
+                                     for _ in range(2)] for i in range(4)]
         rec.update(first_step_loss_rel_err=loss_err, nfe_replicas_0_3=nfe16,
                    nfe_alone=nfe1,
-                   loss_rel_err_5_steps=float(np.max(np.abs(
+                   loss_rel_err_3_steps=float(np.max(np.abs(
                        np.array(drift).T - np.array(solo_losses)))
                        / np.abs(solo_losses).max()))
         # time per model-step: the batched step over 16 against a step alone
@@ -2825,6 +3082,7 @@ def main() -> None:
         "sparse_sweeps25": sparse18, "showcase_band": band25,
         "seconds": time.perf_counter() - t18}))
 
+    mark_phase("19")
     # ---- 19. the mesh: K1 / K1ᵀ / K1-fm on row blocks, the sharded drivers
     import torch.distributed as dist
 
@@ -3078,6 +3336,20 @@ def main() -> None:
         "step_ms_alternating": alt19,
         "heat": dyn19, "seconds": time.perf_counter() - t19}))
 
+    mark_phase("20")
+    # [23] and [24] in a process of their own beside [20]-[22]
+    # (``scan_phases_main``): the phases that time a kernel or a library
+    # call ([3]-[19]) are done, and every time from here to [24] is a
+    # host-clock one taken under the other process's load (``LOADED``).
+    # Its output goes to a log (one stream stays the smoke's); it is
+    # stopped at exit whatever happens here
+    scan_out = os.path.join(root, "build", "smoke_scan_phases.json")
+    scan_log = open(os.path.join(root, "build", "smoke_scan_phases.log"),
+                    "w")
+    scan_proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--scan-phases",
+         scan_out], cwd=root, stdout=scan_log, stderr=subprocess.STDOUT)
+    atexit.register(lambda: scan_proc.poll() is None and scan_proc.kill())
     # ---- 20. the serving artifact: export, then serve in a fresh process
     from ndcn_tpu_torch.data import load_planetoid
     from ndcn_tpu_torch.serve import export_ndcn, save_artifact
@@ -3203,8 +3475,9 @@ def main() -> None:
         host_reads=rec["host_reads"], launch_counts=rec["launch_counts"])
     shutil.rmtree(exp_dir, ignore_errors=True)
     print("[20] serving artifact (card: " + smi + "): " + json.dumps(dict(
-        art20, seconds=time.perf_counter() - t20)))
+        art20, times=LOADED, seconds=time.perf_counter() - t20)))
 
+    mark_phase("21")
     # ---- 21. the Adams family and the continuous adjoint under replicas;
     # the artifact with the Adams methods and the feature-major layout
     from ndcn_tpu_torch.parallel.sweep import (make_ndcn_replica_train_step,
@@ -3233,18 +3506,20 @@ def main() -> None:
                                 ["fused_rhs_batched"]),
     }
 
-    def first_grads(op, fused, method, adjoint, seeds, device):
+    def first_grads(op, fused, method, adjoint, seeds, device, problem):
         """The first step's losses and gradients of the heat driver's
         replica step over the replicas seeded ``seeds`` (one model when
-        there is one seed), on ``device``."""
+        there is one seed), on ``device``, on ``problem`` (the grid, x0
+        and the target)."""
+        vt, x0, target = problem
         models = [init_ndcn(torch.Generator().manual_seed(s), 1, 20, 1)
                   for s in seeds]
         model = (stack_models(models) if len(seeds) > 1
                  else models[0]).to(device)
         out, stats = ndcn_forward(
-            model, op, t_h, x0_h.to(device), method=method, fused=fused,
+            model, op, vt, x0.to(device), method=method, fused=fused,
             adjoint=adjoint, max_steps=256, rtol=0.01, atol=0.001)
-        tgt = target_h.to(device)
+        tgt = target.to(device)
         losses = (nan_unless(stats.success,
                              replica_l1(out.transpose(0, 1), tgt))
                   if len(seeds) > 1 else l1_loss(out, tgt).reshape(1))
@@ -3264,30 +3539,37 @@ def main() -> None:
             settings21.items():
         mat = sp.csr_matrix(grid_lap) if fmt != "dense" else grid_lap
         op = as_operator(mat, sparse=fmt != "dense", format=fmt, device=dev)
-        rec = {}
-        # the heat driver: R = 4 replicas, 5 iterations
+        # the heat driver's data at tick 100 ([18]'s), or the CPU
+        # references' own where the setting takes another tick
+        tick = smoke_references.REPLICA_TIME_TICK.get(label, 100)
+        if tick == 100:
+            heat21 = (t_h, x0_h, target_h)
+        else:
+            _, vt_p, x0_p, target_p = smoke_references.heat_replica_problem(
+                tick)
+            heat21 = (vt_p, x0_p.to(dev), target_p.to(dev))
+        rec = {"time_tick": tick}
+        # the heat driver: R = 4 replicas, 2 iterations
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
         out = run("heat", build_parser("heat").parse_args(
             ["--network", "grid", "--n", "400", "--method", method,
              "--niters", "2", "--test_freq", "2", "--replicas", str(R21),
-             *flags, *(["--adjoint"] if adjoint else [])]))
+             "--time_tick", str(tick), *flags,
+             *(["--adjoint"] if adjoint else [])]))
         torch.cuda.synchronize()
         rec["driver_seconds"] = time.perf_counter() - t0
         rec["driver_launches"] = {k: v for k, v in add_launches(
             f"heat --replicas {R21} {label}", needed).items() if v}
         rec["final"], rec["max_steps"] = out["final"], out["max_steps"]
-        # explicit Adams is unstable on this grid's longer steps (the JAX
-        # package's alike): its losses are recorded, not held finite
-        check(method == "explicit_adams"
-              or all(np.isfinite(out["train_losses"][-1])),
+        check(all(np.isfinite(out["train_losses"][-1])),
               f"heat --replicas {R21} {label}: train losses "
               f"{out['train_losses']}")
-        # the first step's losses and gradients: replicas 0 and 1 against
-        # their runs alone on the card, the card against the CPU
+        # the first step's losses and gradients: replica 0 against its run
+        # alone on the card, the card against the CPU
         kernels.reset_launch_counts()
         loss_c, grads_c, st_c = first_grads(op, fused, method, adjoint,
-                                            range(R21), dev)
+                                            range(R21), dev, heat21)
         torch.cuda.synchronize()
         rec["step_launches"] = {k: v for k, v in
                                 kernels.launch_counts().items() if v}
@@ -3296,9 +3578,9 @@ def main() -> None:
                           if not k.endswith("batched")),
               f"{label}: the replica step launched {rec['step_launches']}")
         errs = []
-        for i in (0, 1):
+        for i in (0,):
             loss_1, grads_1, _ = first_grads(op, fused, method, adjoint, [i],
-                                             dev)
+                                             dev, heat21)
             errs.append(dict(
                 loss=float(abs(loss_c[i] - loss_1[0]) / abs(loss_1[0])),
                 grads=max(rel_l1(g[i], h) for g, h in zip(grads_c,
@@ -3314,9 +3596,9 @@ def main() -> None:
         over = max(vs_cpu["grads"], *(e["grads"] for e in errs)) > grad_bar
         if over or (method == "adams" and not adjoint):
             # backprop through adams's step-size and order controller
-            # moves with float32's rounding (its NFE too), and explicit
-            # Adams is unstable on this grid: the bar is twice the CPU's
-            # own float32-vs-float64 distance where that is larger, as
+            # moves with float32's rounding (its NFE too): the bar is
+            # twice the CPU's own float32-vs-float64 distance where that
+            # is larger, as
             # [15] holds the other solvers' answers. For adams backprop
             # the card's float32 gradients are held against the same
             # float64 ones beside the CPU's: no farther from them
@@ -3331,7 +3613,7 @@ def main() -> None:
         check(all(e["loss"] <= 1e-4 and e["grads"] <= grad_bar
                   for e in errs)
               and vs_cpu["loss"] <= 1e-4 and vs_cpu["grads"] <= grad_bar,
-              f"{label}: replicas 0-1 against their runs alone {errs}, the "
+              f"{label}: replica 0 against its run alone {errs}, the "
               f"card against the CPU {vs_cpu}")
         rec.update(first_step_vs_alone=errs, first_step_card_vs_cpu=vs_cpu,
                    nfe_replicas=list(st_c.nfe), nfe_cpu=nfe_h)
@@ -3342,8 +3624,8 @@ def main() -> None:
         # seconds a model-step, and the step's peak beside the memory
         # guard's estimate (one replica's probe step, times R)
         init_fn, step_fn = make_ndcn_replica_train_step(
-            op, t_h, x0_h, target_h, method=method, fused=fused,
-            adjoint=adjoint, max_steps=256)
+            op, *heat21, method=method, fused=fused, adjoint=adjoint,
+            max_steps=256)
         model, opt = init_fn(replica_generators(0, R21))
         one_model, one_opt = init_fn(replica_generators(0, 1))
         est = sweep_memory_estimate(lambda: step_fn(one_model, one_opt), R21,
@@ -3351,7 +3633,8 @@ def main() -> None:
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
-        ms = timed_steps(lambda: step_fn(model, opt), k=1)
+        # warm already: the first steps above ran the same programs
+        ms = timed_steps(lambda: step_fn(model, opt), k=1, warm=False)
         rec["step_peak_gb"] = (torch.cuda.max_memory_allocated(dev)
                                - base) / 1e9
         rec["guard_estimate_gb"] = est["estimate"] / 1e9
@@ -3462,9 +3745,10 @@ def main() -> None:
             "launches_per_request"]["coo_spmv_T_wide"])
     print("[21] Adams and adjoint under replicas, Adams and feature-major "
           "artifacts (card: " + smi + "): " + json.dumps(dict(
-              replicas=rep21, artifacts=art21,
+              replicas=rep21, artifacts=art21, times=LOADED,
               seconds=time.perf_counter() - t21)))
 
+    mark_phase("22")
     # ---- 22. the model axis's paths (ROADMAP §1 entry 11c′): the
     # continuous adjoint, the lstm_gnn step and the GCN zoo on row-sharded
     # COO operators over the one-rank NCCL world group itself (not the None
@@ -3619,17 +3903,33 @@ def main() -> None:
     check(not dist.is_initialized(), "the process group outlived [22]")
     print("[22] the model axis's paths on a one-rank NCCL group (card: "
           + smi + "): " + json.dumps(dict(
-              paths=paths22, drivers=drivers22,
+              paths=paths22, drivers=drivers22, times=LOADED,
               seconds=time.perf_counter() - t22)))
     del kipf22, cora22, x_cora
     torch.cuda.empty_cache()
 
-    # ---- 23. the scan path and --scan_chunk
-    scan23 = scan_chunk_phase(dev, root, add_launches, big10)
-    print("[23] the scan path and --scan_chunk (card: " + smi + "): "
-          + json.dumps(scan23))
-    torch.cuda.empty_cache()
+    mark_phase("23-24")
+    # ---- 23-24. the scan path, --scan_chunk and its Adams, adjoint and
+    # mesh settings, from the process started after [19]
+    scan_rc = scan_proc.wait(timeout=600)
+    scan_log.close()
+    with open(scan_log.name) as f:
+        tail = f.read()[-3000:]
+    check(scan_rc == 0, f"[23] / [24]'s process exited {scan_rc}: {tail}")
+    with open(scan_out) as f:
+        scan_rec = json.load(f)
+    os.remove(scan_out)
+    scan23, scan24 = scan_rec["scan23"], scan_rec["scan24"]
+    for name, c in scan_rec["launches"].items():
+        main_launches[name] += c
+    print("[23] the scan path and --scan_chunk (card: " + smi + "; beside "
+          "[20]-[22], in a process of its own): " + json.dumps(
+              dict(scan23, times=LOADED)))
+    print("[24] the Adams family, the adjoint and the mesh under "
+          "--scan_chunk (card: " + smi + "; with [23]): "
+          + json.dumps(dict(scan24, times=LOADED)))
 
+    mark_phase("p")
     # ---- p. where the time goes
     for label, srv, x0 in (("grid400", server, fx["x0"]),
                            ("200k", server_big, requests[0])):
@@ -3840,10 +4140,17 @@ def main() -> None:
                library_ms=probe["index_select_us"] / 1e3,
                **bound(probe["rows"] * (2 * probe["k"] * 4 + 4), 0))
     K1 = "ndcn_tpu/kernels/coo_spmv.py:159"
-    # [23]: each kernel's launches in one graphed train step, by setting
-    graphed23 = {k: scan23["launches_per_graphed_step"].get(k, {})
+    # [23] and [24]: each kernel's launches in one graphed train step, by
+    # setting (K1 on [24] c's row block under its own count)
+    graphed23 = {k: {**scan23["launches_per_graphed_step"].get(k, {}),
+                     **scan24["launches_per_graphed_step"].get(k, {})}
                  for k in ("coo_spmv", "fused_rhs", "bsr_spmm",
                            "bsr_fused_rhs")}
+    graphed23["coo_spmv"].update(
+        {f"{label} (row block)": v for label, v in scan24[
+            "launches_per_graphed_step"].get("coo_spmv_rowblock", {}).items()})
+    mark_phase("end")
+    print("[t] phase seconds: " + json.dumps(clock["seconds"]))
     print(json.dumps({"kernels": [
         entry("coo_spmv", "coo_spmv.cu", K1, k1_main, k1t,
               launches_in_artifact=artifact_launches["coo_spmv"],
@@ -3969,4 +4276,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--scan-phases"]:
+        scan_phases_main(sys.argv[2])
+    else:
+        main()

@@ -39,8 +39,7 @@ largest bucket's size).
 The port's solver is a host loop that knows at once whether a solve
 exhausted its budget, so a NaN epoch is rolled back before the next epoch
 starts: snapshots and checkpoints only ever hold a state whose epoch was
-verified finite. What is not ported raises ``NotImplementedError`` naming
-its ROADMAP entry before any data loads.
+verified finite.
 
 ``--mesh`` under ``torchrun --nproc_per_node P`` (P > 1) lays the ranks
 out as ``make_mesh(data_divides=R, model_divides=n)`` (R the ``--iter``

@@ -61,23 +61,27 @@ summed over it, ``ode.adjoint``), and the temporal baselines on the
 rank's rows (``models.temporal_gcn``).
 
 ``--scan_chunk k`` trains k steps a host read, the JAX driver's chunked
-dispatch: the train solve is the bounded one (``ode.adaptive.solve_scan``,
-dopri5 and tsit5; the fixed-grid methods and the temporal baselines are
-static already) and Adam ``optim.CapturableAdam``; on the card each step
-is one CUDA graph replay (``train.chunk``), on the CPU it runs eagerly. The
-chunk bounds are the JAX driver's (the next ``test_freq`` and ``ckpt_freq``
-boundary, ``niters``), so the log and checkpoint iterations are the same;
-the loss is read once a chunk, and an elastic rollback builds a new chunk
-at the doubled budget (a capture again on the card). With dropout the
-graph draws its masks from a generator on the card. The adjoint, the
-Adams family and ``--mesh`` with it raise (ROADMAP §1 entry 6b).
+dispatch: the train solve is the bounded one (``ode.adaptive.solve_scan``
+for dopri5 and tsit5, ``ode.vcabm.solve_vcabm_scan`` for adams; the
+fixed-grid and fixed-order methods and the temporal baselines are static
+already), with ``--adjoint`` the continuous adjoint on the bounded
+inference solve (``ode.adjoint``), and Adam ``optim.CapturableAdam``; on
+the card each step is one CUDA graph replay (``train.chunk``), on the CPU
+it runs eagerly. Under ``--mesh`` the chunk is each rank's step on its row
+block: the solve's norms and the gradients' sum run over the model axis
+inside the graph (NCCL collectives captured with it). The chunk bounds are
+the JAX driver's (the next ``test_freq`` and ``ckpt_freq`` boundary,
+``niters``), so the log and checkpoint iterations are the same; the loss
+is read once a chunk, and an elastic rollback builds a new chunk at the
+doubled budget (a capture again on the card). With dropout the graph
+draws its masks from a generator on the card.
 
 ``--platform gpu`` (the default) trains on the first CUDA device and raises
 without one; ``--platform cpu`` runs the kernels' plain versions. Matrix
 products are pinned to full fp32 on both; ``--precision high`` runs
 PyTorch's float32 products in TF32 for the run instead
-(``kernels.platform.matmul_precision``). What is not ported raises
-``NotImplementedError`` naming its ROADMAP entry before any work is done.
+(``kernels.platform.matmul_precision``). Every flag of the JAX driver
+runs; the JAX driver's own argument errors are raised before any work.
 """
 
 from __future__ import annotations
@@ -177,9 +181,8 @@ def build_parser(name: str) -> argparse.ArgumentParser:
     return p
 
 
-def _refuse_unported(dynamics_kind: str, args: argparse.Namespace) -> None:
-    """The JAX driver's own argument errors, then what the port does not
-    have yet, all before any work."""
+def _refuse_arguments(dynamics_kind: str, args: argparse.Namespace) -> None:
+    """The JAX driver's own argument errors, before any work."""
     if args.export:
         if args.baseline in TEMPORAL_BASELINES:
             raise SystemExit("--export serializes the continuous-time "
@@ -207,24 +210,16 @@ def _refuse_unported(dynamics_kind: str, args: argparse.Namespace) -> None:
             raise SystemExit("--replicas is incompatible with --ckpt_dir/"
                              "--profile_dir/--scan_chunk (per-replica "
                              "training runs as one vmapped program)")
-    if args.scan_chunk > 0:
-        refused = [(args.adjoint, "--adjoint"),
-                   (args.method in ("adams", "explicit_adams",
-                                    "fixed_adams"), f"--method {args.method}"),
-                   (args.mesh, "--mesh")]
-        for cond, what in refused:
-            if cond:
-                raise NotImplementedError(
-                    f"not ported yet: --scan_chunk with {what}: ROADMAP §1 "
-                    f"entry 6b")
 
 
 def nan_unless_ok(success, loss: torch.Tensor) -> torch.Tensor:
     """``loss``, or NaN where the solve ran out of its budget: a
     ``torch.where`` on the solve's ``success``, the bounded solve's device
-    flag as it is (no host read), the host loop's bool as a tensor."""
+    flag as it is (no host read), the host loop's bool filled on the
+    device (no copy from the host, which a CUDA graph may not record: the
+    fixed-grid methods' bool is on the graphed step)."""
     ok = (success if isinstance(success, torch.Tensor)
-          else torch.tensor(success, device=loss.device))
+          else torch.full((), bool(success), device=loss.device))
     return torch.where(ok, loss, torch.full_like(loss, float("nan")))
 
 
@@ -264,7 +259,7 @@ def run(dynamics_kind: str, args: argparse.Namespace) -> Dict[str, Any]:
     from ndcn_tpu_torch.kernels.platform import matmul_precision
     from ndcn_tpu_torch.parallel.mesh import process_group, world_size
 
-    _refuse_unported(dynamics_kind, args)
+    _refuse_arguments(dynamics_kind, args)
     device = select_device(args.platform)
     # --kernel_precision bf16 sets the JAX package's GATHER_BF16 for the run
     with (process_group(device) if args.mesh and world_size() > 1
@@ -668,6 +663,8 @@ def _run(dynamics_kind: str, args: argparse.Namespace,
 
     if chunked:
         retire(chunk)
+        print("[scan_chunk] {chunks} chunks, {steps} steps, {host_reads} "
+              "host reads, {captures} captures".format(**chunk_stats))
     # ---------------------------------------------------------------- final
     ev = evaluate()
     if not np.isfinite(ev["loss"]):
@@ -682,7 +679,7 @@ def _run(dynamics_kind: str, args: argparse.Namespace,
     results.update(total_time=t_total, final=final,
                    elastic_retries=elastic.total_rollbacks)
     out = {"final": final, "train_losses": train_losses,
-           "max_steps": elastic.max_steps,
+           "final_nfe": int(ev["nfe"]), "max_steps": elastic.max_steps,
            "scan_chunk": chunk_stats if chunked else None,
            "elastic_retries": elastic.total_rollbacks, "total_time": t_total,
            "device": str(device), "n_params": n_params}

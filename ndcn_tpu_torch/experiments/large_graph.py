@@ -59,9 +59,8 @@ unsharded operator is then freed. The record's ``mesh_devices`` is the
 rank count and ``mesh_parity`` that first step's relative loss delta;
 rank 0 prints it. The ground truth is solved whole on every rank.
 
-What the port does not have raises ``NotImplementedError`` naming its
-ROADMAP entry before any work; ``--precision high`` runs PyTorch's float32
-products in TF32 (``kernels.platform.matmul_precision``).
+``--precision high`` runs PyTorch's float32 products in TF32
+(``kernels.platform.matmul_precision``).
 """
 
 from __future__ import annotations

@@ -5,8 +5,7 @@ the solver) and the inference forward (``nondiff=True``), in the (n, d)
 layout and the feature-major (d_sub, n) layout of the scale path, with
 dropout, the ``fused`` dispatch over dense (K2) and BSR (K4) operators, and
 the scale path's memory levers ``emission_dtype`` and ``residual_dtype``.
-Options that belong to later slices raise ``NotImplementedError`` naming
-their ROADMAP item; none is ignored.
+No option is ignored.
 
 A model whose parameters are stacked along a leading replica axis
 (``parallel.sweep.stack_models``: R models in one) runs R replicas at once,
@@ -157,10 +156,12 @@ def ode_block(func, h0: torch.Tensor, vt, rtol: float, atol: float,
               emission_dtype=None, emission_readout=None,
               batched: bool = False, node_group=None, scan: bool = False):
     """odeint wrapper mirroring ODEBlock semantics; returns (out, stats).
-    ``scan``: dopri5's and tsit5's differentiable solve is the bounded one
-    (the solve's ``scan`` option, ``ode.adaptive.solve_scan``); the
-    fixed-grid methods solve as they are (their loop reads nothing), and
-    the adjoint and the Adams family raise (ROADMAP §1 entry 6b).
+    ``scan``: the adaptive methods' solve is the bounded one (the solve's
+    ``scan`` option: ``ode.adaptive.solve_scan`` for dopri5 and tsit5,
+    ``ode.vcabm.solve_vcabm_scan`` for adams), and with ``adjoint`` the
+    forward and the backward's interval solves are its inference form; the
+    fixed-grid and fixed-order methods solve as they are (their loop reads
+    nothing).
     ``batched``: h0 carries a leading replica axis (one batched solve).
     ``node_group``: the process group h0's node rows split over (the
     solve's option of that name: its norms are over every rank's rows).
@@ -171,11 +172,6 @@ def ode_block(func, h0: torch.Tensor, vt, rtol: float, atol: float,
     solve's. The emission options
     reach the solver on the differentiable adaptive path only, as the JAX
     package's ``ode_block`` passes them (not under the adjoint)."""
-    if scan and (adjoint or method in ("adams", "explicit_adams",
-                                       "fixed_adams")):
-        raise NotImplementedError(
-            "not ported yet: the bounded solve (scan) with the continuous "
-            "adjoint or the Adams family: ROADMAP §1 entry 6b")
     if adjoint:
         if params is None:
             raise ValueError("adjoint=True requires the params the RHS "
@@ -185,6 +181,8 @@ def ode_block(func, h0: torch.Tensor, vt, rtol: float, atol: float,
             options["batched"] = True
         if node_group is not None:
             options["node_group"] = node_group
+        if scan:
+            options["scan"] = True
         sol, stats = odeint_adjoint_with_stats(
             func, h0, vt, tuple(params), rtol=rtol, atol=atol, method=method,
             options=options)
@@ -194,9 +192,11 @@ def ode_block(func, h0: torch.Tensor, vt, rtol: float, atol: float,
         options["batched"] = True
     if node_group is not None:
         options["node_group"] = node_group
+    if scan:
+        options["scan"] = True
     if method in ("dopri5", "tsit5") and not nondiff:
         options.update(emission_dtype=emission_dtype,
-                       emission_readout=emission_readout, scan=scan)
+                       emission_readout=emission_readout)
     sol, stats = odeint_with_stats(func, h0, vt, rtol=rtol, atol=atol,
                                    method=method, options=options)
     return (sol[-1] if terminal else sol), stats

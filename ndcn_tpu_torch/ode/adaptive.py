@@ -272,7 +272,8 @@ def solve_scan(method: AdaptiveMethod, func, y0, t: torch.Tensor,
                ctrl: Controller, max_steps: int,
                first_step: Optional[float] = None,
                emission_dtype: Optional[torch.dtype] = None,
-               emission_readout: Optional[Callable] = None):
+               emission_readout: Optional[Callable] = None, groups=None,
+               differentiable: bool = True):
     """The differentiable solve as a bounded program that never reads the
     device from the host: the port of the JAX package's ``solve_scan``.
     Returns (solution, SolveStats) with 0-dim device tensors for the counts
@@ -311,6 +312,22 @@ def solve_scan(method: AdaptiveMethod, func, y0, t: torch.Tensor,
     flag, and read only by the recomputation: the forward never waits for
     it.
 
+    ``differentiable=False`` runs the attempts as they are, with no
+    checkpoint and no guard: the bounded inference solve, which the
+    continuous adjoint runs under ``torch.no_grad()`` for its forward and
+    each interval of its backward (``ode.adjoint``). Each observation is
+    then evaluated as the host loop evaluates it, from the sources of the
+    accepted attempt that covers it (gathered, not summed by the matmul):
+    with the same budget it gives the host loop's attempts and answers bit
+    for bit, as the JAX package's ``solve_while`` gives its own, so the
+    adjoint's backward starts every interval from the host loop's state.
+
+    ``groups`` (``tree_math.leaf_groups``): the process group of each
+    node-sharded leaf, as in ``solve``. The norms and the finite flag are
+    over every rank, so the live mask is too: every rank runs the same
+    attempts, frozen ones included, and issues the same collectives in the
+    same order, also in the checkpoint's recomputation.
+
     ``t`` is the grid in the time dtype, on any device (it is moved to the
     state's); a blown budget gives ``success`` False and finite values
     where the observations were not reached (the callers turn them to NaN
@@ -324,7 +341,8 @@ def solve_scan(method: AdaptiveMethod, func, y0, t: torch.Tensor,
     t_final = t[-1]
     coeffs = stage_coeffs(method.tableau, lead.dtype, device)
     n_evals = len(method.tableau.alpha)  # f0 comes from the last step (FSAL)
-    rk0, nfe0 = _init_rk_state(method, func, y0, t[0], ctrl, first_step)
+    rk0, nfe0 = _init_rk_state(method, func, y0, t[0], ctrl, first_step,
+                               groups=groups)
     bare = isinstance(y0, torch.Tensor)
     m = len(leaves(y0))
 
@@ -354,7 +372,7 @@ def solve_scan(method: AdaptiveMethod, func, y0, t: torch.Tensor,
         vetoed = veto[0]
         dt_eff = torch.where(live & ~vetoed, dt, torch.zeros_like(dt))
         y1, f1, k, accept, finite, dt_next = _trial(func, rk, ctrl, coeffs,
-                                                    dt_eff, vetoed)
+                                                    dt_eff, vetoed, groups)
         accept = accept & live
 
         def pick(a, b):
@@ -378,8 +396,11 @@ def solve_scan(method: AdaptiveMethod, func, y0, t: torch.Tensor,
         # dt-underflow guard (the reference asserts): flag and freeze
         underflow = ~((t1 + dt) > t1)
         veto = [torch.zeros((), dtype=torch.bool, device=device)]
-        out = checkpoint(attempt, veto, live, t1, dt, *carry,
-                         use_reentrant=False, preserve_rng_state=False)
+        if differentiable:
+            out = checkpoint(attempt, veto, live, t1, dt, *carry,
+                             use_reentrant=False, preserve_rng_state=False)
+        else:
+            out = attempt(veto, live, t1, dt, *carry)
         accept, finite = out[2 * m + 2], out[2 * m + 3]
         veto[0] = ~finite
         accepts.append(accept)
@@ -404,6 +425,19 @@ def solve_scan(method: AdaptiveMethod, func, y0, t: torch.Tensor,
     idx = torch.searchsorted(t1_acc, t_obs, side="left").clamp(
         0, max_steps - 1)
     t0g = t0s[idx]
+    if not differentiable:
+        # each observation from its step's gathered sources by the host
+        # loop's own evaluation: the answers are the host loop's, bit for
+        # bit (the inference solve takes no emission lever)
+        srcs = [torch.stack([e[j] for e in emitted])[idx] for j in range(m)]
+        interp = type(rk0.interp)(*(
+            tree([src[:, c] for src in srcs])
+            for c in range(len(rk0.interp))))
+        obs = method.interp_eval(interp, t0g, t1s[idx], t_obs)
+        sol = tmap(lambda y, o: torch.cat([y.unsqueeze(0), o]), y0, obs)
+        stats = SolveStats(nfe=nfe, n_accepted=nacc, n_rejected=nrej,
+                           success=ok & (t1 >= t_final), host_syncs=0)
+        return sol, stats
     dtg = t1s[idx] - t0g
     x = (t_obs - t0g) / torch.where(dtg == 0, torch.ones_like(dtg), dtg)
     w = torch.stack(method.interp_weights(x, dtg), dim=1)          # (O, C)

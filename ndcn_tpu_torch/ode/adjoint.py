@@ -41,6 +41,17 @@ interval reads NaN alone, and replica r's parameter cotangent is its own,
 since replica r of the stacked RHS reads only its own slice of the
 parameters. The kernels' batched forms run inside the VJP.
 
+With ``options={"scan": True}`` (a train step that a CUDA graph records,
+``train.chunk``) nothing reads the device from the host: the forward and
+every interval solve of the backward are the bounded inference solve
+(``adaptive.solve_scan`` or ``vcabm.solve_vcabm_scan`` with
+``differentiable=False``), exactly ``max_steps`` attempts each, with no
+checkpoint; the grid stays a tensor on its device, the stats are device
+tensors and a failed solve reads NaN through ``torch.where``. Each
+interval keeps its own initial step and its own budget, as the JAX
+package's ``lax.while_loop`` per interval does, so NFE, success and the
+NaN of a starved interval are the host loop's.
+
 With ``options={"node_group": group}`` the state's node rows split over
 the ranks of ``group`` (``parallel.coo_shard``; the JAX adjoint under
 GSPMD): y0, the trajectory, y and adj_y are this rank's rows. The
@@ -66,8 +77,8 @@ import torch
 import torch.distributed as dist
 
 from ndcn_tpu_torch.ode.adaptive import BatchedSolveStats, SolveStats
-from ndcn_tpu_torch.ode.api import (_canonical_time, nan_unless,
-                                    odeint_with_stats)
+from ndcn_tpu_torch.ode.api import (_canonical_time, _time_dtype,
+                                    nan_on_failure, odeint_with_stats)
 from ndcn_tpu_torch.ode.collectives import sum_flat
 from ndcn_tpu_torch.ode.tree_math import tmap, tree_dot, tree_dot_rows
 
@@ -96,16 +107,6 @@ def _nondiff(options: Optional[Dict[str, Any]]) -> Dict[str, Any]:
     return dict(options or {}, differentiable=False)
 
 
-def _nan_on_failure(sol, stats, axis: int = 0):
-    """``sol`` with NaN where the solve failed: all of it, or with
-    BatchedSolveStats the failed replicas along each leaf's ``axis``."""
-    if isinstance(stats, BatchedSolveStats):
-        return tmap(lambda b: nan_unless(stats.success, b, axis), sol)
-    if stats.success:
-        return sol
-    return tmap(lambda b: torch.full_like(b, float("nan")), sol)
-
-
 class _OdeintAdjoint(torch.autograd.Function):
 
     @staticmethod
@@ -115,7 +116,7 @@ class _OdeintAdjoint(torch.autograd.Function):
                                        method=method,
                                        options=_nondiff(options))
         record.append(stats)
-        sol = _nan_on_failure(sol, stats, axis=1)
+        sol = nan_on_failure(sol, stats, axis=1)
         ctx.func, ctx.t, ctx.solve = func, t, (rtol, atol, method, options)
         ctx.backward = []
         record.append(ctx.backward)
@@ -169,7 +170,7 @@ class _OdeintAdjoint(torch.autograd.Function):
                 augmented, aug0, torch.stack([-t[i], -t[i - 1]]), rtol=rtol,
                 atol=atol, method=method, options=aug_options)
             ctx.backward.append(stats)
-            aug_sol = _nan_on_failure(tmap(lambda a: a[1], aug_sol), stats)
+            aug_sol = nan_on_failure(tmap(lambda a: a[1], aug_sol), stats)
             adj_y = aug_sol[1] + grad_sol[i - 1]
             adj_t = aug_sol[2]
             adj_p = tuple(aug_sol[3:3 + n_p])
@@ -186,7 +187,13 @@ def odeint_adjoint_with_stats(func: Callable, y0: torch.Tensor, t,
                               method: Optional[str] = None,
                               options: Optional[Dict[str, Any]] = None):
     """``odeint_adjoint`` and its AdjointStats."""
-    t = _canonical_time(t, (options or {}).get("time_dtype"))
+    time_dtype = (options or {}).get("time_dtype")
+    if (options or {}).get("scan") and isinstance(t, torch.Tensor):
+        # the bounded solves read the grid where it is: a CUDA graph may
+        # copy nothing to the host
+        t = t.detach().to(_time_dtype(time_dtype))
+    else:
+        t = _canonical_time(t, time_dtype)
     record: List[Any] = []
     sol = _OdeintAdjoint.apply(func, t, rtol, atol, method, options, record,
                                y0, *params)

@@ -24,16 +24,20 @@ Every method of the JAX package:
   accept and ignore the common options, as in the JAX package;
   ``differentiable=False`` runs them under ``torch.no_grad()`` too.
 
-``scan=True`` sends dopri5's and tsit5's differentiable solve to
-``adaptive.solve_scan``, the JAX package's bounded scan path: exactly
-``max_steps`` attempts and no read of the device from the host, so that a
-train step can be recorded into one CUDA graph (``train.chunk``); its
-stats are 0-dim device tensors. It takes one replica on one rank (not
-``batched``, no ``node_group``) and the differentiable solve only. Without
-it the differentiable solve is the host loop (``adaptive.solve``), whose
-numbers it keeps. While a CUDA graph is being captured the grid is taken
-as a tensor of the time dtype on the card, unchecked: the eager warm-up
-step that every capture follows checked the same grid.
+``scan=True`` sends dopri5's and tsit5's solve to ``adaptive.solve_scan``
+and adams' to ``vcabm.solve_vcabm_scan``, the JAX package's bounded scan
+paths: exactly ``max_steps`` attempts (256 unless given, also for
+``differentiable=False``) and no read of the device from the host, so
+that a train step can be recorded into one CUDA graph (``train.chunk``);
+its stats are 0-dim device tensors. With ``differentiable=False`` it is
+the bounded inference solve that the continuous adjoint runs under it
+(``ode.adjoint``). It takes one replica (not ``batched``), with or without
+a ``node_group``. The fixed-grid and fixed-order methods accept and ignore
+it: their loop reads nothing. Without it the solve is the host loop
+(``adaptive.solve``, ``vcabm.solve_vcabm``), whose numbers it keeps. While
+a CUDA graph is being captured the grid is taken as a tensor of the time
+dtype on the card, unchecked: the eager warm-up step that every capture
+follows checked the same grid.
 
 ``batched=True`` solves R independent replicas of the problem at once
 (``jax.vmap`` of the solve in the JAX package): every leaf of ``y0`` has a
@@ -89,15 +93,15 @@ _DEFAULT_MAX_STEPS_WHILE = 1 << 16
 # fixed-grid and fixed-order methods accept and ignore the common options,
 # so that one options dict serves every method
 _COMMON_OPTIONS = {"differentiable", "max_steps", "batched", "node_group",
-                   "node_sharded"}
+                   "node_sharded", "scan"}
 
 _METHOD_OPTIONS = {
     "dopri5": _COMMON_OPTIONS | {"safety", "ifactor", "dfactor", "first_step",
                                  "time_dtype", "emission_dtype",
-                                 "emission_readout", "scan"},
+                                 "emission_readout"},
     "tsit5": _COMMON_OPTIONS | {"safety", "ifactor", "dfactor", "first_step",
                                 "time_dtype", "reference_weights",
-                                "emission_dtype", "emission_readout", "scan"},
+                                "emission_dtype", "emission_readout"},
     "euler": _COMMON_OPTIONS | {"step_size"},
     "midpoint": _COMMON_OPTIONS | {"step_size"},
     "rk4": _COMMON_OPTIONS | {"step_size"},
@@ -222,13 +226,23 @@ def odeint_with_stats(func: Callable, y0, t, rtol: float = 1e-7,
                 stats, leaves(y0)[0].shape[0])
         return sol, stats
 
+    scan = bool(options.get("scan", False))
+    if scan and batched:
+        raise ValueError("scan=True solves one replica (not batched)")
     max_steps = int(options.get("max_steps", _DEFAULT_MAX_STEPS_SCAN
-                                if differentiable
+                                if differentiable or scan
                                 else _DEFAULT_MAX_STEPS_WHILE))
     ctrl_kw = dict(safety=float(options.get("safety", 0.9)),
                    ifactor=float(options.get("ifactor", 10.0)),
                    dfactor=float(options.get("dfactor", 0.2)))
     if method == "adams":
+        if scan and not exporting:
+            with recording():
+                return vcabm.solve_vcabm_scan(
+                    func, y0, t, rtol=float(rtol), atol=float(atol),
+                    max_order=int(options.get("max_order", 12)),
+                    max_steps=max_steps, groups=groups,
+                    differentiable=differentiable, **ctrl_kw)
         if batched:
             solve = vcabm.solve_vcabm_batched
         elif exporting and not differentiable:
@@ -257,14 +271,12 @@ def odeint_with_stats(func: Callable, y0, t, rtol: float = 1e-7,
         with recording():
             return adaptive.solve_while(m, func, y0, t, ctrl, max_steps,
                                         first_step=options.get("first_step"))
-    if options.get("scan"):
-        if not differentiable or batched or groups is not None:
-            raise ValueError("scan=True is the differentiable solve of one "
-                             "replica on one rank (not differentiable="
-                             "False, batched or node_group)")
+    if scan:
         with recording():
             return adaptive.solve_scan(m, func, y0, t, ctrl, max_steps,
                                        first_step=options.get("first_step"),
+                                       groups=groups,
+                                       differentiable=differentiable,
                                        **emission)
     solve = adaptive.solve_batched if batched else adaptive.solve
     with recording():
@@ -282,9 +294,17 @@ def odeint(func: Callable, y0, t, rtol: float = 1e-7, atol: float = 1e-9,
     ``odeint_with_stats`` to branch on ``stats.success`` instead."""
     sol, stats = odeint_with_stats(func, y0, t, rtol=rtol, atol=atol,
                                    method=method, options=options)
+    return nan_on_failure(sol, stats, axis=1)
+
+
+def nan_on_failure(sol, stats, axis: int = 0):
+    """``sol`` with NaN where the solve failed: all of it, or with
+    BatchedSolveStats the failed replicas along each leaf's ``axis``.
+    The bounded solve's flag is a device tensor (``scan=True``): a
+    ``torch.where``, with no host read."""
     if isinstance(stats, adaptive.BatchedSolveStats):
-        return tmap(lambda b: nan_unless(stats.success, b, 1), sol)
-    if isinstance(stats.success, torch.Tensor):     # scan=True: no host read
+        return tmap(lambda b: nan_unless(stats.success, b, axis), sol)
+    if isinstance(stats.success, torch.Tensor):
         return tmap(lambda b: torch.where(stats.success, b, torch.full_like(
             b, float("nan"))), sol)
     if stats.success:

@@ -23,7 +23,8 @@ import numpy as np
 import torch
 
 from ndcn_tpu_torch.ode.adaptive import SolveStats
-from ndcn_tpu_torch.ode.runge_kutta import rk4_alt_step_func
+from ndcn_tpu_torch.ode.runge_kutta import (rk4_alt_step_func,
+                                            shared_constants)
 from ndcn_tpu_torch.ode.tree_math import (cast, leaves, tmap,
                                           tscaled_dot_product, tstack)
 
@@ -77,19 +78,26 @@ def _tables_np():
             _adams_moulton_table(_MAX_ORDER))          # (13, 13)
 
 
+@shared_constants
+def _tables(device: torch.device):
+    """The AB and AM tables in float32 on ``device``, made once a device
+    (``runge_kutta.shared_constants``)."""
+    return tuple(torch.as_tensor(tab, dtype=torch.float32).to(device)
+                 for tab in _tables_np())
+
+
 def solve_fixed_adams(func, y0, t: torch.Tensor, implicit: bool = True,
                       max_order: int = _MAX_ORDER,
                       max_iters: int = _MAX_ITERS):
     """Integrate on the observation grid ``t`` (a strictly increasing float32
-    tensor on the CPU); returns (solution (len(t), *y0.shape), SolveStats),
-    leaf by leaf for a tuple state."""
+    tensor on the CPU, or on the state's device: the loop reads nothing);
+    returns (solution (len(t), *y0.shape), SolveStats), leaf by leaf for a
+    tuple state."""
     # clamped as the reference's int(min(max_order, 12))
     max_order = max(1, min(int(max_order), _MAX_ORDER))
     max_hist = max_order - 1
     device = leaves(y0)[0].device
-    ab_np, am_np = _tables_np()
-    ab = torch.as_tensor(ab_np, dtype=torch.float32).to(device)
-    am = torch.as_tensor(am_np, dtype=torch.float32).to(device)
+    ab, am = _tables(device)
     t_dev = t.to(device)
 
     ys, hist, nfe = [y0], [], 0

@@ -28,25 +28,26 @@ class StageCoeffs(NamedTuple):
     c_mid: Optional[torch.Tensor]
 
 
-def stage_coeffs(tab: Tableau, dtype: torch.dtype,
-                 device: torch.device) -> StageCoeffs:
-    """The step below takes the last stage as the solution (FSAL), which
-    holds for every tableau the port has.
+def shared_constants(make: Callable) -> Callable:
+    """``make(*key)``, a solver's constant tensors copied from the host,
+    made once per key and shared, never written: a solve recorded into a
+    CUDA graph (``train.chunk``) may copy nothing from the host, and the
+    first (eager) solve of a run has made them. A program being traced
+    (``torch.export``) and a solve under inference mode make their own, so
+    that no traced or inference tensor is kept."""
+    shared = functools.lru_cache(maxsize=None)(make)
 
-    Made once per (tableau, dtype, device) and shared, never written: a
-    solve recorded into a CUDA graph (``train.chunk``) may copy nothing
-    from the host, and the first solve of a run has made them. A program
-    being traced (``torch.export``) and a solve under inference mode make
-    their own, so that no traced or inference tensor is kept."""
-    if not tab.fsal:
-        raise ValueError("runge_kutta_step takes FSAL tableaux only")
-    if torch.compiler.is_compiling() or torch.is_inference_mode_enabled():
-        return _make_coeffs(tab, dtype, device)
-    return _shared_coeffs(tab, dtype, device)
+    def get(*key):
+        if torch.compiler.is_compiling() or torch.is_inference_mode_enabled():
+            return make(*key)
+        return shared(*key)
+
+    return get
 
 
-def _make_coeffs(tab: Tableau, dtype: torch.dtype,
-                 device: torch.device) -> StageCoeffs:
+@shared_constants
+def _coeffs(tab: Tableau, dtype: torch.dtype,
+            device: torch.device) -> StageCoeffs:
     def vec(c):
         return torch.tensor(c, dtype=dtype, device=device)
 
@@ -55,7 +56,14 @@ def _make_coeffs(tab: Tableau, dtype: torch.dtype,
                        c_mid=None if tab.c_mid is None else vec(tab.c_mid))
 
 
-_shared_coeffs = functools.lru_cache(maxsize=None)(_make_coeffs)
+def stage_coeffs(tab: Tableau, dtype: torch.dtype,
+                 device: torch.device) -> StageCoeffs:
+    """The step below takes the last stage as the solution (FSAL), which
+    holds for every tableau the port has. Made once per (tableau, dtype,
+    device) (``shared_constants``)."""
+    if not tab.fsal:
+        raise ValueError("runge_kutta_step takes FSAL tableaux only")
+    return _coeffs(tab, dtype, device)
 
 
 def runge_kutta_step(func: Callable, y0, f0, t0: torch.Tensor,

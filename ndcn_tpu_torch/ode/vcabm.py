@@ -37,6 +37,11 @@ solves run it:
   ``adaptive.solve_while`` is for dopri5. An accepted attempt lands on its
   observation exactly, so an observation is a masked write of the
   predictor.
+- ``solve_vcabm_scan``: the JAX package's ``solve_vcabm_scan``, exactly
+  ``max_steps`` attempts of one model with no read of the device from the
+  host, as ``adaptive.solve_scan`` is for dopri5: the train step a CUDA
+  graph records (``train.chunk``), and the bounded inference solve of the
+  continuous adjoint under it.
 
 The masked sums run over zeros past the live order: the history past it is
 kept at zero, so that no weight of zero meets a non-finite entry. They may
@@ -54,6 +59,7 @@ from torch._higher_order_ops import while_loop
 from ndcn_tpu_torch.ode.adaptive import (BatchedSolveStats, SolveStats,
                                          _replica_finite, stack_solution)
 from ndcn_tpu_torch.ode.grad_guard import all_finite
+from ndcn_tpu_torch.ode.runge_kutta import shared_constants
 from ndcn_tpu_torch.ode.step_control import (Controller, accept_and_max_ratio,
                                              error_ratios, optimal_step_size,
                                              select_initial_step)
@@ -71,6 +77,13 @@ _GAMMA_STAR = (
     -275 / 24192, -33953 / 3628800, -0.00789255, -0.00678585, -0.00592406,
     -0.00523669, -0.0046775, -0.00421495, -0.0038269,
 )
+
+
+@shared_constants
+def gamma_star(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``_GAMMA_STAR`` in the time dtype on ``device``, made once
+    (``runge_kutta.shared_constants``)."""
+    return torch.tensor(_GAMMA_STAR, dtype=dtype, device=device)
 
 
 class _State(NamedTuple):
@@ -155,7 +168,7 @@ def solve_vcabm(func, y0, t: torch.Tensor, rtol: float, atol: float,
     order, n_hist, nfe = 1, 1, 2
     sol = [y0]
     nacc, nrej, syncs, ok = 0, 0, 0, True
-    gamma_star = torch.tensor(_GAMMA_STAR, dtype=tdtype, device=lead.device)
+    g_star = gamma_star(tdtype, lead.device)
 
     while len(sol) < T and nacc + nrej < max_steps and ok:
         t_obs = t_dev[len(sol)]
@@ -198,7 +211,7 @@ def solve_vcabm(func, y0, t: torch.Tensor, rtol: float, atol: float,
                                          st.y, y_next, rtol, atol, tdtype,
                                          groups=groups))
 
-            gamma = gamma_star[min(order, len(_GAMMA_STAR) - 1)]
+            gamma = g_star[min(order, len(_GAMMA_STAR) - 1)]
             ekp1_max = tmax(error_ratios(_scaled((dt, gamma), iphi_p[order]),
                                          st.y, y_next, rtol, atol, tdtype,
                                          groups=groups))
@@ -281,19 +294,30 @@ def _nonzero(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x == 0, torch.ones_like(x), x)
 
 
-def _masked_g_and_beta(prev_t: torch.Tensor, next_t: torch.Tensor, H: int):
+def _masked_g_and_beta(prev_t: torch.Tensor, next_t: torch.Tensor, H: int,
+                       capturable: bool = False):
     """g[:, 0..H-1] and beta[:, 0..H-1] of every replica, by the recurrences
     of ``_g_and_explicit_phi`` taken to the static order. A zero gap (a
     replica frozen at dt = 0, a history not yet filled) divides by one, so
     that every entry stays finite; a live attempt never meets one in the
-    entries its order reads."""
+    entries its order reads. ``capturable``: a CUDA graph may record the
+    backward (``solve_vcabm_scan``)."""
     curr_t = prev_t[:, 0]
     dt = next_t - curr_t
     num = next_t.unsqueeze(1) - prev_t
     den = curr_t.unsqueeze(1) - prev_t
-    ratios = torch.cat([torch.ones_like(num[:, :1]),
-                        num[:, :-1] / _nonzero(den[:, 1:])], dim=1)
-    beta = torch.cumprod(ratios, dim=1)
+    ratios = num[:, :-1] / _nonzero(den[:, 1:])
+    if capturable and ratios.requires_grad:
+        # the running product as H - 1 multiplications where a graph may
+        # record the backward: ``torch.cumprod``'s reads the device on the
+        # host (a zero test), which a capture refuses
+        beta = [torch.ones_like(num[:, 0])]
+        for j in range(H - 1):
+            beta.append(beta[-1] * ratios[:, j])
+        beta = torch.stack(beta, dim=1)
+    else:
+        beta = torch.cumprod(torch.cat([torch.ones_like(num[:, :1]), ratios],
+                                       dim=1), dim=1)
     c = (1.0 / torch.arange(1, H + 2, dtype=prev_t.dtype,
                             device=prev_t.device)).expand(prev_t.shape[0],
                                                           H + 1)
@@ -377,17 +401,20 @@ def _tmin_rows(values):
 
 def _masked_attempt(func, st: _Machine, obs_i: torch.Tensor,
                     live: torch.Tensor, t: torch.Tensor, ctrl: Controller,
-                    max_order: int, gamma_star: torch.Tensor,
-                    bad: Optional[torch.Tensor] = None, groups=None):
+                    max_order: int, g_star: torch.Tensor,
+                    bad: Optional[torch.Tensor] = None, groups=None,
+                    capturable: bool = False):
     """One branch-free attempt of every replica, ``_make_vcabm_machine``'s
     ``attempt`` of the JAX package with a replica axis. ``obs_i`` (R,) is
-    each replica's pending observation, ``gamma_star`` is ``_GAMMA_STAR``
-    in the time dtype (made by the caller, outside any traced loop),
+    each replica's pending observation, ``g_star`` is ``_GAMMA_STAR`` in
+    the time dtype (``gamma_star``, made by the caller outside any loop),
     ``live`` (R,) marks the replicas
     still solving; the others keep their state and attempt at dt = 0, as
     does a replica marked ``bad``, which is rejected with dt·dfactor (the
     forced rejection of a non-finite attempt, ``grad_guard``). ``groups``:
     the process group of each node-sharded leaf (``adaptive.solve``).
+    ``capturable``: the attempt's backward reads nothing on the host
+    (``_masked_g_and_beta``).
 
     Returns (state, accept, reached, underflow, ok, p_next): accept,
     reached (an accepted attempt that landed on its observation), underflow
@@ -404,7 +431,7 @@ def _masked_attempt(func, st: _Machine, obs_i: torch.Tensor,
     dt_prop = next_prop - curr_t
     next_t = torch.where(go, next_prop, curr_t)
     dt = next_t - curr_t
-    g, beta = _masked_g_and_beta(st.prev_t, next_t, H)
+    g, beta = _masked_g_and_beta(st.prev_t, next_t, H, capturable)
     phi = tmap(lambda p: p * bcast(cast(beta, p.dtype), p), st.phi)
 
     order = st.order
@@ -440,7 +467,7 @@ def _masked_attempt(func, st: _Machine, obs_i: torch.Tensor,
         return _tmin_rows(error_ratios(e, st.y, y_next, ctrl.rtol, ctrl.atol,
                                        tdtype, batched=True, groups=groups))
 
-    gamma = gamma_star.index_select(
+    gamma = g_star.index_select(
         0, torch.clamp(order, max=len(_GAMMA_STAR) - 1))
     ekp1_max = tmax_rows(error_ratios(
         _scaled_rows((dt, gamma), _rows(iphi_p, order)), st.y, y_next,
@@ -519,7 +546,7 @@ def solve_vcabm_batched(func, y0, t: torch.Tensor, rtol: float, atol: float,
                                 batched=True, groups=groups)
     st = _init_machine(y0, f0, t0, first, H)
     obs_i = torch.ones(R, dtype=torch.int64, device=device)
-    gamma_star = torch.tensor(_GAMMA_STAR, dtype=t.dtype, device=device)
+    g_star = gamma_star(t.dtype, device)
 
     # slot 0 of every replica is y0; every attempt that reaches some
     # replica's observation adds a slot, slot_of[r][i] is where replica r's
@@ -536,14 +563,14 @@ def solve_vcabm_batched(func, y0, t: torch.Tensor, rtol: float, atol: float,
             break
         live_t = torch.tensor(live, device=device)
         out = _masked_attempt(func, st, obs_i, live_t, t_dev, ctrl,
-                              max_order, gamma_star, groups=groups)
+                              max_order, g_star, groups=groups)
         acc, hit, under, fin = torch.stack(
             [f.to(torch.int32) for f in out[1:5]]).tolist()
         syncs += 1
         bad = [lv and not f for lv, f in zip(live, fin)]
         if any(bad) and torch.is_grad_enabled():
             out = _masked_attempt(func, st, obs_i, live_t, t_dev, ctrl,
-                                  max_order, gamma_star,
+                                  max_order, g_star,
                                   bad=torch.tensor(bad, device=device),
                                   groups=groups)
         st, _, reached, _, _, p_next = out
@@ -640,7 +667,7 @@ def solve_vcabm_while(func, y0, t: torch.Tensor, rtol: float, atol: float,
         count(1), count(2), count(0), count(0),
         torch.ones(1, dtype=torch.bool, device=device)), sol0))
     rep = torch.zeros(1, dtype=torch.int64, device=device)
-    gamma_star = torch.tensor(_GAMMA_STAR, dtype=t.dtype, device=device)
+    g_star = gamma_star(t.dtype, device)
 
     def live_of(counts):
         obs_i, _, nacc, nrej, ok = counts
@@ -654,7 +681,7 @@ def solve_vcabm_while(func, y0, t: torch.Tensor, rtol: float, atol: float,
         obs_i, nfe, nacc, nrej, ok = counts
         live = live_of(counts)
         new, accept, reached, underflow, _, p_next = _masked_attempt(
-            func_r, st, obs_i, live, t, ctrl, max_order, gamma_star,
+            func_r, st, obs_i, live, t, ctrl, max_order, g_star,
             groups=groups)
         idx = torch.where(reached, obs_i, torch.full_like(obs_i, T))
         sol = tmap(lambda buf, v: buf.index_put((idx, rep), v), sol, p_next)
@@ -668,3 +695,126 @@ def solve_vcabm_while(func, y0, t: torch.Tensor, rtol: float, atol: float,
     stats = SolveStats(nfe=nfe[0], n_accepted=nacc[0], n_rejected=nrej[0],
                        success=ok[0] & (obs_i[0] >= T), host_syncs=None)
     return tmap(lambda buf: buf[:T, 0], sol), stats
+
+
+def solve_vcabm_scan(func, y0, t: torch.Tensor, rtol: float, atol: float,
+                     max_order: int = _MAX_ORDER, max_steps: int = 256,
+                     safety: float = 0.9, ifactor: float = 10.0,
+                     dfactor: float = 0.2, groups=None,
+                     differentiable: bool = True):
+    """The bounded solve of one model that never reads the device from the
+    host: the port of the JAX package's ``solve_vcabm_scan``. Returns
+    (solution, SolveStats) with 0-dim device tensors for the counts and
+    ``success``, and ``host_syncs`` 0.
+
+    It runs exactly ``max_steps`` attempts of ``_masked_attempt`` on a
+    replica axis of one, as ``solve_vcabm_while`` runs it. An attempt is
+    live until every observation is reached or the step underflows; a
+    frozen one runs at dt = 0 and is masked out with ``torch.where``: it
+    adds nothing to the machine, to NFE (two an attempt) or the counts, and
+    a zero cotangent to the gradients. (The JAX package skips frozen
+    attempts with ``lax.cond``; here they cost an attempt each, ROADMAP §1
+    entry 6b.) Each attempt emits its reached flag, its observation index
+    and its predictor; after the loop one ``index_put`` writes the reached
+    predictors into the solution, the rest into a row that is dropped. An
+    observation not reached (a blown budget) holds zero, as in the JAX
+    package, with ``success`` False (the callers turn it to NaN with
+    ``torch.where``).
+
+    ``differentiable``: each attempt runs under a non-reentrant
+    ``torch.utils.checkpoint``, as in ``adaptive.solve_scan``, and its
+    recomputation is the gradient guard: an attempt whose forward went
+    non-finite is recomputed as the forced rejection (``bad``, at dt = 0),
+    whose RHS parameters get zero. Otherwise (the continuous adjoint's
+    solves, under ``torch.no_grad()``) the attempts run as they are.
+    ``groups``: the process group of each node-sharded leaf
+    (``adaptive.solve``): every rank runs the same attempts, frozen ones
+    included, and so issues the same collectives. ``t`` is the grid in the
+    time dtype on any device (moved to the state's)."""
+    from torch.utils.checkpoint import checkpoint
+
+    max_order = _clamped_order(max_order)
+    H = max_order + 1
+    T = t.shape[0]
+    lead = leaves(y0)[0]
+    device = lead.device
+    t = t.to(device)
+    bare = isinstance(y0, torch.Tensor)
+    m = len(leaves(y0))
+    ctrl = Controller(rtol=rtol, atol=atol, safety=safety, ifactor=ifactor,
+                      dfactor=dfactor, order=0)
+
+    def tree(flat):
+        return flat[0] if bare else tuple(flat)
+
+    def one(x):
+        return tmap(lambda leaf: leaf.unsqueeze(0), x)
+
+    def func_r(tt, y):
+        # the model's RHS on the replica axis of one
+        return one(func(tt.reshape(()), tmap(lambda leaf: leaf[0], y)))
+
+    def pack(st: _Machine) -> tuple:
+        return (*leaves(st.y), st.prev_t, *leaves(st.phi), st.next_t,
+                st.order, st.n_hist)
+
+    def unpack(flat) -> _Machine:
+        return _Machine(y=tree(flat[:m]), prev_t=flat[m],
+                        phi=tree(flat[m + 1:2 * m + 1]),
+                        next_t=flat[2 * m + 1], order=flat[2 * m + 2],
+                        n_hist=flat[2 * m + 3])
+
+    y0_r = one(y0)
+    t0 = t[:1]
+    f0 = func_r(t0, y0_r)
+    first = select_initial_step(func_r, t0, y0_r, 2, rtol, atol, f0,
+                                batched=True, groups=groups)
+    g_star = gamma_star(t.dtype, device)
+
+    def attempt(veto, live, obs_i, *flat):
+        """One masked attempt; ``veto`` is the one-element list the guard
+        writes after the forward (see ``adaptive.solve_scan``)."""
+        new, accept, reached, underflow, ok, p_next = _masked_attempt(
+            func_r, unpack(flat), obs_i, live, t, ctrl, max_order, g_star,
+            bad=veto[0], groups=groups, capturable=True)
+        return (*pack(new), accept, reached, underflow, ok, *leaves(p_next))
+
+    def count(v):
+        return torch.full((1,), v, dtype=torch.int64, device=device)
+
+    flat = pack(_init_machine(y0_r, f0, t0, first, H))
+    n = len(flat)
+    obs_i, nfe, nacc, nrej = count(1), count(2), count(0), count(0)
+    ok = torch.ones(1, dtype=torch.bool, device=device)
+    slots, emitted = [], []
+    for _ in range(max_steps):
+        live = (obs_i < T) & ok
+        veto = [torch.zeros(1, dtype=torch.bool, device=device)]
+        if differentiable:
+            out = checkpoint(attempt, veto, live, obs_i, *flat,
+                             use_reentrant=False, preserve_rng_state=False)
+        else:
+            out = attempt(veto, live, obs_i, *flat)
+        flat = out[:n]
+        accept, reached, underflow, fin = out[n:n + 4]
+        veto[0] = ~fin
+        # an attempt that reached no observation writes the dropped row T
+        slots.append(torch.where(reached, obs_i, torch.full_like(obs_i, T)))
+        emitted.append(out[n + 4:])
+        obs_i = obs_i + reached.long()
+        nfe = nfe + 2 * live.long()
+        nacc = nacc + accept.long()
+        nrej = nrej + (live & ~accept).long()
+        ok = ok & ~underflow
+
+    idx = torch.cat(slots)                                     # (S,)
+
+    def write(j: int, y: torch.Tensor) -> torch.Tensor:
+        preds = torch.cat([e[j] for e in emitted])             # (S, ...)
+        buf = y.new_zeros((T + 1, *y.shape)).index_put((idx,), preds)
+        return torch.cat([y.unsqueeze(0), buf[1:T]])
+
+    sol = tree([write(j, y) for j, y in enumerate(leaves(y0))])
+    stats = SolveStats(nfe=nfe[0], n_accepted=nacc[0], n_rejected=nrej[0],
+                       success=ok[0] & (obs_i[0] >= T), host_syncs=0)
+    return sol, stats

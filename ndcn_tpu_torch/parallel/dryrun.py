@@ -44,7 +44,15 @@ the CPU. It lays them out as one model axis of N (checks 1-5) and as
    cross-entropy step with dropout, loss and gradients against the
    unsharded step (<= 1e-5), and deterministic logits and gradients
    saved for the tests;
-10. every rank's parameters after the steps of 7-9 bit-equal to rank 0's.
+10. every rank's parameters after the steps of 7-9 and 11 bit-equal to rank
+    0's;
+11. ``--scan_chunk`` on the model axis: a ``train.chunk.TrainChunk`` of
+    two steps (the bounded solve, ``CapturableAdam``, dropout drawn
+    whole) with dopri5, with adams and with the dopri5 continuous adjoint
+    over the row-sharded COO operator, one host read, against the same
+    chunk unsharded: the last loss (<= 1e-5), every step's NFE (and the
+    adjoint's every backward interval's) equal, and every rank's
+    parameters after the chunk bit-equal to rank 0's (with check 10).
 
 Each rank is a process of its own (``python -m ndcn_tpu_torch.parallel.dryrun
 --rank r ...``), imports only the port, and pins one intra-op thread; the
@@ -487,9 +495,10 @@ def run_checks(rank: int, world: int, device, out: Optional[str] = None,
 
 def run_model_axis_checks(rank: int, world: int, device, mesh, saved,
                           expect, log=print) -> Dict[str, float]:
-    """Checks 7-10 on the mesh's model axis (every rank): the continuous
-    adjoint, the lstm_gnn step and the GCN zoo on row-sharded operators,
-    each against the same step unsharded; fills ``saved`` for the tests."""
+    """Checks 7-11 on the mesh's model axis (every rank): the continuous
+    adjoint, the lstm_gnn step, the GCN zoo and the chunked steps on
+    row-sharded operators, each against the same step unsharded; fills
+    ``saved`` for the tests."""
     import torch
     import torch.distributed as dist
 
@@ -632,7 +641,12 @@ def run_model_axis_checks(rank: int, world: int, device, mesh, saved,
             log(f"{name} on the row-sharded COO operator vs unsharded: "
                 + ", ".join(f"{k}={v:.3e}" for k, v in d.items()))
 
+    # ---- 11. --scan_chunk on the model axis
+    chunked = scan_chunk_check(rank, device, coo, op_s, x0, x0_s, target,
+                               target_s, saved, expect, log)
+
     # ---- 10. every rank the same parameters after the steps
+    stepped.extend(chunked)
     flat = torch.cat([p.detach().reshape(-1) for m in stepped
                       for p in m.parameters()])
     every = [torch.empty_like(flat) for _ in range(world)]
@@ -644,9 +658,88 @@ def run_model_axis_checks(rank: int, world: int, device, mesh, saved,
                              "adjoint, temporal and zoo steps")
     saved["model_axis_params_after"] = flat.cpu().numpy()
     if rank == 0:
-        log(f"every rank: parameters after the adjoint, lstm_gnn and zoo "
-            f"steps bit-equal on {world} ranks")
+        log(f"every rank: parameters after the adjoint, lstm_gnn, zoo and "
+            f"chunked steps bit-equal on {world} ranks")
     return checks
+
+
+def scan_chunk_check(rank: int, device, coo, op_s, x0, x0_s, target,
+                     target_s, saved, expect, log=print):
+    """Check 11: two chunked steps on the row-sharded operator against the
+    same chunk unsharded, dopri5, adams and the dopri5 adjoint; returns the
+    sharded models (check 10 holds their parameters equal on every
+    rank)."""
+    import torch
+
+    from ndcn_tpu_torch.models import ndcn_forward
+    from ndcn_tpu_torch.parallel.coo_shard import node_group
+    from ndcn_tpu_torch.train.chunk import TrainChunk
+    from ndcn_tpu_torch.train.losses import l1_loss
+    from ndcn_tpu_torch.train.optim import make_sgd_step, torch_adam
+
+    pb = train_problem()
+    vt = torch.as_tensor(pb["vt"], device=device)
+    models = []
+    for label, method, adjoint in (("dopri5", "dopri5", False),
+                                   ("adams", "adams", False),
+                                   ("dopri5_adjoint", "dopri5", True)):
+        runs = []
+        for op, x0_, target_ in ((op_s, x0_s, target_s), (coo, x0, target)):
+            model = ndcn_model(5, device)
+            opt = torch_adam(model.parameters(), 0.01, 1e-3, capturable=True)
+            # a CUDA graph draws its masks from a generator on the card
+            gen = torch.Generator(device).manual_seed(12)
+            group = node_group(op)
+            nfe, solves = [], []
+
+            def loss_fn(g, model=model, op=op, x0_=x0_, target_=target_,
+                        group=group, nfe=nfe, solves=solves):
+                out, stats = ndcn_forward(model, op, vt, x0_, method=method,
+                                          max_steps=24, dropout=DROPOUT,
+                                          rng=g, scan=True, adjoint=adjoint)
+                nfe.append(stats.nfe)
+                solves.append(stats)
+                loss = l1_loss(out, target_, group)
+                loss = torch.where(stats.success, loss,
+                                   torch.full_like(loss, float("nan")))
+                return loss, loss
+
+            step = make_sgd_step(opt, loss_fn, group)
+            chunk = TrainChunk(lambda step=step, gen=gen: step(gen),
+                               model.parameters(), opt, gen)
+            loss, _ = chunk(2)
+            # the adjoint's NFE of every backward interval, step by step
+            back = [[int(b.nfe) for b in st.backward] for st in solves
+                    ] if adjoint else []
+            runs.append((loss, [int(n) for n in nfe], back,
+                         chunk.host_reads, model))
+        (l_c, nfe_c, back_c, reads, m_c), (l_u, nfe_u, back_u, _, _) = runs
+        d_l = rel_l1([l_c], [l_u])
+        expect(f"scan_chunk_{label}_loss", d_l)
+        if nfe_c != nfe_u or back_c != back_u or reads != 1:
+            raise AssertionError(f"the sharded chunk ({label}) took NFE "
+                                 f"{nfe_c} / {back_c} against {nfe_u} / "
+                                 f"{back_u}, {reads} host reads")
+        saved[f"scan_chunk/{label}/loss"] = np.float32(l_c)
+        saved[f"scan_chunk/{label}/loss_unsharded"] = np.float32(l_u)
+        saved[f"scan_chunk/{label}/nfe"] = np.array(nfe_c, np.int64)
+        saved[f"scan_chunk/{label}/nfe_unsharded"] = np.array(nfe_u,
+                                                              np.int64)
+        if adjoint:
+            saved[f"scan_chunk/{label}/backward_nfe"] = np.array(back_c,
+                                                                 np.int64)
+            saved[f"scan_chunk/{label}/backward_nfe_unsharded"] = np.array(
+                back_u, np.int64)
+        saved[f"scan_chunk/{label}/params"] = np.concatenate(
+            [p.detach().cpu().numpy().ravel() for p in m_c.parameters()])
+        models.append(m_c)
+        if rank == 0:
+            log(f"--scan_chunk ({label}, two steps, one host read) on the "
+                f"row-sharded COO operator vs unsharded: rel-L1 loss="
+                f"{d_l:.3e}; NFE {nfe_c}"
+                + (f", backward NFE an interval {back_c}" if adjoint else "")
+                + ", equal")
+    return models
 
 
 def _holder(model, arrays):

@@ -253,17 +253,20 @@ class _ShardMean(torch.autograd.Function):
         total, count = sharded_sum_and_count(
             rows.sum(dim=1) if per_replica else x.detach().sum(),
             rows.shape[1] if per_replica else x.numel(), group)
-        ctx.count, ctx.shape = float(count), x.shape
-        ctx.per_replica = per_replica
+        # the count stays on the device: a train step that a CUDA graph
+        # records reads nothing on the host
+        ctx.save_for_backward(count)
+        ctx.shape, ctx.per_replica = x.shape, per_replica
         return (total / count).to(x.dtype)
 
     @staticmethod
     def backward(ctx, g):
         # this rank's share of the mean's gradient: its elements' terms
         # (the replicated parameters' gradients are summed afterwards)
+        count, = ctx.saved_tensors
         if ctx.per_replica:
             g = g.reshape(g.shape + (1,) * (len(ctx.shape) - 1))
-        return (g / ctx.count).expand(ctx.shape), None, None
+        return (g / count.to(g.dtype)).expand(ctx.shape), None, None
 
 
 def shard_mean(x: torch.Tensor, group: Optional[dist.ProcessGroup],

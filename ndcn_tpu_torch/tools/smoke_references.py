@@ -7,7 +7,8 @@ fixture, so that the smoke's call spends no time on them:
   explicit_adams: the answer, its success flag and NFE, and the same solve
   in float64 (its float32-vs-float64 rel-L1, the bar's second term);
 - [21] a: the heat driver's replica step at R = 4 (grid400, T 5, tick
-  100, irregular, seed 0; replica i seeded i) on each of [21]'s settings:
+  100, explicit_adams tick 20, irregular, seed 0; replica i seeded i) on
+  each of [21]'s settings:
   the first step's losses, gradients and NFE on the CPU (the plain
   versions of the kernels), and the gradients of the same step in
   float64 on the dense unfused route;
@@ -18,10 +19,16 @@ fixture, so that the smoke's call spends no time on them:
   lstm / gru / rnn on dense, COO and BSR) on the heat driver's grid400
   data: its loss and gradients;
 - [17] d: the LV demo's first 20 train losses, rk4 and dopri5
-  ``--adjoint``.
+  ``--adjoint``;
+- [24] a / b: the first bounded train step (the solve's ``scan`` option)
+  of one model (seed 0) on the heat driver's grid400 data at each of
+  [24]'s settings (``SCAN_SETTINGS``: adams and explicit_adams, the
+  continuous adjoint with dopri5 on dense, COO and BSR and with adams, the
+  adjoint's on a grid cut to fewer train points): its loss, NFE and
+  gradients on the CPU.
 
-``cora_step`` and ``temporal_step`` are the steps the smoke also runs on
-the card.
+``cora_step``, ``temporal_step`` and ``scan_step`` are the steps the
+smoke also runs on the card.
 
     python -m ndcn_tpu_torch.tools.smoke_references [--out PATH]
 
@@ -58,6 +65,31 @@ REPLICA_SETTINGS = {
     "dopri5_adjoint_coo": ("coo", False, "dopri5", True),
     "dopri5_adjoint_bsr": ("bsr", "auto", "dopri5", True),
     "adams_adjoint_dense": ("dense", "auto", "adams", True),
+}
+# [21] a's --time_tick where it is not the heat driver's 100: explicit_adams
+# diverges on this model from tick 40 on (see ``SCAN_SETTINGS``)
+REPLICA_TIME_TICK = {"explicit_adams_dense": 20}
+
+
+# [24]'s settings: format, fused, method, adjoint, the heat driver's
+# --time_tick, max_steps. The grids are cut from the driver's tick 100 (80
+# train points) where a graph would hold too many attempts: adams at tick
+# 20 (~19 of 32 live), the adjoint at tick 6 (4 intervals, each with the
+# whole budget: 12 for dopri5, the driver's auto budget there, 16 for
+# adams). explicit_adams (one step a grid interval, its order rising to
+# 12) at tick 20 too: from tick 40 on its solve of this model diverges
+# (loss 276 at tick 40, 5.6e6 at tick 100, where adams' is ~3.8), and
+# float32's rounding, grown with it, moves its gradients by up to 8%
+# (enc1.weight, tick 100) from float64's; at tick 20 the two are within
+# 1.7e-6 rel-L1 and the bar is the others' 1e-3
+SCAN_SETTINGS = {
+    "adams_dense": ("dense", "auto", "adams", False, 20, 32),
+    "explicit_adams_dense": ("dense", "auto", "explicit_adams", False, 20,
+                             256),
+    "dopri5_adjoint_dense": ("dense", "auto", "dopri5", True, 6, 12),
+    "dopri5_adjoint_coo": ("coo", False, "dopri5", True, 6, 12),
+    "dopri5_adjoint_bsr": ("bsr", "auto", "dopri5", True, 6, 12),
+    "adams_adjoint_dense": ("dense", "auto", "adams", True, 6, 16),
 }
 
 
@@ -101,9 +133,10 @@ def serve_reference(method: str) -> Dict[str, np.ndarray]:
             "f32_vs_f64": np.float64(rel_l1(out.double(), out64))}
 
 
-def heat_replica_problem():
-    """([21] a, and [18] b) the heat driver's grid400 problem on the CPU:
-    the normalized Laplacian, the train grid, x0 and the target."""
+def heat_replica_problem(time_tick: int = 100):
+    """([21] a, [18] b, [23] and [24]) the heat driver's grid400 problem on
+    the CPU at its ``--time_tick``: the normalized Laplacian, the train
+    grid, x0 and the target."""
     from ndcn_tpu_torch.experiments.dynamics import heat_ground_truth
     from ndcn_tpu_torch.graph.generators import (build_network,
                                                  grid_block_initial_value)
@@ -113,7 +146,7 @@ def heat_replica_problem():
     from ndcn_tpu_torch.train.sampling import sample_times
 
     adj = build_network("grid", 400)
-    hs = sample_times(5.0, 100, "irregular", seed=0)
+    hs = sample_times(5.0, time_tick, "irregular", seed=0)
     x0 = torch.as_tensor(grid_block_initial_value(20).astype(np.float32))
     sol, _ = heat_ground_truth(as_operator(laplacian_dense(adj)), x0, hs.t)
     return normalized_laplacian(adj), hs.t[hs.id_train], x0, \
@@ -157,6 +190,39 @@ def replica_reference(label: str, problem) -> Dict[str, np.ndarray]:
         out[f"grad{i}"] = g.numpy()
         out[f"grad64_{i}"] = g64.numpy()
     return out
+
+
+def scan_step(label: str, device, problem) -> dict:
+    """[24]'s first bounded train step of ``label`` (``SCAN_SETTINGS``) on
+    ``device``: one model (seed 0), its loss, NFE and gradients by
+    parameter name."""
+    import scipy.sparse as sp
+
+    from ndcn_tpu_torch.graph.sparse import as_operator
+    from ndcn_tpu_torch.models import init_ndcn, ndcn_forward
+    from ndcn_tpu_torch.train.losses import l1_loss
+
+    fmt, fused, method, adjoint, _, max_steps = SCAN_SETTINGS[label]
+    lap, t_h, x0, target = problem
+    op = as_operator(sp.csr_matrix(lap) if fmt != "dense" else lap,
+                     sparse=fmt != "dense", format=fmt, device=device)
+    model = init_ndcn(torch.Generator().manual_seed(0), 1, 20, 1).to(device)
+    out, stats = ndcn_forward(
+        model, op, torch.as_tensor(t_h, dtype=torch.float32, device=device),
+        x0.to(device), method=method, fused=fused, adjoint=adjoint,
+        max_steps=max_steps, scan=True, rtol=0.01, atol=0.001)
+    loss = l1_loss(out[..., 0].T, target[..., 0].T.to(device))
+    loss.backward()
+    if not bool(stats.success):
+        raise RuntimeError(f"[24] {label}: the bounded step ran out of its "
+                           f"{max_steps} attempts")
+    return {"loss": float(loss.detach()), "nfe": int(stats.nfe),
+            "grads": {n: p.grad.detach().cpu()
+                      for n, p in model.named_parameters()}}
+
+
+def scan_reference(label: str, problem) -> Dict[str, np.ndarray]:
+    return _step_entry(scan_step(label, torch.device("cpu"), problem))
 
 
 def data_dir() -> str:
@@ -287,10 +353,16 @@ def compute(keys: Optional[Sequence[str]] = None,
             log=print) -> Dict[str, np.ndarray]:
     """The references as flat npz keys ``serve/<method>/...``,
     ``replicas/<label>/...``, ``cora/<fmt>/...``, ``gcn_driver/...``,
-    ``temporal/<rnn>_<fmt>/...`` and ``lv/<label>/...``; ``keys`` limits
-    them to those settings."""
+    ``temporal/<rnn>_<fmt>/...``, ``lv/<label>/...`` and
+    ``scan/<label>/...``; ``keys`` limits them to those settings."""
     out: Dict[str, np.ndarray] = {}
-    problem = None
+    problems = {}    # the heat driver's grid400 problem by --time_tick
+
+    def heat(tick: int):
+        if tick not in problems:
+            problems[tick] = heat_replica_problem(tick)
+        return problems[tick]
+
     for method in SERVE_METHODS:
         if keys is None or f"serve/{method}" in keys:
             t0 = time.perf_counter()
@@ -300,7 +372,7 @@ def compute(keys: Optional[Sequence[str]] = None,
     for label in REPLICA_SETTINGS:
         if keys is None or f"replicas/{label}" in keys:
             t0 = time.perf_counter()
-            problem = problem or heat_replica_problem()
+            problem = heat(REPLICA_TIME_TICK.get(label, 100))
             out.update({f"replicas/{label}/{k}": v
                         for k, v in replica_reference(label,
                                                       problem).items()})
@@ -333,6 +405,12 @@ def compute(keys: Optional[Sequence[str]] = None,
             t0 = time.perf_counter()
             out[f"lv/{label}/train_losses"] = lv_losses(label)
             log(f"lv/{label}: {time.perf_counter() - t0:.1f} s")
+    for label, setting in SCAN_SETTINGS.items():
+        if keys is None or f"scan/{label}" in keys:
+            t0 = time.perf_counter()
+            out.update({f"scan/{label}/{k}": v for k, v in scan_reference(
+                label, heat(setting[4])).items()})
+            log(f"scan/{label}: {time.perf_counter() - t0:.1f} s")
     return out
 
 

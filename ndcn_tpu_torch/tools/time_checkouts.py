@@ -19,6 +19,21 @@ Kernel times are ms per call of ten calls queued behind a spin kernel (the
 card's part), the median of five runs; every kernel result is first held
 within 1e-5 · max|y| of its plain version. One JSON line per checkout on
 stdout, with the card's name and power limit.
+
+With ``--adams`` first, each checkout times instead the paths of the masked
+VCABM machine that ``chip_smoke.py`` [20] / [21] run, through functions
+every version of the port since its Adams replicas has:
+
+    python -m ndcn_tpu_torch.tools.time_checkouts --adams build/parent . . build/parent
+
+- [21] a's adams replica train step (``parallel.sweep``, R = 4, the heat
+  driver's grid400 data, dense ``fused="auto"``: K2's batched form,
+  ``max_steps`` 256, a backward recorded): ms per step (wall, the median
+  of 7 after a warm one), and the device kernels and host reads of one
+  step;
+- the grid400 dense adams artifact (``serve.export_ndcn`` at the serving
+  fixture's weights, rtol 0.01, atol 0.001, no backward): ms per request
+  (the median of 20), its device kernels and host reads.
 """
 
 from __future__ import annotations
@@ -28,6 +43,7 @@ import os
 import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 ITERS_1M = "10"
@@ -156,11 +172,89 @@ def _worker(root: str) -> dict:
     return out
 
 
+def _adams_worker(root: str) -> dict:
+    """``--adams``: the masked VCABM machine's replica step and artifact
+    request in the checkout at ``root`` (see the module docstring)."""
+    sys.path.insert(0, root)
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ndcn_tpu_torch.graph.sparse import as_operator, from_dense
+    from ndcn_tpu_torch.kernels.platform import pin_fp32
+    from ndcn_tpu_torch.parallel.sweep import (make_ndcn_replica_train_step,
+                                               replica_generators)
+    from ndcn_tpu_torch.serve import export_ndcn, load_ndcn
+    from ndcn_tpu_torch.tools import smoke_references as sr
+    from ndcn_tpu_torch.tools.serve_artifact import host_reads
+
+    import ndcn_tpu_torch
+    assert Path(ndcn_tpu_torch.__file__).resolve().is_relative_to(
+        Path(root).resolve()), ndcn_tpu_torch.__file__
+    pin_fp32()
+    dev = torch.device("cuda", 0)
+
+    def wall_ms(fn, runs):
+        times = []
+        for _ in range(runs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    def launches(fn):
+        """The device kernels and host reads of one call."""
+        with host_reads() as reads, profile(
+                activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        trace = os.path.join(root, "build", "time_checkouts_trace.json")
+        os.makedirs(os.path.dirname(trace), exist_ok=True)
+        prof.export_chrome_trace(trace)
+        with open(trace) as f:
+            events = [e for e in json.load(f)["traceEvents"]
+                      if e.get("ph") == "X"]
+        os.remove(trace)
+        return dict(
+            device_kernels=sum(1 for e in events if e.get("cat") == "kernel"),
+            host_reads=reads[0])
+
+    lap, t_h, x0_h, target_h = sr.heat_replica_problem()
+    op = as_operator(lap, sparse=False, format="dense", device=dev)
+    init_fn, step_fn = make_ndcn_replica_train_step(
+        op, t_h, x0_h.to(dev), target_h.to(dev), method="adams",
+        fused="auto", max_steps=256)
+    model, opt = init_fn(replica_generators(0, 4))
+    step = lambda: step_fn(model, opt)   # noqa: E731
+    step()
+    out = {"root": root, "replica_step": dict(
+        launches(step), ms=wall_ms(step, 7))}
+    del model, opt, init_fn, step_fn
+
+    mdl, op_s, vt, x0 = sr.serving_problem()
+    op_s = from_dense(op_s.mat.numpy(), device=dev)
+    serve = load_ndcn(export_ndcn(mdl.to(dev), op_s, vt, x0.shape,
+                                  rtol=0.01, atol=0.001, method="adams",
+                                  fused="auto"))
+    request = lambda: serve(x0)   # noqa: E731
+    request()
+    out["artifact_request"] = dict(launches(request),
+                                   ms=wall_ms(request, 20))
+    return out
+
+
 def main(argv=None) -> list:
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--worker"]:
         print(json.dumps(_worker(argv[1])), flush=True)
         return []
+    if argv[:1] == ["--worker-adams"]:
+        print(json.dumps(_adams_worker(argv[1])), flush=True)
+        return []
+    worker = "--worker"
+    if argv[:1] == ["--adams"]:
+        worker, argv = "--worker-adams", argv[1:]
     if not argv:
         raise SystemExit(__doc__)
     from ndcn_tpu_torch.tools import require_cuda
@@ -172,7 +266,7 @@ def main(argv=None) -> list:
     rows = []
     for root in argv:
         proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--worker",
+            [sys.executable, os.path.abspath(__file__), worker,
              os.path.abspath(root)], capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"{root} failed:\n{proc.stderr[-4000:]}")

@@ -18,8 +18,10 @@ rel-L1 for a served trajectory on the GPU against the same server on the CPU
 where that is larger), and 1e-3 rel-L1 for a train step's gradients on the
 GPU against the CPU, the continuous adjoint's against its fixture too.
 Backward checks use non-symmetric matrices. The scan path's train step as
-a CUDA graph (``train.chunk``) is bit-equal to the same steps run eagerly,
-and K2 and K4 are bit-equal under ``--precision high``.
+a CUDA graph (``train.chunk``) is bit-equal to the same steps run eagerly
+(dopri5, the Adams family, the continuous adjoint, and a row block over a
+one-rank NCCL group), and K2 and K4 are bit-equal under ``--precision
+high``.
 """
 
 import os
@@ -1839,16 +1841,22 @@ def test_k3_replica_groups_cuda_match_plain_and_solo_launches(
 
 # ------------------------------------------------------------ the scan path
 
-def _heat_step(device, fmt, fused, dropout=0.0, rng=None, n=100):
+def _heat_step(device, fmt, fused, dropout=0.0, rng=None, n=100,
+               method="dopri5", adjoint=False, shard=None):
     """A model, its CapturableAdam and the bounded train step (the solve's
-    ``scan`` option) on an n-node grid's heat problem."""
+    ``scan`` option) on an n-node grid's heat problem; ``shard`` maps the
+    operator to its row block (the gradients are then summed over its
+    group)."""
     from ndcn_tpu_torch.experiments.dynamics import nan_unless_ok
+    from ndcn_tpu_torch.parallel.coo_shard import node_group
     from ndcn_tpu_torch.train.losses import l1_loss
     from ndcn_tpu_torch.train.optim import make_sgd_step, torch_adam
 
     lap = operators.normalized_laplacian(generators.build_network("grid", n))
     op = as_operator(lap if fmt == "dense" else sp.csr_matrix(lap),
                      sparse=fmt != "dense", format=fmt, device=device)
+    if shard is not None:
+        op = shard(op)
     rs = np.random.RandomState(0)
     x0 = torch.as_tensor(rs.rand(n, 1).astype(np.float32), device=device)
     vt = torch.linspace(0.0, 2.0, 9, device=device)
@@ -1857,15 +1865,18 @@ def _heat_step(device, fmt, fused, dropout=0.0, rng=None, n=100):
                       device=device)
     opt = torch_adam(model.parameters(), 0.01, 1e-3, capturable=True)
 
+    group = node_group(op)
+
     def loss_fn():
         out, stats = ndcn_forward(model, op, vt, x0, fused=fused,
                                   max_steps=24, scan=True, dropout=dropout,
                                   rng=rng, rtol=0.01, atol=0.001,
-                                  method="dopri5")
-        loss = nan_unless_ok(stats.success, l1_loss(out[..., 0].T, target))
+                                  method=method, adjoint=adjoint)
+        loss = nan_unless_ok(stats.success, l1_loss(out[..., 0].T, target,
+                                                     group))
         return loss, loss / target.mean()
 
-    return model, opt, make_sgd_step(opt, loss_fn)
+    return model, opt, make_sgd_step(opt, loss_fn, group)
 
 
 @pytest.mark.parametrize("fmt,fused,dropout", [
@@ -1894,6 +1905,76 @@ def test_graphed_step_is_bit_equal_to_the_eager_bounded_step(
     assert all(torch.equal(a, b) for a, b in zip(m_e.parameters(),
                                                  m_g.parameters()))
     chunk.release()
+
+
+@pytest.mark.parametrize("method,adjoint,fmt,fused", [
+    ("adams", False, "dense", "auto"), ("explicit_adams", False, "dense",
+                                        "auto"),
+    ("fixed_adams", False, "coo", False), ("dopri5", True, "dense", "auto"),
+    ("dopri5", True, "coo", False), ("dopri5", True, "bsr", "auto"),
+    ("adams", True, "dense", "auto")])
+def test_graphed_adams_and_adjoint_steps_are_bit_equal_to_eager(
+        cuda_device, method, adjoint, fmt, fused):
+    """The Adams family and the continuous adjoint under ``scan``: three
+    train steps as CUDA graph replays against the same steps run eagerly,
+    losses and parameters bit-equal, one host read; the graph launched the
+    operator's kernels."""
+    from ndcn_tpu_torch.train.chunk import TrainChunk
+
+    m_e, _, eager = _heat_step(cuda_device, fmt, fused, method=method,
+                               adjoint=adjoint)
+    m_g, o_g, graphed = _heat_step(cuda_device, fmt, fused, method=method,
+                                   adjoint=adjoint)
+    losses = [float(eager()[0]) for _ in range(3)]
+    chunk = TrainChunk(graphed, m_g.parameters(), o_g)
+    loss, _ = chunk(3)
+    assert chunk.host_reads == 1 and chunk.replays == 3
+    assert np.isfinite(loss) and loss == losses[-1]
+    assert all(torch.equal(a, b) for a, b in zip(m_e.parameters(),
+                                                 m_g.parameters()))
+    chunk.release()
+
+
+def test_graphed_step_on_a_one_rank_nccl_row_block(cuda_device):
+    """``--mesh --scan_chunk`` on a one-rank NCCL group: the step on the
+    operator's row block over the world group (every collective of the
+    solve's norms and the gradients' sum runs, and the graph records them)
+    as three graph replays against the same steps eager, bit-equal, one
+    host read, and against the unsharded eager steps (1e-5)."""
+    import torch.distributed as dist
+
+    from ndcn_tpu_torch.parallel.coo_shard import shard_coo_at
+    from ndcn_tpu_torch.parallel.mesh import process_group
+    from ndcn_tpu_torch.train.chunk import TrainChunk
+
+    def shard(op):
+        return shard_coo_at(op, 1, 0, None)._replace(group=dist.group.WORLD)
+
+    with process_group(cuda_device):
+        assert dist.get_backend() == "nccl"
+        kw = dict(dropout=0.2, shard=shard)
+        g_e, g_g = (torch.Generator(cuda_device).manual_seed(5)
+                    for _ in range(2))
+        m_e, _, eager = _heat_step(cuda_device, "coo", False, rng=g_e, **kw)
+        m_g, o_g, graphed = _heat_step(cuda_device, "coo", False, rng=g_g,
+                                       **kw)
+        _, _, whole = _heat_step(cuda_device, "coo", False, dropout=0.2,
+                                 rng=torch.Generator(cuda_device).manual_seed(
+                                     5))
+        losses = [float(eager()[0]) for _ in range(3)]
+        ref = [float(whole()[0]) for _ in range(3)]
+        before = coo_spmv.ROWBLOCK_LAUNCHES
+        chunk = TrainChunk(graphed, m_g.parameters(), o_g, g_g)
+        loss, _ = chunk(3)
+        torch.cuda.synchronize()
+        assert coo_spmv.ROWBLOCK_LAUNCHES > before
+        assert chunk.host_reads == 1 and chunk.replays == 3
+        assert loss == losses[-1]
+        assert all(torch.equal(a, b) for a, b in zip(m_e.parameters(),
+                                                     m_g.parameters()))
+        assert np.allclose(losses, ref, rtol=1e-5, atol=0)
+        chunk.release()
+    assert not dist.is_initialized()
 
 
 def test_chunk_captures_again_after_a_rollback(cuda_device):

@@ -512,6 +512,28 @@ def test_gloo_model_axis_ranks_agree(gloo4):
             assert r[key] == r0[key], key
 
 
+@pytest.mark.parametrize("method", ["dopri5", "adams", "dopri5_adjoint"])
+def test_gloo_scan_chunk_matches_unsharded(gloo4, method):
+    """The dryrun's check 11: a two-step ``TrainChunk`` (the bounded solve,
+    dropout drawn whole, one host read) on 4 ranks' row blocks against the
+    same chunk unsharded: the loss within 1e-5, every step's NFE (and each
+    of the adjoint's 4 backward intervals') equal, and the parameters after
+    the chunk bit-equal on every rank."""
+    key = f"scan_chunk/{method}"
+    r0 = gloo4[0]
+    assert _rel(r0[f"{key}/loss"], r0[f"{key}/loss_unsharded"]) <= 1e-5
+    assert np.array_equal(r0[f"{key}/nfe"], r0[f"{key}/nfe_unsharded"])
+    assert len(r0[f"{key}/nfe"]) == 2
+    if method.endswith("_adjoint"):
+        back = r0[f"{key}/backward_nfe"]
+        assert back.shape == (2, 4) and (back > 0).all()
+        assert np.array_equal(back, r0[f"{key}/backward_nfe_unsharded"])
+    for r in gloo4[1:]:
+        assert np.array_equal(r[f"{key}/params"], r0[f"{key}/params"])
+        assert r[f"{key}/loss"] == r0[f"{key}/loss"]
+        assert np.array_equal(r[f"{key}/nfe"], r0[f"{key}/nfe"])
+
+
 # ------------------------------------------------ the solvers' groups
 def test_tree_math_holds_no_group_and_the_solvers_import_no_parallel():
     """The node group is the solve's option: ``ode.tree_math`` keeps no
@@ -673,7 +695,7 @@ def _losses(text, pattern):
 @pytest.mark.parametrize("driver", ["heat", "dgnn", "heat_replicas",
                                     "heat_replicas_adjoint", "heat_adjoint",
                                     "heat_lstm_gnn", "dgnn_GCN",
-                                    "dgnn_batch_DeepGCN2"])
+                                    "dgnn_batch_DeepGCN2", "heat_scan_chunk"])
 def test_driver_mesh_two_gloo_ranks_match_unsharded(driver, tmp_path,
                                                     capsys):
     """--mesh on two ranks: the operator's rows, the node-major data and
@@ -686,7 +708,10 @@ def test_driver_mesh_two_gloo_ranks_match_unsharded(driver, tmp_path,
     of one). ``--adjoint`` alone runs the continuous adjoint on a model
     axis of two, ``--baseline lstm_gnn`` the temporal baseline on the
     ranks' rows, and the GCN zoo (GCN, and DeepGCN2 under
-    ``--batch_iters``) the rows of each rank."""
+    ``--batch_iters``) the rows of each rank. ``--scan_chunk 2`` trains
+    each rank's row block in chunks (the bounded solve's norms and the
+    gradients' sum over the model axis inside the step) against the
+    unsharded chunked run, the final evaluation's NFE equal."""
     if driver.startswith("heat_replicas"):
         from ndcn_tpu_torch.experiments.dynamics import main as run
 
@@ -717,15 +742,26 @@ def test_driver_mesh_two_gloo_ranks_match_unsharded(driver, tmp_path,
                 "--dropout", "0.1", "--dump", "--results_dir",
                 str(tmp_path / "res")]
         argv += {"heat": [], "heat_adjoint": ["--adjoint"],
-                 "heat_lstm_gnn": ["--baseline", "lstm_gnn"]}[driver]
+                 "heat_lstm_gnn": ["--baseline", "lstm_gnn"],
+                 "heat_scan_chunk": ["--scan_chunk", "2"]}[driver]
         if driver in ("heat_adjoint", "heat_lstm_gnn"):
             # two steps of the new paths: one report
             argv[1] = "2"
-        ref = run("heat", "heat", argv)["train_losses"]
+        from ndcn_tpu_torch.report.results import load_results
+
+        ref_out = run("heat", "heat", argv)
+        ref = ref_out["train_losses"]
+        # the dump's evaluations' NFE (rank 0 writes the same path after)
+        ref_nfe = load_results(ref_out["results_path"])["nfe_train"]
         outs = _two_ranks("ndcn_tpu_torch.experiments.heat",
                           argv + ["--mesh"], tmp_path)
         pattern, printed = r"Train Loss ([0-9.]+)\(", 1e-6   # {:.6f}
         assert os.listdir(tmp_path / "res")
+        if driver == "heat_scan_chunk":
+            assert load_results(ref_out["results_path"])["nfe_train"] == \
+                ref_nfe
+            for out in outs:
+                assert "[scan_chunk] 2 chunks, 4 steps, 2 host reads" in out
     else:
         from ndcn_tpu_torch.experiments.dgnn import main as run
 

@@ -75,8 +75,11 @@ def test_solve_scan_matches_jax_solve_scan_on_linear2d(method):
     """linear2d (y' = y Aᵀ over 50 points, its fixture's dopri5): the
     port's bounded solve and JAX's ``solve_scan`` take the same attempts;
     the solution and its gradient (for A and y0) agree. (tsit5 on this
-    system at rtol 1e-5 takes one rejected attempt more than JAX in the
-    port's host loop as well: ROADMAP §3.)"""
+    system's float32 state at rtol 1e-5 takes one rejected attempt more
+    than JAX in the port's host loop as well: its first attempt's
+    embedded error is at float32 rounding, and the order of the two
+    packages' sums sets the next step; on a float64 state the counts are
+    equal, ``test_torch_solvers``.)"""
     f = dict(np.load(os.path.join(FIX, "linear2d_dopri5.npz")))
     a = torch.tensor(f["a"], requires_grad=True)
     y0 = torch.tensor(f["y0"], requires_grad=True)
@@ -284,22 +287,32 @@ def test_scan_train_bytes_equals_the_jax_packages(method):
 
 
 def test_the_scan_option_refuses_what_it_does_not_take():
+    """The bounded solve takes one replica: ``batched`` is refused, for
+    every adaptive method. The inference solve (``differentiable=False``,
+    the adjoint's), the continuous adjoint and adams, which it refused up
+    to ROADMAP §1 entry 6b item 2, now run under it, and a ``node_group``
+    of None is a world of one."""
     y0 = torch.ones(2, 3)
 
     def f(t, y):
         return -y
 
-    for options in ({"differentiable": False}, {"batched": True},
-                    {"node_group": object()}):
+    for method in ("dopri5", "tsit5", "adams"):
         with pytest.raises(ValueError, match="scan=True"):
-            odeint_with_stats(f, y0, [0.0, 1.0], method="dopri5",
-                              options=dict(SCAN, **options))
+            odeint_with_stats(f, y0, [0.0, 1.0], method=method,
+                              options=dict(SCAN, batched=True))
+    for options in ({"differentiable": False}, {"node_group": None}):
+        sol, st = odeint_with_stats(f, y0, [0.0, 1.0], method="dopri5",
+                                    options=dict(SCAN, max_steps=16,
+                                                 **options))
+        assert st.host_syncs == 0 and bool(st.success)
+        assert torch.allclose(sol[-1], y0 * np.exp(-1.0), rtol=1e-5)
     for kw in (dict(adjoint=True), dict(method="adams")):
-        with pytest.raises(NotImplementedError, match="entry 6b"):
-            ndcn_forward(params_from_jax(_grid400()[1]),
-                         as_operator(np.eye(400, dtype=np.float32)),
-                         [0.0, 1.0], torch.ones(400, 1), scan=True,
-                         **dict(KW, **kw))
+        out, st = ndcn_forward(params_from_jax(_grid400()[1]),
+                               as_operator(np.eye(400, dtype=np.float32)),
+                               [0.0, 1.0], torch.ones(400, 1), scan=True,
+                               max_steps=16, **dict(KW, **kw))
+        assert bool(st.success) and torch.isfinite(out).all()
 
 
 def test_capturable_adam_is_adam():
@@ -430,7 +443,39 @@ def test_heat_scan_chunk_profiles_one_chunk_on_copies(tmp_path):
 @pytest.mark.parametrize("extra", [["--adjoint"], ["--method", "adams"],
                                    ["--method", "explicit_adams"],
                                    ["--method", "fixed_adams"], ["--mesh"]])
-def test_heat_scan_chunk_refuses_entry_6b(extra):
-    with pytest.raises(NotImplementedError, match="entry 6b"):
-        run("heat", build_parser("t").parse_args(
-            SMALL + ["--scan_chunk", "2", *extra]))
+def test_heat_scan_chunk_refuses_entry_6b(extra, tmp_path, capsys):
+    """The combinations ``--scan_chunk`` refused up to ROADMAP §1 entry 6b
+    item 2 now train in chunks, one host read a chunk: the continuous
+    adjoint on the bounded inference solve, adams on the bounded VCABM
+    solve, the fixed-grid Adams methods, and ``--mesh`` (a world of one
+    here: unsharded; two gloo ranks in ``test_torch_mesh``). Their boundary
+    losses are the port's unchunked run's (1e-5, and the final
+    evaluation's NFE equal) and, through the JAX driver's checkpoint at
+    iteration 2 with Adam at lr 0, the JAX driver's with the same flags at
+    iteration 4 (1e-4)."""
+    argv = SMALL + ["--scan_chunk", "2", "--max_steps", "32", *extra]
+    out = run("heat", build_parser("t").parse_args(argv))
+    chunked = _boundaries(capsys.readouterr().out)
+    assert out["scan_chunk"] == dict(chunks=2, host_reads=2, captures=0,
+                                     steps=4)
+    one = run("heat", build_parser("t").parse_args(
+        SMALL + ["--max_steps", "32", *extra]))
+    single = _boundaries(capsys.readouterr().out)
+    assert [i for i, _ in chunked] == [i for i, _ in single] == [2, 4]
+    for (_, a), (_, b) in zip(chunked, single):
+        assert abs(a - b) <= 1e-5 * abs(b)
+    assert out["final_nfe"] == one["final_nfe"]
+    if extra == ["--mesh"]:
+        return
+    frozen = argv + ["--lr", "0", "--weight_decay", "0", "--ckpt_freq", "2"]
+    j_dynamics.run("heat", j_dynamics.build_parser("t").parse_args(
+        frozen + ["--ckpt_dir", str(tmp_path / "jax")]))
+    theirs = dict(_boundaries(capsys.readouterr().out))
+    os.makedirs(tmp_path / "port")
+    name = min(os.listdir(tmp_path / "jax"))          # iteration 2's
+    os.replace(tmp_path / "jax" / name, tmp_path / "port" / name)
+    run("heat", build_parser("t").parse_args(
+        frozen + ["--ckpt_dir", str(tmp_path / "port")]))
+    ours = dict(_boundaries(capsys.readouterr().out))
+    assert list(ours) == [4]
+    assert abs(ours[4] - theirs[4]) <= 1e-4 * abs(theirs[4])

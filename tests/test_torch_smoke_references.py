@@ -1,5 +1,5 @@
 """The committed CPU references of ``chip_smoke.py`` [15] b, [16] b / d,
-[17] b / d and [21] a (``tests/fixtures/smoke_cpu_references.npz``,
+[17] b / d, [21] a and [24] a / b (``tests/fixtures/smoke_cpu_references.npz``,
 written by ``ndcn_tpu_torch.tools.smoke_references``) are what the port
 computes on the CPU now: the cheapest entries recomputed, within 1e-6
 rel-L1 (the thread count may move a product's last bits; 1e-5 for the
@@ -50,15 +50,25 @@ def test_fixture_holds_every_setting(fixture):
                                                                        10)
     for label in sr.LV_RUNS:
         assert fixture[f"lv/{label}/train_losses"].shape == (20,)
+    for label in sr.SCAN_SETTINGS:
+        grads = sr.step_grads(fixture, f"scan/{label}")
+        assert len(grads) == 8 and int(fixture[f"scan/{label}/nfe"]) > 0
+        assert np.isfinite(fixture[f"scan/{label}/loss"])
+        head = f"scan/{label}/"
+        assert {k for k in fixture if k.startswith(head)} == {
+            head + "loss", head + "nfe", *(head + "grad/" + n for n in grads)}
 
 
 @pytest.mark.parametrize("key", ["serve/fixed_adams", "serve/explicit_adams",
                                  "replicas/explicit_adams_dense", "cora/coo",
-                                 "temporal/gru_bsr", "lv/rk4"])
+                                 "temporal/gru_bsr", "lv/rk4",
+                                 "scan/dopri5_adjoint_coo",
+                                 "scan/explicit_adams_dense"])
 def test_fixture_is_current(fixture, key):
-    # cora's encoder gradient sums 140 rows of 1433 features in blocks that
-    # follow the thread count (the fixture's 8, the test's 1): 1e-5
-    bar = 1e-5 if key.startswith("cora/") else 1e-6
+    # cora's encoder gradient sums 140 rows of 1433 features, and the
+    # adjoint's decoder gradient 16 · 400 states, in blocks that follow the
+    # thread count (the fixture's 8, the test's 1): 1e-5
+    bar = 1e-5 if key.startswith(("cora/", "scan/")) else 1e-6
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:

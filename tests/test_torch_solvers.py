@@ -108,6 +108,34 @@ def test_tsit5_converges_to_the_analytic_solution(rtol, atol, bar,
         assert abs(stats.nfe - int(j_stats.nfe)) <= 0.05 * stats.nfe
 
 
+@pytest.mark.parametrize("differentiable", [False, True])
+@pytest.mark.parametrize("rtol", [1e-5, 1e-6, 1e-8])
+def test_tsit5_steps_equal_jax_on_a_float64_state(rtol, differentiable):
+    """On a float32 state linear2d_dopri5's tsit5 counts part from the JAX
+    package's at rtol 1e-5-1e-8: the first attempt's embedded error is at
+    float32 rounding (~1e-9), so the order in which each package sums
+    c_error · k sets the next step. On a float64 state (the same arrays
+    cast, float64 time) the estimate carries no such noise: the counts are
+    equal and the solutions within 1e-10 rel-L1."""
+    f = load("linear2d_dopri5")
+    a = f["a"].astype(np.float64)
+    at = torch.as_tensor(a)
+    y0, t = f["y0"].astype(np.float64), f["t"].astype(np.float64)
+    opts = {"differentiable": differentiable, "time_dtype": "float64"}
+    sol, stats = odeint_with_stats(lambda tt, y: y @ at.T,
+                                   torch.as_tensor(y0), t, rtol=rtol,
+                                   atol=rtol / 100, method="tsit5",
+                                   options=opts)
+    with jax.enable_x64(True):
+        aj = jnp.asarray(a)
+        ref, j_stats = j_odeint_with_stats(
+            lambda tt, y: y @ aj.T, jnp.asarray(y0), jnp.asarray(t),
+            rtol=rtol, atol=rtol / 100, method="tsit5", options=opts)
+        ref, j_stats = np.asarray(ref), _stats(j_stats)
+    assert _stats(stats) == j_stats
+    assert rel_l1(sol.detach().numpy(), ref) <= 1e-10
+
+
 def test_tsit5_reference_weights_take_the_jax_packages_steps():
     """The reference's error weights (sum 32/33): the controller
     micro-steps, and the port takes the JAX package's 2,646 accepted and

@@ -496,17 +496,14 @@ def test_heat_experiment_auto_budget_and_refusals(tmp_path):
     assert out["max_steps"] >= 8 and np.isfinite(out["final"]["abs_error"])
     base = ["--n", "25", "--platform", "cpu"]
     # --scan_chunk, refused until ROADMAP §1 entry 6a was ported, runs
-    # (tests/test_torch_scan.py holds it against the JAX driver); what
-    # entry 6b keeps is refused
-    out = run("heat", build_parser("t").parse_args(
-        base + ["--time_tick", "6", "--niters", "4", "--test_freq", "4",
-                "--method", "dopri5", "--scan_chunk", "4"]))
-    assert out["scan_chunk"]["host_reads"] == 1
-    assert np.isfinite(out["final"]["abs_error"])
-    with pytest.raises(NotImplementedError, match="§1 entry 6b"):
-        run("heat", build_parser("t").parse_args(
-            base + ["--method", "dopri5", "--scan_chunk", "4",
-                    "--adjoint"]))
+    # (tests/test_torch_scan.py holds it against the JAX driver), and with
+    # --adjoint, refused until entry 6b item 2 was ported, too
+    for extra in ([], ["--adjoint"]):
+        out = run("heat", build_parser("t").parse_args(
+            base + ["--time_tick", "6", "--niters", "4", "--test_freq", "4",
+                    "--method", "dopri5", "--scan_chunk", "4", *extra]))
+        assert out["scan_chunk"]["host_reads"] == 1
+        assert np.isfinite(out["final"]["abs_error"])
     # adams under --export and --replicas, refused until ROADMAP §1
     # entries 11b′ and 11a′ were ported, run
     short = base + ["--time_tick", "6", "--niters", "2", "--test_freq", "2"]
