@@ -76,7 +76,9 @@ Phases, one line each:
      layout, K1's bf16 instance) and with ``--layout feature_major`` under
      ``GATHER_WIDE`` (K5), 3 iterations each; and the three solves of the
      1M step side by side (feature-major, feature-major under
-     ``GATHER_WIDE``, the (n, d) layout), 10 iterations each.
+     ``GATHER_WIDE``, the (n, d) layout), 10 iterations each. The phase
+     builds each graph once and solves the 1M ground truth once (the
+     driver's ``--gt_cache`` under build/).
  13. the three microbenchmarks at their defaults (``ndcn_tpu_torch.tools``):
      P1a (the sliced-tile reduce) and P1b / P2 (the row gather) against
      their plain versions and the oracle, and the narrow / wide table; P1a
@@ -229,9 +231,11 @@ Phases, one line each:
      runs unsharded) with the losses of the run without it. Only one card:
      meshes of more ranks are checked on the CPU (gloo), by
      ``python -m ndcn_tpu_torch.parallel.dryrun 4 --device cpu`` and the tests.
- [20]-[24] run beside a second process on the card ([23] and [24]'s), so
- every time they print is a host-clock one under its load (``LOADED``);
- [3]-[19], which time the kernels and their library calls, run alone.
+ [20]-[25] run beside each other in three processes on the card ([20],
+ [22] and [25] in this one, [21] in a second, [23] and [24] in a third:
+ ``side_main``), so every time they print is a host-clock one under the
+ others' load (``LOADED``); [3]-[19], which time the kernels and their
+ library calls, run alone.
  20. the serving artifact (``serve.export_ndcn``): grid400 dense
      ``fused="auto"`` (K2), grid400 BSR ``fused=False`` (K3) and ``"auto"``
      (K4) at the fixture's weights, and the 200k / 2.0M COO operator (K1),
@@ -245,7 +249,9 @@ Phases, one line each:
      ``--export`` on cora (the showcase recipe, 2 epochs), the served
      logits' test accuracy within 0.01 of the driver's.
  21. the Adams family and the continuous adjoint under replicas, and the
-     artifact with the Adams methods and the feature-major layout: (a) the
+     artifact with the Adams methods and the feature-major layout (in a
+     process of its own started after [19]: ``replica_phase``,
+     ``artifact_phase``): (a) the
      heat driver with ``--replicas 4`` for 2 iterations with adams,
      fixed_adams and explicit_adams (at tick 20: its solve diverges on
      this model from tick 40 on; dense ``--fused_kernel``: K2's batched
@@ -287,7 +293,7 @@ Phases, one line each:
      DeepGCN2`` (all on COO), with ``--mesh`` on one rank (the JAX notice)
      and without it: the same losses.
  23. (with [24], in a process of its own started after [19], beside
-     [20]-[22]: ``scan_phases_main``) the scan path and ``--scan_chunk``
+     [20]-[22] and [25]: ``side_main``) the scan path and ``--scan_chunk``
      (``ode.adaptive.solve_scan``,
      ``train.chunk``): on grid400 dense (``fused="auto"``: K2), BSR (K4,
      K3 in its backward) and COO (K1, K1ᵀ), 5 steps, and
@@ -339,13 +345,29 @@ Phases, one line each:
      kernel, kernel, plain), a torch.profiler breakdown (traces to
      build/traces/), and each kernel's launches in that one steady step or
      epoch.
+ 25. the scale-record tools, ``analyze_mesh_tax`` and the quickstart
+     (``ndcn_tpu_torch.tools``, ``experiments.quickstart``), after [22]:
+     (a) ``profile_scale_step`` at 200k on [10]'s
+     problem and weights (fp32 gather): its ``nfe`` equal to [10]'s first
+     host-loop step's, every level > 0 ms, the (n, d) layout; (b)
+     ``bench_scale --n 200000 --iters 5 --repeats 1`` in a process of its
+     own beside (a) and (c)-(e), into a temporary directory under build/:
+     the record's keys and its ``card`` the smoke's ``nvidia-smi`` line; (c)
+     ``analyze_mesh_tax`` at 200k (``step_u``, ``step_s``, ``fwd_u``,
+     ``fwd_s``, 2 reps): the sharded losses within 1e-5 of the whole ones
+     with NFE equal, K1's row-block launches in the sharded variants'
+     histograms and the whole K1's in the others'; (d) ``record_showcase``
+     on cora with ``--batch_iters --iter 4 --epochs 20``: its record and
+     card; (e) the quickstart for 50 iterations (K2 under
+     ``fused="auto"``): finite losses that fall.
 Then each phase's wall seconds (``[t]``), the kernels' JSON record, and
 last the device JSON line. Launch counts
 are zeroed just before each main-path phase (5-6, 8, 9, 10, each run of 12,
 13, 14, each part of 15, each run of 16 and 17, each driver run of 18 and
 19, each in-process request of 20 and 21, each driver run of 21, each
 row-block step and driver run of 22, each step and driver run of 23 and
-24, counted in their own process and added)
+24 and each driver run of 21 a, counted in their own processes and added,
+each tool of 25)
 and read just after its GPU work (a graph's replays launch what its
 capture counted);
 the served artifacts of 20 and 21 count their own launches in their own
@@ -922,6 +944,360 @@ def scan_chunk_phase(dev, root: str, add_launches, big: dict) -> dict:
                 seconds=time.perf_counter() - t23)
 
 
+@contextlib.contextmanager
+def gather_mode(wide: bool, bf16: bool):
+    """``coo_spmv.GATHER_WIDE`` and ``GATHER_BF16`` for the body."""
+    from ndcn_tpu_torch.kernels import coo_spmv
+
+    saved = coo_spmv.GATHER_WIDE, coo_spmv.GATHER_BF16
+    coo_spmv.GATHER_WIDE, coo_spmv.GATHER_BF16 = wide, bf16
+    try:
+        yield
+    finally:
+        coo_spmv.GATHER_WIDE, coo_spmv.GATHER_BF16 = saved
+
+
+def artifact_phase(dev, root: str, add_launches) -> dict:
+    """[21] b, the artifacts with the Adams methods and the feature-major
+    layout (see the module docstring), in the process of [21] a
+    (``side_main``): the grid400 model at the oracle fixture's weights, the
+    200k and 1M problems and models of [10] and [12] built again from
+    their seeds. Returns the artifacts' records, the launches their
+    serving process counted and each kernel's launches in one request."""
+    import numpy as np
+
+    from ndcn_tpu_torch import kernels
+    from ndcn_tpu_torch.convert import params_from_jax
+    from ndcn_tpu_torch.experiments import large_graph
+    from ndcn_tpu_torch.graph.generators import (build_network,
+                                                 build_sparse_graph)
+    from ndcn_tpu_torch.graph.operators import (normalized_laplacian,
+                                                normalized_laplacian_sparse)
+    from ndcn_tpu_torch.graph.sparse import from_dense, from_scipy_coo
+    from ndcn_tpu_torch.models import init_ndcn
+    from ndcn_tpu_torch.serve import export_ndcn, make_server, save_artifact
+    from ndcn_tpu_torch.tools.serve_artifact import host_reads
+    from ndcn_tpu_torch.train.sampling import sample_times
+
+    t21 = time.perf_counter()
+    fx = dict(np.load(os.path.join(root, "tests", "fixtures",
+                                   "ndcn_forward_grid400.npz")))
+    model_grid = params_from_jax(
+        {name: {"w": fx[f"{name}_w"].T, "b": fx[f"{name}_b"]}
+         for name in ("enc1", "enc2", "wt", "dec")}, device=dev)
+    op_grid = from_dense(normalized_laplacian(build_network("grid", 400)),
+                         device=dev)
+    op_big = from_scipy_coo(normalized_laplacian_sparse(
+        build_sparse_graph(200_000, 10, seed=0)), device=dev)
+    splits = sample_times(5.0, 40, "irregular", seed=0)
+    model_big = init_ndcn(torch.Generator().manual_seed(0), 1, 20, 1,
+                          device=dev)
+    args_1m = large_graph.build_parser().parse_args(["--n", "1000000"])
+    prob = large_graph.build_problem(args_1m, dev)
+    model_1m = large_graph.new_model(args_1m, dev)
+    kw20 = dict(rtol=0.01, atol=0.001, method="dopri5")
+    served = {}
+    # (b) the artifacts, served in a fresh process
+    exp21 = os.path.join(root, "build", "smoke_export21")
+    shutil.rmtree(exp21, ignore_errors=True)
+    os.makedirs(exp21)
+    args_1m_kw = dict(rtol=0.01, atol=0.001, method="dopri5", layout="auto")
+    x0_200k = np.random.RandomState(0).uniform(
+        0.0, 25.0, (op_big.n, 1)).astype(np.float32)
+    settings21b = {  # model, operator, grid, forward kwargs, request,
+        # wide gather, the kernels each RHS evaluation launches once
+        **{f"grid400_dense_{m}": (model_grid, op_grid, fx["t"],
+                                  dict(kw20, method=m, fused="auto"),
+                                  fx["x0"], False, ["fused_rhs"])
+           for m in ("adams", "fixed_adams", "explicit_adams")},
+        "1m_coo_auto_feature_major": (
+            model_1m, prob.op, prob.splits.t, args_1m_kw,
+            prob.x0.cpu().numpy(), False, ["coo_spmv_T_pack", "coo_spmv_T"]),
+        "200k_coo_feature_major_wide": (
+            model_big, op_big, splits.t,
+            dict(kw20, layout="feature_major"), x0_200k, True,
+            ["coo_spmv_T_wide"]),
+    }
+    art21, served21 = {}, []
+    for label, (mdl, op21, vt21, fkw, x0, wide, knames) in \
+            settings21b.items():
+        with gather_mode(wide, False):
+            t0 = time.perf_counter()
+            blob = export_ndcn(mdl, op21, vt21, x0.shape, **fkw)
+            export_s = time.perf_counter() - t0
+            path = os.path.join(exp21, f"{label}.pt2")
+            save_artifact(path, blob)
+            np.save(os.path.join(exp21, f"{label}_x0.npy"), x0)
+            served21 += [path, os.path.join(exp21, f"{label}_x0.npy")]
+            srv = make_server(mdl, op21, vt21, **fkw)
+            kernels.reset_launch_counts()
+            with host_reads() as srv_reads:
+                out_s, ok_s = srv(x0)
+            torch.cuda.synchronize()
+            counts = add_launches(f"{label} in-process", knames)
+            st = srv.last_stats
+            check(ok_s, f"{label}: the server's solve failed")
+            np.save(os.path.join(exp21, f"{label}_server.npy"),
+                    out_s.cpu().numpy())
+            srv_ms = []
+            for _ in range(10):
+                t0 = time.perf_counter()
+                srv(x0)
+                torch.cuda.synchronize()
+                srv_ms.append((time.perf_counter() - t0) * 1e3)
+        art21[label] = dict(
+            bytes=len(blob), export_s=export_s, nfe_server=st.nfe,
+            accepted=st.n_accepted, rejected=st.n_rejected,
+            server_median_ms=statistics.median(srv_ms),
+            server_host_reads=srv_reads[0],
+            server_launch_counts={k: v for k, v in counts.items() if v})
+        del blob, srv, out_s
+        torch.cuda.empty_cache()
+    r = subprocess.run(
+        [sys.executable, "-m", "ndcn_tpu_torch.tools.serve_artifact",
+         *served21, "--requests", "10", "--answers", exp21],
+        capture_output=True, text=True, timeout=600, cwd=root)
+    check(r.returncode == 0, f"serving the [21] artifacts failed: "
+          f"{r.stderr[-3000:]}")
+    recs21 = {os.path.splitext(rec["artifact"])[0]: rec for rec in
+              map(json.loads, r.stdout.strip().splitlines())}
+    for label, (*_, knames) in settings21b.items():
+        rec, a = recs21[label], art21[label]
+        check(rec["success"] and not rec["model_code_imported"],
+              f"{label}: the artifact's solve failed or the serving process "
+              f"imported {rec['model_code_imported']}")
+        for name, c in rec["launch_counts"].items():
+            served[name] = served.get(name, 0) + c
+        got = np.load(os.path.join(exp21, f"{label}.npy"))
+        ref = np.load(os.path.join(exp21, f"{label}_server.npy"))
+        diff = float(np.abs(got - ref).max())
+        rel = rel_l1(torch.as_tensor(got), torch.as_tensor(ref))
+        # the adams artifact runs the masked machine against the server's
+        # host-indexed solve; every other one the server's operations
+        ok = rel <= 1e-5 if label.endswith("_adams") and "fixed" not in \
+            label and "explicit" not in label else diff <= 1e-6
+        check(ok, f"{label}: the artifact parts from the server by {diff} "
+              f"max|Δ|, {rel} rel-L1")
+        launched = {k: rec["launch_counts"].get(k, 0) for k in knames}
+        # one launch of each kernel an RHS evaluation: the artifact's NFE
+        check(all(v == a["nfe_server"] for v in launched.values()),
+              f"{label}: launches {launched} in the artifact, NFE "
+              f"{a['nfe_server']} in process")
+        a.update(max_abs_diff=diff, rel_l1=rel, launches_per_request=launched,
+                 median_ms=rec["median_ms"], latency_ms=rec["latency_ms"],
+                 first_request_ms=rec["first_request_ms"],
+                 load_s=rec["load_s"], host_reads=rec["host_reads"])
+    shutil.rmtree(exp21, ignore_errors=True)
+    per_request = dict(
+        coo_spmv_T=art21["1m_coo_auto_feature_major"][
+            "launches_per_request"]["coo_spmv_T"],
+        coo_spmv_T_pack=art21["1m_coo_auto_feature_major"][
+            "launches_per_request"]["coo_spmv_T_pack"],
+        coo_spmv_T_wide=art21["200k_coo_feature_major_wide"][
+            "launches_per_request"]["coo_spmv_T_wide"])
+    return dict(artifacts=art21, served_launches=served,
+                launches_in_artifact=per_request,
+                seconds=time.perf_counter() - t21)
+
+
+def timed_steps(step, k=5, warm=True) -> float:
+    """Host-clock ms a call of ``step``, over ``k`` calls to
+    ``torch.cuda.synchronize()``, after one warm call with ``warm``."""
+    if warm:
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(k):
+        step()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / k * 1e3
+
+
+def replica_phase(dev, add_launches) -> dict:
+    """[21] a, the Adams family and the continuous adjoint under replicas
+    (see the module docstring), in a process of its own
+    (``side_main``): the heat driver's grid400 data at each setting's tick
+    from ``tools.smoke_references.heat_replica_problem``, the CPU's
+    first steps from its committed references. Returns the settings'
+    records; ``main`` adds [18]'s seconds a model-step beside each."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    from ndcn_tpu_torch import kernels
+    from ndcn_tpu_torch.experiments.dynamics import build_parser, run
+    from ndcn_tpu_torch.graph.generators import build_network
+    from ndcn_tpu_torch.graph.operators import normalized_laplacian
+    from ndcn_tpu_torch.graph.sparse import as_operator
+    from ndcn_tpu_torch.models import init_ndcn, ndcn_forward
+    from ndcn_tpu_torch.ode import nan_unless
+    from ndcn_tpu_torch.parallel.sweep import (make_ndcn_replica_train_step,
+                                               replica_generators,
+                                               replica_l1, stack_models)
+    from ndcn_tpu_torch.tools import smoke_references
+    from ndcn_tpu_torch.train.budget import sweep_memory_estimate
+    from ndcn_tpu_torch.train.losses import l1_loss
+
+    grid_lap = normalized_laplacian(build_network("grid", 400))
+    problems = {}
+    R21 = 4
+    dense_f = ["--fused_kernel"]
+    coo_f = ["--sparse", "--sparse_format", "coo"]
+    bsr_f = ["--sparse", "--sparse_format", "bsr", "--fused_kernel"]
+    settings21 = {   # format, driver flags, fused, method, adjoint, kernels
+        "adams_dense": ("dense", dense_f, "auto", "adams", False,
+                        ["fused_rhs_batched"]),
+        "fixed_adams_dense": ("dense", dense_f, "auto", "fixed_adams", False,
+                              ["fused_rhs_batched"]),
+        "explicit_adams_dense": ("dense", dense_f, "auto", "explicit_adams",
+                                 False, ["fused_rhs_batched"]),
+        "dopri5_adjoint_dense": ("dense", dense_f, "auto", "dopri5", True,
+                                 ["fused_rhs_batched"]),
+        "dopri5_adjoint_coo": ("coo", coo_f, False, "dopri5", True,
+                               ["coo_spmv_batched"]),
+        "dopri5_adjoint_bsr": ("bsr", bsr_f, "auto", "dopri5", True,
+                               ["bsr_fused_rhs_batched", "bsr_spmm_batched"]),
+        "adams_adjoint_dense": ("dense", dense_f, "auto", "adams", True,
+                                ["fused_rhs_batched"]),
+    }
+
+    def first_grads(op, fused, method, adjoint, seeds, device, problem):
+        """The first step's losses and gradients of the heat driver's
+        replica step over the replicas seeded ``seeds`` (one model when
+        there is one seed), on ``device``, on ``problem`` (the grid, x0
+        and the target)."""
+        vt, x0, target = problem
+        models = [init_ndcn(torch.Generator().manual_seed(s), 1, 20, 1)
+                  for s in seeds]
+        model = (stack_models(models) if len(seeds) > 1
+                 else models[0]).to(device)
+        out, stats = ndcn_forward(
+            model, op, vt, x0.to(device), method=method, fused=fused,
+            adjoint=adjoint, max_steps=256, rtol=0.01, atol=0.001)
+        tgt = target.to(device)
+        losses = (nan_unless(stats.success,
+                             replica_l1(out.transpose(0, 1), tgt))
+                  if len(seeds) > 1 else l1_loss(out, tgt).reshape(1))
+        losses.sum().backward()
+        return (losses.detach().cpu(),
+                [p.grad.detach().cpu() for p in model.parameters()], stats)
+
+    # the CPU's first steps (float32, and float64 on the unfused dense
+    # route) are the committed references (tools/smoke_references.py)
+    refs21 = smoke_references.load()
+    check(R21 == smoke_references.R and {
+        k: (v[0], v[2], v[3], v[4]) for k, v in settings21.items()}
+        == smoke_references.REPLICA_SETTINGS,
+        "[21]'s settings and the CPU references' differ")
+    rep21 = {}
+    for label, (fmt, flags, fused, method, adjoint, needed) in \
+            settings21.items():
+        mat = sp.csr_matrix(grid_lap) if fmt != "dense" else grid_lap
+        op = as_operator(mat, sparse=fmt != "dense", format=fmt, device=dev)
+        # the heat driver's data at tick 100 ([18]'s), or the CPU
+        # references' own where the setting takes another tick
+        tick = smoke_references.REPLICA_TIME_TICK.get(label, 100)
+        if tick not in problems:
+            _, vt_p, x0_p, target_p = smoke_references.heat_replica_problem(
+                tick)
+            problems[tick] = (vt_p, x0_p.to(dev), target_p.to(dev))
+        heat21 = problems[tick]
+        rec = {"time_tick": tick}
+        # the heat driver: R = 4 replicas, 2 iterations
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = run("heat", build_parser("heat").parse_args(
+            ["--network", "grid", "--n", "400", "--method", method,
+             "--niters", "2", "--test_freq", "2", "--replicas", str(R21),
+             "--time_tick", str(tick), *flags,
+             *(["--adjoint"] if adjoint else [])]))
+        torch.cuda.synchronize()
+        rec["driver_seconds"] = time.perf_counter() - t0
+        rec["driver_launches"] = {k: v for k, v in add_launches(
+            f"heat --replicas {R21} {label}", needed).items() if v}
+        rec["final"], rec["max_steps"] = out["final"], out["max_steps"]
+        check(all(np.isfinite(out["train_losses"][-1])),
+              f"heat --replicas {R21} {label}: train losses "
+              f"{out['train_losses']}")
+        # the first step's losses and gradients: replica 0 against its run
+        # alone on the card, the card against the CPU
+        kernels.reset_launch_counts()
+        loss_c, grads_c, st_c = first_grads(op, fused, method, adjoint,
+                                            range(R21), dev, heat21)
+        torch.cuda.synchronize()
+        rec["step_launches"] = {k: v for k, v in
+                                kernels.launch_counts().items() if v}
+        check(all(rec["step_launches"].get(k, 0) > 0 for k in needed)
+              and not any(v for k, v in rec["step_launches"].items()
+                          if not k.endswith("batched")),
+              f"{label}: the replica step launched {rec['step_launches']}")
+        errs = []
+        for i in (0,):
+            loss_1, grads_1, _ = first_grads(op, fused, method, adjoint, [i],
+                                             dev, heat21)
+            errs.append(dict(
+                loss=float(abs(loss_c[i] - loss_1[0]) / abs(loss_1[0])),
+                grads=max(rel_l1(g[i], h) for g, h in zip(grads_c,
+                                                          grads_1))))
+        loss_h = torch.as_tensor(refs21[f"replicas/{label}/loss"])
+        grads_h = smoke_references.replica_grads(refs21, label)
+        nfe_h = refs21[f"replicas/{label}/nfe"].tolist()
+        vs_cpu = dict(loss=float((loss_c - loss_h).abs().max()
+                                 / loss_h.abs().max()),
+                      grads=max(rel_l1(g, h) for g, h in zip(grads_c,
+                                                             grads_h)))
+        grad_bar = 1e-3
+        over = max(vs_cpu["grads"], *(e["grads"] for e in errs)) > grad_bar
+        if over or (method == "adams" and not adjoint):
+            # backprop through adams's step-size and order controller
+            # moves with float32's rounding (its NFE too): the bar is
+            # twice the CPU's own float32-vs-float64 distance where that
+            # is larger, as
+            # [15] holds the other solvers' answers. For adams backprop
+            # the card's float32 gradients are held against the same
+            # float64 ones beside the CPU's: no farther from them
+            grads_64 = smoke_references.replica_grads(refs21, label,
+                                                      f64=True)
+            vs_cpu["cpu_f32_vs_f64"] = max(
+                rel_l1(g.double(), h) for g, h in zip(grads_h, grads_64))
+            vs_cpu["card_f32_vs_f64"] = max(
+                rel_l1(g.double(), h) for g, h in zip(grads_c, grads_64))
+            if over:
+                grad_bar = max(grad_bar, 2 * vs_cpu["cpu_f32_vs_f64"])
+        check(all(e["loss"] <= 1e-4 and e["grads"] <= grad_bar
+                  for e in errs)
+              and vs_cpu["loss"] <= 1e-4 and vs_cpu["grads"] <= grad_bar,
+              f"{label}: replica 0 against its run alone {errs}, the "
+              f"card against the CPU {vs_cpu}")
+        rec.update(first_step_vs_alone=errs, first_step_card_vs_cpu=vs_cpu,
+                   nfe_replicas=list(st_c.nfe), nfe_cpu=nfe_h)
+        if adjoint:
+            rec["backward_nfe_replicas"] = [
+                sum(b.nfe[i] for b in st_c.backward) for i in range(R21)]
+            rec["backward_intervals"] = len(st_c.backward)
+        # seconds a model-step, and the step's peak beside the memory
+        # guard's estimate (one replica's probe step, times R)
+        init_fn, step_fn = make_ndcn_replica_train_step(
+            op, *heat21, method=method, fused=fused, adjoint=adjoint,
+            max_steps=256)
+        model, opt = init_fn(replica_generators(0, R21))
+        one_model, one_opt = init_fn(replica_generators(0, 1))
+        est = sweep_memory_estimate(lambda: step_fn(one_model, one_opt), R21,
+                                    dev)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        # warm already: the first steps above ran the same programs
+        ms = timed_steps(lambda: step_fn(model, opt), k=1, warm=False)
+        rec["step_peak_gb"] = (torch.cuda.max_memory_allocated(dev)
+                               - base) / 1e9
+        rec["guard_estimate_gb"] = est["estimate"] / 1e9
+        rec.update(batched_step_ms=ms, model_step_ms=ms / R21)
+        rep21[label] = rec
+        del model, opt, one_model, one_opt
+        torch.cuda.empty_cache()
+    return rep21
+
+
 def heat_200k(op, splits, dev) -> dict:
     """[10]'s 200k training problem on ``op`` (the 200k / 2.2M normalized
     Laplacian): x0 from seed 0, the port's heat ground truth at rtol 1e-6
@@ -952,30 +1328,25 @@ def heat_200k(op, splits, dev) -> dict:
                 max_steps=budget, gt_nfe=gt_stats.nfe, gt_seconds=gt_s)
 
 
-def scan_phases_main(out_path: str) -> None:
-    """[23] and [24] in a process of their own (``python3 chip_smoke.py
-    --scan-phases OUT``), which ``main`` starts once the phases that time a
-    kernel or a library call ([3]-[19]) are done and which runs beside
-    [20]-[22]: both sides are launch-bound on the host, and the smoke's
-    time limit holds them only side by side. It rebuilds [10]'s 200k problem from the same seeds and
-    writes the two records and the launches of their main-path runs to
+def side_main(which: str, out_path: str) -> None:
+    """A process of its own beside ``main`` (``python3 chip_smoke.py --side
+    WHICH OUT``), which ``main`` starts once the phases that time a kernel
+    or a library call ([3]-[19]) are done, and which runs beside [20]-[22]
+    and [25]: every side is launch-bound on the host, and the smoke's time
+    limit holds them only side by side. ``scan``: [23] and [24], on [10]'s
+    200k problem rebuilt from the same seeds; ``replicas``: [21] a, then
+    [21] b. It
+    writes the records and the launches of their main-path runs to
     ``out_path``; a failed check exits non-zero."""
     from ndcn_tpu_torch import kernels
-    from ndcn_tpu_torch.graph.generators import build_sparse_graph
-    from ndcn_tpu_torch.graph.operators import normalized_laplacian_sparse
-    from ndcn_tpu_torch.graph.sparse import from_scipy_coo
     from ndcn_tpu_torch.kernels import build
     from ndcn_tpu_torch.kernels.platform import pin_fp32
-    from ndcn_tpu_torch.train.sampling import sample_times
 
     torch.set_num_threads(2)
     pin_fp32()
     build.load()
     dev = torch.device("cuda", 0)
     root = os.path.dirname(os.path.abspath(__file__))
-    op = from_scipy_coo(normalized_laplacian_sparse(
-        build_sparse_graph(200_000, 10, seed=0)), device=dev)
-    big = heat_200k(op, sample_times(5.0, 40, "irregular", seed=0), dev)
     launches = dict.fromkeys(kernels.launch_counts(), 0)
 
     def add_launches(what: str, needed) -> dict:
@@ -986,11 +1357,174 @@ def scan_phases_main(out_path: str) -> None:
             launches[name] += c
         return counts
 
-    scan23 = scan_chunk_phase(dev, root, add_launches, big)
-    torch.cuda.empty_cache()
-    scan24 = scan_more_phase(dev, root, add_launches, big)
+    if which == "replicas":
+        rec = dict(rep21=replica_phase(dev, add_launches))
+        torch.cuda.empty_cache()
+        rec["art21"] = artifact_phase(dev, root, add_launches)
+        for name, c in rec["art21"].pop("served_launches").items():
+            launches[name] += c
+    else:
+        from ndcn_tpu_torch.graph.generators import build_sparse_graph
+        from ndcn_tpu_torch.graph.operators import \
+            normalized_laplacian_sparse
+        from ndcn_tpu_torch.graph.sparse import from_scipy_coo
+        from ndcn_tpu_torch.train.sampling import sample_times
+
+        op = from_scipy_coo(normalized_laplacian_sparse(
+            build_sparse_graph(200_000, 10, seed=0)), device=dev)
+        big = heat_200k(op, sample_times(5.0, 40, "irregular", seed=0), dev)
+        scan23 = scan_chunk_phase(dev, root, add_launches, big)
+        torch.cuda.empty_cache()
+        scan24 = scan_more_phase(dev, root, add_launches, big)
+        rec = dict(scan23=scan23, scan24=scan24)
     with open(out_path, "w") as f:
-        json.dump(dict(scan23=scan23, scan24=scan24, launches=launches), f)
+        json.dump(dict(rec, launches=launches), f)
+
+
+class SideProcess:
+    """``side_main(which, ...)`` started in a process of its own, its output
+    to ``build/smoke_side_<which>.log`` (one stream stays the smoke's); it
+    is stopped at exit whatever happens in ``main``."""
+
+    def __init__(self, which: str, root: str):
+        self.which = which
+        self.out = os.path.join(root, "build", f"smoke_side_{which}.json")
+        self.log = open(os.path.join(root, "build",
+                                     f"smoke_side_{which}.log"), "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--side", which,
+             self.out], cwd=root, stdout=self.log, stderr=subprocess.STDOUT)
+        atexit.register(lambda: self.proc.poll() is None and self.proc.kill())
+
+    def result(self, timeout: float = 600) -> dict:
+        rc = self.proc.wait(timeout=timeout)
+        self.log.close()
+        with open(self.log.name) as f:
+            tail = f.read()[-3000:]
+        check(rc == 0, f"the {self.which} process exited {rc}: {tail}")
+        with open(self.out) as f:
+            rec = json.load(f)
+        os.remove(self.out)
+        return rec
+
+
+TOOLS_LEVELS = ("spmv_ms", "rhs_ms", "fwd_while_ms", "fwd_scan_ms", "grad_ms",
+                "step_ms")
+
+
+def tools_phase(dev, root: str, add_launches, nfe10: int, smi: str) -> dict:
+    """[25] the scale-record tools, ``analyze_mesh_tax`` and the quickstart
+    on the card (see the module docstring): ``nfe10`` is [10]'s first
+    host-loop step's NFE at the same weights, ``smi`` the card's
+    ``nvidia-smi`` line. Returns the phase's record."""
+    import tempfile
+
+    import numpy as np
+
+    from ndcn_tpu_torch import kernels
+    from ndcn_tpu_torch.experiments import quickstart
+    from ndcn_tpu_torch.tools import (analyze_mesh_tax, profile_scale_step,
+                                      record_showcase)
+
+    t25 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="smoke_tools_",
+                           dir=os.path.join(root, "build"))
+    rec = {}
+    # (b) bench_scale at 200k, 5 iterations, in a process of its own
+    # beside (a) and (c)-(e)
+    bench_out = os.path.join(tmp, "scale_200k_heat.json")
+    bench_log = open(os.path.join(tmp, "bench_scale.log"), "w")
+    bench = subprocess.Popen(
+        [sys.executable, "-m", "ndcn_tpu_torch.tools.bench_scale", "--n",
+         "200000", "--iters", "5", "--repeats", "1", "--out", bench_out],
+        cwd=root, stdout=bench_log, stderr=subprocess.STDOUT)
+    atexit.register(lambda: bench.poll() is None and bench.kill())
+    # (a) the step by level at 200k: [10]'s problem and weights, fp32
+    # gather
+    kernels.reset_launch_counts()
+    prof = profile_scale_step.profile(profile_scale_step.build_parser()
+                                      .parse_args(["--n", "200000",
+                                                   "--kernel_precision",
+                                                   "split2"]))
+    prof["launches"] = {k: v for k, v in add_launches(
+        "profile_scale_step at 200k", ["coo_spmv"]).items() if v}
+    check(prof["nfe"] == nfe10, f"profile_scale_step's nfe {prof['nfe']} "
+          f"against [10]'s {nfe10}")
+    check(prof["resolved_layout"] == "nd"
+          and all(prof[k] > 0 for k in TOOLS_LEVELS),
+          f"profile_scale_step at 200k: {prof}")
+    rec["profile_scale_step_200k"] = prof
+    # (c) analyze_mesh_tax at 200k on a one-rank NCCL group
+    kernels.reset_launch_counts()
+    tax = analyze_mesh_tax.main(
+        ["--n", "200000", "--variants", "step_u,step_s,fwd_u,fwd_s",
+         "--kernel_precision", "split2", "--time", "--reps", "2", "--hist",
+         os.path.join(tmp, "tax")])
+    add_launches("analyze_mesh_tax at 200k", ["coo_spmv",
+                                              "coo_spmv_rowblock"])
+    v = tax["variants"]
+    for whole, sharded in (("step_u", "step_s"), ("fwd_u", "fwd_s")):
+        check(v[sharded]["nfe"] == v[whole]["nfe"]
+              and abs(v[sharded]["loss"] - v[whole]["loss"])
+              <= 1e-5 * abs(v[whole]["loss"]),
+              f"analyze_mesh_tax: {sharded} against {whole}: {v}")
+        check(v[sharded]["port_launches"].get("coo_spmv_rowblock", 0) > 0
+              and not v[sharded]["port_launches"].get("coo_spmv")
+              and v[whole]["port_launches"].get("coo_spmv", 0) > 0,
+              f"analyze_mesh_tax's histograms: {sharded} "
+              f"{v[sharded]['port_launches']}, {whole} "
+              f"{v[whole]['port_launches']}")
+        check(v[sharded]["kernel_launches"] > 0, f"{sharded}: no device "
+              f"kernel in its histogram")
+    rec["analyze_mesh_tax_200k"] = tax
+    # (d) record_showcase on cora, 4 batched replicas, 20 epochs
+    kernels.reset_launch_counts()
+    show = record_showcase.main(
+        ["--dataset", "cora", "--batch_iters", "--iter", "4", "--epochs",
+         "20", "--out", os.path.join(tmp, "showcase_cora_4.json")])
+    add_launches("record_showcase", [])
+    check(show["card"] == smi and show["n_models"] == 4
+          and len(show["per_iter_acc"]) == 4
+          and np.isfinite(show["acc_mean"]),
+          f"record_showcase's record: {show}")
+    rec["record_showcase"] = {k: show[k] for k in (
+        "acc_mean", "acc_std", "per_iter_acc", "total_time_s", "card")}
+    # (e) the quickstart, 50 iterations (K2 under fused="auto")
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    qs = quickstart.main(iters=50, platform="gpu", every=10)
+    qs["seconds"] = time.perf_counter() - t0
+    qs["launches"] = {k: c for k, c in add_launches(
+        "the quickstart", ["fused_rhs"]).items() if c}
+    check(all(np.isfinite(qs["loss"])) and qs["loss"][-1] < qs["loss"][0],
+          f"the quickstart's loss did not fall: {qs}")
+    rec["quickstart"] = qs
+    # (b) again: bench_scale's record
+    rc = bench.wait(timeout=600)
+    bench_log.close()
+    with open(bench_log.name) as f:
+        tail = f.read()[-3000:]
+    check(rc == 0, f"bench_scale exited {rc}: {tail}")
+    with open(bench_out) as f:
+        scale = json.load(f)
+    check(set(scale) == {"measured", "estimate", "argv", "wall_s", "card",
+                         "runs_steps_per_sec"}
+          and scale["card"] == smi
+          and scale["runs_steps_per_sec"] == [
+              scale["measured"]["train_steps_per_sec"]]
+          and scale["measured"]["iters"] == 5
+          and scale["measured"]["n_nodes"] == 200_000
+          and scale["estimate"]["n_nodes"] == 200_000
+          and scale["measured"]["train_steps_per_sec"] > 0,
+          f"bench_scale's record: {scale}")
+    rec["bench_scale_200k"] = dict(
+        wall_s=scale["wall_s"], card=scale["card"],
+        train_steps_per_sec=scale["measured"]["train_steps_per_sec"],
+        estimate_gb=scale["estimate"]["estimate_gb"],
+        hbm_peak_gb=scale["measured"]["hbm_peak_gb"])
+    shutil.rmtree(tmp, ignore_errors=True)
+    rec["seconds"] = time.perf_counter() - t25
+    return rec
 
 
 def main() -> None:
@@ -1722,6 +2256,7 @@ def main() -> None:
     torch.cuda.reset_peak_memory_stats(dev)
     res = train(model_t, op_big, t_train, x0_big, target_big, 5, False,
                 budget)
+    res10 = res                       # [25] holds its first step's NFE
     peak_train_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     counts = add_launches("200k COO training", ["coo_spmv"])
     # the first step again, with the plain versions patched in
@@ -1744,15 +2279,6 @@ def main() -> None:
     adj_1m = build_sparse_graph(1_000_000, 10, seed=0)   # [14] takes it too
     op_1m = from_scipy_coo(normalized_laplacian_sparse(adj_1m), device=dev)
     host_build_1m_s = time.perf_counter() - t0
-
-    @contextlib.contextmanager
-    def gather_mode(wide: bool, bf16: bool):
-        saved = coo_spmv.GATHER_WIDE, coo_spmv.GATHER_BF16
-        coo_spmv.GATHER_WIDE, coo_spmv.GATHER_BF16 = wide, bf16
-        try:
-            yield
-        finally:
-            coo_spmv.GATHER_WIDE, coo_spmv.GATHER_BF16 = saved
 
     def scale_case(op, form, bf16, d=20):
         """One scale-path SpMV form, forward and over the transpose CSR,
@@ -1856,6 +2382,24 @@ def main() -> None:
         torch.cuda.empty_cache()
         return rec, counts
 
+    # each run below would build its graph again and the 1M ones solve the
+    # same ground truth again: the problems are built once a shape for the
+    # phase and the 1M truth is cached (the driver's --gt_cache)
+    problems12 = {}
+    build_problem12 = large_graph.build_problem
+
+    def cached_problem(args, device):
+        key = (args.n, args.deg, args.seed, args.fmt, args.dynamics, args.T,
+               args.time_tick, str(device))
+        if key not in problems12:
+            problems12[key] = build_problem12(args, device)
+        return problems12[key]
+
+    large_graph.build_problem = cached_problem
+    gt_1m = os.path.join(root, "build", "smoke_gt_1m_heat.npz")
+    if os.path.exists(gt_1m):
+        os.remove(gt_1m)
+
     def scale_summary(rec, counts):
         keep = ("train_steps_per_sec", "rel_loss_initial", "rel_loss_final",
                 "max_steps", "attempts_taken", "elastic_rollbacks",
@@ -1864,6 +2408,22 @@ def main() -> None:
                 "train_losses", "ground_truth_s", "node_evals_per_sec")
         return dict({k: rec[k] for k in keep}, launches=counts)
 
+    # the 200k runs first and the 1M ones after, the cache cleared between:
+    # one problem of the phase on the card at a time, so each run's
+    # hbm_peak_gb holds only its own problem's arrays (the 1M problem stays
+    # on for [p] as `prob`)
+    rec_k1bf, c_k1bf = scale_run("200k scale experiment, kernel bf16",
+                                 ["coo_spmv_bf16"], "--n", "200000",
+                                 "--iters", "3", "--kernel_precision", "bf16")
+    check(rec_k1bf["solve_layout"] == "nd", "200k auto should stay nd")
+    with gather_mode(True, False):
+        rec_wide, c_wide = scale_run("200k scale experiment, wide gather",
+                                     ["coo_spmv_T_wide"], "--n", "200000",
+                                     "--iters", "3", "--layout",
+                                     "feature_major")
+    problems12.clear()
+    torch.cuda.empty_cache()
+
     est = large_graph.run(scale_args("--n", "1000000", "--estimate"))
     est_bf = large_graph.run(scale_args(
         "--n", "1000000", "--estimate", "--emission_precision", "bf16",
@@ -1871,7 +2431,7 @@ def main() -> None:
     rec_1m, c_1m = scale_run("1M scale experiment",
                              ["coo_spmv", "coo_spmv_T", "coo_spmv_T_pack"],
                              "--n", "1000000", "--iters", "60", "--roofline",
-                             "--hbm_probe")
+                             "--hbm_probe", "--gt_cache", gt_1m)
     check(rec_1m["layout"] == "auto"
           and rec_1m["solve_layout"] == "feature_major",
           f"1M: layout auto resolved to {rec_1m['solve_layout']}")
@@ -1880,6 +2440,7 @@ def main() -> None:
     rec_bf, c_bf = scale_run("1M scale experiment, bf16 levers",
                              ["coo_spmv_T", "coo_spmv_T_pack"],
                              "--n", "1000000", "--iters", "10", "--hbm_probe",
+                             "--gt_cache", gt_1m,
                              "--emission_precision", "bf16",
                              "--residual_precision", "bf16")
     check(rec_bf["train_losses"][-1] < rec_bf["train_losses"][0],
@@ -1887,7 +2448,7 @@ def main() -> None:
           f"{rec_bf['train_losses']}")
 
     # the first train step again, kernels against plain versions
-    args_1m = scale_args("--n", "1000000")
+    args_1m = scale_args("--n", "1000000", "--gt_cache", gt_1m)
     prob = large_graph.build_problem(args_1m, dev)
     truth_1m, _, _ = large_graph.ground_truth(args_1m, prob)
     target_1m = truth_1m[torch.as_tensor(prob.splits.id_train, device=dev)]
@@ -1916,24 +2477,18 @@ def main() -> None:
     del grads
     torch.cuda.empty_cache()
 
-    rec_k1bf, c_k1bf = scale_run("200k scale experiment, kernel bf16",
-                                 ["coo_spmv_bf16"], "--n", "200000",
-                                 "--iters", "3", "--kernel_precision", "bf16")
-    check(rec_k1bf["solve_layout"] == "nd", "200k auto should stay nd")
-    with gather_mode(True, False):
-        rec_wide, c_wide = scale_run("200k scale experiment, wide gather",
-                                     ["coo_spmv_T_wide"], "--n", "200000",
-                                     "--iters", "3", "--layout",
-                                     "feature_major")
     # the three solves of the 1M step side by side: 'auto' (feature-major,
     # K1-fm) above, feature-major under GATHER_WIDE (K5), the (n, d) layout
     with gather_mode(True, False):
         rec_1m_wide, c_1m_wide = scale_run(
             "1M scale experiment, wide gather", ["coo_spmv_T_wide"], "--n",
-            "1000000", "--iters", "10", "--hbm_probe")
+            "1000000", "--iters", "10", "--hbm_probe", "--gt_cache", gt_1m)
     rec_1m_nd, c_1m_nd = scale_run(
         "1M scale experiment, (n, d) layout", ["coo_spmv"], "--n", "1000000",
-        "--iters", "10", "--hbm_probe", "--layout", "nd")
+        "--iters", "10", "--hbm_probe", "--layout", "nd", "--gt_cache", gt_1m)
+    large_graph.build_problem = build_problem12
+    problems12.clear()
+    os.remove(gt_1m)
     check(rec_1m_wide["solve_layout"] == "feature_major"
           and rec_1m_nd["solve_layout"] == "nd", "1M layouts resolved wrong")
     print("[12] scale experiment: " + json.dumps({
@@ -2885,16 +3440,6 @@ def main() -> None:
 
         return make_sgd_step(opt, loss), last
 
-    def timed_steps(step, k=5, warm=True):
-        if warm:
-            step()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(k):
-            step()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) / k * 1e3
-
     def step_launches(step, label):
         """What one step launches: the ATen operators it calls (the launch
         stream the port issues), the port's kernels by their counters, and
@@ -3337,19 +3882,12 @@ def main() -> None:
         "heat": dyn19, "seconds": time.perf_counter() - t19}))
 
     mark_phase("20")
-    # [23] and [24] in a process of their own beside [20]-[22]
-    # (``scan_phases_main``): the phases that time a kernel or a library
-    # call ([3]-[19]) are done, and every time from here to [24] is a
-    # host-clock one taken under the other process's load (``LOADED``).
-    # Its output goes to a log (one stream stays the smoke's); it is
-    # stopped at exit whatever happens here
-    scan_out = os.path.join(root, "build", "smoke_scan_phases.json")
-    scan_log = open(os.path.join(root, "build", "smoke_scan_phases.log"),
-                    "w")
-    scan_proc = subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--scan-phases",
-         scan_out], cwd=root, stdout=scan_log, stderr=subprocess.STDOUT)
-    atexit.register(lambda: scan_proc.poll() is None and scan_proc.kill())
+    # [23] / [24] and [21] in two processes of their own beside [20], [22]
+    # and [25] (``side_main``): the phases that time a kernel or a library
+    # call ([3]-[19]) are done, and every time from here to [25] is a
+    # host-clock one taken under the other processes' load (``LOADED``)
+    side_scan = SideProcess("scan", root)
+    side_replicas = SideProcess("replicas", root)
     # ---- 20. the serving artifact: export, then serve in a fresh process
     from ndcn_tpu_torch.data import load_planetoid
     from ndcn_tpu_torch.serve import export_ndcn, save_artifact
@@ -3476,277 +4014,6 @@ def main() -> None:
     shutil.rmtree(exp_dir, ignore_errors=True)
     print("[20] serving artifact (card: " + smi + "): " + json.dumps(dict(
         art20, times=LOADED, seconds=time.perf_counter() - t20)))
-
-    mark_phase("21")
-    # ---- 21. the Adams family and the continuous adjoint under replicas;
-    # the artifact with the Adams methods and the feature-major layout
-    from ndcn_tpu_torch.parallel.sweep import (make_ndcn_replica_train_step,
-                                               replica_generators)
-    from ndcn_tpu_torch.train.budget import sweep_memory_estimate
-
-    t21 = time.perf_counter()
-    R21 = 4
-    dense_f = ["--fused_kernel"]
-    coo_f = ["--sparse", "--sparse_format", "coo"]
-    bsr_f = ["--sparse", "--sparse_format", "bsr", "--fused_kernel"]
-    settings21 = {   # format, driver flags, fused, method, adjoint, kernels
-        "adams_dense": ("dense", dense_f, "auto", "adams", False,
-                        ["fused_rhs_batched"]),
-        "fixed_adams_dense": ("dense", dense_f, "auto", "fixed_adams", False,
-                              ["fused_rhs_batched"]),
-        "explicit_adams_dense": ("dense", dense_f, "auto", "explicit_adams",
-                                 False, ["fused_rhs_batched"]),
-        "dopri5_adjoint_dense": ("dense", dense_f, "auto", "dopri5", True,
-                                 ["fused_rhs_batched"]),
-        "dopri5_adjoint_coo": ("coo", coo_f, False, "dopri5", True,
-                               ["coo_spmv_batched"]),
-        "dopri5_adjoint_bsr": ("bsr", bsr_f, "auto", "dopri5", True,
-                               ["bsr_fused_rhs_batched", "bsr_spmm_batched"]),
-        "adams_adjoint_dense": ("dense", dense_f, "auto", "adams", True,
-                                ["fused_rhs_batched"]),
-    }
-
-    def first_grads(op, fused, method, adjoint, seeds, device, problem):
-        """The first step's losses and gradients of the heat driver's
-        replica step over the replicas seeded ``seeds`` (one model when
-        there is one seed), on ``device``, on ``problem`` (the grid, x0
-        and the target)."""
-        vt, x0, target = problem
-        models = [init_ndcn(torch.Generator().manual_seed(s), 1, 20, 1)
-                  for s in seeds]
-        model = (stack_models(models) if len(seeds) > 1
-                 else models[0]).to(device)
-        out, stats = ndcn_forward(
-            model, op, vt, x0.to(device), method=method, fused=fused,
-            adjoint=adjoint, max_steps=256, rtol=0.01, atol=0.001)
-        tgt = target.to(device)
-        losses = (nan_unless(stats.success,
-                             replica_l1(out.transpose(0, 1), tgt))
-                  if len(seeds) > 1 else l1_loss(out, tgt).reshape(1))
-        losses.sum().backward()
-        return (losses.detach().cpu(),
-                [p.grad.detach().cpu() for p in model.parameters()], stats)
-
-    # the CPU's first steps (float32, and float64 on the unfused dense
-    # route) are the committed references (tools/smoke_references.py)
-    refs21 = smoke_references.load()
-    check(R21 == smoke_references.R and {
-        k: (v[0], v[2], v[3], v[4]) for k, v in settings21.items()}
-        == smoke_references.REPLICA_SETTINGS,
-        "[21]'s settings and the CPU references' differ")
-    rep21 = {}
-    for label, (fmt, flags, fused, method, adjoint, needed) in \
-            settings21.items():
-        mat = sp.csr_matrix(grid_lap) if fmt != "dense" else grid_lap
-        op = as_operator(mat, sparse=fmt != "dense", format=fmt, device=dev)
-        # the heat driver's data at tick 100 ([18]'s), or the CPU
-        # references' own where the setting takes another tick
-        tick = smoke_references.REPLICA_TIME_TICK.get(label, 100)
-        if tick == 100:
-            heat21 = (t_h, x0_h, target_h)
-        else:
-            _, vt_p, x0_p, target_p = smoke_references.heat_replica_problem(
-                tick)
-            heat21 = (vt_p, x0_p.to(dev), target_p.to(dev))
-        rec = {"time_tick": tick}
-        # the heat driver: R = 4 replicas, 2 iterations
-        kernels.reset_launch_counts()
-        t0 = time.perf_counter()
-        out = run("heat", build_parser("heat").parse_args(
-            ["--network", "grid", "--n", "400", "--method", method,
-             "--niters", "2", "--test_freq", "2", "--replicas", str(R21),
-             "--time_tick", str(tick), *flags,
-             *(["--adjoint"] if adjoint else [])]))
-        torch.cuda.synchronize()
-        rec["driver_seconds"] = time.perf_counter() - t0
-        rec["driver_launches"] = {k: v for k, v in add_launches(
-            f"heat --replicas {R21} {label}", needed).items() if v}
-        rec["final"], rec["max_steps"] = out["final"], out["max_steps"]
-        check(all(np.isfinite(out["train_losses"][-1])),
-              f"heat --replicas {R21} {label}: train losses "
-              f"{out['train_losses']}")
-        # the first step's losses and gradients: replica 0 against its run
-        # alone on the card, the card against the CPU
-        kernels.reset_launch_counts()
-        loss_c, grads_c, st_c = first_grads(op, fused, method, adjoint,
-                                            range(R21), dev, heat21)
-        torch.cuda.synchronize()
-        rec["step_launches"] = {k: v for k, v in
-                                kernels.launch_counts().items() if v}
-        check(all(rec["step_launches"].get(k, 0) > 0 for k in needed)
-              and not any(v for k, v in rec["step_launches"].items()
-                          if not k.endswith("batched")),
-              f"{label}: the replica step launched {rec['step_launches']}")
-        errs = []
-        for i in (0,):
-            loss_1, grads_1, _ = first_grads(op, fused, method, adjoint, [i],
-                                             dev, heat21)
-            errs.append(dict(
-                loss=float(abs(loss_c[i] - loss_1[0]) / abs(loss_1[0])),
-                grads=max(rel_l1(g[i], h) for g, h in zip(grads_c,
-                                                          grads_1))))
-        loss_h = torch.as_tensor(refs21[f"replicas/{label}/loss"])
-        grads_h = smoke_references.replica_grads(refs21, label)
-        nfe_h = refs21[f"replicas/{label}/nfe"].tolist()
-        vs_cpu = dict(loss=float((loss_c - loss_h).abs().max()
-                                 / loss_h.abs().max()),
-                      grads=max(rel_l1(g, h) for g, h in zip(grads_c,
-                                                             grads_h)))
-        grad_bar = 1e-3
-        over = max(vs_cpu["grads"], *(e["grads"] for e in errs)) > grad_bar
-        if over or (method == "adams" and not adjoint):
-            # backprop through adams's step-size and order controller
-            # moves with float32's rounding (its NFE too): the bar is
-            # twice the CPU's own float32-vs-float64 distance where that
-            # is larger, as
-            # [15] holds the other solvers' answers. For adams backprop
-            # the card's float32 gradients are held against the same
-            # float64 ones beside the CPU's: no farther from them
-            grads_64 = smoke_references.replica_grads(refs21, label,
-                                                      f64=True)
-            vs_cpu["cpu_f32_vs_f64"] = max(
-                rel_l1(g.double(), h) for g, h in zip(grads_h, grads_64))
-            vs_cpu["card_f32_vs_f64"] = max(
-                rel_l1(g.double(), h) for g, h in zip(grads_c, grads_64))
-            if over:
-                grad_bar = max(grad_bar, 2 * vs_cpu["cpu_f32_vs_f64"])
-        check(all(e["loss"] <= 1e-4 and e["grads"] <= grad_bar
-                  for e in errs)
-              and vs_cpu["loss"] <= 1e-4 and vs_cpu["grads"] <= grad_bar,
-              f"{label}: replica 0 against its run alone {errs}, the "
-              f"card against the CPU {vs_cpu}")
-        rec.update(first_step_vs_alone=errs, first_step_card_vs_cpu=vs_cpu,
-                   nfe_replicas=list(st_c.nfe), nfe_cpu=nfe_h)
-        if adjoint:
-            rec["backward_nfe_replicas"] = [
-                sum(b.nfe[i] for b in st_c.backward) for i in range(R21)]
-            rec["backward_intervals"] = len(st_c.backward)
-        # seconds a model-step, and the step's peak beside the memory
-        # guard's estimate (one replica's probe step, times R)
-        init_fn, step_fn = make_ndcn_replica_train_step(
-            op, *heat21, method=method, fused=fused, adjoint=adjoint,
-            max_steps=256)
-        model, opt = init_fn(replica_generators(0, R21))
-        one_model, one_opt = init_fn(replica_generators(0, 1))
-        est = sweep_memory_estimate(lambda: step_fn(one_model, one_opt), R21,
-                                    dev)
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated(dev)
-        torch.cuda.reset_peak_memory_stats(dev)
-        # warm already: the first steps above ran the same programs
-        ms = timed_steps(lambda: step_fn(model, opt), k=1, warm=False)
-        rec["step_peak_gb"] = (torch.cuda.max_memory_allocated(dev)
-                               - base) / 1e9
-        rec["guard_estimate_gb"] = est["estimate"] / 1e9
-        rec.update(batched_step_ms=ms, model_step_ms=ms / R21,
-                   model_step_ms_18=sweep18.get(fmt, {}).get(
-                       "model_step_ms"))
-        rep21[label] = rec
-        del model, opt, one_model, one_opt
-        torch.cuda.empty_cache()
-
-    # (b) the artifacts, served in a fresh process
-    exp21 = os.path.join(root, "build", "smoke_export21")
-    shutil.rmtree(exp21, ignore_errors=True)
-    os.makedirs(exp21)
-    args_1m_kw = dict(rtol=0.01, atol=0.001, method="dopri5", layout="auto")
-    x0_200k = np.random.RandomState(0).uniform(
-        0.0, 25.0, (op_big.n, 1)).astype(np.float32)
-    settings21b = {  # model, operator, grid, forward kwargs, request,
-        # wide gather, the kernels each RHS evaluation launches once
-        **{f"grid400_dense_{m}": (model_grid, op_grid, fx["t"],
-                                  dict(kw20, method=m, fused="auto"),
-                                  fx["x0"], False, ["fused_rhs"])
-           for m in ("adams", "fixed_adams", "explicit_adams")},
-        "1m_coo_auto_feature_major": (
-            model_1m, prob.op, prob.splits.t, args_1m_kw,
-            prob.x0.cpu().numpy(), False, ["coo_spmv_T_pack", "coo_spmv_T"]),
-        "200k_coo_feature_major_wide": (
-            model_big, op_big, splits.t,
-            dict(kw20, layout="feature_major"), x0_200k, True,
-            ["coo_spmv_T_wide"]),
-    }
-    art21, served21 = {}, []
-    for label, (mdl, op21, vt21, fkw, x0, wide, knames) in \
-            settings21b.items():
-        with gather_mode(wide, False):
-            t0 = time.perf_counter()
-            blob = export_ndcn(mdl, op21, vt21, x0.shape, **fkw)
-            export_s = time.perf_counter() - t0
-            path = os.path.join(exp21, f"{label}.pt2")
-            save_artifact(path, blob)
-            np.save(os.path.join(exp21, f"{label}_x0.npy"), x0)
-            served21 += [path, os.path.join(exp21, f"{label}_x0.npy")]
-            srv = make_server(mdl, op21, vt21, **fkw)
-            kernels.reset_launch_counts()
-            with host_reads() as srv_reads:
-                out_s, ok_s = srv(x0)
-            torch.cuda.synchronize()
-            counts = add_launches(f"{label} in-process", knames)
-            st = srv.last_stats
-            check(ok_s, f"{label}: the server's solve failed")
-            np.save(os.path.join(exp21, f"{label}_server.npy"),
-                    out_s.cpu().numpy())
-            srv_ms = []
-            for _ in range(10):
-                t0 = time.perf_counter()
-                srv(x0)
-                torch.cuda.synchronize()
-                srv_ms.append((time.perf_counter() - t0) * 1e3)
-        art21[label] = dict(
-            bytes=len(blob), export_s=export_s, nfe_server=st.nfe,
-            accepted=st.n_accepted, rejected=st.n_rejected,
-            server_median_ms=statistics.median(srv_ms),
-            server_host_reads=srv_reads[0],
-            server_launch_counts={k: v for k, v in counts.items() if v})
-        del blob, srv, out_s
-        torch.cuda.empty_cache()
-    r = subprocess.run(
-        [sys.executable, "-m", "ndcn_tpu_torch.tools.serve_artifact",
-         *served21, "--requests", "10", "--answers", exp21],
-        capture_output=True, text=True, timeout=600, cwd=root)
-    check(r.returncode == 0, f"serving the [21] artifacts failed: "
-          f"{r.stderr[-3000:]}")
-    recs21 = {os.path.splitext(rec["artifact"])[0]: rec for rec in
-              map(json.loads, r.stdout.strip().splitlines())}
-    for label, (*_, knames) in settings21b.items():
-        rec, a = recs21[label], art21[label]
-        check(rec["success"] and not rec["model_code_imported"],
-              f"{label}: the artifact's solve failed or the serving process "
-              f"imported {rec['model_code_imported']}")
-        for name, c in rec["launch_counts"].items():
-            main_launches[name] += c
-        got = np.load(os.path.join(exp21, f"{label}.npy"))
-        ref = np.load(os.path.join(exp21, f"{label}_server.npy"))
-        diff = float(np.abs(got - ref).max())
-        rel = rel_l1(torch.as_tensor(got), torch.as_tensor(ref))
-        # the adams artifact runs the masked machine against the server's
-        # host-indexed solve; every other one the server's operations
-        ok = rel <= 1e-5 if label.endswith("_adams") and "fixed" not in \
-            label and "explicit" not in label else diff <= 1e-6
-        check(ok, f"{label}: the artifact parts from the server by {diff} "
-              f"max|Δ|, {rel} rel-L1")
-        launched = {k: rec["launch_counts"].get(k, 0) for k in knames}
-        # one launch of each kernel an RHS evaluation: the artifact's NFE
-        check(all(v == a["nfe_server"] for v in launched.values()),
-              f"{label}: launches {launched} in the artifact, NFE "
-              f"{a['nfe_server']} in process")
-        a.update(max_abs_diff=diff, rel_l1=rel, launches_per_request=launched,
-                 median_ms=rec["median_ms"], latency_ms=rec["latency_ms"],
-                 first_request_ms=rec["first_request_ms"],
-                 load_s=rec["load_s"], host_reads=rec["host_reads"])
-    shutil.rmtree(exp21, ignore_errors=True)
-    artifact_launches.update(
-        coo_spmv_T=art21["1m_coo_auto_feature_major"][
-            "launches_per_request"]["coo_spmv_T"],
-        coo_spmv_T_pack=art21["1m_coo_auto_feature_major"][
-            "launches_per_request"]["coo_spmv_T_pack"],
-        coo_spmv_T_wide=art21["200k_coo_feature_major_wide"][
-            "launches_per_request"]["coo_spmv_T_wide"])
-    print("[21] Adams and adjoint under replicas, Adams and feature-major "
-          "artifacts (card: " + smi + "): " + json.dumps(dict(
-              replicas=rep21, artifacts=art21, times=LOADED,
-              seconds=time.perf_counter() - t21)))
 
     mark_phase("22")
     # ---- 22. the model axis's paths (ROADMAP §1 entry 11c′): the
@@ -3908,20 +4175,35 @@ def main() -> None:
     del kipf22, cora22, x_cora
     torch.cuda.empty_cache()
 
-    mark_phase("23-24")
-    # ---- 23-24. the scan path, --scan_chunk and its Adams, adjoint and
-    # mesh settings, from the process started after [19]
-    scan_rc = scan_proc.wait(timeout=600)
-    scan_log.close()
-    with open(scan_log.name) as f:
-        tail = f.read()[-3000:]
-    check(scan_rc == 0, f"[23] / [24]'s process exited {scan_rc}: {tail}")
-    with open(scan_out) as f:
-        scan_rec = json.load(f)
-    os.remove(scan_out)
+    mark_phase("25")
+    # ---- 25. the scale-record tools, analyze_mesh_tax (on a one-rank NCCL
+    # group of its own, as [19] and [22]) and the quickstart
+    tools25 = tools_phase(dev, root, add_launches,
+                          res10["nfe_per_step"][0], smi)
+    print("[25] the record tools, analyze_mesh_tax, the quickstart (card: "
+          + smi + "; beside [21] / [23] / [24]'s processes): "
+          + json.dumps(dict(tools25, times=LOADED)))
+
+    mark_phase("21,23-24")
+    # ---- 21, 23-24. the Adams family and the adjoint under replicas, and
+    # the Adams and feature-major artifacts; the scan path, --scan_chunk and
+    # its Adams, adjoint and mesh settings: from the processes started
+    # after [19]
+    rep_rec = side_replicas.result()
+    scan_rec = side_scan.result()
     scan23, scan24 = scan_rec["scan23"], scan_rec["scan24"]
-    for name, c in scan_rec["launches"].items():
-        main_launches[name] += c
+    for name in main_launches:
+        main_launches[name] += (scan_rec["launches"][name]
+                                + rep_rec["launches"][name])
+    rep21, art21 = rep_rec["rep21"], rep_rec["art21"]
+    for label, (fmt, *_) in smoke_references.REPLICA_SETTINGS.items():
+        rep21[label]["model_step_ms_18"] = sweep18.get(fmt, {}).get(
+            "model_step_ms")
+    artifact_launches.update(art21.pop("launches_in_artifact"))
+    print("[21] Adams and adjoint under replicas, Adams and feature-major "
+          "artifacts (card: " + smi + "; in a process of its own beside "
+          "[20], [22], [25]): " + json.dumps(dict(
+              replicas=rep21, times=LOADED, **art21)))
     print("[23] the scan path and --scan_chunk (card: " + smi + "; beside "
           "[20]-[22], in a process of its own): " + json.dumps(
               dict(scan23, times=LOADED)))
@@ -4276,7 +4558,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--scan-phases"]:
-        scan_phases_main(sys.argv[2])
+    if sys.argv[1:2] == ["--side"]:
+        side_main(sys.argv[2], sys.argv[3])
     else:
         main()

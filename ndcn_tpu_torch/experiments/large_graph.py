@@ -267,6 +267,7 @@ def ground_truth(args, problem: Problem):
     log(f"ground truth: {stats.nfe} RHS evals in {gt_s:.2f}s "
         f"({stats.nfe * problem.n / max(gt_s, 1e-9):,.0f} node-evals/s)")
     if args.gt_cache:
+        os.makedirs(os.path.dirname(args.gt_cache) or ".", exist_ok=True)
         np.savez(args.gt_cache, truth=truth.cpu().numpy(), **key)
     return truth, gt_s, False
 
@@ -352,10 +353,11 @@ def estimate(args, problem: Problem, model, device) -> Dict[str, Any]:
 
 
 def train_objective(args, problem: Problem, model, target, max_steps,
-                    attempts: Optional[list] = None):
+                    attempts: Optional[list] = None,
+                    stats_out: Optional[list] = None):
     """loss_fn for ``make_sgd_step``: (L1 loss, NaN when the solve ran out
     of budget; relative L1). Each solve's step attempts are appended to
-    ``attempts`` when given."""
+    ``attempts`` when given, and its ``SolveStats`` to ``stats_out``."""
     from ndcn_tpu_torch.models import ndcn_forward
     from ndcn_tpu_torch.parallel.coo_shard import node_group
     from ndcn_tpu_torch.train.losses import l1_loss, relative_l1
@@ -368,6 +370,8 @@ def train_objective(args, problem: Problem, model, target, max_steps,
                                   problem.x0, **kw)
         if attempts is not None:
             attempts.append(stats.n_accepted + stats.n_rejected)
+        if stats_out is not None:
+            stats_out.append(stats)
         loss = l1_loss(out, target, group)
         if not stats.success:
             loss = torch.full_like(loss, float("nan"))

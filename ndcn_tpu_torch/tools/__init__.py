@@ -32,12 +32,27 @@ and probes and sweeps of the port's own kernels:
 Each runs as ``python -m ndcn_tpu_torch.tools.<name> [args]``, prints one
 line per measurement on stderr and JSON on stdout, and raises without a
 CUDA device. ``chain_time`` is their timing discipline.
+
+The scale-record tools, as the JAX repository's root ``tools/``, run on
+the card unless given ``--platform cpu`` (and refuse to without one):
+
+- ``profile_scale_step``: the scale driver's train step split by level
+  (SpMV, RHS, inference solve, differentiable solve, gradient, step);
+- ``bench_scale``: the scale driver's ``--estimate`` and a measured run in
+  one record under ``results_torch/``;
+- ``check_scale_records``: each committed ``results_torch/`` scale record's
+  argv run again, failing 10 % under its steps/s;
+- ``record_showcase``: the README's cora recipe through the dgnn driver,
+  its accuracy as a record;
+- ``analyze_mesh_tax``: the ``--mesh`` train step against the unsharded
+  one in variants, with a profiler histogram of each.
 """
 
 from __future__ import annotations
 
+import subprocess
 import sys
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -53,6 +68,22 @@ def require_cuda() -> torch.device:
         raise RuntimeError("the microbenchmarks measure the card and no CUDA "
                            "device is visible")
     return torch.device("cuda", 0)
+
+
+def card() -> Optional[str]:
+    """The card's name and power limit as ``nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader`` gives them (the first card's), or
+    None where no CUDA device is visible or ``nvidia-smi`` is missing."""
+    if not torch.cuda.is_available():
+        return None
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, check=True).stdout
+    except (OSError, subprocess.CalledProcessError):
+        return None
+    lines = out.strip().splitlines()
+    return lines[0].strip() if lines else None
 
 
 def chain_time(step: Callable[[torch.Tensor], torch.Tensor],
