@@ -29,8 +29,9 @@ It mirrors the JAX package's module paths, so each piece has a counterpart:
                   (``experiments.lv``) and ``experiments.summarize``.
 - ``report``      the results dumps both packages read, their aggregation,
                   the plots (matplotlib imported at the first plot).
-- ``utils``       atomic writes, timers and the
-                  ``torch.profiler`` trace of ``--profile_dir``.
+- ``utils``       atomic writes, the ``torch.profiler`` trace of
+                  ``--profile_dir`` and the spans at the layer boundaries
+                  (``utils.timing.span``).
 - ``tools``       the sparse microbenchmarks on the card.
 - ``serve``       the serving entry point ``make_server``.
 - ``convert``     weights across from the JAX package.

@@ -39,6 +39,7 @@ from ndcn_tpu_torch.ode.adjoint import odeint_adjoint_with_stats
 from ndcn_tpu_torch.parallel.coo_shard import (RowShardedCoo, is_sharded,
                                                node_group, node_rows,
                                                rs_spmv_T)
+from ndcn_tpu_torch.utils.timing import span
 
 
 def fused_profitable(kind: str, width: int, n: int) -> bool:
@@ -365,9 +366,10 @@ def ndcn_forward(model: NDCN, op: GraphOperator, vt, x: torch.Tensor, *,
     with grad_mode(torch.is_grad_enabled() and not nondiff):
         h = x
         if not no_embed:
-            h = torch.tanh(linear_apply(model.enc1, h))
-            if model.enc2 is not None:
-                h = linear_apply(model.enc2, h)
+            with span("model.encode"):
+                h = torch.tanh(linear_apply(model.enc1, h))
+                if model.enc2 is not None:
+                    h = linear_apply(model.enc2, h)
         if replicas is not None and h.ndim == x.ndim:
             h = h.expand(replicas, *h.shape).contiguous()   # no encoder
         feature_major = resolve_layout(layout, op, h, no_graph, no_control,
@@ -405,12 +407,13 @@ def ndcn_forward(model: NDCN, op: GraphOperator, vt, x: torch.Tensor, *,
             sol_T, stats = ode_block(func_T, hT, vt, rtol, atol, method,
                                      terminal=terminal,
                                      emission_readout=readout, **solve_kw)
-            if terminal:
-                return linear_apply(model.dec, sol_T[:d].t()), stats
-            out_T = (sol_T if use_readout
-                     else torch.einsum("cd,tdn->tcn", w_dec, sol_T[:, :d]))
-            out_T = out_T + b_dec[:, None]
-            return out_T.permute(0, 2, 1), stats        # (T, n, c)
+            with span("model.decode"):
+                if terminal:
+                    return linear_apply(model.dec, sol_T[:d].t()), stats
+                out_T = (sol_T if use_readout else
+                         torch.einsum("cd,tdn->tcn", w_dec, sol_T[:, :d]))
+                out_T = out_T + b_dec[:, None]
+                return out_T.permute(0, 2, 1), stats        # (T, n, c)
 
         def func(t, hh):
             return ode_func(model, op, t, hh, no_graph=no_graph,
@@ -422,8 +425,10 @@ def ndcn_forward(model: NDCN, op: GraphOperator, vt, x: torch.Tensor, *,
                 func, h, vt, rtol, atol, method,
                 emission_readout=lambda s: s @ w_dec.transpose(-1, -2),
                 **solve_kw)
-            return sol + b_dec.unsqueeze(-2), stats
+            with span("model.decode"):
+                return sol + b_dec.unsqueeze(-2), stats
         hvx, stats = ode_block(func, h, vt, rtol, atol, method,
                                terminal=terminal, **solve_kw)
-        out = linear_apply(model.dec, hvx)
+        with span("model.decode"):
+            out = linear_apply(model.dec, hvx)
     return out, stats

@@ -81,6 +81,7 @@ from ndcn_tpu_torch.ode.tableaux import (DOPRI5, TSIT5,
                                          TSIT5_REFERENCE_WEIGHTS, Tableau)
 from ndcn_tpu_torch.ode.collectives import all_true
 from ndcn_tpu_torch.ode.tree_math import bcast, leaves, state_group, tmap
+from ndcn_tpu_torch.utils.timing import span
 
 # The reference passes order 4 to the initial-step heuristic for its
 # 5th-order methods; kept for identical first steps.
@@ -223,49 +224,58 @@ def solve(method: AdaptiveMethod, func, y0, t: torch.Tensor,
     node-sharded leaf of a state whose node rows split over ranks: its
     norms and means, and the attempt's finite flag, are then over every
     rank, so that every rank takes the same steps. None: no collective.
+
+    Spans (``utils.timing.span``): ``ode.solve`` around the solve, one
+    ``ode.attempt`` an attempt, and in it ``ode.sync`` around the read.
     """
-    T = t.shape[0]
-    t_host = t.tolist()              # python floats, exactly the grid's values
-    lead = leaves(y0)[0]
-    t_dev = t.to(lead.device)
-    coeffs = stage_coeffs(method.tableau, lead.dtype, lead.device)
-    n_evals = len(method.tableau.alpha)  # f0 comes from the last step (FSAL)
-    rk, nfe = _init_rk_state(method, func, y0, t_dev[0], ctrl, first_step,
-                             groups=groups)
+    with span("ode.solve"):
+        T = t.shape[0]
+        t_host = t.tolist()          # python floats, exactly the grid's values
+        lead = leaves(y0)[0]
+        t_dev = t.to(lead.device)
+        coeffs = stage_coeffs(method.tableau, lead.dtype, lead.device)
+        n_evals = len(method.tableau.alpha)  # f0 from the last step (FSAL)
+        rk, nfe = _init_rk_state(method, func, y0, t_dev[0], ctrl, first_step,
+                                 groups=groups)
 
-    def observe(rk: RKState, t_obs: torch.Tensor) -> torch.Tensor:
-        interp = rk.interp
-        if emission_readout is not None:
-            interp = type(interp)(*(emission_readout(c) for c in interp))
-        return method.interp_eval(interp, rk.t0, rk.t1, t_obs, emission_dtype)
+        def observe(rk: RKState, t_obs: torch.Tensor) -> torch.Tensor:
+            interp = rk.interp
+            if emission_readout is not None:
+                interp = type(interp)(*(emission_readout(c) for c in interp))
+            return method.interp_eval(interp, rk.t0, rk.t1, t_obs,
+                                      emission_dtype)
 
-    sol = [y0 if emission_readout is None else emission_readout(y0)]
-    nacc, nrej, syncs, ok = 0, 0, 0, True
-    t1_host = t_host[0]
-    while len(sol) < T and nacc + nrej < max_steps and ok:
-        if t_host[len(sol)] <= t1_host:
-            # consume an observation: dense output of the last accepted step
-            sol.append(observe(rk, t_dev[len(sol)]))
-            continue
-        # dt-underflow guard (the reference asserts): flag and stop
-        underflow = ~((rk.t1 + rk.dt) > rk.t1)
-        new, accept, finite = _attempt_step(method, func, rk, ctrl, coeffs,
-                                            groups)
-        nfe += n_evals
-        t1_host, acc, under, fin = torch.stack(
-            [new.t1, accept.to(new.t1.dtype), underflow.to(new.t1.dtype),
-             finite.to(new.t1.dtype)]).tolist()
-        syncs += 1
-        rk = new if fin else forced_reject(rk, ctrl.dfactor)
-        if acc:
-            nacc += 1
-        else:
-            nrej += 1
-        ok = not under
+        sol = [y0 if emission_readout is None else emission_readout(y0)]
+        nacc, nrej, syncs, ok = 0, 0, 0, True
+        t1_host = t_host[0]
+        while len(sol) < T and nacc + nrej < max_steps and ok:
+            if t_host[len(sol)] <= t1_host:
+                # consume an observation: the last accepted step's dense
+                # output
+                sol.append(observe(rk, t_dev[len(sol)]))
+                continue
+            with span("ode.attempt"):
+                # dt-underflow guard (the reference asserts): flag and stop
+                underflow = ~((rk.t1 + rk.dt) > rk.t1)
+                new, accept, finite = _attempt_step(method, func, rk, ctrl,
+                                                    coeffs, groups)
+                nfe += n_evals
+                with span("ode.sync"):
+                    t1_host, acc, under, fin = torch.stack(
+                        [new.t1, accept.to(new.t1.dtype),
+                         underflow.to(new.t1.dtype),
+                         finite.to(new.t1.dtype)]).tolist()
+                syncs += 1
+                rk = new if fin else forced_reject(rk, ctrl.dfactor)
+            if acc:
+                nacc += 1
+            else:
+                nrej += 1
+            ok = not under
 
-    stats = SolveStats(nfe=nfe, n_accepted=nacc, n_rejected=nrej,
-                       success=ok and len(sol) >= T, host_syncs=syncs)
-    return stack_solution(sol, T), stats
+        stats = SolveStats(nfe=nfe, n_accepted=nacc, n_rejected=nrej,
+                           success=ok and len(sol) >= T, host_syncs=syncs)
+        return stack_solution(sol, T), stats
 
 
 def solve_scan(method: AdaptiveMethod, func, y0, t: torch.Tensor,
@@ -331,7 +341,11 @@ def solve_scan(method: AdaptiveMethod, func, y0, t: torch.Tensor,
     ``t`` is the grid in the time dtype, on any device (it is moved to the
     state's); a blown budget gives ``success`` False and finite values
     where the observations were not reached (the callers turn them to NaN
-    with ``torch.where``)."""
+    with ``torch.where``).
+
+    Spans: ``ode.solve`` and one ``ode.attempt`` an attempt, as ``solve``'s
+    (no ``ode.sync``: nothing is read); a graph capture runs them once, and
+    a replay runs no Python."""
     from torch.utils.checkpoint import checkpoint
 
     T = t.shape[0]
@@ -341,8 +355,6 @@ def solve_scan(method: AdaptiveMethod, func, y0, t: torch.Tensor,
     t_final = t[-1]
     coeffs = stage_coeffs(method.tableau, lead.dtype, device)
     n_evals = len(method.tableau.alpha)  # f0 comes from the last step (FSAL)
-    rk0, nfe0 = _init_rk_state(method, func, y0, t[0], ctrl, first_step,
-                               groups=groups)
     bare = isinstance(y0, torch.Tensor)
     m = len(leaves(y0))
 
@@ -386,82 +398,89 @@ def solve_scan(method: AdaptiveMethod, func, y0, t: torch.Tensor,
     def count(v):
         return torch.full((), v, dtype=torch.int64, device=device)
 
-    carry = (*leaves(rk0.y), *leaves(rk0.f))
-    t1, dt = rk0.t1, rk0.dt
-    nfe, nacc, nrej = count(nfe0), count(0), count(0)
-    ok = torch.ones((), dtype=torch.bool, device=device)
-    accepts, ends0, ends1, emitted = [], [], [], []
-    for _ in range(max_steps):
-        live = (t1 < t_final) & ok
-        # dt-underflow guard (the reference asserts): flag and freeze
-        underflow = ~((t1 + dt) > t1)
-        veto = [torch.zeros((), dtype=torch.bool, device=device)]
-        if differentiable:
-            out = checkpoint(attempt, veto, live, t1, dt, *carry,
-                             use_reentrant=False, preserve_rng_state=False)
-        else:
-            out = attempt(veto, live, t1, dt, *carry)
-        accept, finite = out[2 * m + 2], out[2 * m + 3]
-        veto[0] = ~finite
-        accepts.append(accept)
-        ends0.append(t1)
-        ends1.append(torch.where(live, t1 + dt, t1))
-        emitted.append(out[2 * m + 4:])
-        carry, t1, dt = out[:2 * m], out[2 * m], out[2 * m + 1]
-        nfe = nfe + live.long() * n_evals
-        nacc = nacc + accept.long()
-        nrej = nrej + (live & ~accept).long()
-        ok = ok & ~(live & underflow)
+    with span("ode.solve"):
+        rk0, nfe0 = _init_rk_state(method, func, y0, t[0], ctrl, first_step,
+                                   groups=groups)
+        carry = (*leaves(rk0.y), *leaves(rk0.f))
+        t1, dt = rk0.t1, rk0.dt
+        nfe, nacc, nrej = count(nfe0), count(0), count(0)
+        ok = torch.ones((), dtype=torch.bool, device=device)
+        accepts, ends0, ends1, emitted = [], [], [], []
+        for _ in range(max_steps):
+            with span("ode.attempt"):
+                live = (t1 < t_final) & ok
+                # dt-underflow guard (the reference asserts): flag and freeze
+                underflow = ~((t1 + dt) > t1)
+                veto = [torch.zeros((), dtype=torch.bool, device=device)]
+                if differentiable:
+                    out = checkpoint(attempt, veto, live, t1, dt, *carry,
+                                     use_reentrant=False,
+                                     preserve_rng_state=False)
+                else:
+                    out = attempt(veto, live, t1, dt, *carry)
+                accept, finite = out[2 * m + 2], out[2 * m + 3]
+                veto[0] = ~finite
+                accepts.append(accept)
+                ends0.append(t1)
+                ends1.append(torch.where(live, t1 + dt, t1))
+                emitted.append(out[2 * m + 4:])
+                carry, t1, dt = out[:2 * m], out[2 * m], out[2 * m + 1]
+                nfe = nfe + live.long() * n_evals
+                nacc = nacc + accept.long()
+                nrej = nrej + (live & ~accept).long()
+                ok = ok & ~(live & underflow)
 
-    # the dense output of every observation after t[0], from the accepted
-    # attempt whose interval covers it: rejected and frozen slots hold the
-    # running max of the accepted ends, so searchsorted lands on the first
-    # (accepting) slot of each value
-    acc = torch.stack(accepts)
-    t0s, t1s = torch.stack(ends0), torch.stack(ends1)
-    t1_acc = torch.cummax(torch.where(acc, t1s.detach(), torch.full_like(
-        t1s.detach(), float("-inf"))), dim=0).values
-    t_obs = t[1:].contiguous()
-    idx = torch.searchsorted(t1_acc, t_obs, side="left").clamp(
-        0, max_steps - 1)
-    t0g = t0s[idx]
-    if not differentiable:
-        # each observation from its step's gathered sources by the host
-        # loop's own evaluation: the answers are the host loop's, bit for
-        # bit (the inference solve takes no emission lever)
-        srcs = [torch.stack([e[j] for e in emitted])[idx] for j in range(m)]
-        interp = type(rk0.interp)(*(
-            tree([src[:, c] for src in srcs])
-            for c in range(len(rk0.interp))))
-        obs = method.interp_eval(interp, t0g, t1s[idx], t_obs)
-        sol = tmap(lambda y, o: torch.cat([y.unsqueeze(0), o]), y0, obs)
+        # the dense output of every observation after t[0], from the
+        # accepted attempt whose interval covers it: rejected and frozen
+        # slots hold the running max of the accepted ends, so searchsorted
+        # lands on the first (accepting) slot of each value
+        acc = torch.stack(accepts)
+        t0s, t1s = torch.stack(ends0), torch.stack(ends1)
+        t1_acc = torch.cummax(torch.where(acc, t1s.detach(), torch.full_like(
+            t1s.detach(), float("-inf"))), dim=0).values
+        t_obs = t[1:].contiguous()
+        idx = torch.searchsorted(t1_acc, t_obs, side="left").clamp(
+            0, max_steps - 1)
+        t0g = t0s[idx]
+        if not differentiable:
+            # each observation from its step's gathered sources by the host
+            # loop's own evaluation: the answers are the host loop's, bit
+            # for bit (the inference solve takes no emission lever)
+            srcs = [torch.stack([e[j] for e in emitted])[idx]
+                    for j in range(m)]
+            interp = type(rk0.interp)(*(
+                tree([src[:, c] for src in srcs])
+                for c in range(len(rk0.interp))))
+            obs = method.interp_eval(interp, t0g, t1s[idx], t_obs)
+            sol = tmap(lambda y, o: torch.cat([y.unsqueeze(0), o]), y0, obs)
+            stats = SolveStats(nfe=nfe, n_accepted=nacc, n_rejected=nrej,
+                               success=ok & (t1 >= t_final), host_syncs=0)
+            return sol, stats
+        dtg = t1s[idx] - t0g
+        x = (t_obs - t0g) / torch.where(dtg == 0, torch.ones_like(dtg), dtg)
+        w = torch.stack(method.interp_weights(x, dtg), dim=1)      # (O, C)
+        sel = idx[:, None] == torch.arange(max_steps, device=device)[None, :]
+        w_full = (sel.to(w.dtype)[:, :, None] * w[:, None, :]).reshape(
+            T - 1, -1)                                              # (O, S·C)
+
+        def eval_leaf(j: int, y: torch.Tensor) -> torch.Tensor:
+            buf = torch.stack([e[j] for e in emitted])         # (S, C, ...)
+            flat = buf.reshape(buf.shape[0] * buf.shape[1], -1)
+            if emission_dtype is None:
+                out = w_full.to(flat.dtype) @ flat
+            else:
+                # the weights ride in the emission dtype, the sums in
+                # float32
+                out = w_full.to(emission_dtype).float() @ flat.float()
+            return torch.cat([y.unsqueeze(0), out.reshape(
+                (T - 1, *y.shape)).to(y.dtype)])
+
+        y0_out = read_out(y0)
+        sol = (eval_leaf(0, y0_out) if isinstance(y0_out, torch.Tensor)
+               else tuple(eval_leaf(j, y) for j, y in enumerate(y0_out)))
         stats = SolveStats(nfe=nfe, n_accepted=nacc, n_rejected=nrej,
                            success=ok & (t1 >= t_final), host_syncs=0)
         return sol, stats
-    dtg = t1s[idx] - t0g
-    x = (t_obs - t0g) / torch.where(dtg == 0, torch.ones_like(dtg), dtg)
-    w = torch.stack(method.interp_weights(x, dtg), dim=1)          # (O, C)
-    sel = idx[:, None] == torch.arange(max_steps, device=device)[None, :]
-    w_full = (sel.to(w.dtype)[:, :, None] * w[:, None, :]).reshape(
-        T - 1, -1)                                                  # (O, S·C)
-
-    def eval_leaf(j: int, y: torch.Tensor) -> torch.Tensor:
-        buf = torch.stack([e[j] for e in emitted])             # (S, C, ...)
-        flat = buf.reshape(buf.shape[0] * buf.shape[1], -1)
-        if emission_dtype is None:
-            out = w_full.to(flat.dtype) @ flat
-        else:
-            # the weights ride in the emission dtype, the sums in float32
-            out = w_full.to(emission_dtype).float() @ flat.float()
-        return torch.cat([y.unsqueeze(0), out.reshape(
-            (T - 1, *y.shape)).to(y.dtype)])
-
-    y0_out = read_out(y0)
-    sol = (eval_leaf(0, y0_out) if isinstance(y0_out, torch.Tensor)
-           else tuple(eval_leaf(j, y) for j, y in enumerate(y0_out)))
-    stats = SolveStats(nfe=nfe, n_accepted=nacc, n_rejected=nrej,
-                       success=ok & (t1 >= t_final), host_syncs=0)
-    return sol, stats
 
 
 class _Carry(NamedTuple):

@@ -40,6 +40,7 @@ from typing import Callable, List, Optional, Tuple
 import torch
 
 from ndcn_tpu_torch.train.budget import check_step_memory
+from ndcn_tpu_torch.utils.timing import span
 
 # eager steps before a capture: the first builds the library and creates
 # Adam's state, the next ones run on what the capture will record
@@ -48,7 +49,9 @@ WARMUP = 2
 
 class TrainChunk:
     """k train steps a call with one host read (see the module docstring).
-    ``host_reads`` counts the reads, ``replays`` the graph's replays."""
+    ``host_reads`` counts the reads, ``replays`` the graph's replays; the
+    spans ``train.chunk.replay`` (each replay) and ``train.chunk.read``
+    (the read) name them in a profiler's trace."""
 
     def __init__(self, step: Callable[[], Tuple[torch.Tensor, torch.Tensor]],
                  params, opt: torch.optim.Optimizer,
@@ -71,14 +74,17 @@ class TrainChunk:
         if self.device.type == "cuda":
             self.capture()
             for _ in range(k):
-                self.graph.replay()
+                with span("train.chunk.replay"):
+                    self.graph.replay()
             self.replays += k
             loss, aux = self._out
         else:
             for _ in range(k):
                 loss, aux = self.step()
         self.host_reads += 1
-        loss_f, aux_f = torch.stack([loss.detach(), aux.detach()]).tolist()
+        with span("train.chunk.read"):
+            loss_f, aux_f = torch.stack([loss.detach(),
+                                         aux.detach()]).tolist()
         return loss_f, aux_f
 
     def capture(self) -> None:

@@ -18,6 +18,7 @@ from typing import Callable, Iterable, Tuple
 import torch
 
 from ndcn_tpu_torch.parallel.mesh import all_reduce_grads
+from ndcn_tpu_torch.utils.timing import span
 
 
 def torch_adam(params: Iterable[torch.Tensor], lr: float,
@@ -104,16 +105,24 @@ def make_sgd_step(opt: torch.optim.Optimizer,
     ``(params, opt_state, rng) -> (params, opt_state, loss, aux)``. With a
     node-sharded model's ``group`` the replicated parameters' gradients
     (each rank's share) are summed over it before the update, so every
-    rank applies the same one."""
+    rank applies the same one.
+
+    Its spans (``utils.timing.span``): ``train.step`` around
+    ``train.forward``, ``train.backward`` (with the all-reduce) and
+    ``train.optimizer``."""
 
     def step(*args):
-        opt.zero_grad(set_to_none=True)
-        loss, aux = loss_fn(*args)
-        loss.backward()
-        all_reduce_grads([p for g in opt.param_groups for p in g["params"]],
-                         group)
-        opt.step()
-        return loss.detach(), aux.detach()
+        with span("train.step"):
+            opt.zero_grad(set_to_none=True)
+            with span("train.forward"):
+                loss, aux = loss_fn(*args)
+            with span("train.backward"):
+                loss.backward()
+                all_reduce_grads(
+                    [p for g in opt.param_groups for p in g["params"]], group)
+            with span("train.optimizer"):
+                opt.step()
+            return loss.detach(), aux.detach()
 
     return step
 
@@ -127,15 +136,20 @@ def make_replica_sgd_step(opt: torch.optim.Optimizer,
     so that each replica's gradient is its own loss's (a mean would scale
     it by 1/R). A NaN loss of one replica (``ode.nan_unless``) carries a
     zero gradient; the others' are unchanged. ``group`` as
-    ``make_sgd_step``'s: the model axis the replicas' nodes split over."""
+    ``make_sgd_step``'s: the model axis the replicas' nodes split over.
+    The spans are ``make_sgd_step``'s."""
 
     def step():
-        opt.zero_grad(set_to_none=True)
-        losses, aux = loss_fn()
-        losses.sum().backward()
-        all_reduce_grads([p for g in opt.param_groups for p in g["params"]],
-                         group)
-        opt.step()
-        return losses.detach(), aux.detach()
+        with span("train.step"):
+            opt.zero_grad(set_to_none=True)
+            with span("train.forward"):
+                losses, aux = loss_fn()
+            with span("train.backward"):
+                losses.sum().backward()
+                all_reduce_grads(
+                    [p for g in opt.param_groups for p in g["params"]], group)
+            with span("train.optimizer"):
+                opt.step()
+            return losses.detach(), aux.detach()
 
     return step

@@ -1,6 +1,8 @@
-"""Timing and running-average helpers, as ``ndcn_tpu/utils/timing.py``,
-and a ``torch.profiler`` trace context for the drivers' ``--profile_dir``
-(the JAX package's ``jax.profiler`` trace)."""
+"""The port's tracing: the ``torch.profiler`` trace of the drivers'
+``--profile_dir`` (the JAX package's ``jax.profiler`` trace), and ``span``,
+the named ranges the port opens at its layer boundaries, which land in that
+trace (and in any other ``torch.profiler`` trace) beside the device's
+events, on the same clock."""
 
 from __future__ import annotations
 
@@ -8,33 +10,28 @@ import contextlib
 import os
 import time
 
+from torch.autograd import profiler as _profiler
 
-class Timer:
-    def __enter__(self):
-        self.start = time.perf_counter()
-        self.elapsed = 0.0
-        return self
-
-    def __exit__(self, *exc):
-        self.elapsed = time.perf_counter() - self.start
-        return False
+_OFF = contextlib.nullcontext()
 
 
-class RunningAverageMeter:
-    """Exponential moving average of a scalar."""
+def span(name: str):
+    """A ``record_function`` range named ``name`` while a profiler is
+    recording, else a shared null context: off, a span costs one flag read
+    and starts no torch operation, so a CUDA graph captured with the
+    profiler off records nothing of it.
 
-    def __init__(self, momentum: float = 0.99):
-        self.momentum = momentum
-        self.reset()
-
-    def reset(self):
-        self.val = None
-        self.avg = 0.0
-
-    def update(self, val: float):
-        self.avg = val if self.val is None else (
-            self.avg * self.momentum + val * (1.0 - self.momentum))
-        self.val = val
+    The port's spans: ``train.step`` holding ``train.forward``,
+    ``train.backward`` (the backward and the gradients' all-reduce) and
+    ``train.optimizer`` (``train.optim``); ``model.encode`` and
+    ``model.decode`` (``models.ndcn.ndcn_forward``; the decoding left after
+    the solve); ``ode.solve`` holding one ``ode.attempt`` an attempt, which
+    holds the host loop's ``ode.sync``, its one device→host read
+    (``ode.adaptive``); ``train.chunk.replay`` around each graph replay and
+    ``train.chunk.read`` around the chunk's one read (``train.chunk``)."""
+    if not _profiler._is_profiler_enabled:
+        return _OFF
+    return _profiler.record_function(name)
 
 
 @contextlib.contextmanager

@@ -1,8 +1,9 @@
 """The port's ``report`` package, ``utils.timing`` and the drivers'
 ``--dump`` / ``--viz`` / ``--profile_dir`` against the JAX package: one
 results schema that both packages read (each loads the other's dumps and
-summarizes their directories alike), the plots, the timers, and a profiled
-run whose losses are bit-equal to the run without the profiler."""
+summarizes their directories alike), the plots, the profiler trace's off
+path and the notifier, and a profiled run whose losses are bit-equal to
+the run without the profiler."""
 
 import os
 
@@ -14,7 +15,6 @@ import torch
 from ndcn_tpu.experiments import summarize as j_summarize
 from ndcn_tpu.models import init_ndcn as j_init_ndcn
 from ndcn_tpu.report import results as j_results
-from ndcn_tpu.utils import timing as j_timing
 from ndcn_tpu_torch.convert import model_from_jax, params_from_jax
 from ndcn_tpu_torch.experiments import summarize
 from ndcn_tpu_torch.experiments.dynamics import build_parser, run
@@ -133,18 +133,7 @@ def test_viz_without_matplotlib_prints_and_skips(tmp_path, monkeypatch,
     assert not os.path.exists("figure")
 
 
-def test_timer_and_running_average_match_jax(capsys):
-    mine, theirs = timing.RunningAverageMeter(0.9), \
-        j_timing.RunningAverageMeter(0.9)
-    for v in (3.0, 1.0, 4.0, 1.0, 5.0):
-        mine.update(v)
-        theirs.update(v)
-        assert (mine.val, mine.avg) == (theirs.val, theirs.avg)
-    mine.reset()
-    assert mine.val is None and mine.avg == 0.0
-    with timing.Timer() as t:
-        sum(range(1000))
-    assert 0.0 < t.elapsed < 5.0
+def test_profile_trace_off_and_notify(capsys):
     with timing.profile_trace(None) as path:
         assert path is None
     notify.send_notification("done")
