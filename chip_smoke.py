@@ -737,6 +737,7 @@ def bounded_setting(dev, root: str, phase: str, label: str, op, vt, x0,
         nfe_per_step=eager_nfe, first_step_vs_cpu=first,
         loss_rel_l1_vs_host_loop_trained_apart=apart,
         host_reads_per_chunk=chunk.host_reads,
+        gated_attempts=chunk.gated_attempts,
         step_ms=dict(host_loop=spread(host_ms),
                      eager_bounded=spread(eager_ms),
                      graph_replay=spread(replay_ms),

@@ -102,6 +102,11 @@ ENTRY_POINTS = {
     # count and the group, stream
     "ndcn_bsr_spmm_grouped_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                   _I, _I, _I, _L, _I, _I, _P),
+    # a conditional IF node in a capture (ode/graph_gate.py): the 0-dim
+    # bool condition, the capturing stream, the stream that captures the
+    # body, the body's capture mode; and the end of the body
+    "ndcn_graph_if_begin": (_P, _P, _P, _I),
+    "ndcn_graph_if_end": (_P,),
 }
 
 

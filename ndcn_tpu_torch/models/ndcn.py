@@ -20,7 +20,7 @@ or (R, n, c) if terminal.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -100,14 +100,24 @@ def init_ndcn(generator: torch.Generator, input_size: int, hidden_size: int,
     return model.to(device) if device is not None else model
 
 
+class Control(NamedTuple):
+    """The control layer's weight and bias as an RHS reads them (in place
+    of ``model.wt``'s, which they hold unless a solve swapped them for
+    fresh leaves: ``ndcn_forward``)."""
+    weight: torch.Tensor
+    bias: torch.Tensor
+
+
 def ode_func(model: NDCN, op: GraphOperator, t, h: torch.Tensor,
              no_graph: bool = False, no_control: bool = False,
              drop_mask: Optional[torch.Tensor] = None,
-             fused=False, residual_dtype=None) -> torch.Tensor:
+             fused=False, residual_dtype=None,
+             control: Optional[Control] = None) -> torch.Tensor:
     """The learned RHS h' = relu(dropout(W·(A h) + b)), ``drop_mask`` a fixed
     inverted-dropout mask. ``residual_dtype`` rounds the SpMV output through
     that dtype before the control layer consumes it (the JAX package's saved
     residual; the forward and backward see the same rounded values).
+    ``control``: W and b in place of ``model.wt``'s.
 
     ``fused`` routes relu((A h) W + b) through K2 (dense operator) or K4
     (BSR operator):
@@ -117,6 +127,7 @@ def ode_func(model: NDCN, op: GraphOperator, t, h: torch.Tensor,
       ValueError.
     - "auto": fuse when fusable and ``fused_profitable``; otherwise the
       standard path, silently."""
+    wt = model.wt if control is None else control
     if fused:
         if fused is not True and fused != "auto":
             raise ValueError(f"fused must be False, True or 'auto'; got {fused!r}")
@@ -131,21 +142,20 @@ def ode_func(model: NDCN, op: GraphOperator, t, h: torch.Tensor,
                 f"{'on' if drop_mask is not None else 'off'}); use "
                 "fused='auto' (or drop the flag) for the standard path")
         n, width = h.shape[-2:]
-        w_t = model.wt.weight.transpose(-1, -2)
+        w_t = wt.weight.transpose(-1, -2)
         if dense_ok and (fused is True or fused_profitable("dense", width, n)):
-            return fused_rhs(op.mat, h, w_t, model.wt.bias)
+            return fused_rhs(op.mat, h, w_t, wt.bias)
         if bsr_ok and (fused is True or fused_profitable("bsr", width, n)):
-            return bsr_fused_rhs(op.fwd, op.bwd, h, w_t, model.wt.bias)
+            return bsr_fused_rhs(op.fwd, op.bwd, h, w_t, wt.bias)
     if not no_graph:
         h = matvec(op, h)
     if residual_dtype is not None and not no_graph and not no_control:
-        h = rounded_control(model.wt.weight, model.wt.bias, h,
-                            residual_dtype, False)
+        h = rounded_control(wt.weight, wt.bias, h, residual_dtype, False)
     else:
         if residual_dtype is not None and not no_graph:
             h = h.to(residual_dtype).to(torch.float32)
         if not no_control:
-            h = linear_apply(model.wt, h)
+            h = linear_apply(wt, h)
     if drop_mask is not None:
         h = h * drop_mask
     return torch.relu(h)
@@ -168,9 +178,14 @@ def ode_block(func, h0: torch.Tensor, vt, rtol: float, atol: float,
     solve's option of that name: its norms are over every rank's rows).
 
     With ``adjoint=True`` the gradients come from the continuous adjoint
-    (``ode.adjoint``), taken for h0 and ``params``, the tuple of tensors the
-    RHS closes over (stacked, when ``batched``); the stats are the forward
-    solve's. The emission options
+    (``ode.adjoint``), taken for h0 and ``params``, the tensors the RHS
+    closes over (stacked, when ``batched``): a list the RHS reads them from
+    at each call, which the adjoint's VJPs swap for fresh leaves, or a
+    tuple; the stats are the forward solve's. With ``scan`` and without
+    it, ``params`` (such a list, then also what ``emission_readout`` reads)
+    reaches the bounded solve, whose attempts return those gradients
+    themselves (the solve's ``params`` option: a captured step gates each
+    attempt's backward too). The emission options
     reach the solver on the differentiable adaptive path only, as the JAX
     package's ``ode_block`` passes them (not under the adjoint)."""
     if adjoint:
@@ -185,7 +200,7 @@ def ode_block(func, h0: torch.Tensor, vt, rtol: float, atol: float,
         if scan:
             options["scan"] = True
         sol, stats = odeint_adjoint_with_stats(
-            func, h0, vt, tuple(params), rtol=rtol, atol=atol, method=method,
+            func, h0, vt, params, rtol=rtol, atol=atol, method=method,
             options=options)
         return (sol[-1] if terminal else sol), stats
     options = {"max_steps": max_steps, "differentiable": not nondiff}
@@ -195,6 +210,8 @@ def ode_block(func, h0: torch.Tensor, vt, rtol: float, atol: float,
         options["node_group"] = node_group
     if scan:
         options["scan"] = True
+        if params is not None:
+            options["params"] = params
     if method in ("dopri5", "tsit5") and not nondiff:
         options.update(emission_dtype=emission_dtype,
                        emission_readout=emission_readout)
@@ -289,19 +306,22 @@ def rounded_control(weight, bias, ah, dtype,
 
 
 def ode_func_T(model: NDCN, op: CooGraph, t, hT: torch.Tensor,
-               residual_dtype=None) -> torch.Tensor:
+               residual_dtype=None,
+               control: Optional[Control] = None) -> torch.Tensor:
     """The learned RHS in feature-major form: hT (d_sub, n), rows >= d zero.
 
     relu((A h) W + b) transposes to relu(Wᵀ (A h)ᵀ + b[:, None]); the SpMV
     is ``spmv_T`` (K1-fm, or K5 under ``GATHER_WIDE``) and every
     intermediate keeps the node dimension minor. Wᵀ_pad and b_pad carry zero
     pad rows, so relu keeps the pad rows zero. The (d_sub × d_sub) product
-    is a plain ``torch.matmul``, as the JAX package leaves it to XLA."""
+    is a plain ``torch.matmul``, as the JAX package leaves it to XLA.
+    ``control``: W and b in place of ``model.wt``'s."""
+    wt = model.wt if control is None else control
     d_sub = hT.shape[0]
-    d = model.wt.weight.shape[0]
+    d = wt.weight.shape[0]
     # nn.Linear stores W transposed: its weight is already Wᵀ
-    w_p = F.pad(model.wt.weight, (0, d_sub - d, 0, d_sub - d))
-    b_p = F.pad(model.wt.bias, (0, d_sub - d))
+    w_p = F.pad(wt.weight, (0, d_sub - d, 0, d_sub - d))
+    b_p = F.pad(wt.bias, (0, d_sub - d))
     ahT = (rs_spmv_T if isinstance(op, RowShardedCoo) else spmv_T)(op, hT)
     if residual_dtype is not None:
         return torch.relu(rounded_control(w_p, b_p, ahT, residual_dtype,
@@ -385,10 +405,18 @@ def ndcn_forward(model: NDCN, op: GraphOperator, vt, x: torch.Tensor, *,
                        and method in ("dopri5", "tsit5"))
         w_dec, b_dec = model.dec.weight, model.dec.bias   # (c, d), (c,)
         # the adjoint's VJPs are taken for the control layer, the only
-        # parameters the RHS closes over (the JAX package's ode_params)
-        ode_params = (() if model.wt is None or no_control
-                      else (model.wt.weight, model.wt.bias))
-        solve_kw = dict(adjoint=adjoint, params=ode_params,
+        # parameters the RHS closes over (the JAX package's ode_params);
+        # the RHS (and the emission readout, whose weight joins them) reads
+        # them from this list at each call, so that a solve may swap them
+        # for fresh leaves (ode.graph_gate.fresh_leaves)
+        bound = ([] if model.wt is None or no_control
+                 else [model.wt.weight, model.wt.bias])
+        n_ctrl = len(bound)
+
+        def control():
+            return Control(*bound[:2]) if n_ctrl else None
+
+        solve_kw = dict(adjoint=adjoint, params=bound,
                         max_steps=max_steps, nondiff=nondiff,
                         emission_dtype=emission_dtype,
                         batched=replicas is not None, node_group=group,
@@ -399,11 +427,15 @@ def ndcn_forward(model: NDCN, op: GraphOperator, vt, x: torch.Tensor, *,
 
             def func_T(t, hh):
                 return ode_func_T(model, op, t, hh,
-                                  residual_dtype=residual_dtype)
+                                  residual_dtype=residual_dtype,
+                                  control=control())
 
             # decode in feature-major form: the readout keeps (T, c, n)
             # where the full trajectory would be (T, d_sub, n)
-            readout = (lambda s: w_dec @ s[:d]) if use_readout else None
+            readout = None
+            if use_readout:
+                bound.append(w_dec)
+                readout = lambda s: bound[-1] @ s[:d]  # noqa: E731
             sol_T, stats = ode_block(func_T, hT, vt, rtol, atol, method,
                                      terminal=terminal,
                                      emission_readout=readout, **solve_kw)
@@ -418,12 +450,14 @@ def ndcn_forward(model: NDCN, op: GraphOperator, vt, x: torch.Tensor, *,
         def func(t, hh):
             return ode_func(model, op, t, hh, no_graph=no_graph,
                             no_control=no_control, drop_mask=drop_mask,
-                            fused=fused, residual_dtype=residual_dtype)
+                            fused=fused, residual_dtype=residual_dtype,
+                            control=control())
 
         if use_readout and emission_dtype is not None:
+            bound.append(w_dec)
             sol, stats = ode_block(
                 func, h, vt, rtol, atol, method,
-                emission_readout=lambda s: s @ w_dec.transpose(-1, -2),
+                emission_readout=lambda s: s @ bound[-1].transpose(-1, -2),
                 **solve_kw)
             with span("model.decode"):
                 return sol + b_dec.unsqueeze(-2), stats

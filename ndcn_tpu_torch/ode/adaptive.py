@@ -17,7 +17,13 @@ and none per observation. ``SolveStats.host_syncs`` counts them.
 JAX package's ``solve_scan``: ``max_steps`` masked attempts and the
 observations read from their emissions after the loop, with no host read,
 so that a CUDA graph can record a whole train step (``train.chunk``); it
-takes the same attempts as the host loop (see its docstring).
+takes the same attempts as the host loop (see its docstring). While a
+graph is being captured, each attempt of a state that is not node-sharded
+also sits behind a conditional graph node on its live flag, in the forward
+and in the backward (``graph_gate``, the JAX package's ``lax.cond``): a
+replay skips a frozen attempt's kernels, with the masked answers bit for
+bit. Eager and CPU solves, a capture's warm-up steps and a node-sharded
+state (whose attempts issue collectives) run every attempt, masked.
 
 Under autograd the loop records the differentiable solve with the JAX scan
 path's gradient semantics:
@@ -70,6 +76,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 from torch._higher_order_ops import while_loop
 
+from ndcn_tpu_torch.ode import graph_gate
 from ndcn_tpu_torch.ode import interp as interp_lib
 from ndcn_tpu_torch.ode.grad_guard import all_finite, forced_reject
 from ndcn_tpu_torch.ode.runge_kutta import (StageCoeffs, runge_kutta_step,
@@ -278,12 +285,160 @@ def solve(method: AdaptiveMethod, func, y0, t: torch.Tensor,
         return stack_solution(sol, T), stats
 
 
+def _masked_attempt(method: AdaptiveMethod, func, ctrl: Controller,
+                    coeffs: StageCoeffs, bare: bool, m: int, groups=None,
+                    emission_dtype: Optional[torch.dtype] = None,
+                    emission_readout: Optional[Callable] = None):
+    """``solve_scan``'s attempt, ``attempt(veto, live, t1, dt, *carry)`` of a
+    state of ``m`` leaves (a bare tensor when ``bare``), carried as (*y,
+    *f): the carry, t1, dt, accept, finite and the emissions (one (C, ...)
+    stack of the read-out dense-output sources a leaf, zero unless
+    accepted). ``veto`` is the one-element list the guard writes after the
+    forward (see ``solve_scan``)."""
+
+    def tree(flat):
+        return flat[0] if bare else tuple(flat)
+
+    def read_out(state):
+        return state if emission_readout is None else emission_readout(state)
+
+    def emit(interp, accept):
+        srcs = [leaves(read_out(c)) for c in interp]
+        out = []
+        for j in range(len(srcs[0])):
+            stack = torch.stack([src[j] for src in srcs])
+            if emission_dtype is not None:
+                stack = stack.to(emission_dtype)
+            out.append(torch.where(accept, stack, torch.zeros_like(stack)))
+        return out
+
+    def attempt(veto, live, t1, dt, *carry):
+        rk = RKState(y=tree(carry[:m]), f=tree(carry[m:]), t0=t1, t1=t1,
+                     dt=dt)
+        vetoed = veto[0]
+        dt_eff = torch.where(live & ~vetoed, dt, torch.zeros_like(dt))
+        y1, f1, k, accept, finite, dt_next = _trial(func, rk, ctrl, coeffs,
+                                                    dt_eff, vetoed, groups)
+        accept = accept & live
+
+        def pick(a, b):
+            return torch.where(accept, a, b)
+
+        interp = method.interp_make(rk.y, y1, k, dt_eff, coeffs)
+        return (*leaves(tmap(pick, y1, rk.y)), *leaves(tmap(pick, f1, rk.f)),
+                pick(t1 + dt, t1), torch.where(live, dt_next, dt),
+                accept, finite, *emit(interp, accept))
+
+    return attempt
+
+
+def _frozen_attempt(read_y0, n_sources: int,
+                    emission_dtype: Optional[torch.dtype] = None):
+    """``frozen(t1, dt, carry)``: the outputs of a frozen attempt, made
+    outside its gate: the carry, t1 and dt copied, accept False, finite
+    True, and zero emissions shaped as ``n_sources`` of ``read_y0`` (the
+    state read out) leaf by leaf."""
+    like = [((n_sources, *x.shape), emission_dtype or x.dtype, x.device)
+            for x in leaves(read_y0)]
+
+    def frozen(t1, dt, carry):
+        flag = dict(dtype=torch.bool, device=t1.device)
+        return (*(c.clone() for c in carry), t1.clone(), dt.clone(),
+                torch.zeros((), **flag), torch.ones((), **flag),
+                *(torch.zeros(shape, dtype=dtype, device=device)
+                  for shape, dtype, device in like))
+
+    return frozen
+
+
+def _attempt_gate(lead: torch.Tensor, groups):
+    """The gate of ``solve_scan``'s attempts, chosen from what the solve
+    observes: a conditional graph node (``graph_gate.if_node``) while the
+    state's stream captures a CUDA graph and the state is not node-sharded;
+    None otherwise (eager, the CPU, and ``groups``, whose attempts issue
+    collectives, which no conditional body takes): every attempt runs,
+    masked."""
+    if (groups is None and lead.is_cuda
+            and torch.cuda.is_current_stream_capturing()):
+        return graph_gate.if_node
+    return None
+
+
+def _gated(gate, live: torch.Tensor, frozen: Callable, compute: Callable):
+    """``compute()``'s tensors; with a gate, the buffers ``frozen()`` makes
+    (a frozen attempt's result, made outside the gate), into which
+    ``compute()``'s tensors are copied behind ``gate(live, ...)``."""
+    if gate is None:
+        return compute()
+    out = frozen()
+
+    def body():
+        for buf, value in zip(out, compute()):
+            buf.copy_(value)
+
+    gate(live, body)
+    return out
+
+
+class _GatedAttempt(torch.autograd.Function):
+    """One attempt of the differentiable bounded solve, recomputed in its
+    backward as the non-reentrant checkpoint does, behind ``gate`` in both
+    directions (``_gated``; None: no gate). ``apply(attempt, frozen, gate,
+    veto, bound, live, t1, dt, *carry, *bound)``: ``attempt`` is
+    ``solve_scan``'s masked attempt, ``frozen`` makes a frozen attempt's
+    outputs, ``veto`` is the guard's cell and ``bound`` the list the RHS
+    and the emission readout read their parameters from, whose gradients
+    the backward returns (autograd accumulates them outside any gate). The
+    recomputation reads fresh leaves from it (``graph_gate.fresh_leaves``).
+    A frozen attempt's VJP is the cotangents of the carry, t1 and dt passed
+    through and zeros for the parameters: what its masked backward gives,
+    since ``torch.where`` passes them and every other term is an exact
+    zero."""
+
+    @staticmethod
+    def forward(ctx, attempt, frozen, gate, veto, bound, live, t1, dt,
+                *rest):
+        carry = rest[:len(rest) - len(bound)]
+        ctx.attempt, ctx.gate, ctx.veto, ctx.bound = (attempt, gate, veto,
+                                                      bound)
+        ctx.save_for_backward(live, t1, dt, *carry)
+        out = _gated(gate, live, lambda: frozen(t1, dt, carry),
+                     lambda: attempt(veto, live, t1, dt, *carry))
+        n = len(carry)
+        ctx.mark_non_differentiable(out[n + 2], out[n + 3])
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        live, t1, dt, *carry = ctx.saved_tensors
+        n = len(carry)
+        cots = (*grads[:n + 2], *grads[n + 4:])   # accept, finite: none
+
+        def frozen():
+            return (grads[n].clone(), grads[n + 1].clone(),
+                    *(g.clone() for g in grads[:n]),
+                    *(torch.zeros_like(p) for p in ctx.bound))
+
+        def compute():
+            with torch.enable_grad(), graph_gate.fresh_leaves(
+                    ctx.bound) as params:
+                xs = [x.detach().requires_grad_() for x in (t1, dt, *carry)]
+                out = ctx.attempt(ctx.veto, live, *xs)
+                wrt = (*xs, *params)
+                got = torch.autograd.grad((*out[:n + 2], *out[n + 4:]), wrt,
+                                          cots, allow_unused=True)
+            return tuple(torch.zeros_like(x) if g is None else g
+                         for g, x in zip(got, wrt))
+
+        return (None,) * 6 + tuple(_gated(ctx.gate, live, frozen, compute))
+
+
 def solve_scan(method: AdaptiveMethod, func, y0, t: torch.Tensor,
                ctrl: Controller, max_steps: int,
                first_step: Optional[float] = None,
                emission_dtype: Optional[torch.dtype] = None,
                emission_readout: Optional[Callable] = None, groups=None,
-               differentiable: bool = True):
+               differentiable: bool = True, params=None):
     """The differentiable solve as a bounded program that never reads the
     device from the host: the port of the JAX package's ``solve_scan``.
     Returns (solution, SolveStats) with 0-dim device tensors for the counts
@@ -294,49 +449,65 @@ def solve_scan(method: AdaptiveMethod, func, y0, t: torch.Tensor,
     ``solve``'s attempt, the same arithmetic, and one that is not (frozen)
     runs at dt = 0 and is masked out with ``torch.where``: it adds nothing
     to the carry, to NFE or the accept / reject counts, and a zero
-    cotangent to the gradients. (The JAX package skips frozen iterations
-    with ``lax.cond``; here they cost an attempt each, ROADMAP §1 entry
-    6b.) Each attempt emits its dense-output sources, read out by
-    ``emission_readout`` and rounded to ``emission_dtype`` where given,
-    masked to zero unless accepted, with its interval's ends and accept
-    flag. The observations are then read from the emissions as JAX reads
-    them: a running max of the accepted ends, ``searchsorted`` of t[1:] on
-    it, and one (O, S·C) × (S·C, numel) matmul a leaf whose one-hot rows
-    carry each observation's C interpolation weights (float32 sums, also
-    for bf16 emissions). Its answers agree with ``solve``'s to float32
-    rounding (the matmul sums the same terms in another order) with equal
-    NFE and counts.
+    cotangent to the gradients. While a CUDA graph is being captured and
+    the state is not node-sharded, each attempt also sits behind a
+    conditional graph node on its live flag (``graph_gate``, the JAX
+    package's ``lax.cond``), in the forward and in the backward: a replay
+    launches no kernel of a frozen attempt, and its outputs (the carry, t1
+    and dt unchanged, accept False, finite True, zero emissions) and its
+    VJP (the cotangents passed through, zeros for ``params``) are written
+    outside the node, as its masked run gives them, bit for bit. Eager
+    solves, the CPU, a capture's warm-up steps and a node-sharded state
+    (``groups``: its attempts issue collectives, which no conditional body
+    takes) run every attempt, masked (``_attempt_gate``). Each attempt
+    emits its dense-output sources, read out by ``emission_readout`` and
+    rounded to ``emission_dtype`` where given, masked to zero unless
+    accepted, with its interval's ends and accept flag. The observations
+    are then read from the emissions as JAX reads them: a running max of
+    the accepted ends, ``searchsorted`` of t[1:] on it, and one (O, S·C) ×
+    (S·C, numel) matmul a leaf whose one-hot rows carry each observation's
+    C interpolation weights (float32 sums, also for bf16 emissions). Its
+    answers agree with ``solve``'s to float32 rounding (the matmul sums the
+    same terms in another order) with equal NFE and counts.
 
-    Each attempt runs under a non-reentrant ``torch.utils.checkpoint``, the
-    counterpart of JAX's per-iteration rematerialization: the tape keeps
-    the carry between attempts and the emissions, and the backward runs
-    every attempt again, the operator products included (the graph
-    product's output is not kept, unlike JAX's ``ndcn_spmv`` policy: a kept
-    product of an overflowed attempt would reach the guard below
-    unmasked). The recomputation is the gradient guard (``grad_guard``): an
-    attempt whose forward went non-finite is recomputed at dt = 0 and
-    rejected, which is exactly ``forced_reject``'s primal, so its RHS
-    parameters get zero and dt keeps its dfactor sensitivity, where the
-    backward through the overflowed stages would give NaN. The flag that
-    selects this is set after the attempt's forward, from its own finite
-    flag, and read only by the recomputation: the forward never waits for
-    it.
+    Each attempt is recomputed in the backward, the counterpart of JAX's
+    per-iteration rematerialization: the tape keeps the carry between
+    attempts and the emissions, and the backward runs every attempt again,
+    the operator products included (the graph product's output is not
+    kept, unlike JAX's ``ndcn_spmv`` policy: a kept product of an
+    overflowed attempt would reach the guard below unmasked). With
+    ``params``, the list that ``func`` and ``emission_readout`` read every
+    tensor they use that requires grad from, at each call, an attempt is
+    one ``_GatedAttempt``, which takes them as inputs and returns their
+    gradients, so that a gate holds its whole backward (its recomputation
+    reads fresh leaves from the list: ``graph_gate``); without it, a
+    non-reentrant ``torch.utils.checkpoint``, which reaches whatever the
+    attempt closes over, and no gate. The recomputation is the gradient
+    guard (``grad_guard``): an attempt whose forward went non-finite is
+    recomputed at dt = 0 and rejected, which is exactly ``forced_reject``'s
+    primal, so its RHS parameters get zero and dt keeps its dfactor
+    sensitivity, where the backward through the overflowed stages would
+    give NaN. The flag that selects this is set after the attempt's
+    forward, from its own finite flag, and read only by the recomputation:
+    the forward never waits for it.
 
     ``differentiable=False`` runs the attempts as they are, with no
-    checkpoint and no guard: the bounded inference solve, which the
-    continuous adjoint runs under ``torch.no_grad()`` for its forward and
-    each interval of its backward (``ode.adjoint``). Each observation is
-    then evaluated as the host loop evaluates it, from the sources of the
-    accepted attempt that covers it (gathered, not summed by the matmul):
-    with the same budget it gives the host loop's attempts and answers bit
-    for bit, as the JAX package's ``solve_while`` gives its own, so the
-    adjoint's backward starts every interval from the host loop's state.
+    recomputation and no guard (behind the gate while a graph is being
+    captured, then under ``torch.no_grad()``): the bounded inference solve,
+    which the continuous adjoint runs under ``torch.no_grad()`` for its
+    forward and each interval of its backward (``ode.adjoint``). Each
+    observation is then evaluated as the host loop evaluates it, from the
+    sources of the accepted attempt that covers it (gathered, not summed by
+    the matmul): with the same budget it gives the host loop's attempts and
+    answers bit for bit, as the JAX package's ``solve_while`` gives its
+    own, so the adjoint's backward starts every interval from the host
+    loop's state.
 
     ``groups`` (``tree_math.leaf_groups``): the process group of each
     node-sharded leaf, as in ``solve``. The norms and the finite flag are
     over every rank, so the live mask is too: every rank runs the same
     attempts, frozen ones included, and issues the same collectives in the
-    same order, also in the checkpoint's recomputation.
+    same order, also in the recomputation.
 
     ``t`` is the grid in the time dtype, on any device (it is moved to the
     state's); a blown budget gives ``success`` False and finite values
@@ -357,6 +528,15 @@ def solve_scan(method: AdaptiveMethod, func, y0, t: torch.Tensor,
     n_evals = len(method.tableau.alpha)  # f0 comes from the last step (FSAL)
     bare = isinstance(y0, torch.Tensor)
     m = len(leaves(y0))
+    if params is not None and not isinstance(params, list):
+        raise TypeError(f"params must be the list func reads its parameters "
+                        f"from; got {type(params).__name__}")
+    gate = _attempt_gate(lead, groups)
+    if differentiable and params is None:
+        gate = None
+
+    attempt = _masked_attempt(method, func, ctrl, coeffs, bare, m, groups,
+                              emission_dtype, emission_readout)
 
     def tree(flat):
         return flat[0] if bare else tuple(flat)
@@ -364,43 +544,17 @@ def solve_scan(method: AdaptiveMethod, func, y0, t: torch.Tensor,
     def read_out(state):
         return state if emission_readout is None else emission_readout(state)
 
-    def emit(interp, accept):
-        """The attempt's sources, read out and stacked (C, ...) leaf by
-        leaf, zero unless accepted."""
-        srcs = [leaves(read_out(c)) for c in interp]
-        out = []
-        for j in range(len(srcs[0])):
-            stack = torch.stack([src[j] for src in srcs])
-            if emission_dtype is not None:
-                stack = stack.to(emission_dtype)
-            out.append(torch.where(accept, stack, torch.zeros_like(stack)))
-        return out
-
-    def attempt(veto, live, t1, dt, *carry):
-        """One masked attempt (checkpointed). ``veto`` is the one-element
-        list the guard writes after the forward (see the docstring)."""
-        rk = RKState(y=tree(carry[:m]), f=tree(carry[m:]), t0=t1, t1=t1,
-                     dt=dt)
-        vetoed = veto[0]
-        dt_eff = torch.where(live & ~vetoed, dt, torch.zeros_like(dt))
-        y1, f1, k, accept, finite, dt_next = _trial(func, rk, ctrl, coeffs,
-                                                    dt_eff, vetoed, groups)
-        accept = accept & live
-
-        def pick(a, b):
-            return torch.where(accept, a, b)
-
-        interp = method.interp_make(rk.y, y1, k, dt_eff, coeffs)
-        return (*leaves(tmap(pick, y1, rk.y)), *leaves(tmap(pick, f1, rk.f)),
-                pick(t1 + dt, t1), torch.where(live, dt_next, dt),
-                accept, finite, *emit(interp, accept))
-
     def count(v):
         return torch.full((), v, dtype=torch.int64, device=device)
 
     with span("ode.solve"):
         rk0, nfe0 = _init_rk_state(method, func, y0, t[0], ctrl, first_step,
                                    groups=groups)
+        frozen = None
+        if gate is not None:
+            with torch.no_grad():
+                frozen = _frozen_attempt(read_out(y0), len(rk0.interp),
+                                         emission_dtype)
         carry = (*leaves(rk0.y), *leaves(rk0.f))
         t1, dt = rk0.t1, rk0.dt
         nfe, nacc, nrej = count(nfe0), count(0), count(0)
@@ -412,12 +566,21 @@ def solve_scan(method: AdaptiveMethod, func, y0, t: torch.Tensor,
                 # dt-underflow guard (the reference asserts): flag and freeze
                 underflow = ~((t1 + dt) > t1)
                 veto = [torch.zeros((), dtype=torch.bool, device=device)]
-                if differentiable:
+                if not differentiable:
+                    # a gated attempt records no tape
+                    with torch.set_grad_enabled(torch.is_grad_enabled()
+                                                and gate is None):
+                        out = _gated(
+                            gate, live, lambda: frozen(t1, dt, carry),
+                            lambda: attempt(veto, live, t1, dt, *carry))
+                elif params is None:
                     out = checkpoint(attempt, veto, live, t1, dt, *carry,
                                      use_reentrant=False,
                                      preserve_rng_state=False)
                 else:
-                    out = attempt(veto, live, t1, dt, *carry)
+                    out = _GatedAttempt.apply(attempt, frozen, gate, veto,
+                                              params, live, t1, dt, *carry,
+                                              *params)
                 accept, finite = out[2 * m + 2], out[2 * m + 3]
                 veto[0] = ~finite
                 accepts.append(accept)

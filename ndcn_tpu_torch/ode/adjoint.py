@@ -4,7 +4,8 @@ trajectory), as ``ndcn_tpu/ode/adjoint.py``.
     sol = odeint_adjoint(func, y0, t, params, rtol, atol, method, options)
 
 ``func(t, y)`` closes over ``params``, a tuple of tensors (e.g. the model's
-ODE-function parameters); the gradients reach y0 and ``params``.
+ODE-function parameters), or reads them at each call from ``params``, a
+list; the gradients reach y0 and ``params``.
 
 - Forward: the non-differentiable solve (``differentiable=False``), NaN when
   the step budget runs out. Nothing of it is kept but the observations.
@@ -17,12 +18,16 @@ ODE-function parameters); the gradients reach y0 and ``params``.
 The augmented RHS takes the VJP of ``func`` with ``torch.autograd.grad``
 under ``torch.enable_grad()``, with a fresh leaf for y and ``params`` as the
 inputs (``allow_unused=True``: a parameter the RHS does not touch gets
-zeros). Its time derivative is taken as zero, since NDCN's RHS is
-autonomous; adj_t still rides in the state, as in the JAX package, and
-enters the step control only through the initial-step norms. The kernels'
-``autograd.Function`` backwards run inside that VJP (K1 over the transpose
-CSR, K2's backward products, K3 over Aᵀ): the operator's values are no
-input, so the NaN they give an operator cotangent is never computed.
+zeros); a list ``params`` gives fresh leaves too, swapped in for the
+evaluation (``graph_gate.fresh_leaves``), which an interval solve whose
+attempts a captured graph gates needs: no gradient may leave the gate's
+body (``ode.graph_gate``). Its time derivative is taken as zero, since
+NDCN's RHS is autonomous; adj_t still rides in the state, as in the JAX
+package, and enters the step control only through the initial-step norms.
+The kernels' ``autograd.Function`` backwards run inside that VJP (K1 over
+the transpose CSR, K2's backward products, K3 over Aᵀ): the operator's
+values are no input, so the NaN they give an operator cotangent is never
+computed.
 
 The cotangent -adj_y of the JAX package is passed as adj_y and the VJPs'
 sign folded in: negation is exact and the VJP is linear, so the values are
@@ -71,11 +76,13 @@ them once.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence
 
 import torch
 import torch.distributed as dist
 
+from ndcn_tpu_torch.ode import graph_gate
 from ndcn_tpu_torch.ode.adaptive import BatchedSolveStats, SolveStats
 from ndcn_tpu_torch.ode.api import (_canonical_time, _time_dtype,
                                     nan_on_failure, odeint_with_stats)
@@ -110,8 +117,8 @@ def _nondiff(options: Optional[Dict[str, Any]]) -> Dict[str, Any]:
 class _OdeintAdjoint(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, func, t, rtol, atol, method, options, record, y0,
-                *params):
+    def forward(ctx, func, t, rtol, atol, method, options, record, bound,
+                y0, *params):
         sol, stats = odeint_with_stats(func, y0, t, rtol=rtol, atol=atol,
                                        method=method,
                                        options=_nondiff(options))
@@ -121,6 +128,7 @@ class _OdeintAdjoint(torch.autograd.Function):
         ctx.backward = []
         record.append(ctx.backward)
         ctx.params = params   # inputs: the VJPs are taken with respect to them
+        ctx.bound = bound     # where func reads them, when a list
         ctx.save_for_backward(sol)
         return sol
 
@@ -139,12 +147,21 @@ class _OdeintAdjoint(torch.autograd.Function):
             # y and adj_y are node-sharded; adj_t and adj_p replicated
             aug_options["node_sharded"] = (True, True) + (False,) * (1 + n_p)
 
+        def leaves():
+            if isinstance(ctx.bound, list):
+                return graph_gate.fresh_leaves(ctx.bound)
+            if graph_gate.in_body():
+                raise TypeError("an adjoint whose interval solves a CUDA "
+                                "graph gates takes params as the list func "
+                                "reads them from")
+            return contextlib.nullcontext(params)
+
         def augmented(s, aug):
             y, adj_y = aug[0], aug[1]
-            with torch.enable_grad():
+            with torch.enable_grad(), leaves() as ps:
                 y_ = y.detach().requires_grad_()
                 f = func(-s, y_)
-                vjps = torch.autograd.grad(f, (y_, *params), adj_y,
+                vjps = torch.autograd.grad(f, (y_, *ps), adj_y,
                                            allow_unused=True)
             vjps = [torch.zeros_like(x) if v is None else v
                     for v, x in zip(vjps, (y_, *params))]
@@ -178,7 +195,7 @@ class _OdeintAdjoint(torch.autograd.Function):
             # whole on the group's first rank: the caller's sum over the
             # group counts it once
             adj_p = tuple(torch.zeros_like(a) for a in adj_p)
-        return (None, None, None, None, None, None, None, adj_y, *adj_p)
+        return (None,) * 8 + (adj_y, *adj_p)
 
 
 def odeint_adjoint_with_stats(func: Callable, y0: torch.Tensor, t,
@@ -196,7 +213,7 @@ def odeint_adjoint_with_stats(func: Callable, y0: torch.Tensor, t,
         t = _canonical_time(t, time_dtype)
     record: List[Any] = []
     sol = _OdeintAdjoint.apply(func, t, rtol, atol, method, options, record,
-                               y0, *params)
+                               params, y0, *params)
     forward, backward = record
     return sol, AdjointStats(*forward, backward=backward)
 

@@ -38,6 +38,12 @@ it: their loop reads nothing. Without it the solve is the host loop
 a CUDA graph is being captured the grid is taken as a tensor of the time
 dtype on the card, unchecked: the eager warm-up step that every capture
 follows checked the same grid.
+``params``, the list that ``func`` (and ``emission_readout``) reads every
+tensor it uses that requires grad from, at each call, lets dopri5's and
+tsit5's differentiable bounded solve take each attempt's gradients itself,
+so that a captured step puts every attempt behind a conditional graph node
+in its backward too (``adaptive.solve_scan``); every other solve accepts
+and ignores it.
 
 ``batched=True`` solves R independent replicas of the problem at once
 (``jax.vmap`` of the solve in the JAX package): every leaf of ``y0`` has a
@@ -93,7 +99,7 @@ _DEFAULT_MAX_STEPS_WHILE = 1 << 16
 # fixed-grid and fixed-order methods accept and ignore the common options,
 # so that one options dict serves every method
 _COMMON_OPTIONS = {"differentiable", "max_steps", "batched", "node_group",
-                   "node_sharded", "scan"}
+                   "node_sharded", "scan", "params"}
 
 _METHOD_OPTIONS = {
     "dopri5": _COMMON_OPTIONS | {"safety", "ifactor", "dfactor", "first_step",
@@ -277,6 +283,7 @@ def odeint_with_stats(func: Callable, y0, t, rtol: float = 1e-7,
                                        first_step=options.get("first_step"),
                                        groups=groups,
                                        differentiable=differentiable,
+                                       params=options.get("params"),
                                        **emission)
     solve = adaptive.solve_batched if batched else adaptive.solve
     with recording():

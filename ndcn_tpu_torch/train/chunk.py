@@ -12,7 +12,10 @@ solve's ``scan`` option) and its optimizer ``optim.CapturableAdam``.
 On a card the whole step is one CUDA graph, and a chunk is k replays of it.
 The graph is captured at the first chunk (or by ``capture()``), after
 ``WARMUP`` eager steps on a side stream, which build the kernel library
-and every launch plan and create Adam's state; the warm-up's updates are
+and every launch plan and create Adam's state; the side stream is the one
+the bounded solve's gated attempts capture their bodies on
+(``ode.graph_gate.side_stream``), so the warm-up also makes the cuBLAS
+workspaces those bodies use. The warm-up's updates are
 then undone in place (the parameters, Adam's state and the dropout
 generator as they were before it), so the graphed steps are the eager
 steps, bit for bit. The graph reads and writes these tensors, which must
@@ -39,6 +42,7 @@ from typing import Callable, List, Optional, Tuple
 
 import torch
 
+from ndcn_tpu_torch.ode import graph_gate
 from ndcn_tpu_torch.train.budget import check_step_memory
 from ndcn_tpu_torch.utils.timing import span
 
@@ -49,9 +53,12 @@ WARMUP = 2
 
 class TrainChunk:
     """k train steps a call with one host read (see the module docstring).
-    ``host_reads`` counts the reads, ``replays`` the graph's replays; the
-    spans ``train.chunk.replay`` (each replay) and ``train.chunk.read``
-    (the read) name them in a profiler's trace."""
+    ``host_reads`` counts the reads, ``replays`` the graph's replays and
+    ``gated_attempts`` the solve's attempts the capture put behind a
+    conditional node (``ode.graph_gate``), forward and backward: a replay
+    skips the kernels of each one that is frozen. The spans
+    ``train.chunk.replay`` (each replay) and ``train.chunk.read`` (the
+    read) name them in a profiler's trace."""
 
     def __init__(self, step: Callable[[], Tuple[torch.Tensor, torch.Tensor]],
                  params, opt: torch.optim.Optimizer,
@@ -67,6 +74,7 @@ class TrainChunk:
         self._out = None
         self.host_reads = 0
         self.replays = 0
+        self.gated_attempts = 0
 
     def __call__(self, k: int) -> Tuple[float, float]:
         if k < 1:
@@ -93,7 +101,7 @@ class TrainChunk:
             return
         check_step_memory(self.step_bytes, self.params, self.device)
         saved = self._save()
-        side = torch.cuda.Stream(self.device)
+        side = graph_gate.side_stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):
             for _ in range(WARMUP):
@@ -104,8 +112,10 @@ class TrainChunk:
         if self.rng is not None and self.rng.device.type == "cuda":
             graph.register_generator_state(self.rng)
         self.opt.zero_grad(set_to_none=True)
+        gated = graph_gate.GATED
         with torch.cuda.graph(graph):
             self._out = self.step()
+        self.gated_attempts = graph_gate.GATED - gated
         self.graph = graph
 
     def release(self) -> None:

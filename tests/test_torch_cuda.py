@@ -1841,12 +1841,15 @@ def test_k3_replica_groups_cuda_match_plain_and_solo_launches(
 
 # ------------------------------------------------------------ the scan path
 
+MAX_STEPS = 24   # the bounded solve's attempts in ``_heat_step``
+
+
 def _heat_step(device, fmt, fused, dropout=0.0, rng=None, n=100,
-               method="dopri5", adjoint=False, shard=None):
+               method="dopri5", adjoint=False, shard=None, record=None):
     """A model, its CapturableAdam and the bounded train step (the solve's
     ``scan`` option) on an n-node grid's heat problem; ``shard`` maps the
     operator to its row block (the gradients are then summed over its
-    group)."""
+    group); ``record``, a list, gets each call's solve stats."""
     from ndcn_tpu_torch.experiments.dynamics import nan_unless_ok
     from ndcn_tpu_torch.parallel.coo_shard import node_group
     from ndcn_tpu_torch.train.losses import l1_loss
@@ -1869,9 +1872,11 @@ def _heat_step(device, fmt, fused, dropout=0.0, rng=None, n=100,
 
     def loss_fn():
         out, stats = ndcn_forward(model, op, vt, x0, fused=fused,
-                                  max_steps=24, scan=True, dropout=dropout,
-                                  rng=rng, rtol=0.01, atol=0.001,
-                                  method=method, adjoint=adjoint)
+                                  max_steps=MAX_STEPS, scan=True,
+                                  dropout=dropout, rng=rng, rtol=0.01,
+                                  atol=0.001, method=method, adjoint=adjoint)
+        if record is not None:
+            record.append(stats)
         loss = nan_unless_ok(stats.success, l1_loss(out[..., 0].T, target,
                                                      group))
         return loss, loss / target.mean()
@@ -1887,7 +1892,8 @@ def test_graphed_step_is_bit_equal_to_the_eager_bounded_step(
     """Three train steps as CUDA graph replays (``train.chunk``) against
     the same steps run eagerly: losses and parameters bit-equal, one host
     read; with dropout the masks come from a card generator the graph
-    registers."""
+    registers. Every attempt of the solve sits behind a conditional node,
+    in the forward and in the backward."""
     from ndcn_tpu_torch.train.chunk import TrainChunk
 
     def gen():
@@ -1901,6 +1907,7 @@ def test_graphed_step_is_bit_equal_to_the_eager_bounded_step(
     chunk = TrainChunk(graphed, m_g.parameters(), o_g, g_g)
     loss, _ = chunk(3)
     assert chunk.host_reads == 1 and chunk.replays == 3
+    assert chunk.gated_attempts == 2 * MAX_STEPS
     assert np.isfinite(loss) and loss == losses[-1]
     assert all(torch.equal(a, b) for a, b in zip(m_e.parameters(),
                                                  m_g.parameters()))
@@ -1917,8 +1924,10 @@ def test_graphed_adams_and_adjoint_steps_are_bit_equal_to_eager(
         cuda_device, method, adjoint, fmt, fused):
     """The Adams family and the continuous adjoint under ``scan``: three
     train steps as CUDA graph replays against the same steps run eagerly,
-    losses and parameters bit-equal, one host read; the graph launched the
-    operator's kernels."""
+    losses and parameters bit-equal, one host read. dopri5's adjoint gates
+    every attempt of its inference solves (the forward and one an interval
+    of the backward: 9 grid points); the Adams family's attempts stay
+    masked."""
     from ndcn_tpu_torch.train.chunk import TrainChunk
 
     m_e, _, eager = _heat_step(cuda_device, fmt, fused, method=method,
@@ -1929,6 +1938,8 @@ def test_graphed_adams_and_adjoint_steps_are_bit_equal_to_eager(
     chunk = TrainChunk(graphed, m_g.parameters(), o_g)
     loss, _ = chunk(3)
     assert chunk.host_reads == 1 and chunk.replays == 3
+    assert chunk.gated_attempts == (9 * MAX_STEPS if method == "dopri5"
+                                    else 0)
     assert np.isfinite(loss) and loss == losses[-1]
     assert all(torch.equal(a, b) for a, b in zip(m_e.parameters(),
                                                  m_g.parameters()))
@@ -1969,12 +1980,52 @@ def test_graphed_step_on_a_one_rank_nccl_row_block(cuda_device):
         torch.cuda.synchronize()
         assert coo_spmv.ROWBLOCK_LAUNCHES > before
         assert chunk.host_reads == 1 and chunk.replays == 3
+        assert chunk.gated_attempts == 0    # collectives: masked attempts
         assert loss == losses[-1]
         assert all(torch.equal(a, b) for a, b in zip(m_e.parameters(),
                                                      m_g.parameters()))
         assert np.allclose(losses, ref, rtol=1e-5, atol=0)
         chunk.release()
     assert not dist.is_initialized()
+
+
+@pytest.mark.parametrize("method", ["dopri5", "tsit5"])
+def test_graphed_grid400_step_skips_the_frozen_attempts(cuda_device, method):
+    """One replay of the grid400 step (dense, K2) under the profiler: K2
+    runs twice for the initial step and 6 + 6 times a live attempt (its
+    forward and its recomputation), none for a frozen one, and the replay
+    runs fewer kernels than the eager step, which runs every attempt."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ndcn_tpu_torch.train.chunk import TrainChunk
+
+    def kernels(fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        k2 = sum(1 for name in names if "fused_rhs_kernel" in name)
+        return len(names), k2
+
+    stats = []
+    _, _, eager = _heat_step(cuda_device, "dense", True, n=400,
+                             method=method)
+    eager()
+    n_eager, k2_eager = kernels(eager)
+    model, opt, graphed = _heat_step(cuda_device, "dense", True, n=400,
+                                     method=method, record=stats)
+    chunk = TrainChunk(graphed, model.parameters(), opt)
+    chunk.capture()
+    n_replay, k2_replay = kernels(chunk.graph.replay)
+    st = stats[-1]          # the captured step's stats: this replay's
+    live = int(st.n_accepted) + int(st.n_rejected)
+    assert 0 < live < MAX_STEPS and chunk.gated_attempts == 2 * MAX_STEPS
+    assert k2_eager == 2 + 12 * MAX_STEPS
+    assert k2_replay == 2 + 12 * live
+    assert n_replay < n_eager
+    chunk.release()
 
 
 def test_chunk_captures_again_after_a_rollback(cuda_device):

@@ -149,7 +149,7 @@ def test_build_names_the_library_by_source_hash(monkeypatch, tmp_path):
     assert path.parent == build.BUILD_DIR and path.suffix == ".so"
     assert [p.name for p in build.sources()] == [
         "bsr_spmm.cu", "coo_mutual.cu", "coo_mutual_edges.cu", "coo_spmv.cu",
-        "coo_spmv_T.cu", "fused_rhs.cu", "sparse_bench.cu"]
+        "coo_spmv_T.cu", "fused_rhs.cu", "graph_gate.cu", "sparse_bench.cu"]
     for src in build.sources():
         text = src.read_text()
         assert "extern \"C\"" in text and "cudaGetLastError" in text
@@ -164,7 +164,8 @@ def test_build_names_the_library_by_source_hash(monkeypatch, tmp_path):
         "ndcn_coo_spmv_batched_bf16", "ndcn_fused_rhs_batched_f32",
         "ndcn_bsr_spmm_batched_f32", "ndcn_bsr_fused_rhs_batched_f32",
         "ndcn_coo_spmv_wide_f32", "ndcn_coo_spmv_wide_bf16",
-        "ndcn_bsr_spmm_grouped_f32"}
+        "ndcn_bsr_spmm_grouped_f32", "ndcn_graph_if_begin",
+        "ndcn_graph_if_end"}
     entries = "".join(src.read_text() for src in build.sources())
     assert all(f"int {name}(" in entries for name in build.ENTRY_POINTS)
     # without nvcc the build says so, instead of falling back

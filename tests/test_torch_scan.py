@@ -315,6 +315,171 @@ def test_the_scan_option_refuses_what_it_does_not_take():
         assert bool(st.success) and torch.isfinite(out).all()
 
 
+# ------------------------------------------------- the attempts' gate
+#
+# A captured step puts each attempt of the bounded solve behind a CUDA
+# conditional node (``ode.graph_gate``); here a host branch on the live flag
+# stands in for it: the same ``_gated`` buffers and copies, the same
+# skipped work.
+
+
+def _host_gate(calls):
+    def gate(live, body):
+        calls.append(bool(live))
+        if bool(live):
+            body()
+    return gate
+
+
+@pytest.mark.parametrize("case", ["live", "frozen", "vetoed"])
+def test_gated_attempt_is_the_checkpointed_masked_attempt(case):
+    """One attempt as ``_GatedAttempt`` behind a host-branch gate against
+    the checkpointed masked attempt: the outputs and the gradients with
+    respect to the carry, t1, dt and the parameters of the RHS and of the
+    emission readout bit-equal, for a live attempt, a frozen one (skipped:
+    its outputs and VJP made outside the gate) and a vetoed one (a first
+    step of 80 overflows dy/dt = exp(y W + b); the recomputation rejects
+    it at dt = 0)."""
+    from torch.utils.checkpoint import checkpoint
+
+    from ndcn_tpu_torch.ode import adaptive
+    from ndcn_tpu_torch.ode.runge_kutta import stage_coeffs
+    from ndcn_tpu_torch.ode.step_control import Controller
+
+    rs = np.random.RandomState(3)
+    w = torch.tensor(rs.randn(5, 5).astype(np.float32) * 0.3,
+                     requires_grad=True)
+    b = torch.tensor(rs.randn(5).astype(np.float32) * 0.1,
+                     requires_grad=True)
+    r = torch.tensor(rs.randn(5, 2).astype(np.float32), requires_grad=True)
+    bound = [w, b, r]     # what the RHS and the readout read at each call
+
+    def func(t, y):
+        return torch.exp(y @ bound[0] + bound[1])
+
+    def readout(s):
+        return s @ bound[2]
+
+    method = adaptive.DOPRI5_METHOD
+    y = torch.tensor(rs.rand(6, 5).astype(np.float32), requires_grad=True)
+    f = func(None, y).detach().requires_grad_()
+    t1 = torch.tensor(0.25, requires_grad=True)
+    dt = torch.tensor(80.0 if case == "vetoed" else 0.05, requires_grad=True)
+    live = torch.tensor(case != "frozen")
+    attempt = adaptive._masked_attempt(
+        method, func, Controller(rtol=1e-3, atol=1e-6),
+        stage_coeffs(method.tableau, torch.float32, y.device), True, 1,
+        emission_readout=readout)
+    wrt = (y, f, t1, dt, w, b, r)
+
+    def run(apply, cots=None):
+        veto = [torch.zeros((), dtype=torch.bool)]
+        out = apply(veto)
+        veto[0] = ~out[5]
+        diff = (*out[:4], *out[6:])
+        if cots is None:
+            gen = torch.Generator().manual_seed(0)
+            cots = [torch.randn(o.shape, generator=gen) for o in diff]
+        grads = torch.autograd.grad(diff, wrt, cots, allow_unused=True)
+        return ([o.detach() for o in out],
+                [torch.zeros_like(x) if g is None else g
+                 for g, x in zip(grads, wrt)], cots)
+
+    ref, ref_grads, cots = run(lambda veto: checkpoint(
+        attempt, veto, live, t1, dt, y, f, use_reentrant=False,
+        preserve_rng_state=False))
+    calls = []
+    with torch.no_grad():
+        frozen = adaptive._frozen_attempt(readout(y),
+                                          len(method.interp_init(y)))
+    got, got_grads, _ = run(lambda veto: adaptive._GatedAttempt.apply(
+        attempt, frozen, _host_gate(calls), veto, bound, live, t1, dt, y, f,
+        *bound), cots)
+    assert calls == [case != "frozen"] * 2       # forward, backward
+    assert bool(ref[5]) == (case != "vetoed") and not (
+        case != "live" and bool(ref[4]))
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    assert all(torch.isfinite(g).all() for g in ref_grads)
+    assert all(torch.equal(a, b) for a, b in zip(got_grads, ref_grads))
+    if case == "frozen":
+        assert all(torch.equal(g, c) for g, c in zip(ref_grads[:4], cots))
+        assert not any(g.any() for g in ref_grads[4:])
+
+
+@pytest.mark.parametrize("method", ["dopri5", "tsit5"])
+def test_gated_solve_scan_is_the_masked_solve(method, monkeypatch):
+    """The grid400 NDCN through the bounded solve with every attempt behind
+    a host-branch gate (forward and backward), against the masked solve
+    that eager steps run: the solution, the stats and every gradient
+    bit-equal, most attempts frozen and skipped; against the checkpointed
+    attempts (the route without ``params``): the solution and the stats
+    bit-equal, the gradients within 1e-6 rel-L1 (the parameters'
+    cotangents summed an attempt at a time, in another order)."""
+    from ndcn_tpu_torch.ode import adaptive
+
+    f, tree, lap = _grid400()
+    scan = adaptive.solve_scan
+
+    def run():
+        model = params_from_jax(tree)
+        out, st = ndcn_forward(model, as_operator(lap), f["t"],
+                               torch.as_tensor(f["x0"]), max_steps=24,
+                               scan=True, **dict(KW, method=method))
+        l1_loss(out[..., 0].T, torch.as_tensor(f["target"])).backward()
+        return (out.detach(), _stats(st),
+                [p.grad.clone() for p in model.parameters()])
+
+    masked = run()
+    calls = []
+    with monkeypatch.context() as mp:
+        mp.setattr(adaptive, "_attempt_gate",
+                   lambda lead, groups: _host_gate(calls))
+        gated = run()
+    with monkeypatch.context() as mp:
+        mp.setattr(adaptive, "solve_scan",
+                   lambda *a, **k: scan(*a, **dict(k, params=None)))
+        checkpointed = run()
+    live = sum(calls[:24])
+    assert len(calls) == 48 and calls[:24] == calls[24:][::-1]
+    assert 0 < live < 12 and masked[1][0] == 2 + 6 * live
+    assert torch.equal(gated[0], masked[0]) and gated[1] == masked[1]
+    assert all(torch.equal(a, b) for a, b in zip(gated[2], masked[2]))
+    assert torch.equal(checkpointed[0], masked[0])
+    assert checkpointed[1] == masked[1]
+    assert all(rel_l1(a, b) <= 1e-6 for a, b in zip(masked[2],
+                                                    checkpointed[2]))
+
+
+@pytest.mark.parametrize("method", ["dopri5", "tsit5"])
+def test_gated_inference_solve_is_the_host_loop(method, monkeypatch):
+    """The bounded inference solve (``differentiable=False``, the
+    adjoint's) with every attempt behind a host-branch gate gives the host
+    loop's solution bit for bit, with its NFE and counts."""
+    from ndcn_tpu_torch.ode import adaptive
+
+    rs = np.random.RandomState(1)
+    a = torch.as_tensor(rs.randn(6, 6).astype(np.float32)) * 0.5
+    t = np.linspace(0.0, 2.0, 9).astype(np.float32)
+    y0 = torch.ones(6, 2)
+
+    def solve(options):
+        return odeint_with_stats(lambda tt, y: a @ y, y0, t, rtol=1e-5,
+                                 atol=1e-7, method=method,
+                                 options=dict(options, max_steps=64,
+                                              differentiable=False))
+
+    calls = []
+    with monkeypatch.context() as mp:
+        mp.setattr(adaptive, "_attempt_gate",
+                   lambda lead, groups: _host_gate(calls))
+        sol, st = solve(SCAN)
+    ref, st_ref = solve({})
+    assert len(calls) == 64 and 0 < sum(calls) < 64
+    assert _stats(st) == _stats(st_ref) and sum(calls) == int(
+        st.n_accepted) + int(st.n_rejected)
+    assert torch.equal(sol, ref)
+
+
 def test_capturable_adam_is_adam():
     """``CapturableAdam`` (device step count, capturable arithmetic) runs
     the reference's Adam within float32 rounding, and either optimizer
