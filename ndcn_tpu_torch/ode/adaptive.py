@@ -34,6 +34,10 @@ path's gradient semantics:
 - Each observation is read from the last accepted step's dense output when
   the loop passes it, as ``solve_while`` does. The scan path's searchsorted
   and one-hot matmul select the same interval and compute the same function.
+  The host loop reads every observation a step passed at once: the step's
+  sources read out once, the weights of all its times as vectors and one
+  (m, ...) block of the same elementwise sums, so the values are those of
+  one read an observation, bit for bit.
 - An attempt with non-finite internals is replaced on the tape by its forced
   rejection (``grad_guard``).
 - ``max_steps`` counts attempts; running out gives ``success=False`` and NaN
@@ -70,6 +74,7 @@ caller asks for it, with the state's dtype unchanged.
 
 from __future__ import annotations
 
+import bisect
 import dataclasses
 from typing import Callable, NamedTuple, Optional
 
@@ -232,8 +237,16 @@ def solve(method: AdaptiveMethod, func, y0, t: torch.Tensor,
     norms and means, and the attempt's finite flag, are then over every
     rank, so that every rank takes the same steps. None: no collective.
 
+    Each accepted step that passes observations is read once, after the
+    attempt's read gives the host its end: its dense-output sources are
+    read out once and every observation it passes is evaluated in one
+    block (``interp_eval`` over a vector of times); a step that passes
+    none is not read.
+
     Spans (``utils.timing.span``): ``ode.solve`` around the solve, one
-    ``ode.attempt`` an attempt, and in it ``ode.sync`` around the read.
+    ``ode.attempt`` an attempt, and in it ``ode.sync`` around the read;
+    ``ode.observe`` around y0's readout and around each step's block of
+    observations.
     """
     with span("ode.solve"):
         T = t.shape[0]
@@ -245,21 +258,39 @@ def solve(method: AdaptiveMethod, func, y0, t: torch.Tensor,
         rk, nfe = _init_rk_state(method, func, y0, t_dev[0], ctrl, first_step,
                                  groups=groups)
 
-        def observe(rk: RKState, t_obs: torch.Tensor) -> torch.Tensor:
-            interp = rk.interp
-            if emission_readout is not None:
-                interp = type(interp)(*(emission_readout(c) for c in interp))
-            return method.interp_eval(interp, rk.t0, rk.t1, t_obs,
+        def read_out(state):
+            return (state if emission_readout is None
+                    else emission_readout(state))
+
+        def rows(state, m: int = 1):
+            # a leading axis for the block's observations, a view: broadcast
+            # in the sums, or with ``emission_dtype`` m rows, so that each
+            # observation's sources, and its cotangent, are rounded on
+            # their own, as a read of one observation rounds them
+            n = m if emission_dtype is not None else 1
+            return tmap(lambda leaf: leaf.unsqueeze(0).expand(
+                n, *leaf.shape), state)
+
+        def observe(rk: RKState, lo: int, hi: int):
+            """Observations lo..hi-1, all inside the last accepted step:
+            its sources read out once, the weights of the hi - lo times as
+            vectors, one (hi - lo, ...) block a leaf."""
+            src = type(rk.interp)(*(rows(read_out(c), hi - lo)
+                                    for c in rk.interp))
+            return method.interp_eval(src, rk.t0, rk.t1, t_dev[lo:hi],
                                       emission_dtype)
 
-        sol = [y0 if emission_readout is None else emission_readout(y0)]
-        nacc, nrej, syncs, ok = 0, 0, 0, True
+        with span("ode.observe"):
+            blocks = [rows(read_out(y0))]
+        n_obs, nacc, nrej, syncs, ok = 1, 0, 0, 0, True
         t1_host = t_host[0]
-        while len(sol) < T and nacc + nrej < max_steps and ok:
-            if t_host[len(sol)] <= t1_host:
-                # consume an observation: the last accepted step's dense
-                # output
-                sol.append(observe(rk, t_dev[len(sol)]))
+        while n_obs < T and nacc + nrej < max_steps and ok:
+            ready = bisect.bisect_right(t_host, t1_host, n_obs)
+            if ready > n_obs:
+                # consume every observation the last accepted step passed
+                with span("ode.observe"):
+                    blocks.append(observe(rk, n_obs, ready))
+                n_obs = ready
                 continue
             with span("ode.attempt"):
                 # dt-underflow guard (the reference asserts): flag and stop
@@ -281,8 +312,8 @@ def solve(method: AdaptiveMethod, func, y0, t: torch.Tensor,
             ok = not under
 
         stats = SolveStats(nfe=nfe, n_accepted=nacc, n_rejected=nrej,
-                           success=ok and len(sol) >= T, host_syncs=syncs)
-        return stack_solution(sol, T), stats
+                           success=ok and n_obs >= T, host_syncs=syncs)
+        return cat_solution(blocks, T), stats
 
 
 def _masked_attempt(method: AdaptiveMethod, func, ctrl: Controller,
@@ -778,10 +809,20 @@ def solve_while(method: AdaptiveMethod, func, y0, t: torch.Tensor,
 def stack_solution(sol: list, T: int):
     """The observations stacked along a new leading time axis, leaf by
     leaf; the ones not reached (a blown budget) are NaN."""
-    if len(sol) < T:
-        nan = tmap(lambda leaf: torch.full_like(leaf, float("nan")), sol[0])
-        sol = sol + [nan] * (T - len(sol))
-    return tmap(lambda *ls: torch.stack(ls), *sol)
+    return cat_solution([tmap(lambda leaf: leaf.unsqueeze(0), y)
+                         for y in sol], T)
+
+
+def cat_solution(blocks: list, T: int):
+    """Blocks of observations, each (m, ...) a leaf, joined in order along
+    the leading time axis, leaf by leaf; the rows not reached (a blown
+    budget) are NaN."""
+    got = sum(leaves(b)[0].shape[0] for b in blocks)
+    if got < T:
+        blocks = blocks + [tmap(lambda leaf: torch.full(
+            (T - got, *leaf.shape[1:]), float("nan"), dtype=leaf.dtype,
+            device=leaf.device), blocks[0])]
+    return tmap(lambda *ls: torch.cat(ls), *blocks)
 
 
 # ------------------------------------------------------------ replicas

@@ -25,8 +25,9 @@ def span(name: str):
     ``train.backward`` (the backward and the gradients' all-reduce) and
     ``train.optimizer`` (``train.optim``); ``model.encode`` and
     ``model.decode`` (``models.ndcn.ndcn_forward``; the decoding left after
-    the solve); ``ode.solve`` holding one ``ode.attempt`` an attempt, which
-    holds the host loop's ``ode.sync``, its one device→host read
+    the solve); ``ode.solve`` holding one ``ode.attempt`` an attempt (which
+    holds the host loop's ``ode.sync``, its one device→host read) and the
+    host loop's ``ode.observe`` around each read of a step's observations
     (``ode.adaptive``); ``train.chunk.replay`` around each graph replay and
     ``train.chunk.read`` around the chunk's one read (``train.chunk``)."""
     if not _profiler._is_profiler_enabled:

@@ -932,6 +932,43 @@ def test_train_step_gradients_on_cuda_match_cpu(cuda_device, monkeypatch, fmt,
                 assert _rel_l1(gpu[f"{name}.{leaf}"], want) <= 1e-3
 
 
+def test_host_loop_block_read_on_cuda_matches_one_read_an_observation(
+        cuda_device, monkeypatch):
+    """The host loop's read of a step's observations in one block (the
+    step's dense output read out once) against the read of one observation
+    at a time kept in ``tests/test_torch_observe.py``, on the card, in a
+    200k feature-major NDCN train solve (heat1m's path: K1-fm, the
+    decoder's readout): trajectory bit-equal, stats equal, gradients within
+    that file's float32 bound."""
+    from ndcn_tpu_torch.graph.generators import build_sparse_graph
+    from ndcn_tpu_torch.ode import adaptive
+    from ndcn_tpu_torch.train.sampling import sample_times
+    from test_torch_observe import (GRAD_BOUND, _grads, _rel,
+                                    solve_per_observation)
+
+    n = 200_000
+    lap = operators.normalized_laplacian_sparse(build_sparse_graph(n, 10, 0))
+    op = as_operator(lap, sparse=True, format="coo", device=cuda_device)
+    splits = sample_times(5.0, 40, "irregular", seed=0)
+    vt = splits.t[splits.id_train]
+    x0 = torch.as_tensor(np.random.RandomState(0).uniform(
+        0.0, 25.0, (n, 1)).astype(np.float32), device=cuda_device)
+    runs = []
+    for solve in (adaptive.solve, solve_per_observation):
+        monkeypatch.setattr(adaptive, "solve", solve)
+        model = init_ndcn(torch.Generator().manual_seed(0), 1, 20, 1,
+                          device=cuda_device)
+        x = x0.clone().requires_grad_()
+        out, stats = ndcn_forward(model, op, vt, x, rtol=0.01, atol=0.001,
+                                  method="dopri5", layout="feature_major")
+        runs.append((out, stats, _grads(out, (*model.parameters(), x))))
+    (out, stats, grads), (ref, ref_stats, ref_grads) = runs
+    assert out.shape == (len(vt), n, 1) and stats.success
+    assert torch.equal(out, ref) and stats == ref_stats
+    for g, r in zip(grads, ref_grads):
+        assert _rel(g, r) <= GRAD_BOUND[torch.float32]
+
+
 @pytest.mark.parametrize("fmt", ["dense", "coo"])
 def test_serving_on_cuda_matches_cpu(cuda_device, fmt):
     if fmt == "dense":

@@ -25,7 +25,7 @@ PARENT = {"train.step": None, "train.forward": "train.step",
           "train.backward": "train.step", "train.optimizer": "train.step",
           "model.encode": "train.forward", "model.decode": "train.forward",
           "ode.solve": "train.forward", "ode.attempt": "ode.solve",
-          "ode.sync": "ode.attempt"}
+          "ode.sync": "ode.attempt", "ode.observe": "ode.solve"}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -126,6 +126,19 @@ def test_a_solve_opens_an_attempt_span_an_attempt_and_a_sync_a_read():
     for name in ("train.step", "train.backward", "train.optimizer",
                  "train.forward", "model.encode", "model.decode"):
         assert names.count(name) == 2, name
+
+
+def test_a_host_loop_solve_opens_an_observe_span_a_read_step(monkeypatch):
+    # y0's readout, then one read a step that passed observations: at most
+    # one an accepted step, and fewer than one an observation
+    monkeypatch.setattr(sparse, "use_tiled_kernel", lambda op: True)
+    s = _Step("coo", "feature_major")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        s.step()
+    names = _names(_spans(prof))
+    (stats,) = s.stats
+    assert 2 <= names.count("ode.observe") <= stats.n_accepted + 1
+    assert names.count("ode.observe") < T
 
 
 def test_an_eager_chunk_opens_a_step_span_a_step_and_one_read_span():
